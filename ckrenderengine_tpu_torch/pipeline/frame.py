@@ -1,0 +1,653 @@
+"""The one-frame device program: scene state -> framebuffer, in torch.
+
+The counterpart of ``ckrenderengine_tpu.pipeline.frame`` for the opaque
+frame: instead of walking a pointer tree and issuing thousands of stateful
+draw calls (CKRenderedScene::Draw -> RCKMesh::Render -> DrawPrimitive,
+src/CKRenderedScene.cpp:152-355), the whole scene is flat device tensors and
+one eager pass does
+
+    unpack -> compose transforms -> compact culled chunks -> transform + light
+    -> assemble + set up triangles -> visibility solve (CUDA B1 or B2)
+    -> deferred shade
+
+The solve dispatch is the reference's, minus the TPU lane rule: the tiled
+solve (B1) when ``t > 4096`` or ``t*H*W > 2^26``, else the flat solve (B2)
+when there is no kept z-buffer and no user clip plane, else B1. CPU tensors
+take the same branches through the kernels' plain versions. Features outside
+this slice raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..math import vxmath as vx
+from ..raster import deferred as df
+from ..raster import torch_backend as rb
+from ..raster.cuda_reduce import depth_reduce_cuda
+from ..raster.cuda_tiled import depth_reduce_tiled_cuda
+from ..raster.deferred import take_small
+from ..raster.types import SI_ALPHABLEND, SI_STENCIL
+from ..roadmap import unported
+from ..scene.entity_table import compose_world
+from .lighting import LightArray, MaterialLighting, compute_vertex_lighting, fog_factor
+from .packing import has_field, unpack
+
+
+class SceneDevice(NamedTuple):
+    """Dynamic per-frame scene state (device tensors)."""
+
+    # Entity state
+    local: torch.Tensor          # (N,4,4) local transforms
+    parent: torch.Tensor         # (N,) int32
+    entity_visible: torch.Tensor  # (N,) bool
+    entity_clip: torch.Tensor    # (N,4) per-entity scissor rect (Place clips)
+    entity_priority: torch.Tensor  # (N,) f32 render priority
+
+    # Mesh vertex pool (shared, unique geometry)
+    positions: torch.Tensor      # (V,3)
+    normals: torch.Tensor        # (V,3)
+    uv: torch.Tensor             # (V,2)
+    prelit: torch.Tensor         # (V,4) prelit diffuse
+    prelit_spec: torch.Tensor    # (V,3) prelit specular
+
+    # Instanced vertex stream (entity x material-group duplication)
+    src_idx: torch.Tensor        # (IV,) int32 into pool
+    vert_entity: torch.Tensor    # (IV,) int32
+    vert_state: torch.Tensor     # (IV,) int32 state/material bucket
+    vert_lit: torch.Tensor       # (IV,) bool lit (vs prelit)
+
+    # Triangle stream
+    tri_idx: torch.Tensor        # (IT,3) int32 into instanced stream
+    tri_state: torch.Tensor      # (IT,) int32
+    tri_valid: torch.Tensor      # (IT,) bool
+
+    # Material / render-state bank (S rows)
+    state_i: torch.Tensor        # (S, NUM_SI) int32
+    state_f: torch.Tensor        # (S, NUM_SF) f32
+    mat_diffuse: torch.Tensor    # (S,4)
+    mat_ambient: torch.Tensor    # (S,4)
+    mat_specular: torch.Tensor   # (S,4)
+    mat_emissive: torch.Tensor   # (S,4)
+    mat_power: torch.Tensor      # (S,)
+
+    # Lights + global lighting state
+    lights: LightArray
+    global_ambient: torch.Tensor  # (4,)
+
+    # Camera
+    view: torch.Tensor           # (4,4)
+    proj: torch.Tensor           # (4,4)
+    cam_pos: torch.Tensor        # (3,) world-space eye
+    viewport: torch.Tensor       # (4,) f32 [x,y,w,h]
+
+    # Fog
+    fog_mode: torch.Tensor       # () int32 VXFOG
+    fog_start: torch.Tensor      # ()
+    fog_end: torch.Tensor        # ()
+    fog_density: torch.Tensor    # ()
+    fog_color: torch.Tensor      # (3,)
+
+    # Textures
+    tex_planes: torch.Tensor     # (NT,4,TH,TW)
+    tex_hw: torch.Tensor         # (NT,2..5) int32
+
+    # Clear
+    clear_color: torch.Tensor    # (4,)
+    clear_z: torch.Tensor        # ()
+
+    # User clip planes (world-space plane equations; a point p is kept when
+    # dot((p,1), plane) >= 0). None = none active.
+    clip_planes: torch.Tensor | None = None   # (P,4)
+
+    # Fog projection mode 0/1/2 (reference g_FogProjectionMode). None = 0.
+    fog_proj: torch.Tensor | None = None      # () int32
+
+    # Quad-texel table for one-gather bilinear sampling.
+    tex_quad: torch.Tensor | None = None      # (NT*TH*TAW, 16)
+
+
+def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather with the reference's ``jnp.take`` index handling: a
+    negative index counts from the end, and every index is clamped into
+    range (an out-of-range CUDA gather is a fatal device assert). Padding
+    triangles after chunk compaction carry such indices; they are invalid,
+    so only finiteness matters for them."""
+    n = a.shape[0]
+    idx = idx.long()
+    idx = torch.clamp(torch.where(idx < 0, idx + n, idx), 0, max(n - 1, 0))
+    return a.index_select(0, idx)
+
+
+def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
+                        vertex_shader=None, want_bump: bool = False,
+                        want_cube: bool = False,
+                        corner: tuple = (0, 0, 0),
+                        want_texgen: bool = False,
+                        want_prelit: bool = True):
+    """Vertex stage: world compose -> gather -> transform -> light -> project.
+
+    Returns (clip (IV,4), color (IV,4), spec (IV,3), fog (IV,), world
+    (N,4,4), uv (IV,2), clipd_v (IV,P) | None, refl_v None)."""
+    if vertex_shader is not None:
+        raise unported("vertex shaders", 15)
+    if want_texgen:
+        raise unported("texture coordinate generation (TexGen)", 14)
+    if want_bump:
+        raise unported("bump-environment mapping", 14)
+    if want_cube:
+        raise unported("cube-environment mapping", 14)
+    if world is None:
+        world = compose_world(scene.local, scene.parent, levels)
+    # Row N = identity: world-space vertex sources bind here.
+    world_ext = torch.cat([world, torch.eye(4, dtype=world.dtype,
+                                            device=world.device)[None]])
+    wm = take_small(world_ext, scene.vert_entity)                # (IV,4,4)
+
+    # Corner-major fast path: the first ``nc`` stream rows alias the dense
+    # corner-expanded pool block at [p0, p0+nc) — a slice, not a gather;
+    # only the tail still gathers through src_idx.
+    nc, _itc, p0 = corner
+
+    def take_pool(a):
+        if not nc:
+            return _take(a, scene.src_idx)
+        return torch.cat([a[p0:p0 + nc], _take(a, scene.src_idx[nc:])])
+
+    pool_cat = torch.cat([scene.positions, scene.normals, scene.uv], dim=1)
+    cat = take_pool(pool_cat)                                    # (IV,8)
+    pos = cat[:, 0:3]
+    nrm = cat[:, 3:6]
+    uv = cat[:, 6:8]
+
+    posw = vx.transform_points(pos, wm)
+    nrmw = vx.transform_vectors(nrm, wm)
+    nrmw = nrmw / torch.clamp(torch.linalg.vector_norm(nrmw, dim=-1,
+                                                       keepdim=True),
+                              min=1e-12)
+
+    viewproj = torch.matmul(scene.view, scene.proj)
+    posw4 = torch.cat([posw, torch.ones_like(posw[:, :1])], dim=-1)
+    clip = vx.transform_h4(posw4, viewproj)
+    cam_z = vx.transform_h4(posw4, scene.view)[..., 2]
+
+    mat_cat = torch.cat(
+        [scene.mat_diffuse, scene.mat_ambient, scene.mat_specular,
+         scene.mat_emissive, scene.mat_power[:, None]], dim=1)   # (S, 17)
+    mrow = take_small(mat_cat, scene.vert_state)
+    mat = MaterialLighting(
+        diffuse=mrow[:, 0:4], ambient=mrow[:, 4:8], specular=mrow[:, 8:12],
+        emissive=mrow[:, 12:16], power=mrow[:, 16])
+    lit_diffuse, lit_spec = compute_vertex_lighting(
+        posw, nrmw, mat, scene.lights, scene.global_ambient, scene.cam_pos)
+
+    if want_prelit:
+        lit = scene.vert_lit[:, None]
+        color = torch.where(lit, lit_diffuse, take_pool(scene.prelit))
+        spec = torch.where(lit, lit_spec, take_pool(scene.prelit_spec))
+    else:
+        color, spec = lit_diffuse, lit_spec
+    if scene.fog_proj is None:
+        fog = fog_factor(cam_z, scene.fog_mode, scene.fog_start,
+                         scene.fog_end, scene.fog_density)
+    else:
+        # Fog projection modes (reference CKRenderedScene.cpp:405-425):
+        # mode 0 fogs view-space z against (fog_start, fog_end); modes 1/2
+        # fog projected depth z/w against start/end pushed through the
+        # projection matrix.
+        p = scene.proj
+        sz = p[2, 2] * scene.fog_start + p[3, 2]
+        sw = p[2, 3] * scene.fog_start + p[3, 3]
+        ez = p[2, 2] * scene.fog_end + p[3, 2]
+        ew = p[2, 3] * scene.fog_end + p[3, 3]
+
+        def sdiv(a, b):
+            return a / torch.where(torch.abs(b) < 1e-30, 1e-30, b)
+
+        proj_start = sdiv(sz, sw)
+        proj_end = sdiv(ez, ew)
+        recip_sw = sdiv(torch.ones_like(sw), sw)
+        mode = scene.fog_proj
+        fstart = torch.where(mode == 1, proj_start,
+                             torch.where(mode == 2, recip_sw,
+                                         scene.fog_start))
+        fend = torch.where(mode == 1, proj_end,
+                           torch.where(mode == 2, proj_start, scene.fog_end))
+        zndc = sdiv(clip[..., 2], clip[..., 3])
+        coord = torch.where(mode > 0, zndc, cam_z)
+        fog = fog_factor(coord, scene.fog_mode, fstart, fend,
+                         scene.fog_density)
+
+    # User clip planes: per-vertex signed world-space distances.
+    clipd_v = None
+    if scene.clip_planes is not None and scene.clip_planes.shape[0] > 0:
+        clipd_v = posw4 @ scene.clip_planes.T                    # (IV,P)
+    return clip, color, spec, fog, world, uv, clipd_v, None
+
+
+def compact_scene_chunks(scene: SceneDevice, chunk_idx, chunk_n,
+                         corner: tuple, chunk: tuple):
+    """Compact the corner-major head to the host-selected chunk list.
+
+    The host culls CH-triangle chunks of the static corner block against the
+    frustum each frame (the reference's hierarchical-bbox scene-graph
+    culling, src/CKSceneGraph.cpp:849-888) and ships the surviving chunk
+    indices; whole (CH, C) blocks move along the chunk axis. Culled chunks
+    are fully outside the frustum, so output is identical; pad slots beyond
+    ``chunk_n`` mask their triangles invalid.
+
+    ``chunk`` = (CH, cap, itc, n_full); ``chunk_idx`` (cap,) ascending
+    survivor list; ``chunk_n`` () live count. Returns (scene', corner')."""
+    CH, cap, itc, n_full = chunk
+    nc = 3 * itc
+    p0 = corner[2]
+    dev = scene.src_idx.device
+    safe = torch.clamp(chunk_idx, 0, n_full - 1).long()
+    live = torch.arange(cap, device=dev) < chunk_n
+    rem = itc - n_full * CH
+    itc2 = cap * CH + rem
+    nc2 = 3 * itc2
+
+    def chunk_take(a, base, stride):
+        parts = []
+        for k in range(3):
+            b0 = base + k * stride
+            blk = a[b0:b0 + n_full * CH].reshape((n_full, CH) + a.shape[1:])
+            sel = blk.index_select(0, safe).reshape((cap * CH,) + a.shape[1:])
+            if rem:
+                sel = torch.cat([sel, a[b0 + n_full * CH:b0 + stride]])
+            parts.append(sel)
+        return torch.cat(parts)
+
+    def pool2(a):
+        # new pool = [compacted corner head, whole old pool]
+        return torch.cat([chunk_take(a, p0, itc), a])
+
+    def stream2(a):
+        return torch.cat([chunk_take(a, 0, itc), a[nc:]])
+
+    def tri2(a):
+        blk = a[:n_full * CH].reshape((n_full, CH) + a.shape[1:])
+        sel = blk.index_select(0, safe).reshape((cap * CH,) + a.shape[1:])
+        if rem:
+            sel = torch.cat([sel, a[n_full * CH:itc]])
+        return torch.cat([sel, a[itc:]])
+
+    src_idx = torch.cat([torch.arange(nc2, dtype=torch.int32, device=dev),
+                         scene.src_idx[nc:] + nc2])
+    tri_valid = tri2(scene.tri_valid)
+    slot_live = torch.repeat_interleave(live, CH)
+    tri_valid = torch.cat([tri_valid[:cap * CH] & slot_live,
+                           tri_valid[cap * CH:]])
+    ar = torch.arange(itc2, dtype=torch.int32, device=dev)
+    tidx_head = torch.stack([ar, itc2 + ar, 2 * itc2 + ar], dim=1)
+    tidx_tail = scene.tri_idx[itc:] + (nc2 - nc)
+    scene2 = scene._replace(
+        positions=pool2(scene.positions), normals=pool2(scene.normals),
+        uv=pool2(scene.uv), prelit=pool2(scene.prelit),
+        prelit_spec=pool2(scene.prelit_spec),
+        src_idx=src_idx, vert_entity=stream2(scene.vert_entity),
+        vert_state=stream2(scene.vert_state),
+        vert_lit=stream2(scene.vert_lit),
+        tri_idx=torch.cat([tidx_head, tidx_tail]),
+        tri_state=tri2(scene.tri_state), tri_valid=tri_valid)
+    return scene2, (nc2, itc2, 0)
+
+
+def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
+                       clipd_v=None, refl_v=None, corner: tuple = (0, 0, 0)):
+    """Triangle stage: gather per-corner attributes + whole-triangle cull.
+
+    Returns the DeviceBatch in stream (priority) order. ``corner`` =
+    (nc, itc, p0): the first ``itc`` triangles read the first ``nc = 3*itc``
+    stream rows in corner-major order (rows [k*itc, (k+1)*itc) hold corner k
+    of every head triangle), so their per-corner data is a slice; only the
+    tail pays the per-corner gathers."""
+    if refl_v is not None:
+        raise unported("cube-environment mapping", 14)
+    _nc, itc, _p0 = corner
+    i0, i1, i2 = scene.tri_idx[:, 0], scene.tri_idx[:, 1], scene.tri_idx[:, 2]
+
+    def corner_planar(a):
+        """(IV, ...) per-stream-row tensor -> 3 x (IT, ...) per-corner."""
+        if not itc:
+            return (_take(a, i0), _take(a, i1), _take(a, i2))
+        return tuple(torch.cat([a[k * itc:(k + 1) * itc], _take(a, idx[itc:])])
+                     for k, idx in enumerate((i0, i1, i2)))
+
+    def first_corner_take(a):
+        if not itc:
+            return _take(a, i0)
+        return torch.cat([a[:itc], _take(a, i0[itc:])])
+
+    flags = vx.clip_flags(clip)
+    # Whole-triangle rejection: all three corners outside one plane (the
+    # AND-reduction of CKRasterizerContext::TransformVertices,
+    # CKRasterizerLib/CKRasterizerContext.cpp:339-392, per triangle).
+    fl0, fl1, fl2 = corner_planar(flags)
+    reject = (fl0 & fl1 & fl2) != 0
+    vis_ext = torch.cat([scene.entity_visible,
+                         torch.ones(1, dtype=torch.bool,
+                                    device=scene.entity_visible.device)])
+    tri_ent = first_corner_take(scene.vert_entity)
+    ent_vis = take_small(vis_ext, tri_ent)
+    valid = scene.tri_valid & ~reject & ent_vis
+    it = scene.tri_idx.shape[0]
+    if clipd_v is not None:
+        d0, d1, d2 = corner_planar(clipd_v)
+        valid = valid & ~torch.any((d0 < 0) & (d1 < 0) & (d2 < 0), dim=1)
+        clipd = torch.stack([d0, d1, d2], dim=1)
+    else:
+        clipd = torch.zeros((it, 3, 0), dtype=torch.float32,
+                            device=clip.device)
+
+    # Screen-homogeneous coords (raster/types.py convention).
+    vxp, vyp, vw_, vh_ = (scene.viewport[0], scene.viewport[1],
+                          scene.viewport[2], scene.viewport[3])
+    half_w = vw_ * 0.5
+    half_h = vh_ * 0.5
+    cx = vxp + half_w
+    cy = vyp + half_h
+    x, y, z, w = clip[:, 0], clip[:, 1], clip[:, 2], clip[:, 3]
+    sx = cx * w + x * half_w
+    sy = cy * w - y * half_h
+
+    # Per-triangle scissor from the owning entity; identity row N gets the
+    # open rect.
+    open_rect = torch.tensor([[-1e9, -1e9, 1e9, 1e9]], dtype=torch.float32,
+                             device=clip.device)
+    tri_rect = take_small(torch.cat([scene.entity_clip, open_rect]), tri_ent)
+
+    if uv is None:
+        uv = _take(scene.uv, scene.src_idx)
+    # One wide row per vertex, gathered once per corner.
+    vrow = torch.cat([torch.stack([sx, sy, w], dim=-1), z[:, None], color,
+                      spec, uv, fog[:, None]], dim=-1)            # (IV, 14)
+    cp = corner_planar(vrow)
+
+    def stack3(sl):
+        return torch.stack([c[:, sl] for c in cp], dim=1)
+
+    return rb.DeviceBatch(
+        xyw=stack3(slice(0, 3)), z=stack3(3),
+        color=stack3(slice(4, 8)), specular=stack3(slice(8, 11)),
+        uv=stack3(slice(11, 13)), fog=stack3(13),
+        state_idx=scene.tri_state, valid=valid, clip_rect=tri_rect,
+        clipd=clipd,
+        refl=torch.zeros((it, 3, 0), dtype=torch.float32, device=clip.device))
+
+
+def opaque_setup(scene: SceneDevice, levels: tuple, world=None,
+                 vertex_shader=None, want_bump: bool = False,
+                 want_cube: bool = False, corner: tuple = (0, 0, 0),
+                 want_texgen: bool = False, sampler_profile=None):
+    """Vertex stage + triangle assembly + triangle setup: the inputs of the
+    visibility solve. Returns (batch, setup, defer_tri)."""
+    want_prelit = (sampler_profile is None or len(sampler_profile) < 8
+                   or bool(sampler_profile[7]))
+    clip, color, spec, fog, _world, uv, clipd_v, refl_v = transform_and_light(
+        scene, levels, world, vertex_shader=vertex_shader,
+        want_bump=want_bump, want_cube=want_cube, corner=corner,
+        want_texgen=want_texgen, want_prelit=want_prelit)
+    batch = assemble_triangles(scene, clip, color, spec, fog, uv, clipd_v,
+                               refl_v, corner=corner)
+    # One small-table row per triangle for the deferred-eligibility bit.
+    bucket_tbl = torch.stack(
+        [df.deferred_mask(scene.state_i).to(torch.float32),
+         (scene.state_i[:, SI_ALPHABLEND] != 0).to(torch.float32),
+         (scene.state_i[:, SI_STENCIL] != 0).to(torch.float32)], dim=1)
+    tri_bits = take_small(bucket_tbl, batch.state_idx)           # (IT,3)
+    defer_tri = (tri_bits[:, 0] > 0.5) & batch.valid
+    setup = df.triangle_setup(batch.xyw, batch.z, batch.state_idx,
+                              batch.valid, scene.state_i,
+                              clip_rect=batch.clip_rect, clipd=batch.clipd)
+    return batch, setup, defer_tri
+
+
+def _solve_caps(t_count: int, solve_caps) -> dict:
+    """Static caps of the tiled solve: the reference's t_count heuristic
+    (frame.py:824-826), or an explicit (pair_cap, slab_cap, g_cap)."""
+    if solve_caps is not None:
+        return dict(pair_cap=solve_caps[0], slab_cap=solve_caps[1],
+                    g_cap=solve_caps[2])
+    return dict(pair_cap=98304 if t_count <= 600_000 else 262144,
+                slab_cap=131072 if t_count <= (1 << 21) else 262144)
+
+
+def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
+                      width: int, ordered_cap: int | None = None,
+                      world=None, background=None,
+                      sort_transparent: bool = True,
+                      want_stencil: bool = False,
+                      vertex_shader=None, pixel_shader=None,
+                      want_bump: bool = False, want_cube: bool = False,
+                      want_stats: bool = False, sampler_profile=None,
+                      prev_fb=None, prev_zb=None,
+                      corner: tuple = (0, 0, 0),
+                      want_texgen: bool = False,
+                      solve_caps: tuple | None = None):
+    """Opaque frame: clear -> vertex stage -> deferred opaque solve + shade.
+
+    ``prev_fb``/``prev_zb``: last frame's buffers when the clear flags are
+    off (reference RCKRenderContext::Clear, src/CKRenderContext.cpp:438-544):
+    rendering then accumulates over the previous frame. ``ordered_cap``
+    must be 0 (the ordered/transparent pass is not carried yet).
+
+    Returns (fb (4,H,W) f32, zb (H,W) f32[, stats dict])."""
+    if ordered_cap is None or ordered_cap > 0:
+        raise unported("the ordered (transparent / alpha-test) pass", 6)
+    if want_stencil:
+        raise unported("the stencil pass", 7)
+    if background is not None:
+        clear_fb = background
+    elif prev_fb is not None:
+        clear_fb = prev_fb
+    else:
+        clear_fb = scene.clear_color[:, None, None].to(
+            torch.float32).expand(4, height, width)
+    z_init = scene.clear_z if prev_zb is None else prev_zb
+
+    batch, setup, defer_tri = opaque_setup(
+        scene, levels, world, vertex_shader=vertex_shader,
+        want_bump=want_bump, want_cube=want_cube, corner=corner,
+        want_texgen=want_texgen, sampler_profile=sampler_profile)
+    t_count = batch.valid.shape[0]
+    tiled = t_count > 4096 or t_count * height * width > (1 << 26)
+    flat = not tiled and prev_zb is None and batch.clipd.shape[-1] == 0
+    if flat:
+        best_id, best_depth = depth_reduce_cuda(
+            setup, defer_tri, scene.clear_z, scene.viewport, height, width)
+        tile_peak = None
+    else:
+        best_id, best_depth, tile_peak = depth_reduce_tiled_cuda(
+            setup, defer_tri, z_init, scene.viewport, batch.xyw, height,
+            width, want_binstats=want_stats,
+            **_solve_caps(t_count, solve_caps))
+    fb = df.shade_deferred(
+        best_id, batch.xyw, batch.z, batch.color, batch.specular, batch.uv,
+        batch.fog, batch.state_idx, scene.state_i, scene.state_f,
+        scene.tex_planes, scene.tex_hw, scene.fog_color, clear_fb, height,
+        width, batch_refl=batch.refl, pixel_shader=pixel_shader,
+        sampler_profile=sampler_profile, tex_quad=scene.tex_quad)
+    zb = best_depth
+    if not want_stats:
+        return fb, zb
+    # Stats: the reference's counters, plus the per-pixel winner id map
+    # (-1 = background) for parity checks.
+    no = torch.zeros((), dtype=torch.bool, device=fb.device)
+    zero = torch.zeros((), dtype=torch.int32, device=fb.device)
+    stats = {"TileBinPeak": zero, "OrderedPeelOverflow": no,
+             "OrderedPeelRounds": zero, "WinnerIds": best_id}
+    if tile_peak is not None:
+        stats.update({"TileBinPeak": tile_peak[0],
+                      "SolveLivePairs": tile_peak[1],
+                      "SolveFallbackRows": tile_peak[2] + tile_peak[3]
+                      + tile_peak[4],
+                      "SolveBinStats": tile_peak})
+    return fb, zb, stats
+
+
+def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
+                           width: int, skin=None, skin_ranges: tuple = (),
+                           anim=None, world_in=None, sprites=None,
+                           quads_bg=None, quads_fg=None, lines=None,
+                           ordered_cap: int | None = None,
+                           sort_transparent: bool = True,
+                           want_stencil: bool = False,
+                           vertex_shader=None, pixel_shader=None,
+                           want_bump: bool = False, want_cube: bool = False,
+                           want_stats: bool = False, sampler_profile=None,
+                           prev_fb=None, prev_zb=None,
+                           corner: tuple = (0, 0, 0),
+                           want_texgen: bool = False,
+                           solve_caps: tuple | None = None,
+                           cull: tuple | None = None, cull_sel=None):
+    """The per-frame device program: compose -> (culled-chunk compaction)
+    -> the opaque frame. Animation, skinning, billboards, 2D overlays and
+    lines are not carried yet and raise."""
+    if anim is not None:
+        raise unported("device animation banks", 10)
+    if skin is not None:
+        raise unported("skinning", 10)
+    if sprites is not None:
+        raise unported("3D sprites (billboards)", 13)
+    if quads_bg is not None or quads_fg is not None:
+        raise unported("2D overlays", 11)
+    if lines is not None:
+        raise unported("the line pass", 12)
+    world = world_in if world_in is not None else compose_world(
+        scene.local, scene.parent, levels)
+    if cull is not None and cull_sel is not None:
+        scene, corner = compact_scene_chunks(scene, cull_sel[0], cull_sel[1],
+                                             corner, cull)
+    return render_frame_impl(
+        scene, levels, height, width, ordered_cap, world=world,
+        sort_transparent=sort_transparent, want_stencil=want_stencil,
+        vertex_shader=vertex_shader, pixel_shader=pixel_shader,
+        want_bump=want_bump, want_cube=want_cube, want_stats=want_stats,
+        sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
+        corner=corner, want_texgen=want_texgen, solve_caps=solve_caps)
+
+
+def _apply_tex_patch(static: dict, d: dict, layout: tuple) -> torch.Tensor:
+    """Per-frame video-texture texels (packed in the dyn f32 buffer) scatter
+    into the texture stack via precomputed channel-last indices."""
+    planes = static["tex_planes"]
+    if not has_field(layout, "tex_patch") or "texpatch_idx" not in static:
+        return planes
+    idx = static["texpatch_idx"].long()
+    vals = d["tex_patch"]
+    nt, _ch, th, tw = planes.shape
+    cl = planes.permute(0, 2, 3, 1).reshape(-1, 4).clone()
+    cl[idx] = vals.to(cl.dtype)
+    return cl.reshape(nt, th, tw, 4).permute(0, 3, 1, 2).contiguous()
+
+
+def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
+                             levels: tuple, height: int, width: int,
+                             skin=None, skin_ranges: tuple = (),
+                             anim=None, world_in=None,
+                             sprites_static=None, lines=None,
+                             ordered_cap: int | None = None,
+                             sort_transparent: bool = True,
+                             want_stencil: bool = False,
+                             vertex_shader=None, pixel_shader=None,
+                             want_bump: bool = False,
+                             want_cube: bool = False,
+                             want_stats: bool = False,
+                             sampler_profile=None,
+                             prev_fb=None, prev_zb=None,
+                             texdev=None, texdev_rects: tuple = (),
+                             corner: tuple = (0, 0, 0),
+                             want_texgen: bool = False, ss: int = 1,
+                             solve_caps: tuple | None = None,
+                             cull: tuple | None = None):
+    """Packed-transfer frame entry: ``static`` is the per-compile dict of
+    device tensors, ``dyn_f``/``dyn_i`` the two per-frame buffers (see
+    pipeline/packing.py). Takes exactly what the render context's
+    ``_fill_packed`` returns."""
+    if ss != 1:
+        raise unported("antialias supersampling", 8)
+    if texdev:
+        raise unported("render-to-texture feeds", 22)
+    if sprites_static is not None:
+        raise unported("3D sprites (billboards)", 13)
+    scene, d = unpack_scene(static, dyn_f, dyn_i, layout)
+    if has_field(layout, "qbg_rect") or has_field(layout, "qfg_rect"):
+        raise unported("2D overlays", 11)
+    cull_sel = None
+    if cull is not None and has_field(layout, "chunk_idx"):
+        cull_sel = (d["chunk_idx"], d["chunk_n"])
+    return render_frame_full_impl(
+        scene, levels, height, width, skin=skin, skin_ranges=skin_ranges,
+        anim=anim, world_in=world_in, lines=lines, ordered_cap=ordered_cap,
+        sort_transparent=sort_transparent,
+        want_stencil=want_stencil, vertex_shader=vertex_shader,
+        pixel_shader=pixel_shader, want_bump=want_bump, want_cube=want_cube,
+        want_stats=want_stats, sampler_profile=sampler_profile,
+        prev_fb=prev_fb, prev_zb=prev_zb, corner=corner,
+        want_texgen=want_texgen, solve_caps=solve_caps, cull=cull,
+        cull_sel=cull_sel)
+
+
+render_frame_packed = render_frame_packed_impl
+
+
+def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
+    """(scene, batch, setup, defer_tri) of a packed opaque frame: what its
+    visibility solve and shade receive. Lets a caller run and time the
+    solve stages at the shapes a real frame gives them."""
+    scene, d = unpack_scene(static, dyn_f, dyn_i, params["layout"])
+    corner = params["corner"]
+    if params["cull"] is not None and has_field(params["layout"],
+                                                "chunk_idx"):
+        scene, corner = compact_scene_chunks(
+            scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
+    batch, setup, defer_tri = opaque_setup(
+        scene, params["levels"], corner=corner,
+        want_texgen=params["want_texgen"],
+        sampler_profile=params["sampler_profile"])
+    return scene, batch, setup, defer_tri
+
+
+def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple):
+    """Packed buffers -> (SceneDevice, raw field dict): the device-side
+    inverse of CKRenderContext._fill_packed."""
+    d = unpack(dyn_f, dyn_i, layout)
+    lights = LightArray(
+        type=d["lt_type"], diffuse=d["lt_diffuse"], specular=d["lt_specular"],
+        ambient=d["lt_ambient"], position=d["lt_position"],
+        direction=d["lt_direction"], range=d["lt_range"],
+        falloff=d["lt_falloff"], attenuation=d["lt_attenuation"],
+        cos_theta=d["lt_cos_theta"], cos_phi=d["lt_cos_phi"],
+        active=d["lt_active"] != 0)
+    scene = SceneDevice(
+        local=d["local"], parent=static["parent"],
+        entity_visible=d["entity_visible"] != 0,
+        entity_clip=d["entity_clip"],
+        entity_priority=d["entity_priority"],
+        positions=static["positions"], normals=static["normals"],
+        uv=static["uv"], prelit=static["prelit"],
+        prelit_spec=static["prelit_spec"], src_idx=static["src_idx"],
+        vert_entity=static["vert_entity"], vert_state=static["vert_state"],
+        vert_lit=static["vert_lit"], tri_idx=static["tri_idx"],
+        tri_state=static["tri_state"], tri_valid=static["tri_valid"],
+        state_i=d["state_i"], state_f=d["state_f"],
+        mat_diffuse=d["mat_diffuse"], mat_ambient=d["mat_ambient"],
+        mat_specular=d["mat_specular"], mat_emissive=d["mat_emissive"],
+        mat_power=d["mat_power"], lights=lights,
+        global_ambient=d["global_ambient"], view=d["view"], proj=d["proj"],
+        cam_pos=d["cam_pos"], viewport=d["viewport"],
+        fog_mode=d["fog_mode"], fog_start=d["fog_start"],
+        fog_end=d["fog_end"], fog_density=d["fog_density"],
+        fog_color=d["fog_color"],
+        tex_planes=_apply_tex_patch(static, d, layout),
+        tex_hw=static["tex_hw"], clear_color=d["clear_color"],
+        clear_z=d["clear_z"],
+        clip_planes=(d["clip_planes"]
+                     if has_field(layout, "clip_planes") else None),
+        fog_proj=(d["fog_proj"] if has_field(layout, "fog_proj") else None),
+        tex_quad=static.get("tex_quad"))
+    return scene, d

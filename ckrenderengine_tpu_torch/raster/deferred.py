@@ -1,0 +1,607 @@
+"""Deferred opaque rasterization: depth argmin-reduce + one shade per pixel.
+
+The reference's hot loop is sequential per-triangle DrawPrimitive into a
+z-buffered framebuffer (CKDX9RasterizerContext::DrawPrimitive,
+src/CKRasterizer/CKDX9Rasterizer/CKDX9RasterizerContext.cpp:1555-1648). For
+OPAQUE triangles with default depth semantics (LESSEQUAL + z-write, no
+blending/alpha-test — CKRasterizerLib/CKRasterizerContext.cpp:423-477) the
+final image is order-independent except for exact-depth ties, where the LATER
+draw wins. The whole opaque pass is then a pure reduction
+
+    winner(px) = argmin over triangles of (depth(px), -draw_index)
+
+followed by ONE shade per pixel on the winner. This module holds the
+triangle setup, the plain flat reduce (:func:`depth_reduce`, the reference
+arithmetic both CUDA solves reproduce) and the fixed-function shade — the
+counterpart of ``ckrenderengine_tpu.raster.deferred``.
+
+Every per-pixel formula keeps the reference's order of operations; torch runs
+each elementwise op as its own rounded step, so nothing is FMA-contracted.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..roadmap import unported
+from .types import (
+    SF_BORDER_R, SF_CONST_R, SI_ALPHABLEND, SI_ALPHATEST, SI_COLORWRITE,
+    SI_CULL, SI_FOG, SI_PERSPECTIVE, SI_TEX, SI_TEXADDR, SI_TEXBLEND,
+    SI_TEXFILTER, SI_TEXGEN, SI_ZFUNC, SI_ZWRITE, TEXBLEND_DOT3FACTOR, VXCMP,
+    VXCULL, VXTEXTUREBLEND, VXTEXTURE_ADDRESS, VXTEXTURE_FILTER,
+)
+
+_BIG = 3.0e38
+
+
+def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather from a small table (the reference's one-hot MXU join,
+    which is bit-exact with a gather)."""
+    return table.index_select(0, idx.reshape(-1).long()).reshape(
+        tuple(idx.shape) + tuple(table.shape[1:]))
+
+
+def deferred_mask(state_i: torch.Tensor) -> torch.Tensor:
+    """Per-state-bucket: eligible for the order-independent opaque reduce."""
+    return ((state_i[:, SI_ALPHABLEND] == 0)
+            & (state_i[:, SI_ALPHATEST] == 0)
+            & (state_i[:, SI_ZWRITE] != 0)
+            & ((state_i[:, SI_ZFUNC] == int(VXCMP.LESSEQUAL))
+               | (state_i[:, SI_ZFUNC] == int(VXCMP.LESS))))
+
+
+def triangle_setup(xyw, z, state_idx, valid, state_i, clip_rect=None,
+                   clipd=None):
+    """Per-triangle setup: adjoint edge coeffs, depth plane, cull, flags.
+
+    xyw: (T,3,3) screen-homogeneous verts; z: (T,3) clip z.
+    clip_rect: optional (T,4) per-triangle scissor (Place viewport clips).
+    clipd: optional (T,3,P) per-corner user-clip-plane signed distances; the
+    per-pixel keep test is the sign of the affine plane sum_i e_i(p) d_i.
+    Returns a dict of (T,...) tensors (plus 2D twins ``e9``/``dplane9``).
+    """
+    t = xyw.shape[0]
+    dev = xyw.device
+    v0c = tuple(xyw[:, 0, k] for k in range(3))
+    v1c = tuple(xyw[:, 1, k] for k in range(3))
+    v2c = tuple(xyw[:, 2, k] for k in range(3))
+    z3 = tuple(z[:, i] for i in range(3))
+
+    def cross_c(a, b):
+        return (a[1] * b[2] - a[2] * b[1],
+                a[2] * b[0] - a[0] * b[2],
+                a[0] * b[1] - a[1] * b[0])
+
+    adj0c = cross_c(v1c, v2c)         # 3 x (T,): coeffs [a_x, a_y, c]
+    adj1c = cross_c(v2c, v0c)
+    adj2c = cross_c(v0c, v1c)
+    det = v0c[0] * adj0c[0] + v0c[1] * adj0c[1] + v0c[2] * adj0c[2]
+    s = torch.where(det >= 0, 1.0, -1.0)
+    degenerate = torch.abs(det) < 1e-14
+
+    cull = take_small(state_i[:, SI_CULL], state_idx)
+    front = det > 0
+    keep = ((cull == int(VXCULL.NONE))
+            | ((cull == int(VXCULL.CCW)) & front)
+            | ((cull == int(VXCULL.CW)) & ~front))
+
+    inv_det = 1.0 / torch.where(degenerate, 1.0, det)
+    zplane = torch.stack(
+        [(adj0c[k] * z3[0] + adj1c[k] * z3[1] + adj2c[k] * z3[2]) * inv_det
+         for k in range(3)], dim=1)
+    esum_plane = torch.stack(
+        [adj0c[k] + adj1c[k] + adj2c[k] for k in range(3)], dim=1)
+    # depth = (e0s*z0 + e1s*z1 + e2s*z2) * (s*inv_det): the signed e's and
+    # the sign folded into the inverse determinant.
+    inv_det_s = torch.where(det >= 0, 1.0, -1.0) * inv_det
+
+    e0s = tuple(adj0c[k] * s for k in range(3))
+    e1s = tuple(adj1c[k] * s for k in range(3))
+    e2s = tuple(adj2c[k] * s for k in range(3))
+    e9 = torch.stack(e0s + e1s + e2s, dim=1)                     # (T,9)
+    e_coef = e9.reshape(t, 3, 3)
+    top_left = torch.stack(
+        [(es[1] > 0) | ((es[1] == 0) & (es[0] > 0))
+         for es in (e0s, e1s, e2s)], dim=1)                      # (T,3)
+
+    # Sub-epsilon screen-area slivers cover no pixel centres: cull them
+    # (w-crossing triangles keep their validity).
+    w3 = (v0c[2], v1c[2], v2c[2])
+    wmin = torch.minimum(torch.minimum(w3[0], w3[1]), w3[2])
+    sw = tuple(torch.where(torch.abs(wi) < 1e-6, 1e-6, wi) for wi in w3)
+    sx = (v0c[0] / sw[0], v1c[0] / sw[1], v2c[0] / sw[2])
+    sy = (v0c[1] / sw[0], v1c[1] / sw[1], v2c[1] / sw[2])
+    area2 = torch.abs((sx[1] - sx[0]) * (sy[2] - sy[0])
+                      - (sx[2] - sx[0]) * (sy[1] - sy[0]))
+    sliver = (wmin > 1e-6) & (area2 < 1e-6)
+
+    tvalid = valid & ~degenerate & keep & ~sliver
+    if clip_rect is None:
+        big = 1.0e9
+        clip_rect = torch.tensor([[-big, -big, big, big]], dtype=torch.float32,
+                                 device=dev).expand(t, 4)
+    if clipd is not None and clipd.shape[-1] > 0:
+        n_planes = clipd.shape[-1]
+        d3 = (clipd[:, 0], clipd[:, 1], clipd[:, 2])
+        cols = []
+        for p in range(n_planes):
+            for k in range(3):
+                cols.append(e0s[k] * d3[0][:, p] + e1s[k] * d3[1][:, p]
+                            + e2s[k] * d3[2][:, p])
+        dplane9 = torch.stack(cols, dim=1)                      # (T, 3P)
+    else:
+        n_planes = 0
+        dplane9 = torch.zeros((t, 0), dtype=torch.float32, device=dev)
+    dplane = dplane9.reshape(t, n_planes, 3)
+    return dict(e_coef=e_coef, e9=e9, top_left=top_left, zplane=zplane,
+                esum_plane=esum_plane, s=s, det=det, inv_det=inv_det,
+                inv_det_s=inv_det_s, z=z, valid=tvalid,
+                clip_rect=clip_rect, dplane=dplane, dplane9=dplane9)
+
+
+def depth_reduce(setup, defer_tri, clear_z, viewport, height: int,
+                 width: int, chunk: int = 64):
+    """Argmin-reduce over deferred triangles (the flat reference solve).
+
+    Returns (best_id (H,W) int32 [-1 = background], best_depth (H,W) f32).
+    Exact-depth ties go to the later draw id (LESSEQUAL)."""
+    dev = setup["e_coef"].device
+    py, px = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
+        torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
+        indexing="ij")
+    vp = viewport
+    scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
+               & (py >= vp[1]) & (py < vp[1] + vp[3]))
+
+    t = setup["e_coef"].shape[0]
+    tvalid = setup["valid"] & defer_tri
+    ids_all = torch.arange(t, dtype=torch.int32, device=dev)
+    dplane = setup["dplane"]
+    n_planes = dplane.shape[1]
+    best_d = torch.broadcast_to(torch.as_tensor(clear_z, dtype=torch.float32,
+                                                device=dev),
+                                (height, width)).clone()
+    best_i = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+
+    def plane(coef):                       # coef (C,3) -> (C,H,W)
+        return (coef[:, 0, None, None] * px + coef[:, 1, None, None] * py
+                + coef[:, 2, None, None])
+
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, min(t, c0 + chunk))
+        ec = setup["e_coef"][sl]
+        tl = setup["top_left"][sl]
+        zv = setup["z"][sl]
+        ivs = setup["inv_det_s"][sl]
+        ep = setup["esum_plane"][sl]
+        ss = setup["s"][sl]
+        tv = tvalid[sl]
+        rect = setup["clip_rect"][sl]
+        ids = ids_all[sl]
+        e0 = plane(ec[:, 0])
+        e1 = plane(ec[:, 1])
+        e2 = plane(ec[:, 2])
+        cov = (((e0 > 0) | ((e0 == 0) & tl[:, 0, None, None]))
+               & ((e1 > 0) | ((e1 == 0) & tl[:, 1, None, None]))
+               & ((e2 > 0) | ((e2 == 0) & tl[:, 2, None, None])))
+        esum = plane(ep) * ss[:, None, None]
+        depth = (e0 * zv[:, 0, None, None] + e1 * zv[:, 1, None, None]
+                 + e2 * zv[:, 2, None, None]) * ivs[:, None, None]
+        cov &= ((esum > 0) & (depth >= 0.0) & (depth <= 1.0)
+                & tv[:, None, None] & scissor[None])
+        cov &= ((px[None] >= rect[:, 0, None, None])
+                & (py[None] >= rect[:, 1, None, None])
+                & (px[None] < rect[:, 2, None, None])
+                & (py[None] < rect[:, 3, None, None]))
+        for p in range(n_planes):
+            cov &= plane(dplane[sl][:, p]) >= 0
+        dm = torch.where(cov, depth, _BIG)
+        dmin = torch.amin(dm, dim=0)
+        idwin = torch.amax(torch.where(dm == dmin[None], ids[:, None, None],
+                                       -1), dim=0)
+        better = (idwin >= 0) & ((dmin < best_d)
+                                 | ((dmin == best_d) & (idwin > best_i)))
+        best_d = torch.where(better, dmin, best_d)
+        best_i = torch.where(better, idwin, best_i)
+    return best_i, best_d
+
+
+# ---------------------------------------------------------------------------
+# Fixed-function deferred shade
+# ---------------------------------------------------------------------------
+
+def _address_pp(coord, fsize, mode):
+    """Per-pixel texel addressing (mode is a per-pixel int tensor)."""
+    wrap = torch.remainder(coord, fsize)
+    period = torch.remainder(coord, 2.0 * fsize)
+    mirror = torch.where(period < fsize, period, 2.0 * fsize - 1e-4 - period)
+    mirror_once = torch.minimum(torch.clamp(torch.abs(coord), min=0.0),
+                                fsize - 1e-4)
+    clamp = torch.minimum(torch.clamp(coord, min=0.0), fsize - 1e-4)
+    out = torch.where(mode == int(VXTEXTURE_ADDRESS.MIRRORONCE),
+                      mirror_once, clamp)
+    out = torch.where(mode == int(VXTEXTURE_ADDRESS.MIRROR), mirror, out)
+    return torch.where(mode == int(VXTEXTURE_ADDRESS.WRAP), wrap, out)
+
+
+def _tex_params(tex_hw, tid):
+    """Per-element texture parameters from the (NT, 2..5) tex_hw table.
+
+    tex_hw column layouts (static): 2 = per-texture planes; 3 = planes +
+    mip column; 4 = packed ATLAS (h, w, off_y, off_x); 5 = atlas + mips
+    (h, w, levels, off_y, off_x)."""
+    tid_c = torch.clamp(tid, 0, tex_hw.shape[0] - 1).long()
+    h0 = tex_hw[tid_c, 0].to(torch.float32)
+    w0 = tex_hw[tid_c, 1].to(torch.float32)
+    ncols = tex_hw.shape[1]
+    has_mips = ncols in (3, 5)
+    is_atlas = ncols >= 4
+    n_levels = (tex_hw[tid_c, 2].to(torch.float32) if has_mips
+                else torch.ones_like(h0))
+    if is_atlas:
+        atl_y = tex_hw[tid_c, ncols - 2].to(torch.float32)
+        atl_x = tex_hw[tid_c, ncols - 1].to(torch.float32)
+        plane = torch.zeros_like(h0)
+        base_tw = w0           # per-texture mip column = its own base width
+    else:
+        atl_y = torch.zeros_like(h0)
+        atl_x = torch.zeros_like(h0)
+        plane = tid_c.to(torch.float32)
+        base_tw = torch.zeros_like(h0)   # filled statically by the core
+    return dict(h0=h0, w0=w0, n_levels=n_levels, atl_y=atl_y, atl_x=atl_x,
+                plane=plane, base_tw=base_tw)
+
+
+_TEX_PARAM_KEYS = ("h0", "w0", "n_levels", "atl_y", "atl_x", "plane",
+                   "base_tw")
+_SH_SI_COLS = (SI_TEX, SI_TEXADDR, SI_TEXFILTER, SI_TEXBLEND, SI_FOG,
+               SI_PERSPECTIVE, SI_TEXGEN, SI_COLORWRITE)
+_SH_SF_COLS = (SF_BORDER_R, SF_BORDER_R + 1, SF_BORDER_R + 2,
+               SF_BORDER_R + 3, SF_CONST_R, SF_CONST_R + 1, SF_CONST_R + 2)
+
+
+def _shade_state_rows(state_i, state_f, tex_hw):
+    """(S, 22) packed per-state shade columns: the 8 si + 7 sf columns the
+    fixed-function shade reads, plus the 7 per-texture sampling params."""
+    prm = _tex_params(tex_hw, state_i[:, SI_TEX])
+    return torch.cat([
+        state_i[:, list(_SH_SI_COLS)].to(torch.float32),
+        state_f[:, list(_SH_SF_COLS)],
+        torch.stack([prm[k] for k in _TEX_PARAM_KEYS], dim=-1),
+    ], dim=1)
+
+
+def _sample_texture_core(tex_planes, has_mips, prm, u, v, mode, filt,
+                         border_rgba, lod=None, profile=None, quad_flat=None):
+    """Sampling core over precomputed per-element texture params (see
+    :func:`_tex_params`); wrap/clamp/mirror/border addressing, nearest and
+    bilinear filters, mips, atlas offsets, and the one-gather quad-texel
+    table (``quad_flat``) when the static sampler profile allows it."""
+    any_nearest = profile is None or bool(profile[0])
+    any_mip = profile is None or bool(profile[1])
+    use_quad = (quad_flat is not None and profile is not None
+                and len(profile) > 2 and bool(profile[2]))
+    nt, _, th, taw = tex_planes.shape
+    flat = tex_planes.permute(0, 2, 3, 1).reshape(nt * th * taw, 4)
+    h0 = prm["h0"]
+    w0 = prm["w0"]
+    n_levels = prm["n_levels"].to(torch.int32)
+    atl_y = prm["atl_y"]
+    atl_x = prm["atl_x"]
+    plane = prm["plane"].to(torch.int32)
+    # non-atlas entries signal base_tw=0: global mip column = max base width
+    glob_col = float((taw * 2) // 3 if has_mips else 0.0)
+    base_tw = torch.where(prm["base_tw"] > 0, prm["base_tw"], glob_col)
+    border = mode == int(VXTEXTURE_ADDRESS.BORDER)
+
+    linear = ((filt == int(VXTEXTURE_FILTER.LINEAR))
+              | (filt == int(VXTEXTURE_FILTER.LINEARMIPNEAREST))
+              | (filt == int(VXTEXTURE_FILTER.LINEARMIPLINEAR))
+              | (filt == int(VXTEXTURE_FILTER.ANISOTROPIC)))
+
+    def texel_index(cu, cv, w, h, x_off, y_off):
+        iu = torch.minimum(torch.clamp(_address_pp(cu, w, mode), min=0),
+                           w - 1) + x_off
+        iv = torch.minimum(torch.clamp(_address_pp(cv, h, mode), min=0),
+                           h - 1) + y_off
+        return (plane * (th * taw) + iv.to(torch.int32) * taw
+                + iu.to(torch.int32))
+
+    def sample_level(level):
+        """level: int32 tensor. Returns a list of 4 planes."""
+        lf = level.to(torch.float32)
+        scale = torch.exp2(-lf)
+        w = torch.clamp(torch.floor(w0 * scale), min=1.0)
+        h = torch.clamp(torch.floor(h0 * scale), min=1.0)
+        x_off = torch.where(level == 0, 0.0, base_tw) + atl_x
+        y_off = torch.where(level <= 1, 0.0,
+                            h0 - torch.floor(h0 * torch.exp2(-(lf - 1.0)))
+                            ) + atl_y
+        tu = u * w
+        tv = v * h
+
+        def fetch(cu, cv):
+            idx = texel_index(cu, cv, w, h, x_off, y_off)
+            texel = flat.index_select(0, idx.reshape(-1).long()).reshape(
+                tuple(idx.shape) + (4,)).to(torch.float32)
+            return [texel[..., c] for c in range(4)]
+
+        fu = tu - 0.5
+        fv = tv - 0.5
+        u0_ = torch.floor(fu)
+        v0_ = torch.floor(fv)
+        du = fu - u0_
+        dv = fv - v0_
+        if use_quad:
+            idx = texel_index(u0_, v0_, w, h, x_off, y_off)
+            q = quad_flat.index_select(0, idx.reshape(-1).long()).reshape(
+                tuple(idx.shape) + (16,)).to(torch.float32)
+            # Clamp-family modes send a below-range base and its +1 neighbor
+            # to the SAME edge texel; the baked neighbor is the interior one,
+            # so zero the fraction there (wrap keeps it).
+            wrapm = mode == int(VXTEXTURE_ADDRESS.WRAP)
+            du_e = torch.where(~wrapm & (u0_ < 0), 0.0, du)
+            dv_e = torch.where(~wrapm & (v0_ < 0), 0.0, dv)
+            lin = [q[..., c] * (1 - du_e) * (1 - dv_e)
+                   + q[..., 4 + c] * du_e * (1 - dv_e)
+                   + q[..., 8 + c] * (1 - du_e) * dv_e
+                   + q[..., 12 + c] * du_e * dv_e for c in range(4)]
+        else:
+            c00 = fetch(u0_, v0_)
+            c10 = fetch(u0_ + 1.0, v0_)
+            c01 = fetch(u0_, v0_ + 1.0)
+            c11 = fetch(u0_ + 1.0, v0_ + 1.0)
+            lin = [c00[c] * (1 - du) * (1 - dv) + c10[c] * du * (1 - dv)
+                   + c01[c] * (1 - du) * dv + c11[c] * du * dv
+                   for c in range(4)]
+        if any_nearest:
+            near = fetch(tu, tv)
+            out = [torch.where(linear, lin[c], near[c]) for c in range(4)]
+        else:
+            out = lin
+        oob = (tu < 0) | (tu >= w) | (tv < 0) | (tv >= h)
+        return [torch.where(border & oob, border_rgba[c], out[c])
+                for c in range(4)]
+
+    if lod is None or not has_mips or not any_mip:
+        return sample_level(torch.zeros_like(plane))
+
+    mip_near = ((filt == int(VXTEXTURE_FILTER.MIPNEAREST))
+                | (filt == int(VXTEXTURE_FILTER.LINEARMIPNEAREST)))
+    mip_lin = ((filt == int(VXTEXTURE_FILTER.MIPLINEAR))
+               | (filt == int(VXTEXTURE_FILTER.LINEARMIPLINEAR))
+               | (filt == int(VXTEXTURE_FILTER.ANISOTROPIC)))
+    use_mip = mip_near | mip_lin
+    lod_c = torch.minimum(torch.clamp(torch.where(use_mip, lod, 0.0), min=0.0),
+                          (n_levels - 1).to(torch.float32))
+    l0 = torch.floor(lod_c).to(torch.int32)
+    frac = lod_c - l0.to(torch.float32)
+    l0 = torch.where(mip_near, torch.round(lod_c).to(torch.int32), l0)
+    l1 = torch.minimum(torch.clamp(l0 + 1, min=0), n_levels - 1)
+    s0 = sample_level(l0)
+    s1 = sample_level(l1)
+    return [torch.where(mip_lin, s0[c] * (1 - frac) + s1[c] * frac, s0[c])
+            for c in range(4)]
+
+
+def tex_blend_pp(mode, tex, diff, const=None):
+    """Per-pixel texture-stage blend; mode int tensor; tex/diff lists of
+    planes; const: optional 3 planes of the per-draw constant color."""
+    tr, ta = tex[:3], tex[3]
+    dr, da = diff[:3], diff[3]
+    cr = const if const is not None else dr
+    dot = ((tr[0] - 0.5) * (dr[0] - 0.5) + (tr[1] - 0.5) * (dr[1] - 0.5)
+           + (tr[2] - 0.5) * (dr[2] - 0.5)) * 4.0
+    dotc = torch.clamp(((tr[0] - 0.5) * (cr[0] - 0.5)
+                        + (tr[1] - 0.5) * (cr[1] - 0.5)
+                        + (tr[2] - 0.5) * (cr[2] - 0.5)) * 4.0, 0.0, 1.0)
+    B = VXTEXTUREBLEND
+    is_decal = ((mode == int(B.DECAL)) | (mode == int(B.COPY))
+                | (mode == int(B.DECALMASK)))
+    is_mod = ((mode == int(B.MODULATE)) | (mode == int(B.MODULATEALPHA))
+              | (mode == int(B.MODULATEMASK)))
+    out = []
+    for c in range(3):
+        # jnp.select semantics: the FIRST matching condition wins, so the
+        # chain is built from the last case up.
+        v = torch.where(mode == int(B.MAX), torch.maximum(tr[c], dr[c]), dr[c])
+        v = torch.where(mode == TEXBLEND_DOT3FACTOR, dotc, v)
+        v = torch.where(mode == int(B.DOTPRODUCT3), dot, v)
+        v = torch.where(mode == int(B.ADD), dr[c] + tr[c], v)
+        v = torch.where(mode == int(B.DECALALPHA),
+                        dr[c] * (1 - ta) + tr[c] * ta, v)
+        v = torch.where(is_mod, tr[c] * dr[c], v)
+        v = torch.where(is_decal, tr[c], v)
+        out.append(v)
+    alpha = torch.where(is_decal, ta, torch.where(is_mod, ta * da, da))
+    out.append(alpha)
+    return out
+
+
+def shade_deferred(best_id, batch_xyw, batch_z, batch_color, batch_spec,
+                   batch_uv, batch_fog, batch_state, state_i, state_f,
+                   tex_planes, tex_hw, fog_color, clear_fb,
+                   height: int, width: int, batch_refl=None,
+                   pixel_shader=None, sampler_profile=None, tex_quad=None):
+    """One shading evaluation per pixel on the winning triangle.
+
+    Fixed-function frames take :func:`_shade_deferred_fast`. Returns
+    (4,H,W) fb planes (background pixels keep clear_fb)."""
+    if pixel_shader is not None:
+        raise unported("pixel shaders", 15)
+    return _shade_deferred_fast(
+        best_id, batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
+        batch_state, state_i, state_f, tex_planes, tex_hw, fog_color,
+        clear_fb, height, width, batch_refl=batch_refl,
+        sampler_profile=sampler_profile, tex_quad=tex_quad)
+
+
+# Shade row-table column layout: everything one pixel needs to shade its
+# winning triangle, in ONE wide f32 row.
+SH_EC = slice(0, 9)      # edge-plane coefficients (adjoint rows)
+SH_WS = slice(9, 12)     # vertex w's
+SH_IVD = 12              # inverse determinant (same sign convention as EC)
+SH_COL = slice(13, 25)   # corner colors (3 x RGBA)
+SH_SPC = slice(25, 34)   # corner speculars (3 x RGB)
+SH_UV = slice(34, 40)    # corner UVs (3 x 2)
+SH_FOG = slice(40, 43)   # corner fog factors
+SH_SI = 43               # 8 int state cols, order = _SH_SI_COLS
+SH_SF = 51               # 7 f32 state cols, order = _SH_SF_COLS
+SH_TP = 58               # 7 texture-params cols, order = _TEX_PARAM_KEYS
+SH_NCOL = 65
+
+
+def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
+                    batch_state, state_i, state_f, tex_hw, batch_refl=None):
+    """(T, SH_NCOL) packed shade rows (dense build, one wide row)."""
+    if batch_refl is not None and batch_refl.shape[-1] > 0:
+        raise unported("cube-environment reflection shading", 14)
+    t = batch_xyw.shape[0]
+    v0, v1, v2 = batch_xyw[:, 0], batch_xyw[:, 1], batch_xyw[:, 2]
+    adj0 = torch.linalg.cross(v1, v2)
+    adj1 = torch.linalg.cross(v2, v0)
+    adj2 = torch.linalg.cross(v0, v1)
+    det = torch.sum(v0 * adj0, dim=-1)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    ec9 = torch.cat([adj0, adj1, adj2], dim=1)
+    st_t = take_small(_shade_state_rows(state_i, state_f, tex_hw),
+                      batch_state)                                 # (T,22)
+    return torch.cat([
+        ec9,
+        batch_xyw[..., 2],
+        inv_det[:, None],
+        batch_color.reshape(t, 12),
+        batch_spec.reshape(t, 9),
+        batch_uv.reshape(t, 6),
+        batch_fog.reshape(t, 3),
+        st_t,
+    ], dim=1)
+
+
+def _shade_deferred_fast(best_id, batch_xyw, batch_color, batch_spec,
+                         batch_uv, batch_fog, batch_state, state_i, state_f,
+                         tex_planes, tex_hw, fog_color, clear_fb,
+                         height: int, width: int, batch_refl=None,
+                         sampler_profile=None, tex_quad=None):
+    """Packed-row fixed-function deferred shade: ONE per-pixel row gather
+    of the winner's shade row, then :func:`shade_rows`."""
+    t = batch_xyw.shape[0]
+    tbl = shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv,
+                          batch_fog, batch_state, state_i, state_f, tex_hw,
+                          batch_refl=batch_refl)
+    hit = best_id >= 0
+    tid = torch.clamp(best_id, 0, t - 1).reshape(-1).long()
+    row = tbl.index_select(0, tid).T.reshape(tbl.shape[1], height, width)
+    return shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
+                      height, width, sampler_profile=sampler_profile,
+                      tex_quad=tex_quad)
+
+
+def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
+               height: int, width: int, sampler_profile=None, tex_quad=None):
+    """Fixed-function shade over per-pixel winner ROWS (C,H,W) in the
+    shade_row_table layout: perspective-correct interpolation, analytic
+    mip LOD, texture sampling + stage blend, specular add, fog, saturate."""
+    dev = row.device
+    has_mips = tex_hw.shape[1] in (3, 5)
+    py, px = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
+        torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
+        indexing="ij")
+    si_pos = {c: i for i, c in enumerate(_SH_SI_COLS)}
+    sf_pos = {c: i for i, c in enumerate(_SH_SF_COLS)}
+
+    def si(c):
+        return row[SH_SI + si_pos[c]]
+
+    def sf(c):
+        return row[SH_SF + sf_pos[c]]
+
+    def plane3(o):
+        return row[o] * px + row[o + 1] * py + row[o + 2]
+
+    e0 = plane3(0)
+    e1 = plane3(3)
+    e2 = plane3(6)
+    esum = e0 + e1 + e2
+    persp = si(SI_PERSPECTIVE) != 0
+    inv_esum = 1.0 / torch.where(torch.abs(esum) < 1e-30, 1e-30, esum)
+    ivd = row[SH_IVD]
+    ws0 = row[SH_WS.start]
+    ws1 = row[SH_WS.start + 1]
+    ws2 = row[SH_WS.start + 2]
+    w0 = torch.where(persp, e0 * inv_esum, e0 * ws0 * ivd)
+    w1 = torch.where(persp, e1 * inv_esum, e1 * ws1 * ivd)
+    w2 = torch.where(persp, e2 * inv_esum, e2 * ws2 * ivd)
+
+    def interp(sl, k):
+        """Interpolate k channels stored [v0 x k, v1 x k, v2 x k]."""
+        o = sl.start
+        return [row[o + c] * w0 + row[o + k + c] * w1 + row[o + 2 * k + c] * w2
+                for c in range(k)]
+
+    colorp = interp(SH_COL, 4)
+    uvil = interp(SH_UV, 2)
+    has_tex = si(SI_TEX) >= 0
+    border = [sf(SF_BORDER_R + c) for c in range(4)]
+
+    # Per-pixel mip LOD from the analytic screen-space UV gradients (edge
+    # functions are affine: slope a per +x, b per +y).
+    lod = None
+    if tex_hw.shape[1] > 2 and (sampler_profile is None
+                                or sampler_profile[1]):
+
+        def uv_at(de0, de1, de2):
+            e0n, e1n, e2n = e0 + de0, e1 + de1, e2 + de2
+            esum_n = e0n + e1n + e2n
+            inv_n = 1.0 / torch.where(torch.abs(esum_n) < 1e-30, 1e-30, esum_n)
+            w0n = torch.where(persp, e0n * inv_n, e0n * ws0 * ivd)
+            w1n = torch.where(persp, e1n * inv_n, e1n * ws1 * ivd)
+            w2n = torch.where(persp, e2n * inv_n, e2n * ws2 * ivd)
+            o = SH_UV.start
+            return [row[o + c] * w0n + row[o + 2 + c] * w1n
+                    + row[o + 4 + c] * w2n for c in range(2)]
+
+        ux = uv_at(row[0], row[3], row[6])      # +x: edge-plane a coeffs
+        uy = uv_at(row[1], row[4], row[7])      # +y: edge-plane b coeffs
+        tw_, th_ = row[SH_TP + 1], row[SH_TP + 0]
+        rho = torch.maximum(
+            torch.sqrt(((ux[0] - uvil[0]) * tw_) ** 2
+                       + ((ux[1] - uvil[1]) * th_) ** 2),
+            torch.sqrt(((uy[0] - uvil[0]) * tw_) ** 2
+                       + ((uy[1] - uvil[1]) * th_) ** 2))
+        lod = torch.log2(torch.clamp(rho, min=1.0))
+
+    # Static any-textured gate (sampler_profile[4]): an untextured frame
+    # skips the sampling stage entirely.
+    any_tex = (sampler_profile is None or len(sampler_profile) < 5
+               or bool(sampler_profile[4]))
+    if any_tex:
+        prm = {k: row[SH_TP + i] for i, k in enumerate(_TEX_PARAM_KEYS)}
+        texel = _sample_texture_core(
+            tex_planes, has_mips, prm, uvil[0], uvil[1],
+            si(SI_TEXADDR).to(torch.int32), si(SI_TEXFILTER).to(torch.int32),
+            border, lod=lod, profile=sampler_profile, quad_flat=tex_quad)
+        const = [sf(SF_CONST_R + c) for c in range(3)]
+        blended = tex_blend_pp(si(SI_TEXBLEND).to(torch.int32), texel,
+                               colorp, const)
+        colorp = [torch.where(has_tex, blended[c], colorp[c])
+                  for c in range(4)]
+
+    spec = interp(SH_SPC, 3)
+    for c in range(3):
+        colorp[c] = colorp[c] + spec[c]
+
+    fog_on = si(SI_FOG) != 0
+    fogf = torch.clamp(interp(SH_FOG, 1)[0], 0.0, 1.0)
+    for c in range(3):
+        colorp[c] = torch.where(
+            fog_on, colorp[c] * fogf + fog_color[c] * (1.0 - fogf), colorp[c])
+    colorp = [torch.clamp(c, 0.0, 1.0) for c in colorp]
+
+    # Z-only draws occlude but leave the background color
+    # (VX_MOVEABLE_ZBUFONLY, reference src/CKMesh.cpp:3938-3974).
+    hit = hit & (si(SI_COLORWRITE) != 0)
+    return torch.stack([torch.where(hit, colorp[c], clear_fb[c])
+                        for c in range(4)])

@@ -1,0 +1,253 @@
+"""Scenes of the BASELINE configurations, for either object model.
+
+Each build function takes an ``objects`` module — this package's
+(``ckrenderengine_tpu_torch.objects``) or the reference package's — plus the
+keyword arguments of its ``CKContext`` (``device=`` for this package), so the
+tests can build one scene through both packages and compare the frames.
+The scenes are those of ``benchmarks/baseline.py`` (configs 1 and 2) and
+``bench.build_scene`` (config 5); sizes are parameters so the tests can cut
+the frame and the terrain down.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .raster.types import VXLIGHT
+
+
+def make_sphere(rows: int, cols: int, radius: float = 1.0):
+    th = np.linspace(0, np.pi, rows + 1)
+    ph = np.linspace(0, 2 * np.pi, cols, endpoint=False)
+    T, Ph = np.meshgrid(th, ph, indexing="ij")
+    pts = np.stack([
+        radius * np.sin(T) * np.cos(Ph),
+        radius * np.cos(T),
+        radius * np.sin(T) * np.sin(Ph),
+    ], -1).reshape(-1, 3).astype(np.float32)
+    uv = np.stack([Ph / (2 * np.pi), T / np.pi], -1).reshape(-1, 2).astype(
+        np.float32)
+    faces = []
+    for r in range(rows):
+        for c in range(cols):
+            a = r * cols + c
+            b = r * cols + (c + 1) % cols
+            cc = (r + 1) * cols + c
+            d = (r + 1) * cols + (c + 1) % cols
+            faces.append([a, cc, b])
+            faces.append([b, cc, d])
+    return pts, uv, np.asarray(faces, np.int32)
+
+
+def make_terrain(n: int, extent: float, amp: float):
+    xs = np.linspace(-extent, extent, n + 1, dtype=np.float32)
+    zs = np.linspace(-extent, extent, n + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    gy = amp * (np.sin(gx * 0.15) * np.cos(gz * 0.2)
+                + 0.3 * np.sin(gx * 0.7 + gz * 0.5))
+    verts = np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.float32)
+    uv = np.stack([(gx + extent) / (2 * extent) * 24,
+                   (gz + extent) / (2 * extent) * 24],
+                  -1).reshape(-1, 2).astype(np.float32)
+    rr, cc = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    a = (rr * (n + 1) + cc).reshape(-1)
+    f1 = np.stack([a, a + 1, a + n + 2], -1)
+    f2 = np.stack([a, a + n + 2, a + n + 1], -1)
+    faces = np.concatenate([f1[:, None], f2[:, None]], 1).reshape(-1, 3)
+    return verts, uv, faces.astype(np.int32)
+
+
+def _cube(s: float):
+    verts = np.array([[x, y, z] for x in (-s, s) for y in (-s, s)
+                      for z in (-s, s)], np.float32)
+    faces = np.array([
+        [0, 2, 3], [0, 3, 1], [4, 5, 7], [4, 7, 6], [0, 1, 5], [0, 5, 4],
+        [2, 6, 7], [2, 7, 3], [0, 4, 6], [0, 6, 2], [1, 3, 7], [1, 7, 5],
+    ], np.int32)
+    return verts, faces
+
+
+def build_config1(O, size: int = 256, **ctx_kw):
+    """Flat-shaded cube (BASELINE config 1, 256x256). Returns
+    (ctx, rc, cube); rotate ``cube`` about y by 0.02 per tick."""
+    ctx = O.CKContext(**ctx_kw)
+    rc = ctx.GetRenderManager().CreateRenderContext(size, size)
+    cam = O.CKCamera(ctx, "cam")
+    cam.SetPosition((0.0, 1.0, -4.0))
+    rc.AttachViewpointToCamera(cam)
+    verts, faces = _cube(0.5)
+    mesh = O.CKMesh(ctx, "cube")
+    mesh.SetPositions(verts)
+    mesh.SetFaces(faces)
+    mesh.BuildNormals()
+    mat = O.CKMaterial(ctx, "mat")
+    mat.SetDiffuse((0.9, 0.4, 0.2, 1.0))
+    mesh.ApplyGlobalMaterial(mat)
+    cube = O.CK3dObject(ctx, "cube")
+    cube.SetCurrentMesh(mesh)
+    return ctx, rc, cube
+
+
+def build_config2(O, width: int = 640, height: int = 480, **ctx_kw):
+    """Lit sphere over a textured plane, 2 lights (BASELINE config 2,
+    640x480). Returns (ctx, rc, ball); rotate ``ball`` by 0.03 per tick."""
+    ctx = O.CKContext(**ctx_kw)
+    rc = ctx.GetRenderManager().CreateRenderContext(width, height)
+    cam = O.CKCamera(ctx, "cam")
+    cam.SetPosition((0.0, 2.0, -7.0))
+    cam.SetOrientation((0.0, -0.15, 1.0))
+    rc.AttachViewpointToCamera(cam)
+
+    spts, suv, sfaces = make_sphere(32, 48, 1.5)
+    sphere_mesh = O.CKMesh(ctx, "sphere")
+    sphere_mesh.SetPositions(spts)
+    sphere_mesh.SetUVs(suv)
+    sphere_mesh.SetFaces(sfaces)
+    sphere_mesh.BuildNormals()
+    smat = O.CKMaterial(ctx, "smat")
+    smat.SetDiffuse((0.8, 0.3, 0.2, 1.0))
+    smat.SetPower(32.0)
+    sphere_mesh.ApplyGlobalMaterial(smat)
+    ball = O.CK3dObject(ctx, "ball")
+    ball.SetCurrentMesh(sphere_mesh)
+    ball.SetPosition((0.0, 0.8, 0.0))
+
+    tex = O.CKTexture(ctx, "checker")
+    img = (np.indices((16, 16)).sum(0) % 2).astype(np.float32)
+    tex.SetImage(np.stack([img, img * 0.8 + 0.1, img * 0.6 + 0.2,
+                           np.ones_like(img)], -1))
+    plane = O.CKMesh(ctx, "plane")
+    plane.SetPositions(np.array([[-6, -1, -6], [6, -1, -6], [6, -1, 6],
+                                 [-6, -1, 6]], np.float32))
+    plane.SetFaces(np.array([[0, 2, 1], [0, 3, 2]], np.int32))
+    plane.SetUVs(np.array([[0, 0], [6, 0], [6, 6], [0, 6]], np.float32))
+    plane.BuildNormals()
+    pmat = O.CKMaterial(ctx, "pmat")
+    pmat.SetDiffuse((0.9, 0.9, 0.9, 1.0))
+    pmat.SetTexture(tex)
+    plane.ApplyGlobalMaterial(pmat)
+    floor = O.CK3dObject(ctx, "floor")
+    floor.SetCurrentMesh(plane)
+
+    sun = O.CKLight(ctx, "sun")
+    sun.SetType(int(VXLIGHT.DIREC))
+    sun.SetOrientation((0.3, -1.0, 0.4))
+    sun.SetSpecularFlag(True)
+    bulb = O.CKLight(ctx, "bulb")
+    bulb.SetType(int(VXLIGHT.POINT))
+    bulb.SetPosition((2.0, 3.0, -2.0))
+    bulb.SetColor((0.4, 0.5, 1.0, 1.0))
+    bulb.SetRange(30.0)
+    return ctx, rc, ball
+
+
+def build_config5(O, width: int = 1024, height: int = 768,
+                  terrain_n: int = 500, n_balls: int = 64, **ctx_kw):
+    """Ballance-scale level (BASELINE config 5, ``bench.build_scene``): a
+    terrain of 2*terrain_n^2 triangles (528,032 triangles in all at the
+    default 500), 64 spheres under a rotating parent, linear fog, textures,
+    specular, a point and a directional light, places with a portal, and
+    host chunk culling. Returns (ctx, rc, spinner); rotate ``spinner``
+    about y per tick."""
+    ctx = O.CKContext(**ctx_kw)
+    rc = ctx.GetRenderManager().CreateRenderContext(width, height)
+    cam = O.CKCamera(ctx, "cam")
+    cam.SetPosition((0.0, 18.0, -60.0))
+    cam.SetOrientation((0.0, -0.25, 1.0))
+    cam.SetFrontPlane(1.0)
+    cam.SetBackPlane(4000.0)
+    rc.AttachViewpointToCamera(cam)
+
+    # The world lives in place_main; an annex room is reachable through a
+    # portal window (its content draws scissored to the portal's screen
+    # rect), and an unconnected room's content is culled by the portal
+    # traversal (reference RCKPlace portals, src/CKSceneGraph.cpp:113-128).
+    place_main = O.CKPlace(ctx, "place_main")
+    place_annex = O.CKPlace(ctx, "place_annex")
+    place_hidden = O.CKPlace(ctx, "place_hidden")
+    cam.SetParent(place_main)
+    rc.SetFogMode(3)
+    rc.SetFogStart(60.0)
+    rc.SetFogEnd(400.0)
+    rc.SetFogColor((0.35, 0.4, 0.5))
+    rc.SetBackgroundColor((0.35, 0.4, 0.5, 1.0))
+
+    tex = O.CKTexture(ctx, "checker")
+    img = (np.indices((32, 32)).sum(0) % 2).astype(np.float32)
+    tex.SetImage(np.stack([img * 0.6 + 0.3, img * 0.5 + 0.35,
+                           img * 0.4 + 0.3, np.ones_like(img)], -1))
+
+    tverts, tuv, tfaces = make_terrain(terrain_n, 300.0, 4.0)
+    terrain_mesh = O.CKMesh(ctx, "terrain")
+    terrain_mesh.SetPositions(tverts)
+    terrain_mesh.SetUVs(tuv)
+    terrain_mesh.SetFaces(tfaces)
+    terrain_mesh.BuildNormals()
+    tmat = O.CKMaterial(ctx, "terrainmat")
+    tmat.SetDiffuse((0.75, 0.8, 0.7, 1.0))
+    tmat.SetTexture(tex)
+    terrain_mesh.ApplyGlobalMaterial(tmat)
+    terrain = O.CK3dObject(ctx, "terrain")
+    terrain.SetCurrentMesh(terrain_mesh)
+    terrain.SetParent(place_main)
+
+    spts, suv, sfaces = make_sphere(12, 18, 1.6)
+    sphere_mesh = O.CKMesh(ctx, "sphere")
+    sphere_mesh.SetPositions(spts)
+    sphere_mesh.SetUVs(suv)
+    sphere_mesh.SetFaces(sfaces)
+    sphere_mesh.BuildNormals()
+    smat = O.CKMaterial(ctx, "spheremat")
+    smat.SetDiffuse((0.85, 0.3, 0.2, 1.0))
+    smat.SetPower(24.0)
+    sphere_mesh.ApplyGlobalMaterial(smat)
+    rng = np.random.default_rng(7)
+    spinner = O.CK3dObject(ctx, "spinner")   # rotating parent
+    spinner.SetParent(place_main)
+    for i in range(n_balls):
+        ball = O.CK3dObject(ctx, f"ball{i}")
+        ball.SetCurrentMesh(sphere_mesh)
+        ball.SetParent(spinner)
+        x, z = rng.uniform(-120, 120, 2)
+        ball.SetPosition((x, 6.0 + rng.uniform(0, 6), z + 40), ref=spinner)
+
+    sun = O.CKLight(ctx, "sun")
+    sun.SetType(int(VXLIGHT.DIREC))
+    sun.SetOrientation((0.4, -1.0, 0.3))
+    sun.SetSpecularFlag(True)
+    bulb = O.CKLight(ctx, "bulb")
+    bulb.SetType(int(VXLIGHT.POINT))
+    bulb.SetPosition((0.0, 25.0, 0.0))
+    bulb.SetColor((0.5, 0.6, 1.0, 1.0))
+    bulb.SetRange(250.0)
+
+    crate_mesh = O.CKMesh(ctx, "crate")
+    cverts, cfaces = _cube(1.8)
+    crate_mesh.SetPositions(cverts)
+    crate_mesh.SetFaces(cfaces)
+    crate_mesh.BuildNormals()
+    cmat = O.CKMaterial(ctx, "cratemat")
+    cmat.SetDiffuse((0.8, 0.65, 0.3, 1.0))
+    crate_mesh.ApplyGlobalMaterial(cmat)
+    for i in range(24):
+        crate = O.CK3dObject(ctx, f"crate{i}")
+        crate.SetCurrentMesh(crate_mesh)
+        crate.SetParent(place_annex)
+        crate.SetPosition((-30.0 + (i % 6) * 5.0, 12.0 + (i // 6) * 5.0,
+                           60.0))
+    for i in range(8):
+        ghost = O.CK3dObject(ctx, f"ghost{i}")
+        ghost.SetCurrentMesh(crate_mesh)
+        ghost.SetParent(place_hidden)
+        ghost.SetPosition((i * 4.0 - 16.0, 10.0, 20.0))
+
+    door = O.CK3dObject(ctx, "door")
+    dm = O.CKMesh(ctx, "doorm")
+    dm.SetPositions(np.array(
+        [[-45.0, 2.0, 30.0], [-10.0, 2.0, 30.0],
+         [-10.0, 30.0, 30.0], [-45.0, 30.0, 30.0]], np.float32))
+    dm.SetFaces(np.zeros((0, 3), np.int32))    # portal geometry only
+    door.SetCurrentMesh(dm)
+    place_main.AddPortal(place_annex, door)
+    rc.EnablePortalTraversal(True)
+    return ctx, rc, spinner

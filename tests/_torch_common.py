@@ -1,0 +1,288 @@
+"""Shared helpers of the tests that hold ckrenderengine_tpu_torch against
+the reference package (ckrenderengine_tpu) on the CPU."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+torch.set_num_threads(2)
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def reference_winners(static, dyn_f, dyn_i, params):
+    """(best_id, best_depth, setup) of a reference-package frame from its
+    packed inputs, through the reference's own stages run one operation at
+    a time (so no multiply-add is contracted across them) and its flat exact
+    solve; ``setup`` is the triangle-setup dict as numpy arrays."""
+    import jax.numpy as jnp
+    from ckrenderengine_tpu.pipeline import frame as jfr
+    from ckrenderengine_tpu.pipeline.packing import has_field
+    from ckrenderengine_tpu.raster import deferred as jdf
+
+    layout = params["layout"]
+    scene, _sprites, d = jfr.unpack_scene(static, jnp.asarray(dyn_f),
+                                          jnp.asarray(dyn_i), layout)
+    corner = params["corner"]
+    if params["cull"] is not None and has_field(layout, "chunk_idx"):
+        scene, corner = jfr.compact_scene_chunks(
+            scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
+    clip, color, spec, fog, _w, uv, clipd_v, refl_v = jfr.transform_and_light(
+        scene, params["levels"], corner=corner,
+        want_texgen=params["want_texgen"])
+    batch = jfr.assemble_triangles(scene, clip, color, spec, fog, uv, clipd_v,
+                                   refl_v, corner=corner)
+    defer = jdf.deferred_mask(scene.state_i)[batch.state_idx] & batch.valid
+    setup = jdf.triangle_setup(batch.xyw, batch.z, batch.state_idx,
+                               batch.valid, scene.state_i,
+                               clip_rect=batch.clip_rect, clipd=batch.clipd,
+                               planar=batch.planar)
+    bi, bd = jdf.depth_reduce(setup, defer, scene.clear_z, scene.viewport,
+                              params["height"], params["width"])
+    return (np.asarray(bi), np.asarray(bd),
+            {k: np.asarray(v) for k, v in setup.items()})
+
+
+def port_winners(static, dyn_f, dyn_i, params):
+    """(fb, zb, best_id) of a port frame from its packed inputs."""
+    from ckrenderengine_tpu_torch.pipeline import frame as tfr
+
+    fb, zb, stats = tfr.render_frame_packed(static, dyn_f, dyn_i, **params,
+                                            want_stats=True)
+    return fb, zb, stats["WinnerIds"]
+
+
+_EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _winner_edges(ids, setup_np):
+    """(e (H,W,3), |a*px| + |b*py| + |c| (H,W,3), z, ivs) of each pixel's
+    winner in float64 (pixel centres at +0.5)."""
+    h, w = ids.shape
+    py, px = np.meshgrid(np.arange(h, dtype=np.float64) + 0.5,
+                         np.arange(w, dtype=np.float64) + 0.5, indexing="ij")
+    i = np.clip(ids, 0, None)
+    ec = np.asarray(setup_np["e_coef"], np.float64)[i]      # (H,W,3,3)
+    terms = (np.abs(ec[..., 0] * px[..., None])
+             + np.abs(ec[..., 1] * py[..., None]) + np.abs(ec[..., 2]))
+    e = ec[..., 0] * px[..., None] + ec[..., 1] * py[..., None] + ec[..., 2]
+    zz = np.asarray(setup_np["z"], np.float64)[i]
+    ivs = np.asarray(setup_np["inv_det_s"], np.float64)[i]
+    return e, terms, zz, ivs
+
+
+def edge_error_bound(ids, setup_np):
+    """(3,H,W) forward-error bound of one f32 evaluation of the winner's
+    edge values ``e = a*px + b*py + c`` (3 roundings of the largest term).
+    Two implementations that round the formula differently — the
+    reference's XLA fusions contract multiply-adds into FMAs, the port never
+    does — may differ by up to twice this bound; it is large only where the
+    plane cancels large terms."""
+    _e, terms, _z, _ivs = _winner_edges(ids, setup_np)
+    return np.moveaxis(np.where((ids >= 0)[..., None],
+                                3 * _EPS32 * terms, 0.0), -1, 0)
+
+
+def depth_error_bound(ids, setup_np):
+    """(H,W) forward-error bound of one f32 evaluation of the winner's depth
+    ``(e0*z0 + e1*z1 + e2*z2) * ivs`` (see :func:`edge_error_bound`)."""
+    e, terms, zz, ivs = _winner_edges(ids, setup_np)
+    ivs = np.abs(ivs)
+    err_e = 3 * _EPS32 * terms
+    bound = (np.sum(err_e * np.abs(zz), -1)
+             + 3 * _EPS32 * np.sum(np.abs(e * zz), -1)) * ivs
+    depth = np.abs(np.sum(e * zz, -1) * ivs)
+    return np.where(ids >= 0, bound + _EPS32 * depth, 0.0)
+
+
+def _assert_close_or_bounded(got, ref, bound_fn, atol, max_frac):
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    diff = np.abs(got - ref)
+    off = diff > atol
+    assert off.mean() <= max_frac, (int(off.sum()), float(diff.max()))
+    if off.any():
+        bound = bound_fn()
+        assert np.all(diff[off] <= 2 * bound[off] + atol), (
+            float(diff[off].max()), float(bound[off].min()))
+
+
+def assert_depth_close(got, ref, ids, setup_np, atol=4e-6, max_frac=1e-3):
+    """Depths within ``atol`` on all but at most ``max_frac`` of the pixels;
+    those must lie within twice the f32 forward-error bound of their
+    winner's depth formula (:func:`depth_error_bound`)."""
+    _assert_close_or_bounded(got, ref,
+                             lambda: depth_error_bound(ids, setup_np),
+                             atol, max_frac)
+
+
+def assert_eplanes_close(got, ref, ids, setup_np, atol=1e-5):
+    """Winner edge values within ``atol`` or, since raw edge values grow
+    with the triangle (1e5 and more for large ones, where one ULP is 0.01),
+    within twice their f32 forward-error bound (:func:`edge_error_bound`)
+    — on every pixel."""
+    max_frac = 1.0
+    _assert_close_or_bounded(got, ref,
+                             lambda: edge_error_bound(ids, setup_np),
+                             atol, max_frac)
+
+
+def edge_condition(ids, setup_np):
+    """(H,W) condition number of the winner's edge evaluation: the largest
+    ratio (|a*px| + |b*py| + |c|) / |e| over its three edges. Near 1 for
+    well-conditioned pixels; large where a pixel sits on an edge and the
+    plane cancels large terms, so that FMA contraction changes e (and the
+    perspective weights e/sum(e) the shade interpolates with)."""
+    e, terms, _z, _ivs = _winner_edges(ids, setup_np)
+    cond = (terms / np.maximum(np.abs(e), 1e-30)).max(-1)
+    return np.where(ids >= 0, cond, 0.0)
+
+
+def assert_fb_close(got, ref, ids, setup_np, atol=2e-6, max_frac=1e-2):
+    """Framebuffers within ``atol`` on all but at most ``max_frac`` of the
+    pixels; those stay within one 8-bit step (1/255) and sit on
+    ill-conditioned edges (:func:`edge_condition` > 10, against a typical
+    value of about 4), where the reference's FMA-contracted edge arithmetic
+    rounds the interpolation weights (and the mip LOD) apart from the
+    port's."""
+    diff = np.abs(np.asarray(got, np.float64)
+                  - np.asarray(ref, np.float64)).max(0)
+    off = diff > atol
+    assert off.mean() <= max_frac, (int(off.sum()), float(diff.max()))
+    if off.any():
+        assert diff.max() <= 1.0 / 255.0, float(diff.max())
+        cond = edge_condition(ids, setup_np)
+        assert np.all(cond[off] > 10.0), cond[off].min()
+
+
+# How far one package's frame depth may lie from the exact depth of its
+# winner, in units of depth_error_bound. The bound covers only the final
+# depth formula; each package also rounds the vertex transform and the
+# triangle setup its own way (the reference's XLA fusions contract
+# multiply-adds into FMAs there too), and an ill-conditioned pixel amplifies
+# those differences the same way. The slice scenes need up to 1.8.
+_FRAME_SLACK = 4.0
+
+
+def exact_depth(ids, setup_np):
+    """(H,W) float64 depth of each pixel's winner (NaN on the background)."""
+    e, _terms, zz, ivs = _winner_edges(ids, setup_np)
+    return np.where(ids >= 0, np.sum(e * zz, -1) * ivs, np.nan)
+
+
+def assert_winner_ties(ids, ids_ref, setup_np):
+    """Where two frames' winner maps differ, the two answers tie within
+    f32 rounding: two winners' exact depths lie within ``_FRAME_SLACK``
+    times the sum of their :func:`depth_error_bound`; where only one map
+    covers the pixel, it sits on an edge of that winner (|e| within twice
+    :func:`edge_error_bound`)."""
+    differ = ids != ids_ref
+    both = differ & (ids >= 0) & (ids_ref >= 0)
+    gap = np.abs(exact_depth(ids, setup_np) - exact_depth(ids_ref, setup_np))
+    tol = _FRAME_SLACK * (depth_error_bound(ids, setup_np)
+                          + depth_error_bound(ids_ref, setup_np))
+    assert np.all(gap[both] <= tol[both]), (gap[both] / tol[both]).max()
+    one = differ & ~both
+    if one.any():
+        cover = np.where(ids >= 0, ids, ids_ref)
+        e, _terms, _z, _ivs = _winner_edges(cover, setup_np)
+        on_edge = np.any(np.abs(np.moveaxis(e, -1, 0))
+                         <= 2 * edge_error_bound(cover, setup_np), axis=0)
+        assert np.all(on_edge[one]), int((~on_edge & one).sum())
+
+
+def assert_frame_depth_close(got, ref, ids, setup_np, where, atol=4e-6):
+    """Depths of two whole frames on the pixels ``where``: within ``atol``
+    plus twice ``_FRAME_SLACK`` times the winner's
+    :func:`depth_error_bound` on every one."""
+    bound = depth_error_bound(ids, setup_np)[where]
+    diff = np.abs(np.asarray(got, np.float64)
+                  - np.asarray(ref, np.float64))[where]
+    assert np.all(diff <= atol + 2 * _FRAME_SLACK * bound), float(
+        ((diff - atol) / bound).max())
+
+
+def assert_frame_fb_close(got, ref, ids, setup_np, where, atol=1.0 / 255.0,
+                          max_frac=1e-3, min_cond=1e3):
+    """Framebuffers of two whole frames on the pixels ``where``: within one
+    8-bit step (``atol``) on all but ``max_frac`` of them; those sit on
+    edges whose :func:`edge_condition` exceeds ``min_cond``, where the two
+    packages' interpolation weights round apart far enough for a
+    nearest-texel lookup to land on the neighbouring texel."""
+    diff = np.abs(np.asarray(got, np.float64)
+                  - np.asarray(ref, np.float64)).max(0)
+    off = (diff > atol) & where
+    assert off.sum() <= max_frac * where.sum(), (int(off.sum()),
+                                                 float(diff[where].max()))
+    if off.any():
+        cond = edge_condition(ids, setup_np)
+        assert np.all(cond[off] > min_cond), cond[off].min()
+
+
+def render_both(build, **kw):
+    """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
+    each package's object model and rendered once by each through
+    Render(): (reference context, port context, the reference's packed
+    inputs, reference_winners of them)."""
+    import ckrenderengine_tpu.objects as J
+    import ckrenderengine_tpu_torch.objects as O
+
+    _cj, rj, _mj = build(J, **kw)
+    rj.Render()
+    _ct, rt, _mt = build(O, device="cpu", **kw)
+    rt.Render()
+    packed = rj._fill_packed([], [])
+    return rj, rt, packed, reference_winners(*packed)
+
+
+def check_frame_against_reference(ids, fb, zb, ref, rj):
+    """A port frame (winner ids, fb, zb) against the reference's solve
+    ``ref`` = (ids, depth, setup) of the same inputs and the reference's
+    rendered frame ``rj`` (tests/test_torch_slice.py says why each bound).
+    """
+    ids_ref, depth_ref, setup = ref
+    same = ids == ids_ref
+    assert same.mean() >= 0.999, same.mean()
+    assert_winner_ties(ids, ids_ref, setup)
+    assert_frame_depth_close(zb, depth_ref, ids_ref, setup, same)
+
+    fb_ref, zb_ref = np.asarray(rj.fb), np.asarray(rj.zb)
+    bound = depth_error_bound(ids_ref, setup)
+    consistent = (np.abs(zb_ref.astype(np.float64) - depth_ref)
+                  <= 4e-6 + 2 * _FRAME_SLACK * bound)
+    match = same & consistent
+    assert match.mean() >= 0.999, match.mean()
+    assert_frame_depth_close(zb, zb_ref, ids_ref, setup, match)
+    assert_frame_fb_close(fb, fb_ref, ids_ref, setup, match)
+    assert (ids_ref >= 0).mean() > 0.1
+
+
+def check_render(pair):
+    """The port's Render() frame of ``pair`` (from :func:`render_both`)
+    against the reference; the port's winners from its own packed inputs.
+    Returns the port's frame parameters."""
+    rj, rt, _packed, ref = pair
+    st, tf, ti, tp = rt._fill_packed([], [])
+    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf),
+                                 torch.as_tensor(ti), tp)
+    check_frame_against_reference(to_np(ids), to_np(rt.fb), to_np(rt.zb),
+                                  ref, rj)
+    return tp
+
+
+def check_reference_inputs(pair):
+    """The reference's own packed inputs of ``pair``, converted with
+    convert.from_reference, through the port's render_frame_packed."""
+    from ckrenderengine_tpu_torch import convert
+
+    rj, _rt, (static, dyn_f, dyn_i, params), ref = pair
+    st, tf, ti, tp = convert.from_reference(
+        {k: np.asarray(v) for k, v in static.items()}, dyn_f, dyn_i, params,
+        "cpu")
+    fb, zb, ids = port_winners(st, tf, ti, tp)
+    check_frame_against_reference(to_np(ids), to_np(fb), to_np(zb), ref, rj)
