@@ -48,3 +48,15 @@ def setup_from_reference(setup_np: dict, device=None) -> dict:
     """A reference ``triangle_setup`` dict (numpy arrays) -> torch tensors
     with the dtypes this package's setup uses (bool masks stay bool)."""
     return {k: _tensor(v, device) for k, v in setup_np.items()}
+
+
+def batch_from_reference(obatch_np, device=None):
+    """A reference ``DeviceBatch`` (its 11 per-triangle fields as numpy
+    arrays; an ``ordered_subset`` output included) -> this package's
+    ``raster.torch_backend.DeviceBatch`` on ``device``, bit for bit. The
+    reference's optional ``planar`` payload is not carried: it holds the
+    same values as the fields."""
+    from .raster.torch_backend import DeviceBatch
+
+    return DeviceBatch(*(_tensor(getattr(obatch_np, f), device)
+                         for f in DeviceBatch._fields))

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of this package.
 
-Every ``csrc/*.cu`` source compiles with ``nvcc`` for Hopper
+Every ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers they share)
+compiles with ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into ONE shared library with a
 plain C interface, loaded through ``ctypes``. The build happens on first
 use, into ``ckrenderengine_tpu_torch/_build/`` (git-ignored), under a file
@@ -24,8 +25,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +34,9 @@ _SIGNATURES = {
     "ck_reduce_flat": (_P, _I, _P, _P, _P, _I, _I, _P),
     "ck_solve_tiled": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P,
                        _P, _P, _I, _I, _I, _I, _P),
+    "ck_ordered_blend": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ck_ordered_peel": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
+                        _I, _I, _I, _P),
 }
 
 
@@ -66,8 +69,9 @@ def library() -> KernelLibrary:
     if _LOADED is not None:
         return _LOADED
     sources = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(_BUILD, exist_ok=True)
@@ -76,11 +80,24 @@ def library() -> KernelLibrary:
     t0 = time.monotonic()
     if not os.path.exists(so):
         tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        # One nvcc per source, all started together, then one link.
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj,
+                                   src], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        if any(proc.returncode for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        link = subprocess.run([_nvcc(), "-shared", NVCC_FLAGS[0],
+                               NVCC_FLAGS[1], "-o", tmp, *objs],
                               capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{log}")
+        for obj in objs:
+            os.remove(obj)
         with open(log_path, "w") as f:
             f.write(log)
         os.replace(tmp, so)

@@ -53,7 +53,7 @@ class CKRenderContext(CKObject):
         self.stereo_enabled = False
         self.target_texture = None
         # Solve caps stay on the t_count heuristic: the capacity governor
-        # is not ported yet (ROADMAP.md port queue item 16).
+        # is not ported yet (ROADMAP.md port queue item 12).
         self._solve_caps = None
         # Host chunk-cull survivor cap (bumps pre-dispatch; never drops).
         self._chunk_cap = None
@@ -94,7 +94,7 @@ class CKRenderContext(CKObject):
         """Frame windows (W frames per device dispatch) are not carried yet:
         W = 1 is the only accepted value."""
         if int(window) > 1:
-            raise unported("frame windows (SetFramePipelining W > 1)", 9)
+            raise unported("frame windows (SetFramePipelining W > 1)", 5)
 
     def GetFramePipelining(self) -> int:
         return 1
@@ -304,7 +304,7 @@ class CKRenderContext(CKObject):
             # Skinned entities get a private pool block (their pool vertices
             # are overwritten per-frame by the device skin stage).
             if ent.skin is not None:
-                raise unported("skinned entities", 10)
+                raise unported("skinned entities", 6)
             mesh_key = (id(mesh), -1)
             if mesh_key not in mesh_offset:
                 mesh_offset[mesh_key] = pool_count
@@ -1313,7 +1313,7 @@ class CKRenderContext(CKObject):
         """User vertex shader: fn(posw, nrmw, scene) -> (posw', nrmw') run
         in the vertex stage (the reference's CreateVertexShader path). Not
         ported yet: a frame with a shader set raises (ROADMAP.md port queue
-        item 15). None clears."""
+        item 11). None clears."""
         self.vertex_shader = fn
         self.context._bump_dynamic()
 
@@ -1325,7 +1325,7 @@ class CKRenderContext(CKObject):
         the fixed-function texture-blend stage (the reference's
         CreatePixelShader/SetPixelShader,
         CKDX9RasterizerContext.cpp:1445-1553). Not ported yet: a frame with
-        a shader set raises (ROADMAP.md port queue item 15). None clears."""
+        a shader set raises (ROADMAP.md port queue item 11). None clears."""
         self.pixel_shader = fn
         self.context._bump_dynamic()
 
@@ -1376,7 +1376,7 @@ class CKRenderContext(CKObject):
         return out
 
     def BindAnimation(self, clip) -> bool:
-        raise unported("device-bound keyed animation (BindAnimation)", 10)
+        raise unported("device-bound keyed animation (BindAnimation)", 6)
 
     def GetBoundAnimation(self):
         return None
@@ -1779,24 +1779,31 @@ class CKRenderContext(CKObject):
         dyn_f = torch.as_tensor(dyn_f, device=dev)
         dyn_i = torch.as_tensor(dyn_i, device=dev)
         rm = self.context.render_manager
-        want_stats = (bool(int(rm.options.get("EnableDebugMode", 0)))
-                      if rm is not None else False)
+        debug_stats = (bool(int(rm.options.get("EnableDebugMode", 0)))
+                       if rm is not None else False)
         # CLEARBACK/CLEARZ off -> accumulate over last frame's buffers
         # (reference Clear flag handling, src/CKRenderContext.cpp:438-544).
         prev_fb = (None if (self._frame_flags & CK_RENDER_CLEARBACKBUFFER)
                    else self.fb)
         prev_zb = (None if (self._frame_flags & CK_RENDER_CLEARZBUFFER)
                    else self.zb)
+        # The ordered pass's counters are host values the frame holds
+        # anyway, so every frame reports them.
+        ordered = {}
         out = fr.render_frame_packed(
-            static, dyn_f, dyn_i, **params, want_stats=want_stats,
-            prev_fb=prev_fb, prev_zb=prev_zb)
-        if want_stats:
+            static, dyn_f, dyn_i, **params, want_stats=debug_stats,
+            prev_fb=prev_fb, prev_zb=prev_zb, ordered_stats=ordered)
+        s = self.stats
+        s.OrderedPeelOverflow = ordered["OrderedPeelOverflow"]
+        s.OrderedPeelRounds = ordered["OrderedPeelRounds"]
+        s.OrderedPeelCorrected += ordered["OrderedPeelCorrected"]
+        s.OrderedReplays += ordered["OrderedReplays"]
+        if debug_stats:
             out, dev_stats = out[:-1], out[-1]
-            self.stats.TileBinPeak = int(dev_stats["TileBinPeak"])
+            s.TileBinPeak = int(dev_stats["TileBinPeak"])
             if "SolveLivePairs" in dev_stats:
-                self.stats.SolveLivePairs = int(dev_stats["SolveLivePairs"])
-                self.stats.SolveFallbackRows = int(
-                    dev_stats["SolveFallbackRows"])
+                s.SolveLivePairs = int(dev_stats["SolveLivePairs"])
+                s.SolveFallbackRows = int(dev_stats["SolveFallbackRows"])
         return out
 
     def _atest_prefail_mask(self, mat, mesh, grp):
@@ -2071,7 +2078,7 @@ class CKRenderContext(CKObject):
 
     def SetTargetTexture(self, texture):
         if texture is not None:
-            raise unported("render-to-texture (SetTargetTexture)", 22)
+            raise unported("render-to-texture (SetTargetTexture)", 18)
         self.target_texture = None
 
     def GetTargetTexture(self):
@@ -2163,7 +2170,7 @@ class CKRenderContext(CKObject):
 
     def SetTileSharding(self, n_bands: int = 0, devices=None) -> bool:
         if n_bands > 1:
-            raise unported("framebuffer tile sharding", 17)
+            raise unported("framebuffer tile sharding", 13)
         return True
 
     def GetTileSharding(self) -> int:
@@ -2171,7 +2178,7 @@ class CKRenderContext(CKObject):
 
     def SetStereoParameters(self, eye_separation: float, focal_length: float):
         if eye_separation > 0:
-            raise unported("stereo rendering", 22)
+            raise unported("stereo rendering", 18)
 
     def GetStereoParameters(self):
         return 0.0, 0.0

@@ -168,13 +168,15 @@ class VxStats:
         # Populated under EnableDebugMode (avoids a per-frame device readback).
         self.TileBinPeak = 0
         # Peel path reported phase-A capacity overflow this frame (per-pixel
-        # depth iterates since round 4, so this is the only overflow class).
-        # Since round 5 an overflowed PRESENTED frame re-renders through the
-        # exact sequential ordered pass at the fb read (_peel_correct) —
-        # the flag now means "this frame cost extra time", never pixels.
+        # depth iterates, so this is the only overflow class). The frame
+        # then replays the exact sequential ordered pass itself: the flag
+        # means "this frame cost extra time", never pixels.
         self.OrderedPeelOverflow = False
-        # Number of frames corrected that way.
+        # Number of peel frames corrected that way.
         self.OrderedPeelCorrected = 0
+        # Number of frames whose ordered kernel (blend or peel) overflowed
+        # and replayed the exact tiled ordered pass.
+        self.OrderedReplays = 0
         # Peel rounds the last sampled frame executed (1 = every pixel's
         # fragment list fit one K-layer window; the alpha-test pre-gate and
         # the K bump exist to keep this at 1).

@@ -1,20 +1,26 @@
 """The one-frame device program: scene state -> framebuffer, in torch.
 
-The counterpart of ``ckrenderengine_tpu.pipeline.frame`` for the opaque
-frame: instead of walking a pointer tree and issuing thousands of stateful
-draw calls (CKRenderedScene::Draw -> RCKMesh::Render -> DrawPrimitive,
+The counterpart of ``ckrenderengine_tpu.pipeline.frame``: instead of walking
+a pointer tree and issuing thousands of stateful draw calls
+(CKRenderedScene::Draw -> RCKMesh::Render -> DrawPrimitive,
 src/CKRenderedScene.cpp:152-355), the whole scene is flat device tensors and
 one eager pass does
 
     unpack -> compose transforms -> compact culled chunks -> transform + light
     -> assemble + set up triangles -> visibility solve (CUDA B1 or B2)
-    -> deferred shade
+    -> deferred shade -> ordered pass (render_pass*, CUDA B3 or B4)
 
 The solve dispatch is the reference's, minus the TPU lane rule: the tiled
 solve (B1) when ``t > 4096`` or ``t*H*W > 2^26``, else the flat solve (B2)
-when there is no kept z-buffer and no user clip plane, else B1. CPU tensors
-take the same branches through the kernels' plain versions. Features outside
-this slice raise ``NotImplementedError`` naming their ROADMAP item.
+when there is no kept z-buffer and no user clip plane, else B1. The ordered
+pass composites the non-deferred triangles in sorted draw order
+(:func:`ordered_subset`): the exact flat pass below ``ordered_cap*H*W <=
+2^26``; above it the affine blend kernel B3 for untextured alpha-over, the
+textured peel B4 (TexturedPeel) with the quantized layer shade, else the
+exact tiled pass. A kernel's phase-A overflow replays the exact tiled pass
+inside the frame (``OrderedReplays``). CPU tensors take the same branches
+through the kernels' plain versions. Features outside the ported slices
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -132,13 +138,13 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
     Returns (clip (IV,4), color (IV,4), spec (IV,3), fog (IV,), world
     (N,4,4), uv (IV,2), clipd_v (IV,P) | None, refl_v None)."""
     if vertex_shader is not None:
-        raise unported("vertex shaders", 15)
+        raise unported("vertex shaders", 11)
     if want_texgen:
-        raise unported("texture coordinate generation (TexGen)", 14)
+        raise unported("texture coordinate generation (TexGen)", 10)
     if want_bump:
-        raise unported("bump-environment mapping", 14)
+        raise unported("bump-environment mapping", 10)
     if want_cube:
-        raise unported("cube-environment mapping", 14)
+        raise unported("cube-environment mapping", 10)
     if world is None:
         world = compose_world(scene.local, scene.parent, levels)
     # Row N = identity: world-space vertex sources bind here.
@@ -306,7 +312,7 @@ def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
     of every head triangle), so their per-corner data is a slice; only the
     tail pays the per-corner gathers."""
     if refl_v is not None:
-        raise unported("cube-environment mapping", 14)
+        raise unported("cube-environment mapping", 10)
     _nc, itc, _p0 = corner
     i0, i1, i2 = scene.tri_idx[:, 0], scene.tri_idx[:, 1], scene.tri_idx[:, 2]
 
@@ -403,7 +409,116 @@ def opaque_setup(scene: SceneDevice, levels: tuple, world=None,
     setup = df.triangle_setup(batch.xyw, batch.z, batch.state_idx,
                               batch.valid, scene.state_i,
                               clip_rect=batch.clip_rect, clipd=batch.clipd)
-    return batch, setup, defer_tri
+    return batch, setup, defer_tri, tri_bits
+
+
+def ordered_subset(batch: rb.DeviceBatch, defer_tri: torch.Tensor,
+                   transparent: torch.Tensor, ordered_cap: int,
+                   tri_priority=None) -> rb.DeviceBatch:
+    """Compact the non-deferred triangles into an ``ordered_cap``-slot
+    stream: cutouts and z-overrides first in stream (priority) order, then
+    transparent triangles back to front — higher priority renders first,
+    and within a priority band farther triangles render first (the device
+    analogue of CKSceneGraphRootNode::SortTransparentObjects,
+    src/CKSceneGraph.cpp:618-752).
+
+    ``transparent``: (IT,) bool, alpha-blend triangles (depth-sorted).
+    ``tri_priority``: optional (IT,) f32 entity render priority.
+    The sort key is the mean of the corners' z/w, summed corner by corner
+    and divided by 3 (the reference frame's arithmetic); both sorts are
+    stable."""
+    it = batch.valid.shape[0]
+    dev = batch.valid.device
+    ordered = batch.valid & ~defer_tri
+    w_ = batch.xyw[..., 2]
+    zw = batch.z / torch.where(torch.abs(w_) < 1e-12, 1e-12, w_)
+    depth_mean = (zw[:, 0] + zw[:, 1] + zw[:, 2]) / 3.0
+
+    arange = torch.arange(it, device=dev)
+    big = 3.0e38
+    o_key = torch.where(ordered & ~transparent, arange.to(torch.float32),
+                        big)
+    o_perm = torch.argsort(o_key, stable=True)
+    depth01 = torch.clamp(depth_mean, 0.0, 1.0)
+    # Priority bands (integers, scaled past the [0,1] depth term) primary,
+    # back-to-front depth secondary.
+    sort_val = -depth01
+    if tri_priority is not None:
+        sort_val = -tri_priority * 4.0 - depth01
+    t_key = torch.where(ordered & transparent, sort_val, big)
+    t_perm = torch.argsort(t_key, stable=True)
+    n_first = (ordered & ~transparent).sum()
+    slot = torch.arange(ordered_cap, device=dev)
+    t_slot = torch.clamp(slot - n_first, 0, it - 1)
+    perm = torch.where(slot < n_first, o_perm[torch.clamp(slot, 0, it - 1)],
+                       t_perm[t_slot])
+    sel_valid = (slot < ordered.sum()) & ordered[perm]
+    return rb.DeviceBatch(*(sel_valid if name == "valid" else a[perm]
+                            for name, a in zip(rb.DeviceBatch._fields,
+                                               batch)))
+
+
+def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
+                      sampler_profile, height: int, width: int):
+    """Shade and blend peeled ordered layers (draw order per pixel).
+
+    ``lids``/``les``: one peel round's outputs — per layer the covering
+    draw's index and raw edge values. Each layer shades ONCE per pixel
+    through the quantized rows (texture sampling included), then composites
+    with the draw's blend mode (alpha-over / replace) after its alpha test:
+    the semantics of the sequential pass, as K dense passes."""
+    from ..raster.types import (
+        SF_ALPHAREF, SI_ALPHABLEND, SI_ALPHAFUNC, SI_ALPHATEST,
+    )
+
+    t = obatch.valid.shape[0]
+    if obatch.refl.shape[-1]:
+        raise unported("cube-environment mapping", 10)
+    all_persp = (sampler_profile is not None and len(sampler_profile) > 3
+                 and bool(sampler_profile[3]))
+    inv_det_s = None
+    if not all_persp:
+        v0, v1, v2 = obatch.xyw[:, 0], obatch.xyw[:, 1], obatch.xyw[:, 2]
+        det = torch.sum(v0 * torch.linalg.cross(v1, v2), dim=-1)
+        inv_det_s = 1.0 / torch.clamp(torch.abs(det), min=1e-30)
+    tbl = df.shade_row_table_quant(
+        obatch.xyw, obatch.color, obatch.specular, obatch.uv, obatch.fog,
+        obatch.state_idx, inv_det_s=inv_det_s, want_ws=not all_persp)
+    st4 = torch.stack([
+        (scene.state_i[:, SI_ALPHABLEND] != 0).to(torch.float32),
+        scene.state_i[:, SI_ALPHAFUNC].to(torch.float32),
+        scene.state_f[:, SF_ALPHAREF],
+        (scene.state_i[:, SI_ALPHATEST] != 0).to(torch.float32)], dim=1)
+    zeros = torch.zeros((4, height, width), dtype=torch.float32,
+                        device=fb.device)
+    for s in range(lids.shape[0]):
+        hit = lids[s] >= 0
+        tid = torch.clamp(lids[s], 0, t - 1).reshape(-1).long()
+        rows_q = tbl.index_select(0, tid).T.reshape(tbl.shape[1], height,
+                                                    width)
+        rows_q = torch.where(hit[None], rows_q, 0)
+        full = df.expand_rows_quant(rows_q, scene.state_i, scene.state_f,
+                                    scene.tex_hw, want_ws=not all_persp,
+                                    has_refl=False)
+        src = df.shade_rows(full, hit, scene.tex_planes, scene.tex_hw,
+                            scene.fog_color, zeros, height, width,
+                            sampler_profile=sampler_profile,
+                            tex_quad=scene.tex_quad,
+                            eplanes=(les[s, 0], les[s, 1], les[s, 2]))
+        stidx = torch.clamp(rows_q[df.SH_Q_STIDX].reshape(-1).long(), 0,
+                            st4.shape[0] - 1)
+        stp = st4.index_select(0, stidx).T.reshape(4, height, width)
+        blend_on = stp[0] != 0
+        sa = src[3]
+        at_ok = rb.compare_op(stp[1].to(torch.int32), sa, stp[2])
+        keep = hit & (at_ok | ~(stp[3] != 0))
+        # shade_rows zeroed colorwrite-off pixels through its hit mask; the
+        # peel kernel already drops colorwrite-off rows.
+        a = torch.where(keep, torch.where(blend_on, 1.0 - sa, 0.0), 1.0)
+        b = torch.where(keep[None],
+                        torch.where(blend_on[None], src * sa[None], src), 0.0)
+        fb = a[None] * fb + b
+    return fb
 
 
 def _solve_caps(t_count: int, solve_caps) -> dict:
@@ -427,19 +542,23 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
                       prev_fb=None, prev_zb=None,
                       corner: tuple = (0, 0, 0),
                       want_texgen: bool = False,
-                      solve_caps: tuple | None = None):
-    """Opaque frame: clear -> vertex stage -> deferred opaque solve + shade.
+                      solve_caps: tuple | None = None,
+                      ordered_stats: dict | None = None):
+    """Full frame: clear -> vertex stage -> deferred opaque solve + shade
+    -> the ordered rest (cutouts, z-overrides, sorted transparency).
 
     ``prev_fb``/``prev_zb``: last frame's buffers when the clear flags are
     off (reference RCKRenderContext::Clear, src/CKRenderContext.cpp:438-544):
-    rendering then accumulates over the previous frame. ``ordered_cap``
-    must be 0 (the ordered/transparent pass is not carried yet).
+    rendering then accumulates over the previous frame. ``ordered_cap``:
+    static upper bound on the triangles the ordered pass takes (None = all
+    triangles, 0 = no ordered pass). ``ordered_stats``: a dict that
+    receives the ordered pass's host counters (OrderedPeelOverflow,
+    OrderedPeelRounds, OrderedPeelCorrected, OrderedReplays) whatever
+    ``want_stats`` says.
 
     Returns (fb (4,H,W) f32, zb (H,W) f32[, stats dict])."""
-    if ordered_cap is None or ordered_cap > 0:
-        raise unported("the ordered (transparent / alpha-test) pass", 6)
     if want_stencil:
-        raise unported("the stencil pass", 7)
+        raise unported("the stencil pass", 3)
     if background is not None:
         clear_fb = background
     elif prev_fb is not None:
@@ -449,7 +568,7 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
             torch.float32).expand(4, height, width)
     z_init = scene.clear_z if prev_zb is None else prev_zb
 
-    batch, setup, defer_tri = opaque_setup(
+    batch, setup, defer_tri, tri_bits = opaque_setup(
         scene, levels, world, vertex_shader=vertex_shader,
         want_bump=want_bump, want_cube=want_cube, corner=corner,
         want_texgen=want_texgen, sampler_profile=sampler_profile)
@@ -472,14 +591,23 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
         width, batch_refl=batch.refl, pixel_shader=pixel_shader,
         sampler_profile=sampler_profile, tex_quad=scene.tex_quad)
     zb = best_depth
+    if ordered_cap is None:
+        ordered_cap = t_count
+    ordered = dict(OrderedPeelOverflow=False, OrderedPeelRounds=0,
+                   OrderedPeelCorrected=0, OrderedReplays=0)
+    if ordered_cap > 0:
+        fb, zb = _ordered_pass(
+            scene, batch, defer_tri, tri_bits, fb, zb, ordered_cap, height,
+            width, sort_transparent, pixel_shader, sampler_profile, ordered)
+    if ordered_stats is not None:
+        ordered_stats.update(ordered)
     if not want_stats:
         return fb, zb
-    # Stats: the reference's counters, plus the per-pixel winner id map
-    # (-1 = background) for parity checks.
-    no = torch.zeros((), dtype=torch.bool, device=fb.device)
+    # Stats: the reference's counters, the ordered path's (which path the
+    # frame took), and the per-pixel winner id map (-1 = background) for
+    # parity checks.
     zero = torch.zeros((), dtype=torch.int32, device=fb.device)
-    stats = {"TileBinPeak": zero, "OrderedPeelOverflow": no,
-             "OrderedPeelRounds": zero, "WinnerIds": best_id}
+    stats = {"TileBinPeak": zero, "WinnerIds": best_id, **ordered}
     if tile_peak is not None:
         stats.update({"TileBinPeak": tile_peak[0],
                       "SolveLivePairs": tile_peak[1],
@@ -487,6 +615,98 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
                       + tile_peak[4],
                       "SolveBinStats": tile_peak})
     return fb, zb, stats
+
+
+def ordered_batch(scene: SceneDevice, batch, defer_tri, tri_bits,
+                  ordered_cap: int, sort_transparent: bool = True):
+    """The frame's ordered stream: :func:`ordered_subset` of the
+    non-deferred, non-stencil triangles with the entities' render
+    priorities, transparent triangles sorted unless ``sort_transparent``
+    is off (SortTransparentObjects=0 keeps stream order)."""
+    transparent = tri_bits[:, 1] > 0.5
+    if not sort_transparent:
+        transparent = torch.zeros_like(transparent)
+    # Stencil-only triangles are consumed by the stencil pass alone.
+    stencil_tri = (tri_bits[:, 2] > 0.5) & batch.valid
+    prio_ext = torch.cat([scene.entity_priority,
+                          torch.zeros(1, dtype=torch.float32,
+                                      device=batch.valid.device)])
+    tri_prio = _take(prio_ext, _take(scene.vert_entity, scene.tri_idx[:, 0]))
+    return ordered_subset(batch, defer_tri | stencil_tri, transparent,
+                          ordered_cap, tri_priority=tri_prio)
+
+
+def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
+                  ordered_cap: int, height: int, width: int,
+                  sort_transparent: bool, pixel_shader, sampler_profile,
+                  stats: dict):
+    """The ordered remainder over the opaque frame (fb, zb), with the
+    reference's dispatch (frame.py:924-1032), its "on TPU" read as "always":
+    a CUDA tensor launches the kernel, a CPU tensor runs its plain version.
+
+    - ``ordered_cap·H·W ≤ 2^26``: the exact flat pass, :func:`render_pass`.
+    - Else, every ordered state inside the affine envelope
+      (``sampler_profile[5]``) and no pixel shader: B3; a phase-A overflow
+      replays :func:`render_pass_tiled` from the same (fb, zb).
+    - Else, the textured envelope (``sampler_profile[6]``, TexturedPeel):
+      B4 iterated; a phase-A overflow replays the same way in this frame
+      (``OrderedPeelCorrected``), in place of the reference's deferred host
+      re-render.
+    - Else :func:`render_pass_tiled` with the reference's tile ladder.
+
+    Fills ``stats`` (OrderedPeelOverflow, OrderedPeelRounds,
+    OrderedPeelCorrected, OrderedReplays) and returns (fb, zb)."""
+    from ..raster import cuda_ordered as co
+
+    ob = ordered_batch(scene, batch, defer_tri, tri_bits, ordered_cap,
+                       sort_transparent)
+    passes = (scene.state_i, scene.state_f, scene.tex_planes, scene.tex_hw,
+              scene.fog_color, scene.viewport)
+    if ordered_cap * height * width <= (1 << 26):
+        return rb.render_pass(fb, zb, ob, *passes,
+                              pixel_shader=pixel_shader,
+                              sampler_profile=sampler_profile)
+    tile_o = 64
+    while (ordered_cap * (((height + tile_o - 1) // tile_o)
+                          * ((width + tile_o - 1) // tile_o)) > (1 << 26)
+           and tile_o < max(height, width)):
+        tile_o *= 2
+    sp = sampler_profile
+    kernel_ok = sp is not None and len(sp) > 5 and bool(sp[5])
+    peel_ok = (sp is not None and len(sp) > 6 and bool(sp[6])
+               and (not sp[1] or (height % 2 == 0 and width % 2 == 0)))
+    fields = (ob.xyw, ob.z, ob.valid, ob.color, ob.specular, ob.uv, ob.fog,
+              ob.state_idx, ob.clip_rect, ob.clipd, scene.state_i,
+              scene.state_f)
+
+    def replay():
+        stats["OrderedReplays"] = 1
+        return rb.render_pass_tiled(fb, zb, ob, *passes, tile=tile_o,
+                                    pixel_shader=pixel_shader,
+                                    sampler_profile=sampler_profile)
+
+    if kernel_ok and pixel_shader is None:
+        a_o, b_o, bad = co.ordered_blend_tiled_cuda(
+            *fields, scene.fog_color, zb, scene.viewport, height, width)
+        # Host read, once per frame: the replay decision.
+        if bool(bad):
+            return replay()
+        return a_o * fb + b_o, zb
+    if peel_ok and pixel_shader is None:
+        def comp(f, lids, les):
+            return _composite_peeled(f, ob, lids, les, scene,
+                                     sampler_profile, height, width)
+
+        fb_p, bad, rounds = co.ordered_peel_iterate(
+            comp, fb, *fields, zb, scene.viewport, height, width)
+        stats.update(OrderedPeelOverflow=bad, OrderedPeelRounds=rounds)
+        if bad:
+            stats["OrderedPeelCorrected"] = 1
+            return replay()
+        return fb_p, zb
+    return rb.render_pass_tiled(fb, zb, ob, *passes, tile=tile_o,
+                                pixel_shader=pixel_shader,
+                                sampler_profile=sampler_profile)
 
 
 def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
@@ -503,20 +723,21 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
                            corner: tuple = (0, 0, 0),
                            want_texgen: bool = False,
                            solve_caps: tuple | None = None,
-                           cull: tuple | None = None, cull_sel=None):
+                           cull: tuple | None = None, cull_sel=None,
+                           ordered_stats: dict | None = None):
     """The per-frame device program: compose -> (culled-chunk compaction)
     -> the opaque frame. Animation, skinning, billboards, 2D overlays and
     lines are not carried yet and raise."""
     if anim is not None:
-        raise unported("device animation banks", 10)
+        raise unported("device animation banks", 6)
     if skin is not None:
-        raise unported("skinning", 10)
+        raise unported("skinning", 6)
     if sprites is not None:
-        raise unported("3D sprites (billboards)", 13)
+        raise unported("3D sprites (billboards)", 9)
     if quads_bg is not None or quads_fg is not None:
-        raise unported("2D overlays", 11)
+        raise unported("2D overlays", 7)
     if lines is not None:
-        raise unported("the line pass", 12)
+        raise unported("the line pass", 8)
     world = world_in if world_in is not None else compose_world(
         scene.local, scene.parent, levels)
     if cull is not None and cull_sel is not None:
@@ -528,7 +749,8 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
         vertex_shader=vertex_shader, pixel_shader=pixel_shader,
         want_bump=want_bump, want_cube=want_cube, want_stats=want_stats,
         sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
-        corner=corner, want_texgen=want_texgen, solve_caps=solve_caps)
+        corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
+        ordered_stats=ordered_stats)
 
 
 def _apply_tex_patch(static: dict, d: dict, layout: tuple) -> torch.Tensor:
@@ -563,20 +785,21 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
                              corner: tuple = (0, 0, 0),
                              want_texgen: bool = False, ss: int = 1,
                              solve_caps: tuple | None = None,
-                             cull: tuple | None = None):
+                             cull: tuple | None = None,
+                             ordered_stats: dict | None = None):
     """Packed-transfer frame entry: ``static`` is the per-compile dict of
     device tensors, ``dyn_f``/``dyn_i`` the two per-frame buffers (see
     pipeline/packing.py). Takes exactly what the render context's
     ``_fill_packed`` returns."""
     if ss != 1:
-        raise unported("antialias supersampling", 8)
+        raise unported("antialias supersampling", 4)
     if texdev:
-        raise unported("render-to-texture feeds", 22)
+        raise unported("render-to-texture feeds", 18)
     if sprites_static is not None:
-        raise unported("3D sprites (billboards)", 13)
+        raise unported("3D sprites (billboards)", 9)
     scene, d = unpack_scene(static, dyn_f, dyn_i, layout)
     if has_field(layout, "qbg_rect") or has_field(layout, "qfg_rect"):
-        raise unported("2D overlays", 11)
+        raise unported("2D overlays", 7)
     cull_sel = None
     if cull is not None and has_field(layout, "chunk_idx"):
         cull_sel = (d["chunk_idx"], d["chunk_n"])
@@ -589,27 +812,28 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
         want_stats=want_stats, sampler_profile=sampler_profile,
         prev_fb=prev_fb, prev_zb=prev_zb, corner=corner,
         want_texgen=want_texgen, solve_caps=solve_caps, cull=cull,
-        cull_sel=cull_sel)
+        cull_sel=cull_sel, ordered_stats=ordered_stats)
 
 
 render_frame_packed = render_frame_packed_impl
 
 
 def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
-    """(scene, batch, setup, defer_tri) of a packed opaque frame: what its
-    visibility solve and shade receive. Lets a caller run and time the
-    solve stages at the shapes a real frame gives them."""
+    """(scene, batch, setup, defer_tri, tri_bits) of a packed frame: what
+    its visibility solve, shade and ordered pass receive (``tri_bits``:
+    per triangle deferred / alpha-blend / stencil). Lets a caller run and
+    time the stages at the shapes a real frame gives them."""
     scene, d = unpack_scene(static, dyn_f, dyn_i, params["layout"])
     corner = params["corner"]
     if params["cull"] is not None and has_field(params["layout"],
                                                 "chunk_idx"):
         scene, corner = compact_scene_chunks(
             scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
-    batch, setup, defer_tri = opaque_setup(
+    batch, setup, defer_tri, tri_bits = opaque_setup(
         scene, params["levels"], corner=corner,
         want_texgen=params["want_texgen"],
         sampler_profile=params["sampler_profile"])
-    return scene, batch, setup, defer_tri
+    return scene, batch, setup, defer_tri, tri_bits
 
 
 def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple):

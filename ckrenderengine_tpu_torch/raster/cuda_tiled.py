@@ -54,6 +54,40 @@ def _init_plane(clear_z, height: int, width: int, full_h: int, full_w: int,
     return cz.reshape(()).expand(full_h, full_w).contiguous()
 
 
+def tile_grid(tile: int, tiles_x: int, tiles_y: int, dev):
+    """(px, py) pixel centres of every tile, (n_tiles, tile*tile) f32, tiles
+    row-major and pixels row-major within a tile."""
+    lp = torch.arange(tile * tile, device=dev)
+    tl = torch.arange(tiles_x * tiles_y, device=dev)
+    px = ((lp % tile)[None] + (tl % tiles_x)[:, None] * tile).to(
+        torch.float32) + 0.5
+    py = ((lp // tile)[None] + (tl // tiles_x)[:, None] * tile).to(
+        torch.float32) + 0.5
+    return px, py
+
+
+def to_tiles(a: torch.Tensor, tile: int, tiles_x: int,
+             tiles_y: int) -> torch.Tensor:
+    """(..., H_pad, W_pad) -> (..., n_tiles, tile*tile) in the
+    :func:`tile_grid` order."""
+    lead = a.shape[:-2]
+    nd = len(lead)
+    a = a.reshape(lead + (tiles_y, tile, tiles_x, tile))
+    a = a.permute(*range(nd), nd, nd + 2, nd + 1, nd + 3)
+    return a.reshape(lead + (tiles_x * tiles_y, tile * tile))
+
+
+def untile(a: torch.Tensor, tile: int, tiles_x: int,
+           tiles_y: int) -> torch.Tensor:
+    """(..., n_tiles, tile*tile) -> (..., H_pad, W_pad), the inverse of
+    :func:`to_tiles`."""
+    lead = a.shape[:-2]
+    nd = len(lead)
+    a = a.reshape(lead + (tiles_y, tiles_x, tile, tile))
+    a = a.permute(*range(nd), nd, nd + 2, nd + 1, nd + 3)
+    return a.reshape(lead + (tiles_y * tile, tiles_x * tile))
+
+
 def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
                         sbase: int, viewport, width: int, height: int,
                         init_d, tile: int, tiles_x: int, tiles_y: int,
@@ -66,14 +100,8 @@ def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
     dev = stream.device
     n_tiles = tiles_x * tiles_y
     npix = tile * tile
-    lp = torch.arange(npix, device=dev)
-    tl = torch.arange(n_tiles, device=dev)
-    px = ((lp % tile)[None] + (tl % tiles_x)[:, None] * tile).to(
-        torch.float32) + 0.5                                    # (NT, npix)
-    py = ((lp // tile)[None] + (tl // tiles_x)[:, None] * tile).to(
-        torch.float32) + 0.5
-    init = init_d.reshape(tiles_y, tile, tiles_x, tile).permute(
-        0, 2, 1, 3).reshape(n_tiles, npix)
+    px, py = tile_grid(tile, tiles_x, tiles_y, dev)             # (NT, npix)
+    init = to_tiles(init_d, tile, tiles_x, tiles_y)
     bd = init.clone()
     bi = torch.full((n_tiles, npix), -1, dtype=torch.int32, device=dev)
     be = torch.zeros((3, n_tiles, npix), dtype=torch.float32, device=dev)
@@ -140,16 +168,11 @@ def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
                & (px < width) & (py < height))
     bd = torch.where(scissor, bd, init)
     bi = torch.where(scissor, bi, -1)
-
-    def untile(a):
-        return a.reshape(tiles_y, tiles_x, tile, tile).permute(
-            0, 2, 1, 3).reshape(tiles_y * tile, tiles_x * tile)
-
     ep = None
     if want_e:
-        ep = torch.stack([untile(torch.where(scissor, be[j], 0.0))
-                          for j in range(3)])
-    return untile(bd), untile(bi), ep
+        ep = untile(torch.where(scissor, be, 0.0), tile, tiles_x, tiles_y)
+    return (untile(bd, tile, tiles_x, tiles_y),
+            untile(bi, tile, tiles_x, tiles_y), ep)
 
 
 def solve_tiled_kernel(stream, starts, counts, leftn, gbase: int, sbase: int,

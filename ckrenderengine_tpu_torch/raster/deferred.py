@@ -22,6 +22,7 @@ each elementwise op as its own rounded step, so nothing is FMA-contracted.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..roadmap import unported
 from .types import (
@@ -429,7 +430,7 @@ def shade_deferred(best_id, batch_xyw, batch_z, batch_color, batch_spec,
     Fixed-function frames take :func:`_shade_deferred_fast`. Returns
     (4,H,W) fb planes (background pixels keep clear_fb)."""
     if pixel_shader is not None:
-        raise unported("pixel shaders", 15)
+        raise unported("pixel shaders", 11)
     return _shade_deferred_fast(
         best_id, batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
         batch_state, state_i, state_f, tex_planes, tex_hw, fog_color,
@@ -456,7 +457,7 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
                     batch_state, state_i, state_f, tex_hw, batch_refl=None):
     """(T, SH_NCOL) packed shade rows (dense build, one wide row)."""
     if batch_refl is not None and batch_refl.shape[-1] > 0:
-        raise unported("cube-environment reflection shading", 14)
+        raise unported("cube-environment reflection shading", 10)
     t = batch_xyw.shape[0]
     v0, v1, v2 = batch_xyw[:, 0], batch_xyw[:, 1], batch_xyw[:, 2]
     adj0 = torch.linalg.cross(v1, v2)
@@ -479,6 +480,110 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
     ], dim=1)
 
 
+# Quantized shade-row layout: colors, speculars and fog quantize to u8
+# packed four per int32 word (the reference's D3D9 vertex precision,
+# D3DCOLOR DWORDs saturated per vertex), f32 columns travel bitcast, and the
+# nine edge coefficients drop out: the caller supplies each pixel's winner
+# (e0, e1, e2) instead (shade_rows ``eplanes``).
+SH_Q_UV = slice(0, 6)     # corner UVs (3 x 2), f32
+SH_Q_STIDX = 6            # state index, int
+SH_Q_COL = slice(7, 10)   # 3 words: corner RGBA as u8x4
+SH_Q_SPF = slice(10, 13)  # 3 words: corner spec RGB + fog as u8x4
+SH_Q_NBASE = 13           # +4 (ws3, ivd) when any non-perspective state;
+                          # padded to 16 words, or to a multiple of 4
+
+
+def _q8(v):
+    """[0,1] f32 -> u8 as int32 (round half to even, saturated) — the D3D9
+    vertex-color DWORD quantization."""
+    return torch.round(torch.clamp(v, 0.0, 1.0) * 255.0).to(torch.int32)
+
+
+def _pack4(b0, b1, b2, b3):
+    """Four bytes -> one int32 word, b3 in the top byte (which sets the
+    sign bit): packed in int64 and wrapped into int32's range."""
+    w = (b0.long() | (b1.long() << 8) | (b2.long() << 16)
+         | (b3.long() << 24))
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def _unpack4(word):
+    """One int32 word -> four [0,1] f32 planes (arithmetic shift, then
+    mask the byte)."""
+    inv = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=word.device)
+    return tuple(((word >> (8 * k)) & 0xFF).to(torch.float32) * inv
+                 for k in range(4))
+
+
+def _f2i(x):
+    return x.to(torch.float32).contiguous().view(torch.int32)
+
+
+def _i2f(x):
+    return x.contiguous().view(torch.float32)
+
+
+def shade_row_table_quant(batch_xyw, batch_color, batch_spec, batch_uv,
+                          batch_fog, batch_state, batch_refl=None,
+                          inv_det_s=None, want_ws: bool = False):
+    """(T, 16 or more) int32 quantized shade rows (the SH_Q_* layout).
+
+    ``want_ws``: include the (ws3, ivd) f32 words — needed only when some
+    render state disables perspective-correct interpolation. The table is
+    int32 so packed bytes move bit-transparently."""
+    if batch_refl is not None and batch_refl.shape[-1] > 0:
+        raise unported("cube-environment reflection shading", 10)
+    t = batch_xyw.shape[0]
+    cols = [_f2i(batch_uv.reshape(t, 6)),
+            batch_state.to(torch.int32)[:, None]]
+    for k in range(3):
+        c = _q8(batch_color[:, k])
+        cols.append(_pack4(c[:, 0], c[:, 1], c[:, 2], c[:, 3])[:, None])
+    for k in range(3):
+        s = _q8(batch_spec[:, k])
+        f = _q8(batch_fog[:, k])
+        cols.append(_pack4(s[:, 0], s[:, 1], s[:, 2], f)[:, None])
+    if want_ws:
+        cols += [_f2i(batch_xyw[:, k, 2:3]) for k in range(3)]
+        cols.append(_f2i(inv_det_s[:, None]))
+    tbl = torch.cat(cols, dim=1)
+    n = tbl.shape[1]
+    pad = 16 - n if n <= 16 else (-n) % 4
+    if pad:
+        tbl = F.pad(tbl, (0, pad))
+    return tbl
+
+
+def expand_rows_quant(rows_q, state_i, state_f, tex_hw, want_ws: bool,
+                      has_refl: bool):
+    """Quantized per-pixel int32 rows (Wq,H,W) -> the shade_rows layout
+    (SH_NCOL,H,W) with ZERO edge-coefficient planes (call shade_rows with
+    ``eplanes``). The per-state columns join from the small state bank by
+    an exact row gather."""
+    if has_refl:
+        raise unported("cube-environment reflection shading", 10)
+    h, w = rows_q.shape[1], rows_q.shape[2]
+    dev = rows_q.device
+    zeros9 = torch.zeros((9, h, w), dtype=torch.float32, device=dev)
+    if want_ws:
+        ws_ivd = _i2f(rows_q[SH_Q_NBASE:SH_Q_NBASE + 4])
+    else:
+        ws_ivd = torch.zeros((4, h, w), dtype=torch.float32, device=dev)
+    col12, spc9, fog3 = [], [], []
+    for k in range(3):
+        col12 += list(_unpack4(rows_q[SH_Q_COL.start + k]))
+    for k in range(3):
+        r, g, b, f = _unpack4(rows_q[SH_Q_SPF.start + k])
+        spc9 += [r, g, b]
+        fog3.append(f)
+    st = _shade_state_rows(state_i, state_f, tex_hw)          # (S, 22)
+    stidx = torch.clamp(rows_q[SH_Q_STIDX].reshape(-1).long(), 0,
+                        st.shape[0] - 1)
+    st_px = st.index_select(0, stidx).T.reshape(st.shape[1], h, w)
+    return torch.cat([zeros9, ws_ivd, torch.stack(col12), torch.stack(spc9),
+                      _i2f(rows_q[SH_Q_UV]), torch.stack(fog3), st_px])
+
+
 def _shade_deferred_fast(best_id, batch_xyw, batch_color, batch_spec,
                          batch_uv, batch_fog, batch_state, state_i, state_f,
                          tex_planes, tex_hw, fog_color, clear_fb,
@@ -499,10 +604,17 @@ def _shade_deferred_fast(best_id, batch_xyw, batch_color, batch_spec,
 
 
 def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
-               height: int, width: int, sampler_profile=None, tex_quad=None):
+               height: int, width: int, sampler_profile=None, tex_quad=None,
+               eplanes=None):
     """Fixed-function shade over per-pixel winner ROWS (C,H,W) in the
-    shade_row_table layout: perspective-correct interpolation, analytic
-    mip LOD, texture sampling + stage blend, specular add, fog, saturate."""
+    shade_row_table layout: perspective-correct interpolation, mip LOD,
+    texture sampling + stage blend, specular add, fog, saturate.
+
+    ``eplanes``: optional (e0, e1, e2) per-pixel winner edge values. The
+    row's edge-coefficient block is then never read (the quantized rows
+    ship zeros there), and the mip LOD comes from 2x2-quad finite
+    differences of the UVs (D3D9's hardware derivative model) on
+    even-sized frames, else level 0."""
     dev = row.device
     has_mips = tex_hw.shape[1] in (3, 5)
     py, px = torch.meshgrid(
@@ -521,9 +633,12 @@ def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
     def plane3(o):
         return row[o] * px + row[o + 1] * py + row[o + 2]
 
-    e0 = plane3(0)
-    e1 = plane3(3)
-    e2 = plane3(6)
+    if eplanes is not None:
+        e0, e1, e2 = eplanes
+    else:
+        e0 = plane3(0)
+        e1 = plane3(3)
+        e2 = plane3(6)
     esum = e0 + e1 + e2
     persp = si(SI_PERSPECTIVE) != 0
     inv_esum = 1.0 / torch.where(torch.abs(esum) < 1e-30, 1e-30, esum)
@@ -549,8 +664,26 @@ def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
     # Per-pixel mip LOD from the analytic screen-space UV gradients (edge
     # functions are affine: slope a per +x, b per +y).
     lod = None
-    if tex_hw.shape[1] > 2 and (sampler_profile is None
-                                or sampler_profile[1]):
+    if (tex_hw.shape[1] > 2 and sampler_profile is not None
+            and sampler_profile[1] and eplanes is not None
+            and height % 2 == 0 and width % 2 == 0):
+        # Per-2x2-quad UV derivatives shared by the quad's four pixels;
+        # quads straddling a triangle boundary read a neighbour's UV, like
+        # real hardware.
+        def quad_dd(p):
+            ddx = torch.repeat_interleave(p[:, 1::2] - p[:, 0::2], 2, dim=1)
+            ddy = torch.repeat_interleave(p[1::2, :] - p[0::2, :], 2, dim=0)
+            return ddx, ddy
+
+        tw_, th_ = row[SH_TP + 1], row[SH_TP + 0]
+        dux, duy = quad_dd(uvil[0])
+        dvx, dvy = quad_dd(uvil[1])
+        rho = torch.maximum(
+            torch.sqrt((dux * tw_) ** 2 + (dvx * th_) ** 2),
+            torch.sqrt((duy * tw_) ** 2 + (dvy * th_) ** 2))
+        lod = torch.log2(torch.clamp(rho, min=1.0))
+    elif (tex_hw.shape[1] > 2 and eplanes is None
+          and (sampler_profile is None or sampler_profile[1])):
 
         def uv_at(de0, de1, de2):
             e0n, e1n, e2n = e0 + de0, e1 + de1, e2 + de2

@@ -9,28 +9,25 @@ from __future__ import annotations
 
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
-    1: "quantized shade with e-plane consumption",
+    1: "quantized opaque path (CUDA opaque shade on the quantized rows, "
+       "the compact rows, fused-fetch solve variant B5)",
     2: "GPU benchmark",
-    3: "ordered-blend kernel B3",
-    4: "textured-peel kernel B4",
-    5: "fused-fetch solve variant B5",
-    6: "ordered and transparent pass",
-    7: "stencil pass",
-    8: "antialias supersampling",
-    9: "frame windows",
-    10: "skinning and animation",
-    11: "2D overlays",
-    12: "line pass",
-    13: "3D sprites",
-    14: "material effects (TexGen, bump, cube env, channels, effect passes)",
-    15: "pixel and vertex shaders",
-    16: "capacity governor",
-    17: "context batching and tile sharding",
-    18: "rasterizer HAL",
-    19: "scene IO",
-    20: "patch meshes",
-    21: "progressive meshes",
-    22: "remaining host API (stereo, render-to-texture, picking, "
+    3: "stencil pass",
+    4: "antialias supersampling",
+    5: "frame windows",
+    6: "skinning and animation",
+    7: "2D overlays",
+    8: "line pass",
+    9: "3D sprites",
+    10: "material effects (TexGen, bump, cube env, channels, effect passes)",
+    11: "pixel and vertex shaders",
+    12: "capacity governor",
+    13: "context batching and tile sharding",
+    14: "rasterizer HAL",
+    15: "scene IO",
+    16: "patch meshes",
+    17: "progressive meshes",
+    18: "remaining host API (stereo, render-to-texture, picking, "
         "immediate-mode draws, debug stepping)",
 }
 

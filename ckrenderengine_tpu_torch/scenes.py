@@ -1,12 +1,14 @@
-"""Scenes of the BASELINE configurations, for either object model.
+"""Scenes of the BASELINE configurations and stress cases, for either
+object model.
 
 Each build function takes an ``objects`` module — this package's
 (``ckrenderengine_tpu_torch.objects``) or the reference package's — plus the
 keyword arguments of its ``CKContext`` (``device=`` for this package), so the
 tests can build one scene through both packages and compare the frames.
-The scenes are those of ``benchmarks/baseline.py`` (configs 1 and 2) and
-``bench.build_scene`` (config 5); sizes are parameters so the tests can cut
-the frame and the terrain down.
+The scenes are those of ``benchmarks/baseline.py`` (configs 1 and 2),
+``bench.build_scene`` (config 5) and ``benchmarks/stress.py`` (the two
+transparency stress cases), plus a small alpha-test cutout scene; sizes are
+parameters so the tests can cut the frame, the terrain and the sheets down.
 """
 
 from __future__ import annotations
@@ -250,4 +252,147 @@ def build_config5(O, width: int = 1024, height: int = 768,
     door.SetCurrentMesh(dm)
     place_main.AddPortal(place_annex, door)
     rc.EnablePortalTraversal(True)
+    return ctx, rc, spinner
+
+
+def _alpha_stage(O, ctx, width: int, height: int):
+    """Camera, sun and the 3,200-triangle opaque floor shared by the two
+    transparency stress scenes (``benchmarks/stress.py``)."""
+    rc = ctx.GetRenderManager().CreateRenderContext(width, height)
+    cam = O.CKCamera(ctx, "cam")
+    cam.SetPosition((0.0, 14.0, -40.0))
+    cam.SetOrientation((0.0, -0.3, 1.0))
+    cam.SetBackPlane(500.0)
+    rc.AttachViewpointToCamera(cam)
+    sun = O.CKLight(ctx, "sun")
+    sun.SetType(int(VXLIGHT.DIREC))
+    sun.SetOrientation((0.2, -1.0, 0.3))
+    fverts, fuv, ffaces = make_terrain(40, 60.0, 1.0)
+    floor_mesh = O.CKMesh(ctx, "floor")
+    floor_mesh.SetPositions(fverts)
+    floor_mesh.SetUVs(fuv)
+    floor_mesh.SetFaces(ffaces)
+    floor_mesh.BuildNormals()
+    fmat = O.CKMaterial(ctx, "floormat")
+    fmat.SetDiffuse((0.4, 0.45, 0.5, 1.0))
+    floor_mesh.ApplyGlobalMaterial(fmat)
+    floor = O.CK3dObject(ctx, "floor")
+    floor.SetCurrentMesh(floor_mesh)
+    return rc
+
+
+def _sheets(O, ctx, name, mat, n_sheets, sheet_n, amp, seed, place):
+    """``n_sheets`` copies of a (2*sheet_n^2)-triangle sheet under one
+    spinner; ``place(rng, i)`` gives sheet i's position."""
+    verts, uv, faces = make_terrain(sheet_n, 30.0, amp)
+    mesh = O.CKMesh(ctx, name)
+    mesh.SetPositions(verts)
+    mesh.SetUVs(uv)
+    mesh.SetFaces(faces)
+    mesh.BuildNormals()
+    mesh.ApplyGlobalMaterial(mat)
+    rng = np.random.default_rng(seed)
+    spinner = O.CK3dObject(ctx, "spin")
+    for i in range(n_sheets):
+        s = O.CK3dObject(ctx, f"{name}{i}")
+        s.SetCurrentMesh(mesh)
+        s.SetParent(spinner)
+        s.SetPosition(place(rng, i), ref=spinner)
+    return spinner
+
+
+def build_alpha50k(O, width: int = 1024, height: int = 768,
+                   n_sheets: int = 25, sheet_n: int = 31, **ctx_kw):
+    """Untextured transparency at scale (``benchmarks/stress.py``
+    ``case_alpha50k``): 25 sheets x 1,922 = 48,050 alpha-over triangles,
+    z-write off, over a 3,200-triangle opaque floor at 1024x768. Every
+    ordered state is in the affine kernel's envelope, so the ordered pass is
+    kernel B3. Returns (ctx, rc, spinner); rotate ``spinner`` about y by
+    0.02 per tick."""
+    from .raster.types import VXBLEND
+
+    ctx = O.CKContext(**ctx_kw)
+    rc = _alpha_stage(O, ctx, width, height)
+    amat = O.CKMaterial(ctx, "glass")
+    amat.SetDiffuse((0.9, 0.3, 0.25, 0.35))
+    amat.EnableAlphaBlend(True)
+    amat.SetSourceBlend(int(VXBLEND.SRCALPHA))
+    amat.SetDestBlend(int(VXBLEND.INVSRCALPHA))
+    amat.EnableZWrite(False)
+    spinner = _sheets(O, ctx, "sheet", amat, n_sheets, sheet_n, 0.5, 11,
+                      lambda rng, i: (rng.uniform(-6, 6), 2.0 + i * 0.8,
+                                      rng.uniform(-6, 6)))
+    return ctx, rc, spinner
+
+
+def build_alpha_tex50k(O, width: int = 1024, height: int = 768,
+                       n_sheets: int = 4, sheet_n: int = 79, **ctx_kw):
+    """Textured transparency at scale (``benchmarks/stress.py``
+    ``case_alpha_tex50k``): 4 sheets x 12,482 = 49,928 textured alpha-over
+    triangles over the opaque floor at 1024x768, with the TexturedPeel
+    option on; the ordered pass is the peel kernel B4. Most pixels see at
+    most 4 covering fragments, but a sheet can fold over itself on screen:
+    at the first frame one pixel sees 5, so the peel runs a second round.
+    Returns (ctx, rc, spinner); rotate ``spinner`` about y by 0.02 per
+    tick."""
+    from .raster.types import VXBLEND
+
+    ctx = O.CKContext(**ctx_kw)
+    ctx.GetRenderManager().SetRenderOptions("TexturedPeel", 1)
+    rc = _alpha_stage(O, ctx, width, height)
+    tex = O.CKTexture(ctx, "glasstex")
+    img = (np.indices((16, 16)).sum(0) % 2).astype(np.float32)
+    tex.SetImage(np.stack([img * 0.3 + 0.6, img * 0.2 + 0.7,
+                           img * 0.2 + 0.75, img * 0.3 + 0.55], -1))
+    amat = O.CKMaterial(ctx, "texglass")
+    amat.SetDiffuse((0.9, 0.95, 1.0, 0.45))
+    amat.SetTexture(tex)
+    amat.EnableAlphaBlend(True)
+    amat.SetSourceBlend(int(VXBLEND.SRCALPHA))
+    amat.SetDestBlend(int(VXBLEND.INVSRCALPHA))
+    amat.EnableZWrite(False)
+    spinner = _sheets(O, ctx, "texsheet", amat, n_sheets, sheet_n, 0.4, 13,
+                      lambda rng, i: (rng.uniform(-3, 3), 3.0 + i * 1.5,
+                                      rng.uniform(-3, 3)))
+    return ctx, rc, spinner
+
+
+def build_cutout(O, width: int = 256, height: int = 192, n_fences: int = 6,
+                 fence_n: int = 2, **ctx_kw):
+    """Alpha-test cutouts that write z: ``n_fences`` upright textured fences
+    (2*fence_n^2 triangles each, checker alpha, alpha test GREATER 128,
+    MODULATE texture blend, z-write on) standing in a row over the opaque
+    floor. Alpha test takes them out of the deferred solve and z-write out
+    of both kernel envelopes, so the ordered pass is the exact sequential
+    one. Returns (ctx, rc, spinner)."""
+    from .raster.types import VXCMP
+
+    ctx = O.CKContext(**ctx_kw)
+    rc = _alpha_stage(O, ctx, width, height)
+    tex = O.CKTexture(ctx, "fencetex")
+    img = (np.indices((8, 8)).sum(0) % 2).astype(np.float32)
+    tex.SetImage(np.stack([img * 0.5 + 0.3, np.full_like(img, 0.6),
+                           img * 0.3 + 0.2, img], -1))
+    mat = O.CKMaterial(ctx, "fence")
+    mat.SetDiffuse((0.9, 0.85, 0.7, 1.0))
+    mat.SetTexture(tex)
+    mat.EnableAlphaTest(True)
+    mat.SetAlphaFunc(int(VXCMP.GREATER))
+    mat.SetAlphaRef(128)
+    verts, uv, faces = make_terrain(fence_n, 4.0, 0.0)
+    # Stand the flat grid upright: (x, y, z) -> (x, z + 4, 0).
+    upright = np.stack([verts[:, 0], verts[:, 2] + 4.0,
+                        np.zeros_like(verts[:, 0])], -1).astype(np.float32)
+    mesh = O.CKMesh(ctx, "fencem")
+    mesh.SetPositions(upright)
+    mesh.SetUVs((uv / 24.0 * 3.0).astype(np.float32))
+    mesh.SetFaces(faces)
+    mesh.BuildNormals()
+    mesh.ApplyGlobalMaterial(mat)
+    spinner = O.CK3dObject(ctx, "spin")
+    for i in range(n_fences):
+        f = O.CK3dObject(ctx, f"fence{i}")
+        f.SetCurrentMesh(mesh)
+        f.SetParent(spinner)
+        f.SetPosition((-12.0 + i * 5.0, 0.0, -4.0 + i * 3.0), ref=spinner)
     return ctx, rc, spinner

@@ -1,10 +1,12 @@
-"""The golden config-2 frame (tests/torch_golden/config2_320x240.npz, made
-by tests/torch_golden/make_golden.py with the reference package): the
-reference still reproduces it, and the port on the CPU matches it. The
-bounds are the slice's (tests/test_torch_slice.py): winner ids equal on
->= 99.9% of the pixels, and the 8-bit image within one step wherever the
-winners agree. ``chip_smoke.py`` holds the port on the GPU to the same
-file and bounds."""
+"""The golden frames (tests/torch_golden/, made by
+tests/torch_golden/make_golden.py with the reference package): config 2,
+and the untextured transparency scene whose ordered pass the port runs
+through kernel B3 while the reference on the CPU runs its exact sequential
+pass. The reference still reproduces each, and the port on the CPU matches
+it. The bounds are the slice's (tests/test_torch_slice.py): opaque winner
+ids equal on >= 99.9% of the pixels, and the 8-bit image within one step
+wherever the winners agree. ``chip_smoke.py`` holds the port on the GPU to
+the same files and bounds."""
 
 import os
 
@@ -17,15 +19,16 @@ from tests._torch_common import port_winners, to_np
 from tests.torch_golden import make_golden
 
 GOLDEN = np.load(make_golden.OUT)
+ALPHA = np.load(make_golden.ALPHA_OUT)
 
 
-def _check(rgba, ids):
-    assert rgba.shape == GOLDEN["rgba"].shape and rgba.dtype == np.uint8
-    match = ids == GOLDEN["ids"]
+def _check(rgba, ids, golden=GOLDEN):
+    assert rgba.shape == golden["rgba"].shape and rgba.dtype == np.uint8
+    match = ids == golden["ids"]
     assert match.mean() >= 0.999, match.mean()
-    diff = np.abs(rgba.astype(np.int32) - GOLDEN["rgba"].astype(np.int32))
+    diff = np.abs(rgba.astype(np.int32) - golden["rgba"].astype(np.int32))
     assert diff[match].max() <= 1, diff[match].max()
-    assert (GOLDEN["ids"] >= 0).mean() > 0.5
+    assert (golden["ids"] >= 0).mean() > 0.5
 
 
 def test_golden_file_is_small():
@@ -52,3 +55,31 @@ def test_port_matches_golden(device):
     _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
                                  torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids))
+
+
+def test_alpha_golden_file_is_small():
+    assert os.path.getsize(make_golden.ALPHA_OUT) <= 300_000
+
+
+def test_reference_reproduces_alpha_golden():
+    rgba, ids = make_golden.render_reference(make_golden.ALPHA_OUT)
+    _check(rgba, ids, ALPHA)
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_port_matches_alpha_golden(device):
+    import ckrenderengine_tpu_torch.objects as O
+
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the port's kernels run only on the "
+                    "card)")
+
+    build, kw = make_golden.frames()[make_golden.ALPHA_OUT]
+    _ctx, rc, _m = build(O, device=device, **kw)
+    rc.Render()
+    st, tf, ti, tp = rc._fill_packed([], [])
+    assert tp["ordered_cap"] * rc.height * rc.width > 1 << 26   # B3 branch
+    assert tp["sampler_profile"][5]
+    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
+                                 torch.as_tensor(ti, device=device), tp)
+    _check(rc.BackToFront(), to_np(ids), ALPHA)

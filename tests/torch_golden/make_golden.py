@@ -1,13 +1,20 @@
-"""Render the golden config-2 frame with the reference package on the CPU.
+"""Render the golden frames with the reference package on the CPU.
 
     JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py
 
-Writes ``tests/torch_golden/config2_320x240.npz``: the ``BackToFront()``
-uint8 RGBA image of BASELINE config 2 (lit sphere over a textured plane,
-two lights) at 320x240, and its per-pixel winner-id map (-1 = background)
-from the reference's own stages and exact flat solve. The port's tests and
-``chip_smoke.py`` hold the port's frame, on the CPU and on the GPU, against
-this file.
+Writes, for each frame, the ``BackToFront()`` uint8 RGBA image and its
+per-pixel opaque winner-id map (-1 = background) from the reference's own
+stages and exact flat solve:
+
+- ``config2_320x240.npz``: BASELINE config 2 (lit sphere over a textured
+  plane, two lights) at 320x240;
+- ``alpha_320x240.npz``: the untextured transparency scene
+  (``scenes.build_alpha50k``) cut to 4 sheets of 242 alpha-over triangles
+  at 320x240 — ordered_cap*H*W > 2^26, so the port takes kernel B3 while
+  the reference on the CPU takes its exact sequential ``render_pass_tiled``.
+
+The port's tests and ``chip_smoke.py`` hold the port's frames, on the CPU
+and on the GPU, against these files.
 """
 
 from __future__ import annotations
@@ -17,20 +24,34 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-OUT = os.path.join(ROOT, "tests", "torch_golden", "config2_320x240.npz")
+DIR = os.path.join(ROOT, "tests", "torch_golden")
+OUT = os.path.join(DIR, "config2_320x240.npz")
+ALPHA_OUT = os.path.join(DIR, "alpha_320x240.npz")
 
 
-def render_reference():
-    """(rgba uint8 (240,320,4), ids int32 (240,320)) of the reference."""
+def frames():
+    """{path: (scene build function, its keyword arguments)} of the golden
+    frames."""
+    sys.path.insert(0, ROOT)
+    from ckrenderengine_tpu_torch import scenes
+
+    return {OUT: (scenes.build_config2, dict(width=320, height=240)),
+            ALPHA_OUT: (scenes.build_alpha50k, dict(
+                width=320, height=240, n_sheets=4, sheet_n=11))}
+
+
+def render_reference(path: str = OUT):
+    """(rgba uint8 (240,320,4), ids int32 (240,320)) of the reference's
+    frame for the golden file ``path``."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ROOT)
     import ckrenderengine_tpu.objects as J
-    from ckrenderengine_tpu_torch import scenes
     from tests._torch_common import reference_winners
 
-    _, rc, _ = scenes.build_config2(J, width=320, height=240)
+    build, kw = frames()[path]
+    _, rc, _ = build(J, **kw)
     rc.Render()
     ids, _depth, _setup = reference_winners(*rc._fill_packed([], []))
     return rc.BackToFront(), ids.astype("int32")
@@ -39,6 +60,7 @@ def render_reference():
 if __name__ == "__main__":
     import numpy as np
 
-    rgba, ids = render_reference()
-    np.savez_compressed(OUT, rgba=rgba, ids=ids)
-    print(OUT, os.path.getsize(OUT), "bytes")
+    for path in frames():
+        rgba, ids = render_reference(path)
+        np.savez_compressed(path, rgba=rgba, ids=ids)
+        print(path, os.path.getsize(path), "bytes")
