@@ -4,14 +4,18 @@
 
 Builds the hand-written CUDA kernels of ``ckrenderengine_tpu_torch`` from
 ``ckrenderengine_tpu_torch/csrc`` (B1 tiled solve, B2 flat solve, B3 ordered
-blend, B4 textured peel), holds each kernel against its plain torch version
-on the card, drives BASELINE configs 1, 2 and 5 and the two transparency
-stress scenes (``alpha50k``, ``alpha_tex50k``) through the CK entry points
+blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch),
+holds each kernel against its plain torch version on the card, drives
+BASELINE configs 1, 2 and 5 and the two transparency stress scenes
+(``alpha50k``, ``alpha_tex50k``) through the CK entry points
 (``CKContext(device="cuda")`` -> ``CreateRenderContext`` -> ``Render()``),
-checks an overflowing ordered frame's in-frame replay, holds the kernel
-frames against the exact ordered pass and against the CPU, checks the two
-golden frames the reference package rendered (``tests/torch_golden/``), and
-times the frames and kernels. Every phase prints a line; any failure
+renders configs 2 and 5 again with ``CK_FUSED_FETCH`` set (B5; the frame
+must equal the default path's bit for bit), renders an odd-sized mip frame
+(the compact rows), checks an overflowing ordered frame's in-frame replay,
+holds the kernel frames against the exact ordered pass and against the CPU,
+checks the two golden frames the reference package rendered
+(``tests/torch_golden/``), and times the frames, the stages and the kernels
+beside each kernel's roofline bound. Every phase prints a line; any failure
 raises, so the exit code is nonzero. The last line is the device record
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without CUDA the
 script exits nonzero before printing any result.
@@ -67,6 +71,56 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM
+# bandwidth, and 67 TFLOP/s of float32 outside the tensor cores counting a
+# fused multiply-add as two operations. The kernels here never fuse
+# (--fmad=false), so their operations run at half that rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12 / 2
+# Arithmetic every (pixel, row) pair of a rasterizing kernel needs: three
+# edge planes (4 each), the esum plane and its sign product (5), the depth
+# (6); each user clip plane adds 4. Comparisons, and what only covered
+# fragments pay (B3's interpolation and blend), are not counted, so the
+# operations bound stays a lower bound.
+OPS_PER_PAIR = 23
+OPS_PER_CLIP_PLANE = 4
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def roofline(pairs: int, n_planes: int, n_bytes: int) -> dict:
+    """The least time the card could take: ``pairs`` (pixel, row)
+    evaluations at the peak f32 rate without FMA, against ``n_bytes`` (each
+    input read once, each output written once) at the peak memory rate."""
+    ops = pairs * (OPS_PER_PAIR + OPS_PER_CLIP_PLANE * n_planes)
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "pixel_row_pairs": int(pairs), "operations": int(ops),
+            "bytes": int(n_bytes)}
+
+
+def tiled_pairs(counts, extra_rows: int, tile: int) -> int:
+    """(pixel, row) pairs of a tiled kernel: every tile evaluates its own
+    live rows plus ``extra_rows`` shared ones on tile*tile pixels."""
+    return (int(counts.sum()) + counts.numel() * extra_rows) * tile * tile
+
+
+def quant_words(t: int, wq: int, seed: int) -> np.ndarray:
+    """A random (t, wq) int32 shade table whose columns 3 and 5 hold a float
+    NaN and a float denormal bit pattern (the reference's fused-fetch
+    fixture, tests/test_pallas_tiled.py)."""
+    words = np.random.default_rng(seed).integers(-2**31, 2**31, (t, wq),
+                                                 dtype=np.int64)
+    words[:, 3] = np.int64(0x7FC00001 - 2**32)
+    words[:, 5] = 1
+    return words.astype(np.int32)
+
+
 # ---------------------------------------------------------------------------
 # Kernel fixtures (numpy, from a seed)
 # ---------------------------------------------------------------------------
@@ -112,15 +166,20 @@ def make_setup(xyw, z, clipd, device):
 
 
 def compare_b1(name, H, W, seed=3, T=9000, planes=0, kept_zb=False,
-               **caps) -> float:
-    """B1 through the whole tiled solve on the card (kernel) and on the CPU
-    (plain phase B) from identical inputs: exact ids, depths, e-planes and
-    bin statistics. Returns the max abs depth difference (0 when exact)."""
+               viewport=None, **caps):
+    """B1 and B5 through the whole tiled solve on the card (kernels) and on
+    the CPU (plain phase B) from identical inputs: exact ids, depths,
+    e-planes and bin statistics, and for B5 (a random int32 shade table
+    with NaN and denormal float patterns, 16 or 20 words) exact rows, which
+    must also be the table gathered by id. Returns the max abs depth
+    difference of each (0 when exact)."""
     from ckrenderengine_tpu_torch.raster.cuda_tiled import (
         depth_reduce_tiled_cuda,
     )
+    from ckrenderengine_tpu_torch.raster.deferred import gather_winner_rows
 
     xyw, z, clipd = solve_fixture(T, H, W, seed, planes)
+    words = quant_words(T, 16 if seed % 2 else 20, seed + 10)
     clear = 1.0
     if kept_zb:
         clear = np.random.default_rng(seed + 1).uniform(
@@ -128,28 +187,47 @@ def compare_b1(name, H, W, seed=3, T=9000, planes=0, kept_zb=False,
     outs = {}
     for dev in ("cuda", "cpu"):
         setup, xyw_t = make_setup(xyw, z, clipd, dev)
-        vp = torch.tensor([0.0, 0.0, W, H], device=dev)
+        vp = torch.tensor(viewport or [0.0, 0.0, W, H], dtype=torch.float32,
+                          device=dev)
         cz = clear if np.isscalar(clear) else torch.as_tensor(clear,
                                                               device=dev)
-        bi, bd, stats, ep = depth_reduce_tiled_cuda(
-            setup, torch.ones(T, dtype=torch.bool, device=dev), cz, vp,
-            xyw_t, H, W, want_eplanes=True, want_binstats=True, **caps)
-        outs[dev] = [x.cpu().numpy() for x in (bi, bd, stats, ep)]
-    (bi_k, bd_k, st_k, ep_k), (bi_p, bd_p, st_p, ep_p) = \
-        outs["cuda"], outs["cpu"]
-    err = float(np.abs(bd_k - bd_p).max())
-    ok = (np.array_equal(bi_k, bi_p) and np.array_equal(bd_k, bd_p)
-          and np.array_equal(ep_k, ep_p) and np.array_equal(st_k, st_p))
-    emit("kernel_parity", kernel="B1", case=name, shape=[H, W], tris=T,
-         ids_equal=bool(np.array_equal(bi_k, bi_p)),
-         depth_max_abs_err=err,
-         eplanes_max_abs_err=float(np.abs(ep_k - ep_p).max()),
-         binstats=st_k.tolist(), binstats_equal=bool(
-             np.array_equal(st_k, st_p)),
-         covered=float((bi_k >= 0).mean()), ok=bool(ok))
-    check(ok, f"B1 {name}: kernel and plain version disagree")
-    check((bi_k >= 0).any(), f"B1 {name}: nothing covered")
-    return err
+        args = (setup, torch.ones(T, dtype=torch.bool, device=dev), cz, vp,
+                xyw_t, H, W)
+        tbl = torch.as_tensor(words, device=dev)
+        b1 = depth_reduce_tiled_cuda(*args, want_eplanes=True,
+                                     want_binstats=True, **caps)
+        b5 = depth_reduce_tiled_cuda(*args, want_eplanes=True,
+                                     want_binstats=True, shade_tbl=tbl,
+                                     **caps)
+        gathered = bool(torch.equal(b5[4], gather_winner_rows(tbl, b5[0])))
+        check(gathered, f"B5 {name} on {dev}: rows are not the gathered "
+              "table")
+        outs[dev] = [[x.cpu().numpy() for x in out] for out in (b1, b5)]
+    errs = []
+    for k, kernel in enumerate(("B1", "B5")):
+        got, plain = outs["cuda"][k], outs["cpu"][k]
+        bi_k, bd_k, st_k, ep_k = got[:4]
+        err = float(np.abs(bd_k - plain[1]).max())
+        ok = all(np.array_equal(a, b) for a, b in zip(got, plain))
+        extra = {}
+        if kernel == "B5":
+            extra = dict(rows_equal=bool(np.array_equal(got[4], plain[4])),
+                         table_words=int(words.shape[1]),
+                         rows_nonzero=float((got[4] != 0).any(0).mean()))
+        emit("kernel_parity", kernel=kernel, case=name, shape=[H, W], tris=T,
+             ids_equal=bool(np.array_equal(bi_k, plain[0])),
+             depth_max_abs_err=err,
+             eplanes_max_abs_err=float(np.abs(ep_k - plain[3]).max()),
+             binstats=st_k.tolist(), binstats_equal=bool(
+                 np.array_equal(st_k, plain[2])),
+             covered=float((bi_k >= 0).mean()), ok=bool(ok), **extra)
+        check(ok, f"{kernel} {name}: kernel and plain version disagree")
+        check((bi_k >= 0).any(), f"{kernel} {name}: nothing covered")
+        errs.append(err)
+    check(all(np.array_equal(a, b) for a, b in zip(outs["cuda"][0],
+                                                   outs["cuda"][1][:4])),
+          f"B5 {name}: its solve differs from B1's")
+    return errs
 
 
 def compare_b2(H=256, W=256, T=2000, seed=5) -> float:
@@ -459,6 +537,48 @@ def winners(rc):
     return frame_with(rc)[2]["WinnerIds"].cpu().numpy()
 
 
+def compare_with_cpu(name, rc_g, rc_c, **fields):
+    """A frame rendered on the card against the same frame on the CPU (the
+    plain versions): winners equal on >= 99.9% of the frame, and the
+    framebuffer within 1/255 wherever they are (cuBLAS and the CPU may round
+    a 4x4 matrix product apart by an ULP, which moves vertices, ties and
+    texel lookups). The other pixels are ties between two triangles: they
+    are counted, and nothing bounds their colours but the frame's range."""
+    ids_g, ids_c = winners(rc_g), winners(rc_c)
+    eq = ids_g == ids_c
+    diff = np.abs(rc_g.framebuffer() - rc_c.framebuffer()).max(-1)
+    emit("cpu_reference", config=name, size=[rc_g.width, rc_g.height],
+         ids_equal_frac=float(eq.mean()),
+         fb_max_abs_diff_matching=float(diff[eq].max()),
+         matching_pixels_over_2e_6=int((diff[eq] > 2e-6).sum()),
+         pixels_outside=int((~eq).sum()),
+         fb_max_abs_diff_outside=float(diff[~eq].max()) if (~eq).any()
+         else 0.0, **fields)
+    check(eq.mean() >= 0.999, f"{name}: card and CPU winners disagree")
+    check(float(diff[eq].max()) <= 1.0 / 255.0,
+          f"{name}: card and CPU frames disagree {diff[eq].max()}")
+    check(float(diff.max()) <= 1.0, f"{name}: frame out of range")
+
+
+def count_calls(mod, name):
+    """Wrap ``mod.name`` with a call counter; the returned function restores
+    the original and returns the count."""
+    fn = getattr(mod, name)
+    n = [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return fn(*a, **k)
+
+    setattr(mod, name, counted)
+
+    def done() -> int:
+        setattr(mod, name, fn)
+        return n[0]
+
+    return done
+
+
 def reset_launches(mods):
     for fn in mods:
         fn.launches = 0
@@ -486,7 +606,8 @@ def main() -> int:
          count=torch.cuda.device_count())
     kernel_fns = {"B1": cuda_tiled.solve_tiled_kernel,
                   "B2": cuda_reduce.reduce_flat_kernel,
-                  "B3": co.blend_kernel, "B4": co.peel_kernel}
+                  "B3": co.blend_kernel, "B4": co.peel_kernel,
+                  "B5": cuda_tiled.solve_fetch_kernel}
 
     # --- 2. build ----------------------------------------------------------
     lib = cuda_build.library()
@@ -497,14 +618,18 @@ def main() -> int:
         lib.path, ROOT), ptxas=ptxas)
 
     # --- 3. kernel parity on the card --------------------------------------
-    errs = {"B1": [
+    solve_errs = [
         compare_b1("solve_fixture", 320, 512),
         compare_b1("tiny_caps", 128, 128, seed=4, T=1200, g_cap=16,
                    slab_cap=64, pair_cap=64),
         compare_b1("clip_planes", 320, 512, seed=6, planes=2),
         compare_b1("kept_zbuffer", 320, 512, seed=7, kept_zb=True),
         compare_b1("non_divisible", 200, 300, seed=8, T=3000),
-    ], "B2": [compare_b2()]}
+        compare_b1("small_viewport", 200, 300, seed=9, T=3000,
+                   viewport=[10.0, 6.0, 250.0, 170.0]),
+    ]
+    errs = {"B1": [e[0] for e in solve_errs],
+            "B5": [e[1] for e in solve_errs], "B2": [compare_b2()]}
     errs["B3"] = [compare_b3(*case) for case in blend_fixtures()]
     errs["B4"] = [compare_b4(*case) for case in peel_fixtures()]
 
@@ -512,6 +637,7 @@ def main() -> int:
     # Each path runs with every launch count at 0 and is read right after.
     launches = dict.fromkeys(kernel_fns, 0)
     configs = {}
+    os.environ.pop("CK_FUSED_FETCH", None)
     for name, build, kernels in (
             ("config1", scenes.build_config1, ("B2",)),
             ("config2", scenes.build_config2, ("B1",)),
@@ -527,8 +653,29 @@ def main() -> int:
         for k in launches:
             launches[k] += got[k]
         finite, covered = frame_checks(name, rc)
-        for k in kernels:
-            check(got[k] > 0, f"{name}: the frame did not launch {k}")
+        for k in kernel_fns:
+            check((got[k] > 0) == (k in kernels),
+                  f"{name}: the frame launched {k} {got[k]} times")
+        check(got["B1"] <= 1 and got["B2"] <= 1, f"{name}: {got}")
+        if name in ("config2", "config5"):
+            # The same tick again with the fused fetch: B5 once, no B1, and
+            # the frame equal to the default path's on every pixel.
+            fb0, zb0 = rc.fb.clone(), rc.zb.clone()
+            os.environ["CK_FUSED_FETCH"] = "1"
+            reset_launches(kernel_fns.values())
+            rc.Render()
+            torch.cuda.synchronize()
+            del os.environ["CK_FUSED_FETCH"]
+            fused = {k: fn.launches for k, fn in kernel_fns.items()}
+            for k in launches:
+                launches[k] += fused[k]
+            differ = int(((rc.fb != fb0).any(0) | (rc.zb != zb0)).sum())
+            emit("fused_fetch", config=name, launches=fused,
+                 pixels_that_differ=differ)
+            check(fused["B5"] == 1 and fused["B1"] == 0,
+                  f"{name}: fused-fetch frame launches {fused}")
+            check(differ == 0, f"{name}: the fused-fetch frame differs from "
+                  f"the default path's on {differ} pixels")
         configs[name] = (ctx, rc, mover)
         extra = {}
         if rc._compiled.ordered_cap:
@@ -604,23 +751,34 @@ def main() -> int:
              tolerance=2e-6)
         check(diff <= 2e-6, f"{name}: card and CPU frames disagree {diff}")
 
-    # The same frames on the CPU (plain versions) at small sizes: >= 99.9%
-    # equal winners (cuBLAS and the CPU may round a 4x4 matrix product
-    # apart by an ULP), framebuffers within 1/255 where the winners agree.
+    # The opaque frames on the card against the CPU (the plain versions) at
+    # small sizes; the tiled ones take the row path on both.
     for name, build, kw in (
             ("config1", scenes.build_config1, dict(size=256)),
+            ("config2_small", scenes.build_config2,
+             dict(width=256, height=192)),
             ("config5_small", scenes.build_config5,
              dict(width=256, height=192, terrain_n=70, n_balls=8))):
         _, rc_g, _ = render_config(build, O, "cuda", **kw)
         _, rc_c, _ = render_config(build, O, "cpu", **kw)
-        ids_g, ids_c = winners(rc_g), winners(rc_c)
-        eq = ids_g == ids_c
-        fb_diff = float(np.abs(rc_g.framebuffer() - rc_c.framebuffer())[
-            eq].max())
-        emit("cpu_reference", config=name, ids_equal_frac=float(eq.mean()),
-             fb_max_abs_diff_matching=fb_diff)
-        check(eq.mean() >= 0.999 and fb_diff <= 1.0 / 255.0,
-              f"{name}: card and CPU frames disagree")
+        compare_with_cpu(name, rc_g, rc_c)
+
+    # An odd-sized mip frame takes the compact rows (the analytic LOD needs
+    # the edge coefficients); a mip frame of even size the quantized rows
+    # with the 2x2-quad LOD. Both on the card against the CPU.
+    for name, kw, table in (
+            ("config2_mips_odd", dict(width=320, height=241, mips=True),
+             "shade_row_table_compact"),
+            ("config2_mips_even", dict(width=320, height=240, mips=True),
+             "shade_row_table_quant")):
+        built = count_calls(df, table)
+        _, rc_g, _ = render_config(scenes.build_config2, O, "cuda", **kw)
+        on_card = built()
+        _, rc_c, _ = render_config(scenes.build_config2, O, "cpu", **kw)
+        check(on_card == 1, f"{name}: {table} ran {on_card} times")
+        check(rc_g._fill_packed([], [])[3]["sampler_profile"][1],
+              f"{name}: no mip state")
+        compare_with_cpu(name, rc_g, rc_c, branch=table)
 
     # --- 7. golden frames (reference package, CPU) --------------------------
     for frame, build, kw in (
@@ -661,47 +819,21 @@ def main() -> int:
         fps[name] = n / (time.monotonic() - t0)
         emit("fps", config=name, card=card, fps=fps[name], frames=n,
              size=[rc_t.width, rc_t.height])
-    rc5 = configs["config5"][1]
-
-    static, dyn_f, dyn_i, params = packed_cuda(rc5)
-    H, W = rc5.height, rc5.width
-    st = {}
-    st["setup_ms"] = cuda_ms(lambda: fr.packed_setup(static, dyn_f, dyn_i,
-                                                     params), 5)
-    scene, batch, setup, defer, _bits = fr.packed_setup(static, dyn_f, dyn_i,
-                                                        params)
-    caps = fr._solve_caps(batch.valid.shape[0], None)
-    st["phase_a_ms"] = cuda_ms(lambda: cuda_tiled.phase_a(
-        setup, defer, scene.viewport, batch.xyw, H, W, **caps), 5)
-    a = cuda_tiled.phase_a(setup, defer, scene.viewport, batch.xyw, H, W,
-                           **caps)
-    init = cuda_tiled._init_plane(scene.clear_z, H, W, a["tiles_y"] * 32,
-                                  a["tiles_x"] * 32, "cuda")
-    b1_args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
-               a["sbase"], scene.viewport, W, H, init, 32, a["tiles_x"],
-               a["tiles_y"], a["n_planes"], False)
-    st["b1_ms"] = cuda_ms(lambda: cuda_tiled.solve_tiled_kernel(*b1_args), 20)
-    st["b1_plain_ms"] = cuda_ms(
-        lambda: cuda_tiled.solve_phase_b_plain(*b1_args), 3)
-    out_k = cuda_tiled.solve_tiled_kernel(*b1_args)
-    out_p = cuda_tiled.solve_phase_b_plain(*b1_args)
-    b1_frame_ok = (torch.equal(out_k[0], out_p[0])
-                   and torch.equal(out_k[1], out_p[1]))
-    check(b1_frame_ok, "B1 kernel and plain version disagree at config-5 "
-          "frame shapes")
-    best_id, _bd, _pk = cuda_tiled.depth_reduce_tiled_cuda(
-        setup, defer, scene.clear_z, scene.viewport, batch.xyw, H, W, **caps)
-    clear_fb = scene.clear_color[:, None, None].expand(4, H, W)
-    st["shade_ms"] = cuda_ms(lambda: df.shade_deferred(
-        best_id, batch.xyw, batch.z, batch.color, batch.specular, batch.uv,
-        batch.fog, batch.state_idx, scene.state_i, scene.state_f,
-        scene.tex_planes, scene.tex_hw, scene.fog_color, clear_fb, H, W,
-        sampler_profile=params["sampler_profile"],
-        tex_quad=scene.tex_quad), 5)
-    emit("timing", config="config5", card=card, fps=fps["config5"], frames=n,
-         **{k: round(v, 4) for k, v in st.items()},
-         binstats=a["binstats"].cpu().tolist(),
-         note="stage times are CUDA-event means of the stage alone")
+    # Stages and solve kernels of the row path at the frames' own shapes,
+    # and what one frame launches on the card.
+    rows_ms = {name: time_rows(name, configs[name][1], fps[name], card, fr,
+                               cuda_tiled, df, plain=name == "config5")
+               for name in ("config2", "config5")}
+    for name, angle in (("config2", 0.03), ("config5", 0.01)):
+        _ctx, rc_t, mover = configs[name]
+        for fused in (False, True):
+            if fused:
+                os.environ["CK_FUSED_FETCH"] = "1"
+            per_frame = profile_frames(rc_t, mover, angle)
+            os.environ.pop("CK_FUSED_FETCH", None)
+            emit("frame_profile", config=name, card=card, fused_fetch=fused,
+                 **per_frame)
+    b1_ms, b5_ms = rows_ms["config5"]["B1"], rows_ms["config5"]["B5"]
 
     # B2 at config-1 frame shapes.
     rc1 = configs["config1"][1]
@@ -714,6 +846,8 @@ def main() -> int:
     p1_ = cuda_reduce.depth_reduce_plain(*b2_args)
     check(torch.equal(k1[0], p1_[0]) and torch.equal(k1[1], p1_[1]),
           "B2 kernel and plain version disagree at config-1 frame shapes")
+    b2_bound = roofline(rows1.shape[0] * rc1.height * rc1.width, 0,
+                        nbytes(rows1, *k1))
 
     # B3 and B4 at the stress frames' shapes, with phase A and composite.
     ordered_ms = {}
@@ -721,8 +855,8 @@ def main() -> int:
         ordered_ms[kernel] = time_ordered(name, kernel, configs[name][1],
                                           fps[name], card, fr, co)
 
-    ms = {"B1": (st["b1_ms"], st["b1_plain_ms"]), "B2": (b2_ms, b2_plain_ms),
-          **ordered_ms}
+    ms = {"B1": b1_ms, "B2": (b2_ms, b2_plain_ms, b2_bound), **ordered_ms,
+          "B5": b5_ms}
     sources = {"B1": ("solve_tiled", "csrc/solve_tiled.cu",
                       "ckrenderengine_tpu/raster/pallas_tiled.py:61"),
                "B2": ("reduce_flat", "csrc/reduce_flat.cu",
@@ -730,13 +864,21 @@ def main() -> int:
                "B3": ("ordered_blend", "csrc/ordered_blend.cu",
                       "ckrenderengine_tpu/raster/pallas_ordered.py:89"),
                "B4": ("ordered_peel", "csrc/ordered_peel.cu",
-                      "ckrenderengine_tpu/raster/pallas_ordered.py:518")}
+                      "ckrenderengine_tpu/raster/pallas_ordered.py:518"),
+               "B5": ("solve_tiled_fetch", "csrc/solve_tiled.cu",
+                      "ckrenderengine_tpu/raster/pallas_tiled.py:204")}
+    # No single PyTorch call computes any of these functions: library_ms is
+    # null for all five.
     kernels = [
         {"name": f"{k} {sources[k][0]}", "route": "cuda",
          "source": "ckrenderengine_tpu_torch/" + sources[k][1],
          "replaces": sources[k][2], "launches": launches[k],
-         "max_abs_err": max(errs[k]), "ms": ms[k][0], "plain_ms": ms[k][1]}
-        for k in ("B1", "B2", "B3", "B4")]
+         "max_abs_err": max(errs[k]), "ms": ms[k][0], "plain_ms": ms[k][1],
+         "bound_ms": ms[k][2]["bound_ms"], "bound_by": ms[k][2]["bound_by"],
+         "library_ms": None, "bound_counts": {
+             c: ms[k][2][c] for c in ("pixel_row_pairs", "operations",
+                                      "bytes")}}
+        for k in ("B1", "B2", "B3", "B4", "B5")]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -762,7 +904,7 @@ def ordered_fields(ob, scene):
 def time_ordered(name, kernel, rc, fps, card, fr, co):
     """CUDA-event times of the ordered stages at a stress frame's shapes:
     phase A, the kernel and its plain version (checked equal there), and
-    the composite. Returns (kernel ms, plain ms)."""
+    the composite. Returns (kernel ms, plain ms, roofline bound)."""
     static, dyn_f, dyn_i, params = packed_cuda(rc)
     H, W = rc.height, rc.width
     scene, batch, _su, defer, bits = fr.packed_setup(static, dyn_f, dyn_i,
@@ -797,12 +939,149 @@ def time_ordered(name, kernel, rc, fps, card, fr, co):
         out_k, out_p = (out_k,), (out_p,)
     check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
           f"{kernel} kernel and plain version disagree at {name} shapes")
+    bound = roofline(tiled_pairs(pa["counts"], 0, 32), pa["n_planes"],
+                     nbytes(pa["stream"], pa["starts"], pa["counts"],
+                            pa["zplane"], *out_k))
     emit("timing", config=name, card=card, fps=fps, kernel=kernel,
+         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
          live_pairs=int(pa["n_live"]), stream_rows=int(pa["stream"].shape[0]),
          max_tile_rows=int(pa["counts"].max()),
          **{k: round(v, 4) for k, v in st.items()},
          note="stage times are CUDA-event means of the stage alone")
-    return st["kernel_ms"], st["plain_ms"]
+    return st["kernel_ms"], st["plain_ms"], bound
+
+
+def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
+    """CUDA-event times of an opaque tiled frame's stages at its own shapes:
+    setup, phase A, B1 with e-planes, the winner-row gather after it, B5 in
+    their place, and the shade stage from the quantized rows (table, expand,
+    ``shade_rows``) beside ``shade_deferred``, which the frame took before
+    it shaded from rows. B1 and B5 are checked against their plain versions
+    there (timed too when ``plain``). Returns {"B1" | "B5": (kernel ms,
+    plain ms or None, roofline bound)}."""
+    static, dyn_f, dyn_i, params = packed_cuda(rc)
+    H, W = rc.height, rc.width
+    sp = params["sampler_profile"]
+    st = {"setup_ms": cuda_ms(lambda: fr.packed_setup(static, dyn_f, dyn_i,
+                                                      params), 5)}
+    scene, batch, setup, defer, _bits = fr.packed_setup(static, dyn_f, dyn_i,
+                                                        params)
+    caps = fr._solve_caps(batch.valid.shape[0], None)
+    st["phase_a_ms"] = cuda_ms(lambda: cuda_tiled.phase_a(
+        setup, defer, scene.viewport, batch.xyw, H, W, **caps), 5)
+    a = cuda_tiled.phase_a(setup, defer, scene.viewport, batch.xyw, H, W,
+                           **caps)
+    init = cuda_tiled._init_plane(scene.clear_z, H, W, a["tiles_y"] * 32,
+                                  a["tiles_x"] * 32, "cuda")
+    want_ws = not sp[3]
+
+    def table():
+        return df.shade_row_table_quant(
+            batch.xyw, batch.color, batch.specular, batch.uv, batch.fog,
+            batch.state_idx, inv_det_s=setup["inv_det_s"], want_ws=want_ws)
+
+    tbl = table()
+    b1_args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
+               a["sbase"], scene.viewport, W, H, init, 32, a["tiles_x"],
+               a["tiles_y"], a["n_planes"], True)
+    b5_args = b1_args + (tbl,)
+    out1 = cuda_tiled.solve_tiled_kernel(*b1_args)
+    out5 = cuda_tiled.solve_fetch_kernel(*b5_args)
+    for kernel, out, args in (("B1", out1, b1_args), ("B5", out5, b5_args)):
+        ref = cuda_tiled.solve_phase_b_plain(*args)
+        check(all(x is None and y is None or torch.equal(x, y)
+                  for x, y in zip(out, ref)),
+              f"{kernel} kernel and plain version disagree at {name} frame "
+              "shapes")
+    ids = out1[1][:H, :W]
+
+    def gather():
+        return df.gather_winner_rows(tbl, ids)
+
+    check(torch.equal(out5[3][:, :H, :W], gather()),
+          f"B5 rows differ from B1 plus the gather at {name} frame shapes")
+    st["b1_ms"] = cuda_ms(lambda: cuda_tiled.solve_tiled_kernel(*b1_args), 20)
+    st["gather_ms"] = cuda_ms(gather, 20)
+    st["b1_plus_gather_ms"] = cuda_ms(
+        lambda: df.gather_winner_rows(
+            tbl, cuda_tiled.solve_tiled_kernel(*b1_args)[1][:H, :W]), 20)
+    st["b5_ms"] = cuda_ms(lambda: cuda_tiled.solve_fetch_kernel(*b5_args), 20)
+    st["b1_plain_ms"] = st["b5_plain_ms"] = None
+    if plain:
+        st["b1_plain_ms"] = cuda_ms(
+            lambda: cuda_tiled.solve_phase_b_plain(*b1_args), 3)
+        st["b5_plain_ms"] = cuda_ms(
+            lambda: cuda_tiled.solve_phase_b_plain(*b5_args), 3)
+
+    shade = (scene.tex_planes, scene.tex_hw, scene.fog_color,
+             scene.clear_color[:, None, None].expand(4, H, W), H, W)
+    epl = out1[2][:, :H, :W]
+
+    def shade_rows():
+        rows = df.expand_rows_quant(gather(), scene.state_i, scene.state_f,
+                                    scene.tex_hw, want_ws=want_ws,
+                                    has_refl=False)
+        return df.shade_rows(rows, ids >= 0, *shade, sampler_profile=sp,
+                             tex_quad=scene.tex_quad,
+                             eplanes=(epl[0], epl[1], epl[2]))
+
+    st["table_ms"] = cuda_ms(table, 5)
+    st["shade_rows_ms"] = cuda_ms(shade_rows, 5)
+    st["shade_stage_ms"] = cuda_ms(lambda: (table(), shade_rows()), 5)
+    st["shade_deferred_ms"] = cuda_ms(lambda: df.shade_deferred(
+        ids, batch.xyw, batch.z, batch.color, batch.specular, batch.uv,
+        batch.fog, batch.state_idx, scene.state_i, scene.state_f, *shade,
+        sampler_profile=sp, tex_quad=scene.tex_quad), 5)
+
+    # Bounds from this frame's inputs: every tile evaluates its own live
+    # rows and both leftover segments on its 1024 pixels; the bytes are the
+    # stream, the per-tile ranges, the initial depth plane and the outputs,
+    # and for B5 also one table row per distinct winner.
+    pairs = tiled_pairs(a["counts"], int(a["leftn"].sum()), 32)
+    solve_in = (a["stream"], a["starts"], a["counts"], a["leftn"], init)
+    winners_n = int(torch.unique(ids[ids >= 0]).numel())
+    bounds = {"B1": roofline(pairs, a["n_planes"], nbytes(*solve_in, *out1)),
+              "B5": roofline(pairs, a["n_planes"],
+                             nbytes(*solve_in, *out5)
+                             + winners_n * tbl.shape[1] * 4)}
+    emit("timing", config=name, card=card, fps=fps, size=[W, H],
+         **{k: v if v is None else round(v, 4) for k, v in st.items()},
+         table_words=int(tbl.shape[1]), distinct_winners=winners_n,
+         b1_bound_ms=bounds["B1"]["bound_ms"],
+         b5_bound_ms=bounds["B5"]["bound_ms"],
+         binstats=a["binstats"].cpu().tolist(),
+         note="stage times are CUDA-event means of the stage alone; "
+         "shade_stage = table + gather + expand + shade_rows")
+    return {k: (st[k.lower() + "_ms"], st[k.lower() + "_plain_ms"],
+                bounds[k]) for k in ("B1", "B5")}
+
+
+def profile_frames(rc, mover, angle, frames: int = 3) -> dict:
+    """What one Render() tick puts on the card: device kernel and copy
+    launches per frame and their summed device time, from a
+    ``torch.profiler`` window of ``frames`` ticks after one warm-up tick;
+    the frame time is the window's, the profiler's overhead included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mover.Rotate((0, 1, 0), angle)
+    rc.Render()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(frames):
+            mover.Rotate((0, 1, 0), angle)
+            rc.Render()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3 / frames
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(dev) > 0, "the profiler recorded no device activity")
+    dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                 else e.cuda_time_total for e in dev)
+    return {"device_launches_per_frame": len(dev) / frames,
+            "device_ms_per_frame": dev_us / 1e3 / frames,
+            "profiled_frame_ms": wall_ms}
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
-// Tile-binned opaque depth solve, phase B (kernel B1) for Hopper (sm_90a).
+// Tile-binned opaque depth solve, phase B (kernels B1 and B5) for Hopper
+// (sm_90a).
 //
 // Replaces: ckrenderengine_tpu/raster/pallas_tiled.py `_solve_kernel` (with
 // its helpers `_group_eval` and `_merge`; entry
 // `depth_reduce_tiled_pallas`), the Pallas TPU kernel that streams each
-// screen tile's contiguous range of packed triangle rows through VMEM.
+// screen tile's contiguous range of packed triangle rows through VMEM; and,
+// as the FETCH instantiation (B5), the same kernel's fused winner-row fetch
+// (`sh_w > 0`, `sh_pack = 2`).
 //
 // What it computes: for each screen tile, a streaming argmin over (1) the
 // tile's own range [start, start + count) of the binned row stream, then
@@ -15,6 +18,21 @@
 // Pallas kernel does. The lower depth wins and an exact tie goes to the
 // larger triangle id (= the later draw). With WANT_E the winner's raw edge
 // values e0/e1/e2 are exported too (the quantized shade consumes them).
+//
+// With FETCH (B5) each pixel also receives the quantized shade row of its
+// final winner: rows[:, y, x] = shade_tbl[id[y, x], :], int32 words moved
+// bit for bit, 0 where the id is -1 (uncovered, or outside the scissor). The
+// TPU kernel ships those words through the binned stream as u16 halves and
+// pulls each chunk winner's row with a one-hot matrix product, because it
+// has no cheap per-pixel gather; a GPU thread loads a row by index. So the
+// solve loop is B1's, no shade column rides the stream, and the fetch is an
+// epilogue: after the scissor each thread reads its winner's Wq words from
+// the row-major (T, Wq) table with 16-byte loads (neighbouring pixels mostly
+// share a winner, so the loads hit cache) and stores them channel-major into
+// (Wq, H_pad, W_pad), each store coalesced across the warp's 32 pixels of a
+// tile row. The words are only ever `int`: packed u8 bytes alias NaN and
+// denormal float patterns. B5 is bound by bytes: the output planes
+// (Wq * 4 bytes per pixel) dwarf the solve's traffic.
 //
 // What bounds it on the card: arithmetic and shared-memory bandwidth. Each
 // (pixel, row) pair costs ~40 flops; at 1024x768 a frame streams a few
@@ -57,15 +75,17 @@ __device__ __forceinline__ float plane3(const float* r, float px, float py) {
   return __fadd_rn(__fadd_rn(__fmul_rn(r[0], px), __fmul_rn(r[1], py)), r[2]);
 }
 
-template <bool WANT_E>
+template <bool WANT_E, bool FETCH>
 __global__ void __launch_bounds__(1024) solve_tiled_kernel(
     const float* __restrict__ rows, int ncol, int n_planes,
     const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ leftn, int gbase, int sbase,
     const float* __restrict__ viewport, float fwidth, float fheight,
     const float* __restrict__ init_d, float* __restrict__ out_d,
-    int* __restrict__ out_i, float* __restrict__ out_e, int tile,
-    int tiles_x, int pitch, int plane_size, int kchunk) {
+    int* __restrict__ out_i, float* __restrict__ out_e,
+    const int* __restrict__ shade_tbl, int sh_w, int n_tris,
+    int* __restrict__ out_rows, int tile, int tiles_x, int pitch,
+    int plane_size, int kchunk) {
   extern __shared__ float sh[];
   const int t = blockIdx.x;
   const int ty = t / tiles_x;
@@ -142,41 +162,81 @@ __global__ void __launch_bounds__(1024) solve_tiled_kernel(
     out_e[plane_size + pix] = scissor ? b1 : 0.f;
     out_e[2 * plane_size + pix] = scissor ? b2 : 0.f;
   }
+  if (FETCH) {
+    // Winner ids are < n_tris by construction; the bound keeps a corrupt
+    // stream from reading outside the table.
+    const int id = scissor ? bi : -1;
+    const bool hit = id >= 0 && id < n_tris;
+    const int4* src = reinterpret_cast<const int4*>(
+        shade_tbl + static_cast<size_t>(hit ? id : 0) * sh_w);
+    int* dst = out_rows + pix;
+    for (int c = 0; c < sh_w; c += 4) {
+      int4 v = make_int4(0, 0, 0, 0);
+      if (hit) v = __ldg(src + (c >> 2));
+      dst[static_cast<size_t>(c) * plane_size] = v.x;
+      dst[static_cast<size_t>(c + 1) * plane_size] = v.y;
+      dst[static_cast<size_t>(c + 2) * plane_size] = v.z;
+      dst[static_cast<size_t>(c + 3) * plane_size] = v.w;
+    }
+  }
+}
+
+template <bool WANT_E, bool FETCH>
+cudaError_t launch(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
+                   const float* rows, int ncol, int n_planes,
+                   const int* starts, const int* counts, const int* leftn,
+                   int gbase, int sbase, const float* viewport, int width,
+                   int height, const float* init_d, float* out_d, int* out_i,
+                   float* out_e, const int* shade_tbl, int sh_w, int n_tris,
+                   int* out_rows, int tile, int tiles_x, int pitch,
+                   int plane_size, int kchunk) {
+  cudaError_t err = cudaFuncSetAttribute(
+      solve_tiled_kernel<WANT_E, FETCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  solve_tiled_kernel<WANT_E, FETCH><<<grid, block, smem, s>>>(
+      rows, ncol, n_planes, starts, counts, leftn, gbase, sbase, viewport,
+      static_cast<float>(width), static_cast<float>(height), init_d, out_d,
+      out_i, out_e, shade_tbl, sh_w, n_tris, out_rows, tile, tiles_x, pitch,
+      plane_size, kchunk);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// `out_e` null: no e-planes. `shade_tbl` null: B1; else B5, which fetches
+// the (n_tris, sh_w) int32 table's winner rows into `out_rows`
+// (sh_w, H_pad, W_pad); sh_w must be a multiple of 4 and the table 16-byte
+// aligned.
 extern "C" int ck_solve_tiled(
     const float* rows, int ncol, int n_planes, const int* starts,
     const int* counts, const int* leftn, int gbase, int sbase,
     const float* viewport, int width, int height, const float* init_d,
-    float* out_d, int* out_i, float* out_e, int tile, int tiles_x,
-    int tiles_y, int kchunk, void* stream) {
+    float* out_d, int* out_i, float* out_e, const int* shade_tbl, int sh_w,
+    int n_tris, int* out_rows, int tile, int tiles_x, int tiles_y,
+    int kchunk, void* stream) {
   const int pitch = tiles_x * tile;
   const int plane_size = pitch * tiles_y * tile;
   const size_t smem = static_cast<size_t>(kchunk) * ncol * sizeof(float);
   const dim3 grid(tiles_x * tiles_y);
   const dim3 block(tile * tile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool want_e = out_e != nullptr;
+  const bool fetch = shade_tbl != nullptr;
+  if (fetch && ((sh_w & 3) != 0 || out_rows == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define CK_SOLVE_ARGS                                                        \
+  grid, block, smem, s, rows, ncol, n_planes, starts, counts, leftn, gbase,  \
+      sbase, viewport, width, height, init_d, out_d, out_i, out_e,           \
+      shade_tbl, sh_w, n_tris, out_rows, tile, tiles_x, pitch, plane_size,   \
+      kchunk
   cudaError_t err;
-  if (out_e != nullptr) {
-    err = cudaFuncSetAttribute(solve_tiled_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    solve_tiled_kernel<true><<<grid, block, smem, s>>>(
-        rows, ncol, n_planes, starts, counts, leftn, gbase, sbase, viewport,
-        static_cast<float>(width), static_cast<float>(height), init_d, out_d,
-        out_i, out_e, tile, tiles_x, pitch, plane_size, kchunk);
-  } else {
-    err = cudaFuncSetAttribute(solve_tiled_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    solve_tiled_kernel<false><<<grid, block, smem, s>>>(
-        rows, ncol, n_planes, starts, counts, leftn, gbase, sbase, viewport,
-        static_cast<float>(width), static_cast<float>(height), init_d, out_d,
-        out_i, out_e, tile, tiles_x, pitch, plane_size, kchunk);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (fetch)
+    err = want_e ? launch<true, true>(CK_SOLVE_ARGS)
+                 : launch<false, true>(CK_SOLVE_ARGS);
+  else
+    err = want_e ? launch<true, false>(CK_SOLVE_ARGS)
+                 : launch<false, false>(CK_SOLVE_ARGS);
+#undef CK_SOLVE_ARGS
+  return static_cast<int>(err);
 }

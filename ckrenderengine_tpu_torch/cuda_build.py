@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ck_reduce_flat": (_P, _I, _P, _P, _P, _I, _I, _P),
     "ck_solve_tiled": (_P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P,
-                       _P, _P, _I, _I, _I, _I, _P),
+                       _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
     "ck_ordered_blend": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ck_ordered_peel": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _P),

@@ -1,0 +1,109 @@
+"""Frame rates and per-frame device launches of the five smoke scenes, for
+comparing two trees of this package on one card.
+
+    python3 ckrenderengine_tpu_torch/frame_bench.py --root . --out a.json
+    python3 ckrenderengine_tpu_torch/frame_bench.py --root _parent --out b.json
+
+``--root`` is the directory that holds the ``ckrenderengine_tpu_torch``
+package to measure (this tree, or an unpacked ``git archive`` of another
+commit: archive ``ckrenderengine_tpu_torch`` AND ``native``, whose C++
+mesh optimizer the scene compile falls back from to minutes of Python);
+the script itself uses only what every tree of the port has. Run
+the trees in turns inside one call (parent, change, change, parent): two
+calls may land on two cards and hosts. For each scene it renders 2 warm-up
+ticks and 30 timed ticks of (rotate the mover, ``Render()``), fenced by
+``torch.cuda.synchronize()``, then profiles 3 more ticks with
+``torch.profiler`` and counts what reached the card. ``--frames DIR`` also
+saves every scene's first frame (fb and zb) as ``.npy`` files, so two trees'
+frames can be compared bit for bit. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import time
+
+TICKS = 30
+SCENES = (("config1", "build_config1", 0.02), ("config2", "build_config2", 0.03),
+          ("config5", "build_config5", 0.01), ("alpha50k", "build_alpha50k", 0.02),
+          ("alpha_tex50k", "build_alpha_tex50k", 0.02))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--frames", default=None)
+    args = ap.parse_args()
+    # A run that stalls says where: every 120 s all stacks go to stderr.
+    faulthandler.dump_traceback_later(120, repeat=True)
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("frame_bench: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.root))
+    from ckrenderengine_tpu_torch import scenes
+    import ckrenderengine_tpu_torch.objects as O
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    out = {"root": args.root, "card": card, "ticks": TICKS,
+           "fused_fetch": bool(os.environ.get("CK_FUSED_FETCH")),
+           "scenes": {}}
+    for name, build, angle in SCENES:
+        _ctx, rc, mover = getattr(scenes, build)(O, device="cuda")
+        rc.Render()
+        torch.cuda.synchronize()
+        if args.frames:
+            os.makedirs(args.frames, exist_ok=True)
+            np.save(os.path.join(args.frames, name + "_fb.npy"),
+                    rc.fb.cpu().numpy())
+            np.save(os.path.join(args.frames, name + "_zb.npy"),
+                    rc.zb.cpu().numpy())
+
+        def tick():
+            mover.Rotate((0, 1, 0), angle)
+            rc.Render()
+
+        for _ in range(2):
+            tick()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(TICKS):
+            tick()
+        torch.cuda.synchronize()
+        fps = TICKS / (time.monotonic() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                tick()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                     else e.cuda_time_total for e in dev)
+        out["scenes"][name] = {
+            "fps": fps, "size": [rc.width, rc.height],
+            "device_launches_per_frame": len(dev) / 3,
+            "device_ms_per_frame": dev_us / 1e3 / 3}
+        print(json.dumps({"root": args.root, "scene": name,
+                          **out["scenes"][name]}), flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -129,7 +129,7 @@ class CKObject:
         """Rewrite object references according to ``id_map`` {old_id:
         new_id} (reference RemapDependencies) — implemented by a statechunk
         round-trip with the partial remap the Copy path uses."""
-        raise unported("dependency remapping (statechunk IO)", 15)
+        raise unported("dependency remapping (statechunk IO)", 14)
 
     def IsObjectUsed(self, obj, cid: int = 0) -> bool:
         """Does this object reference ``obj`` (reference IsObjectUsed)?"""
@@ -352,11 +352,11 @@ class CKContext:
     # -- dirty tracking ---------------------------------------------------
     def Save(self, path: str, objects=None) -> int:
         """Persist the scene (reference CKStateChunk Save path)."""
-        raise unported("scene saving", 15)
+        raise unported("scene saving", 14)
 
     def Load(self, path: str) -> list:
         """Load a scene file into this context (two-phase id remap)."""
-        raise unported("scene loading", 15)
+        raise unported("scene loading", 14)
 
     def _bump_topology(self):
         if getattr(self, "_suspend_bumps", 0) > 0:

@@ -243,4 +243,4 @@ def copy_object(ctx, obj, modes: Optional[dict] = None,
                 suffix: str = ""):
     """Duplicate ``obj`` (reference RCK*::Copy): not carried yet (the copy
     path runs through the statechunk serializer)."""
-    raise unported("object copy (statechunk IO)", 15)
+    raise unported("object copy (statechunk IO)", 14)

@@ -441,7 +441,7 @@ class CK3dEntity(CKRenderObject):
     # src/CK3dEntity.cpp:2918-2973) -----------------------
     def CreateSkin(self):
         from ..roadmap import unported
-        raise unported("CreateSkin", 6)
+        raise unported("CreateSkin", 5)
 
     def GetSkin(self):
         return self.skin

@@ -104,7 +104,7 @@ class CKRenderManager(CKObject):
             rc.Render()
 
     def ProcessBatched(self, mesh=None):
-        raise unported("ProcessBatched (batched contexts)", 13)
+        raise unported("ProcessBatched (batched contexts)", 12)
 
     def PreProcess(self):
         self._moved_entities.clear()

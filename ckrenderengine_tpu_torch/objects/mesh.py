@@ -299,7 +299,7 @@ class CKMesh(CKObject):
     def CreatePM(self):
         """Compute the edge-collapse sequence (cost = distance x curvature)."""
         from ..roadmap import unported
-        raise unported("progressive meshes", 17)
+        raise unported("progressive meshes", 16)
 
         self._pm_full_positions = self.positions.copy()
         self._pm_full_faces = self.faces.copy()
@@ -325,7 +325,7 @@ class CKMesh(CKObject):
     def SetPMVertexCount(self, n: int):
         """Rebuild the render mesh at an n-vertex budget."""
         from ..roadmap import unported
-        raise unported("progressive meshes", 17)
+        raise unported("progressive meshes", 16)
 
         if not self.IsPM():
             return
@@ -347,7 +347,7 @@ class CKMesh(CKObject):
         """Geomorph lerp toward the collapsed representatives (dynamic-only:
         no recompile)."""
         from ..roadmap import unported
-        raise unported("progressive meshes", 17)
+        raise unported("progressive meshes", 16)
 
         if not self.IsPM():
             return
@@ -862,7 +862,7 @@ class CKMesh(CKObject):
         """Read the vertex streams back from an ID_MESH statechunk
         (reference LoadVertices/ILoadVertices, include/RCKMesh.h:183-188)."""
         from ..roadmap import unported
-        raise unported("mesh statechunk IO", 15)
+        raise unported("mesh statechunk IO", 14)
         if not chunk.SeekIdentifier(ID_MESH):
             return False
         self.SetPositions(chunk.ReadArray())

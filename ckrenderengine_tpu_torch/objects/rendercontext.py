@@ -53,7 +53,7 @@ class CKRenderContext(CKObject):
         self.stereo_enabled = False
         self.target_texture = None
         # Solve caps stay on the t_count heuristic: the capacity governor
-        # is not ported yet (ROADMAP.md port queue item 12).
+        # is not ported yet (ROADMAP.md port queue item 11).
         self._solve_caps = None
         # Host chunk-cull survivor cap (bumps pre-dispatch; never drops).
         self._chunk_cap = None
@@ -94,7 +94,7 @@ class CKRenderContext(CKObject):
         """Frame windows (W frames per device dispatch) are not carried yet:
         W = 1 is the only accepted value."""
         if int(window) > 1:
-            raise unported("frame windows (SetFramePipelining W > 1)", 5)
+            raise unported("frame windows (SetFramePipelining W > 1)", 4)
 
     def GetFramePipelining(self) -> int:
         return 1
@@ -304,7 +304,7 @@ class CKRenderContext(CKObject):
             # Skinned entities get a private pool block (their pool vertices
             # are overwritten per-frame by the device skin stage).
             if ent.skin is not None:
-                raise unported("skinned entities", 6)
+                raise unported("skinned entities", 5)
             mesh_key = (id(mesh), -1)
             if mesh_key not in mesh_offset:
                 mesh_offset[mesh_key] = pool_count
@@ -1325,7 +1325,7 @@ class CKRenderContext(CKObject):
         the fixed-function texture-blend stage (the reference's
         CreatePixelShader/SetPixelShader,
         CKDX9RasterizerContext.cpp:1445-1553). Not ported yet: a frame with
-        a shader set raises (ROADMAP.md port queue item 11). None clears."""
+        a shader set raises (ROADMAP.md port queue item 10). None clears."""
         self.pixel_shader = fn
         self.context._bump_dynamic()
 
@@ -1376,7 +1376,7 @@ class CKRenderContext(CKObject):
         return out
 
     def BindAnimation(self, clip) -> bool:
-        raise unported("device-bound keyed animation (BindAnimation)", 6)
+        raise unported("device-bound keyed animation (BindAnimation)", 5)
 
     def GetBoundAnimation(self):
         return None
@@ -2078,7 +2078,7 @@ class CKRenderContext(CKObject):
 
     def SetTargetTexture(self, texture):
         if texture is not None:
-            raise unported("render-to-texture (SetTargetTexture)", 18)
+            raise unported("render-to-texture (SetTargetTexture)", 17)
         self.target_texture = None
 
     def GetTargetTexture(self):
@@ -2170,7 +2170,7 @@ class CKRenderContext(CKObject):
 
     def SetTileSharding(self, n_bands: int = 0, devices=None) -> bool:
         if n_bands > 1:
-            raise unported("framebuffer tile sharding", 13)
+            raise unported("framebuffer tile sharding", 12)
         return True
 
     def GetTileSharding(self) -> int:
@@ -2178,7 +2178,7 @@ class CKRenderContext(CKObject):
 
     def SetStereoParameters(self, eye_separation: float, focal_length: float):
         if eye_separation > 0:
-            raise unported("stereo rendering", 18)
+            raise unported("stereo rendering", 17)
 
     def GetStereoParameters(self):
         return 0.0, 0.0

@@ -177,7 +177,7 @@ class CKTexture(CKObject):
             return False
         if head == b"DDS ":
             from ..roadmap import unported
-            raise unported("DDS texture loading", 15)
+            raise unported("DDS texture loading", 14)
         try:
             from PIL import Image
         except ImportError:
@@ -193,7 +193,7 @@ class CKTexture(CKObject):
     def SetCompressedImage(self, data: bytes, width: int, height: int,
                            fmt: str = "DXT5", slot: int = 0) -> bool:
         from ..roadmap import unported
-        raise unported("SetCompressedImage (DXT decode)", 15)
+        raise unported("SetCompressedImage (DXT decode)", 14)
 
     def SetUserMipMapMode(self, on: bool = True):
         """User-provided mip levels instead of auto-generation (reference
@@ -266,7 +266,7 @@ class CKTexture(CKObject):
 
     def SetDeviceImage(self, img, slot: int = 0, chw: bool = False):
         from ..roadmap import unported
-        raise unported("SetDeviceImage (render-to-texture feeds)", 18)
+        raise unported("SetDeviceImage (render-to-texture feeds)", 17)
 
     def current_image(self) -> np.ndarray | None:
         return self.slots[self.current_slot] if self.slots else None

@@ -12,7 +12,13 @@ one eager pass does
 
 The solve dispatch is the reference's, minus the TPU lane rule: the tiled
 solve (B1) when ``t > 4096`` or ``t*H*W > 2^26``, else the flat solve (B2)
-when there is no kept z-buffer and no user clip plane, else B1. The ordered
+when there is no kept z-buffer and no user clip plane, else B1. The shade
+dispatch is the reference's accelerator branch, on the card and on the CPU
+alike: a tiled frame shades from per-pixel winner ROWS — quantized rows
+with B1's exported edge values, or compact rows when a mip frame has an odd
+size — and a flat frame through ``shade_deferred``. With the environment
+variable ``CK_FUSED_FETCH`` set, kernel B5 fetches the quantized rows inside
+the solve (same frame, bit for bit). The ordered
 pass composites the non-deferred triangles in sorted draw order
 (:func:`ordered_subset`): the exact flat pass below ``ordered_cap*H*W <=
 2^26``; above it the affine blend kernel B3 for untextured alpha-over, the
@@ -25,6 +31,7 @@ raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -138,13 +145,13 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
     Returns (clip (IV,4), color (IV,4), spec (IV,3), fog (IV,), world
     (N,4,4), uv (IV,2), clipd_v (IV,P) | None, refl_v None)."""
     if vertex_shader is not None:
-        raise unported("vertex shaders", 11)
+        raise unported("vertex shaders", 10)
     if want_texgen:
-        raise unported("texture coordinate generation (TexGen)", 10)
+        raise unported("texture coordinate generation (TexGen)", 9)
     if want_bump:
-        raise unported("bump-environment mapping", 10)
+        raise unported("bump-environment mapping", 9)
     if want_cube:
-        raise unported("cube-environment mapping", 10)
+        raise unported("cube-environment mapping", 9)
     if world is None:
         world = compose_world(scene.local, scene.parent, levels)
     # Row N = identity: world-space vertex sources bind here.
@@ -312,7 +319,7 @@ def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
     of every head triangle), so their per-corner data is a slice; only the
     tail pays the per-corner gathers."""
     if refl_v is not None:
-        raise unported("cube-environment mapping", 10)
+        raise unported("cube-environment mapping", 9)
     _nc, itc, _p0 = corner
     i0, i1, i2 = scene.tri_idx[:, 0], scene.tri_idx[:, 1], scene.tri_idx[:, 2]
 
@@ -471,9 +478,8 @@ def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
         SF_ALPHAREF, SI_ALPHABLEND, SI_ALPHAFUNC, SI_ALPHATEST,
     )
 
-    t = obatch.valid.shape[0]
     if obatch.refl.shape[-1]:
-        raise unported("cube-environment mapping", 10)
+        raise unported("cube-environment mapping", 9)
     all_persp = (sampler_profile is not None and len(sampler_profile) > 3
                  and bool(sampler_profile[3]))
     inv_det_s = None
@@ -493,10 +499,7 @@ def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
                         device=fb.device)
     for s in range(lids.shape[0]):
         hit = lids[s] >= 0
-        tid = torch.clamp(lids[s], 0, t - 1).reshape(-1).long()
-        rows_q = tbl.index_select(0, tid).T.reshape(tbl.shape[1], height,
-                                                    width)
-        rows_q = torch.where(hit[None], rows_q, 0)
+        rows_q = df.gather_winner_rows(tbl, lids[s])
         full = df.expand_rows_quant(rows_q, scene.state_i, scene.state_f,
                                     scene.tex_hw, want_ws=not all_persp,
                                     has_refl=False)
@@ -558,7 +561,7 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
 
     Returns (fb (4,H,W) f32, zb (H,W) f32[, stats dict])."""
     if want_stencil:
-        raise unported("the stencil pass", 3)
+        raise unported("the stencil pass", 2)
     if background is not None:
         clear_fb = background
     elif prev_fb is not None:
@@ -575,21 +578,71 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
     t_count = batch.valid.shape[0]
     tiled = t_count > 4096 or t_count * height * width > (1 << 26)
     flat = not tiled and prev_zb is None and batch.clipd.shape[-1] == 0
-    if flat:
-        best_id, best_depth = depth_reduce_cuda(
-            setup, defer_tri, scene.clear_z, scene.viewport, height, width)
-        tile_peak = None
-    else:
-        best_id, best_depth, tile_peak = depth_reduce_tiled_cuda(
+    sp = sampler_profile
+    batch_args = (batch.xyw, batch.color, batch.specular, batch.uv,
+                  batch.fog, batch.state_idx)
+    shade_args = (scene.tex_planes, scene.tex_hw, scene.fog_color, clear_fb,
+                  height, width)
+
+    def solve_tiled(**kw):
+        return depth_reduce_tiled_cuda(
             setup, defer_tri, z_init, scene.viewport, batch.xyw, height,
             width, want_binstats=want_stats,
-            **_solve_caps(t_count, solve_caps))
-    fb = df.shade_deferred(
-        best_id, batch.xyw, batch.z, batch.color, batch.specular, batch.uv,
-        batch.fog, batch.state_idx, scene.state_i, scene.state_f,
-        scene.tex_planes, scene.tex_hw, scene.fog_color, clear_fb, height,
-        width, batch_refl=batch.refl, pixel_shader=pixel_shader,
-        sampler_profile=sampler_profile, tex_quad=scene.tex_quad)
+            **_solve_caps(t_count, solve_caps), **kw)
+
+    tile_peak = None
+    if flat or pixel_shader is not None:
+        # The flat solve (B2), and every pixel-shader frame: one full-width
+        # row gather per pixel inside shade_deferred.
+        if flat:
+            best_id, best_depth = depth_reduce_cuda(
+                setup, defer_tri, scene.clear_z, scene.viewport, height,
+                width)
+        else:
+            best_id, best_depth, tile_peak = solve_tiled()
+        fb = df.shade_deferred(
+            best_id, batch.xyw, batch.z, *batch_args[1:], scene.state_i,
+            scene.state_f, *shade_args, batch_refl=batch.refl,
+            pixel_shader=pixel_shader, sampler_profile=sp,
+            tex_quad=scene.tex_quad)
+    elif sp is not None and (not sp[1]
+                             or (height % 2 == 0 and width % 2 == 0)):
+        # Quantized rows: colours, speculars and fog as u8 words (the
+        # reference's D3DCOLOR vertex precision) and no edge coefficients;
+        # B1 exports the winner's (e0, e1, e2) per pixel instead. A mip
+        # frame of even size takes its LOD from 2x2-quad differences.
+        want_ws = not (len(sp) > 3 and bool(sp[3]))
+        tbl = df.shade_row_table_quant(
+            *batch_args, batch_refl=batch.refl,
+            inv_det_s=setup["inv_det_s"], want_ws=want_ws)
+        # CK_FUSED_FETCH (off by default, as in the reference): kernel B5
+        # fetches the winner rows inside the solve; else a gather after it.
+        if os.environ.get("CK_FUSED_FETCH"):
+            best_id, best_depth, tile_peak, epl, rows_q = solve_tiled(
+                want_eplanes=True, shade_tbl=tbl)
+        else:
+            best_id, best_depth, tile_peak, epl = solve_tiled(
+                want_eplanes=True)
+            rows_q = df.gather_winner_rows(tbl, best_id)
+        rows = df.expand_rows_quant(rows_q, scene.state_i, scene.state_f,
+                                    scene.tex_hw, want_ws=want_ws,
+                                    has_refl=False)
+        fb = df.shade_rows(rows, best_id >= 0, *shade_args,
+                           sampler_profile=sp, tex_quad=scene.tex_quad,
+                           eplanes=(epl[0], epl[1], epl[2]))
+    else:
+        # Compact rows (a mip frame of odd size, or no sampler profile):
+        # the solve's signed edge coefficients ride the row, so the shade
+        # keeps its analytic mip LOD.
+        best_id, best_depth, tile_peak = solve_tiled()
+        tbl = df.shade_row_table_compact(
+            *batch_args, setup["e9"], setup["inv_det_s"],
+            batch_refl=batch.refl)
+        rows = df.expand_rows_compact(
+            df.gather_winner_rows(tbl, best_id), scene.state_i,
+            scene.state_f, scene.tex_hw)
+        fb = df.shade_rows(rows, best_id >= 0, *shade_args,
+                           sampler_profile=sp, tex_quad=scene.tex_quad)
     zb = best_depth
     if ordered_cap is None:
         ordered_cap = t_count
@@ -729,15 +782,15 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
     -> the opaque frame. Animation, skinning, billboards, 2D overlays and
     lines are not carried yet and raise."""
     if anim is not None:
-        raise unported("device animation banks", 6)
+        raise unported("device animation banks", 5)
     if skin is not None:
-        raise unported("skinning", 6)
+        raise unported("skinning", 5)
     if sprites is not None:
-        raise unported("3D sprites (billboards)", 9)
+        raise unported("3D sprites (billboards)", 8)
     if quads_bg is not None or quads_fg is not None:
-        raise unported("2D overlays", 7)
+        raise unported("2D overlays", 6)
     if lines is not None:
-        raise unported("the line pass", 8)
+        raise unported("the line pass", 7)
     world = world_in if world_in is not None else compose_world(
         scene.local, scene.parent, levels)
     if cull is not None and cull_sel is not None:
@@ -792,14 +845,14 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     pipeline/packing.py). Takes exactly what the render context's
     ``_fill_packed`` returns."""
     if ss != 1:
-        raise unported("antialias supersampling", 4)
+        raise unported("antialias supersampling", 3)
     if texdev:
-        raise unported("render-to-texture feeds", 18)
+        raise unported("render-to-texture feeds", 17)
     if sprites_static is not None:
-        raise unported("3D sprites (billboards)", 9)
+        raise unported("3D sprites (billboards)", 8)
     scene, d = unpack_scene(static, dyn_f, dyn_i, layout)
     if has_field(layout, "qbg_rect") or has_field(layout, "qfg_rect"):
-        raise unported("2D overlays", 7)
+        raise unported("2D overlays", 6)
     cull_sel = None
     if cull is not None and has_field(layout, "chunk_idx"):
         cull_sel = (d["chunk_idx"], d["chunk_n"])

@@ -14,6 +14,9 @@ The counterpart of ``ckrenderengine_tpu.raster.pallas_tiled``
                     segments, with the (depth, id[, e0, e1, e2]) carry in
                     registers. On a CPU tensor :func:`solve_phase_b_plain`
                     computes the same per-tile reduce in torch.
+                    Given a quantized shade table, kernel B5 (the fetch
+                    instantiation of the same source) also writes each
+                    pixel's winner row, int32 words bit for bit.
 
 Overflow past the static caps (leftover rows beyond ``g_cap``, tiles cut by
 ``pair_cap``) streams through exact all-tiles torch loops afterwards, which
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
+from .deferred import gather_winner_rows
 from .tiled import _C_EC, _C_FL, _NCOL, _pow2ceil, _reduce_rows, _screen_bbox
 
 _BIG = 3.0e38
@@ -91,12 +95,15 @@ def untile(a: torch.Tensor, tile: int, tiles_x: int,
 def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
                         sbase: int, viewport, width: int, height: int,
                         init_d, tile: int, tiles_x: int, tiles_y: int,
-                        n_planes: int, want_e: bool, rows_per_step: int = 16):
-    """Plain torch version of kernel B1: per tile, reduce the tile's own
-    stream range, then the two shared leftover segments, then mask by the
-    viewport scissor and the framebuffer bounds. Chunked over rows so memory
-    stays bounded. Returns (depth (Hp,Wp), id (Hp,Wp) int32,
-    e-planes (3,Hp,Wp) or None) in full-tile padded planes."""
+                        n_planes: int, want_e: bool, shade_tbl=None,
+                        rows_per_step: int = 16):
+    """Plain torch version of kernels B1 and B5: per tile, reduce the
+    tile's own stream range, then the two shared leftover segments, then
+    mask by the viewport scissor and the framebuffer bounds. Chunked over
+    rows so memory stays bounded. With ``shade_tbl`` (T, Wq) int32 (B5) the
+    winner's table row is gathered per pixel, 0 where the id is -1.
+    Returns (depth (Hp,Wp), id (Hp,Wp) int32, e-planes (3,Hp,Wp) or None,
+    rows (Wq,Hp,Wp) int32 or None) in full-tile padded planes."""
     dev = stream.device
     n_tiles = tiles_x * tiles_y
     npix = tile * tile
@@ -171,21 +178,21 @@ def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
     ep = None
     if want_e:
         ep = untile(torch.where(scissor, be, 0.0), tile, tiles_x, tiles_y)
-    return (untile(bd, tile, tiles_x, tiles_y),
-            untile(bi, tile, tiles_x, tiles_y), ep)
+    ids = untile(bi, tile, tiles_x, tiles_y)
+    rows = None if shade_tbl is None else gather_winner_rows(shade_tbl, ids)
+    return untile(bd, tile, tiles_x, tiles_y), ids, ep, rows
 
 
-def solve_tiled_kernel(stream, starts, counts, leftn, gbase: int, sbase: int,
-                       viewport, width: int, height: int, init_d,
-                       tile: int, tiles_x: int, tiles_y: int, n_planes: int,
-                       want_e: bool, kchunk: int = 128):
-    """Launch kernel B1 on CUDA tensors (same contract as
-    :func:`solve_phase_b_plain`)."""
+def _launch_solve(name: str, stream, starts, counts, leftn, gbase: int,
+                  sbase: int, viewport, width: int, height: int, init_d,
+                  tile: int, tiles_x: int, tiles_y: int, n_planes: int,
+                  want_e: bool, shade_tbl, kchunk: int):
+    """Check the arguments, allocate the outputs and launch one
+    instantiation of ``csrc/solve_tiled.cu``."""
     ncol = _NCOL + 3 * n_planes
     if not stream.is_cuda or stream.dtype != torch.float32 \
             or stream.dim() != 2 or stream.shape[1] != ncol:
-        raise ValueError("solve_tiled_kernel takes a CUDA f32 (rows, ncol) "
-                         "stream")
+        raise ValueError(f"{name} takes a CUDA f32 (rows, ncol) stream")
     if tile * tile > 1024:
         raise ValueError("tile*tile must fit one CTA (<= 1024 threads)")
     dev = stream.device
@@ -202,28 +209,61 @@ def solve_tiled_kernel(stream, starts, counts, leftn, gbase: int, sbase: int,
     out_i = torch.empty((full_h, full_w), dtype=torch.int32, device=dev)
     out_e = (torch.empty((3, full_h, full_w), dtype=torch.float32, device=dev)
              if want_e else None)
+    out_r, sh_w, n_tris = None, 0, 0
+    if shade_tbl is not None:
+        if shade_tbl.device != dev or shade_tbl.dtype != torch.int32 \
+                or shade_tbl.dim() != 2 or shade_tbl.shape[1] % 4:
+            raise ValueError(f"{name} takes a CUDA int32 (T, Wq) shade "
+                             "table on the stream's device, Wq a multiple "
+                             "of 4 words")
+        shade_tbl = shade_tbl.contiguous()
+        if shade_tbl.data_ptr() % 16:            # 16-byte vector loads
+            shade_tbl = shade_tbl.clone()
+        n_tris, sh_w = shade_tbl.shape
+        out_r = torch.empty((sh_w, full_h, full_w), dtype=torch.int32,
+                            device=dev)
     code = lib.ck_solve_tiled(
         stream.data_ptr(), ncol, n_planes, starts.data_ptr(),
         counts.data_ptr(), leftn.data_ptr(), gbase, sbase, vp.data_ptr(),
         width, height, init_d.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        cuda_build.ptr(out_e), tile, tiles_x, tiles_y, kchunk,
+        cuda_build.ptr(out_e), cuda_build.ptr(shade_tbl), sh_w, n_tris,
+        cuda_build.ptr(out_r), tile, tiles_x, tiles_y, kchunk,
         torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check("ck_solve_tiled", code)
+    cuda_build.check(f"ck_solve_tiled ({name})", code)
+    return out_d, out_i, out_e, out_r
+
+
+def solve_tiled_kernel(*args, kchunk: int = 128):
+    """Launch kernel B1 on CUDA tensors: the arguments and the result of
+    :func:`solve_phase_b_plain` without a shade table."""
+    out = _launch_solve("solve_tiled_kernel", *args, None, kchunk)
     solve_tiled_kernel.launches += 1
-    return out_d, out_i, out_e
+    return out
 
 
 solve_tiled_kernel.launches = 0
 
 
-def solve_phase_b(*args, **kw):
-    """Phase B dispatch: kernel B1 for a CUDA stream, the plain torch
-    version for a CPU one."""
-    stream = args[0] if args else kw["stream"]
-    if stream.is_cuda:
-        return solve_tiled_kernel(*args, **kw)
-    kw.pop("kchunk", None)
-    return solve_phase_b_plain(*args, **kw)
+def solve_fetch_kernel(*args, kchunk: int = 128):
+    """Launch kernel B5 on CUDA tensors: B1's solve plus, per pixel, the
+    int32 words of its winner's ``shade_tbl`` row. The arguments and the
+    result of :func:`solve_phase_b_plain`, ``shade_tbl`` last."""
+    out = _launch_solve("solve_fetch_kernel", *args, kchunk)
+    solve_fetch_kernel.launches += 1
+    return out
+
+
+solve_fetch_kernel.launches = 0
+
+
+def solve_phase_b(stream, *args, shade_tbl=None, kchunk: int = 128):
+    """Phase B dispatch: for a CUDA stream kernel B5 when a shade table is
+    given and kernel B1 otherwise; the plain torch version for a CPU one."""
+    if not stream.is_cuda:
+        return solve_phase_b_plain(stream, *args, shade_tbl=shade_tbl)
+    if shade_tbl is not None:
+        return solve_fetch_kernel(stream, *args, shade_tbl, kchunk=kchunk)
+    return solve_tiled_kernel(stream, *args, kchunk=kchunk)
 
 
 def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
@@ -393,12 +433,16 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
                             span2: int = 16, g_cap: int = 8192,
                             slab_cap: int = 131072, pair_cap: int = 65536,
                             kchunk: int = 128, want_eplanes: bool = False,
-                            want_binstats: bool = False):
+                            want_binstats: bool = False, shade_tbl=None):
     """Tile-binned argmin depth reduce (exact); the counterpart of
     ``pallas_tiled.depth_reduce_tiled_pallas``.
 
-    Returns (best_id (H,W) int32, best_depth (H,W) f32, peak) and, with
-    ``want_eplanes``, the winner's raw edge values (3,H,W) as a 4th result.
+    Returns (best_id (H,W) int32, best_depth (H,W) f32, peak); with
+    ``want_eplanes`` the winner's raw edge values (3,H,W) follow; with
+    ``shade_tbl`` (T, Wq) int32, the quantized shade table, each pixel's
+    winner row (Wq,H,W) int32 comes last (the fused fetch, kernel B5 on the
+    card): equal to ``gather_winner_rows(shade_tbl, best_id)``, so 0 where
+    the id is -1, inside and outside the scissor.
     ``want_binstats``: ``peak`` becomes the (7,) int32 vector [peak,
     n_live_pairs, pair_cut_rows, g_over_rows, slab_over_rows, n_small,
     n_mid]; nonzero *_over/cut means the exact all-tiles remainder ran."""
@@ -411,10 +455,10 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
     full_h, full_w = ty_n * tile, tx_n * tile
     init_d = _init_plane(clear_z, height, width, full_h, full_w, dev)
     vp = torch.as_tensor(viewport, dtype=torch.float32, device=dev).reshape(4)
-    best_d, best_i, ep = solve_phase_b(
+    best_d, best_i, ep, rows = solve_phase_b(
         a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
         a["sbase"], vp, width, height, init_d, tile, tx_n, ty_n,
-        a["n_planes"], want_eplanes, kchunk=kchunk)
+        a["n_planes"], want_eplanes, shade_tbl=shade_tbl, kchunk=kchunk)
 
     # --- beyond-cap remainders: exact all-tiles loops (zero iterations on
     # ordinary frames). One small readback decides whether any runs.
@@ -460,17 +504,20 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
 
         carry = stream_ids(carry, tail_ids, pair_cut)
         best_d, best_i = carry
-        if want_eplanes and bool((best_i != kernel_i).any()):
-            # A remainder changed a winner: recompute its edge values from
-            # the row table.
-            tid = torch.clamp(best_i, 0, t - 1).reshape(-1)
-            ec = a["full_rows"][tid][:, _C_EC].T.reshape(9, full_h, full_w)
-            e = torch.stack([ec[3 * k] * px + ec[3 * k + 1] * py
-                             + ec[3 * k + 2] for k in range(3)])
-            ep = torch.where((best_i >= 0)[None], e, 0.0)
-    bd = best_d[:height, :width]
-    bi = best_i[:height, :width]
-    peak = binstats if want_binstats else binstats[0]
+        if (want_eplanes or shade_tbl is not None) \
+                and bool((best_i != kernel_i).any()):
+            # A remainder changed a winner: recompute the winners' edge
+            # values from the row table and fetch their shade rows again.
+            if want_eplanes:
+                ec = gather_winner_rows(a["full_rows"][:, _C_EC], best_i)
+                ep = torch.stack([ec[3 * k] * px + ec[3 * k + 1] * py
+                                  + ec[3 * k + 2] for k in range(3)])
+            if shade_tbl is not None:
+                rows = gather_winner_rows(shade_tbl, best_i)
+    out = (best_i[:height, :width], best_d[:height, :width],
+           binstats if want_binstats else binstats[0])
     if want_eplanes:
-        return bi, bd, peak, ep[:, :height, :width]
-    return bi, bd, peak
+        out += (ep[:, :height, :width],)
+    if shade_tbl is not None:
+        out += (rows[:, :height, :width],)
+    return out

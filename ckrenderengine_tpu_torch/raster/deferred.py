@@ -42,6 +42,16 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         tuple(idx.shape) + tuple(table.shape[1:]))
 
 
+def gather_winner_rows(tbl: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Per-pixel winner rows of a per-triangle table: (T,C) rows and (H,W)
+    ids -> (C,H,W) channel-major, 0 where the id is negative (background).
+    The table's dtype is kept, so int32 words move bit for bit."""
+    h, w = ids.shape
+    tid = torch.clamp(ids, 0, tbl.shape[0] - 1).reshape(-1).long()
+    rows = tbl.index_select(0, tid).T.reshape(tbl.shape[1], h, w)
+    return torch.where((ids >= 0)[None], rows, 0)
+
+
 def deferred_mask(state_i: torch.Tensor) -> torch.Tensor:
     """Per-state-bucket: eligible for the order-independent opaque reduce."""
     return ((state_i[:, SI_ALPHABLEND] == 0)
@@ -430,7 +440,7 @@ def shade_deferred(best_id, batch_xyw, batch_z, batch_color, batch_spec,
     Fixed-function frames take :func:`_shade_deferred_fast`. Returns
     (4,H,W) fb planes (background pixels keep clear_fb)."""
     if pixel_shader is not None:
-        raise unported("pixel shaders", 11)
+        raise unported("pixel shaders", 10)
     return _shade_deferred_fast(
         best_id, batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
         batch_state, state_i, state_f, tex_planes, tex_hw, fog_color,
@@ -457,7 +467,7 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
                     batch_state, state_i, state_f, tex_hw, batch_refl=None):
     """(T, SH_NCOL) packed shade rows (dense build, one wide row)."""
     if batch_refl is not None and batch_refl.shape[-1] > 0:
-        raise unported("cube-environment reflection shading", 10)
+        raise unported("cube-environment reflection shading", 9)
     t = batch_xyw.shape[0]
     v0, v1, v2 = batch_xyw[:, 0], batch_xyw[:, 1], batch_xyw[:, 2]
     adj0 = torch.linalg.cross(v1, v2)
@@ -478,6 +488,54 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
         batch_fog.reshape(t, 3),
         st_t,
     ], dim=1)
+
+
+# Compact shade-row layout: the 22 per-state columns are replaced by ONE
+# state-index column and re-joined per pixel from the small state bank
+# (expand_rows_compact). It carries the solve's signed edge coefficients, so
+# shade_rows computes the analytic mip LOD from it (odd-sized mip frames,
+# and frames without a sampler profile).
+SH_C_STIDX = 43          # after EC(9) WS(3) IVD(1) COL(12) SPC(9) UV(6) FOG(3)
+SH_C_NCOL = 44
+
+
+def shade_row_table_compact(batch_xyw, batch_color, batch_spec, batch_uv,
+                            batch_fog, batch_state, e_coef, inv_det_s,
+                            batch_refl=None):
+    """(T, SH_C_NCOL) compact f32 shade rows: per-triangle data plus the
+    state INDEX. ``e_coef`` (T,9) or (T,3,3) and ``inv_det_s`` are the
+    signed pair from triangle_setup (the shade uses ratios only)."""
+    if batch_refl is not None and batch_refl.shape[-1] > 0:
+        raise unported("cube-environment reflection shading", 9)
+    t = batch_xyw.shape[0]
+    return torch.cat([
+        e_coef.reshape(t, 9),
+        batch_xyw[..., 2],
+        inv_det_s[:, None],
+        batch_color.reshape(t, 12),
+        batch_spec.reshape(t, 9),
+        batch_uv.reshape(t, 6),
+        batch_fog.reshape(t, 3),
+        batch_state.to(torch.float32)[:, None],
+    ], dim=1)
+
+
+def _state_rows_at(stidx, state_i, state_f, tex_hw, h: int, w: int):
+    """(22,H,W) per-state shade columns of each pixel's state index: an
+    exact row gather from the small state bank (index clamped)."""
+    st = _shade_state_rows(state_i, state_f, tex_hw)          # (S, 22)
+    stidx = torch.clamp(stidx.reshape(-1).long(), 0, st.shape[0] - 1)
+    return st.index_select(0, stidx).T.reshape(st.shape[1], h, w)
+
+
+def expand_rows_compact(rows_c, state_i, state_f, tex_hw):
+    """Compact per-pixel rows (SH_C_NCOL,H,W) -> the shade_rows layout
+    (SH_NCOL,H,W): the 22 per-state columns join per pixel from the state
+    bank by index."""
+    h, w = rows_c.shape[1], rows_c.shape[2]
+    st_px = _state_rows_at(rows_c[SH_C_STIDX], state_i, state_f, tex_hw,
+                           h, w)
+    return torch.cat([rows_c[:SH_C_STIDX], st_px])
 
 
 # Quantized shade-row layout: colors, speculars and fog quantize to u8
@@ -532,7 +590,7 @@ def shade_row_table_quant(batch_xyw, batch_color, batch_spec, batch_uv,
     render state disables perspective-correct interpolation. The table is
     int32 so packed bytes move bit-transparently."""
     if batch_refl is not None and batch_refl.shape[-1] > 0:
-        raise unported("cube-environment reflection shading", 10)
+        raise unported("cube-environment reflection shading", 9)
     t = batch_xyw.shape[0]
     cols = [_f2i(batch_uv.reshape(t, 6)),
             batch_state.to(torch.int32)[:, None]]
@@ -561,7 +619,7 @@ def expand_rows_quant(rows_q, state_i, state_f, tex_hw, want_ws: bool,
     ``eplanes``). The per-state columns join from the small state bank by
     an exact row gather."""
     if has_refl:
-        raise unported("cube-environment reflection shading", 10)
+        raise unported("cube-environment reflection shading", 9)
     h, w = rows_q.shape[1], rows_q.shape[2]
     dev = rows_q.device
     zeros9 = torch.zeros((9, h, w), dtype=torch.float32, device=dev)
@@ -576,10 +634,8 @@ def expand_rows_quant(rows_q, state_i, state_f, tex_hw, want_ws: bool,
         r, g, b, f = _unpack4(rows_q[SH_Q_SPF.start + k])
         spc9 += [r, g, b]
         fog3.append(f)
-    st = _shade_state_rows(state_i, state_f, tex_hw)          # (S, 22)
-    stidx = torch.clamp(rows_q[SH_Q_STIDX].reshape(-1).long(), 0,
-                        st.shape[0] - 1)
-    st_px = st.index_select(0, stidx).T.reshape(st.shape[1], h, w)
+    st_px = _state_rows_at(rows_q[SH_Q_STIDX], state_i, state_f, tex_hw,
+                           h, w)
     return torch.cat([zeros9, ws_ivd, torch.stack(col12), torch.stack(spc9),
                       _i2f(rows_q[SH_Q_UV]), torch.stack(fog3), st_px])
 

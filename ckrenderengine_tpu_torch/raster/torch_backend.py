@@ -184,7 +184,7 @@ def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
     (xyw, zv, col, spec, uv, fogv, sidx, valid, clip_rect, clipd,
      refl) = tri
     if refl.shape[-1] > 0:
-        raise unported("cube-environment mapping", 10)
+        raise unported("cube-environment mapping", 9)
     si = state_i[sidx.long()]
     sf = state_f[sidx.long()]
 
@@ -343,7 +343,7 @@ def render_pass(fb, zb, batch: DeviceBatch, state_i, state_f, tex_planes,
     """Rasterize a batch in draw order onto (4,H,W) fb and (H,W) zb: one
     full-frame composite per triangle."""
     if pixel_shader is not None:
-        raise unported("pixel shaders", 11)
+        raise unported("pixel shaders", 10)
     h, w = fb.shape[1], fb.shape[2]
     px, py = _pixel_grid(h, w, fb.device)
     vp = viewport
@@ -373,7 +373,7 @@ def render_pass_tiled(fb, zb, batch: DeviceBatch, state_i, state_f,
     from .tiled import _screen_bbox
 
     if pixel_shader is not None:
-        raise unported("pixel shaders", 11)
+        raise unported("pixel shaders", 10)
     dev = fb.device
     h, w = fb.shape[1], fb.shape[2]
     t = batch.xyw.shape[0]

@@ -9,25 +9,23 @@ from __future__ import annotations
 
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
-    1: "quantized opaque path (CUDA opaque shade on the quantized rows, "
-       "the compact rows, fused-fetch solve variant B5)",
-    2: "GPU benchmark",
-    3: "stencil pass",
-    4: "antialias supersampling",
-    5: "frame windows",
-    6: "skinning and animation",
-    7: "2D overlays",
-    8: "line pass",
-    9: "3D sprites",
-    10: "material effects (TexGen, bump, cube env, channels, effect passes)",
-    11: "pixel and vertex shaders",
-    12: "capacity governor",
-    13: "context batching and tile sharding",
-    14: "rasterizer HAL",
-    15: "scene IO",
-    16: "patch meshes",
-    17: "progressive meshes",
-    18: "remaining host API (stereo, render-to-texture, picking, "
+    1: "GPU benchmark",
+    2: "stencil pass",
+    3: "antialias supersampling",
+    4: "frame windows",
+    5: "skinning and animation",
+    6: "2D overlays",
+    7: "line pass",
+    8: "3D sprites",
+    9: "material effects (TexGen, bump, cube env, channels, effect passes)",
+    10: "pixel and vertex shaders",
+    11: "capacity governor",
+    12: "context batching and tile sharding",
+    13: "rasterizer HAL",
+    14: "scene IO",
+    15: "patch meshes",
+    16: "progressive meshes",
+    17: "remaining host API (stereo, render-to-texture, picking, "
         "immediate-mode draws, debug stepping)",
 }
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .raster.types import VXLIGHT
+from .raster.types import VXLIGHT, VXTEXTURE_FILTER
 
 
 def make_sphere(rows: int, cols: int, radius: float = 1.0):
@@ -90,9 +90,12 @@ def build_config1(O, size: int = 256, **ctx_kw):
     return ctx, rc, cube
 
 
-def build_config2(O, width: int = 640, height: int = 480, **ctx_kw):
+def build_config2(O, width: int = 640, height: int = 480,
+                  mips: bool = False, **ctx_kw):
     """Lit sphere over a textured plane, 2 lights (BASELINE config 2,
-    640x480). Returns (ctx, rc, ball); rotate ``ball`` by 0.03 per tick."""
+    640x480). ``mips``: the plane's texture gets a mip chain and a
+    trilinear filter (the BASELINE scene has none), so the frame needs a
+    mip LOD. Returns (ctx, rc, ball); rotate ``ball`` by 0.03 per tick."""
     ctx = O.CKContext(**ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(width, height)
     cam = O.CKCamera(ctx, "cam")
@@ -127,6 +130,10 @@ def build_config2(O, width: int = 640, height: int = 480, **ctx_kw):
     pmat = O.CKMaterial(ctx, "pmat")
     pmat.SetDiffuse((0.9, 0.9, 0.9, 1.0))
     pmat.SetTexture(tex)
+    if mips:
+        tex.UseMipmap(True)
+        pmat.SetTextureMinMode(int(VXTEXTURE_FILTER.LINEARMIPLINEAR))
+        pmat.SetTextureMagMode(int(VXTEXTURE_FILTER.LINEARMIPLINEAR))
     plane.ApplyGlobalMaterial(pmat)
     floor = O.CK3dObject(ctx, "floor")
     floor.SetCurrentMesh(plane)

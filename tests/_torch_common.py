@@ -3,6 +3,9 @@ the reference package (ckrenderengine_tpu) on the CPU."""
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import numpy as np
 import torch
 
@@ -13,6 +16,63 @@ def to_np(x):
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+@contextlib.contextmanager
+def accelerator_branch():
+    """Run the reference package's ACCELERATOR branch on the CPU.
+
+    The reference shades a tiled frame from per-pixel rows (quantized or
+    compact) and takes its ordered kernels only where ``jax.default_backend()``
+    is ``"tpu"``, so its own CPU ``Render()`` never runs that arithmetic.
+    Inside this block ``jax.default_backend`` reports ``"tpu"`` to the
+    reference's frame, and the Pallas entries it looks up at call time
+    (the tiled and flat solves, the ordered blend, the iterated peel) run in
+    interpret mode. jit caches by static arguments, not by these patches, so
+    the caches are cleared on the way in and on the way out. Nothing in the
+    reference package changes."""
+    import jax
+    from ckrenderengine_tpu.raster import (
+        pallas_ordered, pallas_reduce, pallas_tiled,
+    )
+
+    entries = [(pallas_tiled, "depth_reduce_tiled_pallas"),
+               (pallas_reduce, "depth_reduce_pallas"),
+               (pallas_ordered, "ordered_blend_tiled_pallas"),
+               (pallas_ordered, "ordered_peel_iterate")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in entries]
+    backend = jax.default_backend
+    jax.clear_caches()
+    try:
+        jax.default_backend = lambda: "tpu"
+        for mod, name, fn in saved:
+            setattr(mod, name, functools.partial(fn, interpret=True))
+        yield
+    finally:
+        jax.default_backend = backend
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        jax.clear_caches()
+
+
+def render_reference(build, accelerator: bool = True, **kw):
+    """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
+    the reference's object model, rendered once through ``Render()`` on its
+    accelerator branch (:func:`accelerator_branch`), or as the CPU runs it
+    when ``accelerator`` is off. The reference's capacity governor, which
+    follows the backend too, stays off: it only re-plans the caps of later
+    frames. Returns the render context."""
+    import ckrenderengine_tpu.objects as J
+
+    _c, rj, _m = build(J, **kw)
+    if not accelerator:
+        rj.Render()
+        return rj
+    rj._gov_on = False
+    with accelerator_branch():
+        rj.Render()
+        np.asarray(rj.fb)               # finish the frame inside the block
+    return rj
 
 
 def reference_winners(static, dyn_f, dyn_i, params):
@@ -224,16 +284,15 @@ def assert_frame_fb_close(got, ref, ids, setup_np, where, atol=1.0 / 255.0,
         assert np.all(cond[off] > min_cond), cond[off].min()
 
 
-def render_both(build, **kw):
+def render_both(build, accelerator: bool = True, **kw):
     """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
     each package's object model and rendered once by each through
-    Render(): (reference context, port context, the reference's packed
-    inputs, reference_winners of them)."""
-    import ckrenderengine_tpu.objects as J
+    Render(), the reference by :func:`render_reference`: (reference
+    context, port context, the reference's packed inputs,
+    reference_winners of them)."""
     import ckrenderengine_tpu_torch.objects as O
 
-    _cj, rj, _mj = build(J, **kw)
-    rj.Render()
+    rj = render_reference(build, accelerator, **kw)
     _ct, rt, _mt = build(O, device="cpu", **kw)
     rt.Render()
     packed = rj._fill_packed([], [])

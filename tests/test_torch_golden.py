@@ -1,9 +1,9 @@
 """The golden frames (tests/torch_golden/, made by
-tests/torch_golden/make_golden.py with the reference package): config 2,
-and the untextured transparency scene whose ordered pass the port runs
-through kernel B3 while the reference on the CPU runs its exact sequential
-pass. The reference still reproduces each, and the port on the CPU matches
-it. The bounds are the slice's (tests/test_torch_slice.py): opaque winner
+tests/torch_golden/make_golden.py with the reference package on its
+accelerator branch, so they carry the quantized rows of a tiled frame):
+config 2, and the untextured transparency scene whose ordered pass both
+packages run through kernel B3. The reference still reproduces each, and
+the port on the CPU matches it. The bounds are the slice's (tests/test_torch_slice.py): opaque winner
 ids equal on >= 99.9% of the pixels, and the 8-bit image within one step
 wherever the winners agree. ``chip_smoke.py`` holds the port on the GPU to
 the same files and bounds."""

@@ -3,12 +3,17 @@ small scenes through both packages' Render(). All share the transparency
 stress scenes' camera and 3,200-triangle opaque floor, cut to 256x192:
 
 - ``alpha_b3``: 6 sheets x 450 untextured alpha-over triangles,
-  ordered_cap*H*W > 2^26 — the port takes the B3 branch (its plain version
-  here), the reference on the CPU its exact ``render_pass_tiled``;
+  ordered_cap*H*W > 2^26 — both packages take the B3 branch (the port its
+  plain version, the reference its Pallas kernel in interpret mode);
 - ``alpha_gate``: 2 sheets x 128, under the 2^26 gate — ``render_pass``
   in both;
 - ``cutout``: alpha-tested fences that write z — outside both kernel
   envelopes, ``render_pass`` in both.
+
+The opaque floor is a tiled frame, which both packages shade from quantized
+rows, the reference only on its accelerator branch: its frames are rendered
+there (tests/_torch_common.render_reference), so both carry the same
+quantization and the bounds below stay those of f32 rounding.
 
 The textured scene (B4 branch) is in tests/test_torch_peel.py.
 
@@ -35,7 +40,8 @@ from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.pipeline import frame as tfr
 from ckrenderengine_tpu_torch.raster import cuda_ordered as co
 from tests._torch_common import (
-    check_frame_against_reference, port_winners, reference_winners, to_np,
+    check_frame_against_reference, port_winners, reference_winners,
+    render_reference, to_np,
 )
 
 SCENES = {
@@ -54,13 +60,11 @@ def _t(x):
 @pytest.fixture(scope="module")
 def frames():
     """{name: (reference context, port context)}, each rendered once."""
-    import ckrenderengine_tpu.objects as J
     import ckrenderengine_tpu_torch.objects as O
 
     out = {}
     for name, (build, kw) in SCENES.items():
-        _c, rj, _m = build(J, **kw)
-        rj.Render()
+        rj = render_reference(build, **kw)
         _c, rt, _m = build(O, device="cpu", **kw)
         rt.Render()
         out[name] = (rj, rt)

@@ -3,6 +3,15 @@ helper builds each scene through either package's object model. This file
 holds config 1 (cube, flat solve B2) and a config-2-like scene (tiled solve
 B1 by t*H*W); tests/test_torch_slice_level.py holds the config-5-like level.
 
+A tiled frame shades from quantized rows in both packages, but the reference
+only on its accelerator branch, which its own CPU ``Render()`` never takes.
+So the tiled scene's reference frame is rendered on that branch
+(tests/_torch_common.accelerator_branch: the backend reads "tpu", the Pallas
+solve runs in interpret mode), and both frames carry the same D3DCOLOR
+quantization and the same 2x2-quad mip LOD. Config 1 is flat: both packages
+shade it through ``shade_deferred``, and its reference stays the CPU's
+``Render()``.
+
 What is compared (tests/_torch_common.check_frame_against_reference), and
 why the bounds are relative to f32 rounding:
 
@@ -38,7 +47,7 @@ from tests._torch_common import (
 )
 
 SCENES = {
-    "config1": (scenes.build_config1, dict(size=128)),
+    "config1": (scenes.build_config1, dict(size=128, accelerator=False)),
     "config2": (scenes.build_config2, dict(width=256, height=192)),
 }
 

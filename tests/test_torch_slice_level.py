@@ -1,7 +1,9 @@
 """The opaque slice as a whole on a config-5-like level, port against
 reference on the CPU: > 4096 triangles (tiled solve B1), places + portals,
-and host chunk culling that compacts the terrain's corner block. The bounds
-are those of tests/test_torch_slice.py, which explains them."""
+and host chunk culling that compacts the terrain's corner block. The frame
+is tiled, so the reference renders it on its accelerator branch (quantized
+rows, tests/_torch_common.accelerator_branch). The bounds are those of
+tests/test_torch_slice.py, which explains them."""
 
 import pytest
 

@@ -165,5 +165,6 @@ def test_b1_kernel_matches_plain(case):
             a["n_planes"], True)
     k = cuda_tiled.solve_tiled_kernel(*args)
     p = cuda_tiled.solve_phase_b_plain(*args)
-    for x, y in zip(k, p):
+    for x, y in zip(k[:3], p[:3]):
         assert torch.equal(x, y)
+    assert k[3] is None and p[3] is None     # no shade table, no rows

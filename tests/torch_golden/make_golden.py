@@ -1,6 +1,14 @@
-"""Render the golden frames with the reference package on the CPU.
+"""Render the golden frames with the reference package on the CPU, on its
+accelerator branch.
 
     JAX_PLATFORMS=cpu python tests/torch_golden/make_golden.py
+
+Both frames are tiled, and a tiled frame shades from quantized rows: in the
+port on the CPU and on the card alike, in the reference only where its
+backend is its accelerator. So the reference renders them through
+``Render()`` with that branch switched on
+(``tests/_torch_common.render_reference``: the backend reads "tpu", the
+Pallas kernels run in interpret mode).
 
 Writes, for each frame, the ``BackToFront()`` uint8 RGBA image and its
 per-pixel opaque winner-id map (-1 = background) from the reference's own
@@ -10,8 +18,8 @@ stages and exact flat solve:
   plane, two lights) at 320x240;
 - ``alpha_320x240.npz``: the untextured transparency scene
   (``scenes.build_alpha50k``) cut to 4 sheets of 242 alpha-over triangles
-  at 320x240 — ordered_cap*H*W > 2^26, so the port takes kernel B3 while
-  the reference on the CPU takes its exact sequential ``render_pass_tiled``.
+  at 320x240 — ordered_cap*H*W > 2^26, so both packages take the affine
+  blend kernel B3 (the reference's in interpret mode).
 
 The port's tests and ``chip_smoke.py`` hold the port's frames, on the CPU
 and on the GPU, against these files.
@@ -47,12 +55,10 @@ def render_reference(path: str = OUT):
 
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, ROOT)
-    import ckrenderengine_tpu.objects as J
-    from tests._torch_common import reference_winners
+    from tests._torch_common import reference_winners, render_reference
 
     build, kw = frames()[path]
-    _, rc, _ = build(J, **kw)
-    rc.Render()
+    rc = render_reference(build, **kw)
     ids, _depth, _setup = reference_winners(*rc._fill_packed([], []))
     return rc.BackToFront(), ids.astype("int32")
 
