@@ -5,7 +5,9 @@
 Builds the hand-written CUDA kernels of ``ckrenderengine_tpu_torch`` from
 ``ckrenderengine_tpu_torch/csrc`` (B1 tiled solve, B2 flat solve, B3 ordered
 blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch),
-holds each kernel against its plain torch version on the card, drives
+holds each kernel against its plain torch version on the card (B1 and B5
+also on the stream cases of ``raster/tiled_fixtures.py`` at tiles of 32 and
+of 16 pixels), drives
 BASELINE configs 1, 2 and 5 and the two transparency stress scenes
 (``alpha50k``, ``alpha_tex50k``) through the CK entry points
 (``CKContext(device="cuda")`` -> ``CreateRenderContext`` -> ``Render()``),
@@ -15,7 +17,7 @@ must equal the default path's bit for bit), renders an odd-sized mip frame
 holds the kernel frames against the exact ordered pass and against the CPU,
 checks the two golden frames the reference package rendered
 (``tests/torch_golden/``), and times the frames, the stages and the kernels
-beside each kernel's roofline bound. Every phase prints a line; any failure
+beside each kernel's roofline bound, under which no kernel's time may fall. Every phase prints a line; any failure
 raises, so the exit code is nonzero. The last line is the device record
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Without CUDA the
 script exits nonzero before printing any result.
@@ -71,19 +73,57 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def kernel_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean milliseconds the kernel whose name contains ``name`` runs on the
+    card per launch, over ``reps`` calls of ``fn()`` under ``torch.profiler``
+    (one warm-up call first). Unlike :func:`cuda_ms` it holds no host time:
+    a wrapper's launch takes the host some 0.05 ms, which a CUDA-event mean
+    counts whenever the kernel is shorter than that."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key]
+    # The profiler may drop a few records of a window: the mean is over
+    # the launches it kept.
+    count = sum(e.count for e in hits)
+    check(count > 0, f"the profiler recorded no launch of {name}")
+    total_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                   else e.cuda_time_total for e in hits)
+    return total_us / 1e3 / count
+
+
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM
 # bandwidth, and 67 TFLOP/s of float32 outside the tensor cores counting a
 # fused multiply-add as two operations. The kernels here never fuse
 # (--fmad=false), so their operations run at half that rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12 / 2
-# Arithmetic every (pixel, row) pair of a rasterizing kernel needs: three
-# edge planes (4 each), the esum plane and its sign product (5), the depth
-# (6); each user clip plane adds 4. Comparisons, and what only covered
-# fragments pay (B3's interpolation and blend), are not counted, so the
-# operations bound stays a lower bound.
-OPS_PER_PAIR = 23
-OPS_PER_CLIP_PLANE = 4
+# Arithmetic that no exact implementation of a rasterizing kernel avoids.
+# A pair whose pixel lies outside the row's rect, whose row is invalid, or
+# which fails one of the three edge tests costs nothing here: hierarchical
+# rejects (by rect, by a block's corner value of an edge function) drop
+# such pairs many at a time. A pair that passes all three edge tests needs
+# its esum sign and its depth. Every plane value is fl(fl(a*px + b*py) + c)
+# in the reference's order: its two adds are the pair's own, while a*px is
+# shared by a column of pixels and b*py by a row, so the products amortise
+# away. Three edges and esum: 8 adds; the esum sign product: 1; the depth
+# (three products, two adds, the scale): 6. Each user clip plane adds its 2
+# adds. Comparisons, and what only covered fragments pay (B3's
+# interpolation and blend), are not counted, so the operations bound stays
+# a lower bound.
+OPS_PER_PAIR = 15
+OPS_PER_CLIP_PLANE = 2
+# The count used before the kernels shared products between pixels or
+# rejected rows early: all 23 operations (three planes at 4, esum 5, depth
+# 6; 4 per clip plane) for every pair a tile streams, whatever its fate.
+# Kept beside the new bound as one yardstick for old and new kernels.
+OLD_OPS_PER_PAIR = 23
+OLD_OPS_PER_CLIP_PLANE = 4
 
 
 def nbytes(*tensors) -> int:
@@ -91,23 +131,82 @@ def nbytes(*tensors) -> int:
                if t is not None)
 
 
-def roofline(pairs: int, n_planes: int, n_bytes: int) -> dict:
-    """The least time the card could take: ``pairs`` (pixel, row)
+def roofline(pairs_past_edges: int, pairs: int, n_planes: int,
+             n_bytes: int) -> dict:
+    """The least time the card could take: ``pairs_past_edges`` (pixel, row)
     evaluations at the peak f32 rate without FMA, against ``n_bytes`` (each
-    input read once, each output written once) at the peak memory rate."""
-    ops = pairs * (OPS_PER_PAIR + OPS_PER_CLIP_PLANE * n_planes)
+    input read once, each output written once) at the peak memory rate.
+    ``old_count_bound_ms`` is the same with the earlier count: every one of
+    the ``pairs`` a tile streams at 23 operations."""
+    ops = pairs_past_edges * (OPS_PER_PAIR + OPS_PER_CLIP_PLANE * n_planes)
+    old_ops = pairs * (OLD_OPS_PER_PAIR + OLD_OPS_PER_CLIP_PLANE * n_planes)
     ops_ms = ops / F32_OPS_PER_S * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "pixel_row_pairs": int(pairs), "operations": int(ops),
-            "bytes": int(n_bytes)}
+            "operations_ms": ops_ms, "bytes_ms": bytes_ms,
+            "old_count_bound_ms": max(old_ops / F32_OPS_PER_S * 1e3,
+                                      bytes_ms),
+            "pixel_row_pairs": int(pairs),
+            "pairs_past_edges": int(pairs_past_edges),
+            "operations": int(ops), "bytes": int(n_bytes)}
 
 
 def tiled_pairs(counts, extra_rows: int, tile: int) -> int:
     """(pixel, row) pairs of a tiled kernel: every tile evaluates its own
     live rows plus ``extra_rows`` shared ones on tile*tile pixels."""
     return (int(counts.sum()) + counts.numel() * extra_rows) * tile * tile
+
+
+def past_edges(ec, top_left, ok, rect, px, py):
+    """Number (a 0-d int64 tensor) of (pixel, row) pairs whose row is
+    ``ok``, whose pixel centre lies inside the row's rect [x0, y0, x1, y1)
+    and passes all three edge functions under the top-left rule, evaluated
+    as the plain versions do. Per row ``ec`` (..., K, 9) edge coefficients,
+    ``top_left`` (..., K, 3) bool, ``ok`` (..., K) bool, ``rect``
+    (..., K, 4), broadcast against the pixel centres ``px``, ``py``
+    (..., 1, P)."""
+    def col(a, i):
+        return a[..., i, None]
+
+    m = (ok[..., None] & (px >= col(rect, 0)) & (py >= col(rect, 1))
+         & (px < col(rect, 2)) & (py < col(rect, 3)))
+    for k in range(3):
+        e = (col(ec, 3 * k) * px + col(ec, 3 * k + 1) * py
+             + col(ec, 3 * k + 2))
+        m &= (e > 0) | (col(top_left, k) & (e == 0))
+    return m.sum()
+
+
+def tiled_pairs_past_edges(stream, starts, counts, segments, tile: int,
+                           tiles_x: int, tiles_y: int, step: int = 16) -> int:
+    """:func:`past_edges` over what a tiled kernel streams, from the edge,
+    flag and rect columns the solve and the ordered streams share (0:9, 17,
+    18:22): each tile's own range plus the ``segments`` [(base, rows)]
+    every tile streams, ``step`` rows of every tile at a time."""
+    from ckrenderengine_tpu_torch.raster.cuda_tiled import tile_grid
+
+    dev = stream.device
+    px, py = (p[:, None] for p in tile_grid(tile, tiles_x, tiles_y, dev))
+    kk = torch.arange(step, device=dev)
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def count(rows, live):
+        fl = rows[..., 17].to(torch.int32)
+        top_left = torch.stack([(fl & b) != 0 for b in (1, 2, 4)], -1)
+        return past_edges(rows[..., 0:9], top_left, live & ((fl & 8) != 0),
+                          rows[..., 18:22], px, py)
+
+    for j in range(0, int(counts.max()), step):
+        idx = starts[:, None].long() + j + kk[None]
+        total += count(stream[idx.clamp(0, stream.shape[0] - 1)],
+                       (j + kk)[None] < counts[:, None])
+    for base, n in segments:
+        for j in range(0, n, step):
+            rows = stream[base + j:base + min(j + step, n)][None]
+            total += count(rows, torch.ones(rows.shape[:2], dtype=torch.bool,
+                                            device=dev))
+    return int(total)
 
 
 def quant_words(t: int, wq: int, seed: int) -> np.ndarray:
@@ -145,55 +244,77 @@ def solve_fixture(T=9000, H=320, W=512, seed=3, planes=0):
     return xyw, z, clipd
 
 
-def make_setup(xyw, z, clipd, device):
+def make_setup(xyw, z, clipd, device, clip_rect=None):
     from ckrenderengine_tpu_torch.raster import deferred as df
     from ckrenderengine_tpu_torch.raster.types import (
         NUM_SI, SI_CULL, VXCULL,
     )
 
+    def on_device(a):
+        return None if a is None else torch.as_tensor(a, device=device)
+
     t = xyw.shape[0]
     state_i = np.zeros((1, NUM_SI), np.int32)
     state_i[:, SI_CULL] = int(VXCULL.NONE)
-    xyw_t = torch.as_tensor(xyw, device=device)
+    xyw_t = on_device(xyw)
     setup = df.triangle_setup(
-        xyw_t, torch.as_tensor(z, device=device),
-        torch.zeros(t, dtype=torch.int32, device=device),
-        torch.ones(t, dtype=torch.bool, device=device),
-        torch.as_tensor(state_i, device=device),
-        clipd=None if clipd is None else torch.as_tensor(clipd,
-                                                         device=device))
+        xyw_t, on_device(z), torch.zeros(t, dtype=torch.int32, device=device),
+        torch.ones(t, dtype=torch.bool, device=device), on_device(state_i),
+        clip_rect=on_device(clip_rect), clipd=on_device(clipd))
     return setup, xyw_t
 
 
 def compare_b1(name, H, W, seed=3, T=9000, planes=0, kept_zb=False,
                viewport=None, **caps):
-    """B1 and B5 through the whole tiled solve on the card (kernels) and on
-    the CPU (plain phase B) from identical inputs: exact ids, depths,
-    e-planes and bin statistics, and for B5 (a random int32 shade table
-    with NaN and denormal float patterns, 16 or 20 words) exact rows, which
-    must also be the table gathered by id. Returns the max abs depth
-    difference of each (0 when exact)."""
-    from ckrenderengine_tpu_torch.raster.cuda_tiled import (
-        depth_reduce_tiled_cuda,
-    )
-    from ckrenderengine_tpu_torch.raster.deferred import gather_winner_rows
-
+    """B1 and B5 on the random triangles of :func:`solve_fixture`."""
     xyw, z, clipd = solve_fixture(T, H, W, seed, planes)
-    words = quant_words(T, 16 if seed % 2 else 20, seed + 10)
     clear = 1.0
     if kept_zb:
         clear = np.random.default_rng(seed + 1).uniform(
             0.1, 0.9, (H, W)).astype(np.float32)
+    return compare_solve(name, xyw, z, clipd, None, H, W,
+                         viewport or [0.0, 0.0, W, H], clear, caps, seed)
+
+
+def compare_case(case):
+    """B1 and B5, with and without e-planes, on one case of
+    ``raster/tiled_fixtures.py``; phase A must still give what the case
+    was built for (a deep tile, exact chunk multiples, ...)."""
+    return compare_solve(
+        case["name"], case["xyw"], case["z"], case["clipd"],
+        case["clip_rect"], case["h"], case["w"], case["viewport"], 1.0,
+        case["caps"], 4, without_e=True, case=case)
+
+
+def compare_solve(name, xyw, z, clipd, clip_rect, H, W, viewport, clear,
+                  caps, seed, without_e=False, case=None):
+    """B1 and B5 through the whole tiled solve on the card (kernels) and on
+    the CPU (plain phase B) from identical inputs: exact ids, depths,
+    e-planes and bin statistics, and for B5 (a random int32 shade table
+    with NaN and denormal float patterns, 16 or 20 words) exact rows, which
+    must also be the table gathered by id. ``without_e`` runs both kernels
+    again without e-planes: the same ids, depths and rows. Returns the max
+    abs depth difference of each kernel (0 when exact)."""
+    from ckrenderengine_tpu_torch.raster.cuda_tiled import (
+        depth_reduce_tiled_cuda, phase_a,
+    )
+    from ckrenderengine_tpu_torch.raster.deferred import gather_winner_rows
+    from ckrenderengine_tpu_torch.raster.tiled_fixtures import check_expect
+
+    T = xyw.shape[0]
+    words = quant_words(T, 16 if seed % 2 else 20, seed + 10)
     outs = {}
     for dev in ("cuda", "cpu"):
-        setup, xyw_t = make_setup(xyw, z, clipd, dev)
-        vp = torch.tensor(viewport or [0.0, 0.0, W, H], dtype=torch.float32,
-                          device=dev)
+        setup, xyw_t = make_setup(xyw, z, clipd, dev, clip_rect)
+        vp = torch.tensor(viewport, dtype=torch.float32, device=dev)
         cz = clear if np.isscalar(clear) else torch.as_tensor(clear,
                                                               device=dev)
         args = (setup, torch.ones(T, dtype=torch.bool, device=dev), cz, vp,
                 xyw_t, H, W)
         tbl = torch.as_tensor(words, device=dev)
+        if case is not None and dev == "cuda":
+            check_expect(case, phase_a(setup, args[1], vp, xyw_t, H, W,
+                                       **caps))
         b1 = depth_reduce_tiled_cuda(*args, want_eplanes=True,
                                      want_binstats=True, **caps)
         b5 = depth_reduce_tiled_cuda(*args, want_eplanes=True,
@@ -203,6 +324,15 @@ def compare_b1(name, H, W, seed=3, T=9000, planes=0, kept_zb=False,
         check(gathered, f"B5 {name} on {dev}: rows are not the gathered "
               "table")
         outs[dev] = [[x.cpu().numpy() for x in out] for out in (b1, b5)]
+        if without_e and dev == "cuda":
+            n1 = depth_reduce_tiled_cuda(*args, want_binstats=True, **caps)
+            n5 = depth_reduce_tiled_cuda(*args, want_binstats=True,
+                                         shade_tbl=tbl, **caps)
+            same = (all(torch.equal(x, y) for x, y in zip(n1, b1[:3]))
+                    and all(torch.equal(x, y) for x, y in zip(
+                        n5, b5[:3] + b5[4:])))
+            check(same, f"{name}: B1 or B5 without e-planes differs from "
+                  "the run with them")
     errs = []
     for k, kernel in enumerate(("B1", "B5")):
         got, plain = outs["cuda"][k], outs["cpu"][k]
@@ -220,7 +350,8 @@ def compare_b1(name, H, W, seed=3, T=9000, planes=0, kept_zb=False,
              eplanes_max_abs_err=float(np.abs(ep_k - plain[3]).max()),
              binstats=st_k.tolist(), binstats_equal=bool(
                  np.array_equal(st_k, plain[2])),
-             covered=float((bi_k >= 0).mean()), ok=bool(ok), **extra)
+             covered=float((bi_k >= 0).mean()), without_eplanes_too=without_e,
+             ok=bool(ok), **extra)
         check(ok, f"{kernel} {name}: kernel and plain version disagree")
         check((bi_k >= 0).any(), f"{kernel} {name}: nothing covered")
         errs.append(err)
@@ -599,6 +730,7 @@ def main() -> int:
         cuda_ordered as co, cuda_reduce, cuda_tiled,
     )
     from ckrenderengine_tpu_torch.raster import deferred as df
+    from ckrenderengine_tpu_torch.raster.tiled_fixtures import tiled_cases
 
     card = card_line()
     emit("device", card=card, torch=torch.__version__,
@@ -614,8 +746,23 @@ def main() -> int:
     ptxas = [ln.strip() for ln in lib.build_log.splitlines()
              if "registers" in ln or "Compiling entry" in ln
              or "spill" in ln]
+    # Resident CTAs per SM of each instantiation of the tiled solve at the
+    # frames' launch shapes (tile 32, 128-row chunks, no clip plane).
+    occupancy = {
+        f"{'B5' if fetch else 'B1'}{'_eplanes' if want_e else ''}":
+        lib.lib.ck_solve_tiled_occupancy(want_e, fetch, 0, 24, 32, 128)
+        for fetch in (0, 1) for want_e in (1, 0)}
     emit("build", seconds=round(lib.build_seconds, 3), library=os.path.relpath(
-        lib.path, ROOT), ptxas=ptxas)
+        lib.path, ROOT), ptxas=ptxas, solve_tiled_ctas_per_sm=occupancy)
+    check(all(v > 0 for v in occupancy.values()),
+          f"solve_tiled occupancy query failed: {occupancy}")
+    entry = ""
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            entry = ln
+        if "spill" in ln and "solve_tiled" in entry:
+            check("0 bytes spill stores, 0 bytes spill loads" in ln,
+                  f"solve_tiled spills registers: {ln}")
 
     # --- 3. kernel parity on the card --------------------------------------
     solve_errs = [
@@ -628,6 +775,10 @@ def main() -> int:
         compare_b1("small_viewport", 200, 300, seed=9, T=3000,
                    viewport=[10.0, 6.0, 250.0, 170.0]),
     ]
+    solve_errs += [compare_case(case) for case in tiled_cases()]
+    # The same cases at one sub-tile per tile and a ring of 32-row chunks.
+    solve_errs += [compare_case(dict(case, name=case["name"] + "_tile16"))
+                   for case in tiled_cases(tile=16, kchunk=32, deep=300)]
     errs = {"B1": [e[0] for e in solve_errs],
             "B5": [e[1] for e in solve_errs], "B2": [compare_b2()]}
     errs["B3"] = [compare_b3(*case) for case in blend_fixtures()]
@@ -840,13 +991,25 @@ def main() -> int:
     sc1, bt1, su1, de1, _b1 = fr.packed_setup(*packed_cuda(rc1))
     rows1 = cuda_reduce.pack_rows(su1, de1)
     b2_args = (rows1, sc1.clear_z, sc1.viewport, rc1.height, rc1.width)
-    b2_ms = cuda_ms(lambda: cuda_reduce.reduce_flat_kernel(*b2_args), 20)
+    b2_ms = kernel_ms(lambda: cuda_reduce.reduce_flat_kernel(*b2_args),
+                      "reduce_flat_kernel")
+    b2_events_ms = cuda_ms(lambda: cuda_reduce.reduce_flat_kernel(*b2_args),
+                           20)
     b2_plain_ms = cuda_ms(lambda: cuda_reduce.depth_reduce_plain(*b2_args), 5)
     k1 = cuda_reduce.reduce_flat_kernel(*b2_args)
     p1_ = cuda_reduce.depth_reduce_plain(*b2_args)
     check(torch.equal(k1[0], p1_[0]) and torch.equal(k1[1], p1_[1]),
           "B2 kernel and plain version disagree at config-1 frame shapes")
-    b2_bound = roofline(rows1.shape[0] * rc1.height * rc1.width, 0,
+    # B2 streams every row past every pixel of the frame.
+    py1, px1 = torch.meshgrid(
+        torch.arange(rc1.height, dtype=torch.float32, device="cuda") + 0.5,
+        torch.arange(rc1.width, dtype=torch.float32, device="cuda") + 0.5,
+        indexing="ij")
+    b2_past = sum(int(past_edges(
+        r[:, 0:9], r[:, 9:12] > 0, r[:, 20] != 0, r[:, 21:25],
+        px1.reshape(1, -1), py1.reshape(1, -1)))
+        for r in rows1.split(16))
+    b2_bound = roofline(b2_past, rows1.shape[0] * rc1.height * rc1.width, 0,
                         nbytes(rows1, *k1))
 
     # B3 and B4 at the stress frames' shapes, with phase A and composite.
@@ -855,8 +1018,8 @@ def main() -> int:
         ordered_ms[kernel] = time_ordered(name, kernel, configs[name][1],
                                           fps[name], card, fr, co)
 
-    ms = {"B1": b1_ms, "B2": (b2_ms, b2_plain_ms, b2_bound), **ordered_ms,
-          "B5": b5_ms}
+    ms = {"B1": b1_ms, "B2": (b2_ms, b2_plain_ms, b2_bound, b2_events_ms),
+          **ordered_ms, "B5": b5_ms}
     sources = {"B1": ("solve_tiled", "csrc/solve_tiled.cu",
                       "ckrenderengine_tpu/raster/pallas_tiled.py:61"),
                "B2": ("reduce_flat", "csrc/reduce_flat.cu",
@@ -875,10 +1038,19 @@ def main() -> int:
          "replaces": sources[k][2], "launches": launches[k],
          "max_abs_err": max(errs[k]), "ms": ms[k][0], "plain_ms": ms[k][1],
          "bound_ms": ms[k][2]["bound_ms"], "bound_by": ms[k][2]["bound_by"],
-         "library_ms": None, "bound_counts": {
-             c: ms[k][2][c] for c in ("pixel_row_pairs", "operations",
-                                      "bytes")}}
+         "library_ms": None, "events_ms": ms[k][3],
+         "old_count_bound_ms": ms[k][2]["old_count_bound_ms"],
+         "bound_counts": {
+             c: ms[k][2][c] for c in (
+                 "pixel_row_pairs", "pairs_past_edges", "operations",
+                 "bytes", "operations_ms", "bytes_ms")}}
         for k in ("B1", "B2", "B3", "B4", "B5")]
+    for k in kernels:
+        # A time under the bound means the bound counts work no kernel
+        # needs, or the timing is wrong.
+        check(k["ms"] >= k["bound_ms"],
+              f"{k['name']}: {k['ms']} ms is below its bound "
+              f"{k['bound_ms']} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -904,7 +1076,8 @@ def ordered_fields(ob, scene):
 def time_ordered(name, kernel, rc, fps, card, fr, co):
     """CUDA-event times of the ordered stages at a stress frame's shapes:
     phase A, the kernel and its plain version (checked equal there), and
-    the composite. Returns (kernel ms, plain ms, roofline bound)."""
+    the composite. Returns (kernel ms, plain ms, roofline bound, CUDA-event
+    ms of the kernel's wrapper)."""
     static, dyn_f, dyn_i, params = packed_cuda(rc)
     H, W = rc.height, rc.width
     scene, batch, _su, defer, bits = fr.packed_setup(static, dyn_f, dyn_i,
@@ -932,23 +1105,33 @@ def time_ordered(name, kernel, rc, fps, card, fr, co):
         sp = params["sampler_profile"]
         st["composite_ms"] = cuda_ms(lambda: fr._composite_peeled(
             fb, ob, lids, les, scene, sp, H, W), 5)
-    st["kernel_ms"] = cuda_ms(lambda: kfn(*args), 20)
+    st["kernel_ms"] = kernel_ms(lambda: kfn(*args), {
+        "B3": "ordered_blend_kernel", "B4": "ordered_peel_kernel"}[kernel])
+    st["kernel_events_ms"] = cuda_ms(lambda: kfn(*args), 20)
     st["plain_ms"] = cuda_ms(lambda: pfn(*args), 2)
     out_k, out_p = kfn(*args), pfn(*args)
     if kernel == "B3":
         out_k, out_p = (out_k,), (out_p,)
     check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
           f"{kernel} kernel and plain version disagree at {name} shapes")
-    bound = roofline(tiled_pairs(pa["counts"], 0, 32), pa["n_planes"],
-                     nbytes(pa["stream"], pa["starts"], pa["counts"],
-                            pa["zplane"], *out_k))
+    bound = roofline(
+        tiled_pairs_past_edges(pa["stream"], pa["starts"], pa["counts"], (),
+                               32, tx, ty),
+        tiled_pairs(pa["counts"], 0, 32), pa["n_planes"],
+        nbytes(pa["stream"], pa["starts"], pa["counts"], pa["zplane"],
+               *out_k))
     emit("timing", config=name, card=card, fps=fps, kernel=kernel,
          bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+         old_count_bound_ms=bound["old_count_bound_ms"],
+         pixel_row_pairs=bound["pixel_row_pairs"],
+         pairs_past_edges=bound["pairs_past_edges"],
          live_pairs=int(pa["n_live"]), stream_rows=int(pa["stream"].shape[0]),
          max_tile_rows=int(pa["counts"].max()),
          **{k: round(v, 4) for k, v in st.items()},
-         note="stage times are CUDA-event means of the stage alone")
-    return st["kernel_ms"], st["plain_ms"], bound
+         note="kernel_ms is the kernel's own time on the card "
+         "(torch.profiler); the other stage times are CUDA-event means of "
+         "the stage alone")
+    return st["kernel_ms"], st["plain_ms"], bound, st["kernel_events_ms"]
 
 
 def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
@@ -958,7 +1141,7 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
     ``shade_rows``) beside ``shade_deferred``, which the frame took before
     it shaded from rows. B1 and B5 are checked against their plain versions
     there (timed too when ``plain``). Returns {"B1" | "B5": (kernel ms,
-    plain ms or None, roofline bound)}."""
+    plain ms or None, roofline bound, CUDA-event ms of the wrapper)}."""
     static, dyn_f, dyn_i, params = packed_cuda(rc)
     H, W = rc.height, rc.width
     sp = params["sampler_profile"]
@@ -1000,12 +1183,18 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
 
     check(torch.equal(out5[3][:, :H, :W], gather()),
           f"B5 rows differ from B1 plus the gather at {name} frame shapes")
-    st["b1_ms"] = cuda_ms(lambda: cuda_tiled.solve_tiled_kernel(*b1_args), 20)
+    st["b1_ms"] = kernel_ms(lambda: cuda_tiled.solve_tiled_kernel(*b1_args),
+                            "solve_tiled_kernel")
+    st["b1_events_ms"] = cuda_ms(
+        lambda: cuda_tiled.solve_tiled_kernel(*b1_args), 20)
     st["gather_ms"] = cuda_ms(gather, 20)
     st["b1_plus_gather_ms"] = cuda_ms(
         lambda: df.gather_winner_rows(
             tbl, cuda_tiled.solve_tiled_kernel(*b1_args)[1][:H, :W]), 20)
-    st["b5_ms"] = cuda_ms(lambda: cuda_tiled.solve_fetch_kernel(*b5_args), 20)
+    st["b5_ms"] = kernel_ms(lambda: cuda_tiled.solve_fetch_kernel(*b5_args),
+                            "solve_tiled_kernel")
+    st["b5_events_ms"] = cuda_ms(
+        lambda: cuda_tiled.solve_fetch_kernel(*b5_args), 20)
     st["b1_plain_ms"] = st["b5_plain_ms"] = None
     if plain:
         st["b1_plain_ms"] = cuda_ms(
@@ -1033,27 +1222,44 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
         batch.fog, batch.state_idx, scene.state_i, scene.state_f, *shade,
         sampler_profile=sp, tex_quad=scene.tex_quad), 5)
 
-    # Bounds from this frame's inputs: every tile evaluates its own live
-    # rows and both leftover segments on its 1024 pixels; the bytes are the
-    # stream, the per-tile ranges, the initial depth plane and the outputs,
-    # and for B5 also one table row per distinct winner.
-    pairs = tiled_pairs(a["counts"], int(a["leftn"].sum()), 32)
+    # Bounds from this frame's inputs: every tile streams its own live
+    # rows and both leftover segments past its 1024 pixels, and the pairs
+    # that pass the rect and the three edge tests need esum and depth; the
+    # bytes are the stream, the per-tile ranges, the initial depth plane and the outputs, and for
+    # B5 also one table row per distinct winner.
+    leftn = a["leftn"].tolist()
+    pairs = tiled_pairs(a["counts"], sum(leftn), 32)
+    past = tiled_pairs_past_edges(
+        a["stream"], a["starts"], a["counts"],
+        ((a["gbase"], leftn[0]), (a["sbase"], leftn[1])), 32, a["tiles_x"],
+        a["tiles_y"])
     solve_in = (a["stream"], a["starts"], a["counts"], a["leftn"], init)
     winners_n = int(torch.unique(ids[ids >= 0]).numel())
-    bounds = {"B1": roofline(pairs, a["n_planes"], nbytes(*solve_in, *out1)),
-              "B5": roofline(pairs, a["n_planes"],
+    bounds = {"B1": roofline(past, pairs, a["n_planes"],
+                             nbytes(*solve_in, *out1)),
+              "B5": roofline(past, pairs, a["n_planes"],
                              nbytes(*solve_in, *out5)
                              + winners_n * tbl.shape[1] * 4)}
+    live_tiles = a["counts"][a["counts"] > 0].float()
     emit("timing", config=name, card=card, fps=fps, size=[W, H],
          **{k: v if v is None else round(v, 4) for k, v in st.items()},
          table_words=int(tbl.shape[1]), distinct_winners=winners_n,
          b1_bound_ms=bounds["B1"]["bound_ms"],
          b5_bound_ms=bounds["B5"]["bound_ms"],
+         b1_old_count_bound_ms=bounds["B1"]["old_count_bound_ms"],
+         b5_old_count_bound_ms=bounds["B5"]["old_count_bound_ms"],
+         pixel_row_pairs=pairs, pairs_past_edges=past,
          binstats=a["binstats"].cpu().tolist(),
-         note="stage times are CUDA-event means of the stage alone; "
-         "shade_stage = table + gather + expand + shade_rows")
+         leftover_rows=leftn, tiles=int(a["counts"].numel()),
+         tile_rows_mean=float(live_tiles.mean()),
+         tile_rows_peak=int(a["counts"].max()),
+         note="b1_ms and b5_ms are the kernels' own times on the card "
+         "(torch.profiler); the other stage times are CUDA-event means of "
+         "the stage alone; shade_stage = table + gather + expand + "
+         "shade_rows")
     return {k: (st[k.lower() + "_ms"], st[k.lower() + "_plain_ms"],
-                bounds[k]) for k in ("B1", "B5")}
+                bounds[k], st[k.lower() + "_events_ms"])
+            for k in ("B1", "B5")}
 
 
 def profile_frames(rc, mover, angle, frames: int = 3) -> dict:

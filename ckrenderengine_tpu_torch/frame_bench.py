@@ -13,9 +13,11 @@ the trees in turns inside one call (parent, change, change, parent): two
 calls may land on two cards and hosts. For each scene it renders 2 warm-up
 ticks and 30 timed ticks of (rotate the mover, ``Render()``), fenced by
 ``torch.cuda.synchronize()``, then profiles 3 more ticks with
-``torch.profiler`` and counts what reached the card. ``--frames DIR`` also
-saves every scene's first frame (fb and zb) as ``.npy`` files, so two trees'
-frames can be compared bit for bit. Needs a CUDA card.
+``torch.profiler`` and counts what reached the card, with the mean time on
+the card of each hand-written kernel the frames launched (``kernel_ms``; the
+tiled solve is B5 when ``CK_FUSED_FETCH`` is set, B1 otherwise).
+``--frames DIR`` also saves every scene's first frame (fb and zb) as ``.npy``
+files, so two trees' frames can be compared bit for bit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ TICKS = 30
 SCENES = (("config1", "build_config1", 0.02), ("config2", "build_config2", 0.03),
           ("config5", "build_config5", 0.01), ("alpha50k", "build_alpha50k", 0.02),
           ("alpha_tex50k", "build_alpha_tex50k", 0.02))
+KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
+           "ordered_peel_kernel")
 
 
 def main() -> int:
@@ -62,6 +66,11 @@ def main() -> int:
     out = {"root": args.root, "card": card, "ticks": TICKS,
            "fused_fetch": bool(os.environ.get("CK_FUSED_FETCH")),
            "scenes": {}}
+
+    def device_us(events):
+        return sum(e.device_time_total if hasattr(e, "device_time_total")
+                   else e.cuda_time_total for e in events)
+
     for name, build, angle in SCENES:
         _ctx, rc, mover = getattr(scenes, build)(O, device="cuda")
         rc.Render()
@@ -91,12 +100,14 @@ def main() -> int:
                 tick()
             torch.cuda.synchronize()
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")
-                     else e.cuda_time_total for e in dev)
+        dev_us = device_us(dev)
+        by_kernel = {k: [e for e in dev if k in e.name] for k in KERNELS}
         out["scenes"][name] = {
             "fps": fps, "size": [rc.width, rc.height],
             "device_launches_per_frame": len(dev) / 3,
-            "device_ms_per_frame": dev_us / 1e3 / 3}
+            "device_ms_per_frame": dev_us / 1e3 / 3,
+            "kernel_ms": {k: device_us(ev) / 1e3 / len(ev)
+                          for k, ev in by_kernel.items() if ev}}
         print(json.dumps({"root": args.root, "scene": name,
                           **out["scenes"][name]}), flush=True)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -9,9 +9,16 @@ The counterpart of ``ckrenderengine_tpu.raster.pallas_tiled``
                     the packed rows into sorted-stream order once; the
                     unbounded/global class and the slab overflow (each up to
                     ``g_cap`` rows) become two shared leftover segments.
-  Phase B (CUDA)  — kernel B1 (``csrc/solve_tiled.cu``): one CTA per screen
-                    tile streams the tile's range and then both leftover
-                    segments, with the (depth, id[, e0, e1, e2]) carry in
+                    Rows have ``ncol`` = 23 + 3 per clip plane logical
+                    columns at a pitch of :func:`row_pitch` floats (24, 28,
+                    32, 32 for 0-3 planes; zero pad columns nothing reads),
+                    so every row starts on 16 bytes.
+  Phase B (CUDA)  — kernel B1 (``csrc/solve_tiled.cu``): one CTA per 16x16
+                    sub-tile copies the tile's range and then both leftover
+                    segments asynchronously (16-byte ``cp.async``) through a
+                    shared-memory ring, drops the rows that cannot reach its
+                    pixels, and evaluates the others on a block of 4 pixels
+                    per thread with the (depth, id[, e0, e1, e2]) carry in
                     registers. On a CPU tensor :func:`solve_phase_b_plain`
                     computes the same per-tile reduce in torch.
                     Given a quantized shade table, kernel B5 (the fetch
@@ -37,6 +44,13 @@ from .deferred import gather_winner_rows
 from .tiled import _C_EC, _C_FL, _NCOL, _pow2ceil, _reduce_rows, _screen_bbox
 
 _BIG = 3.0e38
+
+
+def row_pitch(ncol: int) -> int:
+    """Floats per stream row: ``ncol`` rounded up to a multiple of 4, so
+    that every row of a 16-byte aligned stream starts on 16 bytes (what the
+    kernel's asynchronous 16-byte copies need)."""
+    return -(-ncol // 4) * 4
 
 
 def _tile_index(v: torch.Tensor, tile: int, n: int) -> torch.Tensor:
@@ -188,13 +202,18 @@ def _launch_solve(name: str, stream, starts, counts, leftn, gbase: int,
                   tile: int, tiles_x: int, tiles_y: int, n_planes: int,
                   want_e: bool, shade_tbl, kchunk: int):
     """Check the arguments, allocate the outputs and launch one
-    instantiation of ``csrc/solve_tiled.cu``."""
+    instantiation of ``csrc/solve_tiled.cu``. The stream and the shade
+    table must start on 16 bytes, as torch's allocations and their row
+    slices do: the C entry refuses others with ``cudaErrorInvalidValue``."""
     ncol = _NCOL + 3 * n_planes
     if not stream.is_cuda or stream.dtype != torch.float32 \
-            or stream.dim() != 2 or stream.shape[1] != ncol:
-        raise ValueError(f"{name} takes a CUDA f32 (rows, ncol) stream")
-    if tile * tile > 1024:
-        raise ValueError("tile*tile must fit one CTA (<= 1024 threads)")
+            or stream.dim() != 2 or stream.shape[1] != row_pitch(ncol):
+        raise ValueError(f"{name} takes a CUDA f32 (rows, pitch) stream "
+                         f"with pitch = row_pitch({ncol}) = "
+                         f"{row_pitch(ncol)} floats per row")
+    if tile not in (16, 32):
+        raise ValueError("tile must be 16 or 32 (the kernel works on 16x16 "
+                         "sub-tiles)")
     dev = stream.device
     lib = cuda_build.library().lib
     full_h, full_w = tiles_y * tile, tiles_x * tile
@@ -217,13 +236,11 @@ def _launch_solve(name: str, stream, starts, counts, leftn, gbase: int,
                              "table on the stream's device, Wq a multiple "
                              "of 4 words")
         shade_tbl = shade_tbl.contiguous()
-        if shade_tbl.data_ptr() % 16:            # 16-byte vector loads
-            shade_tbl = shade_tbl.clone()
         n_tris, sh_w = shade_tbl.shape
         out_r = torch.empty((sh_w, full_h, full_w), dtype=torch.int32,
                             device=dev)
     code = lib.ck_solve_tiled(
-        stream.data_ptr(), ncol, n_planes, starts.data_ptr(),
+        stream.data_ptr(), ncol, stream.shape[1], n_planes, starts.data_ptr(),
         counts.data_ptr(), leftn.data_ptr(), gbase, sbase, vp.data_ptr(),
         width, height, init_d.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
         cuda_build.ptr(out_e), cuda_build.ptr(shade_tbl), sh_w, n_tris,
@@ -272,11 +289,13 @@ def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
             pair_cap: int = 65536, kchunk: int = 128) -> dict:
     """Classify, bin and stream-build (pallas_tiled.py phase A, same math).
 
-    Returns a dict with the stream (rows, ncol), per-tile ``starts`` and
+    Returns a dict with the stream (rows, pitch), per-tile ``starts`` and
     ``counts``, the leftover row counts ``leftn``, the segment bases, the
-    full row table, the class-sorted ids and the counters the remainder
-    loops and the 7-vector bin statistics read. Every count stays on the
-    device."""
+    full row table (T, pitch), the class-sorted ids and the counters the
+    remainder loops and the 7-vector bin statistics read. ``ncol`` is the
+    number of logical columns and ``pitch`` = :func:`row_pitch` (ncol) the
+    row length of the stream and the table; columns ``ncol:`` are zero.
+    Every count stays on the device."""
     dev = xyw.device
     t = setup["e_coef"].shape[0]
     ty_n = (height + tile - 1) // tile
@@ -325,17 +344,22 @@ def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
     lg = slab_l + g_cap
     safe = torch.clamp(all_id, 0, t - 1)
 
-    # Packed full-T row table (tiled.py _C_* layout).
+    # Packed full-T row table (tiled.py _C_* layout) inside a zeroed
+    # (T + 1, pitch) buffer: row t is the dead pad row of the stream gather,
+    # columns ncol: the alignment pad.
     tlf = setup["top_left"].to(torch.int32)
     flags_t = (tlf[:, 0] + 2 * tlf[:, 1] + 4 * tlf[:, 2]
                + 8 * tvalid.to(torch.int32)).to(torch.float32)
-    full_rows = torch.cat([
+    ncol = _NCOL + 3 * n_planes
+    pitch = row_pitch(ncol)
+    full_pad = torch.zeros((t + 1, pitch), dtype=torch.float32, device=dev)
+    full_pad[:t, :ncol] = torch.cat([
         setup["e9"], setup["z"], setup["inv_det_s"][:, None],
         setup["esum_plane"], setup["s"][:, None], flags_t[:, None],
         setup["clip_rect"],
         torch.arange(t, dtype=torch.float32, device=dev)[:, None],
-        setup["dplane9"]], dim=1)                           # (T, ncol)
-    ncol = full_rows.shape[1]
+        setup["dplane9"]], dim=1)
+    full_rows = full_pad[:t]                                # (T, pitch)
     safe_ok = torch.where(all_ok & (all_id < t), safe, t)
 
     # Pair keys + ONE key sort -> per-tile contiguous stream ranges.
@@ -385,10 +409,7 @@ def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
     safe_ok_pad = torch.cat([safe_ok, torch.full((1,), t, dtype=torch.int64,
                                                  device=dev)])
     sid_stream = safe_ok_pad[src_p]
-    full_pad = torch.cat([full_rows, torch.zeros((1, ncol),
-                                                 dtype=torch.float32,
-                                                 device=dev)])
-    stream_rows = full_pad[sid_stream]                      # (sl_main, ncol)
+    stream_rows = full_pad[sid_stream]                      # (sl_main, pitch)
 
     def rows_for(ids):
         r = full_rows[torch.clamp(ids, 0, t - 1)]
@@ -423,8 +444,8 @@ def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
                 gbase=sl_main, sbase=sl_main + lrows, full_rows=full_rows,
                 sid=sid, all_id=all_id, sorted_p=sorted_p, g_start=g_start,
                 cut_pos=cut_pos, gcap=gcap, slab_l=slab_l, lg=lg,
-                n_planes=n_planes, tiles_x=tx_n, tiles_y=ty_n,
-                binstats=binstats, rows_for=rows_for)
+                n_planes=n_planes, ncol=ncol, pitch=pitch, tiles_x=tx_n,
+                tiles_y=ty_n, binstats=binstats, rows_for=rows_for)
 
 
 def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
@@ -473,7 +494,7 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
         scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
                    & (py >= vp[1]) & (py < vp[1] + vp[3])
                    & (px < width) & (py < height))
-        ncol = a["full_rows"].shape[1]
+        ncol = a["ncol"]
         slot_c = torch.arange(chunk, device=dev)
         rows_for = a["rows_for"]
         carry = (best_d, best_i)
