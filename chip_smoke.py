@@ -5,10 +5,11 @@
 Builds the hand-written CUDA kernels of ``ckrenderengine_tpu_torch`` from
 ``ckrenderengine_tpu_torch/csrc`` (B1 tiled solve, B2 flat solve, B3 ordered
 blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch),
-holds each kernel against its plain torch version on the card (B1 and B5
-also on the stream cases of ``raster/tiled_fixtures.py`` at tiles of 32 and
-of 16 pixels), drives
-BASELINE configs 1, 2 and 5 and the two transparency stress scenes
+prints their registers, spills and resident CTAs per SM, holds each kernel
+against its plain torch version on the card bit for bit (B1 and B5 also on
+the stream cases of ``raster/tiled_fixtures.py``, B3 and B4 on every case
+of ``raster/ordered_fixtures.py``, each at tiles of 32 and of 16 pixels),
+drives BASELINE configs 1, 2 and 5 and the two transparency stress scenes
 (``alpha50k``, ``alpha_tex50k``) through the CK entry points
 (``CKContext(device="cuda")`` -> ``CreateRenderContext`` -> ``Render()``),
 renders configs 2 and 5 again with ``CK_FUSED_FETCH`` set (B5; the frame
@@ -17,10 +18,11 @@ must equal the default path's bit for bit), renders an odd-sized mip frame
 holds the kernel frames against the exact ordered pass and against the CPU,
 checks the two golden frames the reference package rendered
 (``tests/torch_golden/``), and times the frames, the stages and the kernels
-beside each kernel's roofline bound, under which no kernel's time may fall. Every phase prints a line; any failure
-raises, so the exit code is nonzero. The last line is the device record
-``{"ok": true, "device": {"platform": "gpu", ...}}``. Without CUDA the
-script exits nonzero before printing any result.
+beside each kernel's roofline bound, under which no kernel's time may fall.
+Every phase prints a line; any failure raises, so the exit code is nonzero.
+The last line is the device record ``{"ok": true, "device": {"platform":
+"gpu", ...}}``. Without CUDA the script exits nonzero before printing any
+result.
 """
 
 from __future__ import annotations
@@ -384,206 +386,58 @@ def compare_b2(H=256, W=256, T=2000, seed=5) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Ordered-kernel fixtures (the reference's tests/test_pallas_ordered.py and
-# tests/test_pallas_peel.py fixtures, recreated with numpy)
+# Ordered kernels on the cases of raster/ordered_fixtures.py
 # ---------------------------------------------------------------------------
 
-def random_tris(t, h, w, seed, big_frac=0.1):
-    """tests/test_tiled_raster._random_batch: screen-space triangles as
-    homogeneous (x*w', y*w', w') with clip z."""
-    rng = np.random.default_rng(seed)
-    centers = rng.uniform([0, 0], [w, h], (t, 2)).astype(np.float32)
-    sizes = rng.uniform(2, 25, (t, 1)).astype(np.float32)
-    big = rng.random(t) < big_frac
-    sizes[big] = rng.uniform(100, 400, (big.sum(), 1)).astype(np.float32)
-    offs = rng.normal(0, 1, (t, 3, 2)).astype(np.float32)
-    pts = centers[:, None] + offs * sizes[:, None]
-    ws = rng.uniform(0.5, 4.0, (t, 3, 1)).astype(np.float32)
-    return (np.concatenate([pts * ws, ws], axis=-1),
-            rng.uniform(0.05, 0.95, (t, 3)).astype(np.float32))
-
-
-def ordered_states(textured: bool):
-    """The reference fixtures' three states: alpha-over (fogged), replace or
-    plain alpha-over, alpha-tested alpha-over; textured for the peel."""
-    from ckrenderengine_tpu_torch.raster.types import (
-        VXBLEND, VXCMP, VXCULL, VXTEXTURE_FILTER, RasterState, pack_states,
+def compare_ordered(case, tile: int):
+    """B3 and B4 kernels against their plain versions on one case's
+    card-side phase A at ``tile``: B3's (5, H_pad, W_pad) A/B planes and,
+    at each of the case's layer windows, B4's ids, edge values, counts and
+    overflow flags, all exactly. Returns the max abs difference of each."""
+    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
+    from ckrenderengine_tpu_torch.raster.ordered_fixtures import (
+        FIELDS, check_expect,
     )
 
-    over = dict(alpha_blend=True, src_blend=int(VXBLEND.SRCALPHA),
-                dst_blend=int(VXBLEND.INVSRCALPHA), z_write=False,
-                cull=int(VXCULL.NONE))
-    atest = dict(over, alpha_test=True, alpha_func=int(VXCMP.GREATER))
-    if textured:
-        return pack_states([
-            RasterState(**over, fog=True, tex=0,
-                        tex_filter=int(VXTEXTURE_FILTER.LINEAR)),
-            RasterState(**over), RasterState(**atest, alpha_ref=0.4, tex=0)])
-    return pack_states([RasterState(**over, fog=True),
-                        RasterState(z_write=False, cull=int(VXCULL.NONE)),
-                        RasterState(**atest, alpha_ref=0.35)])
-
-
-def ordered_fixture(xyw, z, rng, h, w, rects=True, planes=0, seed=0):
-    """Per-triangle fields of an ordered batch around (xyw, z), drawn from
-    ``rng`` in the reference fixtures' order."""
-    t = xyw.shape[0]
-    fx = dict(xyw=xyw, z=z,
-              color=rng.uniform(0, 1, (t, 3, 4)).astype(np.float32),
-              specular=rng.uniform(0, 0.2, (t, 3, 3)).astype(np.float32),
-              uv=rng.uniform(0, 1, (t, 3, 2)).astype(np.float32),
-              fog=rng.uniform(0.3, 1, (t, 3)).astype(np.float32),
-              state_idx=rng.integers(0, 3, t).astype(np.int32),
-              valid=rng.random(t) < 0.9)
-    rect = np.tile(np.array([[-1e9, -1e9, 1e9, 1e9]], np.float32), (t, 1))
-    if rects:
-        rect[rng.random(t) < 0.2] = [8.0, 6.0, w - 10.0, h - 8.0]
-    fx["clip_rect"] = rect
-    fx["clipd"] = (np.random.default_rng(seed).uniform(
-        -1, 1, (t, 3, planes)).astype(np.float32) if planes
-        else np.zeros((t, 3, 0), np.float32))
-    fx["refl"] = np.zeros((t, 3, 0), np.float32)
-    return fx
-
-
-def blend_fixtures():
-    """(name, fields, h, w, tile, zb, viewport, fog colour, windows,
-    bad expected) of each B3 parity case."""
-    out = []
-    for seed in (1, 4):
-        h, w = 48, 96
-        xyw, z = random_tris(150, h, w, seed)
-        fx = ordered_fixture(xyw, z, np.random.default_rng(seed), h, w)
-        rng = np.random.default_rng(seed + 100)
-        rng.uniform(0, 1, (4, h, w))
-        zb = rng.uniform(0.3, 1.0, (h, w)).astype(np.float32)
-        out.append((f"random_seed{seed}", fx, h, w, 16, zb, [0, 0, w, h],
-                    [0.2, 0.3, 0.4], None, False))
-    xyw, z = random_tris(80, 64, 64, 7)
-    fx = ordered_fixture(xyw, z, np.random.default_rng(7), 64, 64, planes=1,
-                         seed=7)
-    out.append(("clip_planes_viewport", fx, 64, 64, 16,
-                np.full((64, 64), 0.8, np.float32), [6, 4, 52, 54],
-                [0.0, 0.0, 0.0], None, False))
-    xyw, z = random_tris(600, 200, 300, 8)
-    fx = ordered_fixture(xyw, z, np.random.default_rng(8), 200, 300)
-    zb = np.random.default_rng(9).uniform(0.3, 1.0, (200, 300)).astype(
-        np.float32)
-    out.append(("tile32_non_divisible", fx, 200, 300, 32, zb,
-                [0, 0, 300, 200], [0.2, 0.3, 0.4], None, False))
-    xyw, z = random_tris(40, 64, 64, 3)
-    fx = ordered_fixture(xyw, z, np.random.default_rng(3), 64, 64)
-    out.append(("overflow", fx, 64, 64, 16, np.ones((64, 64), np.float32),
-                [0, 0, 64, 64], [0.0, 0.0, 0.0], ((40, 1),), True))
-    return out
-
-
-def bounded_tris(seed, h, w, layers=3, spacing=16, rad=6.0):
-    """tests/test_pallas_peel._bounded_batch: grid-placed small triangles
-    in ``layers`` passes (per-pixel ordered depth <= layers)."""
-    rng = np.random.default_rng(seed)
-    pts = []
-    for _layer in range(layers):
-        for cy in range(spacing // 2, h, spacing):
-            for cx in range(spacing // 2, w, spacing):
-                ang = rng.uniform(0, 2 * np.pi, 3)
-                r = rng.uniform(rad * 0.5, rad, 3)
-                jx, jy = rng.uniform(-2, 2, 2)
-                pts.append(np.stack([cx + jx + np.cos(ang) * r,
-                                     cy + jy + np.sin(ang) * r], -1))
-    pts = np.asarray(pts, np.float32)
-    t = pts.shape[0]
-    wgt = rng.uniform(0.5, 2.0, (t, 3, 1)).astype(np.float32)
-    return (np.concatenate([pts * wgt, wgt], -1),
-            rng.uniform(0.05, 0.5, (t, 3)).astype(np.float32))
-
-
-def peel_fixtures():
-    """(name, fields, h, w, zb, skips) of each B4 parity case: the bounded
-    3-layer batches (seeds 1 and 7) and a stack of 9 covering triangles,
-    deeper than K = 4, peeled at skip 0, 4 and 8."""
-    out = []
-    for seed in (1, 7):
-        h, w = 48, 96
-        xyw, z = bounded_tris(seed, h, w)
-        rng = np.random.default_rng(seed)
-        fx = ordered_fixture(xyw, z, rng, h, w, rects=False)
-        rng.uniform(0, 1, (4, h, w))
-        zb = rng.uniform(0.6, 1.0, (h, w)).astype(np.float32)
-        out.append((f"bounded_seed{seed}", fx, h, w, zb, (0,)))
-    t = 9
-    tri = np.array([[2.0, 2.0, 1.0], [30.0, 2.0, 1.0], [2.0, 30.0, 1.0]],
-                   np.float32)
-    fx = ordered_fixture(np.tile(tri[None], (t, 1, 1)),
-                         np.full((t, 3), 0.4, np.float32),
-                         np.random.default_rng(11), 32, 32, rects=False)
-    fx["valid"] = np.ones(t, bool)
-    out.append(("stack9_beyond_k", fx, 32, 32, np.ones((32, 32), np.float32),
-                (0, 4, 8)))
-    return out
-
-
-def _phase_a(fx, h, w, tile, zb, windows=None, textured=False):
-    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
-
-    si, sf = ordered_states(textured)
-    f = {k: torch.as_tensor(v, device="cuda") for k, v in fx.items()}
-    kw = {} if windows is None else dict(windows=windows)
-    return co.phase_a(f["xyw"], f["z"], f["valid"], f["color"],
-                      f["specular"], f["uv"], f["fog"], f["state_idx"],
-                      f["clip_rect"], f["clipd"],
-                      torch.as_tensor(si, device="cuda"),
-                      torch.as_tensor(sf, device="cuda"),
-                      torch.as_tensor(zb, device="cuda"), h, w, tile, **kw)
-
-
-def compare_b3(name, fx, h, w, tile, zb, vp, fogc, windows, expect_bad):
-    """B3 kernel vs its plain version on the same card-side phase A: the
-    (8, H_pad, W_pad) A/B planes exactly."""
-    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
-
-    pa = _phase_a(fx, h, w, tile, zb, windows)
-    args = (pa["stream"], pa["starts"], pa["counts"],
-            co._params(vp, h, w, fogc, "cuda"), pa["zplane"], tile,
-            pa["tiles_x"], pa["tiles_y"], pa["n_planes"])
-    k = co.blend_kernel(*args)
-    p = co.blend_phase_b_plain(*args)
-    err = float((k - p).abs().max())
+    fx = {k: torch.as_tensor(case["fields"][k], device="cuda")
+          for k in FIELDS}
+    h, w = case["h"], case["w"]
+    kw = {} if case["windows"] is None else dict(windows=case["windows"])
+    pa = co.phase_a(*(fx[k] for k in FIELDS),
+                    torch.as_tensor(case["si"], device="cuda"),
+                    torch.as_tensor(case["sf"], device="cuda"),
+                    torch.as_tensor(case["zb"], device="cuda"), h, w, tile,
+                    **kw)
+    check_expect(case, pa, co.row_pitch(pa["n_planes"]))
+    name = f"{case['name']}_tile{tile}"
+    tx, ty = pa["tiles_x"], pa["tiles_y"]
+    ranges = (pa["stream"], pa["starts"], pa["counts"])
+    b3 = ranges + (co._params(case["viewport"], h, w, case["fog_color"],
+                            "cuda"), pa["zplane"], tile, tx, ty,
+                 pa["n_planes"])
+    k, p = co.blend_kernel(*b3), co.blend_phase_b_plain(*b3)
+    err3 = float((k - p).abs().max())
     exact = bool(torch.equal(k, p))
-    bad = bool(pa["bad"])
-    emit("kernel_parity", kernel="B3", case=name, shape=[h, w], tile=tile,
-         tris=int(fx["xyw"].shape[0]), live_pairs=int(pa["n_live"]),
-         bad=bad, max_abs_err=err, exact=exact,
-         blended=float((k[0] != 1).float().mean()))
+    emit("kernel_parity", kernel="B3", case=name, shape=[h, w],
+         tris=int(case["fields"]["valid"].sum()),
+         live_pairs=int(pa["n_live"]), max_tile_rows=int(pa["counts"].max()),
+         planes=pa["n_planes"], bad=bool(pa["bad"]), max_abs_err=err3,
+         exact=exact, blended=float((k[0] != 1).float().mean()))
     check(exact, f"B3 {name}: kernel and plain version disagree")
-    check(bad == expect_bad, f"B3 {name}: bad flag {bad}")
-    return err
-
-
-def compare_b4(name, fx, h, w, zb, skips):
-    """B4 kernel vs its plain version per round: ids, edge values, counts
-    and the overflow flag exactly."""
-    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
-
-    pa = _phase_a(fx, h, w, 16, zb, textured=True)
-    err = 0.0
-    for skip in skips:
-        args = (pa["stream"], pa["starts"], pa["counts"],
-                co._params([0, 0, w, h], h, w, dev="cuda"), skip,
-                pa["zplane"], 16, pa["tiles_x"], pa["tiles_y"],
-                pa["n_planes"])
-        k = co.peel_kernel(*args)
-        p = co.peel_phase_b_plain(*args)
+    err4 = 0.0
+    for skip in case["skips"]:
+        b4 = ranges + (co._params(case["viewport"], h, w, dev="cuda"), skip,
+                     pa["zplane"], tile, tx, ty, pa["n_planes"])
+        k, p = co.peel_kernel(*b4), co.peel_phase_b_plain(*b4)
         exact = all(torch.equal(a, b) for a, b in zip(k, p))
         e = float((k[1] - p[1]).abs().max())
-        err = max(err, e)
+        err4 = max(err4, e)
         emit("kernel_parity", kernel="B4", case=name, shape=[h, w],
-             skip=skip, tris=int(fx["xyw"].shape[0]),
-             layer0_covered=float((k[0][0] >= 0).float().mean()),
+             skip=skip, layer0_covered=float((k[0][0] >= 0).float().mean()),
              max_count=int(k[2].max()), overflow=bool(k[3].any()),
              max_abs_err=e, exact=bool(exact))
         check(exact, f"B4 {name} skip {skip}: kernel and plain disagree")
-    return err
+    return err3, err4
 
 
 def build_panes(O, n_panes=70, width=1024, height=768, **ctx_kw):
@@ -730,6 +584,9 @@ def main() -> int:
         cuda_ordered as co, cuda_reduce, cuda_tiled,
     )
     from ckrenderengine_tpu_torch.raster import deferred as df
+    from ckrenderengine_tpu_torch.raster.ordered_fixtures import (
+        ordered_cases,
+    )
     from ckrenderengine_tpu_torch.raster.tiled_fixtures import tiled_cases
 
     card = card_line()
@@ -752,17 +609,21 @@ def main() -> int:
         f"{'B5' if fetch else 'B1'}{'_eplanes' if want_e else ''}":
         lib.lib.ck_solve_tiled_occupancy(want_e, fetch, 0, 24, 32, 128)
         for fetch in (0, 1) for want_e in (1, 0)}
+    # The ordered kernels at the stress frames' shapes (tile 32, no plane).
+    occupancy.update(
+        B3=lib.lib.ck_ordered_blend_occupancy(0, 32, co.KCHUNK),
+        B4=lib.lib.ck_ordered_peel_occupancy(0, 32, co.KCHUNK))
     emit("build", seconds=round(lib.build_seconds, 3), library=os.path.relpath(
-        lib.path, ROOT), ptxas=ptxas, solve_tiled_ctas_per_sm=occupancy)
+        lib.path, ROOT), ptxas=ptxas, ctas_per_sm=occupancy)
     check(all(v > 0 for v in occupancy.values()),
-          f"solve_tiled occupancy query failed: {occupancy}")
+          f"occupancy query failed: {occupancy}")
     entry = ""
     for ln in ptxas:
         if "Compiling entry" in ln:
             entry = ln
-        if "spill" in ln and "solve_tiled" in entry:
+        if "spill" in ln and ("solve_tiled" in entry or "ordered" in entry):
             check("0 bytes spill stores, 0 bytes spill loads" in ln,
-                  f"solve_tiled spills registers: {ln}")
+                  f"a kernel spills registers: {entry} {ln}")
 
     # --- 3. kernel parity on the card --------------------------------------
     solve_errs = [
@@ -771,6 +632,8 @@ def main() -> int:
                    slab_cap=64, pair_cap=64),
         compare_b1("clip_planes", 320, 512, seed=6, planes=2),
         compare_b1("kept_zbuffer", 320, 512, seed=7, kept_zb=True),
+        compare_b1("kept_zbuffer_tile16", 200, 300, seed=7, T=3000,
+                   kept_zb=True, tile=16),
         compare_b1("non_divisible", 200, 300, seed=8, T=3000),
         compare_b1("small_viewport", 200, 300, seed=9, T=3000,
                    viewport=[10.0, 6.0, 250.0, 170.0]),
@@ -781,8 +644,11 @@ def main() -> int:
                    for case in tiled_cases(tile=16, kchunk=32, deep=300)]
     errs = {"B1": [e[0] for e in solve_errs],
             "B5": [e[1] for e in solve_errs], "B2": [compare_b2()]}
-    errs["B3"] = [compare_b3(*case) for case in blend_fixtures()]
-    errs["B4"] = [compare_b4(*case) for case in peel_fixtures()]
+    # B3 and B4 on every ordered case at one sub-tile per tile and at four.
+    ordered_errs = [compare_ordered(case, tile) for tile in (16, 32)
+                    for case in ordered_cases(tile=tile, kchunk=co.KCHUNK)]
+    errs["B3"] = [e[0] for e in ordered_errs]
+    errs["B4"] = [e[1] for e in ordered_errs]
 
     # --- 4. main path through Render() -------------------------------------
     # Each path runs with every launch count at 0 and is read right after.
@@ -938,16 +804,24 @@ def main() -> int:
             ("alpha_320x240", scenes.build_alpha50k, dict(
                 width=320, height=240, n_sheets=4, sheet_n=11))):
         g = np.load(os.path.join(GOLDEN_DIR, frame + ".npz"))
+        reset_launches(kernel_fns.values())
         _, rc_g, _ = render_config(build, O, "cuda", **kw)
+        got = {k: fn.launches for k, fn in kernel_fns.items()}
         ids = winners(rc_g)
         rgba = rc_g.BackToFront()
+        check(rgba.shape == g["rgba"].shape and rgba.dtype == np.uint8,
+              f"golden {frame}: image {rgba.shape} {rgba.dtype}")
         match = ids == g["ids"]
         diff = np.abs(rgba.astype(np.int32) - g["rgba"].astype(np.int32))
         emit("golden", frame=frame, ids_equal_frac=float(match.mean()),
              rgba_max_diff_matching=int(diff[match].max()),
-             rgba_max_diff=int(diff.max()))
+             rgba_max_diff=int(diff.max()), launches=got)
         check(match.mean() >= 0.999, f"golden {frame}: winner ids differ")
         check(int(diff[match].max()) <= 1, f"golden {frame}: image differs")
+        check((g["ids"] >= 0).mean() > 0.5, f"golden {frame}: mostly empty")
+        if frame.startswith("alpha"):
+            # The transparent sheets took the B3 branch.
+            check(got["B3"] == 1, f"golden {frame}: launches {got}")
 
     # --- 8. timing (informational) -----------------------------------------
     # Frames per second through Render(): 2 warm-up ticks, then 30 ticks of
@@ -1094,7 +968,7 @@ def time_ordered(name, kernel, rc, fps, card, fr, co):
                 pa["zplane"], 32, tx, ty, pa["n_planes"])
         kfn, pfn = co.blend_kernel, co.blend_phase_b_plain
         ab = kfn(*args)[:, :H, :W]
-        st["composite_ms"] = cuda_ms(lambda: ab[0:4] * fb + ab[4:8], 20)
+        st["composite_ms"] = cuda_ms(lambda: ab[0:1] * fb + ab[1:5], 20)
     else:
         args = (pa["stream"], pa["starts"], pa["counts"],
                 co._params(scene.viewport, H, W, dev="cuda"), 0,
@@ -1114,18 +988,23 @@ def time_ordered(name, kernel, rc, fps, card, fr, co):
         out_k, out_p = (out_k,), (out_p,)
     check(all(torch.equal(a, b) for a, b in zip(out_k, out_p)),
           f"{kernel} kernel and plain version disagree at {name} shapes")
+    # Bytes: the rows the tiles stream (each tile's live rows once; B4 reads
+    # only their heads), the ranges, the opaque depth and the outputs.
+    row_floats = (pa["stream"].shape[1] if kernel == "B3"
+                  else co.head_width(pa["n_planes"]))
     bound = roofline(
         tiled_pairs_past_edges(pa["stream"], pa["starts"], pa["counts"], (),
                                32, tx, ty),
         tiled_pairs(pa["counts"], 0, 32), pa["n_planes"],
-        nbytes(pa["stream"], pa["starts"], pa["counts"], pa["zplane"],
-               *out_k))
+        int(pa["counts"].sum()) * row_floats * 4
+        + nbytes(pa["starts"], pa["counts"], pa["zplane"], *out_k))
     emit("timing", config=name, card=card, fps=fps, kernel=kernel,
          bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
          old_count_bound_ms=bound["old_count_bound_ms"],
          pixel_row_pairs=bound["pixel_row_pairs"],
          pairs_past_edges=bound["pairs_past_edges"],
          live_pairs=int(pa["n_live"]), stream_rows=int(pa["stream"].shape[0]),
+         row_floats_read=row_floats, bound_bytes=bound["bytes"],
          max_tile_rows=int(pa["counts"].max()),
          **{k: round(v, 4) for k, v in st.items()},
          note="kernel_ms is the kernel's own time on the card "
@@ -1225,20 +1104,23 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
     # Bounds from this frame's inputs: every tile streams its own live
     # rows and both leftover segments past its 1024 pixels, and the pairs
     # that pass the rect and the three edge tests need esum and depth; the
-    # bytes are the stream, the per-tile ranges, the initial depth plane and the outputs, and for
-    # B5 also one table row per distinct winner.
+    # bytes are those rows, the per-tile ranges, the initial depth plane
+    # and the outputs, and for B5 also one table row per distinct winner.
     leftn = a["leftn"].tolist()
     pairs = tiled_pairs(a["counts"], sum(leftn), 32)
     past = tiled_pairs_past_edges(
         a["stream"], a["starts"], a["counts"],
         ((a["gbase"], leftn[0]), (a["sbase"], leftn[1])), 32, a["tiles_x"],
         a["tiles_y"])
-    solve_in = (a["stream"], a["starts"], a["counts"], a["leftn"], init)
+    # The rows the tiles stream: each tile's live rows and the two leftover
+    # segments, each once.
+    solve_in = ((int(a["counts"].sum()) + sum(leftn)) * a["stream"].shape[1]
+                * 4 + nbytes(a["starts"], a["counts"], a["leftn"], init))
     winners_n = int(torch.unique(ids[ids >= 0]).numel())
     bounds = {"B1": roofline(past, pairs, a["n_planes"],
-                             nbytes(*solve_in, *out1)),
+                             solve_in + nbytes(*out1)),
               "B5": roofline(past, pairs, a["n_planes"],
-                             nbytes(*solve_in, *out5)
+                             solve_in + nbytes(*out5)
                              + winners_n * tbl.shape[1] * 4)}
     live_tiles = a["counts"][a["counts"] > 0].float()
     emit("timing", config=name, card=card, fps=fps, size=[W, H],

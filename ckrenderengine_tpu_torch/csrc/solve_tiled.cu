@@ -122,7 +122,11 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_scan.cuh"
+
 namespace {
+
+using namespace ck_tile;
 
 // Packed-row column layout (raster/tiled.py _C_*), read as float4 quads:
 //   q0 = e0.a e0.b e0.c e1.a     q1 = e1.b e1.c e2.a e2.b
@@ -137,54 +141,6 @@ constexpr int kGroupThreads = kSubPixels / kBW;   // 64: two warps
 constexpr int kGroups = 2;       // warp groups that share out the rows
 constexpr int kThreads = kGroupThreads * kGroups;
 constexpr unsigned kFullWarp = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
-// The top-left rule as one comparison: e > threshold(tl) is
-// e > 0 || (tl && e == 0), because e > -denorm_min <=> e >= 0 (the library
-// is built without flush-to-zero).
-__device__ __forceinline__ float threshold(bool top_left) {
-  return top_left ? __int_as_float(0x80000001) : 0.f;
-}
-
-// fl(fl(a*px + b*py) + c) on the thread's pixel block.
-__device__ __forceinline__ void plane_block(float a, float b, float c,
-                                            const float (&px)[kBW], float py,
-                                            float (&out)[kBW]) {
-  const float by = __fmul_rn(b, py);
-#pragma unroll
-  for (int k = 0; k < kBW; ++k)
-    out[k] = __fadd_rn(__fadd_rn(__fmul_rn(a, px[k]), by), c);
-}
-
-// Whether fl(fl(a*px + b*py) + c) reaches the edge's threshold anywhere on
-// the pixel centres of [xmin, xmax] x [ymin, ymax]. Rounded products and
-// sums are monotone in px and in py, so the greatest value over the box is
-// the value at the corner the signs of a and b pick, computed with the
-// reference's own operations: the test is exact (a NaN or an inf - inf at
-// that corner means no pixel of the box passes either).
-__device__ __forceinline__ bool edge_reaches(float a, float b, float c,
-                                             bool top_left, float xmin,
-                                             float xmax, float ymin,
-                                             float ymax) {
-  const float e = __fadd_rn(__fadd_rn(__fmul_rn(a, a >= 0.f ? xmax : xmin),
-                                      __fmul_rn(b, b >= 0.f ? ymax : ymin)),
-                            c);
-  return e > threshold(top_left);
-}
 
 struct TileStream {
   int start0, count0, chunks0;   // the tile's own range

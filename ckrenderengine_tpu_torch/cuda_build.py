@@ -38,6 +38,8 @@ _SIGNATURES = {
     "ck_ordered_blend": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ck_ordered_peel": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,
                         _I, _I, _I, _P),
+    "ck_ordered_blend_occupancy": (_I, _I, _I),
+    "ck_ordered_peel_occupancy": (_I, _I, _I),
 }
 
 

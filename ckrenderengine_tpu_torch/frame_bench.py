@@ -12,10 +12,13 @@ the script itself uses only what every tree of the port has. Run
 the trees in turns inside one call (parent, change, change, parent): two
 calls may land on two cards and hosts. For each scene it renders 2 warm-up
 ticks and 30 timed ticks of (rotate the mover, ``Render()``), fenced by
-``torch.cuda.synchronize()``, then profiles 3 more ticks with
+``torch.cuda.synchronize()``, then 40 ticks synchronised before and after
+each (``frame_ms_median`` and ``_p75``) and the host's ``_fill_packed``
+alone (``fill_packed_ms``, median of 20), then profiles 3 more ticks with
 ``torch.profiler`` and counts what reached the card, with the mean time on
 the card of each hand-written kernel the frames launched (``kernel_ms``; the
-tiled solve is B5 when ``CK_FUSED_FETCH`` is set, B1 otherwise).
+tiled solve is B5 when ``CK_FUSED_FETCH`` is set, B1 otherwise) and the
+device's idle share (1 - device ms per frame / the frame median).
 ``--frames DIR`` also saves every scene's first frame (fb and zb) as ``.npy``
 files, so two trees' frames can be compared bit for bit. Needs a CUDA card.
 """
@@ -94,6 +97,17 @@ def main() -> int:
             tick()
         torch.cuda.synchronize()
         fps = TICKS / (time.monotonic() - t0)
+        lat = []
+        for _ in range(40):
+            t1 = time.monotonic()
+            tick()
+            torch.cuda.synchronize()
+            lat.append((time.monotonic() - t1) * 1e3)
+        fill = []
+        for _ in range(20):
+            t1 = time.monotonic()
+            rc._fill_packed([], [])
+            fill.append((time.monotonic() - t1) * 1e3)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
@@ -102,10 +116,15 @@ def main() -> int:
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         dev_us = device_us(dev)
         by_kernel = {k: [e for e in dev if k in e.name] for k in KERNELS}
+        median = float(np.median(lat))
         out["scenes"][name] = {
             "fps": fps, "size": [rc.width, rc.height],
+            "frame_ms_median": median,
+            "frame_ms_p75": float(np.percentile(lat, 75)),
+            "fill_packed_ms": float(np.median(fill)),
             "device_launches_per_frame": len(dev) / 3,
             "device_ms_per_frame": dev_us / 1e3 / 3,
+            "device_idle_share": 1.0 - dev_us / 1e3 / 3 / median,
             "kernel_ms": {k: device_us(ev) / 1e3 / len(ev)
                           for k, ev in by_kernel.items() if ev}}
         print(json.dumps({"root": args.root, "scene": name,

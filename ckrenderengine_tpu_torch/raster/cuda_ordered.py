@@ -11,14 +11,23 @@ product of affine maps:
                      classes, ONE pair-key sort that gives each screen tile a
                      contiguous draw-ordered range of the row stream, the
                      padded opaque z plane and the overflow flag ``bad``.
-  Phase B, B3 (CUDA, ``csrc/ordered_blend.cu``) — one CTA per tile folds the
-                     per-pixel maps into a carry (A, B); the frame composites
-                     ``fb' = A·fb + B`` once (:func:`ordered_blend_tiled_cuda`).
+  Phase B, B3 (CUDA, ``csrc/ordered_blend.cu``) — folds each pixel's
+                     draw-ordered blend steps into a carry (A, B); the frame
+                     composites ``fb' = A·fb + B`` once
+                     (:func:`ordered_blend_tiled_cuda`).
   Phase B, B4 (CUDA, ``csrc/ordered_peel.cu``) — for textured transparency:
                      records per pixel the covering fragments whose index lies
                      in ``[skip, skip+K)`` (draw id and raw e0/e1/e2); the
                      frame shades and blends those K layers and peels again
                      until every pixel drains (:func:`ordered_peel_iterate`).
+
+A row is a coverage head (what coverage reads: the opaque solve's columns
+0-21, the state bits, the z function, the draw id and 3 columns per user
+clip plane, zero-padded to a multiple of 4 floats; :func:`head_width`) and a
+shade tail of 32 floats (colour, specular, fog, alpha function and
+reference, w), so every row of a 16-byte aligned stream and its tail start
+on 16 bytes (the kernels' asynchronous 16-byte copies) and B4 copies the
+head alone.
 
 On a CPU tensor each phase B runs its plain torch version
 (:func:`blend_phase_b_plain`, :func:`peel_phase_b_plain`): the same
@@ -47,29 +56,43 @@ from .types import (
     SI_FOG, SI_PERSPECTIVE, SI_ZFUNC, VXCMP,
 )
 
-# Ordered-row column layout (reference pallas_ordered._OC_*).
-_OC_EP = 13         # esum plane (3)
+# Ordered-row layout (the reference's pallas_ordered._OC_* columns, as a
+# head and a tail; csrc/ordered_common.cuh mirrors these). Head:
 _OC_Z = 9           # corner clip z (3)
 _OC_IVS = 12        # signed inverse determinant
+_OC_EP = 13         # esum plane (3)
 _OC_SS = 16         # sign s
 _OC_FL = 17         # top-left bits (1|2|4) + valid bit 8
 _OC_RECT = 18       # per-triangle scissor (4)
-_OC_COL = 22        # corner RGBA x3, corner-major (12)
-_OC_SPC = 34        # corner spec RGB x3 (9)
-_OC_FOG = 43        # corner fog factors (3)
-_OC_BITS = 46       # blend_on | fog_on<<1 | colorwrite<<2 | persp<<3 | at<<4
-_OC_ZF = 47         # z compare func
-_OC_AF = 48         # alpha compare func
-_OC_AREF = 49       # alpha ref
-_OC_WS = 50         # corner w (3), for non-perspective weights
-_OC_ID = 53         # draw index (exact in f32 below 2^24)
-_OC_NCOL = 54       # + 3 per user clip plane
+_OC_BITS = 22       # blend_on | fog_on<<1 | colorwrite<<2 | persp<<3 | at<<4
+_OC_ZF = 23         # z compare func
+_OC_ID = 24         # draw index (exact in f32 below 2^24)
+_OC_CLIP = 25       # user clip planes, 3 each
+# Tail, at the head width:
+_OC_COL = 0         # corner RGBA x3, corner-major (12)
+_OC_SPC = 12        # corner spec RGB x3 (9)
+_OC_FOG = 21        # corner fog factors (3)
+_OC_AF = 24         # alpha compare func
+_OC_AREF = 25       # alpha ref
+_OC_WS = 26         # corner w (3), for non-perspective weights
+_OC_TAIL = 32       # tail width: 29 columns and 3 zeros
 
 WINDOWS = ((65536, 4), (4096, 16), (1024, 128), (64, -1))
 PAIR_CAP = 131072   # stream rows (live (tile, draw) pairs)
 K_LAYERS = 4        # peel layers per round (csrc/ordered_peel.cu kLayers)
-KCHUNK = 128        # rows a kernel CTA stages in shared memory at a time
+KCHUNK = 32         # rows a stage of a kernel's shared-memory ring holds
 ROWS_PER_STEP = 8   # rows a plain version evaluates per vectorised step
+
+
+def head_width(n_planes: int) -> int:
+    """Floats of a row's coverage head: its columns rounded up to a
+    multiple of 4 (28 / 28 / 32 / 36 for 0-3 clip planes)."""
+    return -(-(_OC_CLIP + 3 * n_planes) // 4) * 4
+
+
+def row_pitch(n_planes: int) -> int:
+    """Floats per ordered stream row: the head and the 32-float tail."""
+    return head_width(n_planes) + _OC_TAIL
 
 
 def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
@@ -79,7 +102,8 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
     ``_ordered_phase_a``). Inputs are the ``ordered_subset`` batch fields
     in draw order; ``uv`` is not read (the peel's composite samples it).
 
-    Returns a dict: ``stream`` (rows, ncol) f32, per-tile ``starts`` and
+    Returns a dict: ``stream`` (rows, :func:`row_pitch`) f32 (pad columns
+    zero; the sentinel row t is all zeros), per-tile ``starts`` and
     ``counts`` (int32, exact: tile t streams rows [start, start+count)),
     ``zplane`` (H_pad, W_pad) opaque depth, ``bad`` (device bool),
     ``n_live`` (live (tile, draw) pairs), ``n_planes``, ``tiles_x``,
@@ -101,7 +125,8 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
     n_planes = clipd.shape[-1] if clipd is not None and clipd.dim() == 3 \
         else 0
 
-    # --- packed rows (row k = draw k) -------------------------------------
+    # --- packed rows (row k = draw k) inside a zeroed (T + 1, pitch) buffer:
+    # row t is the dead pad row of the stream gather.
     tlf = setup["top_left"].to(torch.int32)
     flags_t = (tlf[:, 0] + 2 * tlf[:, 1] + 4 * tlf[:, 2]
                + 8 * tvalid.to(torch.int32)).to(torch.float32)
@@ -115,14 +140,20 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
         state_i[:, SI_ZFUNC].to(torch.float32),
         state_i[:, SI_ALPHAFUNC].to(torch.float32),
         state_f[:, SF_ALPHAREF]], dim=1)                     # (S, 4)
-    full_rows = torch.cat([
+    st_t = df.take_small(st_cols, state_idx)                 # (T, 4)
+    head = head_width(n_planes)
+    full_pad = torch.zeros((t + 1, head + _OC_TAIL), dtype=torch.float32,
+                           device=dev)
+    zeros = full_pad[:t]              # the pad columns, read before the copy
+    full_pad[:t] = torch.cat([
         setup["e9"], setup["z"], setup["inv_det_s"][:, None],
         setup["esum_plane"], setup["s"][:, None], flags_t[:, None],
-        setup["clip_rect"], color.reshape(t, 12), spec.reshape(t, 9),
-        fog.reshape(t, 3), df.take_small(st_cols, state_idx), xyw[..., 2],
+        setup["clip_rect"], st_t[:, 0:2],                   # bits, z func
         torch.arange(t, dtype=torch.float32, device=dev)[:, None],
-        setup["dplane9"]], dim=1)                            # (T, ncol)
-    ncol = full_rows.shape[1]
+        setup["dplane9"], zeros[:, :head - _OC_CLIP - 3 * n_planes],
+        color.reshape(t, 12), spec.reshape(t, 9), fog.reshape(t, 3),
+        st_t[:, 2:4],                                       # alpha func, ref
+        xyw[..., 2], zeros[:, :_OC_TAIL - _OC_WS - 3]], dim=1)
 
     # --- classify + bin (the draw index is the key's low bits) ------------
     x0, y0, x1, y1, unbounded, empty = _screen_bbox(xyw, z)
@@ -209,9 +240,6 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
     sl_main = min(stream_len, PAIR_CAP)
     pos = torch.arange(sl_main, device=dev)
     sid_stream = torch.where(pos < n_live, sorted_p[:sl_main], t)
-    full_pad = torch.cat([full_rows, torch.zeros((1, ncol),
-                                                 dtype=torch.float32,
-                                                 device=dev)])
     fits = (starts + counts) <= sl_main
     bad = overspan.any() | bad_cap | (n_live > PAIR_CAP)
     return dict(stream=full_pad[sid_stream],
@@ -235,7 +263,7 @@ def _grid(tile: int, tiles_x: int, tiles_y: int, dev):
 
 
 def _fragments(rows, live, px, py, scissor, zb, zbits, n_planes: int):
-    """Coverage of K rows per tile, shared by B3 and B4: rows (NT,K,ncol),
+    """Coverage of K rows per tile, shared by B3 and B4: rows (NT,K,pitch),
     live (NT,K) -> (cov (NT,K,npix), e0, e1, e2, col) where ``col(i)`` is
     column i as (NT,K,1). Coverage is B1's test, the z test against the
     opaque plane with the 2-ULP tie window, the viewport scissor and
@@ -261,7 +289,7 @@ def _fragments(rows, live, px, py, scissor, zb, zbits, n_planes: int):
     cov &= ((px >= col(_OC_RECT)) & (py >= col(_OC_RECT + 1))
             & (px < col(_OC_RECT + 2)) & (py < col(_OC_RECT + 3)))
     for p in range(n_planes):
-        cov &= plane(_OC_NCOL + 3 * p) >= 0
+        cov &= plane(_OC_CLIP + 3 * p) >= 0
     cov &= ((fl & 8) != 0) & live[..., None] & scissor
     zf = icol(_OC_ZF)
     near = torch.abs(depth.view(torch.int32) - zbits) <= 2
@@ -273,7 +301,7 @@ def _fragments(rows, live, px, py, scissor, zb, zbits, n_planes: int):
 
 
 def _stream_steps(stream, starts, counts):
-    """Yield (rows (NT,K,ncol), live (NT,K)) over every tile's range in
+    """Yield (rows (NT,K,pitch), live (NT,K)) over every tile's range in
     draw order, K = ROWS_PER_STEP rows per step, padded to the longest
     tile's count."""
     dev = stream.device
@@ -296,9 +324,9 @@ def _scissor(px, py, params):
 def blend_phase_b_plain(stream, starts, counts, params, zplane, tile: int,
                         tiles_x: int, tiles_y: int, n_planes: int):
     """Plain torch version of kernel B3. ``params`` = (vx, vy, vw, vh,
-    width, height, fog r, g, b) f32. Returns (8, H_pad, W_pad): A RGBA then
-    B RGBA of each pixel's folded affine blend map (identity where nothing
-    covers)."""
+    width, height, fog r, g, b) f32. Returns (5, H_pad, W_pad): A (one
+    number for all four channels) then B RGBA of each pixel's folded affine
+    blend map (identity where nothing covers)."""
     dev = stream.device
     n_tiles = tiles_x * tiles_y
     npix = tile * tile
@@ -307,6 +335,7 @@ def blend_phase_b_plain(stream, starts, counts, params, zplane, tile: int,
     zb = to_tiles(zplane, tile, tiles_x, tiles_y)[:, None]
     zbits = zb.contiguous().view(torch.int32)
     fogc = params[6:9]
+    head = head_width(n_planes)
     ca = torch.ones((n_tiles, npix), dtype=torch.float32, device=dev)
     cb = [torch.zeros((n_tiles, npix), dtype=torch.float32, device=dev)
           for _ in range(4)]
@@ -318,12 +347,16 @@ def blend_phase_b_plain(stream, starts, counts, params, zplane, tile: int,
         bits = rows[..., _OC_BITS].to(torch.int32)[..., None]
         persp = (bits & 8) != 0
         ivs = col(_OC_IVS)
-        w0 = torch.where(persp, e0 * inv_esum, e0 * col(_OC_WS) * ivs)
-        w1 = torch.where(persp, e1 * inv_esum, e1 * col(_OC_WS + 1) * ivs)
-        w2 = torch.where(persp, e2 * inv_esum, e2 * col(_OC_WS + 2) * ivs)
+
+        def tcol(i):
+            return col(head + i)
+
+        w0 = torch.where(persp, e0 * inv_esum, e0 * tcol(_OC_WS) * ivs)
+        w1 = torch.where(persp, e1 * inv_esum, e1 * tcol(_OC_WS + 1) * ivs)
+        w2 = torch.where(persp, e2 * inv_esum, e2 * tcol(_OC_WS + 2) * ivs)
 
         def interp(o, k):
-            return col(o) * w0 + col(o + k) * w1 + col(o + 2 * k) * w2
+            return tcol(o) * w0 + tcol(o + k) * w1 + tcol(o + 2 * k) * w2
 
         src = [interp(_OC_COL + c, 4) for c in range(4)]
         for c in range(3):
@@ -337,8 +370,8 @@ def blend_phase_b_plain(stream, starts, counts, params, zplane, tile: int,
         src = [torch.clamp(c, 0.0, 1.0) for c in src]
         sa = src[3]
         at_on = (bits & 16) != 0
-        at_ok = compare_op(rows[..., _OC_AF].to(torch.int32)[..., None], sa,
-                           col(_OC_AREF))
+        at_ok = compare_op(rows[..., head + _OC_AF].to(torch.int32)[..., None],
+                           sa, tcol(_OC_AREF))
         cov &= at_ok | ~at_on
         blend_on = (bits & 1) != 0
         a = torch.where(cov, torch.where(blend_on, 1.0 - sa, 0.0), 1.0)
@@ -348,18 +381,17 @@ def blend_phase_b_plain(stream, starts, counts, params, zplane, tile: int,
             ak = a[:, k]
             ca = ak * ca
             cb = [ak * cb[c] + b[c][:, k] for c in range(4)]
-    return untile(torch.stack([ca] * 4 + cb), tile, tiles_x, tiles_y)
+    return untile(torch.stack([ca] + cb), tile, tiles_x, tiles_y)
 
 
 def blend_kernel(stream, starts, counts, params, zplane, tile: int,
                  tiles_x: int, tiles_y: int, n_planes: int):
     """Launch kernel B3 on CUDA tensors (the contract of
     :func:`blend_phase_b_plain`)."""
-    ncol = _OC_NCOL + 3 * n_planes
-    _check_stream("blend_kernel", stream, ncol, tile)
+    _check_stream("blend_kernel", stream, n_planes, tile)
     dev = stream.device
     lib = cuda_build.library().lib
-    out = torch.empty((8, tiles_y * tile, tiles_x * tile),
+    out = torch.empty((5, tiles_y * tile, tiles_x * tile),
                       dtype=torch.float32, device=dev)
     stream = stream.contiguous()
     starts = starts.to(torch.int32).contiguous()
@@ -367,7 +399,7 @@ def blend_kernel(stream, starts, counts, params, zplane, tile: int,
     params = params.to(torch.float32).contiguous()
     zplane = zplane.contiguous()
     code = lib.ck_ordered_blend(
-        stream.data_ptr(), ncol, n_planes, starts.data_ptr(),
+        stream.data_ptr(), stream.shape[1], n_planes, starts.data_ptr(),
         counts.data_ptr(), params.data_ptr(), zplane.data_ptr(),
         out.data_ptr(), tile, tiles_x, tiles_y, KCHUNK,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -379,12 +411,18 @@ def blend_kernel(stream, starts, counts, params, zplane, tile: int,
 blend_kernel.launches = 0
 
 
-def _check_stream(name: str, stream, ncol: int, tile: int) -> None:
+def _check_stream(name: str, stream, n_planes: int, tile: int) -> None:
+    """The kernels take a CUDA f32 stream at :func:`row_pitch` floats per
+    row (16-byte aligned, as torch's allocations are: the C entries refuse
+    others) and tiles of 16 or 32 pixels (16x16 sub-tiles)."""
+    pitch = row_pitch(n_planes)
     if not stream.is_cuda or stream.dtype != torch.float32 \
-            or stream.dim() != 2 or stream.shape[1] != ncol:
-        raise ValueError(f"{name} takes a CUDA f32 (rows, {ncol}) stream")
-    if tile * tile > 1024:
-        raise ValueError("tile*tile must fit one CTA (<= 1024 threads)")
+            or stream.dim() != 2 or stream.shape[1] != pitch:
+        raise ValueError(f"{name} takes a CUDA f32 (rows, {pitch}) stream "
+                         f"(row_pitch({n_planes}) floats per row)")
+    if tile not in (16, 32):
+        raise ValueError("tile must be 16 or 32 (the kernels work on 16x16 "
+                         "sub-tiles)")
 
 
 def blend_phase_b(stream, *args):
@@ -437,8 +475,7 @@ def peel_kernel(stream, starts, counts, params, skip: int, zplane,
                 tile: int, tiles_x: int, tiles_y: int, n_planes: int):
     """Launch kernel B4 on CUDA tensors (the contract of
     :func:`peel_phase_b_plain`)."""
-    ncol = _OC_NCOL + 3 * n_planes
-    _check_stream("peel_kernel", stream, ncol, tile)
+    _check_stream("peel_kernel", stream, n_planes, tile)
     dev = stream.device
     lib = cuda_build.library().lib
     full_h, full_w = tiles_y * tile, tiles_x * tile
@@ -454,7 +491,7 @@ def peel_kernel(stream, starts, counts, params, skip: int, zplane,
     params = params.to(torch.float32).contiguous()
     zplane = zplane.contiguous()
     code = lib.ck_ordered_peel(
-        stream.data_ptr(), ncol, n_planes, starts.data_ptr(),
+        stream.data_ptr(), stream.shape[1], n_planes, starts.data_ptr(),
         counts.data_ptr(), params.data_ptr(), int(skip), zplane.data_ptr(),
         lids.data_ptr(), les.data_ptr(), cnt.data_ptr(), ovf.data_ptr(),
         tile, tiles_x, tiles_y, KCHUNK,
@@ -505,7 +542,7 @@ def ordered_blend_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
         _params(viewport, height, width, fog_color, xyw.device),
         pa["zplane"], tile, pa["tiles_x"], pa["tiles_y"],
         pa["n_planes"])[:, :height, :width]
-    return ab[0:4], ab[4:8], pa["bad"]
+    return ab[0:1].expand(4, height, width), ab[1:5], pa["bad"]
 
 
 def _peel_phase_b(pa: dict, skip: int, viewport, height: int, width: int,

@@ -21,7 +21,7 @@ Tolerances, and why:
 - Quantized rows: bit-equal tables; shade within 2e-6.
 
 The CUDA kernel B3 itself is held against its plain version on the card
-(test_b3_kernel_matches_plain, skipped without a GPU)."""
+by chip_smoke.py, on the cases of raster/ordered_fixtures.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -365,20 +365,3 @@ def test_phase_a_rejects_ids_beyond_f32():
     with pytest.raises(ValueError, match="2\\^24"):
         co.phase_a(xyw, xyw[..., 0], None, None, None, None, None, None,
                    None, None, None, None, None, 8, 8)
-
-
-def test_b3_kernel_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernel B3 runs only on the card)")
-    batch, si, sf, _fb, zb, fogc, vp, h, w = _blend_case("seed1")
-    tb = convert.batch_from_reference(batch, "cuda")
-    pa = co.phase_a(*_fields(tb), _t(si).cuda(), _t(sf).cuda(), _t(zb).cuda(),
-                    h, w, 16)
-    args = (pa["stream"], pa["starts"], pa["counts"],
-            co._params(_t(vp), h, w, _t(fogc), "cuda"), pa["zplane"], 16,
-            pa["tiles_x"], pa["tiles_y"], pa["n_planes"])
-    before = co.blend_kernel.launches
-    assert torch.equal(co.blend_kernel(*args),
-                       co.blend_phase_b_plain(*args))
-    assert co.blend_kernel.launches == before + 1
-

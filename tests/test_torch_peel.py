@@ -16,7 +16,7 @@ Tolerances, and why:
   quantized rows carry vertex colours at u8 (D3DCOLOR) precision.
 
 The CUDA kernel B4 itself is held against its plain version on the card
-(test_b4_kernel_matches_plain, skipped without a GPU)."""
+by chip_smoke.py, on the cases of raster/ordered_fixtures.py."""
 
 from types import SimpleNamespace
 
@@ -269,22 +269,6 @@ def test_textured_frame_takes_peel_and_matches(tex_frame):
     diff = np.abs(fb - np.asarray(rj.fb)).max(0)
     assert diff.max() <= 0.02, float(diff.max())
     assert (fb != fb[:, :1, :1]).any(0).mean() > 0.5
-
-
-def test_b4_kernel_matches_plain():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernel B4 runs only on the card)")
-    batch, si, sf, _fb, zb, h, w = _stack9()
-    tb = convert.batch_from_reference(batch, "cuda")
-    pa = co.phase_a(*_fields(tb), _t(si).cuda(), _t(sf).cuda(), _t(zb).cuda(),
-                    h, w, 16)
-    for skip in (0, 4, 8):
-        args = (pa["stream"], pa["starts"], pa["counts"],
-                co._params([0, 0, w, h], h, w, dev="cuda"), skip,
-                pa["zplane"], 16, pa["tiles_x"], pa["tiles_y"],
-                pa["n_planes"])
-        for a, b in zip(co.peel_kernel(*args), co.peel_phase_b_plain(*args)):
-            assert torch.equal(a, b)
 
 
 def test_port_batch_conversion_is_bit_exact():

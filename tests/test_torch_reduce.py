@@ -1,8 +1,8 @@
 """The flat solve (plain version of kernel B2) against the reference's
 Pallas flat solve in interpret mode: ids exactly, depth within 4e-6 (beyond
 it only where FMA contraction rounds an ill-conditioned edge plane apart).
-The CUDA kernel itself is held against the plain version on the card
-(test_b2_kernel_matches_plain, skipped without a GPU)."""
+The CUDA kernel itself is held against the plain version on the card by
+chip_smoke.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -61,17 +61,3 @@ def test_pack_rows_matches_reference():
     got = cuda_reduce.pack_rows(convert.setup_from_reference(setup_np),
                                 torch.as_tensor(defer))
     np.testing.assert_array_equal(to_np(got), ref)
-
-
-def test_b2_kernel_matches_plain():
-    """CUDA kernel B2 against its plain version on the same CUDA rows."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernel B2 runs only on the card)")
-    _setup, setup_np = _case(0, 200, 64, 128)
-    rows = cuda_reduce.pack_rows(
-        convert.setup_from_reference(setup_np, "cuda"),
-        torch.ones(200, dtype=torch.bool, device="cuda"))
-    vp = torch.tensor([0.0, 0.0, 128, 64], device="cuda")
-    k = cuda_reduce.reduce_flat_kernel(rows, 1.0, vp, 64, 128)
-    p = cuda_reduce.depth_reduce_plain(rows, 1.0, vp, 64, 128)
-    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])

@@ -19,8 +19,8 @@ reference on the CPU:
   pixels; those on ill-conditioned edges and within 1/255). Both packages
   quantize the same way, so no quantization-sized bound is needed.
 
-Kernel B5 itself is held against this plain version on the card
-(test_b5_kernel_matches_plain, skipped without a GPU, and chip_smoke.py).
+Kernel B5 itself is held against this plain version on the card by
+chip_smoke.py.
 """
 
 import numpy as np
@@ -348,29 +348,3 @@ def test_quantized_rows_differ_from_the_full_rows_by_the_u8_step():
         sampler_profile=profile)
     diff = np.abs(fb_q - to_np(fb_f))
     assert 1e-4 < diff.max() <= 3.0 / 255.0, float(diff.max())
-
-
-# --- kernel B5 on the card --------------------------------------------------
-
-@pytest.mark.parametrize("want_e", [True, False], ids=["eplanes", "plain"])
-def test_b5_kernel_matches_plain(want_e):
-    """CUDA kernel B5 against its plain version on the card (the same
-    phase-A tensors, a viewport smaller than the frame): exact ids, depths,
-    e-planes and rows."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernel B5 runs only on the card)")
-    xyw, setup, tbl, t, h, w = _fetch_inputs((260, 48, 96, 2, 0.1), 13, 20)
-    setup_t = convert.setup_from_reference(_np(setup), "cuda")
-    vp_t = torch.tensor([6, 4, 70, 36], dtype=torch.float32, device="cuda")
-    a = cuda_tiled.phase_a(
-        setup_t, torch.ones(t, dtype=torch.bool, device="cuda"), vp_t,
-        torch.as_tensor(np.asarray(xyw), device="cuda"), h, w, tile=16)
-    init = cuda_tiled._init_plane(1.0, h, w, a["tiles_y"] * 16,
-                                  a["tiles_x"] * 16, "cuda")
-    args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
-            a["sbase"], vp_t, w, h, init, 16, a["tiles_x"], a["tiles_y"],
-            a["n_planes"], want_e, torch.as_tensor(tbl, device="cuda"))
-    k = cuda_tiled.solve_fetch_kernel(*args)
-    p = cuda_tiled.solve_phase_b_plain(*args)
-    for x, y in zip(k, p):
-        assert (x is None and y is None) or torch.equal(x, y)

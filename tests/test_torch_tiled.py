@@ -6,8 +6,7 @@ the port's uncontracted one round an ill-conditioned edge plane apart, see
 tests/_torch_common.assert_depth_close), the 7-vector bin statistics
 exactly, and the winner e-planes within 1e-5 (or, for the large raw edge
 values of big triangles, within the same rounding bound). The CUDA kernel
-itself is held against the plain version on the card
-(test_b1_kernel_matches_plain, skipped without a GPU)."""
+itself is held against the plain version on the card by chip_smoke.py."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -139,32 +138,3 @@ def test_phase_b_plain_matches_flat_reduce():
     bi_f, bd_f = tdf.depth_reduce(setup_t, torch.ones(t, dtype=torch.bool),
                                   1.0, vp_t, h, w)
     assert torch.equal(bi, bi_f) and torch.equal(bd, bd_f)
-
-
-@pytest.mark.parametrize("case", ["random_a", "clip_rects_planes",
-                                  "kept_zbuffer", "non_divisible"])
-def test_b1_kernel_matches_plain(case):
-    """CUDA kernel B1 against its plain version on the card (the same
-    phase-A tensors): exact ids, depths and e-planes."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernel B1 runs only on the card)")
-    xyw, z, setup, h, w, clear, vp = _fixture(case)
-    setup_t = convert.setup_from_reference(
-        {k: np.asarray(v) for k, v in setup.items()}, "cuda")
-    t = xyw.shape[0]
-    vp_t = torch.tensor(vp, dtype=torch.float32, device="cuda")
-    a = cuda_tiled.phase_a(setup_t, torch.ones(t, dtype=torch.bool,
-                                               device="cuda"), vp_t,
-                           torch.as_tensor(np.asarray(xyw), device="cuda"),
-                           h, w, tile=16)
-    init = cuda_tiled._init_plane(np.asarray(clear), h, w,
-                                  a["tiles_y"] * 16, a["tiles_x"] * 16,
-                                  "cuda")
-    args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
-            a["sbase"], vp_t, w, h, init, 16, a["tiles_x"], a["tiles_y"],
-            a["n_planes"], True)
-    k = cuda_tiled.solve_tiled_kernel(*args)
-    p = cuda_tiled.solve_phase_b_plain(*args)
-    for x, y in zip(k[:3], p[:3]):
-        assert torch.equal(x, y)
-    assert k[3] is None and p[3] is None     # no shade table, no rows

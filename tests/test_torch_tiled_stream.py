@@ -19,8 +19,7 @@ kernel can stream them:
   clip plane, pitch 28) against the reference's fused fetch.
 
 Kernels B1 and B5 are held against the plain version on these cases on the
-card (test_kernels_match_plain_on_stream_cases, skipped without a GPU, and
-chip_smoke.py).
+card by chip_smoke.py.
 """
 
 import functools
@@ -268,30 +267,3 @@ def test_remainder_and_refetch_read_the_padded_table(caps):
         a["sbase"], vp, c["w"], c["h"], init, TILE, a["tiles_x"],
         a["tiles_y"], a["n_planes"], False)[1][:c["h"], :c["w"]]
     assert (to_np(part) != bi_g).any()
-
-
-@pytest.mark.parametrize("want_e", [True, False], ids=["eplanes", "plain"])
-@pytest.mark.parametrize("name", NAMES)
-def test_kernels_match_plain_on_stream_cases(name, want_e):
-    """CUDA kernels B1 and B5 against the plain version on the card, the
-    same phase-A tensors: exact ids, depths, e-planes and rows."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (kernels B1 and B5 run only on the "
-                    "card)")
-    c = CASES[name]
-    setup_t, defer, vp, xyw = _port_inputs(name, "cuda")
-    a = cuda_tiled.phase_a(setup_t, defer, vp, xyw, c["h"], c["w"],
-                           **c["caps"])
-    init = cuda_tiled._init_plane(1.0, c["h"], c["w"], a["tiles_y"] * TILE,
-                                  a["tiles_x"] * TILE, "cuda")
-    args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
-            a["sbase"], vp, c["w"], c["h"], init, TILE, a["tiles_x"],
-            a["tiles_y"], a["n_planes"], want_e)
-    tbl = torch.as_tensor(_words(c["xyw"].shape[0], 20, 7), device="cuda")
-    p = cuda_tiled.solve_phase_b_plain(*args, tbl)
-    k5 = cuda_tiled.solve_fetch_kernel(*args, tbl, kchunk=KCHUNK)
-    k1 = cuda_tiled.solve_tiled_kernel(*args, kchunk=KCHUNK)
-    for x, y in zip(k5, p):
-        assert (x is None and y is None) or torch.equal(x, y)
-    for x, y in zip(k1[:3], p[:3]):
-        assert (x is None and y is None) or torch.equal(x, y)
