@@ -8,7 +8,8 @@ blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch),
 prints their registers, spills and resident CTAs per SM, holds each kernel
 against its plain torch version on the card bit for bit (B1 and B5 also on
 the stream cases of ``raster/tiled_fixtures.py``, B3 and B4 on every case
-of ``raster/ordered_fixtures.py``, each at tiles of 32 and of 16 pixels),
+of ``raster/ordered_fixtures.py``, each at tiles of 32 and of 16 pixels, B2
+on every case of ``raster/flat_fixtures.py`` at full size),
 drives BASELINE configs 1, 2 and 5 and the two transparency stress scenes
 (``alpha50k``, ``alpha_tex50k``) through the CK entry points
 (``CKContext(device="cuda")`` -> ``CreateRenderContext`` -> ``Render()``),
@@ -18,7 +19,8 @@ must equal the default path's bit for bit), renders an odd-sized mip frame
 holds the kernel frames against the exact ordered pass and against the CPU,
 checks the two golden frames the reference package rendered
 (``tests/torch_golden/``), and times the frames, the stages and the kernels
-beside each kernel's roofline bound, under which no kernel's time may fall.
+beside each kernel's roofline bound, under which no kernel's time may fall
+(B2 also at its floor, every row invalid, and at the flat route's limits).
 Every phase prints a line; any failure raises, so the exit code is nonzero.
 The last line is the device record ``{"ok": true, "device": {"platform":
 "gpu", ...}}``. Without CUDA the script exits nonzero before printing any
@@ -385,6 +387,45 @@ def compare_b2(H=256, W=256, T=2000, seed=5) -> float:
     return err
 
 
+def flat_args(case):
+    """``reduce_flat_kernel``'s arguments for one flat case on the card."""
+    from ckrenderengine_tpu_torch.raster.flat_fixtures import case_rows
+
+    return (case_rows(case), case["clear_z"],
+            torch.tensor(case["viewport"], dtype=torch.float32,
+                         device="cuda"), case["h"], case["w"])
+
+
+def compare_flat(case, lib) -> float:
+    """B2 against its plain version on one full-size case of
+    ``raster/flat_fixtures.py``: ids and depths exactly; the case must
+    still give what it was built for (``check_expect``)."""
+    from ckrenderengine_tpu_torch.raster.cuda_reduce import (
+        depth_reduce_plain, reduce_flat_kernel,
+    )
+    from ckrenderengine_tpu_torch.raster.flat_fixtures import (
+        check_expect, flat_stats,
+    )
+
+    args = flat_args(case)
+    rows, _cz, _vp, h, w = args
+    bi_k, bd_k = reduce_flat_kernel(*args)
+    bi_p, bd_p = depth_reduce_plain(*args)
+    stats = flat_stats(rows, h, w, case["viewport"])
+    check_expect(case, stats, bi_k.cpu().numpy())
+    err = float((bd_k - bd_p).abs().max())
+    ok = bool(torch.equal(bi_k, bi_p) and torch.equal(bd_k, bd_p))
+    emit("kernel_parity", kernel="B2", case=case["name"], shape=[h, w],
+         tris=int(rows.shape[0]),
+         ctas_per_subtile=lib.ck_reduce_flat_split(rows.shape[0], h, w),
+         scan_drop=stats["scan_drop"], pairs_past_edges=stats["past_edges"],
+         esum_rejects=stats["esum_rejects"],
+         depth_rejects=stats["depth_rejects"], depth_max_abs_err=err,
+         covered=float((bi_k >= 0).float().mean()), ok=ok)
+    check(ok, f"B2 {case['name']}: kernel and plain version disagree")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # Ordered kernels on the cases of raster/ordered_fixtures.py
 # ---------------------------------------------------------------------------
@@ -587,6 +628,7 @@ def main() -> int:
     from ckrenderengine_tpu_torch.raster.ordered_fixtures import (
         ordered_cases,
     )
+    from ckrenderengine_tpu_torch.raster.flat_fixtures import flat_cases
     from ckrenderengine_tpu_torch.raster.tiled_fixtures import tiled_cases
 
     card = card_line()
@@ -612,7 +654,8 @@ def main() -> int:
     # The ordered kernels at the stress frames' shapes (tile 32, no plane).
     occupancy.update(
         B3=lib.lib.ck_ordered_blend_occupancy(0, 32, co.KCHUNK),
-        B4=lib.lib.ck_ordered_peel_occupancy(0, 32, co.KCHUNK))
+        B4=lib.lib.ck_ordered_peel_occupancy(0, 32, co.KCHUNK),
+        B2=lib.lib.ck_reduce_flat_occupancy())
     emit("build", seconds=round(lib.build_seconds, 3), library=os.path.relpath(
         lib.path, ROOT), ptxas=ptxas, ctas_per_sm=occupancy)
     check(all(v > 0 for v in occupancy.values()),
@@ -621,7 +664,8 @@ def main() -> int:
     for ln in ptxas:
         if "Compiling entry" in ln:
             entry = ln
-        if "spill" in ln and ("solve_tiled" in entry or "ordered" in entry):
+        if "spill" in ln and any(k in entry for k in (
+                "solve_tiled", "ordered", "reduce_flat")):
             check("0 bytes spill stores, 0 bytes spill loads" in ln,
                   f"a kernel spills registers: {entry} {ln}")
 
@@ -644,6 +688,8 @@ def main() -> int:
                    for case in tiled_cases(tile=16, kchunk=32, deep=300)]
     errs = {"B1": [e[0] for e in solve_errs],
             "B5": [e[1] for e in solve_errs], "B2": [compare_b2()]}
+    # B2 on every flat case at full size.
+    errs["B2"] += [compare_flat(case, lib.lib) for case in flat_cases()]
     # B3 and B4 on every ordered case at one sub-tile per tile and at four.
     ordered_errs = [compare_ordered(case, tile) for tile in (16, 32)
                     for case in ordered_cases(tile=tile, kchunk=co.KCHUNK)]
@@ -860,31 +906,9 @@ def main() -> int:
                  **per_frame)
     b1_ms, b5_ms = rows_ms["config5"]["B1"], rows_ms["config5"]["B5"]
 
-    # B2 at config-1 frame shapes.
-    rc1 = configs["config1"][1]
-    sc1, bt1, su1, de1, _b1 = fr.packed_setup(*packed_cuda(rc1))
-    rows1 = cuda_reduce.pack_rows(su1, de1)
-    b2_args = (rows1, sc1.clear_z, sc1.viewport, rc1.height, rc1.width)
-    b2_ms = kernel_ms(lambda: cuda_reduce.reduce_flat_kernel(*b2_args),
-                      "reduce_flat_kernel")
-    b2_events_ms = cuda_ms(lambda: cuda_reduce.reduce_flat_kernel(*b2_args),
-                           20)
-    b2_plain_ms = cuda_ms(lambda: cuda_reduce.depth_reduce_plain(*b2_args), 5)
-    k1 = cuda_reduce.reduce_flat_kernel(*b2_args)
-    p1_ = cuda_reduce.depth_reduce_plain(*b2_args)
-    check(torch.equal(k1[0], p1_[0]) and torch.equal(k1[1], p1_[1]),
-          "B2 kernel and plain version disagree at config-1 frame shapes")
-    # B2 streams every row past every pixel of the frame.
-    py1, px1 = torch.meshgrid(
-        torch.arange(rc1.height, dtype=torch.float32, device="cuda") + 0.5,
-        torch.arange(rc1.width, dtype=torch.float32, device="cuda") + 0.5,
-        indexing="ij")
-    b2_past = sum(int(past_edges(
-        r[:, 0:9], r[:, 9:12] > 0, r[:, 20] != 0, r[:, 21:25],
-        px1.reshape(1, -1), py1.reshape(1, -1)))
-        for r in rows1.split(16))
-    b2_bound = roofline(b2_past, rows1.shape[0] * rc1.height * rc1.width, 0,
-                        nbytes(rows1, *k1))
+    # B2 at config 1's frame, at its floor there and at the flat limits.
+    b2_time = time_flat(configs["config1"][1], card, fr, cuda_reduce,
+                        lib, ptxas, flat_cases())
 
     # B3 and B4 at the stress frames' shapes, with phase A and composite.
     ordered_ms = {}
@@ -892,7 +916,7 @@ def main() -> int:
         ordered_ms[kernel] = time_ordered(name, kernel, configs[name][1],
                                           fps[name], card, fr, co)
 
-    ms = {"B1": b1_ms, "B2": (b2_ms, b2_plain_ms, b2_bound, b2_events_ms),
+    ms = {"B1": b1_ms, "B2": b2_time,
           **ordered_ms, "B5": b5_ms}
     sources = {"B1": ("solve_tiled", "csrc/solve_tiled.cu",
                       "ckrenderengine_tpu/raster/pallas_tiled.py:61"),
@@ -1011,6 +1035,84 @@ def time_ordered(name, kernel, rc, fps, card, fr, co):
          "(torch.profiler); the other stage times are CUDA-event means of "
          "the stage alone")
     return st["kernel_ms"], st["plain_ms"], bound, st["kernel_events_ms"]
+
+
+def ptxas_registers(ptxas, kernel: str) -> int:
+    """Registers ptxas gave the entry whose name contains ``kernel``."""
+    entry = ""
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            entry = ln
+        elif kernel in entry and "registers" in ln:
+            return int(ln.split("Used ")[1].split(" registers")[0])
+    fail(f"ptxas reported no registers for {kernel}")
+
+
+def flat_bound(rows, outs, h: int, w: int, viewport) -> dict:
+    """B2's roofline bound on these inputs: the pairs past valid, rect and
+    edges (``flat_stats``, the kernel's arithmetic) at 15 operations, against
+    the rows at the seven 16-byte words the kernel reads, the 5-float view
+    and the two planes it writes, each once."""
+    from ckrenderengine_tpu_torch.raster.flat_fixtures import flat_stats
+
+    past = flat_stats(rows, h, w, viewport)["past_edges"]
+    return roofline(past, rows.shape[0] * h * w, 0,
+                    rows.shape[0] * 28 * 4 + 5 * 4 + nbytes(*outs))
+
+
+def time_flat(rc1, card, fr, cuda_reduce, lib, ptxas, cases):
+    """B2's own time (``torch.profiler``), its CUDA-event and plain times
+    and its bound at config 1's frame, at the same launch with every row's
+    valid bit cleared (the kernel's floor at that grid: rows streamed and
+    scanned, two planes written) and at the three cases of
+    ``raster/flat_fixtures.py`` at the flat route's limits; each checked
+    equal to its plain version there. Returns config 1's (kernel ms, plain
+    ms, bound, CUDA-event ms) for the kernels line."""
+    sc1, _bt, su1, de1, _bits = fr.packed_setup(*packed_cuda(rc1))
+    rows1 = cuda_reduce.pack_rows(su1, de1)
+    floor = rows1.clone()
+    floor[:, 20] = 0.0
+    view1 = (sc1.clear_z, sc1.viewport, rc1.height, rc1.width)
+    shapes = [("config1", (rows1,) + view1, None),
+              ("config1_floor", (floor,) + view1, None)]
+    by_name = {c["name"]: c for c in cases}
+    shapes += [(n, flat_args(by_name[n]), by_name[n]["viewport"])
+               for n in ("flat_limit_256", "flat_deep_640", "flat_cap_128")]
+    regs = ptxas_registers(ptxas, "reduce_flat")
+    ctas = lib.lib.ck_reduce_flat_occupancy()
+    out = {}
+    for name, args, viewport in shapes:
+        rows, _cz, vp, h, w = args
+        k = cuda_reduce.reduce_flat_kernel(*args)
+        p = cuda_reduce.depth_reduce_plain(*args)
+        check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
+              f"B2 kernel and plain version disagree at {name}")
+        t = {"ms": kernel_ms(lambda: cuda_reduce.reduce_flat_kernel(*args),
+                             "reduce_flat_kernel"),
+             "events_ms": cuda_ms(
+                 lambda: cuda_reduce.reduce_flat_kernel(*args), 20),
+             "plain_ms": cuda_ms(
+                 lambda: cuda_reduce.depth_reduce_plain(*args), 3)}
+        bound = flat_bound(rows, k, h, w,
+                           vp.tolist() if viewport is None else viewport)
+        emit("flat_timing", shape_name=name, card=card, size=[w, h],
+             tris=int(rows.shape[0]),
+             valid_rows=int((rows[:, 20] > 0).sum()),
+             ctas_per_subtile=lib.lib.ck_reduce_flat_split(rows.shape[0], h,
+                                                            w),
+             ctas_per_sm=ctas, registers=regs,
+             **{key: round(v, 5) for key, v in t.items()},
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+             bound_share=bound["bound_ms"] / t["ms"],
+             pixel_row_pairs=bound["pixel_row_pairs"],
+             pairs_past_edges=bound["pairs_past_edges"],
+             bound_bytes=bound["bytes"],
+             note="ms is the kernel's own time on the card "
+             "(torch.profiler); events_ms and plain_ms are CUDA-event means")
+        check(t["ms"] >= bound["bound_ms"],
+              f"B2 at {name}: {t['ms']} ms is below its bound")
+        out[name] = (t["ms"], t["plain_ms"], bound, t["events_ms"])
+    return out["config1"]
 
 
 def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):

@@ -1,8 +1,8 @@
 // Device helpers shared by the streaming tile kernels (the opaque solve B1/B5
 // in solve_tiled.cu, the ordered kernels B3/B4 in ordered_blend.cu and
-// ordered_peel.cu): 16-byte asynchronous copies into a shared-memory ring,
-// and the exact test of an edge function against a box of pixel centres that
-// their row scans use.
+// ordered_peel.cu, the flat solve B2 in reduce_flat.cu): 16-byte
+// asynchronous copies into a shared-memory ring, and the exact test of an
+// edge function against a box of pixel centres that their row scans use.
 //
 // Numerics: plane values are fl(fl(a*px + b*py) + c), explicit
 // round-to-nearest operations in the reference's order (the library is also

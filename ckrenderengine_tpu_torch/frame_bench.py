@@ -20,7 +20,18 @@ the card of each hand-written kernel the frames launched (``kernel_ms``; the
 tiled solve is B5 when ``CK_FUSED_FETCH`` is set, B1 otherwise) and the
 device's idle share (1 - device ms per frame / the frame median).
 ``--frames DIR`` also saves every scene's first frame (fb and zb) as ``.npy``
-files, so two trees' frames can be compared bit for bit. Needs a CUDA card.
+files, so two trees' frames can be compared bit for bit. ``--flat DIR``
+first times the flat solve B2 alone (``reduce_flat_kernel``, its own time
+on the card under ``torch.profiler``, checked equal to its plain version) on
+four cases of ``raster/flat_fixtures.py`` (config 1's shape, and the
+route's limits: ``flat_limit_256``, ``flat_deep_640``, ``flat_cap_128``) and
+on config 1's shape with every row invalid (the kernel's floor) and with no
+rows (its grid and the two planes alone). The cases' packed rows are saved
+in DIR as ``.npz`` by the first run that finds them missing (the fixture
+module of this script's own tree, loaded by path; the setup and the
+packing of the ``--root`` tree) and loaded by every later run, so every
+tree is timed on the same bits, also a tree that has no fixture module.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,6 +50,86 @@ SCENES = (("config1", "build_config1", 0.02), ("config2", "build_config2", 0.03)
           ("alpha_tex50k", "build_alpha_tex50k", 0.02))
 KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
            "ordered_peel_kernel")
+FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")
+
+
+def device_us(events):
+    return sum(e.device_time_total if hasattr(e, "device_time_total")
+               else e.cuda_time_total for e in events)
+
+
+def flat_inputs(dirname: str) -> dict:
+    """{case: (rows, clear_z, viewport, h, w)} on the card, from DIR's
+    ``.npz`` files, made first where missing."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    os.makedirs(dirname, exist_ok=True)
+    path = {n: os.path.join(dirname, n + ".npz") for n in FLAT_CASES}
+    missing = [n for n in FLAT_CASES if not os.path.exists(path[n])]
+    if missing:
+        spec = importlib.util.spec_from_file_location(
+            "flat_fixtures_of_this_tree", os.path.join(
+                os.path.dirname(os.path.abspath(__file__)), "raster",
+                "flat_fixtures.py"))
+        fixtures = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(fixtures)
+        for case in fixtures.flat_cases():
+            if case["name"] in missing:
+                np.savez(path[case["name"]],
+                         rows=fixtures.case_rows(case).cpu().numpy(),
+                         view=np.asarray(case["viewport"]
+                                         + [case["clear_z"]], np.float32),
+                         hw=np.asarray([case["h"], case["w"]]))
+    out = {}
+    for name in FLAT_CASES:
+        f = np.load(path[name])
+        view = torch.as_tensor(f["view"], device="cuda")
+        h, w = (int(v) for v in f["hw"])
+        out[name] = (torch.as_tensor(f["rows"], device="cuda"),
+                     float(f["view"][4]), view[:4], h, w)
+    return out
+
+
+def flat_pass(dirname: str, reps: int = 20) -> dict:
+    """B2's own mean time on the card per case, and on config 1's shape
+    with every row invalid (the floor) and with no rows (the grid alone),
+    after one warm-up launch."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ckrenderengine_tpu_torch.raster.cuda_reduce import (
+        depth_reduce_plain, reduce_flat_kernel,
+    )
+
+    inputs = flat_inputs(dirname)
+    rows, *rest = inputs["config1_pad"]
+    floor = rows.clone()
+    floor[:, 20] = 0.0
+    inputs["config1_pad_floor"] = (floor, *rest)
+    inputs["config1_pad_no_rows"] = (rows[:0], *rest)
+    out = {}
+    for name, args in inputs.items():
+        k = reduce_flat_kernel(*args)
+        p = depth_reduce_plain(*args)
+        if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+            raise AssertionError(f"B2 and its plain version disagree at "
+                                 f"{name}")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                reduce_flat_kernel(*args)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and "reduce_flat_kernel" in e.name]
+        out[name] = {"kernel_ms": device_us(ev) / 1e3 / max(len(ev), 1),
+                     "launches_timed": len(ev),
+                     "tris": int(args[0].shape[0]),
+                     "size": [args[4], args[3]]}
+    return out
 
 
 def main() -> int:
@@ -46,6 +137,7 @@ def main() -> int:
     ap.add_argument("--root", required=True)
     ap.add_argument("--out", required=True)
     ap.add_argument("--frames", default=None)
+    ap.add_argument("--flat", default=None)
     args = ap.parse_args()
     # A run that stalls says where: every 120 s all stacks go to stderr.
     faulthandler.dump_traceback_later(120, repeat=True)
@@ -70,10 +162,10 @@ def main() -> int:
            "fused_fetch": bool(os.environ.get("CK_FUSED_FETCH")),
            "scenes": {}}
 
-    def device_us(events):
-        return sum(e.device_time_total if hasattr(e, "device_time_total")
-                   else e.cuda_time_total for e in events)
-
+    if args.flat:
+        out["flat"] = flat_pass(args.flat)
+        print(json.dumps({"root": args.root, "flat": out["flat"]}),
+              flush=True)
     for name, build, angle in SCENES:
         _ctx, rc, mover = getattr(scenes, build)(O, device="cuda")
         rc.Render()

@@ -1,10 +1,12 @@
 """Flat depth argmin solve for small frames: CUDA kernel B2 + its plain twin.
 
 The counterpart of ``ckrenderengine_tpu.raster.pallas_reduce``: every
-triangle is evaluated against every pixel (O(T*H*W)), so the frame takes this
-path only for small frames (t*H*W <= 2^26) without a kept z-buffer or user
-clip planes. On a CUDA tensor :func:`depth_reduce_cuda` launches the
-hand-written kernel (``csrc/reduce_flat.cu``); on a CPU tensor it runs
+triangle is solved against every pixel with no binning (the plain version
+evaluates all T*H*W pairs; the kernel drops rows per 16x8 strip by an exact
+scan), so the frame takes this path only for small frames (t <= 4096,
+t*H*W <= 2^26) without a kept z-buffer or user clip planes. On a CUDA
+tensor :func:`depth_reduce_cuda` launches the hand-written kernel
+(``csrc/reduce_flat.cu``); on a CPU tensor it runs
 :func:`depth_reduce_plain`, the same arithmetic in torch.
 
 Packed per-triangle row layout (F32_FIELDS floats):
@@ -110,7 +112,7 @@ def reduce_flat_kernel(rows: torch.Tensor, clear_z, viewport, height: int,
         raise ValueError("reduce_flat_kernel takes CUDA f32 rows (T, 32)")
     lib = cuda_build.library().lib
     dev = rows.device
-    rows = rows.contiguous()
+    rows = rows.contiguous()   # 16-byte aligned: the kernel refuses others
     view = _view5(clear_z, viewport, dev).contiguous()
     best_d = torch.empty((height, width), dtype=torch.float32, device=dev)
     best_i = torch.empty((height, width), dtype=torch.int32, device=dev)
