@@ -10,17 +10,24 @@ against its plain torch version on the card bit for bit (B1 and B5 also on
 the stream cases of ``raster/tiled_fixtures.py``, B3 and B4 on every case
 of ``raster/ordered_fixtures.py``, each at tiles of 32 and of 16 pixels, B2
 on every case of ``raster/flat_fixtures.py`` at full size),
-drives BASELINE configs 1, 2 and 5 and the two transparency stress scenes
+drives BASELINE configs 1, 2 and 5, config 4's skinned tube without its
+patch sheet (``config4_skin``: 61,440 vertices skinned to 128 bones, a keyed
+clip bound to the device) and the two transparency stress scenes
 (``alpha50k``, ``alpha_tex50k``) through the CK entry points
 (``CKContext(device="cuda")`` -> ``CreateRenderContext`` -> ``Render()``),
-renders configs 2 and 5 again with ``CK_FUSED_FETCH`` set (B5; the frame
-must equal the default path's bit for bit), renders an odd-sized mip frame
+renders configs 2, 4 and 5 again with ``CK_FUSED_FETCH`` set (B5; the frame
+must equal the default path's bit for bit), checks that a tick of the clip
+changes the skinned frame, runs one skinned frame's animate, compose and
+skin stages under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+synchronisation inside them), renders an odd-sized mip frame
 (the compact rows), checks an overflowing ordered frame's in-frame replay,
-holds the kernel frames against the exact ordered pass and against the CPU,
-checks the two golden frames the reference package rendered
-(``tests/torch_golden/``), and times the frames, the stages and the kernels
-beside each kernel's roofline bound, under which no kernel's time may fall
-(B2 also at its floor, every row invalid, and at the flat route's limits).
+holds the kernel frames and a small skinned frame against the exact ordered
+pass and against the CPU, checks the two golden frames the reference
+package rendered (``tests/torch_golden/``), and times the frames, the
+stages (the skinned frame's animate + compose + skin stage on its own) and
+the kernels beside each kernel's roofline bound, under which no kernel's
+time may fall (B2 also at its floor, every row invalid, and at the flat
+route's limits).
 Every phase prints a line; any failure raises, so the exit code is nonzero.
 The last line is the device record ``{"ok": true, "device": {"platform":
 "gpu", ...}}``. Without CUDA the script exits nonzero before printing any
@@ -83,22 +90,26 @@ def kernel_ms(fn, name: str, reps: int = 20) -> float:
     (one warm-up call first). Unlike :func:`cuda_ms` it holds no host time:
     a wrapper's launch takes the host some 0.05 ms, which a CUDA-event mean
     counts whenever the kernel is shorter than that."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if name in e.key]
-    # The profiler may drop a few records of a window: the mean is over
-    # the launches it kept.
-    count = sum(e.count for e in hits)
-    check(count > 0, f"the profiler recorded no launch of {name}")
+    from ckrenderengine_tpu_torch.frame_bench import profile_window
+
+    def hits(prof):
+        return [e for e in prof.key_averages() if name in e.key]
+
+    def count(prof):
+        return sum(e.count for e in hits(prof))
+
+    # Each call launches the same number of matching kernels, so a count
+    # that is not a multiple of ``reps`` lost records.
+    prof, _wall = profile_window(
+        fn, reps, [ProfilerActivity.CUDA],
+        lambda p: count(p) > 0 and count(p) % reps == 0)
+    n = count(prof)
+    check(n > 0, f"the profiler recorded no launch of {name}")
     total_us = sum(e.device_time_total if hasattr(e, "device_time_total")
-                   else e.cuda_time_total for e in hits)
-    return total_us / 1e3 / count
+                   else e.cuda_time_total for e in hits(prof))
+    return total_us / 1e3 / n
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM
@@ -705,6 +716,7 @@ def main() -> int:
             ("config1", scenes.build_config1, ("B2",)),
             ("config2", scenes.build_config2, ("B1",)),
             ("config5", scenes.build_config5, ("B1",)),
+            ("config4_skin", scenes.build_config4_skin, ("B1",)),
             ("alpha50k", scenes.build_alpha50k, ("B1", "B3")),
             ("alpha_tex50k", scenes.build_alpha_tex50k, ("B1", "B4"))):
         reset_launches(kernel_fns.values())
@@ -720,7 +732,7 @@ def main() -> int:
             check((got[k] > 0) == (k in kernels),
                   f"{name}: the frame launched {k} {got[k]} times")
         check(got["B1"] <= 1 and got["B2"] <= 1, f"{name}: {got}")
-        if name in ("config2", "config5"):
+        if name in ("config2", "config5", "config4_skin"):
             # The same tick again with the fused fetch: B5 once, no B1, and
             # the frame equal to the default path's on every pixel.
             fb0, zb0 = rc.fb.clone(), rc.zb.clone()
@@ -741,6 +753,8 @@ def main() -> int:
                   f"the default path's on {differ} pixels")
         configs[name] = (ctx, rc, mover)
         extra = {}
+        if name == "config4_skin":
+            extra = skinned_checks(rc, mover, kernel_fns, launches, fr)
         if rc._compiled.ordered_cap:
             stats = rc.GetStats()
             check(stats.OrderedReplays == 0, f"{name}: ordered replay")
@@ -821,10 +835,21 @@ def main() -> int:
             ("config2_small", scenes.build_config2,
              dict(width=256, height=192)),
             ("config5_small", scenes.build_config5,
-             dict(width=256, height=192, terrain_n=70, n_balls=8))):
-        _, rc_g, _ = render_config(build, O, "cuda", **kw)
-        _, rc_c, _ = render_config(build, O, "cpu", **kw)
+             dict(width=256, height=192, terrain_n=70, n_balls=8)),
+            ("config4_skin_small", scenes.build_config4_skin,
+             dict(width=256, height=193, n_bones=28, rings_per_bone=4,
+                  ring_verts=32))):
+        _, rc_g, tick_g = render_config(build, O, "cuda", **kw)
+        _, rc_c, tick_c = render_config(build, O, "cpu", **kw)
         compare_with_cpu(name, rc_g, rc_c)
+        if callable(tick_g):
+            # A later clip time, so the pose is not the first frame's.
+            for _ in range(24):
+                tick_g()
+                tick_c()
+            rc_g.Render()
+            rc_c.Render()
+            compare_with_cpu(name + "_t12", rc_g, rc_c)
 
     # An odd-sized mip frame takes the compact rows (the analytic LOD needs
     # the edge coefficients); a mip frame of even size the quantized rows
@@ -871,20 +896,21 @@ def main() -> int:
 
     # --- 8. timing (informational) -----------------------------------------
     # Frames per second through Render(): 2 warm-up ticks, then 30 ticks of
-    # (rotate the config's mover, Render()), fenced by synchronize().
+    # (the config's tick: rotate its mover or advance config 4's clip,
+    # Render()), fenced by synchronize().
     n = 30
     fps = {}
-    for name, angle in (("config1", 0.02), ("config2", 0.03),
-                        ("config5", 0.01), ("alpha50k", 0.02),
-                        ("alpha_tex50k", 0.02)):
+    for name in ("config1", "config2", "config5", "config4_skin", "alpha50k",
+                 "alpha_tex50k"):
         _ctx, rc_t, mover = configs[name]
+        step = ticker(name, mover)
         for _ in range(2):
-            mover.Rotate((0, 1, 0), angle)
+            step()
             rc_t.Render()
         torch.cuda.synchronize()
         t0 = time.monotonic()
         for _ in range(n):
-            mover.Rotate((0, 1, 0), angle)
+            step()
             rc_t.Render()
         torch.cuda.synchronize()
         fps[name] = n / (time.monotonic() - t0)
@@ -894,16 +920,18 @@ def main() -> int:
     # and what one frame launches on the card.
     rows_ms = {name: time_rows(name, configs[name][1], fps[name], card, fr,
                                cuda_tiled, df, plain=name == "config5")
-               for name in ("config2", "config5")}
-    for name, angle in (("config2", 0.03), ("config5", 0.01)):
+               for name in ("config2", "config5", "config4_skin")}
+    for name in ("config2", "config5", "config4_skin"):
         _ctx, rc_t, mover = configs[name]
         for fused in (False, True):
             if fused:
                 os.environ["CK_FUSED_FETCH"] = "1"
-            per_frame = profile_frames(rc_t, mover, angle)
+            per_frame = profile_frames(rc_t, ticker(name, mover))
             os.environ.pop("CK_FUSED_FETCH", None)
             emit("frame_profile", config=name, card=card, fused_fetch=fused,
                  **per_frame)
+    time_skin_stage(configs["config4_skin"][1], fps["config4_skin"], card,
+                    fr)
     b1_ms, b5_ms = rows_ms["config5"]["B1"], rows_ms["config5"]["B5"]
 
     # B2 at config 1's frame, at its floor there and at the flat limits.
@@ -943,6 +971,9 @@ def main() -> int:
                  "pixel_row_pairs", "pairs_past_edges", "operations",
                  "bytes", "operations_ms", "bytes_ms")}}
         for k in ("B1", "B2", "B3", "B4", "B5")]
+    from ckrenderengine_tpu_torch import frame_bench
+    emit("profiler_windows", **frame_bench.PROFILE_WINDOWS,
+         pad_s=frame_bench.PROFILE_PAD_S, tries=frame_bench.PROFILE_TRIES)
     for k in kernels:
         # A time under the bound means the bound counts work no kernel
         # needs, or the timing is wrong.
@@ -1246,32 +1277,155 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
             for k in ("B1", "B5")}
 
 
-def profile_frames(rc, mover, angle, frames: int = 3) -> dict:
-    """What one Render() tick puts on the card: device kernel and copy
-    launches per frame and their summed device time, from a
-    ``torch.profiler`` window of ``frames`` ticks after one warm-up tick;
-    the frame time is the window's, the profiler's overhead included."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# What one tick of each scene changes before its Render(): the mover's
+# rotation about y, or config 4's clip advanced by 0.5 frames.
+ANGLES = {"config1": 0.02, "config2": 0.03, "config5": 0.01,
+          "alpha50k": 0.02, "alpha_tex50k": 0.02}
 
-    mover.Rotate((0, 1, 0), angle)
-    rc.Render()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(frames):
-            mover.Rotate((0, 1, 0), angle)
-            rc.Render()
-        torch.cuda.synchronize()
-        wall_ms = (time.monotonic() - t0) * 1e3 / frames
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+def ticker(name, mover):
+    if callable(mover):
+        return mover
+    return lambda: mover.Rotate((0, 1, 0), ANGLES[name])
+
+
+def device_window(fn, reps: int) -> tuple:
+    """(device launches, device ms, wall ms) per call of ``fn()`` over a
+    ``torch.profiler`` window of ``reps`` calls after one warm-up call; the
+    wall time is the calls', the profiler's overhead included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import profile_window
+
+    def device(prof):
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    prof, wall_ms = profile_window(
+        fn, reps, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        lambda p: len(device(p)) > 0)
+    dev = device(prof)
     check(len(dev) > 0, "the profiler recorded no device activity")
     dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")
                  else e.cuda_time_total for e in dev)
-    return {"device_launches_per_frame": len(dev) / frames,
-            "device_ms_per_frame": dev_us / 1e3 / frames,
-            "profiled_frame_ms": wall_ms}
+    return len(dev) / reps, dev_us / 1e3 / reps, wall_ms
+
+
+def profile_frames(rc, step, frames: int = 3) -> dict:
+    """What one tick (``step()``, then Render()) puts on the card: device
+    kernel and copy launches per frame and their summed device time."""
+    def tick():
+        step()
+        rc.Render()
+
+    launches, dev_ms, wall_ms = device_window(tick, frames)
+    return {"device_launches_per_frame": launches,
+            "device_ms_per_frame": dev_ms, "profiled_frame_ms": wall_ms}
+
+
+def stage_spy(fr, fn):
+    """Route the skinned frame's animate + compose stage
+    (``frame.eval_anim_world``) and skin stage (``skinning.apply_skin``)
+    through ``fn(name, stage, *args, **kw)``; returns the restore call."""
+    from ckrenderengine_tpu_torch.pipeline import skinning
+
+    saved = [(fr, "eval_anim_world"), (skinning, "apply_skin")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, stage in saved:
+        setattr(mod, name, lambda *a, _n=name, _s=stage, **k: fn(
+            _n, _s, *a, **k))
+
+    def restore():
+        for mod, name, stage in saved:
+            setattr(mod, name, stage)
+    return restore
+
+
+def skinned_checks(rc, tick, kernel_fns, launches, fr) -> dict:
+    """config4_skin after its first frame: a tick of the clip must change
+    the frame (and launch B1 once), and one more frame's animate, compose
+    and skin stages run under ``set_sync_debug_mode("error")``, which
+    raises on any host synchronisation inside them."""
+    fb0 = rc.fb.clone()
+    reset_launches(kernel_fns.values())
+    tick()
+    rc.Render()
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in launches:
+        launches[k] += got[k]
+    changed = float((rc.fb != fb0).any(0).float().mean())
+    check(got["B1"] == 1 and sum(got.values()) == 1,
+          f"config4_skin: the ticked frame launched {got}")
+    check(changed > 0.001, f"config4_skin: a clip tick changed {changed} "
+          "of the frame")
+    ran = []
+
+    def checked(name, stage, *a, **k):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = stage(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ran.append(name)
+        return out
+
+    restore = stage_spy(fr, checked)
+    try:
+        tick()
+        rc.Render()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    check(sorted(ran) == ["apply_skin", "eval_anim_world"],
+          f"config4_skin: sync-checked stages {ran}")
+    return dict(tick_launches=got, tick_changed_frac=changed,
+                sync_checked_stages=sorted(ran),
+                skinned_vertices=int(rc._compiled.skin_bank.valid.sum()),
+                bones=int(rc._compiled.skin_bank.bone_row.shape[0]),
+                anim_tracks=int(rc.GetBoundAnimation().bank(
+                    n_entities=rc.context.entity_table.count,
+                    device="cuda").rot_n.shape[0]))
+
+
+def time_skin_stage(rc, fps, card, fr) -> None:
+    """The animate + compose + skin stage of one config4_skin frame on its
+    own, at the frame's inputs: its device launches and device ms per
+    frame (``torch.profiler``) and its CUDA-event ms (which hold the host's
+    launch gaps), beside the frame's."""
+    calls = {}
+
+    def keep(name, stage, *a, **k):
+        calls[name] = (stage, a, k)
+        return stage(*a, **k)
+
+    restore = stage_spy(fr, keep)
+    try:
+        rc.Render()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+
+    def run(names):
+        def go():
+            for nm in names:
+                stage, a, k = calls[nm]
+                stage(*a, **k)
+        return go
+
+    out = {}
+    for label, names in (("animate_compose", ["eval_anim_world"]),
+                         ("skin", ["apply_skin"]),
+                         ("stage", ["eval_anim_world", "apply_skin"])):
+        n_dev, dev_ms, _wall = device_window(run(names), 10)
+        out[label] = {"device_launches": n_dev, "device_ms": dev_ms,
+                      "events_ms": cuda_ms(run(names), 10)}
+    emit("skin_stage", config="config4_skin", card=card, fps=fps,
+         size=[rc.width, rc.height], **out,
+         note="device_ms is the stage's summed kernel time on the card per "
+         "frame (torch.profiler); events_ms a CUDA-event mean of the stage "
+         "alone, host launch gaps included")
 
 
 if __name__ == "__main__":

@@ -14,10 +14,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# Params of the reference frame that name reference-only objects; the
-# opaque slice takes them only when they are empty.
-_EMPTY_PARAMS = ("skin", "anim", "world_in", "sprites_static", "lines",
-                 "texdev", "vertex_shader", "pixel_shader")
+# Params of the reference frame that name features this package does not
+# carry yet; it takes a frame only when they are empty.
+_EMPTY_PARAMS = ("anim", "sprites_static", "lines", "texdev",
+                 "vertex_shader", "pixel_shader")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,19 +29,46 @@ def from_reference(static: dict, dyn_f, dyn_i, params: dict, device):
     ``pipeline.frame.render_frame_packed`` of this package on ``device``.
 
     Every array converts bit for bit (``np.asarray`` of each value first);
-    hashable params (layout, levels, corner, caps, sampler profile) carry
-    over unchanged. Raises when a param names a feature outside the slice."""
+    hashable params (layout, levels, corner, caps, sampler profile,
+    ``skin_ranges``) carry over unchanged; the skin bank and the bound
+    clip's ``world_in`` matrices convert field by field. Raises
+    when a param names a feature this package does not carry."""
     for k in _EMPTY_PARAMS:
         v = params.get(k)
         if v is not None and not (isinstance(v, tuple) and not v):
-            raise ValueError(f"reference param {k!r} is set; the opaque "
-                             f"slice takes frames without it")
+            raise ValueError(f"reference param {k!r} is set; this package "
+                             f"takes frames without it")
     static_t = {k: _tensor(v, device) for k, v in static.items()}
     out = dict(params)
     for k in _EMPTY_PARAMS:
         out[k] = None
     out["texdev_rects"] = ()
+    if params.get("skin") is not None:
+        out["skin"] = skin_bank_from_reference(params["skin"], device)
+    if params.get("world_in") is not None:
+        out["world_in"] = _tensor(params["world_in"], device)
     return (static_t, _tensor(dyn_f, device), _tensor(dyn_i, device), out)
+
+
+def skin_bank_from_reference(bank, device=None):
+    """A reference ``SkinBank`` (any object with its fields as arrays) ->
+    this package's ``pipeline.skinning.SkinBank`` on ``device``, bit for
+    bit."""
+    from .pipeline.skinning import SkinBank
+
+    return SkinBank(*(_tensor(getattr(bank, f), device)
+                      for f in SkinBank._fields))
+
+
+def anim_bank_from_reference(bank, device=None):
+    """A reference ``AnimBank`` (its fields as arrays; ``inv_row`` and
+    ``has_anim`` may be None) -> this package's ``anim.bank.AnimBank`` on
+    ``device``, bit for bit."""
+    from .anim.bank import AnimBank
+
+    return AnimBank(**{f: None if getattr(bank, f) is None
+                       else _tensor(getattr(bank, f), device)
+                       for f in AnimBank._fields})
 
 
 def setup_from_reference(setup_np: dict, device=None) -> dict:

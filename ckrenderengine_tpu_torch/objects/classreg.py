@@ -69,10 +69,39 @@ def _deps_3dentity(o):
     return out
 
 
+def _deps_character(o):
+    out = _deps_3dentity(o)                 # hierarchy children travel too
+    out += [(p, B.CKCID_BODYPART) for p in o.body_parts]
+    out += [(a, B.CKCID_KEYEDANIMATION) for a in o.animations]
+    return out
+
+
+def _deps_keyedanim(o):
+    return [(a, B.CKCID_OBJECTANIMATION) for a in o.animations]
+
+
+def _deps_objectanim(o):
+    ent = o.Get3dEntity()
+    return [(ent, B.CKCID_3DENTITY)] if ent is not None else []
+
+
+class CKKinematicChain(B.CKObject):
+    """Registered so the class tree is whole; inverse kinematics is not
+    carried yet, and creating a chain raises."""
+
+    CLASS_ID = B.CKCID_KINEMATICCHAIN
+
+    def __init__(self, context, name: str = ""):
+        raise unported("CKKinematicChain (inverse kinematics)", 17)
+
+
 def _build_table() -> dict:
     """Rows for the classes this package carries (2D entities, 3D sprites,
-    curves, grids, patch meshes and the animation classes are not carried
-    yet; their class ids stay reserved in objects/base.py)."""
+    curves, grids and patch meshes are not carried yet; their class ids
+    stay reserved in objects/base.py)."""
+    from ..anim import (CKBodyPart, CKCharacter, CKKeyedAnimation,
+                        CKObjectAnimation)
+    from ..anim.objectanim import CKAnimation
     from .camera import CKCamera, CKTargetCamera
     from .entity import CK3dEntity, CK3dObject, CKRenderObject
     from .light import CKLight, CKTargetLight
@@ -92,6 +121,8 @@ def _build_table() -> dict:
          _deps_3dentity),
         (B.CKCID_3DOBJECT, "3D Object", B.CKCID_3DENTITY, CK3dObject,
          _deps_3dentity),
+        (B.CKCID_BODYPART, "Body Part", B.CKCID_3DOBJECT, CKBodyPart,
+         _deps_3dentity),
         (B.CKCID_CAMERA, "Camera", B.CKCID_3DENTITY, CKCamera,
          _deps_3dentity),
         (B.CKCID_TARGETCAMERA, "Target Camera", B.CKCID_CAMERA,
@@ -100,10 +131,19 @@ def _build_table() -> dict:
         (B.CKCID_TARGETLIGHT, "Target Light", B.CKCID_LIGHT, CKTargetLight,
          _deps_3dentity),
         (B.CKCID_PLACE, "Place", B.CKCID_3DENTITY, CKPlace, _deps_3dentity),
+        (B.CKCID_CHARACTER, "Character", B.CKCID_3DENTITY, CKCharacter,
+         _deps_character),
         (B.CKCID_MESH, "Mesh", B.CKCID_OBJECT, CKMesh, _deps_mesh),
         (B.CKCID_MATERIAL, "Material", B.CKCID_OBJECT, CKMaterial,
          _deps_material),
         (B.CKCID_TEXTURE, "Texture", B.CKCID_OBJECT, CKTexture, None),
+        (B.CKCID_ANIMATION, "Animation", B.CKCID_OBJECT, CKAnimation, None),
+        (B.CKCID_KEYEDANIMATION, "Keyed Animation", B.CKCID_ANIMATION,
+         CKKeyedAnimation, _deps_keyedanim),
+        (B.CKCID_OBJECTANIMATION, "Object Animation", B.CKCID_OBJECT,
+         CKObjectAnimation, _deps_objectanim),
+        (B.CKCID_KINEMATICCHAIN, "Kinematic Chain", B.CKCID_OBJECT,
+         CKKinematicChain, None),
         (B.CKCID_RENDERCONTEXT, "Render Context", B.CKCID_OBJECT,
          CKRenderContext, None),
     ]

@@ -440,8 +440,11 @@ class CK3dEntity(CKRenderObject):
     # -- skin (RCK3dEntity skin pointer + UpdateSkin,
     # src/CK3dEntity.cpp:2918-2973) -----------------------
     def CreateSkin(self):
-        from ..roadmap import unported
-        raise unported("CreateSkin", 5)
+        from ..anim.skin import CKSkin
+
+        self.skin = CKSkin(self)
+        self.context._bump_topology()
+        return self.skin
 
     def GetSkin(self):
         return self.skin

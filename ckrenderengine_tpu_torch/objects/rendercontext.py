@@ -291,6 +291,7 @@ class CKRenderContext(CKObject):
         tidx, tstate = [], []
         iv = 0
 
+        skin_descs = []
         for ent in entities:
             mesh = ent.GetCurrentMesh()
             if mesh is None or (mesh.GetFaceCount() == 0
@@ -303,9 +304,7 @@ class CKRenderContext(CKObject):
                 continue
             # Skinned entities get a private pool block (their pool vertices
             # are overwritten per-frame by the device skin stage).
-            if ent.skin is not None:
-                raise unported("skinned entities", 5)
-            mesh_key = (id(mesh), -1)
+            mesh_key = (id(mesh), ent.row if ent.skin is not None else -1)
             if mesh_key not in mesh_offset:
                 mesh_offset[mesh_key] = pool_count
                 c.pool_sources.append((mesh, -1))
@@ -314,6 +313,8 @@ class CKRenderContext(CKObject):
                 pool_uv.append(mesh.uvs)
                 pool_col.append(mesh.colors)
                 pool_spec.append(mesh.specular_colors)
+                if ent.skin is not None:
+                    skin_descs.append(ent.skin.bank_descriptor(pool_count))
                 pool_count += mesh.positions.shape[0]
             moff = mesh_offset[mesh_key]
             lit = not mesh.IsPreLitMode()
@@ -520,6 +521,9 @@ class CKRenderContext(CKObject):
         # one-hot envelope and the 3x skin stream outweighed the gathers it
         # removed. Skinned rows stay on the gathered tail.)
         written = np.zeros(pool_count, bool)
+        for d in skin_descs:
+            off = d["pool_offset"]
+            written[off:off + d["rest_pos"].shape[0]] = True
         if c.extra_pool:
             written[pool_count - c.extra_pool:] = True
         if it:
@@ -684,8 +688,18 @@ class CKRenderContext(CKObject):
         # Static gate for the whole vertex-stage TexGen/reflection block.
         c.want_texgen = any(_tg(m, kind, b) != 0 for m, kind, b in c.materials)
 
-        c.skin_bank = None
-        c.skin_ranges = ()
+        from ..pipeline.skinning import build_skin_bank
+        c.skin_bank = build_skin_bank(skin_descs, device=ctx.device)
+        # Every skin's pool rows are pool_offset + arange(v)
+        # (anim/skin.py bank_descriptor): the skin stage rebuilds the pool
+        # from contiguous slices instead of a row scatter.
+        ranges = []
+        vo = 0
+        for d in skin_descs:
+            v = int(d["rest_pos"].shape[0])
+            ranges.append((vo, int(d["pool_offset"]), v))
+            vo += v
+        c.skin_ranges = tuple(ranges)
         # Line segments (wireframe fills, mesh line lists) need the line
         # pass, which the frame raises for; no segments -> no line bank.
         c.line_bank = c.line_segments or None
@@ -1376,10 +1390,37 @@ class CKRenderContext(CKObject):
         return out
 
     def BindAnimation(self, clip) -> bool:
-        raise unported("device-bound keyed animation (BindAnimation)", 5)
+        """Run ``clip`` (a CKKeyedAnimation) on the device: its track bank,
+        held on the context's device, evaluates at the start of every
+        frame (animate -> compose -> skin -> render), and
+        ``clip.SetFrame(t)`` only records the time, which reaches the
+        device as one scalar per frame.
+
+        Host-side entity matrices stop tracking the clip while bound; call
+        ``clip.SyncToHost()`` before host queries that must see the pose.
+        Returns False (no binding) if any member animation needs host-only
+        features (morph, merge, scale axis) or lacks an entity."""
+        if clip is None or not clip.device_eligible():
+            return False
+        if self._bound_clip is not None and self._bound_clip is not clip:
+            self.UnbindAnimation()
+        self._bound_clip = clip
+        clip._device_rc = self
+        clip._host_stale = True
+        self.context._bump_dynamic()
+        return True
+
+    def UnbindAnimation(self):
+        """Return the bound clip (if any) to host evaluation, syncing the
+        entity table to its current frame."""
+        clip, self._bound_clip = self._bound_clip, None
+        if clip is not None:
+            clip._device_rc = None
+            clip.SyncToHost()
+            self.context._bump_dynamic()
 
     def GetBoundAnimation(self):
-        return None
+        return self._bound_clip
 
     def _ensure_packed_layout(self, n, s, l, sp, qb, qf, cp=0, vt=0, ab=0,
                               ck=0):
@@ -1674,6 +1715,17 @@ class CKRenderContext(CKObject):
         sort_t = bool(int(rm.options.get("SortTransparentObjects", 1))) \
             if rm is not None else True
         texdev = None
+        # Bound clip: the animate and compose stages run here, before the
+        # frame (pipeline/frame.py eval_anim_world), and the frame takes
+        # the (N,4,4) result as ``world_in``. The bank stays on the device
+        # between frames; the clip time is a kernel argument.
+        world_in = None
+        clip = self._bound_clip
+        if clip is not None:
+            world_in = fr.eval_anim_world(
+                torch.tensor(table.local[:n], device=ctx.device),
+                static["parent"], clip.bank(n_entities=n, device=ctx.device),
+                clip.frame, self._compiled.levels)
         # Static sampler profile (any_nearest, any_mip) from this frame's
         # state bank: lets the shade skip the nearest-filter fetch and the
         # second mip level when no material needs them — the reference's
@@ -1755,7 +1807,7 @@ class CKRenderContext(CKObject):
             layout=self._layout, levels=self._compiled.levels,
             height=self.height, width=self.width, skin=c.skin_bank,
             skin_ranges=getattr(c, "skin_ranges", ()),
-            anim=None, world_in=None,
+            anim=None, world_in=world_in,
             sprites_static=None, lines=c.line_bank,
             ordered_cap=c.ordered_cap, sort_transparent=sort_t,
             want_stencil=c.has_stencil, vertex_shader=self.vertex_shader,

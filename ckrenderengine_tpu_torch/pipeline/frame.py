@@ -6,7 +6,8 @@ a pointer tree and issuing thousands of stateful draw calls
 src/CKRenderedScene.cpp:152-355), the whole scene is flat device tensors and
 one eager pass does
 
-    unpack -> compose transforms -> compact culled chunks -> transform + light
+    unpack -> animate -> compose transforms -> skin -> compact culled chunks
+    -> transform + light
     -> assemble + set up triangles -> visibility solve (CUDA B1 or B2)
     -> deferred shade -> ordered pass (render_pass*, CUDA B3 or B4)
 
@@ -764,7 +765,7 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
 
 def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
                            width: int, skin=None, skin_ranges: tuple = (),
-                           anim=None, world_in=None, sprites=None,
+                           anim=None, anim_t=0.0, world_in=None, sprites=None,
                            quads_bg=None, quads_fg=None, lines=None,
                            ordered_cap: int | None = None,
                            sort_transparent: bool = True,
@@ -778,24 +779,24 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
                            solve_caps: tuple | None = None,
                            cull: tuple | None = None, cull_sel=None,
                            ordered_stats: dict | None = None):
-    """The per-frame device program: compose -> (culled-chunk compaction)
-    -> the opaque frame. Animation, skinning, billboards, 2D overlays and
-    lines are not carried yet and raise."""
-    if anim is not None:
-        raise unported("device animation banks", 5)
-    if skin is not None:
-        raise unported("skinning", 5)
+    """The per-frame device program: animate -> compose -> skin ->
+    (culled-chunk compaction) -> the opaque frame.
+
+    ``anim``: AnimBank evaluated at ``anim_t``. ``world_in``: world
+    matrices a separate stage already produced (:func:`eval_anim_world`,
+    a render context's bound clip); the animate and compose stages are then
+    skipped. ``skin``: SkinBank, whose rows are written into copies of the
+    pool. 3D sprites, 2D overlays and lines are not carried yet and
+    raise."""
     if sprites is not None:
         raise unported("3D sprites (billboards)", 8)
     if quads_bg is not None or quads_fg is not None:
         raise unported("2D overlays", 6)
     if lines is not None:
         raise unported("the line pass", 7)
-    world = world_in if world_in is not None else compose_world(
-        scene.local, scene.parent, levels)
-    if cull is not None and cull_sel is not None:
-        scene, corner = compact_scene_chunks(scene, cull_sel[0], cull_sel[1],
-                                             corner, cull)
+    scene, world, corner = scene_stages(
+        scene, levels, skin, skin_ranges, anim, anim_t, world_in, corner,
+        cull, cull_sel)
     return render_frame_impl(
         scene, levels, height, width, ordered_cap, world=world,
         sort_transparent=sort_transparent, want_stencil=want_stencil,
@@ -804,6 +805,45 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
         sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
         corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
         ordered_stats=ordered_stats)
+
+
+def scene_stages(scene: SceneDevice, levels: tuple, skin=None,
+                 skin_ranges: tuple = (), anim=None, anim_t=0.0,
+                 world_in=None, corner: tuple = (0, 0, 0), cull=None,
+                 cull_sel=None):
+    """animate -> compose -> skin -> culled-chunk compaction: the scene,
+    world matrices and corner tuple the frame's vertex stage takes."""
+    from .skinning import apply_skin
+
+    if world_in is not None:
+        world = world_in
+    elif anim is not None:
+        world = eval_anim_world(scene.local, scene.parent, anim, anim_t,
+                                levels)
+    else:
+        world = compose_world(scene.local, scene.parent, levels)
+    if skin is not None:
+        positions, normals = apply_skin(world, scene.positions,
+                                        scene.normals, skin,
+                                        ranges=skin_ranges)
+        scene = scene._replace(positions=positions, normals=normals)
+    # Compaction runs after the skin writes, so the gathered tail sees
+    # them (skinned rows are never in the corner block).
+    if cull is not None and cull_sel is not None:
+        scene, corner = compact_scene_chunks(scene, cull_sel[0], cull_sel[1],
+                                             corner, cull)
+    return scene, world, corner
+
+
+def eval_anim_world(local, parent, anim, anim_t, levels):
+    """The animate and compose stages: the bank's tracks at ``anim_t`` (a
+    float or a 0-d tensor) merged into the (N,4,4) locals, then the world
+    matrices. A render context with a bound clip runs this before its frame
+    and hands the result over as ``world_in``, as the reference does (its
+    frame and this stage are two device programs)."""
+    from ..anim.bank import apply_bank
+
+    return compose_world(apply_bank(local, anim, anim_t), parent, levels)
 
 
 def _apply_tex_patch(static: dict, d: dict, layout: tuple) -> torch.Tensor:
@@ -853,12 +893,17 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     scene, d = unpack_scene(static, dyn_f, dyn_i, layout)
     if has_field(layout, "qbg_rect") or has_field(layout, "qfg_rect"):
         raise unported("2D overlays", 6)
+    # An anim bank given to the frame itself evaluates at the packed
+    # scalar time.
+    anim_t = d["anim_t"] if (anim is not None
+                             and has_field(layout, "anim_t")) else 0.0
     cull_sel = None
     if cull is not None and has_field(layout, "chunk_idx"):
         cull_sel = (d["chunk_idx"], d["chunk_n"])
     return render_frame_full_impl(
         scene, levels, height, width, skin=skin, skin_ranges=skin_ranges,
-        anim=anim, world_in=world_in, lines=lines, ordered_cap=ordered_cap,
+        anim=anim, anim_t=anim_t, world_in=world_in, lines=lines,
+        ordered_cap=ordered_cap,
         sort_transparent=sort_transparent,
         want_stencil=want_stencil, vertex_shader=vertex_shader,
         pixel_shader=pixel_shader, want_bump=want_bump, want_cube=want_cube,
@@ -875,15 +920,19 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
     """(scene, batch, setup, defer_tri, tri_bits) of a packed frame: what
     its visibility solve, shade and ordered pass receive (``tri_bits``:
     per triangle deferred / alpha-blend / stencil). Lets a caller run and
-    time the stages at the shapes a real frame gives them."""
+    time the stages at the shapes a real frame gives them (a bound clip's
+    ``world_in`` and the skin stage included)."""
     scene, d = unpack_scene(static, dyn_f, dyn_i, params["layout"])
-    corner = params["corner"]
+    cull_sel = None
     if params["cull"] is not None and has_field(params["layout"],
                                                 "chunk_idx"):
-        scene, corner = compact_scene_chunks(
-            scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
+        cull_sel = (d["chunk_idx"], d["chunk_n"])
+    scene, world, corner = scene_stages(
+        scene, params["levels"], params["skin"], params["skin_ranges"],
+        world_in=params["world_in"], corner=params["corner"],
+        cull=params["cull"], cull_sel=cull_sel)
     batch, setup, defer_tri, tri_bits = opaque_setup(
-        scene, params["levels"], corner=corner,
+        scene, params["levels"], world, corner=corner,
         want_texgen=params["want_texgen"],
         sampler_profile=params["sampler_profile"])
     return scene, batch, setup, defer_tri, tri_bits

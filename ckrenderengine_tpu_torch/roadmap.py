@@ -13,7 +13,6 @@ PORT_QUEUE = {
     2: "stencil pass",
     3: "antialias supersampling",
     4: "frame windows",
-    5: "skinning and animation",
     6: "2D overlays",
     7: "line pass",
     8: "3D sprites",

@@ -5,13 +5,16 @@ Each build function takes an ``objects`` module — this package's
 (``ckrenderengine_tpu_torch.objects``) or the reference package's — plus the
 keyword arguments of its ``CKContext`` (``device=`` for this package), so the
 tests can build one scene through both packages and compare the frames.
-The scenes are those of ``benchmarks/baseline.py`` (configs 1 and 2),
-``bench.build_scene`` (config 5) and ``benchmarks/stress.py`` (the two
-transparency stress cases), plus a small alpha-test cutout scene; sizes are
-parameters so the tests can cut the frame, the terrain and the sheets down.
+The scenes are those of ``benchmarks/baseline.py`` (configs 1, 2 and 4,
+the last without its patch sheet), ``bench.build_scene`` (config 5) and
+``benchmarks/stress.py`` (the two transparency stress cases), plus a small
+alpha-test cutout scene; sizes are parameters so the tests can cut the
+frame, the terrain, the sheets and the skinned tube down.
 """
 
 from __future__ import annotations
+
+import importlib
 
 import numpy as np
 
@@ -148,6 +151,126 @@ def build_config2(O, width: int = 640, height: int = 480,
     bulb.SetColor((0.4, 0.5, 1.0, 1.0))
     bulb.SetRange(30.0)
     return ctx, rc, ball
+
+
+def make_skinned_tube(O, ctx, n_bones: int = 128, rings_per_bone: int = 4,
+                      ring_verts: int = 120):
+    """A tube of n_bones*rings_per_bone rings of ring_verts vertices
+    skinned to a chain of bones along +z, with a keyed clip that sways every
+    bone about y with a phase offset (``benchmarks/baseline.py:231-320``).
+    The anim classes come from the package ``O`` belongs to. Returns (obj,
+    mesh, skin, bones, clip)."""
+    A = importlib.import_module(O.__name__.rpartition(".")[0] + ".anim")
+    seg_len = 0.35
+    length = n_bones * seg_len
+    rings = n_bones * rings_per_bone
+    zs = np.linspace(0.0, length, rings, dtype=np.float32)
+    th = np.linspace(0, 2 * np.pi, ring_verts, endpoint=False,
+                     dtype=np.float32)
+    Z, Th = np.meshgrid(zs, th, indexing="ij")
+    R = 1.0 + 0.15 * np.sin(Z * 0.8)
+    pos = np.stack([R * np.cos(Th), R * np.sin(Th), Z],
+                   -1).reshape(-1, 3).astype(np.float32)
+    faces = []
+    for r in range(rings - 1):
+        for c in range(ring_verts):
+            a = r * ring_verts + c
+            b = r * ring_verts + (c + 1) % ring_verts
+            cc = (r + 1) * ring_verts + c
+            d = (r + 1) * ring_verts + (c + 1) % ring_verts
+            faces += [[a, cc, b], [b, cc, d]]
+    faces = np.asarray(faces, np.int32)
+
+    mesh = O.CKMesh(ctx, "tube")
+    mesh.SetPositions(pos)
+    mesh.SetFaces(faces)
+    mesh.BuildNormals()
+    mat = O.CKMaterial(ctx, "tubemat")
+    mat.SetDiffuse((0.3, 0.7, 0.9, 1.0))
+    mat.SetPower(24.0)
+    mesh.ApplyGlobalMaterial(mat)
+    obj = O.CK3dObject(ctx, "snake")
+    obj.SetCurrentMesh(mesh)
+
+    bones = []
+    parent = None
+    for i in range(n_bones):
+        b = O.CK3dObject(ctx, f"bone{i}")
+        if parent is not None:
+            b.SetParent(parent)
+            b.SetPosition((0, 0, seg_len), ref=parent)
+        bones.append(b)
+        parent = b
+
+    skin = obj.CreateSkin()
+    skin.SetObjectInitMatrix(np.eye(4, dtype=np.float32))
+    skin.SetBoneCount(n_bones)
+    for i, b in enumerate(bones):
+        bd = skin.GetBoneData(i)
+        bd.SetBone(b)
+        inv = np.eye(4, dtype=np.float32)
+        inv[3, 2] = -zs[min(i * rings_per_bone, rings - 1)]
+        bd.SetBoneInitialInverseMatrix(inv)
+    skin.SetRestPose(pos, mesh.normals)
+    # Each vertex binds to its ring's bone and the next (50/50 at seams).
+    ring_of = np.repeat(np.arange(rings), ring_verts)
+    bone_of = np.minimum(ring_of // rings_per_bone, n_bones - 1)
+    frac = (ring_of % rings_per_bone) / rings_per_bone
+    nxt = np.minimum(bone_of + 1, n_bones - 1)
+    for v in range(pos.shape[0]):
+        w1 = float(frac[v]) * 0.5
+        skin.SetVertexWeights(v, [int(bone_of[v]), int(nxt[v])],
+                              [1.0 - w1, w1])
+
+    clip = A.CKKeyedAnimation(ctx, "wave")
+    clip.SetLength(60.0)
+    for i, b in enumerate(bones):
+        oa = A.CKObjectAnimation(ctx, f"oa{i}")
+        oa.Set3dEntity(b)
+        rcn = oa.CreateController(A.CKANIMATION_LINEAR_ROT)
+        phase = i * 0.21
+        for t in np.linspace(0.0, 60.0, 13):
+            ang = 0.10 * np.sin(t * 0.35 + phase)
+            # quaternion about +y, (x, y, z, w)
+            q = np.array([0.0, np.sin(ang / 2), 0.0, np.cos(ang / 2)],
+                         np.float32)
+            rcn.AddKey(float(t), q)
+        clip.AddAnimation(oa)
+    return obj, mesh, skin, bones, clip
+
+
+def build_config4_skin(O, width: int = 1024, height: int = 768,
+                       n_bones: int = 128, rings_per_bone: int = 4,
+                       ring_verts: int = 120, **ctx_kw):
+    """BASELINE config 4 without its Bezier patch sheet
+    (``benchmarks/baseline.py:374-417``; patch meshes are not carried yet):
+    a tube of 61,440 vertices and 122,640 triangles at the defaults,
+    skinned to 128 bones, with a keyed clip of 13 keys on each of 128
+    rotation tracks bound to the render context (device animation), at
+    1024x768. Returns (ctx, rc, tick); ``tick()`` advances the clip by 0.5
+    frames modulo its length, as the source's tick does."""
+    ctx = O.CKContext(**ctx_kw)
+    rc = ctx.GetRenderManager().CreateRenderContext(width, height)
+    cam = O.CKCamera(ctx, "cam")
+    cam.SetPosition((8.0, 6.0, -14.0))
+    cam.SetOrientation((-0.25, -0.18, 1.0))
+    cam.SetBackPlane(300.0)
+    rc.AttachViewpointToCamera(cam)
+    _obj, _mesh, _skin, _bones, clip = make_skinned_tube(
+        O, ctx, n_bones, rings_per_bone, ring_verts)
+    sun = O.CKLight(ctx, "sun")
+    sun.SetType(int(VXLIGHT.DIREC))
+    sun.SetOrientation((0.3, -1.0, 0.4))
+    sun.SetSpecularFlag(True)
+    if not rc.BindAnimation(clip):
+        raise RuntimeError("the config-4 clip did not bind to the device")
+    state = {"t": 0.0}
+
+    def tick():
+        state["t"] = (state["t"] + 0.5) % clip.GetLength()
+        clip.SetFrame(state["t"])
+
+    return ctx, rc, tick
 
 
 def build_config5(O, width: int = 1024, height: int = 768,

@@ -79,21 +79,33 @@ def reference_winners(static, dyn_f, dyn_i, params):
     """(best_id, best_depth, setup) of a reference-package frame from its
     packed inputs, through the reference's own stages run one operation at
     a time (so no multiply-add is contracted across them) and its flat exact
-    solve; ``setup`` is the triangle-setup dict as numpy arrays."""
+    solve; ``setup`` is the triangle-setup dict as numpy arrays. A bound
+    clip's ``world_in`` and the skin stage are applied first, as the
+    reference's frame does."""
     import jax.numpy as jnp
     from ckrenderengine_tpu.pipeline import frame as jfr
     from ckrenderengine_tpu.pipeline.packing import has_field
+    from ckrenderengine_tpu.pipeline.skinning import apply_skin
     from ckrenderengine_tpu.raster import deferred as jdf
 
     layout = params["layout"]
     scene, _sprites, d = jfr.unpack_scene(static, jnp.asarray(dyn_f),
                                           jnp.asarray(dyn_i), layout)
+    world = params.get("world_in")
+    if params.get("skin") is not None:
+        if world is None:
+            world = jfr.compose_world(scene.local, scene.parent,
+                                      params["levels"])
+        positions, normals = apply_skin(world, scene.positions,
+                                        scene.normals, params["skin"],
+                                        ranges=params["skin_ranges"])
+        scene = scene._replace(positions=positions, normals=normals)
     corner = params["corner"]
     if params["cull"] is not None and has_field(layout, "chunk_idx"):
         scene, corner = jfr.compact_scene_chunks(
             scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
     clip, color, spec, fog, _w, uv, clipd_v, refl_v = jfr.transform_and_light(
-        scene, params["levels"], corner=corner,
+        scene, params["levels"], world=world, corner=corner,
         want_texgen=params["want_texgen"])
     batch = jfr.assemble_triangles(scene, clip, color, spec, fog, uv, clipd_v,
                                    refl_v, corner=corner)
