@@ -10,24 +10,27 @@ against its plain torch version on the card bit for bit (B1 and B5 also on
 the stream cases of ``raster/tiled_fixtures.py``, B3 and B4 on every case
 of ``raster/ordered_fixtures.py``, each at tiles of 32 and of 16 pixels, B2
 on every case of ``raster/flat_fixtures.py`` at full size),
-drives BASELINE configs 1, 2 and 5, config 4's skinned tube without its
-patch sheet (``config4_skin``: 61,440 vertices skinned to 128 bones, a keyed
-clip bound to the device) and the two transparency stress scenes
-(``alpha50k``, ``alpha_tex50k``) through the CK entry points
+drives all five BASELINE configs whole — 1, 2, 3 (1,000 entities, a
+moving point light, a HUD sprite and a text label), 4 (61,440 vertices
+skinned to 128 bones, a keyed clip bound to the device, a Bezier patch
+sheet of 36 patches at iteration 5) and 5 — and the two transparency
+stress scenes (``alpha50k``, ``alpha_tex50k``) through the CK entry points
 (``CKContext(device="cuda")`` -> ``CreateRenderContext`` -> ``Render()``),
-renders configs 2, 4 and 5 again with ``CK_FUSED_FETCH`` set (B5; the frame
-must equal the default path's bit for bit), checks that a tick of the clip
-changes the skinned frame, runs one skinned frame's animate, compose and
-skin stages under ``torch.cuda.set_sync_debug_mode("error")`` (no host
-synchronisation inside them), renders an odd-sized mip frame
-(the compact rows), checks an overflowing ordered frame's in-frame replay,
-holds the kernel frames and a small skinned frame against the exact ordered
-pass and against the CPU, checks the two golden frames the reference
-package rendered (``tests/torch_golden/``), and times the frames, the
-stages (the skinned frame's animate + compose + skin stage on its own) and
-the kernels beside each kernel's roofline bound, under which no kernel's
-time may fall (B2 also at its floor, every row invalid, and at the flat
-route's limits).
+checks config 3's HUD square and label against the sprite's colour and
+the text's coverage, renders configs 2, 4 and 5 again with
+``CK_FUSED_FETCH`` set (B5; the frame must equal the default path's bit
+for bit), checks that a tick of the clip changes the skinned frame, runs
+one skinned frame's animate, compose and skin stages under
+``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
+inside them), renders an odd-sized mip frame (the compact rows), checks an
+overflowing ordered frame's in-frame replay, holds the kernel frames and
+small frames of every config against the exact ordered pass and against
+the CPU, checks the two golden frames the reference package rendered
+(``tests/torch_golden/``), and times the frames, the stages (the skinned
+frame's animate + compose + skin stage on its own, config 3's overlay
+composite) and the kernels beside each kernel's roofline bound, under
+which no kernel's time may fall (B2 also at its floor, every row invalid,
+and at the flat route's limits).
 Every phase prints a line; any failure raises, so the exit code is nonzero.
 The last line is the device record ``{"ok": true, "device": {"platform":
 "gpu", ...}}``. Without CUDA the script exits nonzero before printing any
@@ -716,7 +719,8 @@ def main() -> int:
             ("config1", scenes.build_config1, ("B2",)),
             ("config2", scenes.build_config2, ("B1",)),
             ("config5", scenes.build_config5, ("B1",)),
-            ("config4_skin", scenes.build_config4_skin, ("B1",)),
+            ("config3", scenes.build_config3, ("B1",)),
+            ("config4", scenes.build_config4, ("B1",)),
             ("alpha50k", scenes.build_alpha50k, ("B1", "B3")),
             ("alpha_tex50k", scenes.build_alpha_tex50k, ("B1", "B4"))):
         reset_launches(kernel_fns.values())
@@ -732,7 +736,7 @@ def main() -> int:
             check((got[k] > 0) == (k in kernels),
                   f"{name}: the frame launched {k} {got[k]} times")
         check(got["B1"] <= 1 and got["B2"] <= 1, f"{name}: {got}")
-        if name in ("config2", "config5", "config4_skin"):
+        if name in ("config2", "config5", "config4"):
             # The same tick again with the fused fetch: B5 once, no B1, and
             # the frame equal to the default path's on every pixel.
             fb0, zb0 = rc.fb.clone(), rc.zb.clone()
@@ -753,8 +757,10 @@ def main() -> int:
                   f"the default path's on {differ} pixels")
         configs[name] = (ctx, rc, mover)
         extra = {}
-        if name == "config4_skin":
-            extra = skinned_checks(rc, mover, kernel_fns, launches, fr)
+        if name == "config4":
+            extra = skinned_checks(name, rc, mover, kernel_fns, launches, fr)
+        if name == "config3":
+            extra = hud_checks(rc)
         if rc._compiled.ordered_cap:
             stats = rc.GetStats()
             check(stats.OrderedReplays == 0, f"{name}: ordered replay")
@@ -836,13 +842,15 @@ def main() -> int:
              dict(width=256, height=192)),
             ("config5_small", scenes.build_config5,
              dict(width=256, height=192, terrain_n=70, n_balls=8)),
-            ("config4_skin_small", scenes.build_config4_skin,
+            ("config3_small", scenes.build_config3,
+             dict(width=256, height=193)),
+            ("config4_small", scenes.build_config4,
              dict(width=256, height=193, n_bones=28, rings_per_bone=4,
                   ring_verts=32))):
         _, rc_g, tick_g = render_config(build, O, "cuda", **kw)
         _, rc_c, tick_c = render_config(build, O, "cpu", **kw)
         compare_with_cpu(name, rc_g, rc_c)
-        if callable(tick_g):
+        if name == "config4_small":
             # A later clip time, so the pose is not the first frame's.
             for _ in range(24):
                 tick_g()
@@ -900,8 +908,8 @@ def main() -> int:
     # Render()), fenced by synchronize().
     n = 30
     fps = {}
-    for name in ("config1", "config2", "config5", "config4_skin", "alpha50k",
-                 "alpha_tex50k"):
+    for name in ("config1", "config2", "config5", "config3", "config4",
+                 "alpha50k", "alpha_tex50k"):
         _ctx, rc_t, mover = configs[name]
         step = ticker(name, mover)
         for _ in range(2):
@@ -920,18 +928,18 @@ def main() -> int:
     # and what one frame launches on the card.
     rows_ms = {name: time_rows(name, configs[name][1], fps[name], card, fr,
                                cuda_tiled, df, plain=name == "config5")
-               for name in ("config2", "config5", "config4_skin")}
-    for name in ("config2", "config5", "config4_skin"):
+               for name in ("config2", "config5", "config3", "config4")}
+    for name in ("config2", "config5", "config3", "config4"):
         _ctx, rc_t, mover = configs[name]
-        for fused in (False, True):
+        for fused in ((False, True) if name != "config3" else (False,)):
             if fused:
                 os.environ["CK_FUSED_FETCH"] = "1"
             per_frame = profile_frames(rc_t, ticker(name, mover))
             os.environ.pop("CK_FUSED_FETCH", None)
             emit("frame_profile", config=name, card=card, fused_fetch=fused,
                  **per_frame)
-    time_skin_stage(configs["config4_skin"][1], fps["config4_skin"], card,
-                    fr)
+    time_skin_stage(configs["config4"][1], fps["config4"], card, fr)
+    time_overlay(configs["config3"][1], fps["config3"], card, fr)
     b1_ms, b5_ms = rows_ms["config5"]["B1"], rows_ms["config5"]["B5"]
 
     # B2 at config 1's frame, at its floor there and at the flat limits.
@@ -1278,7 +1286,8 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
 
 
 # What one tick of each scene changes before its Render(): the mover's
-# rotation about y, or config 4's clip advanced by 0.5 frames.
+# rotation about y, or the scene's own tick (config 3 rotates its roots and
+# moves its bulb, config 4 advances its clip by 0.5 frames).
 ANGLES = {"config1": 0.02, "config2": 0.03, "config5": 0.01,
           "alpha50k": 0.02, "alpha_tex50k": 0.02}
 
@@ -1341,11 +1350,11 @@ def stage_spy(fr, fn):
     return restore
 
 
-def skinned_checks(rc, tick, kernel_fns, launches, fr) -> dict:
-    """config4_skin after its first frame: a tick of the clip must change
-    the frame (and launch B1 once), and one more frame's animate, compose
-    and skin stages run under ``set_sync_debug_mode("error")``, which
-    raises on any host synchronisation inside them."""
+def skinned_checks(name, rc, tick, kernel_fns, launches, fr) -> dict:
+    """Config 4 after its first frame: a tick of the clip must change the
+    frame (and launch B1 once), and one more frame's animate, compose and
+    skin stages run under ``set_sync_debug_mode("error")``, which raises
+    on any host synchronisation inside them."""
     fb0 = rc.fb.clone()
     reset_launches(kernel_fns.values())
     tick()
@@ -1356,8 +1365,8 @@ def skinned_checks(rc, tick, kernel_fns, launches, fr) -> dict:
         launches[k] += got[k]
     changed = float((rc.fb != fb0).any(0).float().mean())
     check(got["B1"] == 1 and sum(got.values()) == 1,
-          f"config4_skin: the ticked frame launched {got}")
-    check(changed > 0.001, f"config4_skin: a clip tick changed {changed} "
+          f"{name}: the ticked frame launched {got}")
+    check(changed > 0.001, f"{name}: a clip tick changed {changed} "
           "of the frame")
     ran = []
 
@@ -1379,7 +1388,7 @@ def skinned_checks(rc, tick, kernel_fns, launches, fr) -> dict:
     finally:
         restore()
     check(sorted(ran) == ["apply_skin", "eval_anim_world"],
-          f"config4_skin: sync-checked stages {ran}")
+          f"{name}: sync-checked stages {ran}")
     return dict(tick_launches=got, tick_changed_frac=changed,
                 sync_checked_stages=sorted(ran),
                 skinned_vertices=int(rc._compiled.skin_bank.valid.sum()),
@@ -1389,8 +1398,80 @@ def skinned_checks(rc, tick, kernel_fns, launches, fr) -> dict:
                     device="cuda").rot_n.shape[0]))
 
 
+def hud_checks(rc) -> dict:
+    """Config 3's foreground HUD on the card, where no triangle lies behind
+    it: the HUD square's and the label's pixels are the sprite's image
+    (the label's: its text raster) times the entity colour, blended over
+    the clear colour as the overlay composite does, within 1e-6."""
+    ids = winners(rc)
+    fb = rc.framebuffer()
+    clear = np.asarray(rc.background_color, np.float32)
+    out = {}
+    for ent in ("hud", "fpslabel"):
+        e = rc.context.GetObjectByName(ent)
+        img = np.asarray(e.texture().current_image(), np.float32)
+        x0, y0, x1, y1 = (int(v) for v in e.screen_rect(rc.width,
+                                                        rc.height))
+        check(img.shape[:2] == (y1 - y0, x1 - x0),
+              f"config3: {ent} image {img.shape} in rect {(x0, y0, x1, y1)}")
+        src = img * np.asarray(e.color, np.float32)
+        a = src[..., 3:4]
+        want = np.concatenate([src[..., :3] * a
+                               + clear[:3] * (np.float32(1.0) - a),
+                               np.maximum(clear[3], a)], -1)
+        empty = ids[y0:y1, x0:x1] < 0
+        err = float(np.abs(fb[y0:y1, x0:x1] - want).max(-1)[empty].max())
+        covered = int((a[..., 0][empty] > 0.5).sum())
+        out[ent] = {"rect": [x0, y0, x1, y1], "max_abs_err": err,
+                    "empty_frac": float(empty.mean()),
+                    "pixels_alpha_over_half": covered}
+        check(empty.mean() > 0.5, f"config3: {ent} hidden by the scene")
+        check(err <= 1e-6, f"config3: {ent} differs from its image by {err}")
+        check(covered > 50, f"config3: {ent} shows {covered} pixels")
+    return {"hud": out}
+
+
+def time_overlay(rc, fps, card, fr) -> None:
+    """Config 3's foreground composite (its HUD sprite and label over the
+    frame) on its own at the frame's inputs: device launches and device ms
+    per frame (``torch.profiler``) and CUDA-event ms; it runs once under
+    ``set_sync_debug_mode("error")`` first (no host read of a quad)."""
+    from ckrenderengine_tpu_torch.pipeline.overlay import (
+        QuadBank, composite_quads,
+    )
+
+    static, dyn_f, dyn_i, params = rc._fill_packed(*rc._quad_lists())
+    dev = rc.context.device
+    scene, d = fr.unpack_scene(static, torch.as_tensor(dyn_f, device=dev),
+                               torch.as_tensor(dyn_i, device=dev),
+                               params["layout"])
+    bank = QuadBank(rect=d["qfg_rect"], uvrect=d["qfg_uvrect"],
+                    color=d["qfg_color"], tex=d["qfg_tex"],
+                    blend=d["qfg_blend"], valid=d["qfg_valid"] != 0)
+    win = params["quad_windows"][1]
+    fb = rc.fb.clone()
+
+    def go():
+        return composite_quads(fb, bank, scene.tex_planes, scene.tex_hw,
+                               rc.height, rc.width, win)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        go()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_dev, dev_ms, _wall = device_window(go, 10)
+    emit("overlay_composite", config="config3", card=card, fps=fps,
+         size=[rc.width, rc.height], quads=len(win), windows=list(win),
+         device_launches=n_dev, device_ms=dev_ms,
+         events_ms=cuda_ms(go, 10),
+         note="the foreground composite alone at the frame's inputs; "
+         "device_ms from torch.profiler, events_ms a CUDA-event mean")
+
+
 def time_skin_stage(rc, fps, card, fr) -> None:
-    """The animate + compose + skin stage of one config4_skin frame on its
+    """The animate + compose + skin stage of one config 4 frame on its
     own, at the frame's inputs: its device launches and device ms per
     frame (``torch.profiler``) and its CUDA-event ms (which hold the host's
     launch gaps), beside the frame's."""
@@ -1421,7 +1502,7 @@ def time_skin_stage(rc, fps, card, fr) -> None:
         n_dev, dev_ms, _wall = device_window(run(names), 10)
         out[label] = {"device_launches": n_dev, "device_ms": dev_ms,
                       "events_ms": cuda_ms(run(names), 10)}
-    emit("skin_stage", config="config4_skin", card=card, fps=fps,
+    emit("skin_stage", config="config4", card=card, fps=fps,
          size=[rc.width, rc.height], **out,
          note="device_ms is the stage's summed kernel time on the card per "
          "frame (torch.profiler); events_ms a CUDA-event mean of the stage "

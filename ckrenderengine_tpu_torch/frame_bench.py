@@ -1,5 +1,6 @@
-"""Frame rates and per-frame device launches of the six smoke scenes, for
-comparing two trees of this package on one card.
+"""Frame rates and per-frame device launches of the smoke scenes (the five
+BASELINE configs, config 4 without its patch sheet, and the two stress
+scenes), for comparing two trees of this package on one card.
 
     python3 ckrenderengine_tpu_torch/frame_bench.py --root . --out a.json
     python3 ckrenderengine_tpu_torch/frame_bench.py --root _parent --out b.json
@@ -12,11 +13,11 @@ the script itself uses only what every tree of the port has (a scene
 whose build function a tree lacks is left out of that tree's run). Run
 the trees in turns inside one call (parent, change, change, parent): two
 calls may land on two cards and hosts. For each scene it renders 2 warm-up
-ticks and 30 timed ticks of (rotate the mover, or advance config 4's clip
-by 0.5 frames, then ``Render()``), fenced by
-``torch.cuda.synchronize()``, then 40 ticks synchronised before and after
-each (``frame_ms_median`` and ``_p75``) and the host's ``_fill_packed``
-alone (``fill_packed_ms``, median of 20), then profiles 3 more ticks with
+ticks and 30 timed ticks of (rotate the mover, or run config 3's or 4's
+own tick, then ``Render()``), fenced by ``torch.cuda.synchronize()``, then
+40 ticks synchronised before and after each (``frame_ms_median`` and
+``_p75``) and the host's ``_fill_packed`` alone with the frame's 2D quad
+lists (``fill_packed_ms``, median of 20), then profiles 3 more ticks with
 ``torch.profiler`` and counts what reached the card, with the mean time on
 the card of each hand-written kernel the frames launched (``kernel_ms``; the
 tiled solve is B5 when ``CK_FUSED_FETCH`` is set, B1 otherwise) and the
@@ -48,9 +49,11 @@ import time
 
 TICKS = 30
 # (name, build function, rotation of the mover per tick); the build
-# function of config4_skin returns its clip tick in the mover's place.
+# functions of configs 3 and 4 return their tick in the mover's place.
 SCENES = (("config1", "build_config1", 0.02), ("config2", "build_config2", 0.03),
           ("config5", "build_config5", 0.01),
+          ("config3", "build_config3", None),
+          ("config4", "build_config4", None),
           ("config4_skin", "build_config4_skin", None),
           ("alpha50k", "build_alpha50k", 0.02),
           ("alpha_tex50k", "build_alpha_tex50k", 0.02))
@@ -248,9 +251,10 @@ def main() -> int:
             torch.cuda.synchronize()
             lat.append((time.monotonic() - t1) * 1e3)
         fill = []
+        quads = rc._quad_lists()
         for _ in range(20):
             t1 = time.monotonic()
-            rc._fill_packed([], [])
+            rc._fill_packed(*quads)
             fill.append((time.monotonic() - t1) * 1e3)
         prof, _wall = profile_window(
             tick, 3, [ProfilerActivity.CPU, ProfilerActivity.CUDA],

@@ -11,6 +11,8 @@ context, and ``CKRenderContext.Render()`` runs the frame.
 from .base import CKContext, CKObject
 from .entity import CK3dEntity, CK3dObject
 from .mesh import CKMesh
+from .patchmesh import CKPatch, CKPatchMesh, CKTVPatch
+from .entity2d import CK2dEntity, CKSprite, CKSpriteText
 from .place import CKPlace, CKPortalEntry
 from .material import (
     CKMaterial, VXEFFECT_2TEXTURES, VXEFFECT_3TEXTURES, VXEFFECT_BUMPENV,
@@ -33,6 +35,8 @@ from .classreg import (
 
 __all__ = [
     "CKContext", "CKObject", "CK3dEntity", "CK3dObject", "CKMesh",
+    "CKPatch", "CKPatchMesh", "CKTVPatch", "CK2dEntity", "CKSprite",
+    "CKSpriteText",
     "CKPlace", "CKPortalEntry", "CKMaterial", "CKTexture", "CKLight",
     "CKTargetLight", "CKCamera", "CKTargetCamera", "CKRenderManager",
     "CKRenderContext", "VxEffectDescription",

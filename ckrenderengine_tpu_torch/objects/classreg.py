@@ -69,6 +69,15 @@ def _deps_3dentity(o):
     return out
 
 
+def _deps_2dentity(o):
+    out = []
+    mat = getattr(o, "material", None)
+    if mat is not None:
+        out.append((mat, B.CKCID_MATERIAL))
+    out += [(c, B.CKCID_2DENTITY) for c in getattr(o, "_children", ())]
+    return out
+
+
 def _deps_character(o):
     out = _deps_3dentity(o)                 # hierarchy children travel too
     out += [(p, B.CKCID_BODYPART) for p in o.body_parts]
@@ -96,18 +105,20 @@ class CKKinematicChain(B.CKObject):
 
 
 def _build_table() -> dict:
-    """Rows for the classes this package carries (2D entities, 3D sprites,
-    curves, grids and patch meshes are not carried yet; their class ids
-    stay reserved in objects/base.py)."""
+    """Rows for the classes this package carries (3D sprites, curves and
+    grids are not carried yet; their class ids stay reserved in
+    objects/base.py)."""
     from ..anim import (CKBodyPart, CKCharacter, CKKeyedAnimation,
                         CKObjectAnimation)
     from ..anim.objectanim import CKAnimation
     from .camera import CKCamera, CKTargetCamera
     from .entity import CK3dEntity, CK3dObject, CKRenderObject
+    from .entity2d import CK2dEntity, CKSprite, CKSpriteText
     from .light import CKLight, CKTargetLight
     from .manager import CKRenderContext
     from .material import CKMaterial
     from .mesh import CKMesh
+    from .patchmesh import CKPatchMesh
     from .place import CKPlace
     from .texture import CKTexture
 
@@ -117,6 +128,12 @@ def _build_table() -> dict:
         (B.CKCID_OBJECT, "Basic Object", 0, B.CKObject, None),
         (B.CKCID_RENDEROBJECT, "Render Object", B.CKCID_OBJECT,
          CKRenderObject, None),
+        (B.CKCID_2DENTITY, "2D Entity", B.CKCID_RENDEROBJECT, CK2dEntity,
+         _deps_2dentity),
+        (B.CKCID_SPRITE, "Sprite", B.CKCID_2DENTITY, CKSprite,
+         _deps_2dentity),
+        (B.CKCID_SPRITETEXT, "Sprite Text", B.CKCID_SPRITE, CKSpriteText,
+         _deps_2dentity),
         (B.CKCID_3DENTITY, "3D Entity", B.CKCID_RENDEROBJECT, CK3dEntity,
          _deps_3dentity),
         (B.CKCID_3DOBJECT, "3D Object", B.CKCID_3DENTITY, CK3dObject,
@@ -134,6 +151,8 @@ def _build_table() -> dict:
         (B.CKCID_CHARACTER, "Character", B.CKCID_3DENTITY, CKCharacter,
          _deps_character),
         (B.CKCID_MESH, "Mesh", B.CKCID_OBJECT, CKMesh, _deps_mesh),
+        (B.CKCID_PATCHMESH, "Patch Mesh", B.CKCID_MESH, CKPatchMesh,
+         _deps_mesh),
         (B.CKCID_MATERIAL, "Material", B.CKCID_OBJECT, CKMaterial,
          _deps_material),
         (B.CKCID_TEXTURE, "Texture", B.CKCID_OBJECT, CKTexture, None),

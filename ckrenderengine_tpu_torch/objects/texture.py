@@ -165,30 +165,17 @@ class CKTexture(CKObject):
 
     def LoadImage(self, path: str, slot: int = 0) -> bool:
         """Load an image file into a slot (reference LoadImage —
-        CKBitmapData file readers). DDS containers (DXT1/3/5 or masked RGB)
-        decode through io/dds.py, matching the reference's compressed-
-        texture ingestion (CKDX9RasterizerContext::LoadTexture incl.
-        mipmaps); shipped mip chains become user mip levels. Everything
-        else goes through PIL."""
+        CKBitmapData file readers: DDS through its own decoder, everything
+        else through Pillow). Reading image files is scene IO, not carried
+        yet: an existing file raises; a missing one returns False, as in
+        the reference."""
         try:
             with open(path, "rb") as f:
-                head = f.read(4)
+                f.read(4)
         except OSError:
             return False
-        if head == b"DDS ":
-            from ..roadmap import unported
-            raise unported("DDS texture loading", 14)
-        try:
-            from PIL import Image
-        except ImportError:
-            return False
-        try:
-            img = Image.open(path).convert("RGBA")
-        except OSError:
-            return False
-        arr = np.asarray(img, np.float32) / 255.0
-        self.SetImage(arr, slot=slot)
-        return True
+        from ..roadmap import unported
+        raise unported("image file loading (LoadImage)", 14)
 
     def SetCompressedImage(self, data: bytes, width: int, height: int,
                            fmt: str = "DXT5", slot: int = 0) -> bool:

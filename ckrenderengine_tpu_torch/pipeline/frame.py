@@ -7,9 +7,10 @@ src/CKRenderedScene.cpp:152-355), the whole scene is flat device tensors and
 one eager pass does
 
     unpack -> animate -> compose transforms -> skin -> compact culled chunks
-    -> transform + light
+    -> background 2D quads -> transform + light
     -> assemble + set up triangles -> visibility solve (CUDA B1 or B2)
     -> deferred shade -> ordered pass (render_pass*, CUDA B3 or B4)
+    -> foreground 2D quads (overlay.composite_quads)
 
 The solve dispatch is the reference's, minus the TPU lane rule: the tiled
 solve (B1) when ``t > 4096`` or ``t*H*W > 2^26``, else the flat solve (B2)
@@ -47,6 +48,7 @@ from ..raster.types import SI_ALPHABLEND, SI_STENCIL
 from ..roadmap import unported
 from ..scene.entity_table import compose_world
 from .lighting import LightArray, MaterialLighting, compute_vertex_lighting, fog_factor
+from .overlay import QuadBank, composite_quads
 from .packing import has_field, unpack
 
 
@@ -778,7 +780,8 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
                            want_texgen: bool = False,
                            solve_caps: tuple | None = None,
                            cull: tuple | None = None, cull_sel=None,
-                           ordered_stats: dict | None = None):
+                           ordered_stats: dict | None = None,
+                           quad_windows: tuple | None = None):
     """The per-frame device program: animate -> compose -> skin ->
     (culled-chunk compaction) -> the opaque frame.
 
@@ -786,25 +789,40 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
     matrices a separate stage already produced (:func:`eval_anim_world`,
     a render context's bound clip); the animate and compose stages are then
     skipped. ``skin``: SkinBank, whose rows are written into copies of the
-    pool. 3D sprites, 2D overlays and lines are not carried yet and
-    raise."""
+    pool. ``quads_bg``/``quads_fg``: QuadBanks composited under the 3D
+    pass (over the clear colour, or over ``prev_fb``) and over it;
+    ``quad_windows``: their host-side windows (``overlay.quad_windows``;
+    None = whole-frame quads). 3D sprites and lines are not carried yet
+    and raise."""
     if sprites is not None:
         raise unported("3D sprites (billboards)", 8)
-    if quads_bg is not None or quads_fg is not None:
-        raise unported("2D overlays", 6)
     if lines is not None:
         raise unported("the line pass", 7)
     scene, world, corner = scene_stages(
         scene, levels, skin, skin_ranges, anim, anim_t, world_in, corner,
         cull, cull_sel)
-    return render_frame_impl(
+    win_bg, win_fg = quad_windows or (None, None)
+    background = None
+    if quads_bg is not None:
+        background = prev_fb if prev_fb is not None else \
+            scene.clear_color[:, None, None].to(torch.float32).expand(
+                4, height, width)
+        background = composite_quads(background, quads_bg, scene.tex_planes,
+                                     scene.tex_hw, height, width, win_bg)
+    out = render_frame_impl(
         scene, levels, height, width, ordered_cap, world=world,
+        background=background,
         sort_transparent=sort_transparent, want_stencil=want_stencil,
         vertex_shader=vertex_shader, pixel_shader=pixel_shader,
         want_bump=want_bump, want_cube=want_cube, want_stats=want_stats,
         sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
         corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
         ordered_stats=ordered_stats)
+    if quads_fg is None:
+        return out
+    fb = composite_quads(out[0], quads_fg, scene.tex_planes, scene.tex_hw,
+                         height, width, win_fg)
+    return (fb,) + tuple(out[1:])
 
 
 def scene_stages(scene: SceneDevice, levels: tuple, skin=None,
@@ -879,7 +897,8 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
                              want_texgen: bool = False, ss: int = 1,
                              solve_caps: tuple | None = None,
                              cull: tuple | None = None,
-                             ordered_stats: dict | None = None):
+                             ordered_stats: dict | None = None,
+                             quad_windows: tuple | None = None):
     """Packed-transfer frame entry: ``static`` is the per-compile dict of
     device tensors, ``dyn_f``/``dyn_i`` the two per-frame buffers (see
     pipeline/packing.py). Takes exactly what the render context's
@@ -891,8 +910,15 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     if sprites_static is not None:
         raise unported("3D sprites (billboards)", 8)
     scene, d = unpack_scene(static, dyn_f, dyn_i, layout)
-    if has_field(layout, "qbg_rect") or has_field(layout, "qfg_rect"):
-        raise unported("2D overlays", 6)
+
+    def quad_bank(prefix):
+        if not has_field(layout, f"{prefix}_rect"):
+            return None
+        return QuadBank(
+            rect=d[f"{prefix}_rect"], uvrect=d[f"{prefix}_uvrect"],
+            color=d[f"{prefix}_color"], tex=d[f"{prefix}_tex"],
+            blend=d[f"{prefix}_blend"], valid=d[f"{prefix}_valid"] != 0)
+
     # An anim bank given to the frame itself evaluates at the packed
     # scalar time.
     anim_t = d["anim_t"] if (anim is not None
@@ -910,7 +936,9 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
         want_stats=want_stats, sampler_profile=sampler_profile,
         prev_fb=prev_fb, prev_zb=prev_zb, corner=corner,
         want_texgen=want_texgen, solve_caps=solve_caps, cull=cull,
-        cull_sel=cull_sel, ordered_stats=ordered_stats)
+        cull_sel=cull_sel, ordered_stats=ordered_stats,
+        quads_bg=quad_bank("qbg"), quads_fg=quad_bank("qfg"),
+        quad_windows=quad_windows)
 
 
 render_frame_packed = render_frame_packed_impl

@@ -1,0 +1,156 @@
+"""2D overlay compositing: screen-space textured quads over/under the 3D pass.
+
+The reference draws 2D entities as 4-vertex screen-space fans through the
+rasterizer (RCK2dEntity::Draw, src/CK2dEntity.cpp:805-908), background tree
+before the 3D scene and foreground tree after (CKRenderedScene::Draw
+:166-179, :314-327). Here all visible quads of one layer are packed into a
+QuadBank and composited in bank order onto the (4,H,W) framebuffer:
+axis-aligned boxes, so per-quad coverage is two range tests, and texturing
+samples with one texture slot per quad.
+
+Each quad works on a window of the frame: the pixels whose centres its
+rect can cover, taken from the host's quad list (:func:`quad_windows`), so
+no device value is read back. Without windows a quad works on the whole
+frame; the arithmetic per pixel is the same.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+class QuadBank(NamedTuple):
+    """Q screen-space quads in composite order (back to front)."""
+
+    rect: torch.Tensor      # (Q,4) f32 pixel rect [x0,y0,x1,y1]
+    uvrect: torch.Tensor    # (Q,4) f32 [u0,v0,u1,v1]
+    color: torch.Tensor     # (Q,4) f32 modulate RGBA
+    tex: torch.Tensor       # (Q,) int32 texture slot, -1 = untextured
+    blend: torch.Tensor     # (Q,) int32 1 = alpha blend, 0 = opaque copy
+    valid: torch.Tensor     # (Q,) bool
+
+
+def build_quad_bank(quads: list[dict], pad: int = 4,
+                    device=None) -> QuadBank | None:
+    """Host: list of dicts (rect, uvrect, color, tex, blend) -> QuadBank."""
+    if not quads:
+        return None
+    q = len(quads)
+    qp = max(pad, ((q + pad - 1) // pad) * pad)
+    rect = np.zeros((qp, 4), np.float32)
+    uvrect = np.tile(np.array([0, 0, 1, 1], np.float32), (qp, 1))
+    color = np.ones((qp, 4), np.float32)
+    tex = np.full(qp, -1, np.int32)
+    blend = np.zeros(qp, np.int32)
+    valid = np.zeros(qp, bool)
+    for i, d in enumerate(quads):
+        rect[i] = d["rect"]
+        uvrect[i] = d.get("uvrect", (0, 0, 1, 1))
+        color[i] = d.get("color", (1, 1, 1, 1))
+        tex[i] = d.get("tex", -1)
+        blend[i] = int(d.get("blend", 1))
+        valid[i] = True
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    return QuadBank(rect=dev(rect), uvrect=dev(uvrect), color=dev(color),
+                    tex=dev(tex), blend=dev(blend), valid=dev(valid))
+
+
+def quad_windows(quads: list[dict], height: int, width: int) -> tuple:
+    """Host: for each quad of the list, the frame window (y0, x0, h, w)
+    holding every pixel centre its rect covers, or None where it covers
+    none. The covered centres are columns [ceil(x0 - 0.5), ceil(x1 - 0.5))
+    and rows alike; one pixel of margin on each side absorbs the f32
+    rounding of the device's own test."""
+    out = []
+    for d in quads:
+        x0, y0, x1, y1 = (float(np.float32(v)) for v in d["rect"])
+        cx0 = max(math.ceil(x0 - 0.5) - 1, 0)
+        cx1 = min(math.ceil(x1 - 0.5) + 1, width)
+        cy0 = max(math.ceil(y0 - 0.5) - 1, 0)
+        cy1 = min(math.ceil(y1 - 0.5) + 1, height)
+        out.append((cy0, cx0, cy1 - cy0, cx1 - cx0)
+                   if cx1 > cx0 and cy1 > cy0 else None)
+    return tuple(out)
+
+
+def _composite_one(sub, px, py, q, tex_planes, tex_hw):
+    """Composite ONE quad onto the (4, h, w) block ``sub`` whose pixel
+    centres are (px, py); the reference's arithmetic, operation by
+    operation."""
+    rect, uvrect, color, tex, blend, valid = q
+    x0, y0, x1, y1 = rect[0], rect[1], rect[2], rect[3]
+    inside = (px >= x0) & (px < x1) & (py >= y0) & (py < y1) & valid
+    # Scalars stay Python numbers: a device tensor made from one would be a
+    # blocking host-to-device copy.
+    w = torch.clamp(x1 - x0, min=1e-6)
+    h = torch.clamp(y1 - y0, min=1e-6)
+    u = uvrect[0] + (px - x0) / w * (uvrect[2] - uvrect[0])
+    v = uvrect[1] + (py - y0) / h * (uvrect[3] - uvrect[1])
+
+    tid = torch.clamp(tex, 0, tex_hw.shape[0] - 1).long()
+    hw = tex_hw.index_select(0, tid.reshape(1))[0]
+    tww = hw[1].to(torch.float32)
+    thh = hw[0].to(torch.float32)
+    iu = torch.minimum(torch.clamp(u * tww, min=0.0), tww - 1).to(torch.int32)
+    iv = torch.minimum(torch.clamp(v * thh, min=0.0), thh - 1).to(torch.int32)
+    ncols = tex_hw.shape[1]
+    _nt, _ch, th, tw = tex_planes.shape
+    if ncols >= 4:                 # packed atlas: apply texture offsets
+        iu = iu + hw[ncols - 1]
+        iv = iv + hw[ncols - 2]
+        plane = torch.zeros_like(tid)
+    else:
+        plane = tid
+    # Flat index of each pixel's texel in each of the 4 channel planes.
+    chan = torch.arange(4, device=sub.device)[:, None, None]
+    idx = ((plane * 4 + chan) * th + iv.long()) * tw + iu.long()
+    texel = torch.take(tex_planes, idx).to(torch.float32)      # (4, h, w)
+    has_tex = tex >= 0
+    src = [torch.where(has_tex, texel[c] * color[c], color[c].expand_as(px))
+           for c in range(4)]
+    alpha = torch.where(blend != 0, src[3], 1.0)
+    out = [torch.where(inside, src[c] * alpha + sub[c] * (1.0 - alpha),
+                       sub[c]) for c in range(3)]
+    out.append(torch.where(inside, torch.maximum(sub[3], alpha), sub[3]))
+    return torch.stack(out)
+
+
+def composite_quads(fb: torch.Tensor, bank: QuadBank,
+                    tex_planes: torch.Tensor, tex_hw: torch.Tensor,
+                    height: int, width: int,
+                    windows: tuple | None = None) -> torch.Tensor:
+    """Composite quads onto fb (4,H,W) in bank order. Returns a new fb.
+
+    ``windows``: :func:`quad_windows` of the bank's quads (its first
+    ``len(windows)`` rows; the rest are padding and are skipped). Without
+    it every row of the bank works on the whole frame."""
+    q = bank.rect.shape[0]
+    if q == 0:
+        return fb
+    fb = fb.clone(memory_format=torch.contiguous_format)
+    dev = fb.device
+    rows = range(q) if windows is None else range(len(windows))
+    for j in rows:
+        quad = tuple(a[j] for a in bank)
+        if windows is None:
+            oy, ox, wh, ww = 0, 0, height, width
+        elif windows[j] is None:
+            continue
+        else:
+            oy, ox, wh, ww = windows[j]
+        pxw = torch.arange(ox, ox + ww, dtype=torch.float32,
+                           device=dev)[None, :] + 0.5
+        pyw = torch.arange(oy, oy + wh, dtype=torch.float32,
+                           device=dev)[:, None] + 0.5
+        pxw, pyw = torch.broadcast_tensors(pxw, pyw)
+        sub = fb[:, oy:oy + wh, ox:ox + ww]
+        fb[:, oy:oy + wh, ox:ox + ww] = _composite_one(
+            sub, pxw, pyw, quad, tex_planes, tex_hw)
+    return fb

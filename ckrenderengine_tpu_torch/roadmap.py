@@ -13,7 +13,6 @@ PORT_QUEUE = {
     2: "stencil pass",
     3: "antialias supersampling",
     4: "frame windows",
-    6: "2D overlays",
     7: "line pass",
     8: "3D sprites",
     9: "material effects (TexGen, bump, cube env, channels, effect passes)",
@@ -22,7 +21,6 @@ PORT_QUEUE = {
     12: "context batching and tile sharding",
     13: "rasterizer HAL",
     14: "scene IO",
-    15: "patch meshes",
     16: "progressive meshes",
     17: "remaining host API (stereo, render-to-texture, picking, "
         "immediate-mode draws, debug stepping)",

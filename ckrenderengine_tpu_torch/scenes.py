@@ -5,11 +5,13 @@ Each build function takes an ``objects`` module — this package's
 (``ckrenderengine_tpu_torch.objects``) or the reference package's — plus the
 keyword arguments of its ``CKContext`` (``device=`` for this package), so the
 tests can build one scene through both packages and compare the frames.
-The scenes are those of ``benchmarks/baseline.py`` (configs 1, 2 and 4,
-the last without its patch sheet), ``bench.build_scene`` (config 5) and
+The scenes are those of ``benchmarks/baseline.py`` (configs 1 to 4: config
+3 with its HUD sprite and text label, config 4 with its skinned tube,
+device-bound clip and Bezier patch sheet, and ``config4_skin``, config 4
+without the sheet), ``bench.build_scene`` (config 5) and
 ``benchmarks/stress.py`` (the two transparency stress cases), plus a small
 alpha-test cutout scene; sizes are parameters so the tests can cut the
-frame, the terrain, the sheets and the skinned tube down.
+frame, the hierarchy, the terrain, the sheets and the skinned tube down.
 """
 
 from __future__ import annotations
@@ -153,6 +155,95 @@ def build_config2(O, width: int = 640, height: int = 480,
     return ctx, rc, ball
 
 
+def build_config3(O, width: int = 1024, height: int = 768,
+                  n_entities: int = 1000, **ctx_kw):
+    """1,000-entity hierarchy of depth 6 with a sun, a moving point light
+    and a foreground HUD (BASELINE config 3,
+    ``benchmarks/baseline.py:138-228``): cube entities in trees grown from
+    seeded random roots, a 24x24 HUD sprite at (8, 8) and the
+    ``CKSpriteText`` "entities: 1000" at (40, 8, 168, 28), at 1024x768.
+    ``n_entities`` cuts the hierarchy (the label says the count). Returns
+    (ctx, rc, tick); each ``tick()`` rotates the roots by 0.01 about y and
+    moves the bulb along its circle, as the source's tick does."""
+    ctx = O.CKContext(**ctx_kw)
+    rc = ctx.GetRenderManager().CreateRenderContext(width, height)
+    cam = O.CKCamera(ctx, "cam")
+    cam.SetPosition((0.0, 10.0, -42.0))
+    cam.SetOrientation((0.0, -0.2, 1.0))
+    cam.SetBackPlane(400.0)
+    rc.AttachViewpointToCamera(cam)
+
+    verts, faces = _cube(0.4)
+    mesh = O.CKMesh(ctx, "cube")
+    mesh.SetPositions(verts)
+    mesh.SetFaces(faces)
+    mesh.BuildNormals()
+    mat = O.CKMaterial(ctx, "mat")
+    mat.SetDiffuse((0.7, 0.7, 0.8, 1.0))
+    mat.SetPower(16.0)
+    mesh.ApplyGlobalMaterial(mat)
+
+    rng = np.random.default_rng(3)
+    roots = []
+    n_made = 0
+
+    # Trees of depth 6: 4 children per node down to depth 2, then 3.
+    def grow(parent, depth):
+        nonlocal n_made
+        if depth == 0 or n_made >= n_entities:
+            return
+        k = 4 if depth > 2 else 3
+        for _ in range(k):
+            if n_made >= n_entities:
+                return
+            e = O.CK3dObject(ctx, f"e{n_made}")
+            n_made += 1
+            e.SetCurrentMesh(mesh)
+            if parent is not None:
+                e.SetParent(parent)
+            e.SetPosition(tuple(rng.uniform(-3.5, 3.5, 3)), ref=parent)
+            grow(e, depth - 1)
+
+    while n_made < n_entities:
+        root = O.CK3dObject(ctx, f"root{len(roots)}")
+        n_made += 1
+        root.SetCurrentMesh(mesh)
+        root.SetPosition((float(rng.uniform(-25, 25)), 5.0,
+                          float(rng.uniform(-20, 30))))
+        roots.append(root)
+        grow(root, 5)
+
+    sun = O.CKLight(ctx, "sun")
+    sun.SetType(int(VXLIGHT.DIREC))
+    sun.SetOrientation((0.3, -1.0, 0.2))
+    bulb = O.CKLight(ctx, "bulb")
+    bulb.SetType(int(VXLIGHT.POINT))
+    bulb.SetPosition((0.0, 12.0, 0.0))
+    bulb.SetColor((1.0, 0.7, 0.4, 1.0))
+    bulb.SetRange(120.0)
+
+    hud = O.CKSprite(ctx, "hud")
+    icon = np.zeros((24, 24, 4), np.float32)
+    icon[4:20, 4:20] = (0.9, 0.2, 0.1, 0.85)
+    hud.SetImage(icon)
+    hud.SetRect((8, 8, 32, 32))
+    txt = O.CKSpriteText(ctx, "fpslabel")
+    txt.Create(128, 20)
+    txt.SetText(f"entities: {n_entities}")
+    txt.SetRect((40, 8, 168, 28))
+    state = {"i": 0}
+
+    def tick():
+        i = state["i"]
+        for r in roots:
+            r.Rotate((0, 1, 0), 0.01)
+        bulb.SetPosition((18.0 * np.sin(i * 0.05), 12.0,
+                          18.0 * np.cos(i * 0.05)))
+        state["i"] = i + 1
+
+    return ctx, rc, tick
+
+
 def make_skinned_tube(O, ctx, n_bones: int = 128, rings_per_bone: int = 4,
                       ring_verts: int = 120):
     """A tube of n_bones*rings_per_bone rings of ring_verts vertices
@@ -239,16 +330,58 @@ def make_skinned_tube(O, ctx, n_bones: int = 128, rings_per_bone: int = 4,
     return obj, mesh, skin, bones, clip
 
 
-def build_config4_skin(O, width: int = 1024, height: int = 768,
-                       n_bones: int = 128, rings_per_bone: int = 4,
-                       ring_verts: int = 120, **ctx_kw):
-    """BASELINE config 4 without its Bezier patch sheet
-    (``benchmarks/baseline.py:374-417``; patch meshes are not carried yet):
-    a tube of 61,440 vertices and 122,640 triangles at the defaults,
-    skinned to 128 bones, with a keyed clip of 13 keys on each of 128
-    rotation tracks bound to the render context (device animation), at
-    1024x768. Returns (ctx, rc, tick); ``tick()`` advances the clip by 0.5
-    frames modulo its length, as the source's tick does."""
+def make_patch_sheet(O, ctx, n: int = 6, iterations: int = 5,
+                     extent: float = 12.0, amp: float = 1.2):
+    """An n x n grid of Bezier quad patches forming a wavy ground sheet
+    (``benchmarks/baseline.py:323-366``): 36 patches tessellated at
+    iteration 5 into 1,296 vertices and 1,800 faces at the defaults.
+    Returns the built patch mesh."""
+    pm = O.CKPatchMesh(ctx, "patchsheet")
+
+    def height(x, y):
+        return amp * (np.sin(x * 0.6) * np.cos(y * 0.5))
+
+    xs = np.linspace(-extent, extent, n + 1)
+    corners = np.array([[x, height(x, y), y] for y in xs for x in xs],
+                       np.float32)
+    pm.SetVerts(corners)
+    vecs = []
+    patches = []
+
+    def pt(x, y):
+        return np.array([x, height(x, y), y], np.float32)
+
+    for r in range(n):
+        for c in range(n):
+            i00 = r * (n + 1) + c
+            quad = [i00, i00 + 1, i00 + n + 2, i00 + n + 1]
+            x0, x1 = xs[c], xs[c + 1]
+            y0, y1 = xs[r], xs[r + 1]
+            base = len(vecs)
+            # 8 edge control points (1/3, 2/3 along each edge), sampled off
+            # the analytic surface so tessellation reconstructs the waves.
+            for (ax, ay), (bx, by) in (((x0, y0), (x1, y0)),
+                                       ((x1, y0), (x1, y1)),
+                                       ((x1, y1), (x0, y1)),
+                                       ((x0, y1), (x0, y0))):
+                for tpar in (1 / 3, 2 / 3):
+                    vecs.append(pt(ax + (bx - ax) * tpar,
+                                   ay + (by - ay) * tpar))
+            for (u, v) in ((1 / 3, 1 / 3), (2 / 3, 1 / 3), (2 / 3, 2 / 3),
+                           (1 / 3, 2 / 3)):
+                vecs.append(pt(x0 + (x1 - x0) * u, y0 + (y1 - y0) * v))
+            patches.append(O.CKPatch(quad, list(range(base, base + 8)),
+                                     list(range(base + 8, base + 12))))
+    pm.SetVecs(np.asarray(vecs, np.float32))
+    for p in patches:
+        pm.AddPatch(p)
+    pm.SetIterationCount(iterations)
+    pm.BuildRenderMesh()
+    return pm
+
+
+def _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
+             sheet: bool, ctx_kw):
     ctx = O.CKContext(**ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(width, height)
     cam = O.CKCamera(ctx, "cam")
@@ -262,6 +395,15 @@ def build_config4_skin(O, width: int = 1024, height: int = 768,
     sun.SetType(int(VXLIGHT.DIREC))
     sun.SetOrientation((0.3, -1.0, 0.4))
     sun.SetSpecularFlag(True)
+    if sheet:
+        pmesh = make_patch_sheet(O, ctx)
+        pmat = O.CKMaterial(ctx, "patchmat")
+        pmat.SetDiffuse((0.45, 0.55, 0.75, 1.0))
+        pmat.SetPower(16.0)
+        pmesh.ApplyGlobalMaterial(pmat)
+        ground = O.CK3dObject(ctx, "patchground")
+        ground.SetCurrentMesh(pmesh)
+        ground.SetPosition((0.0, -3.5, 0.0))
     if not rc.BindAnimation(clip):
         raise RuntimeError("the config-4 clip did not bind to the device")
     state = {"t": 0.0}
@@ -271,6 +413,32 @@ def build_config4_skin(O, width: int = 1024, height: int = 768,
         clip.SetFrame(state["t"])
 
     return ctx, rc, tick
+
+
+def build_config4(O, width: int = 1024, height: int = 768,
+                  n_bones: int = 128, rings_per_bone: int = 4,
+                  ring_verts: int = 120, **ctx_kw):
+    """BASELINE config 4 (``benchmarks/baseline.py:369-417``): a tube of
+    61,440 vertices and 122,640 triangles at the defaults, skinned to 128
+    bones, with a keyed clip of 13 keys on each of 128 rotation tracks
+    bound to the render context (device animation), over a Bezier patch
+    sheet of 36 patches tessellated at iteration 5 (1,800 faces, its own
+    lit material), at 1024x768: 124,440 triangles. Returns (ctx, rc,
+    tick); ``tick()`` advances the clip by 0.5 frames modulo its length,
+    as the source's tick does."""
+    return _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
+                    True, ctx_kw)
+
+
+def build_config4_skin(O, width: int = 1024, height: int = 768,
+                       n_bones: int = 128, rings_per_bone: int = 4,
+                       ring_verts: int = 120, **ctx_kw):
+    """:func:`build_config4` without its Bezier patch sheet: the tube,
+    bones, clip, camera, light and frame of config 4 alone, for comparing
+    with measurements taken before the sheet was carried. Returns (ctx, rc,
+    tick)."""
+    return _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
+                    False, ctx_kw)
 
 
 def build_config5(O, width: int = 1024, height: int = 768,

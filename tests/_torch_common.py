@@ -55,23 +55,49 @@ def accelerator_branch():
         jax.clear_caches()
 
 
-def render_reference(build, accelerator: bool = True, **kw):
+def render_reference(build, accelerator: bool = True, frame_ids=False,
+                     **kw):
     """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
     the reference's object model, rendered once through ``Render()`` on its
     accelerator branch (:func:`accelerator_branch`), or as the CPU runs it
     when ``accelerator`` is off. The reference's capacity governor, which
     follows the backend too, stays off: it only re-plans the caps of later
-    frames. Returns the render context."""
+    frames. Returns the render context. With ``frame_ids`` on the
+    accelerator branch, its ``frame_ids`` attribute holds the winner ids
+    its own tiled solve found (else None)."""
+    import jax
     import ckrenderengine_tpu.objects as J
+    from ckrenderengine_tpu.raster import pallas_tiled
 
     _c, rj, _m = build(J, **kw)
+    rj.frame_ids = None
     if not accelerator:
         rj.Render()
         return rj
     rj._gov_on = False
+    if not frame_ids:
+        with accelerator_branch():
+            rj.Render()
+            np.asarray(rj.fb)           # finish the frame inside the block
+        return rj
+    seen = {}
     with accelerator_branch():
-        rj.Render()
-        np.asarray(rj.fb)               # finish the frame inside the block
+        solve = pallas_tiled.depth_reduce_tiled_pallas
+
+        def spy(*a, **k):
+            out = solve(*a, **k)
+            jax.debug.callback(lambda i: seen.update(ids=np.asarray(i)),
+                               out[0])
+            return out
+
+        pallas_tiled.depth_reduce_tiled_pallas = spy
+        try:
+            rj.Render()
+            np.asarray(rj.fb)           # finish the frame inside the block
+            jax.effects_barrier()
+        finally:
+            pallas_tiled.depth_reduce_tiled_pallas = solve
+    rj.frame_ids = seen.get("ids")
     return rj
 
 
@@ -268,6 +294,35 @@ def assert_winner_ties(ids, ids_ref, setup_np):
         assert np.all(on_edge[one]), int((~on_edge & one).sum())
 
 
+def assert_winners_own_setup(ids, ids_ref, setup_port, setup_ref):
+    """Where two frames' winner maps differ, each package's winner is the
+    nearer of the two candidates under its OWN triangle setup, or the other
+    candidate sits on one of its edges there (|e| within twice
+    :func:`edge_error_bound`). For scenes of sub-pixel, interpenetrating
+    faces (config 3's 1,000 cubes), where the vertex stage's rounding moves
+    two faces' extrapolated depths apart by more than the depth formula's
+    own error: each answer is exact for its package's vertices."""
+    differ = ids != ids_ref
+    if not differ.any():
+        return
+
+    def on_edge(cand, setup_np):
+        e, _terms, _z, _ivs = _winner_edges(cand, setup_np)
+        return (cand >= 0) & np.any(np.abs(np.moveaxis(e, -1, 0))
+                                    <= 2 * edge_error_bound(cand, setup_np),
+                                    axis=0)
+
+    for win, other, setup_np in ((ids, ids_ref, setup_port),
+                                 (ids_ref, ids, setup_ref)):
+        d_win = exact_depth(win, setup_np)
+        d_other = exact_depth(other, setup_np)
+        tol = _FRAME_SLACK * (depth_error_bound(win, setup_np)
+                              + depth_error_bound(other, setup_np))
+        nearer = (win >= 0) & ((other < 0) | (d_win <= d_other + tol))
+        ok = nearer | on_edge(other, setup_np) | on_edge(win, setup_np)
+        assert np.all(ok[differ]), int((differ & ~ok).sum())
+
+
 def assert_frame_depth_close(got, ref, ids, setup_np, where, atol=4e-6):
     """Depths of two whole frames on the pixels ``where``: within ``atol``
     plus twice ``_FRAME_SLACK`` times the winner's
@@ -296,64 +351,97 @@ def assert_frame_fb_close(got, ref, ids, setup_np, where, atol=1.0 / 255.0,
         assert np.all(cond[off] > min_cond), cond[off].min()
 
 
-def render_both(build, accelerator: bool = True, **kw):
+def render_both(build, accelerator: bool = True, frame_ids=False, **kw):
     """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
     each package's object model and rendered once by each through
-    Render(), the reference by :func:`render_reference`: (reference
-    context, port context, the reference's packed inputs,
-    reference_winners of them)."""
+    Render(), the reference by :func:`render_reference` (``frame_ids``
+    passes on): (reference context, port context, the reference's packed
+    inputs, reference_winners of them)."""
     import ckrenderengine_tpu_torch.objects as O
 
-    rj = render_reference(build, accelerator, **kw)
+    rj = render_reference(build, accelerator, frame_ids, **kw)
     _ct, rt, _mt = build(O, device="cpu", **kw)
     rt.Render()
     packed = rj._fill_packed([], [])
     return rj, rt, packed, reference_winners(*packed)
 
 
-def check_frame_against_reference(ids, fb, zb, ref, rj):
+def check_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None):
     """A port frame (winner ids, fb, zb) against the reference's solve
     ``ref`` = (ids, depth, setup) of the same inputs and the reference's
     rendered frame ``rj`` (tests/test_torch_slice.py says why each bound).
+
+    With ``setup_port`` (the port's own triangle setup, numpy), for scenes
+    of sub-pixel, interpenetrating faces: differing winners are held to
+    :func:`assert_winners_own_setup`; depths to the reference's where the
+    winner's :func:`edge_condition` is at most 1e3, and everywhere to the
+    exact depth of the port's winner under the port's setup (on an
+    ill-conditioned edge the two setups' coefficients cancel apart); and
+    the pixels where the reference's frame disagrees with its own exact
+    solve (``rj.frame_ids``) are not compared with that frame.
     """
     ids_ref, depth_ref, setup = ref
     same = ids == ids_ref
     assert same.mean() >= 0.999, same.mean()
-    assert_winner_ties(ids, ids_ref, setup)
-    assert_frame_depth_close(zb, depth_ref, ids_ref, setup, same)
+    if setup_port is None:
+        assert_winner_ties(ids, ids_ref, setup)
+        well = same
+    else:
+        assert_winners_own_setup(ids, ids_ref, setup_port, setup)
+        well = same & (edge_condition(ids_ref, setup) <= 1e3)
+        assert_frame_depth_close(zb, exact_depth(ids, setup_port), ids,
+                                 setup_port, ids >= 0)
+    assert_frame_depth_close(zb, depth_ref, ids_ref, setup, well)
 
     fb_ref, zb_ref = np.asarray(rj.fb), np.asarray(rj.zb)
     bound = depth_error_bound(ids_ref, setup)
     consistent = (np.abs(zb_ref.astype(np.float64) - depth_ref)
                   <= 4e-6 + 2 * _FRAME_SLACK * bound)
     match = same & consistent
+    if setup_port is not None and getattr(rj, "frame_ids", None) is not None:
+        match &= rj.frame_ids == ids_ref
     assert match.mean() >= 0.999, match.mean()
-    assert_frame_depth_close(zb, zb_ref, ids_ref, setup, match)
+    assert_frame_depth_close(zb, zb_ref, ids_ref, setup, match & well)
     assert_frame_fb_close(fb, fb_ref, ids_ref, setup, match)
     assert (ids_ref >= 0).mean() > 0.1
 
 
-def check_render(pair):
+def check_render(pair, own_setup: bool = False):
     """The port's Render() frame of ``pair`` (from :func:`render_both`)
     against the reference; the port's winners from its own packed inputs.
-    Returns the port's frame parameters."""
+    ``own_setup``: hold differing winners to each package's own triangle
+    setup (:func:`assert_winners_own_setup`). Returns the port's frame
+    parameters."""
+    from ckrenderengine_tpu_torch.pipeline import frame as tfr
+
     rj, rt, _packed, ref = pair
     st, tf, ti, tp = rt._fill_packed([], [])
-    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf),
-                                 torch.as_tensor(ti), tp)
+    tf, ti = torch.as_tensor(tf), torch.as_tensor(ti)
+    _fb, _zb, ids = port_winners(st, tf, ti, tp)
+    setup_port = None
+    if own_setup:
+        setup_port = {k: to_np(v) for k, v in tfr.packed_setup(
+            st, tf, ti, tp)[2].items() if isinstance(v, torch.Tensor)}
     check_frame_against_reference(to_np(ids), to_np(rt.fb), to_np(rt.zb),
-                                  ref, rj)
+                                  ref, rj, setup_port)
     return tp
 
 
-def check_reference_inputs(pair):
+def check_reference_inputs(pair, own_setup: bool = False):
     """The reference's own packed inputs of ``pair``, converted with
-    convert.from_reference, through the port's render_frame_packed."""
+    convert.from_reference, through the port's render_frame_packed
+    (``own_setup`` as in :func:`check_render`)."""
     from ckrenderengine_tpu_torch import convert
+    from ckrenderengine_tpu_torch.pipeline import frame as tfr
 
     rj, _rt, (static, dyn_f, dyn_i, params), ref = pair
     st, tf, ti, tp = convert.from_reference(
         {k: np.asarray(v) for k, v in static.items()}, dyn_f, dyn_i, params,
         "cpu")
     fb, zb, ids = port_winners(st, tf, ti, tp)
-    check_frame_against_reference(to_np(ids), to_np(fb), to_np(zb), ref, rj)
+    setup_port = None
+    if own_setup:
+        setup_port = {k: to_np(v) for k, v in tfr.packed_setup(
+            st, tf, ti, tp)[2].items() if isinstance(v, torch.Tensor)}
+    check_frame_against_reference(to_np(ids), to_np(fb), to_np(zb), ref, rj,
+                                  setup_port)
