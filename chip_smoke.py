@@ -26,11 +26,19 @@ inside them), renders an odd-sized mip frame (the compact rows), checks an
 overflowing ordered frame's in-frame replay, holds the kernel frames and
 small frames of every config against the exact ordered pass and against
 the CPU, checks the two golden frames the reference package rendered
-(``tests/torch_golden/``), and times the frames, the stages (the skinned
+(``tests/torch_golden/``), renders the seven scenes again with the
+render manager's Antialias option on (each frame at twice its size,
+resolved: B2 at config 1, B1 at the others, B3 and B4's rounds at the
+stress scenes; B5 once at config 5 with its frame bit-equal; the AA
+frames of configs 1, 2, 5 and ``alpha50k`` equal to the resolve of the
+frame rendered at twice the size) and the stencil scenes (config 2 with a
+stencil-only quad, with and without Antialias, and a flat one: the frame's
+solve and the stencil's launch B1 or B2 twice, and the mask equals the
+plain solve's on the card), and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
-composite) and the kernels beside each kernel's roofline bound, under
-which no kernel's time may fall (B2 also at its floor, every row invalid,
-and at the flat route's limits).
+composite) and the kernels, at 1x and at their Antialias shapes, beside
+each kernel's roofline bound, under which no kernel's time may fall (B2
+also at its floor, every row invalid, and at the flat route's limits).
 Every phase prints a line; any failure raises, so the exit code is nonzero.
 The last line is the device record ``{"ok": true, "device": {"platform":
 "gpu", ...}}``. Without CUDA the script exits nonzero before printing any
@@ -52,8 +60,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "torch_golden")
 
 
+T0 = time.monotonic()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": round(time.monotonic() - T0, 1)}), flush=True)
 
 
 def card_line() -> str:
@@ -107,7 +119,7 @@ def kernel_ms(fn, name: str, reps: int = 20) -> float:
     # that is not a multiple of ``reps`` lost records.
     prof, _wall = profile_window(
         fn, reps, [ProfilerActivity.CUDA],
-        lambda p: count(p) > 0 and count(p) % reps == 0)
+        lambda p: count(p) > 0 and count(p) % reps == 0, label=name)
     n = count(prof)
     check(n > 0, f"the profiler recorded no launch of {name}")
     total_us = sum(e.device_time_total if hasattr(e, "device_time_total")
@@ -798,6 +810,11 @@ def main() -> int:
              covered=covered, launches=got,
              first_frame_s=round(first_s, 3), **extra)
 
+    # --- 4b. Antialias and the stencil pass through Render() ---------------
+    aa = antialias_phase(O, scenes, fr, kernel_fns, launches)
+    stencil_phase(O, scenes, fr, kernel_fns, launches, cuda_tiled,
+                  cuda_reduce)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -906,12 +923,14 @@ def main() -> int:
     # Frames per second through Render(): 2 warm-up ticks, then 30 ticks of
     # (the config's tick: rotate its mover or advance config 4's clip,
     # Render()), fenced by synchronize().
-    n = 30
+    # The Antialias scenes take 5 ticks (frame_bench.py profiles them).
     fps = {}
-    for name in ("config1", "config2", "config5", "config3", "config4",
-                 "alpha50k", "alpha_tex50k"):
-        _ctx, rc_t, mover = configs[name]
-        step = ticker(name, mover)
+    names = ("config1", "config2", "config5", "config3", "config4",
+             "alpha50k", "alpha_tex50k")
+    for name, (_ctx, rc_t, mover), n in (
+            [(k, configs[k], 30) for k in names]
+            + [(k + "_aa", aa[k], 5) for k in names]):
+        step = ticker(name.removesuffix("_aa"), mover)
         for _ in range(2):
             step()
             rc_t.Render()
@@ -942,9 +961,10 @@ def main() -> int:
     time_overlay(configs["config3"][1], fps["config3"], card, fr)
     b1_ms, b5_ms = rows_ms["config5"]["B1"], rows_ms["config5"]["B5"]
 
-    # B2 at config 1's frame, at its floor there and at the flat limits.
-    b2_time = time_flat(configs["config1"][1], card, fr, cuda_reduce,
-                        lib, ptxas, flat_cases())
+    # B2 at config 1's frame, at its floor there, at config 1's Antialias
+    # frame and at the flat limits.
+    b2_times = time_flat(configs["config1"][1], aa["config1"][1], card, fr,
+                         cuda_reduce, lib, ptxas, flat_cases())
 
     # B3 and B4 at the stress frames' shapes, with phase A and composite.
     ordered_ms = {}
@@ -952,8 +972,20 @@ def main() -> int:
         ordered_ms[kernel] = time_ordered(name, kernel, configs[name][1],
                                           fps[name], card, fr, co)
 
-    ms = {"B1": b1_ms, "B2": b2_time,
+    ms = {"B1": b1_ms, "B2": b2_times["config1"],
           **ordered_ms, "B5": b5_ms}
+    # Each kernel at its Antialias shape (2x the display size), checked
+    # equal to its plain version there: B1 and B5 at config 5, B2 at config
+    # 1 (above), B3 at alpha50k, B4 at alpha_tex50k.
+    rows_aa = time_rows("config5_aa", aa["config5"][1], fps["config5_aa"],
+                        card, fr, cuda_tiled, df, plain=False)
+    aa_ms = {"B1": rows_aa["B1"], "B5": rows_aa["B5"],
+             "B2": b2_times["config1_aa"]}
+    for name, kernel in (("alpha50k", "B3"), ("alpha_tex50k", "B4")):
+        aa_ms[kernel] = time_ordered(name + "_aa", kernel, aa[name][1],
+                                     fps[name + "_aa"], card, fr, co)
+    aa_shape = {"B1": "config5_aa", "B5": "config5_aa", "B2": "config1_aa",
+                "B3": "alpha50k_aa", "B4": "alpha_tex50k_aa"}
     sources = {"B1": ("solve_tiled", "csrc/solve_tiled.cu",
                       "ckrenderengine_tpu/raster/pallas_tiled.py:61"),
                "B2": ("reduce_flat", "csrc/reduce_flat.cu",
@@ -977,7 +1009,10 @@ def main() -> int:
          "bound_counts": {
              c: ms[k][2][c] for c in (
                  "pixel_row_pairs", "pairs_past_edges", "operations",
-                 "bytes", "operations_ms", "bytes_ms")}}
+                 "bytes", "operations_ms", "bytes_ms")},
+         "antialias": {"shape": aa_shape[k], "ms": aa_ms[k][0],
+                       "bound_ms": aa_ms[k][2]["bound_ms"],
+                       "bound_by": aa_ms[k][2]["bound_by"]}}
         for k in ("B1", "B2", "B3", "B4", "B5")]
     from ckrenderengine_tpu_torch import frame_bench
     emit("profiler_windows", **frame_bench.PROFILE_WINDOWS,
@@ -985,15 +1020,226 @@ def main() -> int:
     for k in kernels:
         # A time under the bound means the bound counts work no kernel
         # needs, or the timing is wrong.
-        check(k["ms"] >= k["bound_ms"],
-              f"{k['name']}: {k['ms']} ms is below its bound "
-              f"{k['bound_ms']} ms")
+        for t in (k, k["antialias"]):
+            check(t["ms"] >= t["bound_ms"],
+                  f"{k['name']}: {t['ms']} ms is below its bound "
+                  f"{t['bound_ms']} ms")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+AA_SCENES = (("config1", "build_config1", ("B2",)),
+             ("config2", "build_config2", ("B1",)),
+             ("config5", "build_config5", ("B1",)),
+             ("config3", "build_config3", ("B1",)),
+             ("config4", "build_config4", ("B1",)),
+             ("alpha50k", "build_alpha50k", ("B1", "B3")),
+             ("alpha_tex50k", "build_alpha_tex50k", ("B1", "B4")))
+
+
+def antialias_phase(O, scenes, fr, kernel_fns, launches) -> dict:
+    """The seven scenes with the Antialias option on, at their sizes: each
+    frame renders at twice the size and resolves to it. Each scene's first
+    Render() runs with every launch count at 0 and must launch the kernels
+    of its route (B2 at config 1, B1 at the others, B3 at ``alpha50k``,
+    B4's rounds at ``alpha_tex50k``), without an ordered replay. Config 5
+    again under ``CK_FUSED_FETCH``: B5 once and the frame bit-equal; its
+    solve's bin statistics are printed. At configs 1, 2, 5 and ``alpha50k``
+    the AA frame must equal ``frame.box_resolve`` of the frame rendered
+    without AA at twice the size, bit for bit. Returns {name: (ctx, rc,
+    mover)}."""
+    out = {}
+    for name, build, kernels in AA_SCENES:
+        reset_launches(kernel_fns.values())
+        t0 = time.monotonic()
+        ctx, rc, mover = render_config(getattr(scenes, build), O, "cuda",
+                                       antialias=True)
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        got = {k: fn.launches for k, fn in kernel_fns.items()}
+        for k in launches:
+            launches[k] += got[k]
+        finite, covered = frame_checks(name + "_aa", rc)
+        stats = rc.GetStats()
+        for k in kernel_fns:
+            check((got[k] > 0) == (k in kernels),
+                  f"{name} AA: the frame launched {k} {got[k]} times")
+        check(got["B1"] <= 1 and got["B2"] <= 1, f"{name} AA: {got}")
+        check(stats.OrderedReplays == 0, f"{name} AA: ordered replay")
+        check(got["B4"] == stats.OrderedPeelRounds,
+              f"{name} AA: {got['B4']} B4 launches in "
+              f"{stats.OrderedPeelRounds} rounds")
+        check(tuple(rc.zb.shape) == (rc.height, rc.width),
+              f"{name} AA: zb {tuple(rc.zb.shape)}")
+        extra = {}
+        if rc._compiled.ordered_cap:
+            extra["ordered_phase_a"] = ordered_caps_check(rc, fr)
+        emit("antialias", config=name, size=[rc.width, rc.height],
+             render_size=[2 * rc.width, 2 * rc.height],
+             triangles=int(rc._compiled.n_valid_tris), finite=finite,
+             covered=covered, launches=got, peel_rounds=stats.OrderedPeelRounds,
+             first_frame_s=round(first_s, 3), **extra)
+        out[name] = (ctx, rc, mover)
+
+    rc5 = out["config5"][1]
+    binstats = frame_with(rc5)[2]["SolveBinStats"].cpu().tolist()
+    emit("antialias_binstats", config="config5", binstats=binstats,
+         fields=["peak", "live_pairs", "pair_cut_rows", "g_over_rows",
+                 "slab_over_rows", "n_small", "n_mid"],
+         pair_cap=fr._solve_caps(rc5._compiled.tri_idx.shape[0],
+                                 None)["pair_cap"])
+    fb0, zb0 = rc5.fb.clone(), rc5.zb.clone()
+    os.environ["CK_FUSED_FETCH"] = "1"
+    reset_launches(kernel_fns.values())
+    rc5.Render()
+    torch.cuda.synchronize()
+    del os.environ["CK_FUSED_FETCH"]
+    fused = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in launches:
+        launches[k] += fused[k]
+    differ = int(((rc5.fb != fb0).any(0) | (rc5.zb != zb0)).sum())
+    emit("antialias_fused_fetch", config="config5", launches=fused,
+         pixels_that_differ=differ)
+    check(fused["B5"] == 1 and fused["B1"] == 0,
+          f"config5 AA: fused-fetch frame launches {fused}")
+    check(differ == 0, f"config5 AA: the fused-fetch frame differs from the "
+          f"default path's on {differ} pixels")
+
+    for name in ("config1", "config2", "config5", "alpha50k"):
+        build = getattr(scenes, dict((n, b) for n, b, _k in AA_SCENES)[name])
+        rc = out[name][1]
+        size = (dict(size=2 * rc.width) if name == "config1"
+                else dict(width=2 * rc.width, height=2 * rc.height))
+        _c, rc2, _m = render_config(build, O, "cuda", **size)
+        fb, zb = fr.box_resolve(rc2.fb, rc2.zb)
+        equal = bool(torch.equal(fb, rc.fb) and torch.equal(zb, rc.zb))
+        emit("antialias_resolve", config=name, size=[rc.width, rc.height],
+             double_size=[rc2.width, rc2.height], bit_equal=equal,
+             fb_max_abs_diff=float((fb - rc.fb).abs().max()))
+        check(equal, f"{name}: the AA frame differs from the resolve of the "
+              "frame at twice the size")
+        del rc2, _c
+    return out
+
+
+def ordered_caps_check(rc, fr) -> dict:
+    """An Antialias frame's ordered phase A at its render size with the
+    reference's 1x capacities and with ``cuda_ordered.frame_caps``: the
+    overflow flag and the live (tile, draw) pairs of each. The scaled
+    capacities must not overflow."""
+    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
+
+    static, dyn_f, dyn_i, params = packed_cuda(rc)
+    h, w = rc.height * params["ss"], rc.width * params["ss"]
+    scene, batch, _su, defer, bits = fr.packed_setup(static, dyn_f, dyn_i,
+                                                     params)
+    ob = fr.ordered_batch(scene, batch, defer, bits, rc._compiled.ordered_cap)
+    _fb, zb = ordered_inputs(rc, fr)
+    out = {}
+    for caps, kw in (("reference_1x", {}), ("frame_caps",
+                                            co.frame_caps(h, w))):
+        pa = co.phase_a(*ordered_fields(ob, scene), zb, h, w, **kw)
+        out[caps] = {"overflow": bool(pa["bad"]),
+                     "live_pairs": int(pa["n_live"]),
+                     "pair_cap": kw.get("pair_cap", co.PAIR_CAP)}
+    check(not out["frame_caps"]["overflow"],
+          f"ordered phase A overflows its capacities at {w}x{h}")
+    return out
+
+
+def stencil_inputs(rc, fr):
+    """The stencil pass's inputs and its mask ``sb`` at the render size,
+    caught on the way through ``frame.stencil_pass`` during one more
+    Render()."""
+    seen = {}
+    stencil_pass = fr.stencil_pass
+
+    def spy(*a, **k):
+        sb = stencil_pass(*a, **k)
+        seen.update(args=a, sb=sb)
+        return sb
+
+    fr.stencil_pass = spy
+    try:
+        rc.Render()
+    finally:
+        fr.stencil_pass = stencil_pass
+    return seen["args"], seen["sb"]
+
+
+def plain_stencil(args, cuda_tiled, cuda_reduce, fr):
+    """``frame.stencil_pass`` with the plain versions of B1 and B2 on the
+    card's tensors; also the tiled solve's bin statistics (None if flat)."""
+    setup, batch, tri_bits, zb, viewport, h, w, flat, t_count, caps = args
+    stencil_tri = (tri_bits[:, 2] > 0.5) & batch.valid
+    binstats = None
+    if flat:
+        s_id, s_depth = cuda_reduce.depth_reduce_plain(
+            cuda_reduce.pack_rows(setup, stencil_tri), 1.0, viewport, h, w)
+    else:
+        a = cuda_tiled.phase_a(setup, stencil_tri, viewport, batch.xyw, h, w,
+                               **fr._solve_caps(t_count, caps))
+        init = cuda_tiled._init_plane(1.0, h, w, a["tiles_y"] * 32,
+                                      a["tiles_x"] * 32, zb.device)
+        d, i, _e, _r = cuda_tiled.solve_phase_b_plain(
+            a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
+            a["sbase"], viewport, w, h, init, 32, a["tiles_x"],
+            a["tiles_y"], a["n_planes"], False)
+        s_id, s_depth = i[:h, :w], d[:h, :w]
+        binstats = a["binstats"].cpu().tolist()
+    return ((s_id >= 0) & (s_depth <= zb + 1e-6)).to(torch.uint8), binstats
+
+
+def stencil_phase(O, scenes, fr, kernel_fns, launches, cuda_tiled,
+                  cuda_reduce) -> None:
+    """``scenes.build_stencil`` (config 2 and a stencil-only quad behind
+    the sphere, 640x480) without and with Antialias, and config 1 with a
+    stencil quad behind the cube (a flat frame). Each first Render() runs
+    with every count at 0: the frame's solve and the stencil's launch B1
+    twice (B2 twice on the flat frame), and nothing else. The mask at the
+    render size must equal the one the plain solve makes on the card from
+    the same inputs, and with Antialias the resolved mask must be its 2x2
+    window maximum."""
+    def flat_scene(O, device, antialias=False):
+        ctx, rc, cube = scenes.build_config1(O, device=device,
+                                             antialias=antialias)
+        scenes.add_stencil_quad(O, ctx, -1.0, -0.6, 0.3, 0.8, 1.0)
+        return ctx, rc, cube
+
+    for name, build, kw, kernel in (
+            ("stencil", scenes.build_stencil, {}, "B1"),
+            ("stencil_aa", scenes.build_stencil, {"antialias": True}, "B1"),
+            ("stencil_flat", flat_scene, {}, "B2")):
+        reset_launches(kernel_fns.values())
+        _c, rc, _m = render_config(build, O, "cuda", **kw)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in kernel_fns.items()}
+        for k in launches:
+            launches[k] += got[k]
+        check(got == {k: 2 if k == kernel else 0 for k in kernel_fns},
+              f"{name}: launches {got}")
+        args, sb_hi = stencil_inputs(rc, fr)
+        sb_plain, binstats = plain_stencil(args, cuda_tiled, cuda_reduce, fr)
+        equal = bool(torch.equal(sb_hi, sb_plain))
+        ss = sb_hi.shape[0] // rc.height
+        resolved = bool(torch.equal(rc.sb, sb_hi.reshape(
+            rc.height, ss, rc.width, ss).amax(dim=(1, 3))))
+        emit("stencil", scene=name, size=[rc.width, rc.height],
+             render_size=list(sb_hi.shape[::-1]), launches=got,
+             mask_share=float(rc.sb.float().mean()),
+             sb_equals_plain=equal, resolved_by_max=resolved,
+             stencil_binstats=binstats)
+        check(equal, f"{name}: the kernel's mask differs from the plain "
+              "solve's")
+        check(resolved, f"{name}: sb is not the window maximum")
+        check(0.01 < float(rc.sb.float().mean()) < 0.5,
+              f"{name}: mask share {float(rc.sb.float().mean())}")
+        check(binstats is None or not any(binstats[2:5]),
+              f"{name}: the stencil solve overflowed its caps {binstats}")
 
 
 def packed_cuda(rc):
@@ -1010,20 +1256,43 @@ def ordered_fields(ob, scene):
             scene.state_f)
 
 
+def ordered_inputs(rc, fr):
+    """The opaque (fb, zb) that rc's ordered pass starts from, at the
+    render size (twice the display size with Antialias): caught on the
+    way into ``frame._ordered_pass`` during one more Render()."""
+    seen = {}
+    ordered_pass = fr._ordered_pass
+
+    def spy(scene, batch, defer_tri, tri_bits, fb, zb, *a, **k):
+        seen.update(fb=fb, zb=zb)
+        return ordered_pass(scene, batch, defer_tri, tri_bits, fb, zb, *a,
+                            **k)
+
+    fr._ordered_pass = spy
+    try:
+        rc.Render()
+    finally:
+        fr._ordered_pass = ordered_pass
+    return seen["fb"], seen["zb"]
+
+
 def time_ordered(name, kernel, rc, fps, card, fr, co):
     """CUDA-event times of the ordered stages at a stress frame's shapes:
     phase A, the kernel and its plain version (checked equal there), and
     the composite. Returns (kernel ms, plain ms, roofline bound, CUDA-event
     ms of the kernel's wrapper)."""
     static, dyn_f, dyn_i, params = packed_cuda(rc)
-    H, W = rc.height, rc.width
+    H, W = rc.height * params["ss"], rc.width * params["ss"]
     scene, batch, _su, defer, bits = fr.packed_setup(static, dyn_f, dyn_i,
                                                      params)
     ob = fr.ordered_batch(scene, batch, defer, bits, rc._compiled.ordered_cap)
     fields = ordered_fields(ob, scene)
-    zb, fb = rc.zb, rc.fb
-    st = {"phase_a_ms": cuda_ms(lambda: co.phase_a(*fields, zb, H, W), 5)}
-    pa = co.phase_a(*fields, zb, H, W)
+    fb, zb = ordered_inputs(rc, fr)
+    caps = co.frame_caps(H, W)
+    st = {"phase_a_ms": cuda_ms(lambda: co.phase_a(*fields, zb, H, W,
+                                                   **caps), 5)}
+    pa = co.phase_a(*fields, zb, H, W, **caps)
+    check(not bool(pa["bad"]), f"{name}: ordered phase A overflows")
     tx, ty = pa["tiles_x"], pa["tiles_y"]
     if kernel == "B3":
         args = (pa["stream"], pa["starts"], pa["counts"],
@@ -1062,7 +1331,7 @@ def time_ordered(name, kernel, rc, fps, card, fr, co):
         int(pa["counts"].sum()) * row_floats * 4
         + nbytes(pa["starts"], pa["counts"], pa["zplane"], *out_k))
     emit("timing", config=name, card=card, fps=fps, kernel=kernel,
-         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+         size=[W, H], bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
          old_count_bound_ms=bound["old_count_bound_ms"],
          pixel_row_pairs=bound["pixel_row_pairs"],
          pairs_past_edges=bound["pairs_past_edges"],
@@ -1099,21 +1368,27 @@ def flat_bound(rows, outs, h: int, w: int, viewport) -> dict:
                     rows.shape[0] * 28 * 4 + 5 * 4 + nbytes(*outs))
 
 
-def time_flat(rc1, card, fr, cuda_reduce, lib, ptxas, cases):
+def time_flat(rc1, rc1_aa, card, fr, cuda_reduce, lib, ptxas, cases):
     """B2's own time (``torch.profiler``), its CUDA-event and plain times
     and its bound at config 1's frame, at the same launch with every row's
     valid bit cleared (the kernel's floor at that grid: rows streamed and
-    scanned, two planes written) and at the three cases of
-    ``raster/flat_fixtures.py`` at the flat route's limits; each checked
-    equal to its plain version there. Returns config 1's (kernel ms, plain
-    ms, bound, CUDA-event ms) for the kernels line."""
-    sc1, _bt, su1, de1, _bits = fr.packed_setup(*packed_cuda(rc1))
-    rows1 = cuda_reduce.pack_rows(su1, de1)
-    floor = rows1.clone()
+    scanned, two planes written), at config 1's Antialias frame (512x512)
+    and at the three cases of ``raster/flat_fixtures.py`` at the flat
+    route's limits; each checked equal to its plain version there. Returns
+    {shape: (kernel ms, plain ms, bound, CUDA-event ms)}."""
+    def frame_args(rc):
+        static, dyn_f, dyn_i, params = packed_cuda(rc)
+        sc, _bt, su, de, _bits = fr.packed_setup(static, dyn_f, dyn_i,
+                                                 params)
+        return (cuda_reduce.pack_rows(su, de), sc.clear_z, sc.viewport,
+                rc.height * params["ss"], rc.width * params["ss"])
+
+    args1 = frame_args(rc1)
+    floor = args1[0].clone()
     floor[:, 20] = 0.0
-    view1 = (sc1.clear_z, sc1.viewport, rc1.height, rc1.width)
-    shapes = [("config1", (rows1,) + view1, None),
-              ("config1_floor", (floor,) + view1, None)]
+    shapes = [("config1", args1, None),
+              ("config1_floor", (floor,) + args1[1:], None),
+              ("config1_aa", frame_args(rc1_aa), None)]
     by_name = {c["name"]: c for c in cases}
     shapes += [(n, flat_args(by_name[n]), by_name[n]["viewport"])
                for n in ("flat_limit_256", "flat_deep_640", "flat_cap_128")]
@@ -1151,7 +1426,7 @@ def time_flat(rc1, card, fr, cuda_reduce, lib, ptxas, cases):
         check(t["ms"] >= bound["bound_ms"],
               f"B2 at {name}: {t['ms']} ms is below its bound")
         out[name] = (t["ms"], t["plain_ms"], bound, t["events_ms"])
-    return out["config1"]
+    return out
 
 
 def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
@@ -1163,7 +1438,7 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
     there (timed too when ``plain``). Returns {"B1" | "B5": (kernel ms,
     plain ms or None, roofline bound, CUDA-event ms of the wrapper)}."""
     static, dyn_f, dyn_i, params = packed_cuda(rc)
-    H, W = rc.height, rc.width
+    H, W = rc.height * params["ss"], rc.width * params["ss"]
     sp = params["sampler_profile"]
     st = {"setup_ms": cuda_ms(lambda: fr.packed_setup(static, dyn_f, dyn_i,
                                                       params), 5)}
@@ -1312,7 +1587,7 @@ def device_window(fn, reps: int) -> tuple:
 
     prof, wall_ms = profile_window(
         fn, reps, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
-        lambda p: len(device(p)) > 0)
+        lambda p: len(device(p)) > 0, label="frames")
     dev = device(prof)
     check(len(dev) > 0, "the profiler recorded no device activity")
     dev_us = sum(e.device_time_total if hasattr(e, "device_time_total")

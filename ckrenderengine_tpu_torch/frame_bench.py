@@ -1,6 +1,7 @@
 """Frame rates and per-frame device launches of the smoke scenes (the five
-BASELINE configs, config 4 without its patch sheet, and the two stress
-scenes), for comparing two trees of this package on one card.
+BASELINE configs, config 4 without its patch sheet, the two stress scenes,
+each of the seven again with Antialias on, and config 2 with a
+stencil-only mesh), for comparing two trees of this package on one card.
 
     python3 ckrenderengine_tpu_torch/frame_bench.py --root . --out a.json
     python3 ckrenderengine_tpu_torch/frame_bench.py --root _parent --out b.json
@@ -10,7 +11,8 @@ package to measure (this tree, or an unpacked ``git archive`` of another
 commit: archive ``ckrenderengine_tpu_torch`` AND ``native``, whose C++
 mesh optimizer the scene compile falls back from to minutes of Python);
 the script itself uses only what every tree of the port has (a scene
-whose build function a tree lacks is left out of that tree's run). Run
+whose build function or ``antialias`` keyword a tree lacks is left out of
+that tree's run). Run
 the trees in turns inside one call (parent, change, change, parent): two
 calls may land on two cards and hosts. For each scene it renders 2 warm-up
 ticks and 30 timed ticks of (rotate the mover, or run config 3's or 4's
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import faulthandler
+import inspect
 import json
 import os
 import subprocess
@@ -48,15 +51,20 @@ import sys
 import time
 
 TICKS = 30
-# (name, build function, rotation of the mover per tick); the build
-# functions of configs 3 and 4 return their tick in the mover's place.
-SCENES = (("config1", "build_config1", 0.02), ("config2", "build_config2", 0.03),
-          ("config5", "build_config5", 0.01),
-          ("config3", "build_config3", None),
-          ("config4", "build_config4", None),
-          ("config4_skin", "build_config4_skin", None),
-          ("alpha50k", "build_alpha50k", 0.02),
-          ("alpha_tex50k", "build_alpha_tex50k", 0.02))
+# (name, build function, rotation of the mover per tick, keywords); the
+# build functions of configs 3 and 4 return their tick in the mover's place.
+_BASE = (("config1", "build_config1", 0.02),
+         ("config2", "build_config2", 0.03),
+         ("config5", "build_config5", 0.01),
+         ("config3", "build_config3", None),
+         ("config4", "build_config4", None),
+         ("config4_skin", "build_config4_skin", None),
+         ("alpha50k", "build_alpha50k", 0.02),
+         ("alpha_tex50k", "build_alpha_tex50k", 0.02))
+SCENES = tuple((name, build, angle, {}) for name, build, angle in _BASE) + \
+    tuple((name + "_aa", build, angle, {"antialias": True})
+          for name, build, angle in _BASE if name != "config4_skin") + \
+    (("stencil", "build_stencil", 0.03, {}),)
 KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
            "ordered_peel_kernel")
 FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")
@@ -70,14 +78,18 @@ FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")
 # the repeats, for the "profiler_windows" line.
 PROFILE_PAD_S = 0.05
 PROFILE_TRIES = 3
-PROFILE_WINDOWS = {"windows": 0, "repeated": 0, "short_kept": 0}
+PROFILE_WINDOWS = {"windows": 0, "repeated": 0, "short_kept": 0,
+                   "short": []}
 
 
-def profile_window(fn, reps: int, activities, complete) -> tuple:
+def profile_window(fn, reps: int, activities, complete,
+                   label: str = "") -> tuple:
     """``(prof, wall_ms)``: a padded ``torch.profiler`` window of ``reps``
     calls of ``fn()`` after one warm-up call, profiled again while
     ``complete(prof)`` is false; the wall time per call is the calls' own,
-    the profiler's overhead included and the padding not."""
+    the profiler's overhead included and the padding not. Each short try
+    is listed in ``PROFILE_WINDOWS["short"]`` by ``label`` and its event
+    count."""
     import torch
     from torch.profiler import profile
 
@@ -96,6 +108,7 @@ def profile_window(fn, reps: int, activities, complete) -> tuple:
         if complete(prof):
             return prof, wall_ms
         PROFILE_WINDOWS["repeated"] += 1
+        PROFILE_WINDOWS["short"].append([label, len(prof.events())])
     PROFILE_WINDOWS["short_kept"] += 1
     return prof, wall_ms
 
@@ -216,10 +229,11 @@ def main() -> int:
         out["flat"] = flat_pass(args.flat)
         print(json.dumps({"root": args.root, "flat": out["flat"]}),
               flush=True)
-    for name, build, angle in SCENES:
-        if not hasattr(scenes, build):
+    for name, build, angle, kw in SCENES:
+        if not hasattr(scenes, build) or not set(kw) <= set(
+                inspect.signature(getattr(scenes, build)).parameters):
             continue
-        _ctx, rc, mover = getattr(scenes, build)(O, device="cuda")
+        _ctx, rc, mover = getattr(scenes, build)(O, device="cuda", **kw)
         rc.Render()
         torch.cuda.synchronize()
         if args.frames:

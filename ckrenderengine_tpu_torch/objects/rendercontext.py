@@ -62,6 +62,8 @@ class CKRenderContext(CKObject):
                               device=dev)
         self.zb = torch.ones((self.height, self.width), dtype=torch.float32,
                              device=dev)
+        self.sb = torch.zeros((self.height, self.width), dtype=torch.uint8,
+                              device=dev)
         # Compile cache
         self._compiled = CompiledScene()
         self._tex_planes = torch.zeros((1, 4, 1, 1), dtype=torch.float32,
@@ -236,6 +238,8 @@ class CKRenderContext(CKObject):
                               dtype=torch.float32, device=dev)
         self.zb = torch.ones((self.height, self.width), dtype=torch.float32,
                              device=dev)
+        self.sb = torch.zeros((self.height, self.width), dtype=torch.uint8,
+                              device=dev)
 
     def _scene_entities(self) -> list[CK3dEntity]:
         if self._objects is not None:
@@ -1866,11 +1870,14 @@ class CKRenderContext(CKObject):
         # Antialias option -> ordered 2x2 supersample + box resolve (the
         # reference's multisample device setup, src/CKRenderManager.cpp:
         # 117,668 -> CKDX9RasterizerContext.cpp:469-491). Nonzero option = 4
-        # ordered samples per pixel (not ported yet: the frame raises).
+        # ordered samples per pixel: the frame renders at twice the size and
+        # resolves fb, zb and sb to this one (frame.box_resolve). Read every
+        # frame, so a change takes effect at the next Render().
         _rm = self.context.render_manager
         _aa = int(_rm.options.get("Antialias", 0) or 0) if _rm else 0
+        ss = 2 if _aa else 1
         params = dict(
-            ss=2 if _aa else 1,
+            ss=ss,
             sampler_profile=sampler_profile,
             texdev=texdev, texdev_rects=(),
             layout=self._layout, levels=self._compiled.levels,
@@ -1887,10 +1894,9 @@ class CKRenderContext(CKObject):
             want_texgen=getattr(c, "want_texgen", True),
             solve_caps=self._solve_caps,
             cull=cull_static,
-            quad_windows=(quad_windows(quads_bg_list, self.height,
-                                       self.width),
-                          quad_windows(quads_fg_list, self.height,
-                                       self.width)))
+            quad_windows=tuple(
+                quad_windows(quads, self.height * ss, self.width * ss, ss)
+                for quads in (quads_bg_list, quads_fg_list)))
         # Fresh copies: the staging buffers are reused next frame, while a
         # caller may still hold this frame's.
         return static, self._buf_f.copy(), self._buf_i.copy(), params
@@ -1929,6 +1935,9 @@ class CKRenderContext(CKObject):
             if "SolveLivePairs" in dev_stats:
                 s.SolveLivePairs = int(dev_stats["SolveLivePairs"])
                 s.SolveFallbackRows = int(dev_stats["SolveFallbackRows"])
+        if params["want_stencil"]:
+            fb, zb, self.sb = out
+            return fb, zb
         return out
 
     def _atest_prefail_mask(self, mat, mesh, grp):
@@ -2326,6 +2335,10 @@ class CKRenderContext(CKObject):
 
     def zbuffer(self) -> np.ndarray:
         return self.zb.detach().cpu().numpy()
+
+    def stencilbuffer(self) -> np.ndarray:
+        """Stencil mask from STENCILONLY draws (uint8 0/1)."""
+        return self.sb.detach().cpu().numpy()
 
     def GetStats(self) -> VxStats:
         return self.stats

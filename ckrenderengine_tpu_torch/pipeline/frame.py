@@ -11,6 +11,8 @@ one eager pass does
     -> assemble + set up triangles -> visibility solve (CUDA B1 or B2)
     -> deferred shade -> ordered pass (render_pass*, CUDA B3 or B4)
     -> foreground 2D quads (overlay.composite_quads)
+    -> stencil pass (B2 or B1 on the stencil-only triangles)
+    -> Antialias resolve (2x2 box: fb mean, zb min, sb max)
 
 The solve dispatch is the reference's, minus the TPU lane rule: the tiled
 solve (B1) when ``t > 4096`` or ``t*H*W > 2^26``, else the flat solve (B2)
@@ -562,9 +564,12 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
     OrderedPeelRounds, OrderedPeelCorrected, OrderedReplays) whatever
     ``want_stats`` says.
 
-    Returns (fb (4,H,W) f32, zb (H,W) f32[, stats dict])."""
-    if want_stencil:
-        raise unported("the stencil pass", 2)
+    ``want_stencil``: also solve the stencil-only triangles
+    (VX_MOVEABLE_STENCILONLY) against the finished zb and return their
+    z-tested coverage ``sb`` (:func:`stencil_pass`).
+
+    Returns (fb (4,H,W) f32, zb (H,W) f32[, sb (H,W) uint8][, stats
+    dict])."""
     if background is not None:
         clear_fb = background
     elif prev_fb is not None:
@@ -657,8 +662,12 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
             width, sort_transparent, pixel_shader, sampler_profile, ordered)
     if ordered_stats is not None:
         ordered_stats.update(ordered)
+    out = (fb, zb)
+    if want_stencil:
+        out += (stencil_pass(setup, batch, tri_bits, zb, scene.viewport,
+                             height, width, flat, t_count, solve_caps),)
     if not want_stats:
-        return fb, zb
+        return out
     # Stats: the reference's counters, the ordered path's (which path the
     # frame took), and the per-pixel winner id map (-1 = background) for
     # parity checks.
@@ -670,7 +679,29 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
                       "SolveFallbackRows": tile_peak[2] + tile_peak[3]
                       + tile_peak[4],
                       "SolveBinStats": tile_peak})
-    return fb, zb, stats
+    return out + (stats,)
+
+
+def stencil_pass(setup, batch, tri_bits, zb, viewport, height: int,
+                 width: int, flat: bool, t_count: int, solve_caps=None):
+    """The stencil mask (reference frame.py:1051-1060): the z-tested
+    coverage of the stencil-only draws (VX_MOVEABLE_STENCILONLY, reference
+    src/CKMesh.cpp:3938-3974), solved at a clear depth of 1.0 against the
+    frame's finished ``zb``. A flat frame solves it with B2, any other with
+    B1 at the frame's caps, where the reference takes its plain
+    ``deferred.depth_reduce``: the three differ only in which id wins an
+    exact depth tie, and the mask reads the winner's depth and whether
+    there is one, not its id. Returns sb (H,W) uint8, 1 where a stencil
+    triangle covers the pixel at a depth <= zb + 1e-6."""
+    stencil_tri = (tri_bits[:, 2] > 0.5) & batch.valid
+    if flat:
+        s_id, s_depth = depth_reduce_cuda(setup, stencil_tri, 1.0, viewport,
+                                          height, width)
+    else:
+        s_id, s_depth, _peak = depth_reduce_tiled_cuda(
+            setup, stencil_tri, 1.0, viewport, batch.xyw, height, width,
+            **_solve_caps(t_count, solve_caps))
+    return ((s_id >= 0) & (s_depth <= zb + 1e-6)).to(torch.uint8)
 
 
 def ordered_batch(scene: SceneDevice, batch, defer_tri, tri_bits,
@@ -710,8 +741,10 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
       re-render.
     - Else :func:`render_pass_tiled` with the reference's tile ladder.
 
-    Fills ``stats`` (OrderedPeelOverflow, OrderedPeelRounds,
-    OrderedPeelCorrected, OrderedReplays) and returns (fb, zb)."""
+    The kernels' phase A scales the reference's capacities with the frame
+    size (``cuda_ordered.frame_caps``). Fills ``stats``
+    (OrderedPeelOverflow, OrderedPeelRounds, OrderedPeelCorrected,
+    OrderedReplays) and returns (fb, zb)."""
     from ..raster import cuda_ordered as co
 
     ob = ordered_batch(scene, batch, defer_tri, tri_bits, ordered_cap,
@@ -743,7 +776,8 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
 
     if kernel_ok and pixel_shader is None:
         a_o, b_o, bad = co.ordered_blend_tiled_cuda(
-            *fields, scene.fog_color, zb, scene.viewport, height, width)
+            *fields, scene.fog_color, zb, scene.viewport, height, width,
+            **co.frame_caps(height, width))
         # Host read, once per frame: the replay decision.
         if bool(bad):
             return replay()
@@ -754,7 +788,8 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
                                      sampler_profile, height, width)
 
         fb_p, bad, rounds = co.ordered_peel_iterate(
-            comp, fb, *fields, zb, scene.viewport, height, width)
+            comp, fb, *fields, zb, scene.viewport, height, width,
+            **co.frame_caps(height, width))
         stats.update(OrderedPeelOverflow=bad, OrderedPeelRounds=rounds)
         if bad:
             stats["OrderedPeelCorrected"] = 1
@@ -792,7 +827,8 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
     pool. ``quads_bg``/``quads_fg``: QuadBanks composited under the 3D
     pass (over the clear colour, or over ``prev_fb``) and over it;
     ``quad_windows``: their host-side windows (``overlay.quad_windows``;
-    None = whole-frame quads). 3D sprites and lines are not carried yet
+    None = whole-frame quads). ``want_stencil``: the stencil mask follows
+    zb (:func:`stencil_pass`). 3D sprites and lines are not carried yet
     and raise."""
     if sprites is not None:
         raise unported("3D sprites (billboards)", 8)
@@ -902,14 +938,28 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     """Packed-transfer frame entry: ``static`` is the per-compile dict of
     device tensors, ``dyn_f``/``dyn_i`` the two per-frame buffers (see
     pipeline/packing.py). Takes exactly what the render context's
-    ``_fill_packed`` returns."""
-    if ss != 1:
-        raise unported("antialias supersampling", 3)
+    ``_fill_packed`` returns.
+
+    ``ss``: the Antialias supersample factor (reference frame.py:1242-1345).
+    The frame renders at (ss*height, ss*width) — every route, tile and
+    parity rule sees that size — and :func:`box_resolve` brings fb, zb and
+    sb back to (height, width). Accumulate-mode buffers arrive at display
+    size and are repeat-upsampled first, so that a pixel no draw touches
+    resolves to its previous value. ``quad_windows`` are the host windows
+    of the scaled quad rects at the render size."""
     if texdev:
         raise unported("render-to-texture feeds", 17)
     if sprites_static is not None:
         raise unported("3D sprites (billboards)", 8)
-    scene, d = unpack_scene(static, dyn_f, dyn_i, layout)
+    scene, d = unpack_scene(static, dyn_f, dyn_i, layout, ss=ss)
+    rh, rw = height * ss, width * ss
+    if ss > 1:
+        if prev_fb is not None:
+            prev_fb = prev_fb.repeat_interleave(ss, dim=-2).repeat_interleave(
+                ss, dim=-1)
+        if prev_zb is not None:
+            prev_zb = prev_zb.repeat_interleave(ss, dim=-2).repeat_interleave(
+                ss, dim=-1)
 
     def quad_bank(prefix):
         if not has_field(layout, f"{prefix}_rect"):
@@ -926,8 +976,8 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     cull_sel = None
     if cull is not None and has_field(layout, "chunk_idx"):
         cull_sel = (d["chunk_idx"], d["chunk_n"])
-    return render_frame_full_impl(
-        scene, levels, height, width, skin=skin, skin_ranges=skin_ranges,
+    out = render_frame_full_impl(
+        scene, levels, rh, rw, skin=skin, skin_ranges=skin_ranges,
         anim=anim, anim_t=anim_t, world_in=world_in, lines=lines,
         ordered_cap=ordered_cap,
         sort_transparent=sort_transparent,
@@ -939,6 +989,33 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
         cull_sel=cull_sel, ordered_stats=ordered_stats,
         quads_bg=quad_bank("qbg"), quads_fg=quad_bank("qfg"),
         quad_windows=quad_windows)
+    if ss == 1:
+        return out
+    stats = out[-1:] if want_stats else ()
+    planes = out[:-1] if want_stats else out
+    return box_resolve(*planes, ss=ss) + stats
+
+
+def box_resolve(fb, zb, sb=None, ss: int = 2) -> tuple:
+    """The Antialias resolve of a frame rendered at ss times the display
+    size: each ss x ss window of fb averages (its samples summed in
+    row-major order, then divided by ss*ss: the reference's XLA reduction
+    on the CPU, bit for bit), zb takes the window's minimum (the nearest
+    covered sample keeps later z tests conservative) and sb its maximum
+    (any covered sample). Returns (fb, zb[, sb]) at display size."""
+    def windows(x):
+        h, w = x.shape[-2] // ss, x.shape[-1] // ss
+        x = x.reshape(x.shape[:-2] + (h, ss, w, ss))
+        return [x[..., :, i, :, j] for i in range(ss) for j in range(ss)]
+
+    samples = windows(fb)
+    total = samples[0]
+    for x in samples[1:]:
+        total = total + x
+    out = (total / float(ss * ss), torch.amin(torch.stack(windows(zb)), 0))
+    if sb is not None:
+        out += (torch.amax(torch.stack(windows(sb)), 0),)
+    return out
 
 
 render_frame_packed = render_frame_packed_impl
@@ -949,8 +1026,10 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
     its visibility solve, shade and ordered pass receive (``tri_bits``:
     per triangle deferred / alpha-blend / stencil). Lets a caller run and
     time the stages at the shapes a real frame gives them (a bound clip's
-    ``world_in`` and the skin stage included)."""
-    scene, d = unpack_scene(static, dyn_f, dyn_i, params["layout"])
+    ``world_in`` and the skin stage included; an Antialias frame's at its
+    render size)."""
+    scene, d = unpack_scene(static, dyn_f, dyn_i, params["layout"],
+                            ss=params.get("ss", 1))
     cull_sel = None
     if params["cull"] is not None and has_field(params["layout"],
                                                 "chunk_idx"):
@@ -966,10 +1045,19 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
     return scene, batch, setup, defer_tri, tri_bits
 
 
-def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple):
+def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple, ss: int = 1):
     """Packed buffers -> (SceneDevice, raw field dict): the device-side
-    inverse of CKRenderContext._fill_packed."""
+    inverse of CKRenderContext._fill_packed.
+
+    ``ss``: the Antialias supersample factor. Every pixel-space quantity —
+    viewport, entity scissors, 2D quad rects — is multiplied by ss in f32
+    (exact for ss = 2), so the frame renders at ss times the size; the
+    raster math itself is unchanged."""
     d = unpack(dyn_f, dyn_i, layout)
+    if ss > 1:
+        for key in ("viewport", "entity_clip", "qbg_rect", "qfg_rect"):
+            if key in d:
+                d[key] = d[key] * float(ss)
     lights = LightArray(
         type=d["lt_type"], diffuse=d["lt_diffuse"], specular=d["lt_specular"],
         ambient=d["lt_ambient"], position=d["lt_position"],

@@ -62,15 +62,19 @@ def build_quad_bank(quads: list[dict], pad: int = 4,
                     tex=dev(tex), blend=dev(blend), valid=dev(valid))
 
 
-def quad_windows(quads: list[dict], height: int, width: int) -> tuple:
+def quad_windows(quads: list[dict], height: int, width: int,
+                 ss: int = 1) -> tuple:
     """Host: for each quad of the list, the frame window (y0, x0, h, w)
     holding every pixel centre its rect covers, or None where it covers
     none. The covered centres are columns [ceil(x0 - 0.5), ceil(x1 - 0.5))
     and rows alike; one pixel of margin on each side absorbs the f32
-    rounding of the device's own test."""
+    rounding of the device's own test. ``ss``: the Antialias supersample
+    factor; ``height`` and ``width`` are then the render size, and each
+    rect is scaled by ss in f32 as the frame's ``unpack_scene`` scales it."""
     out = []
     for d in quads:
-        x0, y0, x1, y1 = (float(np.float32(v)) for v in d["rect"])
+        x0, y0, x1, y1 = (float(np.float32(v) * np.float32(ss))
+                          for v in d["rect"])
         cx0 = max(math.ceil(x0 - 0.5) - 1, 0)
         cx1 = min(math.ceil(x1 - 0.5) + 1, width)
         cy0 = max(math.ceil(y0 - 0.5) - 1, 0)

@@ -84,6 +84,20 @@ KCHUNK = 32         # rows a stage of a kernel's shared-memory ring holds
 ROWS_PER_STEP = 8   # rows a plain version evaluates per vectorised step
 
 
+def frame_caps(height: int, width: int) -> dict:
+    """Phase A's capacities for a frame of ``height`` x ``width`` pixels:
+    the reference's span-class capacities (``WINDOWS``) and ``PAIR_CAP``,
+    sized for frames up to 1024x768, each times ceil(pixels / 1024*768);
+    the span limits stay. An Antialias frame renders at twice its size, a
+    triangle then spans about twice the tiles on each axis, and the 1x
+    capacities overflow at the stress scenes' 2048x1536 (a span class past
+    its capacity, more live pairs than ``PAIR_CAP``), so every frame would
+    replay its exact pass."""
+    k = -(-height * width // (1024 * 768))
+    return dict(windows=tuple((cap * k, sl) for cap, sl in WINDOWS),
+                pair_cap=PAIR_CAP * k)
+
+
 def head_width(n_planes: int) -> int:
     """Floats of a row's coverage head: its columns rounded up to a
     multiple of 4 (28 / 28 / 32 / 36 for 0-3 clip planes)."""
@@ -97,7 +111,7 @@ def row_pitch(n_planes: int) -> int:
 
 def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
             state_i, state_f, zb, height: int, width: int, tile: int = 32,
-            windows: tuple = WINDOWS) -> dict:
+            windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP) -> dict:
     """Shared ordered-stream build of B3 and B4 (the reference's
     ``_ordered_phase_a``). Inputs are the ``ordered_subset`` batch fields
     in draw order; ``uv`` is not read (the peel's composite samples it).
@@ -234,14 +248,14 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
     counts = bounds[1:] - bounds[:-1]
     n_live = bounds[-1]
 
-    # The stream: rows in sorted (tile, draw) order, sized by PAIR_CAP. A
-    # tile whose range does not fit streams nothing; n_live > PAIR_CAP
+    # The stream: rows in sorted (tile, draw) order, sized by ``pair_cap``.
+    # A tile whose range does not fit streams nothing; n_live > pair_cap
     # raises ``bad`` then.
-    sl_main = min(stream_len, PAIR_CAP)
+    sl_main = min(stream_len, pair_cap)
     pos = torch.arange(sl_main, device=dev)
     sid_stream = torch.where(pos < n_live, sorted_p[:sl_main], t)
     fits = (starts + counts) <= sl_main
-    bad = overspan.any() | bad_cap | (n_live > PAIR_CAP)
+    bad = overspan.any() | bad_cap | (n_live > pair_cap)
     return dict(stream=full_pad[sid_stream],
                 starts=torch.where(fits, starts, 0).to(torch.int32),
                 counts=torch.where(fits, counts, 0).to(torch.int32),
@@ -529,14 +543,16 @@ def _params(viewport, height: int, width: int, extra=None, dev=None):
 def ordered_blend_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
                              rect, clipd, state_i, state_f, fog_color, zb,
                              viewport, height: int, width: int,
-                             tile: int = 32, windows: tuple = WINDOWS):
+                             tile: int = 32, windows: tuple = WINDOWS,
+                             pair_cap: int = PAIR_CAP):
     """Ordered alpha blend over the opaque frame, as per-pixel affine maps.
 
     Inputs are the ordered_subset batch fields in draw order. Returns
     (A (4,H,W), B (4,H,W), bad ()): the caller composites ``A·fb + B``, or
     replays the exact pass when ``bad`` is set."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
-                 clipd, state_i, state_f, zb, height, width, tile, windows)
+                 clipd, state_i, state_f, zb, height, width, tile, windows,
+                 pair_cap)
     ab = blend_phase_b(
         pa["stream"], pa["starts"], pa["counts"],
         _params(viewport, height, width, fog_color, xyw.device),
@@ -561,12 +577,14 @@ def _peel_phase_b(pa: dict, skip: int, viewport, height: int, width: int,
 def ordered_peel_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
                             rect, clipd, state_i, state_f, zb, viewport,
                             height: int, width: int, tile: int = 32,
-                            windows: tuple = WINDOWS):
+                            windows: tuple = WINDOWS,
+                            pair_cap: int = PAIR_CAP):
     """ONE round of draw-order fragment peeling. Returns (lids (K,H,W)
     int32, -1 = none; les (K,3,H,W) raw winner edge values; bad ()), where
     ``bad`` joins the phase-A flag and the per-pixel layer overflow."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
-                 clipd, state_i, state_f, zb, height, width, tile, windows)
+                 clipd, state_i, state_f, zb, height, width, tile, windows,
+                 pair_cap)
     lids, les, ovf = _peel_phase_b(pa, 0, viewport, height, width, tile)
     return lids, les, pa["bad"] | ovf
 
@@ -574,7 +592,7 @@ def ordered_peel_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
 def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
                          fog, state_idx, rect, clipd, state_i, state_f, zb,
                          viewport, height: int, width: int, tile: int = 32,
-                         windows: tuple = WINDOWS):
+                         windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP):
     """Iterated depth peeling: composite ordered layers K at a time with
     ``composite_fn(fb, lids, les)`` until every pixel's fragment list is
     drained — exact at any depth. Phase A runs once; each further round
@@ -584,7 +602,8 @@ def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
     overflow; when it is set no round runs, ``fb`` comes back unchanged and
     ``rounds`` is 0 — the caller replays its exact sequential pass."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
-                 clipd, state_i, state_f, zb, height, width, tile, windows)
+                 clipd, state_i, state_f, zb, height, width, tile, windows,
+                 pair_cap)
     # Host read, once per frame: the replay decision.
     if bool(pa["bad"]):
         return fb, True, 0

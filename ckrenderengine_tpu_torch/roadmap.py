@@ -10,8 +10,6 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    2: "stencil pass",
-    3: "antialias supersampling",
     4: "frame windows",
     7: "line pass",
     8: "3D sprites",

@@ -10,8 +10,11 @@ The scenes are those of ``benchmarks/baseline.py`` (configs 1 to 4: config
 device-bound clip and Bezier patch sheet, and ``config4_skin``, config 4
 without the sheet), ``bench.build_scene`` (config 5) and
 ``benchmarks/stress.py`` (the two transparency stress cases), plus a small
-alpha-test cutout scene; sizes are parameters so the tests can cut the
-frame, the hierarchy, the terrain, the sheets and the skinned tube down.
+alpha-test cutout scene and config 2 with a stencil-only mesh; sizes are
+parameters so the tests can cut the frame, the hierarchy, the terrain, the
+sheets and the skinned tube down. Every build function takes
+``antialias=True`` to switch the render manager's Antialias option on (the
+frame then renders at twice its size and resolves to it).
 """
 
 from __future__ import annotations
@@ -74,10 +77,20 @@ def _cube(s: float):
     return verts, faces
 
 
-def build_config1(O, size: int = 256, **ctx_kw):
+def _context(O, antialias: bool, ctx_kw):
+    """A ``CKContext`` of ``O``; with ``antialias`` its render manager's
+    Antialias option is on, so every frame renders at twice the size and
+    resolves to it."""
+    ctx = O.CKContext(**ctx_kw)
+    if antialias:
+        ctx.GetRenderManager().SetRenderOptions("Antialias", 1)
+    return ctx
+
+
+def build_config1(O, size: int = 256, antialias: bool = False, **ctx_kw):
     """Flat-shaded cube (BASELINE config 1, 256x256). Returns
     (ctx, rc, cube); rotate ``cube`` about y by 0.02 per tick."""
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(size, size)
     cam = O.CKCamera(ctx, "cam")
     cam.SetPosition((0.0, 1.0, -4.0))
@@ -96,12 +109,12 @@ def build_config1(O, size: int = 256, **ctx_kw):
 
 
 def build_config2(O, width: int = 640, height: int = 480,
-                  mips: bool = False, **ctx_kw):
+                  mips: bool = False, antialias: bool = False, **ctx_kw):
     """Lit sphere over a textured plane, 2 lights (BASELINE config 2,
     640x480). ``mips``: the plane's texture gets a mip chain and a
     trilinear filter (the BASELINE scene has none), so the frame needs a
     mip LOD. Returns (ctx, rc, ball); rotate ``ball`` by 0.03 per tick."""
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(width, height)
     cam = O.CKCamera(ctx, "cam")
     cam.SetPosition((0.0, 2.0, -7.0))
@@ -156,7 +169,8 @@ def build_config2(O, width: int = 640, height: int = 480,
 
 
 def build_config3(O, width: int = 1024, height: int = 768,
-                  n_entities: int = 1000, **ctx_kw):
+                  n_entities: int = 1000, antialias: bool = False,
+                  **ctx_kw):
     """1,000-entity hierarchy of depth 6 with a sun, a moving point light
     and a foreground HUD (BASELINE config 3,
     ``benchmarks/baseline.py:138-228``): cube entities in trees grown from
@@ -165,7 +179,7 @@ def build_config3(O, width: int = 1024, height: int = 768,
     ``n_entities`` cuts the hierarchy (the label says the count). Returns
     (ctx, rc, tick); each ``tick()`` rotates the roots by 0.01 about y and
     moves the bulb along its circle, as the source's tick does."""
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(width, height)
     cam = O.CKCamera(ctx, "cam")
     cam.SetPosition((0.0, 10.0, -42.0))
@@ -381,8 +395,8 @@ def make_patch_sheet(O, ctx, n: int = 6, iterations: int = 5,
 
 
 def _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
-             sheet: bool, ctx_kw):
-    ctx = O.CKContext(**ctx_kw)
+             sheet: bool, antialias: bool, ctx_kw):
+    ctx = _context(O, antialias, ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(width, height)
     cam = O.CKCamera(ctx, "cam")
     cam.SetPosition((8.0, 6.0, -14.0))
@@ -417,7 +431,8 @@ def _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
 
 def build_config4(O, width: int = 1024, height: int = 768,
                   n_bones: int = 128, rings_per_bone: int = 4,
-                  ring_verts: int = 120, **ctx_kw):
+                  ring_verts: int = 120, antialias: bool = False,
+                  **ctx_kw):
     """BASELINE config 4 (``benchmarks/baseline.py:369-417``): a tube of
     61,440 vertices and 122,640 triangles at the defaults, skinned to 128
     bones, with a keyed clip of 13 keys on each of 128 rotation tracks
@@ -427,29 +442,31 @@ def build_config4(O, width: int = 1024, height: int = 768,
     tick); ``tick()`` advances the clip by 0.5 frames modulo its length,
     as the source's tick does."""
     return _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
-                    True, ctx_kw)
+                    True, antialias, ctx_kw)
 
 
 def build_config4_skin(O, width: int = 1024, height: int = 768,
                        n_bones: int = 128, rings_per_bone: int = 4,
-                       ring_verts: int = 120, **ctx_kw):
+                       ring_verts: int = 120, antialias: bool = False,
+                       **ctx_kw):
     """:func:`build_config4` without its Bezier patch sheet: the tube,
     bones, clip, camera, light and frame of config 4 alone, for comparing
     with measurements taken before the sheet was carried. Returns (ctx, rc,
     tick)."""
     return _config4(O, width, height, n_bones, rings_per_bone, ring_verts,
-                    False, ctx_kw)
+                    False, antialias, ctx_kw)
 
 
 def build_config5(O, width: int = 1024, height: int = 768,
-                  terrain_n: int = 500, n_balls: int = 64, **ctx_kw):
+                  terrain_n: int = 500, n_balls: int = 64,
+                  antialias: bool = False, **ctx_kw):
     """Ballance-scale level (BASELINE config 5, ``bench.build_scene``): a
     terrain of 2*terrain_n^2 triangles (528,032 triangles in all at the
     default 500), 64 spheres under a rotating parent, linear fog, textures,
     specular, a point and a directional light, places with a portal, and
     host chunk culling. Returns (ctx, rc, spinner); rotate ``spinner``
     about y per tick."""
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     rc = ctx.GetRenderManager().CreateRenderContext(width, height)
     cam = O.CKCamera(ctx, "cam")
     cam.SetPosition((0.0, 18.0, -60.0))
@@ -600,7 +617,8 @@ def _sheets(O, ctx, name, mat, n_sheets, sheet_n, amp, seed, place):
 
 
 def build_alpha50k(O, width: int = 1024, height: int = 768,
-                   n_sheets: int = 25, sheet_n: int = 31, **ctx_kw):
+                   n_sheets: int = 25, sheet_n: int = 31,
+                   antialias: bool = False, **ctx_kw):
     """Untextured transparency at scale (``benchmarks/stress.py``
     ``case_alpha50k``): 25 sheets x 1,922 = 48,050 alpha-over triangles,
     z-write off, over a 3,200-triangle opaque floor at 1024x768. Every
@@ -609,7 +627,7 @@ def build_alpha50k(O, width: int = 1024, height: int = 768,
     0.02 per tick."""
     from .raster.types import VXBLEND
 
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     rc = _alpha_stage(O, ctx, width, height)
     amat = O.CKMaterial(ctx, "glass")
     amat.SetDiffuse((0.9, 0.3, 0.25, 0.35))
@@ -624,7 +642,8 @@ def build_alpha50k(O, width: int = 1024, height: int = 768,
 
 
 def build_alpha_tex50k(O, width: int = 1024, height: int = 768,
-                       n_sheets: int = 4, sheet_n: int = 79, **ctx_kw):
+                       n_sheets: int = 4, sheet_n: int = 79,
+                       antialias: bool = False, **ctx_kw):
     """Textured transparency at scale (``benchmarks/stress.py``
     ``case_alpha_tex50k``): 4 sheets x 12,482 = 49,928 textured alpha-over
     triangles over the opaque floor at 1024x768, with the TexturedPeel
@@ -635,7 +654,7 @@ def build_alpha_tex50k(O, width: int = 1024, height: int = 768,
     tick."""
     from .raster.types import VXBLEND
 
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     ctx.GetRenderManager().SetRenderOptions("TexturedPeel", 1)
     rc = _alpha_stage(O, ctx, width, height)
     tex = O.CKTexture(ctx, "glasstex")
@@ -656,7 +675,7 @@ def build_alpha_tex50k(O, width: int = 1024, height: int = 768,
 
 
 def build_cutout(O, width: int = 256, height: int = 192, n_fences: int = 6,
-                 fence_n: int = 2, **ctx_kw):
+                 fence_n: int = 2, antialias: bool = False, **ctx_kw):
     """Alpha-test cutouts that write z: ``n_fences`` upright textured fences
     (2*fence_n^2 triangles each, checker alpha, alpha test GREATER 128,
     MODULATE texture blend, z-write on) standing in a row over the opaque
@@ -665,7 +684,7 @@ def build_cutout(O, width: int = 256, height: int = 192, n_fences: int = 6,
     one. Returns (ctx, rc, spinner)."""
     from .raster.types import VXCMP
 
-    ctx = O.CKContext(**ctx_kw)
+    ctx = _context(O, antialias, ctx_kw)
     rc = _alpha_stage(O, ctx, width, height)
     tex = O.CKTexture(ctx, "fencetex")
     img = (np.indices((8, 8)).sum(0) % 2).astype(np.float32)
@@ -694,3 +713,39 @@ def build_cutout(O, width: int = 256, height: int = 192, n_fences: int = 6,
         f.SetParent(spinner)
         f.SetPosition((-12.0 + i * 5.0, 0.0, -4.0 + i * 3.0), ref=spinner)
     return ctx, rc, spinner
+
+
+def add_stencil_quad(O, ctx, x0: float, y0: float, x1: float, y1: float,
+                     z: float, name: str = "mask"):
+    """A two-sided upright quad [x0, x1] x [y0, y1] at depth ``z`` drawn as
+    a stencil-only entity (``VX_MOVEABLE_STENCILONLY``): it writes the
+    render context's stencil mask where it passes the z test, and neither
+    colour nor depth. Returns the entity."""
+    from .scene.entity_table import VX_MOVEABLE_STENCILONLY
+
+    mesh = O.CKMesh(ctx, f"{name}m")
+    mesh.SetPositions(np.array([[x0, y0, z], [x1, y0, z], [x1, y1, z],
+                                [x0, y1, z]], np.float32))
+    mesh.SetFaces(np.array([[0, 2, 1], [0, 3, 2]], np.int32))
+    mesh.BuildNormals()
+    mat = O.CKMaterial(ctx, f"{name}mat")
+    mat.SetEmissive((1.0, 1.0, 1.0, 1.0))
+    mat.SetTwoSided(True)
+    mesh.ApplyGlobalMaterial(mat)
+    obj = O.CK3dObject(ctx, name)
+    obj.SetCurrentMesh(mesh)
+    obj.SetMoveableFlags(obj.GetMoveableFlags() | VX_MOVEABLE_STENCILONLY)
+    return obj
+
+
+def build_stencil(O, width: int = 640, height: int = 480,
+                  antialias: bool = False, **ctx_kw):
+    """BASELINE config 2 (:func:`build_config2`) plus one stencil-only quad
+    standing behind the sphere (z = 2, clear of the sphere's radius), so
+    the sphere hides part of it and the floor lies behind the rest: the
+    frame's mask ``sb`` is 1 where the quad is seen and 0 behind the
+    sphere. Returns (ctx, rc, ball); rotate ``ball`` by 0.03 per tick."""
+    ctx, rc, ball = build_config2(O, width, height, antialias=antialias,
+                                  **ctx_kw)
+    add_stencil_quad(O, ctx, -3.0, -0.5, 0.5, 3.0, 2.0)
+    return ctx, rc, ball

@@ -107,7 +107,8 @@ def reference_winners(static, dyn_f, dyn_i, params):
     a time (so no multiply-add is contracted across them) and its flat exact
     solve; ``setup`` is the triangle-setup dict as numpy arrays. A bound
     clip's ``world_in`` and the skin stage are applied first, as the
-    reference's frame does."""
+    reference's frame does. An Antialias frame (``params["ss"]`` > 1) is
+    solved at its render size."""
     import jax.numpy as jnp
     from ckrenderengine_tpu.pipeline import frame as jfr
     from ckrenderengine_tpu.pipeline.packing import has_field
@@ -115,8 +116,9 @@ def reference_winners(static, dyn_f, dyn_i, params):
     from ckrenderengine_tpu.raster import deferred as jdf
 
     layout = params["layout"]
+    ss = params.get("ss", 1)
     scene, _sprites, d = jfr.unpack_scene(static, jnp.asarray(dyn_f),
-                                          jnp.asarray(dyn_i), layout)
+                                          jnp.asarray(dyn_i), layout, ss=ss)
     world = params.get("world_in")
     if params.get("skin") is not None:
         if world is None:
@@ -141,7 +143,7 @@ def reference_winners(static, dyn_f, dyn_i, params):
                                clip_rect=batch.clip_rect, clipd=batch.clipd,
                                planar=batch.planar)
     bi, bd = jdf.depth_reduce(setup, defer, scene.clear_z, scene.viewport,
-                              params["height"], params["width"])
+                              params["height"] * ss, params["width"] * ss)
     return (np.asarray(bi), np.asarray(bd),
             {k: np.asarray(v) for k, v in setup.items()})
 
@@ -406,11 +408,91 @@ def check_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None):
     assert (ids_ref >= 0).mean() > 0.1
 
 
+def _windows(x, ss):
+    """(H*ss, W*ss) -> (H, ss, W, ss): each display pixel's samples."""
+    x = np.asarray(x)
+    return x.reshape(x.shape[0] // ss, ss, x.shape[1] // ss, ss)
+
+
+def win_all(m, ss=2):
+    return _windows(m, ss).all(axis=(1, 3))
+
+
+def win_max(x, ss=2):
+    return _windows(x, ss).max(axis=(1, 3))
+
+
+def win_min(x, ss=2):
+    return _windows(x, ss).min(axis=(1, 3))
+
+
+def _assert_lo_depth_close(got, ref, bound, where, atol=4e-6):
+    diff = np.abs(np.asarray(got, np.float64)
+                  - np.asarray(ref, np.float64))[where]
+    tol = atol + 2 * _FRAME_SLACK * bound[where]
+    assert np.all(diff <= tol), float((diff - tol).max())
+
+
+def check_aa_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None,
+                                     ss=2):
+    """An Antialias frame of the port against the reference: the bounds of
+    :func:`check_frame_against_reference`, taken per display pixel over
+    its ss x ss samples. ``ids`` and ``ref`` = (ids, depth, setup) are at
+    the render size, ``fb``, ``zb`` and the reference's frame ``rj`` at the
+    display size (resolved: fb by the window mean, zb by its minimum).
+
+    - Winners at the render size: equal on >= 99.9% of the samples, ties
+      elsewhere (or held to each package's own setup with ``setup_port``).
+    - A display pixel whose samples all have equal winners: its zb within
+      ``4e-6 + 2 * _FRAME_SLACK`` times the largest depth bound of its
+      samples of the minimum of the reference's exact solve (the minimum of
+      values each within a bound is within the largest bound).
+    - Framebuffers within 1/255 on all but 0.1% of the pixels whose samples
+      all match; those sit on an ill-conditioned edge (the largest
+      :func:`edge_condition` of their samples > 1e3)."""
+    ids_ref, depth_ref, setup = ref
+    same = ids == ids_ref
+    assert same.mean() >= 0.999, same.mean()
+    if setup_port is None:
+        assert_winner_ties(ids, ids_ref, setup)
+        well = same
+    else:
+        assert_winners_own_setup(ids, ids_ref, setup_port, setup)
+        well = same & (edge_condition(ids_ref, setup) <= 1e3)
+        cov = win_all(ids >= 0, ss)
+        _assert_lo_depth_close(
+            zb, win_min(np.nan_to_num(exact_depth(ids, setup_port),
+                                      nan=1.0), ss),
+            win_max(depth_error_bound(ids, setup_port), ss), cov)
+    bound = win_max(depth_error_bound(ids_ref, setup), ss)
+    depth_lo = win_min(depth_ref, ss)
+    _assert_lo_depth_close(zb, depth_lo, bound, win_all(well, ss))
+
+    fb_ref, zb_ref = np.asarray(rj.fb), np.asarray(rj.zb)
+    consistent = (np.abs(zb_ref.astype(np.float64) - depth_lo)
+                  <= 4e-6 + 2 * _FRAME_SLACK * bound)
+    match = win_all(same, ss) & consistent
+    if setup_port is not None and getattr(rj, "frame_ids", None) is not None:
+        match &= win_all(rj.frame_ids == ids_ref, ss)
+    assert match.mean() >= 0.999, match.mean()
+    _assert_lo_depth_close(zb, zb_ref, bound, match & win_all(well, ss))
+    diff = np.abs(np.asarray(fb, np.float64)
+                  - np.asarray(fb_ref, np.float64)).max(0)
+    off = (diff > 1.0 / 255.0) & match
+    assert off.sum() <= 1e-3 * match.sum(), (int(off.sum()),
+                                             float(diff[match].max()))
+    if off.any():
+        cond = win_max(edge_condition(ids_ref, setup), ss)
+        assert np.all(cond[off] > 1e3), cond[off].min()
+    assert (ids_ref >= 0).mean() > 0.1
+
+
 def check_render(pair, own_setup: bool = False):
     """The port's Render() frame of ``pair`` (from :func:`render_both`)
     against the reference; the port's winners from its own packed inputs.
     ``own_setup``: hold differing winners to each package's own triangle
-    setup (:func:`assert_winners_own_setup`). Returns the port's frame
+    setup (:func:`assert_winners_own_setup`). An Antialias frame is held
+    to :func:`check_aa_frame_against_reference`. Returns the port's frame
     parameters."""
     from ckrenderengine_tpu_torch.pipeline import frame as tfr
 
@@ -422,8 +504,9 @@ def check_render(pair, own_setup: bool = False):
     if own_setup:
         setup_port = {k: to_np(v) for k, v in tfr.packed_setup(
             st, tf, ti, tp)[2].items() if isinstance(v, torch.Tensor)}
-    check_frame_against_reference(to_np(ids), to_np(rt.fb), to_np(rt.zb),
-                                  ref, rj, setup_port)
+    check = (check_frame_against_reference if tp.get("ss", 1) == 1
+             else check_aa_frame_against_reference)
+    check(to_np(ids), to_np(rt.fb), to_np(rt.zb), ref, rj, setup_port)
     return tp
 
 
