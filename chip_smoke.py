@@ -34,7 +34,13 @@ frames of configs 1, 2, 5 and ``alpha50k`` equal to the resolve of the
 frame rendered at twice the size) and the stencil scenes (config 2 with a
 stencil-only quad, with and without Antialias, and a flat one: the frame's
 solve and the stencil's launch B1 or B2 twice, and the mask equals the
-plain solve's on the card), and times the frames, the stages (the skinned
+plain solve's on the card), renders the five configs, both stress scenes
+and config 5 with Antialias in frame windows of 8 (``SetFramePipelining``;
+the ``window`` phase: each frame one CUDA-graph replay, every window's
+frames and fences bit-equal to the eager run's, no host synchronisation in
+the replay loops, the kernels seen in every replay, a forced pair-cap
+overflow and a too-small peel round count redone and then governed away),
+and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
 each kernel's roofline bound, under which no kernel's time may fall (B2
@@ -815,6 +821,9 @@ def main() -> int:
     stencil_phase(O, scenes, fr, kernel_fns, launches, cuda_tiled,
                   cuda_reduce)
 
+    # --- 4c. frame windows: W frames as CUDA-graph replays -----------------
+    window_phase(O, scenes, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1090,8 +1099,8 @@ def antialias_phase(O, scenes, fr, kernel_fns, launches) -> dict:
     emit("antialias_binstats", config="config5", binstats=binstats,
          fields=["peak", "live_pairs", "pair_cut_rows", "g_over_rows",
                  "slab_over_rows", "n_small", "n_mid"],
-         pair_cap=fr._solve_caps(rc5._compiled.tri_idx.shape[0],
-                                 None)["pair_cap"])
+         pair_cap=(rc5._solve_caps or (fr._solve_caps(
+             rc5._compiled.tri_idx.shape[0], None)["pair_cap"],))[0])
     fb0, zb0 = rc5.fb.clone(), rc5.zb.clone()
     os.environ["CK_FUSED_FETCH"] = "1"
     reset_launches(kernel_fns.values())
@@ -1124,6 +1133,259 @@ def antialias_phase(O, scenes, fr, kernel_fns, launches) -> dict:
               "frame at twice the size")
         del rc2, _c
     return out
+
+
+WINDOW = 8
+# (name, build function, keywords, kernels, full windows of ticks): 2W + 3
+# ticks at the BASELINE configs, W + 3 (one full window and a partial one)
+# at the stress scenes and config 5 with Antialias.
+WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 2),
+                 ("config2", "build_config2", {}, ("B1",), 2),
+                 ("config3", "build_config3", {}, ("B1",), 2),
+                 ("config4", "build_config4", {}, ("B1",), 2),
+                 ("config5", "build_config5", {}, ("B1",), 2),
+                 ("alpha50k", "build_alpha50k", {}, ("B1", "B3"), 1),
+                 ("alpha_tex50k", "build_alpha_tex50k", {}, ("B1", "B4"), 1),
+                 ("config5_aa", "build_config5", {"antialias": True},
+                  ("B1",), 1))
+
+
+def profiled_kernels(prof) -> dict:
+    """Device launches of each hand-written kernel in a profile: B5 is the
+    tiled solve's fetch instantiation (its second template argument)."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5"), 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "solve_tiled_kernel<" in e.name:
+            args = e.name.split("solve_tiled_kernel<", 1)[1].split(">", 1)[0]
+            fetch = args.split(",")[1].strip() in ("true", "1", "(bool)1")
+            out["B5" if fetch else "B1"] += 1
+        elif "reduce_flat_kernel" in e.name:
+            out["B2"] += 1
+        elif "ordered_blend_kernel" in e.name:
+            out["B3"] += 1
+        elif "ordered_peel_kernel" in e.name:
+            out["B4"] += 1
+    return out
+
+
+def host_launch_calls(prof) -> int:
+    """The runtime calls that put work on the card (graph launches, kernel
+    launches, copies) in a profile: what the host sends to the card."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type != DeviceType.CUDA
+               and e.name.startswith(("cudaGraphLaunch", "cudaLaunchKernel",
+                                      "cudaMemcpy", "cuLaunchKernel")))
+
+
+def window_phase(O, scenes, kernel_fns, launches, card) -> None:
+    """Frame windows (``SetFramePipelining``), W = 8, at the scenes' full
+    sizes: BASELINE configs 1-5, ``alpha50k``, ``alpha_tex50k`` and config
+    5 with Antialias. Each scene renders a first frame and then 2W + 3
+    ticks (its mover rotating, config 3's and 4's own tick; W + 3 at the
+    stress scenes and config 5 AA) once at W = 1 and once at W = 8, each in
+    a context of its own. Config 5 (at 1x) starts its ticks with a pair
+    cap of 32,768 (under its ~46k live pairs) and
+    ``alpha_tex50k`` with one peel round where its frames need two.
+
+    Checks: each window's last fb / zb and the final partial window's, and
+    every fence entry, bit-equal to the W = 1 run's frames and
+    ``window.checksum`` of them; every copy-and-replay loop runs under
+    ``set_sync_debug_mode("error")``; a torch.profiler window over one
+    window shows the scene's kernels W times (B4 R times per frame, B5 at
+    config 5 with ``CK_FUSED_FETCH``); the forced overflows are flagged
+    and redone, the governor bumps config 5's caps and from the next
+    window no frame is redone and ``SolveFallbackRows`` is 0. Prints per
+    scene the frame ms (median, p75) at W = 1 (each tick synchronised) and
+    W = 8 (host wall-clock of two fenced windows, over W), host launch calls
+    and device launches and ms per frame with the idle share (profiler),
+    and each key's capture ms and graph pool bytes, beside the card."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import device_us, profile_window
+    from ckrenderengine_tpu_torch.pipeline import window as fw
+
+    @contextlib.contextmanager
+    def no_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    captured, reads = [], []
+    capture, read = fw.FrameWindow._capture, fw.Pending.read
+
+    def spy_capture(self, slot):
+        capture(self, slot)
+        captured.append(self)
+
+    def spy_read(self):
+        rows = read(self)
+        reads.append(rows)
+        return rows
+
+    fw.FrameWindow._capture = spy_capture
+    fw.Pending.read = spy_read
+    fw.REPLAY_GUARD = no_sync
+    reset_launches(kernel_fns.values())
+    try:
+        for name, build, kw, kernels, n_windows in WINDOW_SCENES:
+            base = name.removesuffix("_aa")
+            n_ticks = n_windows * WINDOW + 3
+
+            def fresh():
+                ctx, rc, mover = render_config(getattr(scenes, build), O,
+                                               "cuda", **kw)
+                if name == "config5":
+                    rc._solve_caps = (32768,) + tuple(rc._solve_caps[1:])
+                if name == "alpha_tex50k":
+                    rc._peel_rounds = 1
+                return rc, ticker(base, mover)
+
+            # W = 1: every tick's frame, checksum and synchronised time.
+            rc1, step1 = fresh()
+            eager, lat1 = [], []
+            for _ in range(n_ticks):
+                t0 = time.monotonic()
+                step1()
+                rc1.Render()
+                torch.cuda.synchronize()
+                lat1.append((time.monotonic() - t0) * 1e3)
+                eager.append((rc1.fb.clone(), rc1.zb.clone(),
+                              fw.checksum(rc1.fb)))
+            # CUDA activity alone: it holds the kernels and the runtime's
+            # launch and copy calls, without the cost of every CPU op.
+            prof1, _w = profile_window(
+                lambda: (step1(), rc1.Render()), 1, [ProfilerActivity.CUDA],
+                lambda p: sum(profiled_kernels(p).values()) > 0,
+                label=name + "_w1")
+            # W = 8.
+            rc, step = fresh()
+            bumps0 = rc.stats.SolveCapBumps
+            del captured[:], reads[:]
+            rc.SetFramePipelining(WINDOW)
+            fences, last = [], []
+            for i in range(n_ticks):
+                step()
+                rc.Render()
+                if i % WINDOW == WINDOW - 1 or i == n_ticks - 1:
+                    fences.append(rc.GetFrameFence().clone())
+                    last.append((i, rc.fb.clone(), rc.zb.clone(),
+                                 rc.stats.SolveFallbackRows))
+            flagged = [int(fw.flagged(r).sum()) for r in reads]
+            frames_ok = all(torch.equal(fb, eager[i][0])
+                            and torch.equal(zb, eager[i][1])
+                            for i, fb, zb, _f in last)
+            want = torch.stack([e[2] for e in eager])
+            got = torch.cat([f[:min(WINDOW, n_ticks - WINDOW * k)]
+                             for k, f in enumerate(fences)])
+            pad_ok = torch.equal(fences[-1][3:], want[-1].expand(WINDOW - 3))
+            fences_ok = bool(torch.equal(got, want)) and bool(pad_ok)
+            rounds = rc._window.rounds
+            lat8 = []
+            for _ in range(2):
+                t0 = time.monotonic()
+                for _ in range(WINDOW):
+                    step()
+                    rc.Render()
+                rc.GetFrameFence().cpu()
+                lat8.append((time.monotonic() - t0) * 1e3 / WINDOW)
+
+            def one_window():
+                for _ in range(WINDOW):
+                    step()
+                    rc.Render()
+                rc.GetFrameFence()
+                torch.cuda.synchronize()
+
+            def whole(p):
+                k = profiled_kernels(p)
+                return all(k[x] > 0 and k[x] % WINDOW == 0 for x in kernels)
+
+            prof8, _w = profile_window(
+                one_window, 1, [ProfilerActivity.CUDA], whole,
+                label=name + "_w8")
+            seen = profiled_kernels(prof8)
+            want_k = {k: (WINDOW * (rounds if k == "B4" else 1)
+                          if k in kernels else 0) for k in seen}
+            dev8 = [e for e in prof8.events()
+                    if e.device_type == DeviceType.CUDA]
+            dev1 = [e for e in prof1.events()
+                    if e.device_type == DeviceType.CUDA]
+            med1, med8 = float(np.median(lat1)), float(np.median(lat8))
+            dev_ms1 = device_us(dev1) / 1e3
+            dev_ms8 = device_us(dev8) / 1e3 / WINDOW
+            keys = [{"capture_ms": w.capture_ms, "pool_bytes": w.pool_bytes}
+                    for w in captured]
+            s = rc.stats
+            emit("window", config=name, card=card, size=[rc.width, rc.height],
+                 window=WINDOW, frames=n_ticks, frames_bit_equal=frames_ok,
+                 fences_bit_equal=fences_ok, flagged_per_window=flagged,
+                 solve_caps=list(rc._solve_caps or ()),
+                 cap_bumps=s.SolveCapBumps - bumps0,
+                 fallback_rows_after=[x[3] for x in last],
+                 peel_rounds=rounds, profiled_kernels=seen,
+                 expected_kernels=want_k,
+                 frame_ms_w1={"median": med1,
+                              "p75": float(np.percentile(lat1, 75))},
+                 frame_ms_w8={"median": med8,
+                              "p75": float(np.percentile(lat8, 75))},
+                 host_launch_calls_per_frame={
+                     "w1": host_launch_calls(prof1),
+                     "w8": host_launch_calls(prof8) / WINDOW},
+                 device_launches_per_frame={"w1": len(dev1),
+                                            "w8": len(dev8) / WINDOW},
+                 device_ms_per_frame={"w1": dev_ms1, "w8": dev_ms8},
+                 device_idle_share={"w1": 1.0 - dev_ms1 / med1,
+                                    "w8": 1.0 - dev_ms8 / med8},
+                 keys=keys)
+            check(frames_ok, f"{name}: a windowed frame differs from W = 1")
+            check(fences_ok, f"{name}: the fences differ from W = 1's "
+                  "checksums")
+            check(seen == want_k, f"{name}: a window launched {seen}, "
+                  f"expected {want_k}")
+            if name in ("config5", "alpha_tex50k"):
+                check(flagged[0] > 0 and not any(flagged[1:]),
+                      f"{name}: flagged frames per window {flagged}")
+                check(last[-1][3] == 0 and last[1][3] == 0,
+                      f"{name}: fallback rows {[x[3] for x in last]}")
+            if name == "config5":
+                check(s.SolveCapBumps - bumps0 >= 1, f"{name}: no bump")
+            if name == "alpha_tex50k":
+                check(rounds == 2, f"{name}: {rounds} peel rounds")
+            if name == "config5":
+                # The fused fetch inside the graph: B5 once per frame.
+                os.environ["CK_FUSED_FETCH"] = "1"
+                try:
+                    prof5, _w = profile_window(
+                        one_window, 1, [ProfilerActivity.CUDA],
+                        lambda p: profiled_kernels(p)["B5"] > 0,
+                        label="config5_fused_w8")
+                finally:
+                    del os.environ["CK_FUSED_FETCH"]
+                seen5 = profiled_kernels(prof5)
+                emit("window_fused_fetch", config=name, card=card,
+                     profiled_kernels=seen5)
+                check(seen5["B5"] == WINDOW and seen5["B1"] == 0,
+                      f"{name}: fused-fetch window launched {seen5}")
+            del rc, rc1
+    finally:
+        fw.FrameWindow._capture = capture
+        fw.Pending.read = read
+        fw.REPLAY_GUARD = None
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in launches:
+        launches[k] += got[k]
+    check(all(got[k] > 0 for k in kernel_fns),
+          f"window phase: wrapper launches {got}")
 
 
 def ordered_caps_check(rc, fr) -> dict:

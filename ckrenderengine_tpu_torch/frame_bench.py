@@ -24,6 +24,12 @@ lists (``fill_packed_ms``, median of 20), then profiles 3 more ticks with
 the card of each hand-written kernel the frames launched (``kernel_ms``; the
 tiled solve is B5 when ``CK_FUSED_FETCH`` is set, B1 otherwise) and the
 device's idle share (1 - device ms per frame / the frame median).
+``--window W`` renders each scene's ticks through frame windows
+(``SetFramePipelining(W)``; the first frame stays eager): each timed run
+is a whole number of windows fenced by ``GetFrameFence()`` read back to the
+host, the latency is a fenced window's wall-clock over W (median and p75 of
+at least 5 windows), and the profile covers one window, its counts divided
+by W. One call can so compare W = 1 and W = 8 on one tree.
 ``--frames DIR`` also saves every scene's first frame (fb and zb) as ``.npy``
 files, so two trees' frames can be compared bit for bit. ``--flat DIR``
 first times the flat solve B2 alone (``reduce_flat_kernel``, its own time
@@ -201,7 +207,9 @@ def main() -> int:
     ap.add_argument("--out", required=True)
     ap.add_argument("--frames", default=None)
     ap.add_argument("--flat", default=None)
+    ap.add_argument("--window", type=int, default=1)
     args = ap.parse_args()
+    window = max(1, args.window)
     # A run that stalls says where: every 120 s all stacks go to stderr.
     faulthandler.dump_traceback_later(120, repeat=True)
 
@@ -221,7 +229,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    out = {"root": args.root, "card": card, "ticks": TICKS,
+    out = {"root": args.root, "card": card, "ticks": TICKS, "window": window,
            "fused_fetch": bool(os.environ.get("CK_FUSED_FETCH")),
            "scenes": {}}
 
@@ -243,37 +251,52 @@ def main() -> int:
             np.save(os.path.join(args.frames, name + "_zb.npy"),
                     rc.zb.cpu().numpy())
 
-        def tick():
+        def step():
             if angle is None:
                 mover()
             else:
                 mover.Rotate((0, 1, 0), angle)
             rc.Render()
 
+        def fence():
+            if window > 1:
+                rc.GetFrameFence().cpu()
+            torch.cuda.synchronize()
+
+        def tick():
+            """One frame, or with --window one fenced window of frames."""
+            for _ in range(window):
+                step()
+            fence()
+
+        rc.SetFramePipelining(window)
         for _ in range(2):
             tick()
         torch.cuda.synchronize()
+        rounds = -(-TICKS // window)
         t0 = time.monotonic()
-        for _ in range(TICKS):
-            tick()
-        torch.cuda.synchronize()
-        fps = TICKS / (time.monotonic() - t0)
+        for _ in range(rounds):
+            for _ in range(window):
+                step()
+        fence()
+        fps = rounds * window / (time.monotonic() - t0)
         lat = []
-        for _ in range(40):
+        for _ in range(max(5, 40 // window)):
             t1 = time.monotonic()
             tick()
-            torch.cuda.synchronize()
-            lat.append((time.monotonic() - t1) * 1e3)
+            lat.append((time.monotonic() - t1) * 1e3 / window)
         fill = []
         quads = rc._quad_lists()
         for _ in range(20):
             t1 = time.monotonic()
             rc._fill_packed(*quads)
             fill.append((time.monotonic() - t1) * 1e3)
+        reps = 1 if window > 1 else 3
         prof, _wall = profile_window(
-            tick, 3, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            tick, reps, [ProfilerActivity.CPU, ProfilerActivity.CUDA],
             lambda p: any(e.device_type == DeviceType.CUDA
                           for e in p.events()))
+        frames = reps * window
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         dev_us = device_us(dev)
         by_kernel = {k: [e for e in dev if k in e.name] for k in KERNELS}
@@ -283,9 +306,9 @@ def main() -> int:
             "frame_ms_median": median,
             "frame_ms_p75": float(np.percentile(lat, 75)),
             "fill_packed_ms": float(np.median(fill)),
-            "device_launches_per_frame": len(dev) / 3,
-            "device_ms_per_frame": dev_us / 1e3 / 3,
-            "device_idle_share": 1.0 - dev_us / 1e3 / 3 / median,
+            "device_launches_per_frame": len(dev) / frames,
+            "device_ms_per_frame": dev_us / 1e3 / frames,
+            "device_idle_share": 1.0 - dev_us / 1e3 / frames / median,
             "kernel_ms": {k: device_us(ev) / 1e3 / len(ev)
                           for k, ev in by_kernel.items() if ev}}
         print(json.dumps({"root": args.root, "scene": name,

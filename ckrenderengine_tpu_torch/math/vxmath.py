@@ -261,8 +261,8 @@ def clip_flags(clip: torch.Tensor) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.int32, device=clip.device)
 
     def bit(cond, v):
-        return torch.where(cond, torch.tensor(v, dtype=torch.int32,
-                                              device=clip.device), zero)
+        return torch.where(cond, torch.full((), v, dtype=torch.int32,
+                                            device=clip.device), zero)
 
     return (bit(-w > x, VXCLIP_LEFT) | bit(x > w, VXCLIP_RIGHT)
             | bit(-w > y, VXCLIP_BOTTOM) | bit(y > w, VXCLIP_TOP)

@@ -1,15 +1,18 @@
 """CKRenderContext: one drawable surface -> the one-frame device program
 (reference RCKRenderContext, src/CKRenderContext.cpp).
 
-The host half of the opaque frame, carried from the reference package: the
+The host half of the frame, carried from the reference package: the
 scene compile, the texture stack, the per-frame packed buffers, host chunk
 culling and portal traversal, then ONE call of
-``pipeline.frame.render_frame_packed`` on ``CKContext.device``. Features
-outside this slice (frame windows, stereo, render-to-texture, tile
-sharding, device animation, the capacity governor) raise
-``NotImplementedError`` naming their ROADMAP item.
+``pipeline.frame.render_frame_packed`` on ``CKContext.device`` — or, with
+``SetFramePipelining(W)``, W staged frames run as one window of CUDA-graph
+replays (``pipeline.window``). The capacity governor sets the tiled
+solve's caps from its bin statistics, read where the host already reads.
+Features outside the ported slices (stereo, render-to-texture, tile
+sharding, ...) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
+import os
 import time
 
 import numpy as np
@@ -19,6 +22,7 @@ from .rendertypes import *          # noqa: F401,F403 (shared prelude)
 from .rendertypes import (          # explicit: names the body references
     _pad_to, _mip_chain, CompiledScene, VxStats,
 )
+from ..pipeline import window as fw
 from ..roadmap import unported
 
 
@@ -27,6 +31,15 @@ class CKRenderContext(CKObject):
 
     def __init__(self, context: CKContext, name: str = "", width: int = 256,
                  height: int = 256):
+        # Frame windows (SetFramePipelining): staged frames, their shared
+        # inputs, the window of the current key and the dispatched window
+        # whose read is pending.
+        self._win_size = 1
+        self._win_slots: list = []
+        self._win_ctx = None
+        self._win_fence = None
+        self._window = None
+        self._win_pending = None
         super().__init__(context, name)
         self.width = int(width)
         self.height = int(height)
@@ -52,9 +65,16 @@ class CKRenderContext(CKObject):
         self._bound_clip = None
         self.stereo_enabled = False
         self.target_texture = None
-        # Solve caps stay on the t_count heuristic: the capacity governor
-        # is not ported yet (ROADMAP.md port queue item 11).
+        # Capacity governor: (pair, slab, g) caps of the tiled solve, None
+        # = the frame's t_count heuristic until the first plan.
         self._solve_caps = None
+        self._gov_on = context.device.type == "cuda"
+        self._gov_frames = 0
+        self._gov_stash = None
+        self._gov_hist = []
+        self._gov_shrunk = False
+        # The peel's round count in a window (the eager frame's).
+        self._peel_rounds = None
         # Host chunk-cull survivor cap (bumps pre-dispatch; never drops).
         self._chunk_cap = None
         dev = context.device
@@ -92,14 +112,62 @@ class CKRenderContext(CKObject):
         self.user_clip_planes: dict[int, tuple] = {}
         self._global_render_mode = (2, True, False)   # (shading, tex, wire)
 
+    # -- frame windows (SetFramePipelining) ------------------------------
+    @property
+    def fb(self):
+        if self._win_slots or self._win_pending is not None:
+            self._sync_window()
+        return self._fb_val
+
+    @fb.setter
+    def fb(self, v):
+        self._fb_val = v
+        self._win_fence = None
+
+    @property
+    def zb(self):
+        if self._win_slots or self._win_pending is not None:
+            self._sync_window()
+        return self._zb_val
+
+    @zb.setter
+    def zb(self, v):
+        self._zb_val = v
+
+    @property
+    def sb(self):
+        if self._win_slots or self._win_pending is not None:
+            self._sync_window()
+        return self._sb_val
+
+    @sb.setter
+    def sb(self, v):
+        self._sb_val = v
+
     def SetFramePipelining(self, window: int = 1):
-        """Frame windows (W frames per device dispatch) are not carried yet:
-        W = 1 is the only accepted value."""
-        if int(window) > 1:
-            raise unported("frame windows (SetFramePipelining W > 1)", 4)
+        """Render up to ``window`` frames per window (reference
+        SetFramePipelining): Render() stages the frame's packed buffers, and
+        a full window, or the first read of fb / zb / sb or of the fence,
+        runs the staged frames, each as one replay of a CUDA graph captured
+        for the window's key (``pipeline.window``). A frame that accumulates,
+        reads a device texture, renders to a texture, runs in debug mode or
+        takes the exact tiled ordered pass renders eagerly, after the staged
+        ones. window = 1 restores the eager frame."""
+        self._sync_window()
+        self._win_size = max(1, int(window))
 
     def GetFramePipelining(self) -> int:
-        return 1
+        return self._win_size
+
+    def GetFrameFence(self):
+        """A completion token: in frame-window mode the last window's (W,)
+        f32 per-frame checksums (``window.checksum``; entries past a
+        partial window's frames repeat its last one), else the
+        framebuffer. The window is resolved first (its flagged frames
+        rendered again), so the token's frames are exact."""
+        self._sync_window()
+        f = self._win_fence
+        return f if f is not None else self.fb
 
     def AddPreRenderCallBack(self, fct, arg=None, temp: bool = False):
         self.pre_render_callbacks.append(("pre", fct, arg, temp))
@@ -230,6 +298,7 @@ class CKRenderContext(CKObject):
         return self.height
 
     def Resize(self, width: int, height: int):
+        self._sync_window()
         self.width = int(width)
         self.height = int(height)
         self.viewport = (0, 0, self.width, self.height)
@@ -258,6 +327,9 @@ class CKRenderContext(CKObject):
         ctx = self.context
         table = ctx.entity_table
         self._chunk_cap = None
+        self._solve_caps = None
+        self._gov_frames = 0
+        self._peel_rounds = None
 
         entities = self._scene_entities()
         c.n_entities = table.count
@@ -1656,10 +1728,13 @@ class CKRenderContext(CKObject):
         self._last_cam = (view, proj, vp)
         return view, proj, cam_pos
 
-    def _fill_packed(self, quads_bg_list, quads_fg_list):
+    def _fill_packed(self, quads_bg_list, quads_fg_list,
+                     defer_anim: bool = False):
         """Build this frame's packed buffers; returns
         (static, dyn_f, dyn_i, params) with params = the static-ish kwargs
-        of render_frame_packed."""
+        of render_frame_packed. ``defer_anim``: a bound clip is not
+        evaluated here; ``self._anim_req`` then holds (locals (N,4,4), clip
+        time) for the frame's own animate stage (else None)."""
         from ..pipeline.overlay import quad_windows
         from ..pipeline.packing import fill
 
@@ -1793,12 +1868,15 @@ class CKRenderContext(CKObject):
         # the (N,4,4) result as ``world_in``. The bank stays on the device
         # between frames; the clip time is a kernel argument.
         world_in = None
+        self._anim_req = None
         clip = self._bound_clip
         if clip is not None:
-            world_in = fr.eval_anim_world(
-                torch.tensor(table.local[:n], device=ctx.device),
-                static["parent"], clip.bank(n_entities=n, device=ctx.device),
-                clip.frame, self._compiled.levels)
+            anim = (table.local[:n].copy(), clip.frame)
+            if defer_anim:
+                self._anim_req = anim
+            else:
+                world_in = self._anim_world(static, dict(levels=c.levels),
+                                            anim)
         # Static sampler profile (any_nearest, any_mip) from this frame's
         # state bank: lets the shade skip the nearest-filter fetch and the
         # second mip level when no material needs them — the reference's
@@ -1901,44 +1979,311 @@ class CKRenderContext(CKObject):
         # caller may still hold this frame's.
         return static, self._buf_f.copy(), self._buf_i.copy(), params
 
+    def _debug_mode(self) -> bool:
+        rm = self.context.render_manager
+        return (bool(int(rm.options.get("EnableDebugMode", 0)))
+                if rm is not None else False)
+
+    def _anim_world(self, static, params, anim, bank=None):
+        """A bound clip's animate and compose stages at (locals, time):
+        ``bank`` (default the bound clip's) over the locals."""
+        local, t = anim
+        dev = self.context.device
+        if bank is None:
+            bank = self._bound_clip.bank(n_entities=local.shape[0],
+                                         device=dev)
+        return fr.eval_anim_world(torch.tensor(local, device=dev),
+                                  static["parent"], bank, t,
+                                  params["levels"])
+
     def _render_packed(self, quads_bg_list, quads_fg_list):
         """One frame through the two-buffer packed path: fill the buffers on
         the host, upload both, and run the frame on the context's device."""
         static, dyn_f, dyn_i, params = self._fill_packed(quads_bg_list,
                                                          quads_fg_list)
-        dev = self.context.device
-        dyn_f = torch.as_tensor(dyn_f, device=dev)
-        dyn_i = torch.as_tensor(dyn_i, device=dev)
-        rm = self.context.render_manager
-        debug_stats = (bool(int(rm.options.get("EnableDebugMode", 0)))
-                       if rm is not None else False)
         # CLEARBACK/CLEARZ off -> accumulate over last frame's buffers
         # (reference Clear flag handling, src/CKRenderContext.cpp:438-544).
         prev_fb = (None if (self._frame_flags & CK_RENDER_CLEARBACKBUFFER)
                    else self.fb)
         prev_zb = (None if (self._frame_flags & CK_RENDER_CLEARZBUFFER)
                    else self.zb)
-        # The ordered pass's counters are host values the frame holds
-        # anyway, so every frame reports them.
-        ordered = {}
+        fb, zb, sb, _host = self._render_eager(static, dyn_f, dyn_i, params,
+                                               prev_fb=prev_fb,
+                                               prev_zb=prev_zb)
+        if sb is not None:
+            self.sb = sb
+        return fb, zb
+
+    def _render_eager(self, static, dyn_f, dyn_i, params, anim=None,
+                      prev_fb=None, prev_zb=None, govern: bool = True,
+                      bank=None):
+        """Run one frame eagerly (the host reads its decisions, so it is
+        exact) from its packed buffers; ``anim``: a deferred bound clip's
+        (locals, time), evaluated with ``bank`` (default the bound clip's).
+        Updates the stats and, with ``govern``, hands the solve's bin
+        statistics to the capacity governor. Returns (fb, zb, sb or None,
+        host stats)."""
+        dev = self.context.device
+        if anim is not None:
+            params = dict(params, world_in=self._anim_world(static, params,
+                                                            anim, bank))
+        dyn_f = torch.as_tensor(dyn_f, device=dev)
+        dyn_i = torch.as_tensor(dyn_i, device=dev)
+        debug_stats = self._debug_mode()
+        # The ordered pass's counters and the solve's bin statistics are
+        # host values the frame holds anyway, so every frame reports them.
+        host = {}
         out = fr.render_frame_packed(
             static, dyn_f, dyn_i, **params, want_stats=debug_stats,
-            prev_fb=prev_fb, prev_zb=prev_zb, ordered_stats=ordered)
+            prev_fb=prev_fb, prev_zb=prev_zb, host_stats=host)
         s = self.stats
-        s.OrderedPeelOverflow = ordered["OrderedPeelOverflow"]
-        s.OrderedPeelRounds = ordered["OrderedPeelRounds"]
-        s.OrderedPeelCorrected += ordered["OrderedPeelCorrected"]
-        s.OrderedReplays += ordered["OrderedReplays"]
+        s.OrderedPeelOverflow = host["OrderedPeelOverflow"]
+        s.OrderedPeelRounds = host["OrderedPeelRounds"]
+        s.OrderedPeelCorrected += host["OrderedPeelCorrected"]
+        s.OrderedReplays += host["OrderedReplays"]
+        bins = host.get("SolveBinStats")
+        if bins is not None:
+            s.SolveLivePairs = bins[1]
+            s.SolveFallbackRows = bins[2] + bins[3] + bins[4]
+            if govern and self._gov_on:
+                self._governor_tick({"SolveBinStats": np.asarray(bins)})
+                self._governor_resolve()
         if debug_stats:
             out, dev_stats = out[:-1], out[-1]
             s.TileBinPeak = int(dev_stats["TileBinPeak"])
-            if "SolveLivePairs" in dev_stats:
-                s.SolveLivePairs = int(dev_stats["SolveLivePairs"])
-                s.SolveFallbackRows = int(dev_stats["SolveFallbackRows"])
-        if params["want_stencil"]:
-            fb, zb, self.sb = out
-            return fb, zb
-        return out
+        sb = out[2] if params["want_stencil"] else None
+        return out[0], out[1], sb, host
+
+    # -- capacity governor (reference rendercontext.py:2471-2617) ---------
+    def _default_solve_caps(self) -> tuple:
+        """Mirror of frame.py's t_count cap heuristic (pair, slab, g)."""
+        t = int(self._compiled.tri_idx.shape[0]) if \
+            self._compiled.tri_idx is not None else 0
+        return (98304 if t <= 600_000 else 262144,
+                131072 if t <= (1 << 21) else 262144,
+                8192)
+
+    def _governor_tick(self, dev_stats):
+        """Take one sample of the tiled solve's bin statistics (the 7-word
+        ``SolveBinStats``, or a (W, 7) window of them). The first sample
+        after a compile plans the caps at once; later ones are stashed and
+        applied by :meth:`_governor_resolve`. The port samples every frame
+        and every window at reads the host makes anyway (the eager frame's
+        remainder decision, a window's one read), so it has no sampling
+        cadence."""
+        bs = dev_stats.get("SolveBinStats")
+        if bs is None:
+            return
+        self._gov_frames += 1
+        if self._gov_frames == 1 and self._solve_caps is None:
+            self._gov_apply(np.asarray(bs))
+            return
+        self._gov_stash = bs
+
+    def _governor_resolve(self):
+        """Apply the newest stashed bin-stats sample."""
+        bs = self._gov_stash
+        if bs is None:
+            return
+        self._gov_stash = None
+        self._gov_apply(np.asarray(bs))
+
+    def _gov_apply(self, b):
+        """The reference's governor arithmetic: the first plan at 2.5x the
+        live pairs and small rows and 4x the mid rows (never above the
+        static defaults), a bump of a cap whose fallback ran or whose load
+        passed 95%, and once per compile a shrink to 1.25x the peak of the
+        last 6 samples (disabled for the compile by a later bump)."""
+        first = self._solve_caps is None
+        if b.ndim == 2:                       # window-stacked: worst frame
+            b = b.max(axis=0)
+        _peak, live, cut, g_over, s_over, n_small, n_mid = (
+            int(x) for x in b)
+        s = self.stats
+        s.SolveLivePairs = live
+        s.SolveFallbackRows = cut + g_over + s_over
+        pair0, slab0, g0 = self._default_solve_caps()
+        pair, slab, gcap = self._solve_caps or (pair0, slab0, g0)
+
+        def up16k(v):
+            return int(-(-int(v) // 16384) * 16384)
+
+        if first:
+            pair = min(pair0, up16k(max(49152, live * 2.5)))
+            slab = min(slab0, up16k(max(32768, n_small * 2.5)))
+            gp = 1024
+            while gp < max(n_mid * 4, 512):
+                gp *= 2
+            gcap = min(g0, max(gp, 1024))
+            self._solve_caps = (pair, slab, gcap)
+            self._gov_hist = []
+            self._gov_shrunk = False
+            return
+        changed = False
+        if cut > 0 or live > 0.95 * pair:
+            pair = up16k(max(pair * 1.5, live * 1.75))
+            changed = True
+        if s_over > 0 or n_small > 0.95 * slab:
+            slab = up16k(max(slab * 1.5, n_small * 1.75))
+            changed = True
+        if g_over > 0 or n_mid > 0.95 * gcap:
+            gcap = max(2 * gcap, 1024)
+            changed = True
+        if changed:
+            self._solve_caps = (pair, slab, gcap)
+            s.SolveCapBumps += 1
+            self._gov_hist = []
+            if self._gov_shrunk:
+                self._gov_shrunk = None      # disabled for this compile
+            return
+        if self._gov_shrunk is None or self._gov_shrunk:
+            return
+        hist = self._gov_hist
+        hist.append((live, n_small, n_mid))
+        if len(hist) < 6:
+            return
+        pl = max(h[0] for h in hist)
+        ps = max(h[1] for h in hist)
+        pm = max(h[2] for h in hist)
+        tp = min(pair, up16k(max(49152, pl * 1.25)))
+        ts = min(slab, up16k(max(32768, ps * 1.25)))
+        gp = 1024
+        while gp < max(pm * 1.5, 512):
+            gp *= 2
+        tg = min(gcap, max(gp, 1024))
+        if tp <= pair - 16384 or ts <= slab - 16384 or tg <= gcap // 2:
+            self._solve_caps = (tp, ts, tg)
+            s.SolveCapShrinks += 1
+            self._gov_shrunk = True
+        self._gov_hist = []
+
+    # -- window staging (reference rendercontext.py:2618-2768) ------------
+    def _render_windowed(self, quads_bg_list, quads_fg_list):
+        """Stage this frame into the window; a full window runs."""
+        accumulate = not (self._frame_flags & CK_RENDER_CLEARBACKBUFFER) \
+            or not (self._frame_flags & CK_RENDER_CLEARZBUFFER)
+        c = self._compiled
+        if (accumulate or getattr(c, "dev_ids", None)
+                or self.target_texture is not None or self._debug_mode()):
+            self._sync_window()
+            self.fb, self.zb = self._render_packed(quads_bg_list,
+                                                   quads_fg_list)
+            return
+        static, dyn_f, dyn_i, params = self._fill_packed(
+            quads_bg_list, quads_fg_list, defer_anim=True)
+        anim = self._anim_req
+        ss = params["ss"]
+        route = fr.ordered_route(
+            c.tri_idx.shape[0] if params["ordered_cap"] is None
+            else params["ordered_cap"], self.height * ss, self.width * ss,
+            params["sampler_profile"], params["pixel_shader"])
+        if params.get("texdev") or route == "tiled":
+            # The exact tiled ordered pass reads the host inside the frame.
+            self._sync_window()
+            fb, zb, sb, _host = self._render_eager(static, dyn_f, dyn_i,
+                                                   params, anim=anim)
+            self.fb, self.zb = fb, zb
+            if sb is not None:
+                self.sb = sb
+            return
+        bank = (None if anim is None else self._bound_clip.bank(
+            n_entities=anim[0].shape[0], device=self.context.device))
+        key = (fw.freeze({k: v for k, v in params.items()
+                          if k not in ("world_in", "solve_caps")}),
+               fw.freeze((c, static, bank, self._frame_flags,
+                          os.environ.get("CK_FUSED_FETCH", ""), route)))
+        if self._win_slots and self._win_ctx[0] != key:
+            # A mid-window change of anything the graph bakes in (layout,
+            # chunk cap, texture stack, sampler profile, quad windows, ...):
+            # the staged frames run as they are; this frame starts a new
+            # window.
+            self._flush_window()
+        if not self._win_slots:
+            self._win_ctx = (key, static, params, bank, route)
+        self._win_slots.append((dyn_f, dyn_i, anim))
+        if len(self._win_slots) >= self._win_size:
+            self._flush_window()
+
+    def _flush_window(self):
+        """Run the staged frames as one window. The previous window is
+        resolved first, so the governed caps and the peel's round count are
+        this window's; fb / zb / sb become the last frame's."""
+        slots = self._win_slots
+        if not slots:
+            return
+        self._win_slots = []
+        self._resolve_window()
+        key, static, params, bank, route = self._win_ctx
+        self._win_ctx = None
+        params = dict(params, solve_caps=self._solve_caps)
+        rounds = 0
+        if route == "peel":
+            if self._peel_rounds is None:
+                # The eager frame's round count fixes the window's.
+                host = self._render_eager(static, *slots[0][:2], params,
+                                          anim=slots[0][2], govern=False,
+                                          bank=bank)[3]
+                self._peel_rounds = max(1, host["OrderedPeelRounds"])
+            rounds = self._peel_rounds
+        key = key + (fw.freeze(params["solve_caps"]), rounds, self._win_size)
+        win = self._window
+        if win is None or win.key != key:
+            if win is not None:
+                win.release()
+            win = self._window = fw.FrameWindow(
+                key, static, params, bank, rounds, self._win_size,
+                self.context.device)
+        p = win.run(slots)
+        self._fb_val, self._zb_val = p.fb, p.zb
+        if p.sb is not None:
+            self._sb_val = p.sb
+        self._win_fence = p.fence
+        self._win_pending = p
+
+    def _resolve_window(self):
+        """The window's one host read: render each flagged frame again
+        through the eager path (the exact remainder, replay and peel), put
+        its checksum into the fence (and its buffers in place, for the last
+        frame), and give the window's worst bin statistics to the
+        governor."""
+        p = self._win_pending
+        if p is None:
+            return
+        self._win_pending = None
+        rows = p.read()
+        n = len(p.slots)
+        win = p.window
+        s = self.stats
+        if win.rounds:
+            s.OrderedPeelRounds = win.rounds
+            s.OrderedPeelOverflow = bool(
+                rows[:, fw.flag_word("PeelBad")].any())
+        for i in np.nonzero(fw.flagged(rows))[0]:
+            dyn_f, dyn_i, anim = p.slots[i]
+            fb, zb, sb, host = self._render_eager(
+                win.static, dyn_f, dyn_i, win.params, anim=anim,
+                govern=False, bank=win.bank)
+            p.replace(int(i), fb)
+            if win.rounds:
+                self._peel_rounds = max(self._peel_rounds or 1,
+                                        host["OrderedPeelRounds"])
+            if i == n - 1:
+                self._fb_val, self._zb_val = fb, zb
+                if sb is not None:
+                    self._sb_val = sb
+        if win.tiled:
+            bins = rows[:, fw.ROW_BINS]
+            worst = bins.max(axis=0)
+            s.SolveLivePairs = int(worst[1])
+            s.SolveFallbackRows = int(worst[2] + worst[3] + worst[4])
+            if self._gov_on:
+                self._governor_tick({"SolveBinStats": bins})
+                self._governor_resolve()
+
+    def _sync_window(self):
+        """Run the staged frames and resolve the pending window."""
+        self._flush_window()
+        self._resolve_window()
 
     def _atest_prefail_mask(self, mat, mesh, grp):
         """Compile-time conservative alpha-test pre-gate (round 5).
@@ -2169,7 +2514,11 @@ class CKRenderContext(CKObject):
                 quads_fg_list = []
         self._refresh_textures()
         with PhaseTimer(ph, "DeviceTime"):
-            self.fb, self.zb = self._render_packed(quads_bg_list, quads_fg_list)
+            if self._win_size > 1:
+                self._render_windowed(quads_bg_list, quads_fg_list)
+            else:
+                self.fb, self.zb = self._render_packed(quads_bg_list,
+                                                       quads_fg_list)
         with PhaseTimer(ph, "CallbacksTime"):
             for obj in list(self.context._prerender_objects.values()):
                 rcb = getattr(obj, "render_callback", None)

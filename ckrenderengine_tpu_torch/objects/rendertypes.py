@@ -181,11 +181,10 @@ class VxStats:
         # fragment list fit one K-layer window; the alpha-test pre-gate and
         # the K bump exist to keep this at 1).
         self.OrderedPeelRounds = 0
-        # Capacity governor (tiled Pallas solve): live binned pairs, exact
-        # fallback rows beyond the static caps (nonzero = the governed caps
-        # are bumping), and the bump count. Sampling cadence: every window
-        # for big scenes (>100k tris), every 32nd window otherwise — see
-        # CKRenderContext._flush_window.
+        # Capacity governor (tiled solve): live binned pairs, exact
+        # fallback rows beyond the governed caps (nonzero = the caps are
+        # bumping), and the bump and shrink counts. Sampled by every eager
+        # frame and every window (the worst frame of a window counts).
         self.SolveLivePairs = 0
         self.SolveFallbackRows = 0
         self.SolveCapBumps = 0

@@ -29,7 +29,9 @@ pass composites the non-deferred triangles in sorted draw order
 textured peel B4 (TexturedPeel) with the quantized layer shade, else the
 exact tiled pass. A kernel's phase-A overflow replays the exact tiled pass
 inside the frame (``OrderedReplays``). CPU tensors take the same branches
-through the kernels' plain versions. Features outside the ported slices
+through the kernels' plain versions. Given ``flags``, the frame decides on
+the device and reads nothing back (what ``pipeline/window.py`` captures
+into a CUDA graph); see :func:`render_frame_impl`. Features outside the ported slices
 raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -374,8 +376,7 @@ def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
 
     # Per-triangle scissor from the owning entity; identity row N gets the
     # open rect.
-    open_rect = torch.tensor([[-1e9, -1e9, 1e9, 1e9]], dtype=torch.float32,
-                             device=clip.device)
+    open_rect = df.open_rect(1, clip.device)
     tri_rect = take_small(torch.cat([scene.entity_clip, open_rect]), tri_ent)
 
     if uv is None:
@@ -551,7 +552,8 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
                       corner: tuple = (0, 0, 0),
                       want_texgen: bool = False,
                       solve_caps: tuple | None = None,
-                      ordered_stats: dict | None = None):
+                      host_stats: dict | None = None,
+                      flags: dict | None = None, peel_rounds: int = 1):
     """Full frame: clear -> vertex stage -> deferred opaque solve + shade
     -> the ordered rest (cutouts, z-overrides, sorted transparency).
 
@@ -559,10 +561,22 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
     off (reference RCKRenderContext::Clear, src/CKRenderContext.cpp:438-544):
     rendering then accumulates over the previous frame. ``ordered_cap``:
     static upper bound on the triangles the ordered pass takes (None = all
-    triangles, 0 = no ordered pass). ``ordered_stats``: a dict that
-    receives the ordered pass's host counters (OrderedPeelOverflow,
-    OrderedPeelRounds, OrderedPeelCorrected, OrderedReplays) whatever
-    ``want_stats`` says.
+    triangles, 0 = no ordered pass). ``host_stats``: a dict that receives
+    the frame's host counters whatever ``want_stats`` says: the ordered
+    pass's (OrderedPeelOverflow, OrderedPeelRounds, OrderedPeelCorrected,
+    OrderedReplays) and, when the tiled solve ran, its 7-word bin
+    statistics ``SolveBinStats`` as the list its remainder decision read.
+
+    ``flags``: a dict that makes the frame device-decided. It then reads
+    nothing back to the host, so that it can be captured into a CUDA
+    graph: the tiled solves run no remainder, B3's composite is always
+    taken and the peel runs exactly ``peel_rounds`` rounds. Each decision
+    that a host read would have made goes into ``flags`` as a device
+    tensor: ``SolveBinStats`` (7,) int32 of the main solve (when it is
+    tiled), and 0-d bools ``StencilRemainder``, ``OrderedReplay``,
+    ``PeelBad`` and ``PeelMore`` (where those passes run). The frame is
+    exact when every flag is false and ``SolveBinStats[2:5]`` is zero;
+    otherwise the caller renders it again without ``flags``.
 
     ``want_stencil``: also solve the stencil-only triangles
     (VX_MOVEABLE_STENCILONLY) against the finished zb and return their
@@ -592,11 +606,17 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
     shade_args = (scene.tex_planes, scene.tex_hw, scene.fog_color, clear_fb,
                   height, width)
 
+    decided = flags is not None
+
     def solve_tiled(**kw):
-        return depth_reduce_tiled_cuda(
+        out = depth_reduce_tiled_cuda(
             setup, defer_tri, z_init, scene.viewport, batch.xyw, height,
-            width, want_binstats=want_stats,
+            width, want_binstats=want_stats or decided,
+            host_stats=host_stats, remainder=not decided,
             **_solve_caps(t_count, solve_caps), **kw)
+        if decided:
+            flags["SolveBinStats"] = out[2]
+        return out
 
     tile_peak = None
     if flat or pixel_shader is not None:
@@ -659,13 +679,15 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
     if ordered_cap > 0:
         fb, zb = _ordered_pass(
             scene, batch, defer_tri, tri_bits, fb, zb, ordered_cap, height,
-            width, sort_transparent, pixel_shader, sampler_profile, ordered)
-    if ordered_stats is not None:
-        ordered_stats.update(ordered)
+            width, sort_transparent, pixel_shader, sampler_profile, ordered,
+            flags, peel_rounds)
+    if host_stats is not None:
+        host_stats.update(ordered)
     out = (fb, zb)
     if want_stencil:
         out += (stencil_pass(setup, batch, tri_bits, zb, scene.viewport,
-                             height, width, flat, t_count, solve_caps),)
+                             height, width, flat, t_count, solve_caps,
+                             flags=flags),)
     if not want_stats:
         return out
     # Stats: the reference's counters, the ordered path's (which path the
@@ -683,7 +705,8 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
 
 
 def stencil_pass(setup, batch, tri_bits, zb, viewport, height: int,
-                 width: int, flat: bool, t_count: int, solve_caps=None):
+                 width: int, flat: bool, t_count: int, solve_caps=None,
+                 flags: dict | None = None):
     """The stencil mask (reference frame.py:1051-1060): the z-tested
     coverage of the stencil-only draws (VX_MOVEABLE_STENCILONLY, reference
     src/CKMesh.cpp:3938-3974), solved at a clear depth of 1.0 against the
@@ -692,15 +715,21 @@ def stencil_pass(setup, batch, tri_bits, zb, viewport, height: int,
     ``deferred.depth_reduce``: the three differ only in which id wins an
     exact depth tie, and the mask reads the winner's depth and whether
     there is one, not its id. Returns sb (H,W) uint8, 1 where a stencil
-    triangle covers the pixel at a depth <= zb + 1e-6."""
+    triangle covers the pixel at a depth <= zb + 1e-6. With ``flags``
+    (a device-decided frame, :func:`render_frame_impl`) B1 runs no
+    remainder and ``flags["StencilRemainder"]`` says whether one was
+    needed."""
     stencil_tri = (tri_bits[:, 2] > 0.5) & batch.valid
     if flat:
         s_id, s_depth = depth_reduce_cuda(setup, stencil_tri, 1.0, viewport,
                                           height, width)
     else:
-        s_id, s_depth, _peak = depth_reduce_tiled_cuda(
+        s_id, s_depth, peak = depth_reduce_tiled_cuda(
             setup, stencil_tri, 1.0, viewport, batch.xyw, height, width,
+            want_binstats=flags is not None, remainder=flags is None,
             **_solve_caps(t_count, solve_caps))
+        if flags is not None:
+            flags["StencilRemainder"] = peak[2:5].any()
     return ((s_id >= 0) & (s_depth <= zb + 1e-6)).to(torch.uint8)
 
 
@@ -723,10 +752,32 @@ def ordered_batch(scene: SceneDevice, batch, defer_tri, tri_bits,
                           ordered_cap, tri_priority=tri_prio)
 
 
+def ordered_route(ordered_cap: int, height: int, width: int,
+                  sampler_profile, pixel_shader=None) -> str:
+    """Which ordered pass a frame of (render) size ``height`` x ``width``
+    takes, from host values alone (:func:`_ordered_pass`): "none", "flat"
+    (the exact flat pass), "blend" (B3), "peel" (B4) or "tiled" (the exact
+    tiled pass, whose loop length is a host read)."""
+    if ordered_cap <= 0:
+        return "none"
+    if ordered_cap * height * width <= (1 << 26):
+        return "flat"
+    sp = sampler_profile
+    if pixel_shader is None and sp is not None and len(sp) > 5 \
+            and bool(sp[5]):
+        return "blend"
+    if pixel_shader is None and sp is not None and len(sp) > 6 \
+            and bool(sp[6]) and (not sp[1]
+                                 or (height % 2 == 0 and width % 2 == 0)):
+        return "peel"
+    return "tiled"
+
+
 def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
                   ordered_cap: int, height: int, width: int,
                   sort_transparent: bool, pixel_shader, sampler_profile,
-                  stats: dict):
+                  stats: dict, flags: dict | None = None,
+                  peel_rounds: int = 1):
     """The ordered remainder over the opaque frame (fb, zb), with the
     reference's dispatch (frame.py:924-1032), its "on TPU" read as "always":
     a CUDA tensor launches the kernel, a CPU tensor runs its plain version.
@@ -744,26 +795,34 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
     The kernels' phase A scales the reference's capacities with the frame
     size (``cuda_ordered.frame_caps``). Fills ``stats``
     (OrderedPeelOverflow, OrderedPeelRounds, OrderedPeelCorrected,
-    OrderedReplays) and returns (fb, zb)."""
+    OrderedReplays) and returns (fb, zb).
+
+    With ``flags`` (a device-decided frame, :func:`render_frame_impl`)
+    nothing is read back: B3's composite is always taken and its phase-A
+    overflow goes into ``flags["OrderedReplay"]``; the peel runs
+    ``peel_rounds`` rounds and flags ``PeelBad`` (phase A) and ``PeelMore``
+    (fragments left after the last round). The exact tiled pass reads its
+    loop length back, so such a frame cannot be device-decided."""
     from ..raster import cuda_ordered as co
 
     ob = ordered_batch(scene, batch, defer_tri, tri_bits, ordered_cap,
                        sort_transparent)
     passes = (scene.state_i, scene.state_f, scene.tex_planes, scene.tex_hw,
               scene.fog_color, scene.viewport)
-    if ordered_cap * height * width <= (1 << 26):
+    route = ordered_route(ordered_cap, height, width, sampler_profile,
+                          pixel_shader)
+    if route == "flat":
         return rb.render_pass(fb, zb, ob, *passes,
                               pixel_shader=pixel_shader,
                               sampler_profile=sampler_profile)
+    if route == "tiled" and flags is not None:
+        raise ValueError("the exact tiled ordered pass reads the host: this "
+                         "frame cannot be device-decided")
     tile_o = 64
     while (ordered_cap * (((height + tile_o - 1) // tile_o)
                           * ((width + tile_o - 1) // tile_o)) > (1 << 26)
            and tile_o < max(height, width)):
         tile_o *= 2
-    sp = sampler_profile
-    kernel_ok = sp is not None and len(sp) > 5 and bool(sp[5])
-    peel_ok = (sp is not None and len(sp) > 6 and bool(sp[6])
-               and (not sp[1] or (height % 2 == 0 and width % 2 == 0)))
     fields = (ob.xyw, ob.z, ob.valid, ob.color, ob.specular, ob.uv, ob.fog,
               ob.state_idx, ob.clip_rect, ob.clipd, scene.state_i,
               scene.state_f)
@@ -774,19 +833,28 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
                                     pixel_shader=pixel_shader,
                                     sampler_profile=sampler_profile)
 
-    if kernel_ok and pixel_shader is None:
+    if route == "blend":
         a_o, b_o, bad = co.ordered_blend_tiled_cuda(
             *fields, scene.fog_color, zb, scene.viewport, height, width,
             **co.frame_caps(height, width))
+        if flags is not None:
+            flags["OrderedReplay"] = bad
         # Host read, once per frame: the replay decision.
-        if bool(bad):
+        elif bool(bad):
             return replay()
         return a_o * fb + b_o, zb
-    if peel_ok and pixel_shader is None:
+    if route == "peel":
         def comp(f, lids, les):
             return _composite_peeled(f, ob, lids, les, scene,
                                      sampler_profile, height, width)
 
+        if flags is not None:
+            fb_p, flags["PeelBad"], flags["PeelMore"] = \
+                co.ordered_peel_iterate(
+                    comp, fb, *fields, zb, scene.viewport, height, width,
+                    rounds=peel_rounds, **co.frame_caps(height, width))
+            stats["OrderedPeelRounds"] = peel_rounds
+            return fb_p, zb
         fb_p, bad, rounds = co.ordered_peel_iterate(
             comp, fb, *fields, zb, scene.viewport, height, width,
             **co.frame_caps(height, width))
@@ -815,8 +883,9 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
                            want_texgen: bool = False,
                            solve_caps: tuple | None = None,
                            cull: tuple | None = None, cull_sel=None,
-                           ordered_stats: dict | None = None,
-                           quad_windows: tuple | None = None):
+                           host_stats: dict | None = None,
+                           quad_windows: tuple | None = None,
+                           flags: dict | None = None, peel_rounds: int = 1):
     """The per-frame device program: animate -> compose -> skin ->
     (culled-chunk compaction) -> the opaque frame.
 
@@ -828,8 +897,9 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
     pass (over the clear colour, or over ``prev_fb``) and over it;
     ``quad_windows``: their host-side windows (``overlay.quad_windows``;
     None = whole-frame quads). ``want_stencil``: the stencil mask follows
-    zb (:func:`stencil_pass`). 3D sprites and lines are not carried yet
-    and raise."""
+    zb (:func:`stencil_pass`). ``host_stats``, ``flags`` and
+    ``peel_rounds``: as in :func:`render_frame_impl`. 3D sprites and lines
+    are not carried yet and raise."""
     if sprites is not None:
         raise unported("3D sprites (billboards)", 8)
     if lines is not None:
@@ -853,7 +923,7 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
         want_bump=want_bump, want_cube=want_cube, want_stats=want_stats,
         sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
         corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
-        ordered_stats=ordered_stats)
+        host_stats=host_stats, flags=flags, peel_rounds=peel_rounds)
     if quads_fg is None:
         return out
     fb = composite_quads(out[0], quads_fg, scene.tex_planes, scene.tex_hw,
@@ -933,8 +1003,10 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
                              want_texgen: bool = False, ss: int = 1,
                              solve_caps: tuple | None = None,
                              cull: tuple | None = None,
-                             ordered_stats: dict | None = None,
-                             quad_windows: tuple | None = None):
+                             host_stats: dict | None = None,
+                             quad_windows: tuple | None = None,
+                             flags: dict | None = None,
+                             peel_rounds: int = 1):
     """Packed-transfer frame entry: ``static`` is the per-compile dict of
     device tensors, ``dyn_f``/``dyn_i`` the two per-frame buffers (see
     pipeline/packing.py). Takes exactly what the render context's
@@ -946,7 +1018,9 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     sb back to (height, width). Accumulate-mode buffers arrive at display
     size and are repeat-upsampled first, so that a pixel no draw touches
     resolves to its previous value. ``quad_windows`` are the host windows
-    of the scaled quad rects at the render size."""
+    of the scaled quad rects at the render size. ``host_stats``, ``flags``
+    and ``peel_rounds``: as in :func:`render_frame_impl` (a device-decided
+    frame reads nothing back)."""
     if texdev:
         raise unported("render-to-texture feeds", 17)
     if sprites_static is not None:
@@ -986,9 +1060,9 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
         want_stats=want_stats, sampler_profile=sampler_profile,
         prev_fb=prev_fb, prev_zb=prev_zb, corner=corner,
         want_texgen=want_texgen, solve_caps=solve_caps, cull=cull,
-        cull_sel=cull_sel, ordered_stats=ordered_stats,
+        cull_sel=cull_sel, host_stats=host_stats,
         quads_bg=quad_bank("qbg"), quads_fg=quad_bank("qfg"),
-        quad_windows=quad_windows)
+        quad_windows=quad_windows, flags=flags, peel_rounds=peel_rounds)
     if ss == 1:
         return out
     stats = out[-1:] if want_stats else ()

@@ -533,7 +533,8 @@ def peel_phase_b(stream, *args):
 def _params(viewport, height: int, width: int, extra=None, dev=None):
     parts = [torch.as_tensor(viewport, dtype=torch.float32,
                              device=dev).reshape(4),
-             torch.tensor([width, height], dtype=torch.float32, device=dev)]
+             df.f32_on(float(width), dev).reshape(1),
+             df.f32_on(float(height), dev).reshape(1)]
     if extra is not None:
         parts.append(torch.as_tensor(extra, dtype=torch.float32,
                                      device=dev).reshape(-1))
@@ -592,7 +593,8 @@ def ordered_peel_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
 def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
                          fog, state_idx, rect, clipd, state_i, state_f, zb,
                          viewport, height: int, width: int, tile: int = 32,
-                         windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP):
+                         windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP,
+                         rounds: int | None = None):
     """Iterated depth peeling: composite ordered layers K at a time with
     ``composite_fn(fb, lids, les)`` until every pixel's fragment list is
     drained — exact at any depth. Phase A runs once; each further round
@@ -600,10 +602,23 @@ def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
 
     Returns (fb, bad, rounds). ``bad`` (a Python bool) is the phase-A
     overflow; when it is set no round runs, ``fb`` comes back unchanged and
-    ``rounds`` is 0 — the caller replays its exact sequential pass."""
+    ``rounds`` is 0 — the caller replays its exact sequential pass.
+
+    With ``rounds`` given, nothing is read back: exactly that many rounds
+    run (a round over drained pixels composites empty layers, which leaves
+    ``fb`` as it was), and the result is (fb, bad, more) with ``bad`` the
+    phase-A flag and ``more`` the last round's overflow, both device bools:
+    ``fb`` is exact only where both are false."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
                  clipd, state_i, state_f, zb, height, width, tile, windows,
                  pair_cap)
+    if rounds is not None:
+        ovf = torch.zeros((), dtype=torch.bool, device=fb.device)
+        for r in range(rounds):
+            lids, les, ovf = _peel_phase_b(pa, r * K_LAYERS, viewport, height,
+                                           width, tile)
+            fb = composite_fn(fb, lids, les)
+        return fb, pa["bad"], ovf
     # Host read, once per frame: the replay decision.
     if bool(pa["bad"]):
         return fb, True, 0

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
+from .deferred import f32_on
 
 F32_FIELDS = 32          # padded row width
 _BIG = 3.0e38
@@ -51,8 +52,7 @@ def pack_rows(setup, defer_tri) -> torch.Tensor:
 def _view5(clear_z, viewport, dev) -> torch.Tensor:
     return torch.cat([torch.as_tensor(viewport, dtype=torch.float32,
                                       device=dev).reshape(4),
-                      torch.as_tensor(clear_z, dtype=torch.float32,
-                                      device=dev).reshape(1)])
+                      f32_on(clear_z, dev).reshape(1)])
 
 
 def depth_reduce_plain(rows: torch.Tensor, clear_z, viewport, height: int,

@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
-from .deferred import gather_winner_rows
+from .deferred import f32_on, gather_winner_rows
 from .tiled import _C_EC, _C_FL, _NCOL, _pow2ceil, _reduce_rows, _screen_bbox
 
 _BIG = 3.0e38
@@ -64,7 +64,7 @@ def _init_plane(clear_z, height: int, width: int, full_h: int, full_w: int,
                 dev) -> torch.Tensor:
     """(full_h, full_w) initial depth: the clear value, or a kept (H, W)
     z-buffer padded with 1.0."""
-    cz = torch.as_tensor(clear_z, dtype=torch.float32, device=dev)
+    cz = f32_on(clear_z, dev)
     if cz.dim() == 2:
         out = torch.ones((full_h, full_w), dtype=torch.float32, device=dev)
         out[:height, :width] = cz
@@ -454,7 +454,9 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
                             span2: int = 16, g_cap: int = 8192,
                             slab_cap: int = 131072, pair_cap: int = 65536,
                             kchunk: int = 128, want_eplanes: bool = False,
-                            want_binstats: bool = False, shade_tbl=None):
+                            want_binstats: bool = False, shade_tbl=None,
+                            host_stats: dict | None = None,
+                            remainder: bool = True):
     """Tile-binned argmin depth reduce (exact); the counterpart of
     ``pallas_tiled.depth_reduce_tiled_pallas``.
 
@@ -466,7 +468,13 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
     the id is -1, inside and outside the scissor.
     ``want_binstats``: ``peak`` becomes the (7,) int32 vector [peak,
     n_live_pairs, pair_cut_rows, g_over_rows, slab_over_rows, n_small,
-    n_mid]; nonzero *_over/cut means the exact all-tiles remainder ran."""
+    n_mid]; nonzero *_over/cut means the exact all-tiles remainder ran.
+
+    The remainder decision is the one host read: all seven words come back
+    at once, and ``host_stats`` (a dict) receives them as the list
+    ``"SolveBinStats"``. ``remainder=False`` reads nothing back and runs no
+    remainder: the frame is exact only where ``binstats[2:5]`` is all
+    zero, which the caller checks on the device."""
     dev = xyw.device
     t = setup["e_coef"].shape[0]
     a = phase_a(setup, defer_tri, viewport, xyw, height, width, tile=tile,
@@ -484,7 +492,12 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
     # --- beyond-cap remainders: exact all-tiles loops (zero iterations on
     # ordinary frames). One small readback decides whether any runs.
     binstats = a["binstats"]
-    pair_cut, g_over, s_over2 = (int(v) for v in binstats[2:5].tolist())
+    pair_cut = g_over = s_over2 = 0
+    if remainder:
+        words = binstats.tolist()
+        if host_stats is not None:
+            host_stats["SolveBinStats"] = words
+        pair_cut, g_over, s_over2 = words[2:5]
     if pair_cut or g_over or s_over2:
         kernel_i = best_i
         py, px = torch.meshgrid(

@@ -35,6 +35,23 @@ from .types import (
 _BIG = 3.0e38
 
 
+def f32_on(value, device) -> torch.Tensor:
+    """``value`` (a number or a tensor) as an f32 tensor on ``device``. A
+    number becomes a fill on the device: ``torch.tensor(x, device=...)``
+    is a blocking host copy, which a frame must not hold (it could not be
+    captured into a CUDA graph)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.full((), value, dtype=torch.float32, device=device)
+
+
+def open_rect(n: int, device) -> torch.Tensor:
+    """(n, 4) scissor rects that keep everything, [-1e9, -1e9, 1e9, 1e9],
+    made on the device."""
+    half = torch.full((n, 2), 1.0e9, dtype=torch.float32, device=device)
+    return torch.cat([-half, half], dim=1)
+
+
 def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Row gather from a small table (the reference's one-hot MXU join,
     which is bit-exact with a gather)."""
@@ -128,9 +145,7 @@ def triangle_setup(xyw, z, state_idx, valid, state_i, clip_rect=None,
 
     tvalid = valid & ~degenerate & keep & ~sliver
     if clip_rect is None:
-        big = 1.0e9
-        clip_rect = torch.tensor([[-big, -big, big, big]], dtype=torch.float32,
-                                 device=dev).expand(t, 4)
+        clip_rect = open_rect(1, dev).expand(t, 4)
     if clipd is not None and clipd.shape[-1] > 0:
         n_planes = clipd.shape[-1]
         d3 = (clipd[:, 0], clipd[:, 1], clipd[:, 2])
@@ -276,9 +291,12 @@ def _shade_state_rows(state_i, state_f, tex_hw):
     """(S, 22) packed per-state shade columns: the 8 si + 7 sf columns the
     fixed-function shade reads, plus the 7 per-texture sampling params."""
     prm = _tex_params(tex_hw, state_i[:, SI_TEX])
+    # Column slices, not a list index: a list becomes an index tensor that
+    # is copied from the host.
     return torch.cat([
-        state_i[:, list(_SH_SI_COLS)].to(torch.float32),
-        state_f[:, list(_SH_SF_COLS)],
+        torch.stack([state_i[:, c] for c in _SH_SI_COLS], 1).to(
+            torch.float32),
+        torch.stack([state_f[:, c] for c in _SH_SF_COLS], 1),
         torch.stack([prm[k] for k in _TEX_PARAM_KEYS], dim=-1),
     ], dim=1)
 
@@ -568,7 +586,7 @@ def _pack4(b0, b1, b2, b3):
 def _unpack4(word):
     """One int32 word -> four [0,1] f32 planes (arithmetic shift, then
     mask the byte)."""
-    inv = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=word.device)
+    inv = f32_on(1.0 / 255.0, word.device)
     return tuple(((word >> (8 * k)) & 0xFF).to(torch.float32) * inv
                  for k in range(4))
 

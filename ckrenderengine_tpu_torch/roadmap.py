@@ -10,12 +10,10 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    4: "frame windows",
     7: "line pass",
     8: "3D sprites",
     9: "material effects (TexGen, bump, cube env, channels, effect passes)",
     10: "pixel and vertex shaders",
-    11: "capacity governor",
     12: "context batching and tile sharding",
     13: "rasterizer HAL",
     14: "scene IO",

@@ -25,6 +25,8 @@ on them (VX_MOVEABLE_* in the Virtools SDK).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -82,7 +84,9 @@ def compose_world(local: torch.Tensor, parent: torch.Tensor,
                   levels: tuple) -> torch.Tensor:
     """Batched world-matrix composition: world[i] = local[i] @ world[parent[i]].
 
-    ``levels`` is the static schedule from :func:`compute_levels`. Each level
+    ``levels`` is the static schedule from :func:`compute_levels`; its
+    indices reach the device once per schedule (:func:`_device_levels`).
+    Each level
     is one batched (L,4,4)@(L,4,4) ``torch.matmul`` of locals against the
     gathered parent worlds (full f32: the package turns TF32 off). Replaces
     the reference's WorldMatrixChanged recursion
@@ -95,14 +99,29 @@ def compose_world(local: torch.Tensor, parent: torch.Tensor,
     if len(levels) > 12:
         return _compose_world_doubling(local, parent, len(levels))
     world = local
-    for li, idx in enumerate(levels):
+    for li, idx in enumerate(_level_tensors(levels, local.device)):
         if li == 0:
             continue  # roots: world == local
-        idx = torch.as_tensor(np.asarray(idx, np.int64), device=local.device)
         p = parent[idx].long()
         lw = torch.matmul(local[idx], world[p])
         world = world.index_copy(0, idx, lw)
     return world
+
+
+@functools.lru_cache(maxsize=16)
+def _device_levels(levels: tuple, device: torch.device) -> tuple:
+    """Each level's indices as an int64 tensor on ``device``, kept per
+    schedule: an upload in every frame would be a blocking host copy, which
+    no frame may hold (it could not be captured into a CUDA graph)."""
+    return tuple(torch.as_tensor(np.asarray(idx, np.int64), device=device)
+                 for idx in levels)
+
+
+def _level_tensors(levels, device: torch.device) -> tuple:
+    try:
+        return _device_levels(levels, device)
+    except TypeError:                 # an unhashable schedule: no cache
+        return _device_levels.__wrapped__(levels, device)
 
 
 def _compose_world_doubling(local: torch.Tensor, parent: torch.Tensor,
