@@ -4,7 +4,8 @@
 
 Builds the hand-written CUDA kernels of ``ckrenderengine_tpu_torch`` from
 ``ckrenderengine_tpu_torch/csrc`` (B1 tiled solve, B2 flat solve, B3 ordered
-blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch),
+blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch, L1
+line pass),
 prints their registers, spills and resident CTAs per SM, holds each kernel
 against its plain torch version on the card bit for bit (B1 and B5 also on
 the stream cases of ``raster/tiled_fixtures.py``, B3 and B4 on every case
@@ -40,6 +41,13 @@ the ``window`` phase: each frame one CUDA-graph replay, every window's
 frames and fences bit-equal to the eager run's, no host synchronisation in
 the replay loops, the kernels seen in every replay, a forced pair-cap
 overflow and a too-small peel round count redone and then governed away),
+renders the effects level (``scenes.build_config5_fx``: config 5 with
+2,048 3D sprites and 1,192 line segments of curves, a wireframe grid and a
+line list; the ``fx`` phase: B1, B4's rounds and L1 in every frame, B3 in
+its place with untextured halos, each kernel equal to its plain version on
+those frames' inputs, L1 also on seeded fixtures, a frame with Antialias,
+the level cut to 320x240 against the CPU and the golden frame
+``fx_320x240``, and 8 frames as graph replays in the ``window`` phase),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -605,16 +613,19 @@ def compare_with_cpu(name, rc_g, rc_c, **fields):
     ids_g, ids_c = winners(rc_g), winners(rc_c)
     eq = ids_g == ids_c
     diff = np.abs(rc_g.framebuffer() - rc_c.framebuffer()).max(-1)
+    off = int((diff[eq] > 1.0 / 255.0).sum())
     emit("cpu_reference", config=name, size=[rc_g.width, rc_g.height],
          ids_equal_frac=float(eq.mean()),
          fb_max_abs_diff_matching=float(diff[eq].max()),
          matching_pixels_over_2e_6=int((diff[eq] > 2e-6).sum()),
+         matching_pixels_over_1_255=off,
          pixels_outside=int((~eq).sum()),
          fb_max_abs_diff_outside=float(diff[~eq].max()) if (~eq).any()
          else 0.0, **fields)
     check(eq.mean() >= 0.999, f"{name}: card and CPU winners disagree")
-    check(float(diff[eq].max()) <= 1.0 / 255.0,
-          f"{name}: card and CPU frames disagree {diff[eq].max()}")
+    check(off == 0,
+          f"{name}: card and CPU frames disagree {diff[eq].max()} on "
+          f"{off} pixels")
     check(float(diff.max()) <= 1.0, f"{name}: frame out of range")
 
 
@@ -824,6 +835,9 @@ def main() -> int:
     # --- 4c. frame windows: W frames as CUDA-graph replays -----------------
     window_phase(O, scenes, kernel_fns, launches, card)
 
+    # --- 4d. the effects level: 3D sprites, curves and the line pass -------
+    fx = fx_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1023,13 +1037,38 @@ def main() -> int:
                        "bound_ms": aa_ms[k][2]["bound_ms"],
                        "bound_by": aa_ms[k][2]["bound_by"]}}
         for k in ("B1", "B2", "B3", "B4", "B5")]
+    # Each kernel the effects level launches, at its frame's shapes (B3 at
+    # the level with untextured halos).
+    for k in kernels:
+        key = k["name"].split()[0]
+        if key in fx:
+            k["config5_fx"] = {"ms": fx[key][0], "plain_ms": fx[key][1],
+                               "bound_ms": fx[key][2]["bound_ms"],
+                               "bound_by": fx[key][2]["bound_by"]}
+    # L1 is not a TPU kernel: the reference's line pass is plain JAX.
+    l1, l1_aa = fx["L1"], fx["L1_aa"]
+    kernels.append({
+        "name": "L1 lines", "route": "cuda",
+        "source": "ckrenderengine_tpu_torch/csrc/lines.cu",
+        "replaces": "ckrenderengine_tpu/pipeline/lines.py:52",
+        "replaces_note": "draw_lines, plain JAX (no pl.pallas_call)",
+        "launches": launches["L1"], "max_abs_err": max(fx["L1_errs"]),
+        "ms": l1[0], "plain_ms": l1[1], "bound_ms": l1[2]["bound_ms"],
+        "bound_by": l1[2]["bound_by"], "library_ms": None,
+        "events_ms": l1[3],
+        "bound_counts": {c: l1[2][c] for c in (
+            "pairs_within_half_width", "tested_pairs", "operations",
+            "bytes", "operations_ms", "bytes_ms")},
+        "antialias": {"shape": "config5_fx_aa", "ms": l1_aa[0],
+                      "bound_ms": l1_aa[2]["bound_ms"],
+                      "bound_by": l1_aa[2]["bound_by"]}})
     from ckrenderengine_tpu_torch import frame_bench
     emit("profiler_windows", **frame_bench.PROFILE_WINDOWS,
          pad_s=frame_bench.PROFILE_PAD_S, tries=frame_bench.PROFILE_TRIES)
     for k in kernels:
         # A time under the bound means the bound counts work no kernel
         # needs, or the timing is wrong.
-        for t in (k, k["antialias"]):
+        for t in (k, k["antialias"], k.get("config5_fx", k)):
             check(t["ms"] >= t["bound_ms"],
                   f"{k['name']}: {t['ms']} ms is below its bound "
                   f"{t['bound_ms']} ms")
@@ -1147,7 +1186,9 @@ WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 2),
                  ("alpha50k", "build_alpha50k", {}, ("B1", "B3"), 1),
                  ("alpha_tex50k", "build_alpha_tex50k", {}, ("B1", "B4"), 1),
                  ("config5_aa", "build_config5", {"antialias": True},
-                  ("B1",), 1))
+                  ("B1",), 1),
+                 ("config5_fx", "build_config5_fx", {},
+                  ("B1", "B4", "L1"), 1))
 
 
 def profiled_kernels(prof) -> dict:
@@ -1155,7 +1196,7 @@ def profiled_kernels(prof) -> dict:
     tiled solve's fetch instantiation (its second template argument)."""
     from torch.autograd import DeviceType
 
-    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5"), 0)
+    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "L1"), 0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -1169,6 +1210,8 @@ def profiled_kernels(prof) -> dict:
             out["B3"] += 1
         elif "ordered_peel_kernel" in e.name:
             out["B4"] += 1
+        elif "lines_kernel" in e.name:
+            out["L1"] += 1
     return out
 
 
@@ -1184,11 +1227,11 @@ def host_launch_calls(prof) -> int:
 
 def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     """Frame windows (``SetFramePipelining``), W = 8, at the scenes' full
-    sizes: BASELINE configs 1-5, ``alpha50k``, ``alpha_tex50k`` and config
-    5 with Antialias. Each scene renders a first frame and then 2W + 3
-    ticks (its mover rotating, config 3's and 4's own tick; W + 3 at the
-    stress scenes and config 5 AA) once at W = 1 and once at W = 8, each in
-    a context of its own. Config 5 (at 1x) starts its ticks with a pair
+    sizes: BASELINE configs 1-5, ``alpha50k``, ``alpha_tex50k``, config 5
+    with Antialias and ``config5_fx``. Each scene renders a first frame and
+    then 2W + 3 ticks (its mover rotating, config 3's and 4's own tick;
+    W + 3 at the stress scenes, config 5 AA and ``config5_fx``) once at
+    W = 1 and once at W = 8, each in a context of its own. Config 5 (at 1x) starts its ticks with a pair
     cap of 32,768 (under its ~46k live pairs) and
     ``alpha_tex50k`` with one peel round where its frames need two.
 
@@ -1197,7 +1240,8 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     ``window.checksum`` of them; every copy-and-replay loop runs under
     ``set_sync_debug_mode("error")``; a torch.profiler window over one
     window shows the scene's kernels W times (B4 R times per frame, B5 at
-    config 5 with ``CK_FUSED_FETCH``); the forced overflows are flagged
+    config 5 with ``CK_FUSED_FETCH``, L1 at ``config5_fx``, whose windows
+    each make one read and redo no frame); the forced overflows are flagged
     and redone, the governor bumps config 5's caps and from the next
     window no frame is redone and ``SolveFallbackRows`` is 0. Prints per
     scene the frame ms (median, p75) at W = 1 (each tick synchronised) and
@@ -1281,6 +1325,7 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
                     last.append((i, rc.fb.clone(), rc.zb.clone(),
                                  rc.stats.SolveFallbackRows))
             flagged = [int(fw.flagged(r).sum()) for r in reads]
+            n_reads = len(reads)
             frames_ok = all(torch.equal(fb, eager[i][0])
                             and torch.equal(zb, eager[i][1])
                             for i, fb, zb, _f in last)
@@ -1361,6 +1406,11 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
                 check(s.SolveCapBumps - bumps0 >= 1, f"{name}: no bump")
             if name == "alpha_tex50k":
                 check(rounds == 2, f"{name}: {rounds} peel rounds")
+            if name == "config5_fx":
+                # One read per window (its rows), and no frame redone.
+                check(n_reads == len(fences) and not any(flagged),
+                      f"{name}: {n_reads} reads for {len(fences)} "
+                      f"windows, flagged {flagged}")
             if name == "config5":
                 # The fused fetch inside the graph: B5 once per frame.
                 os.environ["CK_FUSED_FETCH"] = "1"
@@ -1386,6 +1436,308 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
         launches[k] += got[k]
     check(all(got[k] > 0 for k in kernel_fns),
           f"window phase: wrapper launches {got}")
+
+
+# The effects level's eager ticks after its first frame, and the level cut
+# to the golden frame's size.
+FX_TICKS = 5
+FX_GOLDEN = dict(width=320, height=240, terrain_n=70, n_balls=8,
+                 n_sprites=1024, n_curves=4, curve_steps=24)
+# The line pass's arithmetic per pair whose pixel lies within half_width of
+# the segment: pax, pay, two products and a sum, the division, two products
+# and two differences, two squares and a sum (13), then 1 - t, two products
+# and a sum for the depth along the segment (4). Comparisons and selects
+# are not counted.
+OPS_PER_LINE_PAIR = 17
+
+
+def line_inputs(rc, ll) -> dict:
+    """The line pass's inputs at the render size (fb, zb, the projected
+    rows, height, width), caught on the way into ``lines.draw_lines``
+    during one more Render()."""
+    seen = {}
+    draw = ll.draw_lines
+
+    def spy(fb, zb, scene, world, bank, h, w, *a, **k):
+        seen.update(fb=fb, zb=zb, rows=ll.line_rows(scene, world, bank),
+                    h=h, w=w)
+        return draw(fb, zb, scene, world, bank, h, w, *a, **k)
+
+    ll.draw_lines = spy
+    try:
+        rc.Render()
+    finally:
+        ll.draw_lines = draw
+    check("rows" in seen, "the frame drew no line")
+    return seen
+
+
+def lines_bound(rows, zb, h: int, w: int, ll) -> dict:
+    """L1's roofline from this frame's rows: the pairs whose pixel passes
+    the distance test of a valid segment (what any exact line pass
+    evaluates in full), at OPS_PER_LINE_PAIR each, against the bytes (fb
+    read and written, zb and the rows read once). Also the pairs the
+    kernel tests: each 16x16 tile's pixels times the segments its box
+    test keeps."""
+    covered = 0
+    inf = torch.full_like(zb, float("inf"))
+    for c0 in range(0, rows.shape[0], 32):
+        covered += int(ll.line_coverage(rows[c0:c0 + 32], inf, h, w).sum())
+    tx = torch.arange(0, w, 16, device=rows.device, dtype=torch.float32) + 0.5
+    ty = torch.arange(0, h, 16, device=rows.device, dtype=torch.float32) + 0.5
+    r = rows[:, None]
+    mag = torch.maximum(r[..., 0:4:2].abs().amax(-1),
+                        r[..., 1:4:2].abs().amax(-1))
+    kept = torch.zeros((), dtype=torch.int64, device=rows.device)
+    for y0 in ty:
+        tmag = torch.maximum(tx + 15.0, (y0 + 15.0).expand_as(tx))
+        m = ll.HALF_WIDTH + 1.0 + (mag + tmag[None]) / 1048576.0
+        miss = ((torch.maximum(r[..., 0], r[..., 2]) + m < tx[None])
+                | (torch.minimum(r[..., 0], r[..., 2]) - m > tx[None] + 15.0)
+                | (torch.maximum(r[..., 1], r[..., 3]) + m < y0)
+                | (torch.minimum(r[..., 1], r[..., 3]) - m > y0 + 15.0))
+        kept += ((rows[:, None, 6] > 0.5) & ~miss).sum()
+    n_bytes = 2 * 4 * h * w * 4 + h * w * 4 + nbytes(rows)
+    ops = covered * OPS_PER_LINE_PAIR
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "operations_ms": ops_ms, "bytes_ms": bytes_ms,
+            "pairs_within_half_width": covered,
+            "tested_pairs": int(kept) * 256, "operations": ops,
+            "bytes": n_bytes}
+
+
+def time_lines(name, rc, card, ll) -> tuple:
+    """L1 at a frame's own line-pass inputs: checked equal to
+    ``draw_lines_plain`` bit for bit, then its own time on the card
+    (torch.profiler), its CUDA-event time and the plain version's, beside
+    its bound. Returns (kernel ms, plain ms, bound, events ms, max abs
+    error)."""
+    s = line_inputs(rc, ll)
+    args = (s["fb"], s["zb"], s["rows"], s["h"], s["w"])
+    out_k, out_p = ll.lines_kernel(*args), ll.draw_lines_plain(*args)
+    err = float((out_k - out_p).abs().max())
+    check(torch.equal(out_k, out_p),
+          f"L1 and its plain version disagree at {name} ({err})")
+    st = {"kernel_ms": kernel_ms(lambda: ll.lines_kernel(*args),
+                                 "lines_kernel"),
+          "kernel_events_ms": cuda_ms(lambda: ll.lines_kernel(*args), 20),
+          "plain_ms": cuda_ms(lambda: ll.draw_lines_plain(*args), 2)}
+    bound = lines_bound(s["rows"], s["zb"], s["h"], s["w"], ll)
+    emit("timing", config=name, card=card, kernel="L1",
+         size=[s["w"], s["h"]], segments=int(s["rows"].shape[0]),
+         valid_segments=int((s["rows"][:, 6] > 0.5).sum()),
+         pixels_changed=int((out_k != s["fb"]).any(0).sum()),
+         **{k: round(v, 4) for k, v in st.items()}, **bound,
+         note="kernel_ms is L1's own time on the card (torch.profiler); "
+         "plain_ms a CUDA-event mean of draw_lines_plain")
+    return st["kernel_ms"], st["plain_ms"], bound, st["kernel_events_ms"], err
+
+
+def line_fixture(h: int, w: int, seed: int, row0: float = 0.0):
+    """Seeded line-pass inputs at h x w: 600 segments, every 9th degenerate
+    (both endpoints equal: the squared-length clamp), every 13th with an
+    endpoint far off screen (an endpoint behind the camera projects past
+    1e6 px: half of them still valid, the others invalid, as the frame
+    marks them), 8 invalid pad rows, depths in [-0.1, 1.1]."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = 600
+    rows = torch.zeros((n, 12))
+    a = torch.rand((n, 2), generator=g) * torch.tensor([1.2 * w, 1.2 * h]) \
+        - torch.tensor([0.1 * w, 0.1 * h])
+    rows[:, 0:2] = a
+    rows[:, 2:4] = a + torch.randn((n, 2), generator=g) * 60.0
+    rows[::9, 2:4] = rows[::9, 0:2]
+    rows[1::13, 2:4] = rows[1::13, 0:2] * 3.7e6
+    rows[:, 4:6] = torch.rand((n, 2), generator=g) * 1.2 - 0.1
+    rows[:, 6] = 1.0
+    rows[1::26, 6] = 0.0
+    rows[-8:, 6] = 0.0
+    rows[:, 8:12] = torch.rand((n, 4), generator=g)
+    fb = torch.rand((4, h, w), generator=g)
+    zb = torch.rand((h, w), generator=g) * 0.6 + 0.4
+    return fb.cuda(), zb.cuda(), rows.cuda(), row0
+
+
+def billboard_stage(rc, fr, card) -> dict:
+    """The frame's 3D sprite corner stage (``overlay.apply_billboards``)
+    on its own at the frame's inputs: device launches and ms per call
+    (torch.profiler), CUDA-event ms; it runs once under
+    ``set_sync_debug_mode("error")`` first (no host read)."""
+    from ckrenderengine_tpu_torch.pipeline.overlay import apply_billboards
+    from ckrenderengine_tpu_torch.scene.entity_table import compose_world
+
+    static, dyn_f, dyn_i, params = packed_cuda(rc)
+    scene, d = fr.unpack_scene(static, dyn_f, dyn_i, params["layout"])
+    world = compose_world(scene.local, scene.parent, params["levels"])
+    bank = fr.sprite_bank(params["sprites_static"], d)
+
+    def go():
+        return apply_billboards(world, scene.view, scene.positions, bank,
+                                scene.entity_visible)
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        go()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    n_dev, dev_ms, _wall = device_window(go, 10)
+    out = {"sprites": int(bank.entity_row.shape[0]),
+           "device_launches": n_dev, "device_ms": dev_ms,
+           "events_ms": cuda_ms(go, 20)}
+    emit("billboard_stage", config="config5_fx", card=card, **out,
+         note="the sprite corner stage alone at the frame's inputs; "
+         "device_ms from torch.profiler, events_ms a CUDA-event mean")
+    return out
+
+
+def fx_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """The effects level, ``scenes.build_config5_fx`` at 1024x768 (config
+    5's 528,032 terrain triangles and 64 spheres, 2,048 3D sprites, 16
+    curves, a wireframe grid and a line list: 1,192 line segments), through
+    Render() on the card.
+
+    - Eager: the first frame and FX_TICKS ticks (the spinner turning)
+      with every launch count at 0 before them: B1 once, B4 once per peel
+      round and L1 once per frame, and no other kernel (one frame takes one
+      ordered route: the textured halos take the peel). The same level with
+      untextured halos (``textured_halos=False``) takes B3 in B4's place.
+    - The kernels on those frames' own inputs, each equal to its plain
+      version bit for bit: B1 and B5 (``time_rows``), B4 and B3
+      (``time_ordered``), L1 (``time_lines``); L1 also on seeded fixtures
+      (degenerate, off-screen and invalid segments) at 1024x768 and
+      2048x1536, with and without a row offset.
+    - The sprite corner stage alone (``billboard_stage``).
+    - One frame with Antialias (2048x1536): B1, B4's rounds, L1 once, no
+      replay; L1 timed at that shape.
+    - The level cut to the golden frame's size on the card against the CPU
+      (``compare_with_cpu``: every matching pixel within 1/255) and against
+      ``tests/torch_golden/fx_320x240.npz`` (as tests/test_torch_golden.py
+      holds it: within one 8-bit step on all but 0.1% of the matching
+      pixels, where the reference's rounding of a sprite edge or of the
+      line pass's band goes the other way).
+
+    The window (8 frames as graph replays) runs in ``window_phase``, whose
+    ``window`` line also gives the level's device launches and ms per frame
+    eager and at W = 8.
+    Returns {kernel: (ms, plain ms, bound, events ms)} at the fx frame and
+    the L1 entry's numbers."""
+    from ckrenderengine_tpu_torch.pipeline import lines as ll
+    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
+    from ckrenderengine_tpu_torch.raster import cuda_tiled
+    from ckrenderengine_tpu_torch.raster import deferred as df
+
+    t_phase = time.monotonic()
+    fns = dict(kernel_fns, L1=ll.lines_kernel)
+    launches.setdefault("L1", 0)
+    out = {}
+    rcs = {}
+    for name, kw, route in (("config5_fx", {}, "B4"),
+                            ("config5_fx_b3", {"textured_halos": False},
+                             "B3")):
+        reset_launches(fns.values())
+        t0 = time.monotonic()
+        ctx, rc, spinner = render_config(scenes.build_config5_fx, O, "cuda",
+                                         **kw)
+        torch.cuda.synchronize()
+        first_s = time.monotonic() - t0
+        rounds = [rc.GetStats().OrderedPeelRounds]
+        for _ in range(FX_TICKS if name == "config5_fx" else 0):
+            spinner.Rotate((0, 1, 0), ANGLES["config5_fx"])
+            rc.Render()
+            rounds.append(rc.GetStats().OrderedPeelRounds)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in fns.items()}
+        for k in got:
+            launches[k] += got[k]
+        frames = 1 + (FX_TICKS if name == "config5_fx" else 0)
+        finite, covered = frame_checks(name, rc)
+        stats = rc.GetStats()
+        want = {"B1": frames, "L1": frames,
+                "B4": sum(rounds) if route == "B4" else 0,
+                "B3": frames if route == "B3" else 0, "B2": 0, "B5": 0}
+        emit("fx", config=name, size=[rc.width, rc.height],
+             triangles=int(rc._compiled.n_valid_tris),
+             sprites=len(rc._compiled.sprite3d_list),
+             lines=stats.NbLinesDrawn, frames=frames, launches=got,
+             expected_launches=want, peel_rounds=rounds,
+             replays=stats.OrderedReplays, finite=finite, covered=covered,
+             first_frame_s=round(first_s, 3))
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        check(stats.OrderedReplays == 0, f"{name}: ordered replay")
+        rcs[name] = (ctx, rc, spinner)
+
+    rc = rcs["config5_fx"][1]
+    out.update(time_rows("config5_fx", rc, None, card, fr, cuda_tiled, df,
+                         plain=False))
+    out["B4"] = time_ordered("config5_fx", "B4", rc, None, card, fr, co)
+    out["B3"] = time_ordered("config5_fx_b3", "B3", rcs["config5_fx_b3"][1],
+                             None, card, fr, co)
+    l1 = time_lines("config5_fx", rc, card, ll)
+    out["L1"] = l1[:4]
+    errs = [l1[4]]
+    for h, w in ((768, 1024), (1536, 2048)):
+        for seed, row0 in ((h, 0.0), (h + 1, 8.0)):
+            fb, zb, rows, r0 = line_fixture(h, w, seed, row0)
+            k = ll.lines_kernel(fb, zb, rows, h, w, row0=r0)
+            p = ll.draw_lines_plain(fb, zb, rows, h, w, row0=r0)
+            err = float((k - p).abs().max())
+            emit("line_fixture", size=[w, h], row0=r0, seed=seed,
+                 segments=int(rows.shape[0]),
+                 pixels_changed=int((k != fb).any(0).sum()),
+                 bit_equal=bool(torch.equal(k, p)), max_abs_err=err)
+            check(torch.equal(k, p), f"L1 fixture {w}x{h}: {err}")
+            check(int((k != fb).any(0).sum()) > 1000,
+                  f"L1 fixture {w}x{h}: the lines change too few pixels")
+            errs.append(err)
+    out["L1_errs"] = errs
+    out["billboards"] = billboard_stage(rc, fr, card)
+    del rcs
+
+    # Antialias: one frame at twice the size.
+    reset_launches(fns.values())
+    _c, rc_aa, _m = render_config(scenes.build_config5_fx, O, "cuda",
+                                  antialias=True)
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    s = rc_aa.GetStats()
+    frame_checks("config5_fx_aa", rc_aa)
+    emit("fx_antialias", config="config5_fx", size=[rc_aa.width,
+                                                    rc_aa.height],
+         render_size=[2 * rc_aa.width, 2 * rc_aa.height], launches=got,
+         peel_rounds=s.OrderedPeelRounds, replays=s.OrderedReplays)
+    check(got["B1"] == 1 and got["L1"] == 1 and got["B3"] == 0
+          and got["B4"] == s.OrderedPeelRounds >= 1 and s.OrderedReplays == 0,
+          f"config5_fx AA: launches {got}")
+    out["L1_aa"] = time_lines("config5_fx_aa", rc_aa, card, ll)[:4]
+    del rc_aa, _c
+
+    # The golden frame's size: card against CPU, and against the golden.
+    _c, rc_g, _m = render_config(scenes.build_config5_fx, O, "cuda",
+                                 **FX_GOLDEN)
+    _c2, rc_c, _m2 = render_config(scenes.build_config5_fx, O, "cpu",
+                                   **FX_GOLDEN)
+    compare_with_cpu("config5_fx_320x240", rc_g, rc_c)
+    g = np.load(os.path.join(GOLDEN_DIR, "fx_320x240.npz"))
+    ids = winners(rc_g)
+    rgba = rc_g.BackToFront()
+    match = ids == g["ids"]
+    diff = np.abs(rgba.astype(np.int32) - g["rgba"].astype(np.int32)).max(-1)
+    off = int((diff[match] > 1).sum())
+    emit("golden", frame="fx_320x240", ids_equal_frac=float(match.mean()),
+         rgba_pixels_over_1_matching=off,
+         rgba_max_diff_matching=int(diff[match].max()),
+         peel_rounds=rc_g.GetStats().OrderedPeelRounds)
+    check(rgba.shape == g["rgba"].shape, "golden fx_320x240: image shape")
+    check(match.mean() >= 0.999, "golden fx_320x240: winner ids differ")
+    check(off <= 1e-3 * match.sum(), f"golden fx_320x240: {off} pixels")
+    emit("fx_phase", seconds=round(time.monotonic() - t_phase, 1))
+    return out
 
 
 def ordered_caps_check(rc, fr) -> dict:
@@ -1826,7 +2178,7 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
 # rotation about y, or the scene's own tick (config 3 rotates its roots and
 # moves its bulb, config 4 advances its clip by 0.5 frames).
 ANGLES = {"config1": 0.02, "config2": 0.03, "config5": 0.01,
-          "alpha50k": 0.02, "alpha_tex50k": 0.02}
+          "alpha50k": 0.02, "alpha_tex50k": 0.02, "config5_fx": 0.01}
 
 
 def ticker(name, mover):

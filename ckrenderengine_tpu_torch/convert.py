@@ -16,8 +16,7 @@ import torch
 
 # Params of the reference frame that name features this package does not
 # carry yet; it takes a frame only when they are empty.
-_EMPTY_PARAMS = ("anim", "sprites_static", "lines", "texdev",
-                 "vertex_shader", "pixel_shader")
+_EMPTY_PARAMS = ("anim", "texdev", "vertex_shader", "pixel_shader")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -31,8 +30,9 @@ def from_reference(static: dict, dyn_f, dyn_i, params: dict, device):
     Every array converts bit for bit (``np.asarray`` of each value first);
     hashable params (layout, levels, corner, caps, sampler profile,
     ``skin_ranges``) carry over unchanged; the skin bank and the bound
-    clip's ``world_in`` matrices convert field by field. Raises
-    when a param names a feature this package does not carry."""
+    clip's ``world_in`` matrices, the sprites' per-compile rows and the
+    line bank convert field by field. Raises when a param names a feature
+    this package does not carry."""
     for k in _EMPTY_PARAMS:
         v = params.get(k)
         if v is not None and not (isinstance(v, tuple) and not v):
@@ -47,7 +47,28 @@ def from_reference(static: dict, dyn_f, dyn_i, params: dict, device):
         out["skin"] = skin_bank_from_reference(params["skin"], device)
     if params.get("world_in") is not None:
         out["world_in"] = _tensor(params["world_in"], device)
+    if params.get("sprites_static") is not None:
+        out["sprites_static"] = sprite_bank_from_reference(
+            params["sprites_static"], device)
+    if params.get("lines") is not None:
+        out["lines"] = line_bank_from_reference(params["lines"], device)
     return (static_t, _tensor(dyn_f, device), _tensor(dyn_i, device), out)
+
+
+def sprite_bank_from_reference(sprites: dict, device=None) -> dict:
+    """The reference's frame parameter ``sprites_static`` (a dict of the 3D
+    sprites' entity rows, pool bases and valid flags, as arrays) -> the
+    same dict of this package's tensors on ``device``, bit for bit."""
+    return {k: _tensor(v, device) for k, v in sprites.items()}
+
+
+def line_bank_from_reference(bank, device=None):
+    """A reference ``LineBank`` (its fields as arrays) -> this package's
+    ``pipeline.lines.LineBank`` on ``device``, bit for bit."""
+    from .pipeline.lines import LineBank
+
+    return LineBank(*(_tensor(getattr(bank, f), device)
+                      for f in LineBank._fields))
 
 
 def skin_bank_from_reference(bank, device=None):

@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points (pointers, the stream: c_void_p).
 _SIGNATURES = {
     "ck_reduce_flat": (_P, _I, _P, _P, _P, _I, _I, _P),
@@ -42,6 +43,7 @@ _SIGNATURES = {
                         _I, _I, _I, _P),
     "ck_ordered_blend_occupancy": (_I, _I, _I),
     "ck_ordered_peel_occupancy": (_I, _I, _I),
+    "ck_draw_lines": (_P, _I, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
 }
 
 

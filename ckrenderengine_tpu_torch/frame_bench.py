@@ -1,7 +1,8 @@
 """Frame rates and per-frame device launches of the smoke scenes (the five
 BASELINE configs, config 4 without its patch sheet, the two stress scenes,
-each of the seven again with Antialias on, and config 2 with a
-stencil-only mesh), for comparing two trees of this package on one card.
+each of the seven again with Antialias on, config 2 with a stencil-only
+mesh, and config 5 with 3D sprites, curves and lines, ``config5_fx``), for
+comparing two trees of this package on one card.
 
     python3 ckrenderengine_tpu_torch/frame_bench.py --root . --out a.json
     python3 ckrenderengine_tpu_torch/frame_bench.py --root _parent --out b.json
@@ -70,9 +71,10 @@ _BASE = (("config1", "build_config1", 0.02),
 SCENES = tuple((name, build, angle, {}) for name, build, angle in _BASE) + \
     tuple((name + "_aa", build, angle, {"antialias": True})
           for name, build, angle in _BASE if name != "config4_skin") + \
-    (("stencil", "build_stencil", 0.03, {}),)
+    (("stencil", "build_stencil", 0.03, {}),
+     ("config5_fx", "build_config5_fx", 0.01, {}))
 KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
-           "ordered_peel_kernel")
+           "ordered_peel_kernel", "lines_kernel")
 FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")
 
 

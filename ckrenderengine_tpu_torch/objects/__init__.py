@@ -14,6 +14,8 @@ from .mesh import CKMesh
 from .patchmesh import CKPatch, CKPatchMesh, CKTVPatch
 from .entity2d import CK2dEntity, CKSprite, CKSpriteText
 from .place import CKPlace, CKPortalEntry
+from .sprite3d import CKSprite3D
+from .curve import CKCurve, CKCurvePoint
 from .material import (
     CKMaterial, VXEFFECT_2TEXTURES, VXEFFECT_3TEXTURES, VXEFFECT_BUMPENV,
     VXEFFECT_DP3, VXEFFECT_NONE, VXEFFECT_TEXGEN, VXEFFECT_TEXGENREF,
@@ -36,7 +38,7 @@ from .classreg import (
 __all__ = [
     "CKContext", "CKObject", "CK3dEntity", "CK3dObject", "CKMesh",
     "CKPatch", "CKPatchMesh", "CKTVPatch", "CK2dEntity", "CKSprite",
-    "CKSpriteText",
+    "CKSpriteText", "CKSprite3D", "CKCurve", "CKCurvePoint",
     "CKPlace", "CKPortalEntry", "CKMaterial", "CKTexture", "CKLight",
     "CKTargetLight", "CKCamera", "CKTargetCamera", "CKRenderManager",
     "CKRenderContext", "VxEffectDescription",

@@ -78,6 +78,15 @@ def _deps_2dentity(o):
     return out
 
 
+def _deps_sprite3d(o):
+    mat = o.GetMaterial()
+    return [(mat, B.CKCID_MATERIAL)] if mat is not None else []
+
+
+def _deps_curve(o):
+    return [(p, B.CKCID_CURVEPOINT) for p in o.points]
+
+
 def _deps_character(o):
     out = _deps_3dentity(o)                 # hierarchy children travel too
     out += [(p, B.CKCID_BODYPART) for p in o.body_parts]
@@ -105,13 +114,13 @@ class CKKinematicChain(B.CKObject):
 
 
 def _build_table() -> dict:
-    """Rows for the classes this package carries (3D sprites, curves and
-    grids are not carried yet; their class ids stay reserved in
-    objects/base.py)."""
+    """Rows for the classes this package carries (grids and layers are not
+    carried yet; their class ids stay reserved in objects/base.py)."""
     from ..anim import (CKBodyPart, CKCharacter, CKKeyedAnimation,
                         CKObjectAnimation)
     from ..anim.objectanim import CKAnimation
     from .camera import CKCamera, CKTargetCamera
+    from .curve import CKCurve, CKCurvePoint
     from .entity import CK3dEntity, CK3dObject, CKRenderObject
     from .entity2d import CK2dEntity, CKSprite, CKSpriteText
     from .light import CKLight, CKTargetLight
@@ -120,6 +129,7 @@ def _build_table() -> dict:
     from .mesh import CKMesh
     from .patchmesh import CKPatchMesh
     from .place import CKPlace
+    from .sprite3d import CKSprite3D
     from .texture import CKTexture
 
     rows = [
@@ -140,6 +150,8 @@ def _build_table() -> dict:
          _deps_3dentity),
         (B.CKCID_BODYPART, "Body Part", B.CKCID_3DOBJECT, CKBodyPart,
          _deps_3dentity),
+        (B.CKCID_SPRITE3D, "3D Sprite", B.CKCID_3DENTITY, CKSprite3D,
+         _deps_sprite3d),
         (B.CKCID_CAMERA, "Camera", B.CKCID_3DENTITY, CKCamera,
          _deps_3dentity),
         (B.CKCID_TARGETCAMERA, "Target Camera", B.CKCID_CAMERA,
@@ -148,6 +160,9 @@ def _build_table() -> dict:
         (B.CKCID_TARGETLIGHT, "Target Light", B.CKCID_LIGHT, CKTargetLight,
          _deps_3dentity),
         (B.CKCID_PLACE, "Place", B.CKCID_3DENTITY, CKPlace, _deps_3dentity),
+        (B.CKCID_CURVEPOINT, "Curve Point", B.CKCID_3DENTITY, CKCurvePoint,
+         None),
+        (B.CKCID_CURVE, "Curve", B.CKCID_3DENTITY, CKCurve, _deps_curve),
         (B.CKCID_CHARACTER, "Character", B.CKCID_3DENTITY, CKCharacter,
          _deps_character),
         (B.CKCID_MESH, "Mesh", B.CKCID_OBJECT, CKMesh, _deps_mesh),

@@ -526,8 +526,37 @@ class CKRenderContext(CKObject):
                              color=tuple(np.asarray(col).tolist())))
                 iv += nv
 
-        # (3D sprites are not carried: no pool rows.)
-        c.extra_pool = 0
+        # Sprite3D billboards: 4 reserved pool rows + 2 triangles per sprite,
+        # corners computed on the device per frame (pipeline/overlay.py).
+        # The stream vertices bind to the identity entity row (= table.count).
+        from .sprite3d import CKSprite3D
+
+        ident_row = table.count
+        for ent in entities:
+            if not isinstance(ent, CKSprite3D):
+                continue
+            mat = ent.material if ent.material is not None else default_mat
+            b = bucket_for(mat, kind="sprite")
+            pool_base = pool_count
+            c.sprite3d_list.append((ent, pool_base, b))
+            u0, v0, u1, v1 = ent.uv_rect
+            pool_pos.append(np.zeros((4, 3), np.float32))
+            pool_nrm.append(np.zeros((4, 3), np.float32))
+            pool_uv.append(np.array([[u0, v1], [u1, v1], [u1, v0], [u0, v0]],
+                                    np.float32))
+            diff = (mat.GetDiffuse() if mat is not None
+                    else np.array([1, 1, 1, 1], np.float32))
+            pool_col.append(np.tile(np.asarray(diff, np.float32), (4, 1)))
+            pool_spec.append(np.zeros((4, 3), np.float32))
+            pool_count += 4
+            src.append(pool_base + np.arange(4, dtype=np.int32))
+            vent.append(np.full(4, ident_row, np.int32))
+            vstate.append(np.full(4, b, np.int32))
+            vlit.append(np.zeros(4, bool))
+            tidx.append(iv + np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+            tstate.append(np.full(2, b, np.int32))
+            iv += 4
+        c.extra_pool = 4 * len(c.sprite3d_list)
 
         # 2D overlay entities: register their textures in the shared stack.
         from .entity2d import CK2dEntity
@@ -784,9 +813,10 @@ class CKRenderContext(CKObject):
             ranges.append((vo, int(d["pool_offset"]), v))
             vo += v
         c.skin_ranges = tuple(ranges)
-        # Line segments (wireframe fills, mesh line lists) need the line
-        # pass, which the frame raises for; no segments -> no line bank.
-        c.line_bank = c.line_segments or None
+        # Line segments (wireframe fills, mesh line lists, curves) -> one
+        # device line bank per compile (None without segments).
+        from ..pipeline.lines import build_line_bank
+        c.line_bank = build_line_bank(c.line_segments, device=ctx.device)
         self._compiled = c
 
         self._refresh_textures(force=True)
@@ -1658,6 +1688,16 @@ class CKRenderContext(CKObject):
             static["tex_quad"] = self._tex_quad
         if vp[0]:
             static["texpatch_idx"] = up(vp[1])
+        # Sprite3D rows (entity rows and pool bases are fixed per compile).
+        self._sprites_static = None
+        if c.sprite3d_list:
+            self._sprites_static = dict(
+                entity_row=up(np.asarray([e.row for e, _, _ in
+                                          c.sprite3d_list], np.int32)),
+                pool_base=up(np.asarray([pb for _, pb, _ in
+                                         c.sprite3d_list], np.int32)),
+                valid=torch.ones(len(c.sprite3d_list), dtype=torch.bool,
+                                 device=ctx.device))
         self._packed_static = static
         self._packed_static_vers = vers
         return static
@@ -1962,7 +2002,7 @@ class CKRenderContext(CKObject):
             height=self.height, width=self.width, skin=c.skin_bank,
             skin_ranges=getattr(c, "skin_ranges", ()),
             anim=None, world_in=world_in,
-            sprites_static=None, lines=c.line_bank,
+            sprites_static=self._sprites_static, lines=c.line_bank,
             ordered_cap=c.ordered_cap, sort_transparent=sort_t,
             want_stencil=c.has_stencil, vertex_shader=self.vertex_shader,
             pixel_shader=self.pixel_shader,
@@ -2495,10 +2535,17 @@ class CKRenderContext(CKObject):
                 for kind, fct, arg, _t in obj.callbacks:
                     if kind == "pre":
                         fct(self, obj, arg)
-        # Mesh pre-render callbacks run before compilation.
+        # Dirty curves regenerate their line meshes before compilation
+        # (RCKCurve::Render = update-if-dirty then render); mesh pre-render
+        # callbacks (patch meshes hook BuildRenderMesh here).
+        from .curve import CKCurve
         for obj in list(self.context._prerender_objects.values()):
-            for cb in list(getattr(obj, "pre_render_callbacks", ())):
-                cb(self, obj)
+            if isinstance(obj, CKCurve):
+                if obj.IsDirty():
+                    obj.Update()
+            else:
+                for cb in list(getattr(obj, "pre_render_callbacks", ())):
+                    cb(self, obj)
         # The reference's render-state cache hit/miss counters map to the scene
         # compile cache: a miss is a frame that had to recompile the streams.
         if self._compiled.topology_version != self.context._topology_version:

@@ -6,12 +6,12 @@ a pointer tree and issuing thousands of stateful draw calls
 src/CKRenderedScene.cpp:152-355), the whole scene is flat device tensors and
 one eager pass does
 
-    unpack -> animate -> compose transforms -> skin -> compact culled chunks
-    -> background 2D quads -> transform + light
+    unpack -> animate -> compose transforms -> skin -> 3D sprite corners
+    -> compact culled chunks -> background 2D quads -> transform + light
     -> assemble + set up triangles -> visibility solve (CUDA B1 or B2)
     -> deferred shade -> ordered pass (render_pass*, CUDA B3 or B4)
-    -> foreground 2D quads (overlay.composite_quads)
     -> stencil pass (B2 or B1 on the stencil-only triangles)
+    -> line pass (CUDA L1) -> foreground 2D quads (overlay.composite_quads)
     -> Antialias resolve (2x2 box: fb mean, zb min, sb max)
 
 The solve dispatch is the reference's, minus the TPU lane rule: the tiled
@@ -52,7 +52,7 @@ from ..raster.types import SI_ALPHABLEND, SI_STENCIL
 from ..roadmap import unported
 from ..scene.entity_table import compose_world
 from .lighting import LightArray, MaterialLighting, compute_vertex_lighting, fog_factor
-from .overlay import QuadBank, composite_quads
+from .overlay import QuadBank, Sprite3DBank, apply_billboards, composite_quads
 from .packing import has_field, unpack
 
 
@@ -896,17 +896,17 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
     pool. ``quads_bg``/``quads_fg``: QuadBanks composited under the 3D
     pass (over the clear colour, or over ``prev_fb``) and over it;
     ``quad_windows``: their host-side windows (``overlay.quad_windows``;
-    None = whole-frame quads). ``want_stencil``: the stencil mask follows
-    zb (:func:`stencil_pass`). ``host_stats``, ``flags`` and
-    ``peel_rounds``: as in :func:`render_frame_impl`. 3D sprites and lines
-    are not carried yet and raise."""
-    if sprites is not None:
-        raise unported("3D sprites (billboards)", 8)
-    if lines is not None:
-        raise unported("the line pass", 7)
-    scene, world, corner = scene_stages(
+    None = whole-frame quads). ``sprites``: Sprite3DBank, whose corners
+    are written into the pool after the skin stage. ``lines``: LineBank,
+    drawn over the finished 3D frame (against its zb) before the
+    foreground quads, from the scene before chunk compaction, whose stream
+    rows the bank indexes (reference frame.py:1142-1145, :1179-1183).
+    ``want_stencil``: the stencil mask follows zb (:func:`stencil_pass`).
+    ``host_stats``, ``flags`` and ``peel_rounds``: as in
+    :func:`render_frame_impl`."""
+    scene, world, corner, scene_lines = scene_stages(
         scene, levels, skin, skin_ranges, anim, anim_t, world_in, corner,
-        cull, cull_sel)
+        cull, cull_sel, sprites)
     win_bg, win_fg = quad_windows or (None, None)
     background = None
     if quads_bg is not None:
@@ -924,6 +924,11 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
         sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
         corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
         host_stats=host_stats, flags=flags, peel_rounds=peel_rounds)
+    if lines is not None:
+        from .lines import draw_lines
+
+        out = (draw_lines(out[0], out[1], scene_lines, world, lines, height,
+                          width),) + tuple(out[1:])
     if quads_fg is None:
         return out
     fb = composite_quads(out[0], quads_fg, scene.tex_planes, scene.tex_hw,
@@ -934,9 +939,11 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
 def scene_stages(scene: SceneDevice, levels: tuple, skin=None,
                  skin_ranges: tuple = (), anim=None, anim_t=0.0,
                  world_in=None, corner: tuple = (0, 0, 0), cull=None,
-                 cull_sel=None):
-    """animate -> compose -> skin -> culled-chunk compaction: the scene,
-    world matrices and corner tuple the frame's vertex stage takes."""
+                 cull_sel=None, sprites=None):
+    """animate -> compose -> skin -> 3D sprite corners (``sprites``, a
+    Sprite3DBank) -> culled-chunk compaction: the scene, world matrices and
+    corner tuple the frame's vertex stage takes, and the scene before the
+    compaction (what the line pass reads)."""
     from .skinning import apply_skin
 
     if world_in is not None:
@@ -951,12 +958,17 @@ def scene_stages(scene: SceneDevice, levels: tuple, skin=None,
                                         scene.normals, skin,
                                         ranges=skin_ranges)
         scene = scene._replace(positions=positions, normals=normals)
-    # Compaction runs after the skin writes, so the gathered tail sees
-    # them (skinned rows are never in the corner block).
+    if sprites is not None:
+        scene = scene._replace(positions=apply_billboards(
+            world, scene.view, scene.positions, sprites,
+            scene.entity_visible))
+    full = scene
+    # Compaction runs after the skin and sprite writes, so the gathered
+    # tail sees them (neither kind of row is ever in the corner block).
     if cull is not None and cull_sel is not None:
         scene, corner = compact_scene_chunks(scene, cull_sel[0], cull_sel[1],
                                              corner, cull)
-    return scene, world, corner
+    return scene, world, corner, full
 
 
 def eval_anim_world(local, parent, anim, anim_t, levels):
@@ -1023,8 +1035,6 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     frame reads nothing back)."""
     if texdev:
         raise unported("render-to-texture feeds", 17)
-    if sprites_static is not None:
-        raise unported("3D sprites (billboards)", 8)
     scene, d = unpack_scene(static, dyn_f, dyn_i, layout, ss=ss)
     rh, rw = height * ss, width * ss
     if ss > 1:
@@ -1052,7 +1062,8 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
         cull_sel = (d["chunk_idx"], d["chunk_n"])
     out = render_frame_full_impl(
         scene, levels, rh, rw, skin=skin, skin_ranges=skin_ranges,
-        anim=anim, anim_t=anim_t, world_in=world_in, lines=lines,
+        anim=anim, anim_t=anim_t, world_in=world_in,
+        sprites=sprite_bank(sprites_static, d), lines=lines,
         ordered_cap=ordered_cap,
         sort_transparent=sort_transparent,
         want_stencil=want_stencil, vertex_shader=vertex_shader,
@@ -1108,10 +1119,11 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
     if params["cull"] is not None and has_field(params["layout"],
                                                 "chunk_idx"):
         cull_sel = (d["chunk_idx"], d["chunk_n"])
-    scene, world, corner = scene_stages(
+    scene, world, corner, _full = scene_stages(
         scene, params["levels"], params["skin"], params["skin_ranges"],
         world_in=params["world_in"], corner=params["corner"],
-        cull=params["cull"], cull_sel=cull_sel)
+        cull=params["cull"], cull_sel=cull_sel,
+        sprites=sprite_bank(params.get("sprites_static"), d))
     batch, setup, defer_tri, tri_bits = opaque_setup(
         scene, params["levels"], world, corner=corner,
         want_texgen=params["want_texgen"],
@@ -1167,3 +1179,17 @@ def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple, ss: int = 1):
         fog_proj=(d["fog_proj"] if has_field(layout, "fog_proj") else None),
         tex_quad=static.get("tex_quad"))
     return scene, d
+
+
+def sprite_bank(sprites_static: dict | None, d: dict):
+    """The frame's Sprite3DBank: the per-compile rows ``sprites_static``
+    (entity rows, pool bases, valid) with the sizes, offsets and modes of
+    the packed field dict ``d`` (reference unpack_scene, frame.py:1408-1415);
+    None without sprites."""
+    if sprites_static is None:
+        return None
+    return Sprite3DBank(
+        entity_row=sprites_static["entity_row"], size=d["sp_size"],
+        offset=d["sp_offset"], mode=d["sp_mode"],
+        pool_base=sprites_static["pool_base"],
+        valid=sprites_static["valid"])

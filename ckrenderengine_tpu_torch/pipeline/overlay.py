@@ -158,3 +158,88 @@ def composite_quads(fb: torch.Tensor, bank: QuadBank,
         fb[:, oy:oy + wh, ox:ox + ww] = _composite_one(
             sub, pxw, pyw, quad, tex_planes, tex_hw)
     return fb
+
+
+class Sprite3DBank(NamedTuple):
+    """S billboard sprites expanded on the device (4 vertices, 2 triangles
+    each). Sprite s owns pool rows pool_base[s] .. pool_base[s] + 3 in
+    corner order (-x-y, +x-y, +x+y, -x+y)."""
+
+    entity_row: torch.Tensor  # (S,) int32
+    size: torch.Tensor        # (S,2) world-size (w,h)
+    offset: torch.Tensor      # (S,2) centre offset in the billboard plane
+    mode: torch.Tensor        # (S,) int32 VXSPRITE3D mode
+    pool_base: torch.Tensor   # (S,) int32 first pool row of the sprite
+    valid: torch.Tensor       # (S,) bool
+
+
+# Sprite3D modes (reference VXSPRITE3D_TYPE).
+SPRITE3D_BILLBOARD = 0
+SPRITE3D_XROTATE = 1
+SPRITE3D_YROTATE = 2
+SPRITE3D_ORIENTABLE = 3
+
+
+def apply_billboards(world: torch.Tensor, view: torch.Tensor,
+                     positions: torch.Tensor, bank: Sprite3DBank,
+                     visible: torch.Tensor | None = None) -> torch.Tensor:
+    """The vertex pool with every sprite's 4 corner positions (world space)
+    written into its rows; a new tensor (``positions`` is left as it is).
+
+    The reference batches sprites per material and fills 4 vertices and 6
+    indices per sprite in camera space on the CPU
+    (RCKRenderContext::AddSprite3DBatch, src/CKRenderContext.cpp:2841-2921).
+    Here all sprites expand in one vectorised step, and the pool rows ride
+    the instanced stream bound to the identity entity row. The rows are a
+    per-compile set: an invalid sprite's rows go to a dump row past the
+    pool, so nothing here depends on a value read back from the device."""
+    if bank.entity_row.shape[0] == 0:
+        return positions
+    erow = bank.entity_row.long()
+    wm = world.index_select(0, erow)                         # (S,4,4)
+    center = wm[:, 3, :3]                                    # (S,3)
+
+    # Camera right/up in world space: V maps world->camera (row vectors),
+    # so the world direction imaging to camera +x is column 0 of V's 3x3.
+    cam_right = view[:3, 0]
+    cam_up = view[:3, 1]
+    cam_right = cam_right / torch.clamp(torch.linalg.vector_norm(cam_right),
+                                        min=1e-12)
+    cam_up = cam_up / torch.clamp(torch.linalg.vector_norm(cam_up),
+                                  min=1e-12)
+
+    ent_right = wm[:, 0, :3]
+    ent_up = wm[:, 1, :3]
+
+    mode = bank.mode[:, None]
+    right = torch.where(mode == SPRITE3D_ORIENTABLE, ent_right,
+                        cam_right[None])
+    up = torch.where(mode == SPRITE3D_ORIENTABLE, ent_up, cam_up[None])
+    # Axis-locked rotations: keep the world axis, billboard the other.
+    right = torch.where(mode == SPRITE3D_YROTATE, ent_right, right)
+    up = torch.where(mode == SPRITE3D_XROTATE, ent_up, up)
+
+    hw = bank.size[:, 0:1] * 0.5
+    hh = bank.size[:, 1:2] * 0.5
+    ox = bank.offset[:, 0:1]
+    oy = bank.offset[:, 1:2]
+    c = center + right * ox + up * oy
+    corners = torch.stack([
+        c - right * hw - up * hh,
+        c + right * hw - up * hh,
+        c + right * hw + up * hh,
+        c - right * hw + up * hh,
+    ], dim=1)                                                # (S,4,3)
+
+    if visible is not None:
+        vis = visible.index_select(0, erow)
+        # Invisible sprites collapse to a point (culled in setup).
+        corners = torch.where(vis[:, None, None], corners, center[:, None, :])
+
+    v = positions.shape[0]
+    rows = (bank.pool_base[:, None].long()
+            + torch.arange(4, device=positions.device)[None])
+    rows = torch.where(bank.valid[:, None], rows, v).reshape(-1)
+    out = torch.cat([positions, positions.new_zeros((1, 3))])
+    out.index_copy_(0, rows, corners.reshape(-1, 3).to(out.dtype))
+    return out[:v]

@@ -7,9 +7,11 @@ checksum of the framebuffer as the window's fence. On the card the plain
 idiom for the same API is a CUDA graph: one :class:`FrameWindow` per window
 key captures ONE whole device-decided frame (``frame.render_frame_packed``
 with ``flags``: no host read inside it) — the unpack, a bound clip's
-animate and compose stages, the vertex stage, the solve (B1/B5 or B2), the
-shade, the ordered pass (B3 or B4), the 2D overlays, the Antialias resolve
-and the frame's checksum and flag row — reading static input buffers. A
+animate and compose stages, the 3D sprites' corners, the vertex stage, the
+solve (B1/B5 or B2), the shade, the ordered pass (B3 or B4), the line pass
+(L1), the 2D overlays, the Antialias resolve and the frame's checksum and
+flag row — reading static input buffers. The key holds the per-compile
+tensors (the sprite rows, the line bank, the static dict) by identity. A
 window then:
 
 1. packs the W frames' buffers (``dyn_f``, ``dyn_i``, a bound clip's locals

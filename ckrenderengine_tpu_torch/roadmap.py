@@ -10,8 +10,6 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    7: "line pass",
-    8: "3D sprites",
     9: "material effects (TexGen, bump, cube env, channels, effect passes)",
     10: "pixel and vertex shaders",
     12: "context batching and tile sharding",
@@ -19,7 +17,8 @@ PORT_QUEUE = {
     14: "scene IO",
     16: "progressive meshes",
     17: "remaining host API (stereo, render-to-texture, picking, "
-        "immediate-mode draws, debug stepping)",
+        "immediate-mode draws, debug stepping, grids, the scene graph, "
+        "inverse kinematics)",
 }
 
 

@@ -570,6 +570,199 @@ def build_config5(O, width: int = 1024, height: int = 768,
     return ctx, rc, spinner
 
 
+def _terrain_height(x, z, amp: float = 4.0):
+    """Height of :func:`make_terrain`'s surface at (x, z)."""
+    return amp * (np.sin(x * 0.15) * np.cos(z * 0.2)
+                  + 0.3 * np.sin(x * 0.7 + z * 0.5))
+
+
+def _fx_material(O, ctx, name, diffuse, texture=None, blend=True):
+    """An unlit sprite material: ``diffuse`` (the sprites' vertex colour)
+    modulating ``texture``; with ``blend`` alpha-over (SRCALPHA,
+    INVSRCALPHA) with z-write off, else opaque."""
+    from .raster.types import VXBLEND
+
+    mat = O.CKMaterial(ctx, name)
+    mat.SetDiffuse(diffuse)
+    if texture is not None:
+        mat.SetTexture(texture)
+    if blend:
+        mat.EnableAlphaBlend(True)
+        mat.SetSourceBlend(int(VXBLEND.SRCALPHA))
+        mat.SetDestBlend(int(VXBLEND.INVSRCALPHA))
+        mat.EnableZWrite(False)
+    return mat
+
+
+def build_config5_fx(O, width: int = 1024, height: int = 768,
+                     terrain_n: int = 500, n_balls: int = 64,
+                     n_sprites: int = 2048, n_curves: int = 16,
+                     curve_steps: int = 64, textured_halos: bool = True,
+                     alpha_cards: bool = False, antialias: bool = False,
+                     **ctx_kw):
+    """Config 5 (:func:`build_config5`) with a Ballance level's effects:
+    3D sprites, curves and lines, placed from a seed. Returns (ctx, rc,
+    spinner); rotate ``spinner`` about y per tick.
+
+    - ``n_sprites`` CKSprite3D (2 triangles each): half glow halos (a 32x32
+      radial alpha texture, alpha-over, z-write off, MODE_BILLBOARD), a
+      quarter untextured sparks (alpha-over, z-write off, half
+      MODE_XROTATE and half MODE_YROTATE), one halo per sphere parented to
+      it (MODE_ORIENTABLE, so they move with the spinner), and the rest
+      textured opaque tree cards standing on the terrain (z-write on,
+      MODE_YROTATE). At the default 2,048: 1,024 + 512 + 64 + 448.
+    - ``n_curves`` CKCurve rails of 12 control points at step count
+      ``curve_steps`` (closed TCB, open linear, open TCB with tension,
+      continuity and bias, closed with a fitting coefficient and linear
+      points, in turn), a wireframe-fill 8x8 quad grid (208 edges) and a
+      64-segment line-list mesh under the spinner: at the defaults 1,192
+      line segments.
+
+    The TexturedPeel option is on, so the transparent sprites take the
+    textured peel (B4); with ``textured_halos`` off every transparent
+    sprite is untextured and they take the ordered blend (B3). One frame
+    takes one ordered route. The tree cards are opaque, not alpha-tested:
+    an alpha-tested state that writes z lies outside both ordered kernels'
+    envelopes and sends the whole ordered pass to its exact tiled form,
+    which reads the host inside the frame, so such a frame never runs in a
+    frame window. With ``alpha_cards`` on they are that case: cutouts (the
+    texture's alpha under alpha test GREATER 128) with z-write on."""
+    from .raster.types import VXCMP, VXFILL
+
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n, n_balls,
+                                     antialias, **ctx_kw)
+    ctx.GetRenderManager().SetRenderOptions("TexturedPeel", 1)
+    rng = np.random.default_rng(12)
+
+    glow = O.CKTexture(ctx, "glow")
+    yy, xx = np.mgrid[-1:1:32j, -1:1:32j]
+    halo = np.clip(1.2 - np.sqrt(xx ** 2 + yy ** 2), 0, 1).astype(np.float32)
+    glow.SetImage(np.stack([halo, halo * 0.9, halo * 0.3, halo], -1))
+    bark = O.CKTexture(ctx, "treecard")
+    ty, tx = np.mgrid[0:32, 0:16]
+    crown = (np.abs(tx - 7.5) < (ty * 0.25 + 1.0)).astype(np.float32)
+    bark.SetImage(np.stack([0.2 + 0.3 * crown, 0.3 + 0.4 * crown,
+                            0.15 + 0.1 * crown,
+                            crown if alpha_cards else np.ones_like(crown)],
+                           -1))
+    halo_mat = _fx_material(O, ctx, "halomat", (1.0, 0.9, 0.6, 1.0),
+                            glow if textured_halos else None)
+    spark_mat = _fx_material(O, ctx, "sparkmat", (1.0, 0.6, 0.2, 0.6))
+    card_mat = _fx_material(O, ctx, "cardmat", (1.0, 1.0, 1.0, 1.0), bark,
+                            blend=False)
+    if alpha_cards:
+        card_mat.EnableAlphaTest(True)
+        card_mat.SetAlphaFunc(int(VXCMP.GREATER))
+        card_mat.SetAlphaRef(128)
+
+    n_halo = n_sprites // 2
+    n_spark = n_sprites // 4
+    n_card = max(n_sprites - n_halo - n_spark - n_balls, 0)
+
+    def sprite(name, mat, mode, size, pos, parent=None):
+        sp = O.CKSprite3D(ctx, name)
+        sp.SetMaterial(mat)
+        sp.SetMode(mode)
+        sp.SetSize(size)
+        if parent is not None:
+            sp.SetParent(parent)
+            sp.SetPosition(pos, ref=parent)
+        else:
+            sp.SetPosition(pos)
+        return sp
+
+    def ground(z0, z1, spread=0.3):
+        # (x, z) in the camera's view (its half-width at depth d is ~0.3 d)
+        # or, with a wider ``spread``, around it.
+        z = rng.uniform(z0, z1)
+        return rng.uniform(-spread, spread) * (z + 62.0), z
+
+    S3 = O.CKSprite3D
+    for i in range(n_halo):
+        x, z = ground(-10, 300, spread=0.6)
+        s = float(rng.uniform(2.0, 5.0))
+        sprite(f"halo{i}", halo_mat, S3.MODE_BILLBOARD, (s, s),
+               (x, float(_terrain_height(x, z)) + rng.uniform(4, 18), z))
+    for i in range(n_spark):
+        x, z = ground(-15, 160)
+        s = float(rng.uniform(0.6, 1.5))
+        sprite(f"spark{i}", spark_mat,
+               S3.MODE_XROTATE if i % 2 == 0 else S3.MODE_YROTATE, (s, s),
+               (x, float(_terrain_height(x, z)) + rng.uniform(1, 12), z))
+    for i in range(n_card):
+        x, z = ground(0, 280)
+        h = float(rng.uniform(5.0, 9.0))
+        sprite(f"card{i}", card_mat, S3.MODE_YROTATE, (h * 0.5, h),
+               (x, float(_terrain_height(x, z)) + h * 0.5, z))
+    for i in range(n_balls):
+        ball = ctx.GetObjectByName(f"ball{i}")
+        sprite(f"ballhalo{i}", halo_mat, S3.MODE_ORIENTABLE, (4.0, 4.0),
+               (0.0, 0.0, -2.0), parent=ball)
+
+    # Rails: 12 control points each, on a loop or a wave over the terrain.
+    for k in range(n_curves):
+        cx, cz = ground(-15, 40)
+        cv = O.CKCurve(ctx, f"rail{k}")
+        cv.SetPosition((cx, float(_terrain_height(cx, cz)) + 5.0, cz))
+        kind = k % 4
+        ang = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+        for j in range(12):
+            if kind in (0, 3):
+                p = (8 * np.cos(ang[j]), 1.5 * np.sin(3 * ang[j]),
+                     6 * np.sin(ang[j]))
+            else:
+                p = (-15 + 2.75 * j, 2 * np.sin(j * 0.9),
+                     4 * np.cos(j * 0.7))
+            cp = cv.AddControlPoint(np.asarray(p, np.float32))
+            if kind == 1 or (kind == 3 and j % 3 == 0):
+                cp.SetLinear(True)
+            if kind == 2:
+                cp.SetTension(float(rng.uniform(-0.5, 0.5)))
+                cp.SetContinuity(float(rng.uniform(-0.5, 0.5)))
+                cp.SetBias(float(rng.uniform(-0.5, 0.5)))
+        if kind in (0, 3):
+            cv.Close()
+        if kind == 3:
+            cv.SetFittingCoeff(0.3)
+        cv.SetStepCount(curve_steps)
+        cv.SetColor((float(rng.uniform(0.5, 1)), float(rng.uniform(0.5, 1)),
+                     float(rng.uniform(0.2, 1)), 1.0))
+
+    # A wireframe 8x8 quad grid standing upright.
+    g = np.linspace(-8.0, 8.0, 9, dtype=np.float32)
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    grid = O.CKMesh(ctx, "wiregrid")
+    grid.SetPositions(np.stack([gx + 10.0, gy + 12.0,
+                                np.full_like(gx, 70.0)], -1).reshape(-1, 3))
+    a = (np.arange(8)[:, None] * 9 + np.arange(8)[None]).reshape(-1)
+    grid.SetFaces(np.concatenate([np.stack([a, a + 1, a + 10], -1),
+                                  np.stack([a, a + 10, a + 9], -1)]).astype(
+        np.int32))
+    grid.BuildNormals()
+    wmat = O.CKMaterial(ctx, "wiremat")
+    wmat.SetDiffuse((0.2, 0.9, 0.4, 1.0))
+    wmat.SetFillMode(int(VXFILL.WIREFRAME))
+    wmat.SetTwoSided(True)
+    grid.ApplyGlobalMaterial(wmat)
+    O.CK3dObject(ctx, "wiregrid").SetCurrentMesh(grid)
+
+    # A 64-segment line list (a star of chords) turning with the spinner.
+    ang = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    star = O.CKMesh(ctx, "star")
+    star.SetPositions(np.stack([12 * np.cos(ang), np.full_like(ang, 7.0),
+                                12 * np.sin(ang) + 40], -1).astype(
+        np.float32))
+    star.SetColors(np.tile(np.array([1.0, 0.3, 0.8, 1.0], np.float32),
+                           (64, 1)))
+    star.SetLineCount(64)
+    for i in range(64):
+        star.SetLine(i, i, (i + 27) % 64)
+    st = O.CK3dObject(ctx, "star")
+    st.SetCurrentMesh(star)
+    st.SetParent(spinner)
+    return ctx, rc, spinner
+
+
 def _alpha_stage(O, ctx, width: int, height: int):
     """Camera, sun and the 3,200-triangle opaque floor shared by the two
     transparency stress scenes (``benchmarks/stress.py``)."""

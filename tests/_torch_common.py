@@ -101,33 +101,45 @@ def render_reference(build, accelerator: bool = True, frame_ids=False,
     return rj
 
 
-def reference_winners(static, dyn_f, dyn_i, params):
-    """(best_id, best_depth, setup) of a reference-package frame from its
-    packed inputs, through the reference's own stages run one operation at
-    a time (so no multiply-add is contracted across them) and its flat exact
-    solve; ``setup`` is the triangle-setup dict as numpy arrays. A bound
-    clip's ``world_in`` and the skin stage are applied first, as the
-    reference's frame does. An Antialias frame (``params["ss"]`` > 1) is
-    solved at its render size."""
+def reference_stages(static, dyn_f, dyn_i, params):
+    """The reference package's stages of a frame from its packed inputs,
+    run one operation at a time (so no multiply-add is contracted across
+    them). A bound clip's ``world_in``, the skin stage and the 3D sprites'
+    corners are applied first, as the reference's frame does; an Antialias
+    frame (``params["ss"]`` > 1) is set up at its render size. Returns a
+    dict: ``scene_lines`` (the scene before chunk compaction, which the
+    line pass reads) and ``world_lines`` (the world matrices it reads),
+    the compacted ``scene``, the triangle ``batch``, the per-triangle
+    ``defer`` mask and the triangle ``setup`` dict."""
     import jax.numpy as jnp
     from ckrenderengine_tpu.pipeline import frame as jfr
+    from ckrenderengine_tpu.pipeline.overlay import apply_billboards
     from ckrenderengine_tpu.pipeline.packing import has_field
     from ckrenderengine_tpu.pipeline.skinning import apply_skin
     from ckrenderengine_tpu.raster import deferred as jdf
 
     layout = params["layout"]
     ss = params.get("ss", 1)
-    scene, _sprites, d = jfr.unpack_scene(static, jnp.asarray(dyn_f),
-                                          jnp.asarray(dyn_i), layout, ss=ss)
+    scene, sprites, d = jfr.unpack_scene(
+        static, jnp.asarray(dyn_f), jnp.asarray(dyn_i), layout,
+        sprites_static=params.get("sprites_static"), ss=ss)
     world = params.get("world_in")
+    if world is None and (params.get("skin") is not None
+                          or sprites is not None):
+        world = jfr.compose_world(scene.local, scene.parent,
+                                  params["levels"])
     if params.get("skin") is not None:
-        if world is None:
-            world = jfr.compose_world(scene.local, scene.parent,
-                                      params["levels"])
         positions, normals = apply_skin(world, scene.positions,
                                         scene.normals, params["skin"],
                                         ranges=params["skin_ranges"])
         scene = scene._replace(positions=positions, normals=normals)
+    if sprites is not None:
+        scene = scene._replace(positions=apply_billboards(
+            world, scene.view, scene.positions, sprites,
+            scene.entity_visible))
+    scene_lines = scene
+    world_lines = world if world is not None else jfr.compose_world(
+        scene.local, scene.parent, params["levels"])
     corner = params["corner"]
     if params["cull"] is not None and has_field(layout, "chunk_idx"):
         scene, corner = jfr.compact_scene_chunks(
@@ -142,8 +154,23 @@ def reference_winners(static, dyn_f, dyn_i, params):
                                batch.valid, scene.state_i,
                                clip_rect=batch.clip_rect, clipd=batch.clipd,
                                planar=batch.planar)
-    bi, bd = jdf.depth_reduce(setup, defer, scene.clear_z, scene.viewport,
-                              params["height"] * ss, params["width"] * ss)
+    return dict(scene_lines=scene_lines, world_lines=world_lines,
+                scene=scene, batch=batch, defer=defer, setup=setup)
+
+
+def reference_winners(static, dyn_f, dyn_i, params):
+    """(best_id, best_depth, setup) of a reference-package frame from its
+    packed inputs: :func:`reference_stages` and the reference's flat exact
+    solve; ``setup`` is the triangle-setup dict as numpy arrays. An
+    Antialias frame is solved at its render size."""
+    from ckrenderengine_tpu.raster import deferred as jdf
+
+    st = reference_stages(static, dyn_f, dyn_i, params)
+    scene, setup = st["scene"], st["setup"]
+    ss = params.get("ss", 1)
+    bi, bd = jdf.depth_reduce(setup, st["defer"], scene.clear_z,
+                              scene.viewport, params["height"] * ss,
+                              params["width"] * ss)
     return (np.asarray(bi), np.asarray(bd),
             {k: np.asarray(v) for k, v in setup.items()})
 
@@ -337,17 +364,20 @@ def assert_frame_depth_close(got, ref, ids, setup_np, where, atol=4e-6):
 
 
 def assert_frame_fb_close(got, ref, ids, setup_np, where, atol=1.0 / 255.0,
-                          max_frac=1e-3, min_cond=1e3):
+                          max_frac=1e-3, min_cond=1e3, explained=None):
     """Framebuffers of two whole frames on the pixels ``where``: within one
     8-bit step (``atol``) on all but ``max_frac`` of them; those sit on
     edges whose :func:`edge_condition` exceeds ``min_cond``, where the two
     packages' interpolation weights round apart far enough for a
-    nearest-texel lookup to land on the neighbouring texel."""
+    nearest-texel lookup to land on the neighbouring texel, or on the
+    pixels ``explained`` (a mask of other stated causes: :func:`fx_explained`)."""
     diff = np.abs(np.asarray(got, np.float64)
                   - np.asarray(ref, np.float64)).max(0)
     off = (diff > atol) & where
     assert off.sum() <= max_frac * where.sum(), (int(off.sum()),
                                                  float(diff[where].max()))
+    if explained is not None:
+        off &= ~explained
     if off.any():
         cond = edge_condition(ids, setup_np)
         assert np.all(cond[off] > min_cond), cond[off].min()
@@ -368,7 +398,8 @@ def render_both(build, accelerator: bool = True, frame_ids=False, **kw):
     return rj, rt, packed, reference_winners(*packed)
 
 
-def check_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None):
+def check_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None,
+                                  explained=None):
     """A port frame (winner ids, fb, zb) against the reference's solve
     ``ref`` = (ids, depth, setup) of the same inputs and the reference's
     rendered frame ``rj`` (tests/test_torch_slice.py says why each bound).
@@ -381,6 +412,7 @@ def check_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None):
     ill-conditioned edge the two setups' coefficients cancel apart); and
     the pixels where the reference's frame disagrees with its own exact
     solve (``rj.frame_ids``) are not compared with that frame.
+    ``explained``: as in :func:`assert_frame_fb_close`.
     """
     ids_ref, depth_ref, setup = ref
     same = ids == ids_ref
@@ -404,7 +436,8 @@ def check_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None):
         match &= rj.frame_ids == ids_ref
     assert match.mean() >= 0.999, match.mean()
     assert_frame_depth_close(zb, zb_ref, ids_ref, setup, match & well)
-    assert_frame_fb_close(fb, fb_ref, ids_ref, setup, match)
+    assert_frame_fb_close(fb, fb_ref, ids_ref, setup, match,
+                          explained=explained)
     assert (ids_ref >= 0).mean() > 0.1
 
 
@@ -434,7 +467,7 @@ def _assert_lo_depth_close(got, ref, bound, where, atol=4e-6):
 
 
 def check_aa_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None,
-                                     ss=2):
+                                     ss=2, explained=None):
     """An Antialias frame of the port against the reference: the bounds of
     :func:`check_frame_against_reference`, taken per display pixel over
     its ss x ss samples. ``ids`` and ``ref`` = (ids, depth, setup) are at
@@ -449,7 +482,8 @@ def check_aa_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None,
       values each within a bound is within the largest bound).
     - Framebuffers within 1/255 on all but 0.1% of the pixels whose samples
       all match; those sit on an ill-conditioned edge (the largest
-      :func:`edge_condition` of their samples > 1e3)."""
+      :func:`edge_condition` of their samples > 1e3), or are
+      ``explained`` (display size; as in :func:`assert_frame_fb_close`)."""
     ids_ref, depth_ref, setup = ref
     same = ids == ids_ref
     assert same.mean() >= 0.999, same.mean()
@@ -481,13 +515,15 @@ def check_aa_frame_against_reference(ids, fb, zb, ref, rj, setup_port=None,
     off = (diff > 1.0 / 255.0) & match
     assert off.sum() <= 1e-3 * match.sum(), (int(off.sum()),
                                              float(diff[match].max()))
+    if explained is not None:
+        off &= ~explained
     if off.any():
         cond = win_max(edge_condition(ids_ref, setup), ss)
         assert np.all(cond[off] > 1e3), cond[off].min()
     assert (ids_ref >= 0).mean() > 0.1
 
 
-def check_render(pair, own_setup: bool = False):
+def check_render(pair, own_setup: bool = False, explained=None):
     """The port's Render() frame of ``pair`` (from :func:`render_both`)
     against the reference; the port's winners from its own packed inputs.
     ``own_setup``: hold differing winners to each package's own triangle
@@ -506,7 +542,8 @@ def check_render(pair, own_setup: bool = False):
             st, tf, ti, tp)[2].items() if isinstance(v, torch.Tensor)}
     check = (check_frame_against_reference if tp.get("ss", 1) == 1
              else check_aa_frame_against_reference)
-    check(to_np(ids), to_np(rt.fb), to_np(rt.zb), ref, rj, setup_port)
+    check(to_np(ids), to_np(rt.fb), to_np(rt.zb), ref, rj, setup_port,
+          explained=explained)
     return tp
 
 
@@ -528,3 +565,203 @@ def check_reference_inputs(pair, own_setup: bool = False):
             st, tf, ti, tp)[2].items() if isinstance(v, torch.Tensor)}
     check_frame_against_reference(to_np(ids), to_np(fb), to_np(zb), ref, rj,
                                   setup_port)
+
+
+_U = 2.0 ** -24
+
+
+def exact_rows(scene, world, bank):
+    """(rows float64 (L, 12) exact, delta (L,) bound on either package's
+    endpoint error in x and y, delta_z (L,) in depth): the vertex path of
+    draw_lines in float64, with first-order f32 error bounds."""
+    g = lambda n: n * _U / (1 - n * _U)              # noqa: E731
+    world_ext = np.concatenate([world, np.eye(4, dtype=np.float32)[None]])
+    ep = bank["idx"].reshape(-1)
+    src = scene["src_idx"][ep]
+    pos = scene["positions"][src].astype(np.float64)
+    wm = world_ext[scene["vert_entity"][ep]].astype(np.float64)
+    r, t = wm[:, :3, :3], wm[:, 3, :3]
+    terms = np.abs(pos[:, :, None] * r).sum(1) + np.abs(t)
+    posw = np.einsum("ni,nij->nj", pos, r) + t
+    e_posw = g(4) * terms
+    view = scene["view"].astype(np.float64)
+    proj = scene["proj"].astype(np.float64)
+    vp_m = view @ proj
+    e_m = g(4) * (np.abs(view) @ np.abs(proj))
+    p4 = np.concatenate([posw, np.ones((posw.shape[0], 1))], 1)
+    e4 = np.concatenate([e_posw, np.zeros((posw.shape[0], 1))], 1)
+    clip = p4 @ vp_m
+    e_clip = (g(8) * (np.abs(p4) @ np.abs(vp_m)) + e4 @ np.abs(vp_m)
+              + np.abs(p4) @ e_m)
+    vx, vy, vw, vh = scene["viewport"].astype(np.float64)
+    w = np.maximum(clip[:, 3], 1e-6)
+    qx, qy, qz = clip[:, 0] / w, clip[:, 1] / w, clip[:, 2] / w
+    e_w = e_clip[:, 3]
+
+    def e_q(q, ec):
+        return (ec + np.abs(q) * e_w) / w + _U * np.abs(q)
+
+    sx = vx + vw * 0.5 + qx * (vw * 0.5)
+    sy = vy + vh * 0.5 - qy * (vh * 0.5)
+    e_sx = vw * 0.5 * e_q(qx, e_clip[:, 0]) + g(3) * (
+        abs(vx) + vw * 0.5 + np.abs(qx) * vw * 0.5)
+    e_sy = vh * 0.5 * e_q(qy, e_clip[:, 1]) + g(3) * (
+        abs(vy) + vh * 0.5 + np.abs(qy) * vh * 0.5)
+    e_sz = e_q(qz, e_clip[:, 2])
+    behind = clip[:, 3] <= 1e-6
+    valid = bank["valid"] & ~(behind[0::2] | behind[1::2])
+    rows = np.stack([sx[0::2], sy[0::2], sx[1::2], sy[1::2], qz[0::2],
+                     qz[1::2], valid.astype(np.float64),
+                     np.zeros(valid.shape)], 1)
+    rows = np.concatenate([rows, bank["color"].astype(np.float64)], 1)
+    e_xy = np.maximum(e_sx + e_sy, 0)
+    delta = 2 * np.maximum(e_xy[0::2], e_xy[1::2])
+    delta_z = 2 * np.maximum(e_sz[0::2], e_sz[1::2])
+    # No endpoint sits within its error of the w threshold.
+    assert np.all(np.abs(clip[:, 3] - 1e-6) > e_w)
+    return rows, delta, delta_z
+
+
+def line_band(rows, h, w, zb_lo, zb_hi, delta, delta_z, row0=0.0,
+              half_width=0.7, z_bias=1e-4):
+    """(h, w) bool: the pixels where some valid line segment's coverage
+    decision lies within rounding of its threshold (the line pass's band).
+
+    ``rows`` (L, 12) are line_rows-layout segments in float64 (taken as
+    exact), ``delta`` (L,) a bound on either package's endpoint error (x
+    and y) and ``delta_z`` (L,) on its endpoint depths. Per (pixel,
+    segment): the distance to the segment within 2 delta + 16 u (|pax| +
+    |pay| + |dx| + |dy|) of sqrt(f32(half_width^2)) while the depth can
+    pass, or the depth along the segment within delta_z + |z1 - z0| dt +
+    16 u of a limit in [zb_lo, zb_hi] + z_bias (zb_lo / zb_hi: the two
+    packages' depth buffers, elementwise), of 0 or of 1, where dt bounds
+    the error of the segment parameter t."""
+    rows = np.asarray(rows, np.float64)
+    keep = rows[:, 6] > 0.5
+    rows, delta, delta_z = rows[keep], np.asarray(delta)[keep], \
+        np.asarray(delta_z)[keep]
+    hw = np.sqrt(float(np.float32(half_width * half_width)))
+    zb_lo, zb_hi = (np.minimum(zb_lo, zb_hi).astype(np.float64) + z_bias,
+                    np.maximum(zb_lo, zb_hi).astype(np.float64) + z_bias)
+    px = np.arange(w, dtype=np.float64)[None, None] + 0.5
+    py = np.arange(h, dtype=np.float64)[None, :, None] + 0.5 + row0
+    band = np.zeros((h, w), bool)
+    for c0 in range(0, rows.shape[0], 32):
+        r = rows[c0:c0 + 32]
+
+        def col(a):
+            return a[:, None, None]
+
+        ax, ay, z0, z1 = (col(r[:, i]) for i in (0, 1, 4, 5))
+        dx, dy = col(r[:, 2] - r[:, 0]), col(r[:, 3] - r[:, 1])
+        d = col(delta[c0:c0 + 32])
+        dz = col(delta_z[c0:c0 + 32])
+        len2 = dx * dx + dy * dy
+        pax, pay = px - ax, py - ay
+        t = np.clip((pax * dx + pay * dy) / np.maximum(len2, 1e-300), 0, 1)
+        dist = np.hypot(pax - t * dx, pay - t * dy)
+        mag = np.abs(pax) + np.abs(pay) + np.abs(dx) + np.abs(dy)
+        e_d = 2 * d + 16 * _U * mag
+        seg = np.sqrt(len2)
+        dt = np.minimum(1.0, 4 * e_d * (np.hypot(pax, pay) + seg)
+                        / np.maximum(len2, 1e-300))
+        zl = z0 * (1 - t) + z1 * t
+        e_z = dz + np.abs(z1 - z0) * dt + 16 * _U
+        z_may = (zl <= zb_hi[None] + e_z) & (zl >= -e_z) & (zl <= 1 + e_z)
+        near = dist <= hw + e_d
+        near_z = ((zl >= zb_lo[None] - e_z) & (zl <= zb_hi[None] + e_z)
+                  | (np.abs(zl) <= e_z) | (np.abs(zl - 1) <= e_z))
+        band |= ((np.abs(dist - hw) <= e_d) & z_may | near & near_z).any(0)
+    return band
+
+
+def ill_conditioned(setup_np, sel, xyw, h, w, min_cond=1e3):
+    """(h, w) bool: pixels where the edge evaluation of one of the selected
+    triangles is ill-conditioned (:func:`edge_condition` > ``min_cond``),
+    within a pixel of its screen box; ``xyw`` (T, 3, 3) the triangles'
+    screen-homogeneous corners, ``sel`` (T,) bool."""
+    out = np.zeros((h, w), bool)
+    ec = np.asarray(setup_np["e_coef"], np.float64)
+    xyw = np.asarray(xyw, np.float64)
+    for k in np.nonzero(sel)[0]:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v = xyw[k, :, :2] / xyw[k, :, 2:3]
+        if not np.isfinite(v).all() or (xyw[k, :, 2] <= 0).any():
+            x0, x1, y0, y1 = 0, w, 0, h
+        else:
+            x0 = max(int(np.floor(v[:, 0].min())) - 1, 0)
+            x1 = min(int(np.ceil(v[:, 0].max())) + 1, w)
+            y0 = max(int(np.floor(v[:, 1].min())) - 1, 0)
+            y1 = min(int(np.ceil(v[:, 1].max())) + 1, h)
+        if x1 <= x0 or y1 <= y0:
+            continue
+        px = np.arange(x0, x1, dtype=np.float64)[None, :, None] + 0.5
+        py = np.arange(y0, y1, dtype=np.float64)[:, None, None] + 0.5
+        a, b, c = ec[k, :, 0], ec[k, :, 1], ec[k, :, 2]
+        e = a * px + b * py + c
+        terms = np.abs(a * px) + np.abs(b * py) + np.abs(c)
+        cond = (terms / np.maximum(np.abs(e), 1e-30)).max(-1)
+        out[y0:y1, x0:x1] |= cond > min_cond
+    return out
+
+
+def fx_explained(pair, eps=1e-3, eps_z=1e-5):
+    """(H, W) bool at the display size: the pixels of a ``render_both``
+    pair whose colours may differ for a stated cause other than an opaque
+    edge, so that :func:`check_render` may leave them to the 0.1% budget.
+    Both masks come from the reference's own stages of the frame
+    (:func:`reference_stages`), never from the port's:
+
+    - an ill-conditioned edge (:func:`edge_condition` > 1e3, the bound
+      :func:`assert_frame_fb_close` holds opaque winners to) of a triangle
+      of the ordered pass or of a 3D sprite: its coverage there goes
+      either way with the rounding of its corners, which each package's
+      billboard stage computes (the reference's jit may round them apart
+      by 8 u S, tests/test_torch_billboards.py);
+    - the line band (:func:`line_band`) of the frame's line bank: the
+      endpoints' exact projections in float64 (:func:`exact_rows`), with
+      their first-order f32 error bounds but at least ``eps`` px in x and
+      y and ``eps_z`` in depth (the bounds take each package's world
+      matrices as exact, and the two compose them apart by a few ulps),
+      against a depth buffer anywhere between the two packages' (both
+      frames' zb and the reference's exact solve within its bound).
+
+    An Antialias frame's masks are made at its render size (against the
+    reference's exact solve there) and a display pixel is explained when
+    any of its samples is."""
+    from ckrenderengine_tpu.raster.types import SI_STENCIL
+
+    rj, rt, packed, ref = pair
+    params = packed[3]
+    ss = params.get("ss", 1)
+    h, w = rj.height * ss, rj.width * ss
+    st = reference_stages(*packed)
+    batch = st["batch"]
+    sidx = np.asarray(batch.state_idx)
+    state_i = np.asarray(st["scene"].state_i)
+    sprite_state = np.array([kind == "sprite" for _m, kind, _b
+                             in rj._compiled.materials])
+    sel = np.asarray(batch.valid) & (
+        ~np.asarray(st["defer"]) & (state_i[sidx, SI_STENCIL] == 0)
+        | sprite_state[sidx])
+    out = ill_conditioned(st["setup"], sel, np.asarray(batch.xyw), h, w)
+    if params["lines"] is not None:
+        sc = st["scene_lines"]
+        scene = {k: np.asarray(getattr(sc, k)) for k in (
+            "src_idx", "vert_entity", "positions", "view", "proj",
+            "viewport")}
+        bank = {k: np.asarray(getattr(params["lines"], k))
+                for k in ("idx", "color", "valid")}
+        rows, delta, delta_z = exact_rows(
+            scene, np.asarray(st["world_lines"]), bank)
+        ids_ref, depth_ref, setup = ref
+        b = 4e-6 + 2 * _FRAME_SLACK * np.nan_to_num(
+            depth_error_bound(ids_ref, setup), nan=0.0)
+        lo, hi = depth_ref - b, depth_ref + b
+        if ss == 1:
+            zs = (to_np(rt.zb), np.asarray(rj.zb))
+            lo = np.minimum(lo, np.minimum(*zs))
+            hi = np.maximum(hi, np.maximum(*zs))
+        out |= line_band(rows, h, w, lo, hi, np.maximum(delta, eps),
+                         np.maximum(delta_z, eps_z))
+    return out if ss == 1 else win_max(out, ss)

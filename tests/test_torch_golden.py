@@ -1,12 +1,17 @@
 """The golden frames (tests/torch_golden/, made by
 tests/torch_golden/make_golden.py with the reference package on its
 accelerator branch, so they carry the quantized rows of a tiled frame):
-config 2, and the untextured transparency scene whose ordered pass both
-packages run through kernel B3. The reference still reproduces each, and
-the port on the CPU matches it. The bounds are the slice's (tests/test_torch_slice.py): opaque winner
-ids equal on >= 99.9% of the pixels, and the 8-bit image within one step
-wherever the winners agree. ``chip_smoke.py`` holds the port on the GPU to
-the same files and bounds."""
+config 2, the untextured transparency scene whose ordered pass both
+packages run through kernel B3, and the effects level whose 3D sprites
+take the textured peel B4 and whose curves, wireframe grid and line list
+take the line pass. The reference still reproduces the first two, and the
+port on the CPU matches all three. The bounds are the slice's
+(tests/test_torch_slice.py): opaque winner ids equal on >= 99.9% of the
+pixels, and the 8-bit image within one step wherever the winners agree;
+at the effects level on all but 0.1% of those pixels, where a transparent
+sprite's ill-conditioned edge or the line pass's rounding band goes the
+other way (tests/test_torch_fx_frame.py). ``chip_smoke.py`` holds the
+port on the GPU to the same files and bounds."""
 
 import os
 
@@ -20,14 +25,18 @@ from tests.torch_golden import make_golden
 
 GOLDEN = np.load(make_golden.OUT)
 ALPHA = np.load(make_golden.ALPHA_OUT)
+FX = np.load(make_golden.FX_OUT)
 
 
-def _check(rgba, ids, golden=GOLDEN):
+def _check(rgba, ids, golden=GOLDEN, max_off=0.0):
     assert rgba.shape == golden["rgba"].shape and rgba.dtype == np.uint8
     match = ids == golden["ids"]
     assert match.mean() >= 0.999, match.mean()
-    diff = np.abs(rgba.astype(np.int32) - golden["rgba"].astype(np.int32))
-    assert diff[match].max() <= 1, diff[match].max()
+    diff = np.abs(rgba.astype(np.int32)
+                  - golden["rgba"].astype(np.int32)).max(-1)
+    off = diff[match] > 1
+    assert off.sum() <= max_off * match.sum(), (int(off.sum()),
+                                                diff[match].max())
     assert (golden["ids"] >= 0).mean() > 0.5
 
 
@@ -76,3 +85,23 @@ def test_port_matches_alpha_golden(device):
     _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
                                  torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids), ALPHA)
+
+
+def test_fx_golden_file_is_small():
+    assert os.path.getsize(make_golden.FX_OUT) <= 300_000
+
+
+@pytest.mark.parametrize("device", ["cpu"])
+def test_port_matches_fx_golden(device):
+    import ckrenderengine_tpu_torch.objects as O
+
+    build, kw = make_golden.frames()[make_golden.FX_OUT]
+    _ctx, rc, _m = build(O, device=device, **kw)
+    rc.Render()
+    st, tf, ti, tp = rc._fill_packed([], [])
+    assert tp["ordered_cap"] * rc.height * rc.width > 1 << 26   # B4 branch
+    assert tp["sampler_profile"][6] and not tp["sampler_profile"][5]
+    assert tp["lines"] is not None and rc.GetStats().NbLinesDrawn == 364
+    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
+                                 torch.as_tensor(ti, device=device), tp)
+    _check(rc.BackToFront(), to_np(ids), FX, max_off=1e-3)

@@ -19,7 +19,15 @@ stages and exact flat solve:
 - ``alpha_320x240.npz``: the untextured transparency scene
   (``scenes.build_alpha50k``) cut to 4 sheets of 242 alpha-over triangles
   at 320x240 — ordered_cap*H*W > 2^26, so both packages take the affine
-  blend kernel B3 (the reference's in interpret mode).
+  blend kernel B3 (the reference's in interpret mode);
+- ``fx_320x240.npz``: the effects level (``scenes.build_config5_fx``) cut
+  to a 70x70 terrain, 8 spheres, 1,024 3D sprites (776 of them
+  transparent: ordered_cap*H*W > 2^26, so both packages take the textured
+  peel B4) and 4 curves at step count 24 with the wireframe grid and the
+  line-list star, at 320x240.
+
+``python tests/torch_golden/make_golden.py fx_320x240`` writes only the
+named frames.
 
 The port's tests and ``chip_smoke.py`` hold the port's frames, on the CPU
 and on the GPU, against these files.
@@ -35,6 +43,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 DIR = os.path.join(ROOT, "tests", "torch_golden")
 OUT = os.path.join(DIR, "config2_320x240.npz")
 ALPHA_OUT = os.path.join(DIR, "alpha_320x240.npz")
+FX_OUT = os.path.join(DIR, "fx_320x240.npz")
 
 
 def frames():
@@ -45,7 +54,10 @@ def frames():
 
     return {OUT: (scenes.build_config2, dict(width=320, height=240)),
             ALPHA_OUT: (scenes.build_alpha50k, dict(
-                width=320, height=240, n_sheets=4, sheet_n=11))}
+                width=320, height=240, n_sheets=4, sheet_n=11)),
+            FX_OUT: (scenes.build_config5_fx, dict(
+                width=320, height=240, terrain_n=70, n_balls=8,
+                n_sprites=1024, n_curves=4, curve_steps=24))}
 
 
 def render_reference(path: str = OUT):
@@ -66,7 +78,10 @@ def render_reference(path: str = OUT):
 if __name__ == "__main__":
     import numpy as np
 
+    names = sys.argv[1:]
     for path in frames():
+        if names and os.path.basename(path)[:-4] not in names:
+            continue
         rgba, ids = render_reference(path)
         np.savez_compressed(path, rgba=rgba, ids=ids)
         print(path, os.path.getsize(path), "bytes")
