@@ -48,6 +48,17 @@ its place with untextured halos, each kernel equal to its plain version on
 those frames' inputs, L1 also on seeded fixtures, a frame with Antialias,
 the level cut to 320x240 against the CPU and the golden frame
 ``fx_320x240``, and 8 frames as graph replays in the ``window`` phase),
+renders the material-effects level (``scenes.build_config5_mat``: config 5
+with chrome TexGen on its spheres, cube-env TexGen on the annex crates, a
+reflection-TexGen water sheet and a planar-TexGen plaza with a detail
+channel and a cube-env reflection channel; the ``mat`` phase: B1 and B4's
+rounds in each eager frame, B5 with its frame bit-equal and its 24-word
+rows equal to B1 plus the gather, B4 equal to its plain version on the
+plaza's stream, the reflection channel blended over at least 99.9% of its
+base's pixels, a frame with Antialias, the ``effect_passes`` variant (DP3,
+BumpEnv, 2- and 3-texture passes) through the exact tiled ordered pass,
+the level cut to 320x240 against the CPU and the golden frame
+``mat_320x240``, and 8 frames as graph replays in the ``window`` phase),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -838,6 +849,9 @@ def main() -> int:
     # --- 4d. the effects level: 3D sprites, curves and the line pass -------
     fx = fx_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4e. the material-effects level: TexGen, cube env, channels --------
+    mat = mat_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1045,6 +1059,10 @@ def main() -> int:
             k["config5_fx"] = {"ms": fx[key][0], "plain_ms": fx[key][1],
                                "bound_ms": fx[key][2]["bound_ms"],
                                "bound_by": fx[key][2]["bound_by"]}
+        if key in mat:
+            k["config5_mat"] = {"ms": mat[key][0], "plain_ms": mat[key][1],
+                                "bound_ms": mat[key][2]["bound_ms"],
+                                "bound_by": mat[key][2]["bound_by"]}
     # L1 is not a TPU kernel: the reference's line pass is plain JAX.
     l1, l1_aa = fx["L1"], fx["L1_aa"]
     kernels.append({
@@ -1068,7 +1086,8 @@ def main() -> int:
     for k in kernels:
         # A time under the bound means the bound counts work no kernel
         # needs, or the timing is wrong.
-        for t in (k, k["antialias"], k.get("config5_fx", k)):
+        for t in (k, k["antialias"], k.get("config5_fx", k),
+                  k.get("config5_mat", k)):
             check(t["ms"] >= t["bound_ms"],
                   f"{k['name']}: {t['ms']} ms is below its bound "
                   f"{t['bound_ms']} ms")
@@ -1177,7 +1196,7 @@ def antialias_phase(O, scenes, fr, kernel_fns, launches) -> dict:
 WINDOW = 8
 # (name, build function, keywords, kernels, full windows of ticks): 2W + 3
 # ticks at the BASELINE configs, W + 3 (one full window and a partial one)
-# at the stress scenes and config 5 with Antialias.
+# at the stress scenes, config 5 with Antialias and the effects levels.
 WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 2),
                  ("config2", "build_config2", {}, ("B1",), 2),
                  ("config3", "build_config3", {}, ("B1",), 2),
@@ -1188,7 +1207,8 @@ WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 2),
                  ("config5_aa", "build_config5", {"antialias": True},
                   ("B1",), 1),
                  ("config5_fx", "build_config5_fx", {},
-                  ("B1", "B4", "L1"), 1))
+                  ("B1", "B4", "L1"), 1),
+                 ("config5_mat", "build_config5_mat", {}, ("B1", "B4"), 1))
 
 
 def profiled_kernels(prof) -> dict:
@@ -1228,9 +1248,10 @@ def host_launch_calls(prof) -> int:
 def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     """Frame windows (``SetFramePipelining``), W = 8, at the scenes' full
     sizes: BASELINE configs 1-5, ``alpha50k``, ``alpha_tex50k``, config 5
-    with Antialias and ``config5_fx``. Each scene renders a first frame and
-    then 2W + 3 ticks (its mover rotating, config 3's and 4's own tick;
-    W + 3 at the stress scenes, config 5 AA and ``config5_fx``) once at
+    with Antialias, ``config5_fx`` and ``config5_mat``. Each scene renders
+    a first frame and then 2W + 3 ticks (its mover rotating, config 3's and
+    4's own tick; W + 3 at the stress scenes, config 5 AA and the two
+    effects levels) once at
     W = 1 and once at W = 8, each in a context of its own. Config 5 (at 1x) starts its ticks with a pair
     cap of 32,768 (under its ~46k live pairs) and
     ``alpha_tex50k`` with one peel round where its frames need two.
@@ -1740,6 +1761,252 @@ def fx_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     return out
 
 
+# The material-effects level: eager ticks after its first frame, and the
+# level cut to the golden frame's size.
+MAT_TICKS = 2
+MAT_GOLDEN = dict(width=320, height=240, terrain_n=70, n_balls=8)
+# The effect-pass variant with its ordered meshes cut (an 8x8 water sheet
+# and plaza, 4x4 wall and slabs): its exact tiled ordered pass runs one
+# batched composite per slot of its densest 64x64 tile, some 1,200 device
+# launches each; at full size that tile holds 172 triangles and a frame
+# takes 4-5 s on the card.
+MAT_PASSES = dict(effect_passes=True, water_n=8, plaza_n=8, pass_n=4)
+
+
+def mat_frame(rc, kernel_fns, launches, fr, step=None) -> dict:
+    """One Render() of rc (after ``step()``) with every launch count at 0:
+    its CUDA-event ms (the frame's span on the card, host gaps included),
+    launches, ordered route, peel rounds and ``OrderedReplays``."""
+    reset_launches(kernel_fns.values())
+    if step is not None:
+        step()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    rc.Render()
+    e1.record()
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    params = rc._fill_packed([], [])[3]
+    ss = params["ss"]
+    s = rc.GetStats()
+    return {"frame_ms": e0.elapsed_time(e1), "launches": got,
+            "route": fr.ordered_route(rc._compiled.ordered_cap,
+                                      rc.height * ss, rc.width * ss,
+                                      params["sampler_profile"]),
+            "peel_rounds": s.OrderedPeelRounds,
+            "replays": s.OrderedReplays}
+
+
+def device_frame(rc, step) -> dict:
+    """Device launches and device ms of one tick (``step()``, Render()),
+    from a torch.profiler window of CUDA activity alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import device_us, profile_window
+
+    def device(prof):
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    prof, wall_ms = profile_window(lambda: (step(), rc.Render()), 1,
+                                   [ProfilerActivity.CUDA],
+                                   lambda p: len(device(p)) > 0,
+                                   label="frame")
+    dev = device(prof)
+    return {"device_launches": len(dev), "device_ms": device_us(dev) / 1e3,
+            "profiled_frame_ms": wall_ms}
+
+
+def channel_coverage(rc, fr, base: str, channel: str) -> dict:
+    """Pixels whose opaque winner (B1's) is a triangle of material
+    ``base``, and those of them where the channel of material ``channel``
+    did not blend: the frame's ordered pass run from its own opaque
+    (fb, zb) with and without the channel's triangles, compared in RGB.
+    A channel redraws its base's triangles at LESSEQUAL, so each such
+    pixel is a depth tie between B1's depth and the ordered kernel's."""
+    static, dyn_f, dyn_i, params = packed_cuda(rc)
+    h, w = rc.height * params["ss"], rc.width * params["ss"]
+    scene, batch, _su, defer, bits = fr.packed_setup(static, dyn_f, dyn_i,
+                                                     params)
+    names = [(m.name if m is not None else None, k)
+             for m, k, _b in rc._compiled.materials]
+    s_base = names.index((base, "mesh"))
+    s_chan = names.index((channel, "channel"))
+    fb0, zb0 = ordered_inputs(rc, fr)
+    ids = torch.as_tensor(winners(rc), device=fb0.device)
+
+    def ordered(b):
+        return fr._ordered_pass(scene, b, defer, bits, fb0, zb0,
+                                rc._compiled.ordered_cap, h, w, True, None,
+                                params["sampler_profile"], {})[0]
+
+    full = ordered(batch)
+    without = ordered(batch._replace(
+        valid=batch.valid & (batch.state_idx != s_chan)))
+    on_base = (ids >= 0) & (batch.state_idx[ids.clamp(min=0)] == s_base)
+    same = (full[:3] == without[:3]).all(0)
+    return {"base_pixels": int(on_base.sum()),
+            "not_blended": int((on_base & same).sum())}
+
+
+def mat_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """The material-effects level, ``scenes.build_config5_mat`` at 1024x768
+    (config 5 with chrome TexGen on its 64 spheres, cube-env TexGen on the
+    24 annex crates, a 2,048-triangle reflection-TexGen water sheet and a
+    4,608-triangle planar-TexGen plaza with a detail channel and a cube-env
+    reflection channel), through Render() on the card.
+
+    - Eager: the first frame and MAT_TICKS ticks, each with every launch
+      count at 0 before it: B1 once and B4 once per peel round (the
+      plaza's 9,216 channel triangles take the textured peel), nothing
+      else, no replay; then the device launches and ms of one more tick.
+    - The same tick with ``CK_FUSED_FETCH``: B5 once, no B1, the frame
+      bit-equal.
+    - B1 and B5 on that frame's inputs against their plain versions (each
+      timed), B5's rows (24 words: the quantized row with the reflection
+      vectors) against B1 plus the gather (``time_rows``); B4 on the
+      plaza's ordered stream against its plain version
+      (``time_ordered``).
+    - The reflection channel over its plaza: the B1-winner pixels of the
+      plaza where it did not blend (:func:`channel_coverage`), at most
+      0.1% of them.
+    - One frame with Antialias (2048x1536): B1 once, B4 per round.
+    - The ``effect_passes`` variant (DP3 wall, BumpEnv water with its
+      ADDSIGNED bias pass, 2- and 3-texture slabs) with its ordered meshes
+      cut (``MAT_PASSES``), two eager frames: its passes lie outside both
+      ordered kernels' envelopes, so the route is "tiled" (the exact tiled
+      ordered pass) and B1 is the only kernel; the slot count of that
+      pass, and the device launches and device ms of one more frame.
+    - The level cut to 320x240 on the card against the CPU
+      (``compare_with_cpu``) and against the golden frame
+      ``tests/torch_golden/mat_320x240.npz``.
+
+    W = 8 runs in ``window_phase``. Returns {kernel: (ms, plain ms, bound,
+    events ms)} at the level's frame for B1, B4 and B5."""
+    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
+    from ckrenderengine_tpu_torch.raster import cuda_tiled
+    from ckrenderengine_tpu_torch.raster import deferred as df
+    from ckrenderengine_tpu_torch.raster import torch_backend as rb
+
+    t_phase = time.monotonic()
+    reset_launches(kernel_fns.values())
+    ctx, rc, spinner = scenes.build_config5_mat(O, device="cuda")
+    frames = [mat_frame(rc, kernel_fns, launches, fr)]
+    step = ticker("config5_mat", spinner)
+    for _ in range(MAT_TICKS):
+        frames.append(mat_frame(rc, kernel_fns, launches, fr, step))
+    finite, covered = frame_checks("config5_mat", rc)
+    c = rc._compiled
+    emit("mat", config="config5_mat", size=[rc.width, rc.height],
+         triangles=int(c.n_valid_tris), ordered_cap=int(c.ordered_cap),
+         want=dict(texgen=c.want_texgen, cube=c.want_cube, bump=c.want_bump),
+         frames=frames, finite=finite, covered=covered, card=card,
+         **device_frame(rc, step))
+    for f in frames:
+        want = {k: 0 for k in kernel_fns}
+        want.update(B1=1, B4=f["peel_rounds"])
+        check(f["launches"] == want and f["peel_rounds"] >= 1,
+              f"config5_mat: launches {f['launches']}, expected {want}")
+        check(f["route"] == "peel" and f["replays"] == 0,
+              f"config5_mat: route {f['route']}, replays {f['replays']}")
+
+    fb0, zb0 = rc.fb.clone(), rc.zb.clone()
+    os.environ["CK_FUSED_FETCH"] = "1"
+    try:
+        fused = mat_frame(rc, kernel_fns, launches, fr)
+    finally:
+        del os.environ["CK_FUSED_FETCH"]
+    differ = int(((rc.fb != fb0).any(0) | (rc.zb != zb0)).sum())
+    scene, batch, setup, _d, _b = fr.packed_setup(*packed_cuda(rc))
+    words = int(df.shade_row_table_quant(
+        batch.xyw, batch.color, batch.specular, batch.uv, batch.fog,
+        batch.state_idx, batch_refl=batch.refl,
+        inv_det_s=setup["inv_det_s"],
+        want_ws=not rc._fill_packed([], [])[3]["sampler_profile"][3]
+    ).shape[1])
+    emit("fused_fetch", config="config5_mat", launches=fused["launches"],
+         pixels_that_differ=differ, table_words=words)
+    check(fused["launches"]["B5"] == 1 and fused["launches"]["B1"] == 0,
+          f"config5_mat: fused-fetch frame launches {fused['launches']}")
+    check(differ == 0, f"config5_mat: the fused-fetch frame differs on "
+          f"{differ} pixels")
+    check(words == 24, f"config5_mat: {words} quantized words, expected 24")
+
+    out = time_rows("config5_mat", rc, None, card, fr, cuda_tiled, df,
+                    plain=True)
+    out["B4"] = time_ordered("config5_mat", "B4", rc, None, card, fr, co)
+    cov = channel_coverage(rc, fr, "plazamat", "plazarefl")
+    emit("channel_coverage", config="config5_mat", **cov,
+         bound=1e-3 * cov["base_pixels"])
+    check(cov["base_pixels"] > 1000, f"config5_mat: plaza {cov}")
+    check(cov["not_blended"] <= 1e-3 * cov["base_pixels"],
+          f"config5_mat: the reflection channel misses its base: {cov}")
+    del ctx, rc
+
+    # Antialias: one frame at twice the size.
+    reset_launches(kernel_fns.values())
+    _c, rc_aa, _m = scenes.build_config5_mat(O, device="cuda",
+                                             antialias=True)
+    f = mat_frame(rc_aa, kernel_fns, launches, fr)
+    frame_checks("config5_mat_aa", rc_aa)
+    emit("mat_antialias", config="config5_mat",
+         size=[rc_aa.width, rc_aa.height],
+         render_size=[2 * rc_aa.width, 2 * rc_aa.height], **f)
+    check(f["launches"]["B1"] == 1 and f["launches"]["B2"] == 0
+          and f["launches"]["B3"] == 0 and f["launches"]["B5"] == 0
+          and f["launches"]["B4"] == f["peel_rounds"] >= 1
+          and f["replays"] == 0 and f["route"] == "peel",
+          f"config5_mat AA: {f}")
+    del _c, rc_aa
+
+    # The effect passes: the exact tiled ordered pass, eagerly.
+    _c, rc_e, spin_e = scenes.build_config5_mat(O, device="cuda",
+                                                **MAT_PASSES)
+    done = count_calls(rb, "_one_triangle")
+    frames = [mat_frame(rc_e, kernel_fns, launches, fr)]
+    slots = [done()]
+    done = count_calls(rb, "_one_triangle")
+    frames.append(mat_frame(rc_e, kernel_fns, launches, fr,
+                            ticker("config5_mat", spin_e)))
+    slots.append(done())
+    per_frame = device_frame(rc_e, ticker("config5_mat", spin_e))
+    frame_checks("config5_mat_passes", rc_e)
+    emit("mat_effect_passes", config="config5_mat", cut=MAT_PASSES,
+         ordered_cap=int(rc_e._compiled.ordered_cap), frames=frames,
+         ordered_slots=slots, card=card, **per_frame)
+    for f in frames:
+        want = {k: 0 for k in kernel_fns}
+        want["B1"] = 1
+        check(f["route"] == "tiled" and f["launches"] == want,
+              f"config5_mat effect passes: {f}")
+    del _c, rc_e
+
+    # The golden frame's size: card against CPU, and against the golden.
+    _c, rc_g, _m = render_config(scenes.build_config5_mat, O, "cuda",
+                                 **MAT_GOLDEN)
+    _c2, rc_c, _m2 = render_config(scenes.build_config5_mat, O, "cpu",
+                                   **MAT_GOLDEN)
+    compare_with_cpu("config5_mat_320x240", rc_g, rc_c)
+    g = np.load(os.path.join(GOLDEN_DIR, "mat_320x240.npz"))
+    ids = winners(rc_g)
+    rgba = rc_g.BackToFront()
+    match = ids == g["ids"]
+    diff = np.abs(rgba.astype(np.int32) - g["rgba"].astype(np.int32)).max(-1)
+    off = int((diff[match] > 1).sum())
+    emit("golden", frame="mat_320x240", ids_equal_frac=float(match.mean()),
+         rgba_pixels_over_1_matching=off,
+         rgba_max_diff_matching=int(diff[match].max()),
+         peel_rounds=rc_g.GetStats().OrderedPeelRounds)
+    check(rgba.shape == g["rgba"].shape, "golden mat_320x240: image shape")
+    check(match.mean() >= 0.999, "golden mat_320x240: winner ids differ")
+    check(off <= 1e-3 * match.sum(), f"golden mat_320x240: {off} pixels")
+    emit("mat_phase", seconds=round(time.monotonic() - t_phase, 1))
+    return out
+
+
 def ordered_caps_check(rc, fr) -> dict:
     """An Antialias frame's ordered phase A at its render size with the
     reference's 1x capacities and with ``cuda_ordered.frame_caps``: the
@@ -2067,10 +2334,13 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
                                   a["tiles_x"] * 32, "cuda")
     want_ws = not sp[3]
 
+    has_refl = batch.refl.shape[-1] > 0
+
     def table():
         return df.shade_row_table_quant(
             batch.xyw, batch.color, batch.specular, batch.uv, batch.fog,
-            batch.state_idx, inv_det_s=setup["inv_det_s"], want_ws=want_ws)
+            batch.state_idx, batch_refl=batch.refl,
+            inv_det_s=setup["inv_det_s"], want_ws=want_ws)
 
     tbl = table()
     b1_args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
@@ -2118,7 +2388,7 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
     def shade_rows():
         rows = df.expand_rows_quant(gather(), scene.state_i, scene.state_f,
                                     scene.tex_hw, want_ws=want_ws,
-                                    has_refl=False)
+                                    has_refl=has_refl)
         return df.shade_rows(rows, ids >= 0, *shade, sampler_profile=sp,
                              tex_quad=scene.tex_quad,
                              eplanes=(epl[0], epl[1], epl[2]))
@@ -2129,7 +2399,8 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
     st["shade_deferred_ms"] = cuda_ms(lambda: df.shade_deferred(
         ids, batch.xyw, batch.z, batch.color, batch.specular, batch.uv,
         batch.fog, batch.state_idx, scene.state_i, scene.state_f, *shade,
-        sampler_profile=sp, tex_quad=scene.tex_quad), 5)
+        batch_refl=batch.refl, sampler_profile=sp,
+        tex_quad=scene.tex_quad), 5)
 
     # Bounds from this frame's inputs: every tile streams its own live
     # rows and both leftover segments past its 1024 pixels, and the pairs
@@ -2178,7 +2449,8 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
 # rotation about y, or the scene's own tick (config 3 rotates its roots and
 # moves its bulb, config 4 advances its clip by 0.5 frames).
 ANGLES = {"config1": 0.02, "config2": 0.03, "config5": 0.01,
-          "alpha50k": 0.02, "alpha_tex50k": 0.02, "config5_fx": 0.01}
+          "alpha50k": 0.02, "alpha_tex50k": 0.02, "config5_fx": 0.01,
+          "config5_mat": 0.01}
 
 
 def ticker(name, mover):

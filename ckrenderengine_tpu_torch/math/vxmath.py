@@ -423,3 +423,22 @@ def decompose_prs(m: torch.Tensor):
     pos = m[..., 3, :3]
     scale = torch.linalg.vector_norm(m[..., :3, :3], dim=-1)
     return pos, quat_from_matrix(m), scale
+
+
+def oct_encode(r: torch.Tensor) -> torch.Tensor:
+    """Octahedral encode of (..., 3) unit direction vectors to (..., 2) UVs
+    in [0,1]: the cube-environment atlas parameterization
+    (``CKTexture.SetCubeMapFaces`` bakes the six faces into this layout).
+    The lower hemisphere (z < 0) folds over the diagonals, so a UV jumps
+    where an interpolated direction crosses z = 0."""
+    a = torch.abs(r)
+    denom = torch.clamp(a[..., 0:1] + a[..., 1:2] + a[..., 2:3], min=1e-12)
+    p = r / denom
+
+    def snz(x):
+        return torch.where(x >= 0, 1.0, -1.0)
+
+    flip = torch.stack([(1.0 - torch.abs(p[..., 1])) * snz(p[..., 0]),
+                        (1.0 - torch.abs(p[..., 0])) * snz(p[..., 1])], -1)
+    xy = torch.where((p[..., 2] < 0)[..., None], flip, p[..., :2])
+    return xy * 0.5 + 0.5

@@ -48,7 +48,11 @@ from ..raster import torch_backend as rb
 from ..raster.cuda_reduce import depth_reduce_cuda
 from ..raster.cuda_tiled import depth_reduce_tiled_cuda
 from ..raster.deferred import take_small
-from ..raster.types import SI_ALPHABLEND, SI_STENCIL
+from ..raster.types import (
+    SF_BUMP_SCALE, SI_ALPHABLEND, SI_STENCIL, SI_TEX2, SI_TEXGEN,
+    TEXGEN_CHROME, TEXGEN_CUBE, TEXGEN_PLANAR, TEXGEN_REFLECT,
+    VXTEXTURE_ADDRESS, VXTEXTURE_FILTER,
+)
 from ..roadmap import unported
 from ..scene.entity_table import compose_world
 from .lighting import LightArray, MaterialLighting, compute_vertex_lighting, fog_factor
@@ -149,16 +153,18 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
                         want_prelit: bool = True):
     """Vertex stage: world compose -> gather -> transform -> light -> project.
 
+    The material effects are gated statically, as in the reference: with
+    ``want_texgen`` or ``want_cube`` each row's UV is replaced by its
+    state's TexGen mode (planar, sphere reflection, chrome, cube); with
+    ``want_bump`` the EMBM offset from the bump texture (slot ``SI_TEX2``)
+    is added per vertex; with ``want_cube`` the world reflection vector of
+    every TEXGEN_CUBE row is exported (``refl_v``, zero elsewhere) for the
+    shade's per-pixel cube UV. A scene without them runs none of it.
+
     Returns (clip (IV,4), color (IV,4), spec (IV,3), fog (IV,), world
-    (N,4,4), uv (IV,2), clipd_v (IV,P) | None, refl_v None)."""
+    (N,4,4), uv (IV,2), clipd_v (IV,P) | None, refl_v (IV,3) | None)."""
     if vertex_shader is not None:
         raise unported("vertex shaders", 10)
-    if want_texgen:
-        raise unported("texture coordinate generation (TexGen)", 9)
-    if want_bump:
-        raise unported("bump-environment mapping", 9)
-    if want_cube:
-        raise unported("cube-environment mapping", 9)
     if world is None:
         world = compose_world(scene.local, scene.parent, levels)
     # Row N = identity: world-space vertex sources bind here.
@@ -180,7 +186,7 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
     cat = take_pool(pool_cat)                                    # (IV,8)
     pos = cat[:, 0:3]
     nrm = cat[:, 3:6]
-    uv = cat[:, 6:8]
+    uv_pool = cat[:, 6:8]
 
     posw = vx.transform_points(pos, wm)
     nrmw = vx.transform_vectors(nrm, wm)
@@ -240,11 +246,73 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
         fog = fog_factor(coord, scene.fog_mode, fstart, fend,
                          scene.fog_density)
 
+    uv = uv_pool
+    rw = texgen = None
+    if want_texgen or want_cube:
+        # TexGen (reference TexGenEffect, src/CKMaterial.cpp:1456+): planar
+        # from the view-space position, sphere-env from the view-space
+        # reflection vector or normal, cube-env from the octahedral code
+        # of the WORLD-space reflection vector.
+        texgen = take_small(scene.state_i[:, SI_TEXGEN], scene.vert_state)
+        pos_v = vx.transform_points(posw, scene.view)
+        nrm_v = vx.transform_vectors(nrmw, scene.view)
+        nrm_v = nrm_v / torch.clamp(torch.linalg.vector_norm(
+            nrm_v, dim=-1, keepdim=True), min=1e-12)
+        d = pos_v / torch.clamp(torch.linalg.vector_norm(
+            pos_v, dim=-1, keepdim=True), min=1e-12)
+        r = d - 2.0 * _sum3(d * nrm_v) * nrm_v
+        m = 2.0 * torch.sqrt(torch.clamp(
+            r[..., 0] ** 2 + r[..., 1] ** 2 + (r[..., 2] + 1.0) ** 2,
+            min=1e-12))
+        uv_reflect = torch.stack([r[..., 0] / m + 0.5,
+                                  -r[..., 1] / m + 0.5], -1)
+        uv_chrome = torch.stack([nrm_v[..., 0] * 0.5 + 0.5,
+                                 -nrm_v[..., 1] * 0.5 + 0.5], -1)
+        uv_planar = pos_v[..., :2]
+        dw = posw - scene.cam_pos[None, :]
+        dw = dw / torch.clamp(torch.linalg.vector_norm(
+            dw, dim=-1, keepdim=True), min=1e-12)
+        rw = dw - 2.0 * _sum3(dw * nrmw) * nrmw
+        uv_cube = vx.oct_encode(rw)
+        tg = texgen[:, None]
+        uv = torch.where(tg == TEXGEN_PLANAR, uv_planar, uv)
+        uv = torch.where(tg == TEXGEN_REFLECT, uv_reflect, uv)
+        uv = torch.where(tg == TEXGEN_CHROME, uv_chrome, uv)
+        uv = torch.where(tg == TEXGEN_CUBE, uv_cube, uv)
+    if want_bump and scene.tex_planes.shape[0] > 0:
+        # Per-vertex EMBM (VXEFFECT_BUMPENV, reference BumpMapEnvEffect,
+        # src/CKMaterial.cpp:1668+): the bump texture's (r, g) at the mesh
+        # UV, scaled by the bump scale, offsets the generated env UV. The
+        # reference evaluates it per vertex, and so does this stage.
+        tex2 = take_small(scene.state_i[:, SI_TEX2], scene.vert_state)
+        bscale = take_small(scene.state_f[:, SF_BUMP_SCALE],
+                            scene.vert_state)
+        zero = torch.zeros((), dtype=torch.float32, device=uv.device)
+        texel = df.sample_texture_pp(
+            scene.tex_planes, scene.tex_hw, torch.clamp(tex2, min=0),
+            uv_pool[..., 0], uv_pool[..., 1],
+            torch.full_like(tex2, int(VXTEXTURE_ADDRESS.WRAP)),
+            torch.full_like(tex2, int(VXTEXTURE_FILTER.LINEAR)),
+            [zero] * 4)
+        duv = torch.stack([(texel[0] - 0.5) * bscale,
+                           (texel[1] - 0.5) * bscale], -1)
+        uv = torch.where((tex2 >= 0)[:, None], uv + duv, uv)
     # User clip planes: per-vertex signed world-space distances.
     clipd_v = None
     if scene.clip_planes is not None and scene.clip_planes.shape[0] > 0:
         clipd_v = posw4 @ scene.clip_planes.T                    # (IV,P)
-    return clip, color, spec, fog, world, uv, clipd_v, None
+    # Cube env per pixel: the shade interpolates the corners' world
+    # reflection vectors and oct-encodes each pixel's.
+    refl_v = None
+    if want_cube and rw is not None:
+        refl_v = torch.where((texgen == TEXGEN_CUBE)[:, None], rw,
+                             torch.zeros_like(rw))
+    return clip, color, spec, fog, world, uv, clipd_v, refl_v
+
+
+def _sum3(a: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 1): the three components added left to right."""
+    return a[..., 0:1] + a[..., 1:2] + a[..., 2:3]
 
 
 def compact_scene_chunks(scene: SceneDevice, chunk_idx, chunk_n,
@@ -324,9 +392,9 @@ def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
     (nc, itc, p0): the first ``itc`` triangles read the first ``nc = 3*itc``
     stream rows in corner-major order (rows [k*itc, (k+1)*itc) hold corner k
     of every head triangle), so their per-corner data is a slice; only the
-    tail pays the per-corner gathers."""
-    if refl_v is not None:
-        raise unported("cube-environment mapping", 9)
+    tail pays the per-corner gathers. ``refl_v`` (IV,3), the world
+    reflection vectors of a cube-env frame, rides the same wide row into
+    the batch's ``refl`` (IT,3,3); without it ``refl`` is (IT,3,0)."""
     _nc, itc, _p0 = corner
     i0, i1, i2 = scene.tri_idx[:, 0], scene.tri_idx[:, 1], scene.tri_idx[:, 2]
 
@@ -382,8 +450,12 @@ def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
     if uv is None:
         uv = _take(scene.uv, scene.src_idx)
     # One wide row per vertex, gathered once per corner.
-    vrow = torch.cat([torch.stack([sx, sy, w], dim=-1), z[:, None], color,
-                      spec, uv, fog[:, None]], dim=-1)            # (IV, 14)
+    vparts = [torch.stack([sx, sy, w], dim=-1), z[:, None], color, spec, uv,
+              fog[:, None]]
+    n_refl = 3 if refl_v is not None else 0
+    if n_refl:
+        vparts.append(refl_v)
+    vrow = torch.cat(vparts, dim=-1)                             # (IV, 14+R)
     cp = corner_planar(vrow)
 
     def stack3(sl):
@@ -394,8 +466,7 @@ def assemble_triangles(scene: SceneDevice, clip, color, spec, fog, uv=None,
         color=stack3(slice(4, 8)), specular=stack3(slice(8, 11)),
         uv=stack3(slice(11, 13)), fog=stack3(13),
         state_idx=scene.tri_state, valid=valid, clip_rect=tri_rect,
-        clipd=clipd,
-        refl=torch.zeros((it, 3, 0), dtype=torch.float32, device=clip.device))
+        clipd=clipd, refl=stack3(slice(14, 14 + n_refl)))
 
 
 def opaque_setup(scene: SceneDevice, levels: tuple, world=None,
@@ -484,8 +555,7 @@ def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
         SF_ALPHAREF, SI_ALPHABLEND, SI_ALPHAFUNC, SI_ALPHATEST,
     )
 
-    if obatch.refl.shape[-1]:
-        raise unported("cube-environment mapping", 9)
+    refl = obatch.refl if obatch.refl.shape[-1] else None
     all_persp = (sampler_profile is not None and len(sampler_profile) > 3
                  and bool(sampler_profile[3]))
     inv_det_s = None
@@ -495,7 +565,8 @@ def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
         inv_det_s = 1.0 / torch.clamp(torch.abs(det), min=1e-30)
     tbl = df.shade_row_table_quant(
         obatch.xyw, obatch.color, obatch.specular, obatch.uv, obatch.fog,
-        obatch.state_idx, inv_det_s=inv_det_s, want_ws=not all_persp)
+        obatch.state_idx, batch_refl=refl, inv_det_s=inv_det_s,
+        want_ws=not all_persp)
     st4 = torch.stack([
         (scene.state_i[:, SI_ALPHABLEND] != 0).to(torch.float32),
         scene.state_i[:, SI_ALPHAFUNC].to(torch.float32),
@@ -508,7 +579,7 @@ def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
         rows_q = df.gather_winner_rows(tbl, lids[s])
         full = df.expand_rows_quant(rows_q, scene.state_i, scene.state_f,
                                     scene.tex_hw, want_ws=not all_persp,
-                                    has_refl=False)
+                                    has_refl=refl is not None)
         src = df.shade_rows(full, hit, scene.tex_planes, scene.tex_hw,
                             scene.fog_color, zeros, height, width,
                             sampler_profile=sampler_profile,
@@ -654,7 +725,7 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
             rows_q = df.gather_winner_rows(tbl, best_id)
         rows = df.expand_rows_quant(rows_q, scene.state_i, scene.state_f,
                                     scene.tex_hw, want_ws=want_ws,
-                                    has_refl=False)
+                                    has_refl=batch.refl.shape[-1] > 0)
         fb = df.shade_rows(rows, best_id >= 0, *shade_args,
                            sampler_profile=sp, tex_quad=scene.tex_quad,
                            eplanes=(epl[0], epl[1], epl[2]))
@@ -1126,6 +1197,8 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
         sprites=sprite_bank(params.get("sprites_static"), d))
     batch, setup, defer_tri, tri_bits = opaque_setup(
         scene, params["levels"], world, corner=corner,
+        want_bump=params.get("want_bump", False),
+        want_cube=params.get("want_cube", False),
         want_texgen=params["want_texgen"],
         sampler_profile=params["sampler_profile"])
     return scene, batch, setup, defer_tri, tri_bits

@@ -24,12 +24,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..math.vxmath import oct_encode
 from ..roadmap import unported
 from .types import (
     SF_BORDER_R, SF_CONST_R, SI_ALPHABLEND, SI_ALPHATEST, SI_COLORWRITE,
     SI_CULL, SI_FOG, SI_PERSPECTIVE, SI_TEX, SI_TEXADDR, SI_TEXBLEND,
-    SI_TEXFILTER, SI_TEXGEN, SI_ZFUNC, SI_ZWRITE, TEXBLEND_DOT3FACTOR, VXCMP,
-    VXCULL, VXTEXTUREBLEND, VXTEXTURE_ADDRESS, VXTEXTURE_FILTER,
+    SI_TEXFILTER, SI_TEXGEN, SI_ZFUNC, SI_ZWRITE, TEXBLEND_DOT3FACTOR,
+    TEXGEN_CUBE, VXCMP, VXCULL, VXTEXTUREBLEND, VXTEXTURE_ADDRESS,
+    VXTEXTURE_FILTER,
 )
 
 _BIG = 3.0e38
@@ -301,6 +303,19 @@ def _shade_state_rows(state_i, state_f, tex_hw):
     ], dim=1)
 
 
+def sample_texture_pp(tex_planes, tex_hw, tid, u, v, mode, filt, border_rgba,
+                      lod=None):
+    """Sampling with a texture id per element (and optional mips): the
+    texture parameters of each element's ``tid`` from ``tex_hw``, then
+    :func:`_sample_texture_core` with no sampler profile. tid/u/v/mode/filt
+    share one shape; returns 4 planes of it. The vertex stage's bump fetch
+    (EMBM) samples through this."""
+    prm = _tex_params(tex_hw, tid)
+    has_mips = tex_hw.shape[1] in (3, 5)
+    return _sample_texture_core(tex_planes, has_mips, prm, u, v, mode, filt,
+                                border_rgba, lod)
+
+
 def _sample_texture_core(tex_planes, has_mips, prm, u, v, mode, filt,
                          border_rgba, lod=None, profile=None, quad_flat=None):
     """Sampling core over precomputed per-element texture params (see
@@ -478,14 +493,19 @@ SH_FOG = slice(40, 43)   # corner fog factors
 SH_SI = 43               # 8 int state cols, order = _SH_SI_COLS
 SH_SF = 51               # 7 f32 state cols, order = _SH_SF_COLS
 SH_TP = 58               # 7 texture-params cols, order = _TEX_PARAM_KEYS
-SH_NCOL = 65
+SH_RFL = slice(65, 74)   # corner world reflection vectors (cube env only)
+SH_NCOL = 65             # without refl; 74 with
+
+
+def _has_refl(batch_refl) -> bool:
+    return batch_refl is not None and batch_refl.shape[-1] > 0
 
 
 def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
                     batch_state, state_i, state_f, tex_hw, batch_refl=None):
-    """(T, SH_NCOL) packed shade rows (dense build, one wide row)."""
-    if batch_refl is not None and batch_refl.shape[-1] > 0:
-        raise unported("cube-environment reflection shading", 9)
+    """(T, SH_NCOL[+9]) packed shade rows (dense build, one wide row); the
+    corners' world reflection vectors ride columns SH_RFL when
+    ``batch_refl`` has them."""
     t = batch_xyw.shape[0]
     v0, v1, v2 = batch_xyw[:, 0], batch_xyw[:, 1], batch_xyw[:, 2]
     adj0 = torch.linalg.cross(v1, v2)
@@ -496,7 +516,7 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
     ec9 = torch.cat([adj0, adj1, adj2], dim=1)
     st_t = take_small(_shade_state_rows(state_i, state_f, tex_hw),
                       batch_state)                                 # (T,22)
-    return torch.cat([
+    cols = [
         ec9,
         batch_xyw[..., 2],
         inv_det[:, None],
@@ -505,7 +525,10 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
         batch_uv.reshape(t, 6),
         batch_fog.reshape(t, 3),
         st_t,
-    ], dim=1)
+    ]
+    if _has_refl(batch_refl):
+        cols.append(batch_refl.reshape(t, 9))
+    return torch.cat(cols, dim=1)
 
 
 # Compact shade-row layout: the 22 per-state columns are replaced by ONE
@@ -514,19 +537,20 @@ def shade_row_table(batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
 # shade_rows computes the analytic mip LOD from it (odd-sized mip frames,
 # and frames without a sampler profile).
 SH_C_STIDX = 43          # after EC(9) WS(3) IVD(1) COL(12) SPC(9) UV(6) FOG(3)
-SH_C_NCOL = 44
+SH_C_NCOL = 44           # without refl; 53 with
+SH_C_RFL = slice(44, 53)
 
 
 def shade_row_table_compact(batch_xyw, batch_color, batch_spec, batch_uv,
                             batch_fog, batch_state, e_coef, inv_det_s,
                             batch_refl=None):
-    """(T, SH_C_NCOL) compact f32 shade rows: per-triangle data plus the
-    state INDEX. ``e_coef`` (T,9) or (T,3,3) and ``inv_det_s`` are the
-    signed pair from triangle_setup (the shade uses ratios only)."""
-    if batch_refl is not None and batch_refl.shape[-1] > 0:
-        raise unported("cube-environment reflection shading", 9)
+    """(T, SH_C_NCOL[+9]) compact f32 shade rows: per-triangle data plus
+    the state INDEX, then the corners' world reflection vectors (SH_C_RFL)
+    when ``batch_refl`` has them. ``e_coef`` (T,9) or (T,3,3) and
+    ``inv_det_s`` are the signed pair from triangle_setup (the shade uses
+    ratios only)."""
     t = batch_xyw.shape[0]
-    return torch.cat([
+    cols = [
         e_coef.reshape(t, 9),
         batch_xyw[..., 2],
         inv_det_s[:, None],
@@ -535,7 +559,10 @@ def shade_row_table_compact(batch_xyw, batch_color, batch_spec, batch_uv,
         batch_uv.reshape(t, 6),
         batch_fog.reshape(t, 3),
         batch_state.to(torch.float32)[:, None],
-    ], dim=1)
+    ]
+    if _has_refl(batch_refl):
+        cols.append(batch_refl.reshape(t, 9))
+    return torch.cat(cols, dim=1)
 
 
 def _state_rows_at(stidx, state_i, state_f, tex_hw, h: int, w: int):
@@ -547,13 +574,13 @@ def _state_rows_at(stidx, state_i, state_f, tex_hw, h: int, w: int):
 
 
 def expand_rows_compact(rows_c, state_i, state_f, tex_hw):
-    """Compact per-pixel rows (SH_C_NCOL,H,W) -> the shade_rows layout
-    (SH_NCOL,H,W): the 22 per-state columns join per pixel from the state
-    bank by index."""
+    """Compact per-pixel rows (SH_C_NCOL[+9],H,W) -> the shade_rows layout
+    (SH_NCOL[+9],H,W): the 22 per-state columns join per pixel from the
+    state bank by index; reflection columns follow them."""
     h, w = rows_c.shape[1], rows_c.shape[2]
     st_px = _state_rows_at(rows_c[SH_C_STIDX], state_i, state_f, tex_hw,
                            h, w)
-    return torch.cat([rows_c[:SH_C_STIDX], st_px])
+    return torch.cat([rows_c[:SH_C_STIDX], st_px, rows_c[SH_C_NCOL:]])
 
 
 # Quantized shade-row layout: colors, speculars and fog quantize to u8
@@ -566,7 +593,9 @@ SH_Q_STIDX = 6            # state index, int
 SH_Q_COL = slice(7, 10)   # 3 words: corner RGBA as u8x4
 SH_Q_SPF = slice(10, 13)  # 3 words: corner spec RGB + fog as u8x4
 SH_Q_NBASE = 13           # +4 (ws3, ivd) when any non-perspective state;
-                          # padded to 16 words, or to a multiple of 4
+                          # +9 refl (f32) when cube env; padded to 16
+                          # words, or to a multiple of 4 (24 or 28 with
+                          # refl)
 
 
 def _q8(v):
@@ -605,10 +634,9 @@ def shade_row_table_quant(batch_xyw, batch_color, batch_spec, batch_uv,
     """(T, 16 or more) int32 quantized shade rows (the SH_Q_* layout).
 
     ``want_ws``: include the (ws3, ivd) f32 words — needed only when some
-    render state disables perspective-correct interpolation. The table is
-    int32 so packed bytes move bit-transparently."""
-    if batch_refl is not None and batch_refl.shape[-1] > 0:
-        raise unported("cube-environment reflection shading", 9)
+    render state disables perspective-correct interpolation. The corners'
+    world reflection vectors follow as 9 f32 words when ``batch_refl``
+    has them. The table is int32 so packed bytes move bit-transparently."""
     t = batch_xyw.shape[0]
     cols = [_f2i(batch_uv.reshape(t, 6)),
             batch_state.to(torch.int32)[:, None]]
@@ -622,6 +650,8 @@ def shade_row_table_quant(batch_xyw, batch_color, batch_spec, batch_uv,
     if want_ws:
         cols += [_f2i(batch_xyw[:, k, 2:3]) for k in range(3)]
         cols.append(_f2i(inv_det_s[:, None]))
+    if _has_refl(batch_refl):
+        cols += [_f2i(batch_refl[:, k]) for k in range(3)]
     tbl = torch.cat(cols, dim=1)
     n = tbl.shape[1]
     pad = 16 - n if n <= 16 else (-n) % 4
@@ -635,14 +665,16 @@ def expand_rows_quant(rows_q, state_i, state_f, tex_hw, want_ws: bool,
     """Quantized per-pixel int32 rows (Wq,H,W) -> the shade_rows layout
     (SH_NCOL,H,W) with ZERO edge-coefficient planes (call shade_rows with
     ``eplanes``). The per-state columns join from the small state bank by
-    an exact row gather."""
-    if has_refl:
-        raise unported("cube-environment reflection shading", 9)
+    an exact row gather. ``has_refl``: the rows carry the 9 reflection
+    words (after the (ws3, ivd) words when ``want_ws``); they land in the
+    SH_RFL columns."""
     h, w = rows_q.shape[1], rows_q.shape[2]
     dev = rows_q.device
     zeros9 = torch.zeros((9, h, w), dtype=torch.float32, device=dev)
+    off = SH_Q_NBASE
     if want_ws:
-        ws_ivd = _i2f(rows_q[SH_Q_NBASE:SH_Q_NBASE + 4])
+        ws_ivd = _i2f(rows_q[off:off + 4])
+        off += 4
     else:
         ws_ivd = torch.zeros((4, h, w), dtype=torch.float32, device=dev)
     col12, spc9, fog3 = [], [], []
@@ -654,8 +686,11 @@ def expand_rows_quant(rows_q, state_i, state_f, tex_hw, want_ws: bool,
         fog3.append(f)
     st_px = _state_rows_at(rows_q[SH_Q_STIDX], state_i, state_f, tex_hw,
                            h, w)
-    return torch.cat([zeros9, ws_ivd, torch.stack(col12), torch.stack(spc9),
-                      _i2f(rows_q[SH_Q_UV]), torch.stack(fog3), st_px])
+    parts = [zeros9, ws_ivd, torch.stack(col12), torch.stack(spc9),
+             _i2f(rows_q[SH_Q_UV]), torch.stack(fog3), st_px]
+    if has_refl:
+        parts.append(_i2f(rows_q[off:off + 9]))
+    return torch.cat(parts)
 
 
 def _shade_deferred_fast(best_id, batch_xyw, batch_color, batch_spec,
@@ -732,6 +767,16 @@ def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
 
     colorp = interp(SH_COL, 4)
     uvil = interp(SH_UV, 2)
+    if row.shape[0] > SH_NCOL:
+        # Per-pixel cube-env UV: the interpolated world reflection vector,
+        # normalised, then oct-encoded (no seam along the atlas fold).
+        rl = interp(SH_RFL, 3)
+        r = torch.stack(rl, dim=-1)
+        r = r / torch.clamp(torch.linalg.vector_norm(r, dim=-1, keepdim=True),
+                            min=1e-12)
+        uvc = oct_encode(r)
+        is_cube = si(SI_TEXGEN) == TEXGEN_CUBE
+        uvil = [torch.where(is_cube, uvc[..., c], uvil[c]) for c in range(2)]
     has_tex = si(SI_TEX) >= 0
     border = [sf(SF_BORDER_R + c) for c in range(4)]
 

@@ -23,14 +23,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..math.vxmath import oct_encode
 from ..roadmap import unported
 from .deferred import _address_pp, tex_blend_pp
 from .types import (
     SF_ALPHAREF, SF_BORDER_R, SF_CONST_R, SI_ALPHABLEND, SI_ALPHAFUNC,
     SI_ALPHATEST, SI_BLENDOP, SI_COLORWRITE, SI_CULL, SI_DSTBLEND, SI_FOG,
     SI_PERSPECTIVE, SI_SRCBLEND, SI_TEX, SI_TEXADDR, SI_TEXBLEND,
-    SI_TEXFILTER, SI_ZFUNC, SI_ZWRITE, VXBLEND, VXBLENDOP, VXCMP, VXCULL,
-    VXTEXTURE_ADDRESS, VXTEXTURE_FILTER,
+    SI_TEXFILTER, SI_TEXGEN, SI_ZFUNC, SI_ZWRITE, TEXGEN_CUBE, VXBLEND,
+    VXBLENDOP, VXCMP, VXCULL, VXTEXTURE_ADDRESS, VXTEXTURE_FILTER,
 )
 
 
@@ -183,8 +184,6 @@ def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
     skips the texel fetch."""
     (xyw, zv, col, spec, uv, fogv, sidx, valid, clip_rect, clipd,
      refl) = tri
-    if refl.shape[-1] > 0:
-        raise unported("cube-environment mapping", 9)
     si = state_i[sidx.long()]
     sf = state_f[sidx.long()]
 
@@ -271,6 +270,17 @@ def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
     if tex_planes is not None and tex_planes.shape[0] > 0 and any_tex:
         ui = interp(uv[:, 0, 0], uv[:, 1, 0], uv[:, 2, 0])
         vi = interp(uv[:, 0, 1], uv[:, 1, 1], uv[:, 2, 1])
+        if refl.shape[-1] > 0:
+            # Per-pixel cube-env UV: interpolate the world reflection
+            # vector, oct-encode after interpolating (no atlas-fold seam).
+            r = torch.stack([interp(refl[:, 0, c], refl[:, 1, c],
+                                    refl[:, 2, c]) for c in range(3)], -1)
+            r = r / torch.clamp(torch.linalg.vector_norm(
+                r, dim=-1, keepdim=True), min=1e-12)
+            uvc = oct_encode(r)
+            is_cube = sic(SI_TEXGEN) == TEXGEN_CUBE
+            ui = torch.where(is_cube, uvc[..., 0], ui)
+            vi = torch.where(is_cube, uvc[..., 1], vi)
         texel = sample_texture(tex_planes, tex_hw, si[:, SI_TEX], ui, vi,
                                si, sf)
         const = [sfc(SF_CONST_R + c) for c in range(3)]

@@ -10,7 +10,6 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    9: "material effects (TexGen, bump, cube env, channels, effect passes)",
     10: "pixel and vertex shaders",
     12: "context batching and tile sharding",
     13: "rasterizer HAL",

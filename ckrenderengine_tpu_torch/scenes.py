@@ -10,7 +10,10 @@ The scenes are those of ``benchmarks/baseline.py`` (configs 1 to 4: config
 device-bound clip and Bezier patch sheet, and ``config4_skin``, config 4
 without the sheet), ``bench.build_scene`` (config 5) and
 ``benchmarks/stress.py`` (the two transparency stress cases), plus a small
-alpha-test cutout scene and config 2 with a stencil-only mesh; sizes are
+alpha-test cutout scene, config 2 with a stencil-only mesh and config 5
+with a level's effects (``build_config5_fx``: sprites, curves, lines) and
+material effects (``build_config5_mat``: TexGen, cube env, EMBM, effect
+passes, channels), made from seeds; sizes are
 parameters so the tests can cut the frame, the hierarchy, the terrain, the
 sheets and the skinned tube down. Every build function takes
 ``antialias=True`` to switch the render manager's Antialias option on (the
@@ -760,6 +763,189 @@ def build_config5_fx(O, width: int = 1024, height: int = 768,
     st = O.CK3dObject(ctx, "star")
     st.SetCurrentMesh(star)
     st.SetParent(spinner)
+    return ctx, rc, spinner
+
+
+def make_grid(n: int, origin, du, dv):
+    """An n x n quad grid (2 n^2 triangles) spanning ``origin`` + [0,1]
+    ``du`` + [0,1] ``dv``, with UVs in [0,1]^2: (positions, uvs, faces)."""
+    t = np.linspace(0.0, 1.0, n + 1, dtype=np.float32)
+    gu, gv = np.meshgrid(t, t, indexing="ij")
+    pts = (np.asarray(origin, np.float32)
+           + gu[..., None] * np.asarray(du, np.float32)
+           + gv[..., None] * np.asarray(dv, np.float32))
+    a = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None]).reshape(-1)
+    faces = np.concatenate([np.stack([a, a + 1, a + n + 2], -1),
+                            np.stack([a, a + n + 2, a + n + 1], -1)])
+    return (pts.reshape(-1, 3).astype(np.float32),
+            np.stack([gu, gv], -1).reshape(-1, 2).astype(np.float32),
+            faces.astype(np.int32))
+
+
+def _grid_object(O, ctx, name, n, origin, du, dv, mat, parent):
+    pts, uv, faces = make_grid(n, origin, du, dv)
+    mesh = O.CKMesh(ctx, name)
+    mesh.SetPositions(pts)
+    mesh.SetUVs(uv)
+    mesh.SetFaces(faces)
+    mesh.BuildNormals()
+    mesh.ApplyGlobalMaterial(mat)
+    obj = O.CK3dObject(ctx, name)
+    obj.SetCurrentMesh(mesh)
+    obj.SetParent(parent)
+    return obj, mesh
+
+
+def _seeded_texture(O, ctx, name, rng, size: int, alpha=None):
+    """A smooth seeded RGBA texture: a 4x4 random colour lattice, wrapped
+    and interpolated bilinearly to ``size`` x ``size``; ``alpha`` a fixed
+    alpha (else 1)."""
+    lat = rng.uniform(0.15, 0.95, (4, 4, 3)).astype(np.float32)
+    t = np.arange(size, dtype=np.float32) * (4.0 / size)
+    i0 = np.floor(t).astype(int)
+    f = (t - i0)[:, None]
+    rows = lat[i0] * (1 - f[..., None]) + lat[(i0 + 1) % 4] * f[..., None]
+    img = (rows[:, i0] * (1 - f[None]) + rows[:, (i0 + 1) % 4] * f[None])
+    a = np.full((size, size, 1), 1.0 if alpha is None else alpha, np.float32)
+    tex = O.CKTexture(ctx, name)
+    tex.SetImage(np.concatenate([img, a], -1).astype(np.float32))
+    return tex
+
+
+def build_config5_mat(O, width: int = 1024, height: int = 768,
+                      terrain_n: int = 500, n_balls: int = 64,
+                      effect_passes: bool = False, water_n: int = 32,
+                      plaza_n: int = 48, pass_n: int = 16,
+                      antialias: bool = False, **ctx_kw):
+    """Config 5 (:func:`build_config5`) with the material effects a Ballance
+    level uses, made from a seed. Returns (ctx, rc, spinner).
+
+    Default variant, every draw inside the kernels' envelopes (the frame
+    runs in frame windows):
+
+    - chrome TexGen on the spheres (a 64x64 env texture);
+    - cube-environment TexGen on the 24 annex crates (six seeded 32x32
+      faces baked by ``SetCubeMapFaces`` into a 128x128 octahedral atlas);
+    - a water sheet of ``water_n`` x ``water_n`` quads with reflection
+      TexGen (VXEFFECT_TEXGENREF);
+    - a plaza of ``plaza_n`` x ``plaza_n`` quads with planar TexGen on its
+      base pass and two alpha-over (SRCALPHA, INVSRCALPHA), z-write-off
+      material channels: a detail channel with its own UVs (the base UVs
+      x4) and a cube-env reflection channel with diffuse alpha 0.35. The
+      TexturedPeel option is on, so their 2 x 2 plaza_n^2 ordered
+      triangles take the textured peel (B4).
+
+    With ``effect_passes`` the multi-texture effects join: a
+    ``pass_n`` x ``pass_n`` wall with VXEFFECT_DP3 (a seeded normal map, the
+    sun as its light), the water sheet switched to VXEFFECT_BUMPENV (bump
+    map in slot 1, env map in slot 2, the default ADDSIGNED, which adds the
+    REVSUBTRACT bias pass), and two ``pass_n`` x ``pass_n`` slabs with
+    VXEFFECT_2TEXTURES (a lightmap, MODULATE) and VXEFFECT_3TEXTURES
+    (``op2`` ADD). Their passes blend DESTCOLOR/ZERO and ONE/ONE, with
+    REVSUBTRACT, outside both ordered kernels' envelopes, so such a frame
+    takes the exact tiled ordered pass, as the reference does, and renders
+    eagerly (never in a frame window)."""
+    from .objects.material import (
+        CKRST_TOP_ADD, CKRST_TOP_MODULATE, VXEFFECT_2TEXTURES,
+        VXEFFECT_3TEXTURES, VXEFFECT_BUMPENV, VXEFFECT_DP3, VXEFFECT_TEXGEN,
+        VXEFFECT_TEXGENREF,
+    )
+    from .raster.types import TEXGEN_CHROME, TEXGEN_CUBE, VXBLEND
+
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n, n_balls,
+                                     antialias, **ctx_kw)
+    ctx.GetRenderManager().SetRenderOptions("TexturedPeel", 1)
+    rng = np.random.default_rng(13)
+    place = ctx.GetObjectByName("place_main")
+
+    env = _seeded_texture(O, ctx, "envmap", rng, 64)
+    smat = ctx.GetObjectByName("spheremat")
+    smat.SetTexture(env)
+    smat.SetEffect(VXEFFECT_TEXGEN)
+    smat.SetEffectParameter(texgen=TEXGEN_CHROME)
+
+    cube = O.CKTexture(ctx, "cubeenv")
+    faces = []
+    for _f in range(6):
+        base = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+        img = base * rng.uniform(0.7, 1.0, (32, 32, 1)).astype(np.float32)
+        faces.append(np.concatenate([img, np.ones((32, 32, 1), np.float32)],
+                                    -1))
+    cube.SetCubeMapFaces(faces, size=128)
+    cmat = ctx.GetObjectByName("cratemat")
+    cmat.SetTexture(cube)
+    cmat.SetEffect(VXEFFECT_TEXGEN)
+    cmat.SetEffectParameter(texgen=TEXGEN_CUBE)
+
+    wmat = O.CKMaterial(ctx, "watermat")
+    wmat.SetDiffuse((0.5, 0.65, 0.8, 1.0))
+    wmat.SetTexture(_seeded_texture(O, ctx, "water", rng, 64))
+    wmat.SetEffect(VXEFFECT_TEXGENREF)
+    _grid_object(O, ctx, "water", water_n, (-30.0, 5.6, -34.0), (26.0, 0, 0),
+                 (0, 0, 26.0), wmat, place)
+
+    pmat = O.CKMaterial(ctx, "plazamat")
+    pmat.SetDiffuse((0.8, 0.78, 0.7, 1.0))
+    pmat.SetTexture(_seeded_texture(O, ctx, "paving", rng, 32))
+    pmat.SetEffect(VXEFFECT_TEXGEN)                  # planar by default
+    _plaza, pmesh = _grid_object(O, ctx, "plaza", plaza_n, (2.0, 6.0, -34.0),
+                                 (28.0, 0, 0), (0, 0, 28.0), pmat, place)
+    detail = O.CKMaterial(ctx, "detailmat")
+    detail.SetDiffuse((1.0, 1.0, 1.0, 1.0))
+    detail.SetTexture(_seeded_texture(O, ctx, "detail", rng, 32, alpha=0.5))
+    ci = pmesh.AddChannel(detail, copy_uvs=False)
+    pmesh.channels[ci]["uvs"] = (pmesh.uvs * 4.0).astype(np.float32)
+    rmat = O.CKMaterial(ctx, "plazarefl")
+    rmat.SetDiffuse((1.0, 1.0, 1.0, 0.35))
+    rmat.SetTexture(cube)
+    rmat.SetEffect(VXEFFECT_TEXGEN)
+    rmat.SetEffectParameter(texgen=TEXGEN_CUBE)
+    cr = pmesh.AddChannel(rmat)
+    for k in (ci, cr):
+        pmesh.SetChannelSourceBlend(k, int(VXBLEND.SRCALPHA))
+        pmesh.SetChannelDestBlend(k, int(VXBLEND.INVSRCALPHA))
+    if not effect_passes:
+        return ctx, rc, spinner
+
+    sun = ctx.GetObjectByName("sun")
+    nmap = O.CKTexture(ctx, "normalmap")
+    nrm = rng.normal(0.0, 0.25, (32, 32, 3)).astype(np.float32)
+    nrm[..., 2] = 1.0
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nmap.SetImage(np.concatenate([nrm * 0.5 + 0.5,
+                                  np.ones((32, 32, 1), np.float32)], -1))
+    dmat = O.CKMaterial(ctx, "wallmat")
+    dmat.SetDiffuse((0.8, 0.75, 0.7, 1.0))
+    dmat.SetTwoSided(True)
+    dmat.SetTexture(_seeded_texture(O, ctx, "bricks", rng, 32))
+    dmat.SetTexture(nmap, 1)
+    dmat.SetEffect(VXEFFECT_DP3)
+    dmat.SetEffectParameter(light=sun)
+    _grid_object(O, ctx, "wall", pass_n, (-10.0, 6.0, 16.0), (20.0, 0, 0),
+                 (0, 8.0, 0), dmat, place)
+
+    bump = O.CKTexture(ctx, "bump")
+    b = rng.uniform(0.3, 0.7, (16, 16)).astype(np.float32)
+    bump.SetImage(np.stack([b, 1.0 - b, b, np.ones_like(b)], -1))
+    wmat.SetTexture(bump, 1)
+    wmat.SetTexture(env, 2)
+    wmat.SetEffect(VXEFFECT_BUMPENV)
+
+    for name, eff, x0, kw in (
+            ("slab2", VXEFFECT_2TEXTURES, -15.0,
+             dict(op=CKRST_TOP_MODULATE)),
+            ("slab3", VXEFFECT_3TEXTURES, 3.0,
+             dict(op=CKRST_TOP_MODULATE, op2=CKRST_TOP_ADD))):
+        m = O.CKMaterial(ctx, name + "mat")
+        m.SetDiffuse((0.7, 0.7, 0.7, 1.0))
+        m.SetTexture(_seeded_texture(O, ctx, name + "base", rng, 32))
+        m.SetTexture(_seeded_texture(O, ctx, name + "light", rng, 16), 1)
+        if eff == VXEFFECT_3TEXTURES:
+            m.SetTexture(_seeded_texture(O, ctx, name + "glow", rng, 16), 2)
+        m.SetEffect(eff)
+        m.SetEffectParameter(**kw)
+        _grid_object(O, ctx, name, pass_n, (x0, 6.5, -2.0), (12.0, 0, 0),
+                     (0, 0, 12.0), m, place)
     return ctx, rc, spinner
 
 

@@ -55,8 +55,53 @@ def accelerator_branch():
         jax.clear_caches()
 
 
+@contextlib.contextmanager
+def tie_window(ulps):
+    """Widen the reference's LESSEQUAL/EQUAL/GREATEREQUAL tie window
+    (``jax_backend.z_compare``, 2 ULP) to ``ulps`` while the block runs
+    (None: leave it). A material channel or effect pass redraws its base's
+    triangles at LESSEQUAL, so every redrawn sample is a depth tie with
+    the solved zb. The reference's jitted frame evaluates the redraw's
+    depth in separately fused programs, one per colour channel, which
+    contract multiply-adds apart: at 2 ULP the tie passes for some
+    channels of a pixel and fails for others (its alpha blends while its
+    RGB keeps the base colour). The port evaluates one depth per sample
+    and passes every tie; frames with redraws are held to the reference
+    rendered with a tie window wide enough that its redraws blend too
+    (the reference's frame needs more than 16 ULP and at most 256 on
+    ``scenes.build_config5_mat``). jit caches by static arguments, so the
+    caches are cleared on the way in and out."""
+    if ulps is None:
+        yield
+        return
+    import jax
+    import jax.numpy as jnp
+    from ckrenderengine_tpu.raster import jax_backend as jrb
+    from ckrenderengine_tpu.raster.types import VXCMP
+
+    saved = jrb.z_compare
+
+    def z_compare(func, depth, zb):
+        dbits = jax.lax.bitcast_convert_type(depth, jnp.int32)
+        zbits = jax.lax.bitcast_convert_type(
+            jnp.broadcast_to(zb, depth.shape), jnp.int32)
+        near = jnp.abs(dbits - zbits) <= ulps
+        strict = jrb.compare_op(func, depth, zb)
+        eq_incl = ((func == VXCMP.LESSEQUAL) | (func == VXCMP.EQUAL)
+                   | (func == VXCMP.GREATEREQUAL))
+        return jnp.where(eq_incl, strict | near, strict)
+
+    jax.clear_caches()
+    jrb.z_compare = z_compare
+    try:
+        yield
+    finally:
+        jrb.z_compare = saved
+        jax.clear_caches()
+
+
 def render_reference(build, accelerator: bool = True, frame_ids=False,
-                     **kw):
+                     tie_ulps=None, **kw):
     """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
     the reference's object model, rendered once through ``Render()`` on its
     accelerator branch (:func:`accelerator_branch`), or as the CPU runs it
@@ -64,7 +109,13 @@ def render_reference(build, accelerator: bool = True, frame_ids=False,
     follows the backend too, stays off: it only re-plans the caps of later
     frames. Returns the render context. With ``frame_ids`` on the
     accelerator branch, its ``frame_ids`` attribute holds the winner ids
-    its own tiled solve found (else None)."""
+    its own tiled solve found (else None). ``tie_ulps``: render with the
+    reference's depth-tie window widened (:func:`tie_window`)."""
+    with tie_window(tie_ulps):
+        return _render_reference(build, accelerator, frame_ids, **kw)
+
+
+def _render_reference(build, accelerator, frame_ids, **kw):
     import jax
     import ckrenderengine_tpu.objects as J
     from ckrenderengine_tpu.raster import pallas_tiled
@@ -146,6 +197,8 @@ def reference_stages(static, dyn_f, dyn_i, params):
             scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
     clip, color, spec, fog, _w, uv, clipd_v, refl_v = jfr.transform_and_light(
         scene, params["levels"], world=world, corner=corner,
+        want_bump=params.get("want_bump", False),
+        want_cube=params.get("want_cube", False),
         want_texgen=params["want_texgen"])
     batch = jfr.assemble_triangles(scene, clip, color, spec, fog, uv, clipd_v,
                                    refl_v, corner=corner)
@@ -383,15 +436,16 @@ def assert_frame_fb_close(got, ref, ids, setup_np, where, atol=1.0 / 255.0,
         assert np.all(cond[off] > min_cond), cond[off].min()
 
 
-def render_both(build, accelerator: bool = True, frame_ids=False, **kw):
+def render_both(build, accelerator: bool = True, frame_ids=False,
+                tie_ulps=None, **kw):
     """A scene built by ``build`` (ckrenderengine_tpu_torch.scenes) through
     each package's object model and rendered once by each through
-    Render(), the reference by :func:`render_reference` (``frame_ids``
-    passes on): (reference context, port context, the reference's packed
-    inputs, reference_winners of them)."""
+    Render(), the reference by :func:`render_reference` (``frame_ids`` and
+    ``tie_ulps`` pass on): (reference context, port context, the
+    reference's packed inputs, reference_winners of them)."""
     import ckrenderengine_tpu_torch.objects as O
 
-    rj = render_reference(build, accelerator, frame_ids, **kw)
+    rj = render_reference(build, accelerator, frame_ids, tie_ulps, **kw)
     _ct, rt, _mt = build(O, device="cpu", **kw)
     rt.Render()
     packed = rj._fill_packed([], [])

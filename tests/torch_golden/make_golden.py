@@ -24,7 +24,14 @@ stages and exact flat solve:
   to a 70x70 terrain, 8 spheres, 1,024 3D sprites (776 of them
   transparent: ordered_cap*H*W > 2^26, so both packages take the textured
   peel B4) and 4 curves at step count 24 with the wireframe grid and the
-  line-list star, at 320x240.
+  line-list star, at 320x240;
+- ``mat_320x240.npz``: the material-effects level
+  (``scenes.build_config5_mat``) cut to a 70x70 terrain and 8 spheres, at
+  320x240: chrome TexGen on the spheres, cube-env TexGen on the crates,
+  reflection TexGen on the water, planar TexGen on the plaza and its two
+  channels (9,216 ordered triangles: ordered_cap*H*W > 2^26, so both
+  packages take the textured peel B4 with the quantized rows' reflection
+  words).
 
 ``python tests/torch_golden/make_golden.py fx_320x240`` writes only the
 named frames.
@@ -44,6 +51,7 @@ DIR = os.path.join(ROOT, "tests", "torch_golden")
 OUT = os.path.join(DIR, "config2_320x240.npz")
 ALPHA_OUT = os.path.join(DIR, "alpha_320x240.npz")
 FX_OUT = os.path.join(DIR, "fx_320x240.npz")
+MAT_OUT = os.path.join(DIR, "mat_320x240.npz")
 
 
 def frames():
@@ -57,7 +65,9 @@ def frames():
                 width=320, height=240, n_sheets=4, sheet_n=11)),
             FX_OUT: (scenes.build_config5_fx, dict(
                 width=320, height=240, terrain_n=70, n_balls=8,
-                n_sprites=1024, n_curves=4, curve_steps=24))}
+                n_sprites=1024, n_curves=4, curve_steps=24)),
+            MAT_OUT: (scenes.build_config5_mat, dict(
+                width=320, height=240, terrain_n=70, n_balls=8))}
 
 
 def render_reference(path: str = OUT):
