@@ -59,6 +59,13 @@ base's pixels, a frame with Antialias, the ``effect_passes`` variant (DP3,
 BumpEnv, 2- and 3-texture passes) through the exact tiled ordered pass,
 the level cut to 320x240 against the CPU and the golden frame
 ``mat_320x240``, and 8 frames as graph replays in the ``window`` phase),
+renders groups of render contexts through ``ProcessBatched`` (the
+``batch`` phase: ``scenes.build_batched`` at 8 and 64 contexts of 256x256
+and at 8 with Antialias, and the reference's one-triangle group at 3 x
+48x48: each group one batch of one CUDA-graph replay per member, B1 or B2
+once per member, every member bit-equal to its own eager ``Render()``,
+contexts/sec by the reference's protocol with device ms, launches and
+host launch calls per context),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -852,6 +859,9 @@ def main() -> int:
     # --- 4e. the material-effects level: TexGen, cube env, channels --------
     mat = mat_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4f. context batching: one captured frame replayed per member ------
+    batch_phase(O, scenes, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1195,12 +1205,13 @@ def antialias_phase(O, scenes, fr, kernel_fns, launches) -> dict:
 
 WINDOW = 8
 # (name, build function, keywords, kernels, full windows of ticks): 2W + 3
-# ticks at the BASELINE configs, W + 3 (one full window and a partial one)
-# at the stress scenes, config 5 with Antialias and the effects levels.
-WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 2),
-                 ("config2", "build_config2", {}, ("B1",), 2),
-                 ("config3", "build_config3", {}, ("B1",), 2),
-                 ("config4", "build_config4", {}, ("B1",), 2),
+# ticks at config 5 (its forced pair-cap overflow is redone in the first
+# window and governed away in the second), W + 3 (one full window and a
+# partial one) at the other scenes.
+WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 1),
+                 ("config2", "build_config2", {}, ("B1",), 1),
+                 ("config3", "build_config3", {}, ("B1",), 1),
+                 ("config4", "build_config4", {}, ("B1",), 1),
                  ("config5", "build_config5", {}, ("B1",), 2),
                  ("alpha50k", "build_alpha50k", {}, ("B1", "B3"), 1),
                  ("alpha_tex50k", "build_alpha_tex50k", {}, ("B1", "B4"), 1),
@@ -1211,47 +1222,12 @@ WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 2),
                  ("config5_mat", "build_config5_mat", {}, ("B1", "B4"), 1))
 
 
-def profiled_kernels(prof) -> dict:
-    """Device launches of each hand-written kernel in a profile: B5 is the
-    tiled solve's fetch instantiation (its second template argument)."""
-    from torch.autograd import DeviceType
-
-    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "L1"), 0)
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if "solve_tiled_kernel<" in e.name:
-            args = e.name.split("solve_tiled_kernel<", 1)[1].split(">", 1)[0]
-            fetch = args.split(",")[1].strip() in ("true", "1", "(bool)1")
-            out["B5" if fetch else "B1"] += 1
-        elif "reduce_flat_kernel" in e.name:
-            out["B2"] += 1
-        elif "ordered_blend_kernel" in e.name:
-            out["B3"] += 1
-        elif "ordered_peel_kernel" in e.name:
-            out["B4"] += 1
-        elif "lines_kernel" in e.name:
-            out["L1"] += 1
-    return out
-
-
-def host_launch_calls(prof) -> int:
-    """The runtime calls that put work on the card (graph launches, kernel
-    launches, copies) in a profile: what the host sends to the card."""
-    from torch.autograd import DeviceType
-
-    return sum(1 for e in prof.events() if e.device_type != DeviceType.CUDA
-               and e.name.startswith(("cudaGraphLaunch", "cudaLaunchKernel",
-                                      "cudaMemcpy", "cuLaunchKernel")))
-
-
 def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     """Frame windows (``SetFramePipelining``), W = 8, at the scenes' full
     sizes: BASELINE configs 1-5, ``alpha50k``, ``alpha_tex50k``, config 5
     with Antialias, ``config5_fx`` and ``config5_mat``. Each scene renders
-    a first frame and then 2W + 3 ticks (its mover rotating, config 3's and
-    4's own tick; W + 3 at the stress scenes, config 5 AA and the two
-    effects levels) once at
+    a first frame and then W + 3 ticks (its mover rotating, config 3's and
+    4's own tick; 2W + 3 at config 5) once at
     W = 1 and once at W = 8, each in a context of its own. Config 5 (at 1x) starts its ticks with a pair
     cap of 32,768 (under its ~46k live pairs) and
     ``alpha_tex50k`` with one peel round where its frames need two.
@@ -1274,7 +1250,9 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
 
-    from ckrenderengine_tpu_torch.frame_bench import device_us, profile_window
+    from ckrenderengine_tpu_torch.frame_bench import (
+        device_us, host_launch_calls, profile_window, profiled_kernels,
+    )
     from ckrenderengine_tpu_torch.pipeline import window as fw
 
     @contextlib.contextmanager
@@ -2004,6 +1982,157 @@ def mat_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     check(match.mean() >= 0.999, "golden mat_320x240: winner ids differ")
     check(off <= 1e-3 * match.sum(), f"golden mat_320x240: {off} pixels")
     emit("mat_phase", seconds=round(time.monotonic() - t_phase, 1))
+    return out
+
+
+# The batched groups: (name, contexts, size, Antialias, the solve kernel
+# each member launches). The 8x256 and 64x256 groups are the reference's
+# contexts_per_sec_batched_8x256 / _64x256 scenes (scenes.build_batched);
+# "one_triangle" is the reference's test group (3 contexts at 48x48, a
+# flat frame).
+BATCH_GROUPS = (("batched_8x256", 8, 256, False, "B1"),
+                ("batched_64x256", 64, 256, False, "B1"),
+                ("one_triangle", 3, 48, False, "B2"),
+                ("batched_8x256_aa", 8, 256, True, "B1"))
+# The stats a batch sets per member, compared with the member's eager
+# Render() (the cumulative and timing counters are left out).
+FRAME_STATS = ("NbTrianglesDrawn", "NbVerticesProcessed", "NbObjectDrawn",
+               "NbLinesDrawn", "SolveLivePairs", "SolveFallbackRows",
+               "OrderedPeelRounds", "OrderedPeelOverflow")
+
+
+def one_triangle_group(O, n: int, size: int):
+    """The reference's one-triangle batching group
+    (tests/test_context_batching.py:15-34) on the card: (rm, rcs, obj)."""
+    ctx = O.CKContext(device="cuda")
+    rm = ctx.GetRenderManager()
+    mesh = O.CKMesh(ctx, "t")
+    mesh.SetPositions(np.array([[-1, -1, 0], [0, 1, 0], [1, -1, 0]],
+                               np.float32))
+    mesh.SetFaces(np.array([[0, 1, 2]], np.int32))
+    mesh.BuildNormals()
+    mat = O.CKMaterial(ctx, "m")
+    mat.SetEmissive((1, 0, 0, 1))
+    mat.SetTwoSided(True)
+    mesh.ApplyGlobalMaterial(mat)
+    obj = O.CK3dObject(ctx, "tri")
+    obj.SetCurrentMesh(mesh)
+    rcs = []
+    for i in range(n):
+        rc = rm.CreateRenderContext(size, size)
+        cam = O.CKCamera(ctx, f"cam{i}")
+        cam.SetPosition((0, 0, -3 - i))
+        rc.AttachViewpointToCamera(cam)
+        rcs.append(rc)
+    return rm, rcs, obj
+
+
+def batch_phase(O, scenes, kernel_fns, launches, card) -> dict:
+    """Context batching (``CKRenderManager.ProcessBatched``) on the card:
+    the groups of ``BATCH_GROUPS``, each in a manager of its own. Each
+    group runs two warm-up batches, a third and the checked one (a
+    ``torch.profiler`` window), every copy-and-replay loop under
+    ``set_sync_debug_mode("error")``. Checks: the group ran as one batch
+    (one read, one run of all members); the profile shows the group's
+    solve kernel once per member and no other; each member's fb, zb and
+    frame stats (``FRAME_STATS``) are bit-equal to its own eager
+    ``Render()`` at the batch's caps. Then ``frame_bench.batched_pass``
+    (the reference's protocol, runs of about 1 s) gives contexts/sec, and
+    device ms, device launches and host launch calls per context, the idle
+    share and each key's capture ms and pool MiB, beside the card."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import (
+        batched_pass, profile_window, profiled_kernels,
+    )
+    from ckrenderengine_tpu_torch.pipeline import window as fw
+
+    @contextlib.contextmanager
+    def no_sync():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    out = {}
+    reset_launches(kernel_fns.values())
+    fw.REPLAY_GUARD = no_sync
+    try:
+        for name, n, size, aa, kernel in BATCH_GROUPS:
+            if name == "one_triangle":
+                rm, rcs, root = one_triangle_group(O, n, size)
+            else:
+                rm, rcs, root = scenes.build_batched(
+                    O, n, size, antialias=aa, device="cuda")
+            reads = []
+
+            def batch():
+                root.Rotate((0, 1, 0), 0.01)
+                rm.ProcessBatched()
+                reads.append(rcs[0]._batch_read)
+                return float(rcs[-1].fb.sum())
+
+            for _ in range(2):
+                batch()
+            prof, _wall = profile_window(
+                batch, 1, [ProfilerActivity.CUDA],
+                lambda p: profiled_kernels(p)[kernel] >= n,
+                label=name)
+            read = reads[-1]
+            one_batch = (read is not None and read.members == rcs
+                         and len(read.runs) == 1
+                         and len(read.runs[0][1]) == n)
+            seen = profiled_kernels(prof)
+            want = {k: (n if k == kernel else 0) for k in seen}
+            frames = [(rc.fb.clone(), rc.zb.clone(),
+                       {f: getattr(rc.GetStats(), f) for f in FRAME_STATS})
+                      for rc in rcs]
+            caps = rcs[0]._batch.params["solve_caps"]
+            covered = [float((fb[3] > 0).float().mean()) for fb, _z, _s
+                       in frames]
+            finite = all(bool(torch.isfinite(fb).all()) for fb, _z, _s
+                         in frames)
+            bit_equal, stats_equal = [], []
+            for rc, (fb, zb, st) in zip(rcs, frames):
+                rc._solve_caps = caps
+                rc.Render()
+                bit_equal.append(bool(torch.equal(rc.fb, fb)
+                                      and torch.equal(rc.zb, zb)))
+                stats_equal.append(
+                    st == {f: getattr(rc.GetStats(), f)
+                           for f in FRAME_STATS})
+            rates = batched_pass(rm, rcs, root, target_s=1.0)
+            line = dict(group=name, card=card,
+                        one_batch=one_batch, checked_kernels=seen,
+                        expected_kernels=want,
+                        members_bit_equal=sum(bit_equal),
+                        stats_equal=sum(stats_equal), finite=finite,
+                        covered_min_max=[min(covered), max(covered)],
+                        checked_caps=list(caps or ()), **rates)
+            emit("batch", **line)
+            check(one_batch, f"{name}: not one batch of {n}")
+            check(seen == want, f"{name}: the batch launched {seen}, "
+                  f"expected {want}")
+            check(all(bit_equal), f"{name}: {n - sum(bit_equal)} members "
+                  "differ from their eager Render()")
+            check(all(stats_equal), f"{name}: {n - sum(stats_equal)} "
+                  "members' stats differ from their eager Render()'s")
+            check(finite and max(covered) > 0.05, f"{name}: frames {covered}")
+            check(rates["profiled_kernels"][kernel] == n,
+                  f"{name}: the timed batch launched "
+                  f"{rates['profiled_kernels']}")
+            out[name] = line
+            del rm, rcs, root, reads, prof
+    finally:
+        fw.REPLAY_GUARD = None
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    check(got["B1"] > 0 and got["B2"] > 0, f"batch phase: wrapper "
+          f"launches {got}")
     return out
 
 

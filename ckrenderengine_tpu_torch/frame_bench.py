@@ -1,8 +1,9 @@
 """Frame rates and per-frame device launches of the smoke scenes (the five
 BASELINE configs, config 4 without its patch sheet, the two stress scenes,
 each of the seven again with Antialias on, config 2 with a stencil-only
-mesh, and config 5 with 3D sprites, curves and lines, ``config5_fx``), for
-comparing two trees of this package on one card.
+mesh, config 5 with 3D sprites, curves and lines, ``config5_fx``, and with
+material effects, ``config5_mat``), for comparing two trees of this package
+on one card.
 
     python3 ckrenderengine_tpu_torch/frame_bench.py --root . --out a.json
     python3 ckrenderengine_tpu_torch/frame_bench.py --root _parent --out b.json
@@ -31,6 +32,16 @@ is a whole number of windows fenced by ``GetFrameFence()`` read back to the
 host, the latency is a fenced window's wall-clock over W (median and p75 of
 at least 5 windows), and the profile covers one window, its counts divided
 by W. One call can so compare W = 1 and W = 8 on one tree.
+``--batched N`` instead measures context batching
+(``CKRenderManager.ProcessBatched``) on ``scenes.build_batched`` with N
+contexts at 256x256, by the reference's protocol for
+``contexts_per_sec_batched_Nx256`` (``bench.py:312-352``): two warm-up
+batches, one timed batch that sets the count n (3 to 48 batches, about
+4 s), then twice n batches, each after rotating the root 0.01 rad, fenced
+by reading the last member's fb sum; the better rate. One more batch is
+profiled: device ms and launches, host launch calls per context, the idle
+share (1 - device ms per batch / the measured ms per batch), and each
+group key's capture ms and graph pool MiB.
 ``--frames DIR`` also saves every scene's first frame (fb and zb) as ``.npy``
 files, so two trees' frames can be compared bit for bit. ``--flat DIR``
 first times the flat solve B2 alone (``reduce_flat_kernel``, its own time
@@ -72,7 +83,8 @@ SCENES = tuple((name, build, angle, {}) for name, build, angle in _BASE) + \
     tuple((name + "_aa", build, angle, {"antialias": True})
           for name, build, angle in _BASE if name != "config4_skin") + \
     (("stencil", "build_stencil", 0.03, {}),
-     ("config5_fx", "build_config5_fx", 0.01, {}))
+     ("config5_fx", "build_config5_fx", 0.01, {}),
+     ("config5_mat", "build_config5_mat", 0.01, {}))
 KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
            "ordered_peel_kernel", "lines_kernel")
 FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")
@@ -124,6 +136,119 @@ def profile_window(fn, reps: int, activities, complete,
 def device_us(events):
     return sum(e.device_time_total if hasattr(e, "device_time_total")
                else e.cuda_time_total for e in events)
+
+
+def profiled_kernels(prof) -> dict:
+    """Device launches of each hand-written kernel in a profile: B5 is the
+    tiled solve's fetch instantiation (its second template argument)."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "L1"), 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if "solve_tiled_kernel<" in e.name:
+            args = e.name.split("solve_tiled_kernel<", 1)[1].split(">", 1)[0]
+            fetch = args.split(",")[1].strip() in ("true", "1", "(bool)1")
+            out["B5" if fetch else "B1"] += 1
+        elif "reduce_flat_kernel" in e.name:
+            out["B2"] += 1
+        elif "ordered_blend_kernel" in e.name:
+            out["B3"] += 1
+        elif "ordered_peel_kernel" in e.name:
+            out["B4"] += 1
+        elif "lines_kernel" in e.name:
+            out["L1"] += 1
+    return out
+
+
+def host_launch_calls(prof) -> int:
+    """The runtime calls that put work on the card (graph launches, kernel
+    launches, copies) in a profile: what the host sends to the card."""
+    from torch.autograd import DeviceType
+
+    return sum(1 for e in prof.events() if e.device_type != DeviceType.CUDA
+               and e.name.startswith(("cudaGraphLaunch", "cudaLaunchKernel",
+                                      "cudaMemcpy", "cuLaunchKernel")))
+
+
+def batched_pass(rm, rcs, root, reps: int = 2, min_batches: int = 3,
+                 target_s: float = 4.0) -> dict:
+    """``rm.ProcessBatched()`` of the group ``rcs`` (``scenes.build_batched``
+    on the card) by the reference's protocol (module docstring): ``reps``
+    timed runs of n batches, n = ``target_s`` over one batch's time,
+    clamped to [``min_batches``, 48]. Returns the rates and the profile's
+    figures; ``keys`` lists every batch graph captured in the pass and the
+    group's current one."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.pipeline import window as fw
+
+    captured = []
+    capture = fw.FrameWindow._capture
+
+    def spy_capture(self, slot):
+        capture(self, slot)
+        captured.append(self)
+
+    fw.FrameWindow._capture = spy_capture
+    n_ctx = len(rcs)
+    try:
+        def fence():
+            return float(rcs[-1].fb.sum())
+
+        # The second warm-up batch runs at the caps the governor planned
+        # from the first (a new capture), out of the timed runs.
+        for _ in range(2):
+            rm.ProcessBatched()
+            fence()
+        t0 = time.perf_counter()
+        rm.ProcessBatched()
+        fence()
+        batch_s = max(time.perf_counter() - t0, 1e-4)
+        n = max(min_batches, min(48, int(target_s / batch_s)))
+        rates = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _i in range(n):
+                root.Rotate((0, 1, 0), 0.01)
+                rm.ProcessBatched()
+            fence()
+            rates.append(n * n_ctx / (time.perf_counter() - t0))
+
+        def one():
+            root.Rotate((0, 1, 0), 0.01)
+            rm.ProcessBatched()
+            fence()
+
+        prof, wall_ms = profile_window(
+            one, 1, [ProfilerActivity.CUDA],
+            lambda p: profiled_kernels(p)["B1"] + profiled_kernels(p)["B2"]
+            + profiled_kernels(p)["B5"] >= n_ctx, label=f"batched_{n_ctx}")
+    finally:
+        fw.FrameWindow._capture = capture
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = device_us(dev) / 1e3
+    best = max(rates)
+    batch_ms = n_ctx / best * 1e3
+    graphs = {id(w): w for w in captured + [rcs[0]._batch]}
+    return {
+        "contexts": n_ctx, "size": [rcs[0].width, rcs[0].height],
+        "antialias": bool(rm.options.get("Antialias", 0)),
+        "batches_timed": n, "contexts_per_sec": best,
+        "contexts_per_sec_runs": rates, "batch_ms": batch_ms,
+        "profiled_batch_wall_ms": wall_ms,
+        "device_ms_per_context": dev_ms / n_ctx,
+        "device_launches_per_context": len(dev) / n_ctx,
+        "host_launch_calls_per_context": host_launch_calls(prof) / n_ctx,
+        "device_idle_share": 1.0 - dev_ms / batch_ms,
+        "profiled_kernels": profiled_kernels(prof),
+        "keys": [{"capture_ms": w.capture_ms,
+                  "pool_mib": w.pool_bytes / 2 ** 20}
+                 for w in graphs.values()],
+        "solve_caps": list(rcs[0]._solve_caps or ())}
 
 
 def flat_inputs(dirname: str) -> dict:
@@ -210,6 +335,7 @@ def main() -> int:
     ap.add_argument("--frames", default=None)
     ap.add_argument("--flat", default=None)
     ap.add_argument("--window", type=int, default=1)
+    ap.add_argument("--batched", type=int, default=0)
     args = ap.parse_args()
     window = max(1, args.window)
     # A run that stalls says where: every 120 s all stacks go to stderr.
@@ -239,7 +365,13 @@ def main() -> int:
         out["flat"] = flat_pass(args.flat)
         print(json.dumps({"root": args.root, "flat": out["flat"]}),
               flush=True)
-    for name, build, angle, kw in SCENES:
+    if args.batched:
+        res = batched_pass(*scenes.build_batched(O, args.batched, 256,
+                                                 device="cuda"))
+        out["batched"] = res
+        print(json.dumps({"root": args.root, "card": card, "batched": res}),
+              flush=True)
+    for name, build, angle, kw in SCENES if not args.batched else ():
         if not hasattr(scenes, build) or not set(kw) <= set(
                 inspect.signature(getattr(scenes, build)).parameters):
             continue

@@ -2,15 +2,21 @@
 
 Shared render types live in .rendertypes and the context in .rendercontext;
 this module re-exports both, like the reference package's manager module.
-Context batching (``ProcessBatched``) is not carried yet and raises.
+Context batching (``ProcessBatched``) runs on one card; its multi-card
+form (``mesh=``) is not carried yet and raises.
 """
 
 from .rendertypes import *          # noqa: F401,F403
 from .rendertypes import (          # noqa: F401
     _pad_to, _mip_chain, CompiledScene, VxStats, VxEffectDescription,
 )
-from .rendercontext import CKRenderContext    # noqa: F401
+from .rendercontext import BatchRead, CKRenderContext    # noqa: F401
+from ..pipeline import window as fw
 from ..roadmap import unported
+
+# Members per run of a context batch: a larger group runs in chunks of
+# this many (each chunk one upload and one graph replay per member).
+BATCH_SLOTS = 64
 
 
 class CKRenderManager(CKObject):
@@ -104,7 +110,137 @@ class CKRenderManager(CKObject):
             rc.Render()
 
     def ProcessBatched(self, mesh=None):
-        raise unported("ProcessBatched (batched contexts)", 12)
+        """Render every context, same-shape contexts as context batches
+        (reference manager.py:205-249). Contexts group by signature (size,
+        hierarchy levels, ordered cap, stream shapes). A group of one
+        renders through its ``Render()``; a larger group through
+        :meth:`_batch_packed`, or, where it cannot share one captured
+        frame, through each member's ``Render()``, as the reference's
+        docstring says (its code renders such a group with the vmapped
+        ``render_frames_batched``, which leaves out no-clear flags,
+        overlays and lines). ``mesh`` (a device mesh over several cards)
+        is not ported."""
+        if mesh is not None:
+            raise unported("multi-card context sharding "
+                           "(ProcessBatched(mesh=...))", 12)
+        groups: dict[tuple, list] = {}
+        for rc in self.render_contexts:
+            if rc._compiled.topology_version != \
+                    rc.context._topology_version:
+                rc._compile()
+            rc._refresh_textures()
+            c = rc._compiled
+            sig = (rc.width, rc.height, c.levels, c.ordered_cap,
+                   c.src_idx.shape, c.tri_idx.shape)
+            groups.setdefault(sig, []).append(rc)
+        for rcs in groups.values():
+            if len(rcs) == 1 or not self._batch_packed(rcs):
+                for rc in rcs:
+                    rc.Render()
+
+    def _batch_packed(self, rcs, mesh=None) -> bool:
+        """Render ``rcs`` as context batches: each member's frame is filled
+        on the host, the group uploads once (one pinned block, one
+        ``non_blocking`` copy per chunk of ``BATCH_SLOTS``) and replays one
+        captured frame per member, the first member's
+        (``window.FrameWindow(stacked=True)``), into stacked outputs whose
+        slices become the members' fb / zb / sb. Members that differ in
+        anything the graph bakes in (params but the clip's worlds and the
+        caps, the static tensors' shapes, the dyn shapes, a host-culled
+        chunk cap, the clip bank, the frame flags, the ordered route) split
+        into sub-groups, each batched on its own. The batch's host read
+        waits in a :class:`BatchRead`. Returns False, rendering nothing,
+        when a member cannot join (reference :251-299: stereo, a vertex
+        shader, a target texture, another membership; and a frame that
+        renders eagerly in a window: no-clear flags, a device texture,
+        debug mode, the exact tiled ordered pass)."""
+        if mesh is not None:
+            raise unported("multi-card context sharding "
+                           "(ProcessBatched(mesh=...))", 12)
+
+        def membership(rc):
+            return None if rc._objects is None else tuple(
+                sorted(id(o) for o in rc._objects))
+
+        for rc in rcs:
+            if (rc.stereo_enabled or rc.vertex_shader is not None
+                    or rc.target_texture is not None
+                    or membership(rc) != membership(rcs[0])):
+                return False
+        staged = []
+        for rc in rcs:
+            # The member's own staged frames come before the batch's.
+            rc._flush_window()
+            rc._resolve_window()
+            if rc._compiled.topology_version != \
+                    rc.context._topology_version:
+                rc._compile()
+            rc._frame_flags = rc.ResolveRenderFlags(0)
+            if rc._eager_only():
+                return False
+            quads_bg, quads_fg = rc._quad_lists()
+            if not (rc._frame_flags & CK_RENDER_BACKGROUNDSPRITES):
+                quads_bg = []
+            if not (rc._frame_flags & CK_RENDER_FOREGROUNDSPRITES):
+                quads_fg = []
+            rc._refresh_textures()
+            frame = rc._staged_frame(quads_bg, quads_fg)
+            _key, static, params, bank, route, slot = frame
+            if not rc._capturable(params, route):
+                return False
+            shape = (fw.freeze({k: v for k, v in params.items()
+                                if k not in ("world_in", "solve_caps")},
+                               shapes=True),
+                     fw.freeze(static, shapes=True), slot[0].shape,
+                     slot[1].shape,
+                     None if slot[2] is None else slot[2][0].shape,
+                     fw.freeze(bank), rc._frame_flags, route)
+            staged.append((rc, shape, frame))
+        # The previous batch is read now, after the host has filled this
+        # one, so that its caps and peel round count are this batch's.
+        for rc in rcs:
+            if rc._batch_read is not None:
+                rc._batch_read.resolve()
+        subgroups: dict[tuple, list] = {}
+        for rc, shape, frame in staged:
+            subgroups.setdefault(shape, []).append((rc, frame))
+        for sub in subgroups.values():
+            self._run_batch(sub)
+        return True
+
+    def _run_batch(self, sub: list) -> None:
+        """One sub-group of :meth:`_batch_packed`: (member, staged frame)
+        pairs. The caps and the peel's round count are the first member's
+        (its eager frame fixes the count the first time), the graph is
+        kept on it per key."""
+        lead, (key, static, params, bank, route, slot0) = sub[0]
+        caps = lead._solve_caps
+        params = dict(params, solve_caps=caps)
+        rounds = (lead._peel_rounds_for(static, params, slot0, bank)
+                  if route == "peel" else 0)
+        size = min(len(sub), BATCH_SLOTS)
+        key = key + (fw.freeze(caps), rounds, size)
+        batch = lead._batch
+        if batch is None or batch.key != key:
+            if batch is not None:
+                batch.release()
+            batch = lead._batch = fw.FrameWindow(
+                key, static, params, bank, rounds, size,
+                lead.context.device, stacked=True)
+        members = [rc for rc, _frame in sub]
+        slots = [frame[-1] for _rc, frame in sub]
+        runs = [(batch.run(slots[i:i + size]), members[i:i + size])
+                for i in range(0, len(sub), size)]
+        read = BatchRead(members, runs)
+        for p, chunk in runs:
+            for j, rc in enumerate(chunk):
+                rc._solve_caps = caps
+                rc._fb_val, rc._zb_val = p.fb[j], p.zb[j]
+                if p.sb is not None:
+                    rc._sb_val = p.sb[j]
+                rc._win_fence = None
+                rc._batch_read = read
+                rc._count_frame()
 
     def PreProcess(self):
         self._moved_entities.clear()

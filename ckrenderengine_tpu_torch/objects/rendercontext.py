@@ -6,7 +6,9 @@ scene compile, the texture stack, the per-frame packed buffers, host chunk
 culling and portal traversal, then ONE call of
 ``pipeline.frame.render_frame_packed`` on ``CKContext.device`` — or, with
 ``SetFramePipelining(W)``, W staged frames run as one window of CUDA-graph
-replays (``pipeline.window``). The capacity governor sets the tiled
+replays (``pipeline.window``); ``CKRenderManager.ProcessBatched`` runs a
+group of contexts as one replay of a captured frame per member
+(:class:`BatchRead` resolves it). The capacity governor sets the tiled
 solve's caps from its bin statistics, read where the host already reads.
 Features outside the ported slices (stereo, render-to-texture, tile
 sharding, ...) raise ``NotImplementedError`` naming their ROADMAP item.
@@ -40,6 +42,11 @@ class CKRenderContext(CKObject):
         self._win_fence = None
         self._window = None
         self._win_pending = None
+        # Context batches (CKRenderManager.ProcessBatched): the batch graph
+        # of the groups this context leads, and the read of the batch
+        # this context's buffers came from, while it is pending.
+        self._batch = None
+        self._batch_read = None
         super().__init__(context, name)
         self.width = int(width)
         self.height = int(height)
@@ -113,9 +120,14 @@ class CKRenderContext(CKObject):
         self._global_render_mode = (2, True, False)   # (shading, tex, wire)
 
     # -- frame windows (SetFramePipelining) ------------------------------
+    def _pending(self) -> bool:
+        """Staged frames, or a window or batch whose read is pending."""
+        return bool(self._win_slots or self._win_pending is not None
+                    or self._batch_read is not None)
+
     @property
     def fb(self):
-        if self._win_slots or self._win_pending is not None:
+        if self._pending():
             self._sync_window()
         return self._fb_val
 
@@ -126,7 +138,7 @@ class CKRenderContext(CKObject):
 
     @property
     def zb(self):
-        if self._win_slots or self._win_pending is not None:
+        if self._pending():
             self._sync_window()
         return self._zb_val
 
@@ -136,7 +148,7 @@ class CKRenderContext(CKObject):
 
     @property
     def sb(self):
-        if self._win_slots or self._win_pending is not None:
+        if self._pending():
             self._sync_window()
         return self._sb_val
 
@@ -2198,17 +2210,24 @@ class CKRenderContext(CKObject):
         self._gov_hist = []
 
     # -- window staging (reference rendercontext.py:2618-2768) ------------
-    def _render_windowed(self, quads_bg_list, quads_fg_list):
-        """Stage this frame into the window; a full window runs."""
+    def _eager_only(self) -> bool:
+        """Whether this frame renders eagerly, outside any window or batch:
+        it accumulates, reads a device texture, renders to a texture or
+        runs in debug mode."""
         accumulate = not (self._frame_flags & CK_RENDER_CLEARBACKBUFFER) \
             or not (self._frame_flags & CK_RENDER_CLEARZBUFFER)
+        return bool(accumulate or getattr(self._compiled, "dev_ids", None)
+                    or self.target_texture is not None
+                    or self._debug_mode())
+
+    def _staged_frame(self, quads_bg_list, quads_fg_list):
+        """This frame's packed buffers for a captured frame (a window or a
+        context batch): (key, static, params, bank, route, slot). ``key``
+        holds what the graph bakes in, the per-compile tensors by identity;
+        ``bank`` is the bound clip's AnimBank (or None); ``route`` the
+        ordered pass's (``frame.ordered_route``); ``slot`` = (dyn_f, dyn_i,
+        a bound clip's (locals, time) or None)."""
         c = self._compiled
-        if (accumulate or getattr(c, "dev_ids", None)
-                or self.target_texture is not None or self._debug_mode()):
-            self._sync_window()
-            self.fb, self.zb = self._render_packed(quads_bg_list,
-                                                   quads_fg_list)
-            return
         static, dyn_f, dyn_i, params = self._fill_packed(
             quads_bg_list, quads_fg_list, defer_anim=True)
         anim = self._anim_req
@@ -2217,21 +2236,37 @@ class CKRenderContext(CKObject):
             c.tri_idx.shape[0] if params["ordered_cap"] is None
             else params["ordered_cap"], self.height * ss, self.width * ss,
             params["sampler_profile"], params["pixel_shader"])
-        if params.get("texdev") or route == "tiled":
-            # The exact tiled ordered pass reads the host inside the frame.
-            self._sync_window()
-            fb, zb, sb, _host = self._render_eager(static, dyn_f, dyn_i,
-                                                   params, anim=anim)
-            self.fb, self.zb = fb, zb
-            if sb is not None:
-                self.sb = sb
-            return
         bank = (None if anim is None else self._bound_clip.bank(
             n_entities=anim[0].shape[0], device=self.context.device))
         key = (fw.freeze({k: v for k, v in params.items()
                           if k not in ("world_in", "solve_caps")}),
                fw.freeze((c, static, bank, self._frame_flags,
                           os.environ.get("CK_FUSED_FETCH", ""), route)))
+        return key, static, params, bank, route, (dyn_f, dyn_i, anim)
+
+    @staticmethod
+    def _capturable(params: dict, route: str) -> bool:
+        """Whether a staged frame can be captured: the exact tiled ordered
+        pass and a device-texture feed read the host inside the frame."""
+        return not params.get("texdev") and route != "tiled"
+
+    def _render_windowed(self, quads_bg_list, quads_fg_list):
+        """Stage this frame into the window; a full window runs."""
+        if self._eager_only():
+            self._sync_window()
+            self.fb, self.zb = self._render_packed(quads_bg_list,
+                                                   quads_fg_list)
+            return
+        key, static, params, bank, route, slot = self._staged_frame(
+            quads_bg_list, quads_fg_list)
+        if not self._capturable(params, route):
+            self._sync_window()
+            fb, zb, sb, _host = self._render_eager(static, *slot[:2],
+                                                   params, anim=slot[2])
+            self.fb, self.zb = fb, zb
+            if sb is not None:
+                self.sb = sb
+            return
         if self._win_slots and self._win_ctx[0] != key:
             # A mid-window change of anything the graph bakes in (layout,
             # chunk cap, texture stack, sampler profile, quad windows, ...):
@@ -2240,7 +2275,7 @@ class CKRenderContext(CKObject):
             self._flush_window()
         if not self._win_slots:
             self._win_ctx = (key, static, params, bank, route)
-        self._win_slots.append((dyn_f, dyn_i, anim))
+        self._win_slots.append(slot)
         if len(self._win_slots) >= self._win_size:
             self._flush_window()
 
@@ -2256,15 +2291,8 @@ class CKRenderContext(CKObject):
         key, static, params, bank, route = self._win_ctx
         self._win_ctx = None
         params = dict(params, solve_caps=self._solve_caps)
-        rounds = 0
-        if route == "peel":
-            if self._peel_rounds is None:
-                # The eager frame's round count fixes the window's.
-                host = self._render_eager(static, *slots[0][:2], params,
-                                          anim=slots[0][2], govern=False,
-                                          bank=bank)[3]
-                self._peel_rounds = max(1, host["OrderedPeelRounds"])
-            rounds = self._peel_rounds
+        rounds = (self._peel_rounds_for(static, params, slots[0], bank)
+                  if route == "peel" else 0)
         key = key + (fw.freeze(params["solve_caps"]), rounds, self._win_size)
         win = self._window
         if win is None or win.key != key:
@@ -2321,9 +2349,22 @@ class CKRenderContext(CKObject):
                 self._governor_resolve()
 
     def _sync_window(self):
-        """Run the staged frames and resolve the pending window."""
+        """Resolve the pending batch, run the staged frames and resolve the
+        pending window."""
+        if self._batch_read is not None:
+            self._batch_read.resolve()
         self._flush_window()
         self._resolve_window()
+
+    def _peel_rounds_for(self, static, params, slot, bank) -> int:
+        """The peel's fixed round count of a captured frame: this
+        context's eager frame of ``slot`` fixes it the first time."""
+        if self._peel_rounds is None:
+            host = self._render_eager(static, *slot[:2], params,
+                                      anim=slot[2], govern=False,
+                                      bank=bank)[3]
+            self._peel_rounds = max(1, host["OrderedPeelRounds"])
+        return self._peel_rounds
 
     def _atest_prefail_mask(self, mat, mesh, grp):
         """Compile-time conservative alpha-test pre-gate (round 5).
@@ -2524,6 +2565,12 @@ class CKRenderContext(CKObject):
         src/CKRenderContext.cpp:767-930)."""
         from ..profiler import PhaseTimer
 
+        if self.stereo_enabled:
+            raise unported("stereo rendering", 17)
+        if self.target_texture is not None:
+            raise unported("render-to-texture (SetTargetTexture)", 17)
+        if self._batch_read is not None:
+            self._batch_read.resolve()
         self._frame_flags = self.ResolveRenderFlags(int(flags))
         t0 = time.monotonic()
         ph = self.phases
@@ -2585,11 +2632,7 @@ class CKRenderContext(CKObject):
             if not bool(torch.isfinite(self.fb).all()):
                 raise FloatingPointError(
                     "render produced non-finite framebuffer values")
-        c = self._compiled
-        self.stats.NbTrianglesDrawn = c.n_valid_tris
-        self.stats.NbVerticesProcessed = int(c.src_idx.shape[0])
-        self.stats.NbObjectDrawn = c.n_entities
-        self.stats.NbLinesDrawn = len(c.line_segments)
+        self._count_frame()
         self.stats.FrameTime = (time.monotonic() - t0) * 1000.0
         ph.ObjectsRenderTime = self.stats.FrameTime - ph.CallbacksTime
         self.stats.SceneTraversalTime = ph.SceneBuildTime + ph.BankBuildTime
@@ -2605,6 +2648,14 @@ class CKRenderContext(CKObject):
             self._fps_frames = 0
             self._fps_window_start = now
         return True
+
+    def _count_frame(self):
+        """The frame's geometry counters (the compiled scene's)."""
+        c = self._compiled
+        self.stats.NbTrianglesDrawn = c.n_valid_tris
+        self.stats.NbVerticesProcessed = int(c.src_idx.shape[0])
+        self.stats.NbObjectDrawn = c.n_entities
+        self.stats.NbLinesDrawn = len(c.line_segments)
 
     def SetTargetTexture(self, texture):
         if texture is not None:
@@ -2699,9 +2750,21 @@ class CKRenderContext(CKObject):
         return True
 
     def SetTileSharding(self, n_bands: int = 0, devices=None) -> bool:
-        if n_bands > 1:
-            raise unported("framebuffer tile sharding", 12)
-        return True
+        """Shard this context's framebuffer into ``n_bands`` horizontal
+        bands, one per device (reference rendercontext.py:3925-3940):
+        ``n_bands`` <= 1 renders on one device (True); fewer devices than
+        bands (``devices``, default the context's: the CUDA cards, or the
+        one CPU) or a height the bands do not divide is refused (False).
+        Band sharding over several cards is not ported yet."""
+        if n_bands <= 1:
+            return True
+        dev = self.context.device
+        n_dev = (len(list(devices)) if devices is not None
+                 else torch.cuda.device_count() if dev.type == "cuda"
+                 else 1)
+        if n_dev < n_bands or self.height % n_bands:
+            return False
+        raise unported("framebuffer tile sharding", 12)
 
     def GetTileSharding(self) -> int:
         return 0
@@ -2737,9 +2800,79 @@ class CKRenderContext(CKObject):
         return self.sb.detach().cpu().numpy()
 
     def GetStats(self) -> VxStats:
+        if self._batch_read is not None:
+            self._batch_read.resolve()
         return self.stats
 
     def GetFps(self) -> float:
         """Smoothed FPS (0.9/0.1 EMA over >=1s windows, reference
         src/CKRenderContext.cpp:898-908)."""
         return self.stats.SmoothedFps
+
+
+class BatchRead:
+    """The one host read of a context batch (``CKRenderManager
+    .ProcessBatched``), made lazily: at the first read of any member's
+    fb / zb / sb or stats, at a member's next ``Render()``, or at the next
+    ``ProcessBatched``. ``members`` are the group's contexts in order
+    (the first leads: it holds the group's capacity governor and peel
+    round count); ``runs`` are (``window.Pending``, the members it
+    rendered) for each chunk of the group."""
+
+    def __init__(self, members: list, runs: list):
+        self.members = members
+        self.runs = runs
+        self.done = False
+
+    def resolve(self) -> None:
+        """Read the rows; render each flagged member again eagerly (the
+        exact remainder, replay and peel) into its slot of the stacked
+        outputs; set each member's stats; give the group's worst bin
+        statistics to the lead's governor and copy its caps and peel
+        round count to the others."""
+        if self.done:
+            return
+        self.done = True
+        members = self.members
+        for rc in members:
+            if rc._batch_read is self:
+                rc._batch_read = None
+        lead = members[0]
+        bins = []
+        for p, chunk in self.runs:
+            rows = p.read()
+            win = p.window
+            for j, rc in enumerate(chunk):
+                s = rc.stats
+                s.OrderedPeelRounds = win.rounds
+                s.OrderedPeelOverflow = bool(
+                    rows[j, fw.flag_word("PeelBad")])
+                if win.tiled:
+                    b = rows[j, fw.ROW_BINS]
+                    s.SolveLivePairs = int(b[1])
+                    s.SolveFallbackRows = int(b[2] + b[3] + b[4])
+            for j in np.nonzero(fw.flagged(rows))[0]:
+                rc = chunk[j]
+                dyn_f, dyn_i, anim = p.slots[j]
+                out = rc._render_eager(win.static, dyn_f, dyn_i, win.params,
+                                       anim=anim, govern=False,
+                                       bank=win.bank)
+                for stacked, plane in zip((p.fb, p.zb, p.sb), out[:3]):
+                    if plane is not None:
+                        stacked[j].copy_(plane)
+                if win.rounds:
+                    lead._peel_rounds = max(lead._peel_rounds or 1,
+                                            out[3]["OrderedPeelRounds"])
+            if win.tiled:
+                bins.append(rows[:, fw.ROW_BINS])
+        if bins and lead._gov_on:
+            # The governor sets the lead's solve counters to the group's
+            # worst; the lead's stats stay its own frame's.
+            s = lead.stats
+            own = (s.SolveLivePairs, s.SolveFallbackRows)
+            lead._governor_tick({"SolveBinStats": np.concatenate(bins)})
+            lead._governor_resolve()
+            s.SolveLivePairs, s.SolveFallbackRows = own
+        for rc in members[1:]:
+            rc._solve_caps = lead._solve_caps
+            rc._peel_rounds = lead._peel_rounds

@@ -1177,6 +1177,22 @@ def box_resolve(fb, zb, sb=None, ss: int = 2) -> tuple:
 render_frame_packed = render_frame_packed_impl
 
 
+def render_frames_packed_batched(static: dict, dyn_f, dyn_i,
+                                 world_in=None, **params) -> tuple:
+    """Packed frames of a context batch: ``dyn_f`` / ``dyn_i`` carry a
+    leading context axis (B, F) / (B, I), ``world_in`` (optional) the
+    members' (B, N, 4, 4) bound-clip worlds; ``static`` and ``params``
+    (:func:`render_frame_packed`'s) are shared. Each member's frame runs in
+    turn on the tensors' device (the reference vmaps the same frame with
+    its Pallas kernels off). Returns the frame's outputs stacked: (B,4,H,W)
+    fb, (B,H,W) zb[, (B,H,W) sb]."""
+    frames = [render_frame_packed(
+        static, dyn_f[i], dyn_i[i], **params,
+        world_in=None if world_in is None else world_in[i])
+        for i in range(dyn_f.shape[0])]
+    return tuple(torch.stack(planes) for planes in zip(*frames))
+
+
 def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
     """(scene, batch, setup, defer_tri, tri_bits) of a packed frame: what
     its visibility solve, shade and ordered pass receive (``tri_bits``:

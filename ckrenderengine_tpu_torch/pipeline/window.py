@@ -27,6 +27,11 @@ window then:
    (:meth:`Pending.read`): flagged frames are rendered again through the
    eager path, and the capacity governor reads the rows' bin statistics.
 
+A context batch (``CKRenderManager.ProcessBatched``) is a stacked window:
+one slot per member of a group of render contexts, the first member's
+frame captured, and after each replay the graph's fb / zb / sb copied into
+row i of (n, ...) outputs, whose slices become the members' buffers.
+
 On the CPU (the tests' device) :meth:`FrameWindow.run` runs the same
 device-decided frame function eagerly, slot by slot, with no capture; a
 CUDA window never takes that path, and a failed capture or replay raises.
@@ -106,20 +111,24 @@ class _Same:
         return id(self.obj)
 
 
-def freeze(v):
+def freeze(v, shapes: bool = False):
     """A key part for ``v``: numbers, strings and None as they are, tuples,
     lists and dicts element by element, numpy arrays by their bytes,
-    anything else (tensors, banks, callables) by identity."""
+    anything else (tensors, banks, callables) by identity. ``shapes``:
+    tensors by their shape and dtype instead (the members of a context
+    batch each hold their own compile's tensors of one scene)."""
     if v is None or isinstance(v, (bool, int, float, str)):
         return v
     if isinstance(v, np.generic):
         return v.item()
     if isinstance(v, (tuple, list)):
-        return tuple(freeze(x) for x in v)
+        return tuple(freeze(x, shapes) for x in v)
     if isinstance(v, dict):
-        return tuple(sorted((k, freeze(x)) for k, x in v.items()))
+        return tuple(sorted((k, freeze(x, shapes)) for k, x in v.items()))
     if isinstance(v, np.ndarray):
         return (v.shape, v.dtype.str, v.tobytes())
+    if shapes and isinstance(v, torch.Tensor):
+        return (tuple(v.shape), str(v.dtype))
     return _Same(v)
 
 
@@ -142,7 +151,8 @@ def pack_slot(slot, out: np.ndarray) -> None:
 class Pending:
     """A dispatched window awaiting its read: the staged slots, the frames'
     rows (pinned host memory, valid once ``done`` has passed), the fence
-    (W,) f32 on the device and the last frame's fb / zb / sb."""
+    (W,) f32 on the device and the last frame's fb / zb / sb (a stacked
+    window's: every slot's, (n, ...))."""
 
     def __init__(self, window, slots, rows_host, done, rows_dev, out):
         self.window = window
@@ -174,12 +184,15 @@ class FrameWindow:
     ``static`` and ``params`` are the frames' shared inputs
     (``CKRenderContext._fill_packed``); ``bank`` the bound clip's AnimBank
     (or None); ``rounds`` the peel's fixed round count; ``size`` the window
-    size W (the fence's length). ``capture_ms`` (the warm-up and the
-    capture) and ``pool_bytes`` (the reserved memory the capture added: the
-    graph's private pool) are set by the capture."""
+    size W (the fence's length). ``stacked``: keep every slot's fb / zb /
+    sb, in (n, 4, H, W) / (n, H, W) / (n, H, W) outputs, not only the last
+    one's (a context batch: one slot per member, ``ProcessBatched``).
+    ``capture_ms`` (the warm-up and the capture) and ``pool_bytes`` (the
+    reserved memory the capture added: the graph's private pool) are set
+    by the capture."""
 
     def __init__(self, key, static: dict, params: dict, bank, rounds: int,
-                 size: int, device):
+                 size: int, device, stacked: bool = False):
         self.key = key
         self.static = static
         self.params = {k: v for k, v in params.items() if k != "world_in"}
@@ -187,6 +200,7 @@ class FrameWindow:
         self.rounds = rounds
         self.size = size
         self.device = torch.device(device)
+        self.stacked = stacked
         self.graph = None
         self.tiled = False
         self.capture_ms = 0.0
@@ -244,13 +258,16 @@ class FrameWindow:
         if self.device.type != "cpu":
             raise RuntimeError("the eager window runs on the CPU only")
         width = self._row_width(slots[0])
-        rows = []
+        rows, outs = [], []
         for slot in slots:
             buf = np.zeros(width, np.int32)
             pack_slot(slot, buf)
             out, row, self.tiled = self.frame(
                 *self._views(torch.from_numpy(buf)))
             rows.append(row)
+            outs.append(out)
+        if self.stacked:
+            out = tuple(torch.stack(planes) for planes in zip(*outs))
         rows = torch.stack(rows + [rows[-1]] * (self.size - len(rows)))
         return Pending(self, slots, rows[:len(slots)], None, rows, out)
 
@@ -267,8 +284,6 @@ class FrameWindow:
         self._host_np = self._host.numpy()
         self._stage = torch.empty((self.size, width), dtype=torch.int32,
                                   device=dev)
-        self._rows_host = torch.empty((self.size, ROW_WORDS),
-                                      dtype=torch.int32, pin_memory=True)
         self._uploaded = None
         views = self._views(self._in)
         torch.cuda.synchronize(dev)
@@ -303,6 +318,10 @@ class FrameWindow:
             self._uploaded.synchronize()
         for i, slot in enumerate(slots):
             pack_slot(slot, self._host_np[i])
+        # A pinned block of its own per run: a stacked window's group may
+        # run in several chunks before the first chunk's rows are read.
+        rows_host = torch.empty((n, ROW_WORDS), dtype=torch.int32,
+                                pin_memory=True)
         guard = REPLAY_GUARD or contextlib.nullcontext
         with guard():
             self._stage[:n].copy_(self._host[:n], non_blocking=True)
@@ -310,17 +329,27 @@ class FrameWindow:
             self._uploaded.record(stream)
             rows = torch.empty((self.size, ROW_WORDS), dtype=torch.int32,
                                device=dev)
+            if self.stacked:
+                # Every slot's buffers, each copied out of the graph's
+                # outputs before the next replay overwrites them.
+                out = tuple(torch.empty((n,) + tuple(t.shape),
+                                        dtype=t.dtype, device=dev)
+                            for t in self._out)
             for i in range(n):
                 self._in.copy_(self._stage[i])
                 self.graph.replay()
                 rows[i].copy_(self._row)
+                if self.stacked:
+                    for o, t in zip(out, self._out):
+                        o[i].copy_(t)
             if n < self.size:
                 rows[n:].copy_(rows[n - 1].expand(self.size - n, ROW_WORDS))
-            out = tuple(t.clone() for t in self._out)
-            self._rows_host[:n].copy_(rows[:n], non_blocking=True)
+            if not self.stacked:
+                out = tuple(t.clone() for t in self._out)
+            rows_host.copy_(rows[:n], non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
-        return Pending(self, slots, self._rows_host[:n], done, rows, out)
+        return Pending(self, slots, rows_host, done, rows, out)
 
     def release(self) -> None:
         """Drop the graph, its pool and the buffers (the key changed)."""

@@ -11,7 +11,7 @@ from __future__ import annotations
 PORT_QUEUE = {
     1: "GPU benchmark",
     10: "pixel and vertex shaders",
-    12: "context batching and tile sharding",
+    12: "multi-card context sharding and framebuffer bands",
     13: "rasterizer HAL",
     14: "scene IO",
     16: "progressive meshes",

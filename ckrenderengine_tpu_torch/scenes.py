@@ -1128,3 +1128,48 @@ def build_stencil(O, width: int = 640, height: int = 480,
                                   **ctx_kw)
     add_stencil_quad(O, ctx, -3.0, -0.5, 0.5, 3.0, 2.0)
     return ctx, rc, ball
+
+
+def build_batched(O, n_ctx: int = 8, size=256, antialias: bool = False,
+                  **ctx_kw):
+    """The context-batching scene (``bench.build_batched_scene``, which
+    measures ``contexts_per_sec_batched_8x256`` and ``_64x256``): ``n_ctx``
+    same-topology contexts of ``size`` (an int for a square frame, or
+    (width, height)) viewing a field of 48 lit spheres (12 x 18 segments,
+    20,736 triangles, seeded positions under one root) from cameras spread
+    around it. Returns (rm, rcs, root); rotate ``root`` about y by 0.01 per
+    batch."""
+    width, height = (size, size) if np.isscalar(size) else size
+    ctx = _context(O, antialias, ctx_kw)
+    rm = ctx.GetRenderManager()
+    spts, suv, sfaces = make_sphere(12, 18, 1.6)
+    mesh = O.CKMesh(ctx, "sphere")
+    mesh.SetPositions(spts)
+    mesh.SetUVs(suv)
+    mesh.SetFaces(sfaces)
+    mesh.BuildNormals()
+    mat = O.CKMaterial(ctx, "m")
+    mat.SetDiffuse((0.8, 0.4, 0.2, 1.0))
+    mat.SetPower(24.0)
+    mesh.ApplyGlobalMaterial(mat)
+    rng = np.random.default_rng(3)
+    root = O.CK3dObject(ctx, "root")
+    for i in range(48):
+        b = O.CK3dObject(ctx, f"b{i}")
+        b.SetCurrentMesh(mesh)
+        b.SetParent(root)
+        x, z = rng.uniform(-24, 24, 2)
+        b.SetPosition((x, rng.uniform(-4, 8), z + 30), ref=root)
+    sun = O.CKLight(ctx, "sun")
+    sun.SetType(int(VXLIGHT.DIREC))
+    sun.SetOrientation((0.4, -1.0, 0.3))
+    rcs = []
+    for k in range(n_ctx):
+        rc = rm.CreateRenderContext(width, height)
+        cam = O.CKCamera(ctx, f"cam{k}")
+        ang = k * (2 * np.pi / n_ctx)
+        cam.SetPosition((np.sin(ang) * 10.0, 6.0, -np.cos(ang) * 10.0))
+        cam.SetOrientation((-np.sin(ang) * 0.3, -0.15, np.cos(ang)))
+        rc.AttachViewpointToCamera(cam)
+        rcs.append(rc)
+    return rm, rcs, root
