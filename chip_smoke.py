@@ -66,6 +66,16 @@ and at 8 with Antialias, and the reference's one-triangle group at 3 x
 once per member, every member bit-equal to its own eager ``Render()``,
 contexts/sec by the reference's protocol with device ms, launches and
 host launch calls per context),
+renders the shaded level (``scenes.build_config5_shaded``: config 5 with a
+travelling-wave vertex shader and a pixel shader; the ``shader`` phase: B1
+without e-planes once per eager frame and nothing else, not even B5 under
+``CK_FUSED_FETCH``, the per-pixel-gather shade with the stage, B1 equal to
+its plain version on the frame's inputs and timed beside its bound, 8
+frames as graph replays equal to the eager frames, a host-reading stage
+refused in a window with an error naming it, the level cut to 320x240
+with an alpha sheet in the flat ordered pass against the CPU and the
+golden frame ``shader_320x240``, a batch of 8 contexts sharing one pixel
+shader, a frame with Antialias),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -862,6 +872,9 @@ def main() -> int:
     # --- 4f. context batching: one captured frame replayed per member ------
     batch_phase(O, scenes, kernel_fns, launches, card)
 
+    # --- 4g. user vertex and pixel shaders ---------------------------------
+    shaded = shader_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1073,6 +1086,13 @@ def main() -> int:
             k["config5_mat"] = {"ms": mat[key][0], "plain_ms": mat[key][1],
                                 "bound_ms": mat[key][2]["bound_ms"],
                                 "bound_by": mat[key][2]["bound_by"]}
+        if key in shaded:
+            # B1 without e-planes, at the shaded level's frame.
+            k["config5_shaded"] = {
+                "ms": shaded[key][0], "plain_ms": shaded[key][1],
+                "bound_ms": shaded[key][2]["bound_ms"],
+                "bound_by": shaded[key][2]["bound_by"],
+                "events_ms": shaded[key][3]}
     # L1 is not a TPU kernel: the reference's line pass is plain JAX.
     l1, l1_aa = fx["L1"], fx["L1_aa"]
     kernels.append({
@@ -1097,7 +1117,7 @@ def main() -> int:
         # A time under the bound means the bound counts work no kernel
         # needs, or the timing is wrong.
         for t in (k, k["antialias"], k.get("config5_fx", k),
-                  k.get("config5_mat", k)):
+                  k.get("config5_mat", k), k.get("config5_shaded", k)):
             check(t["ms"] >= t["bound_ms"],
                   f"{k['name']}: {t['ms']} ms is below its bound "
                   f"{t['bound_ms']} ms")
@@ -1222,7 +1242,8 @@ WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 1),
                  ("config5_mat", "build_config5_mat", {}, ("B1", "B4"), 1))
 
 
-def window_phase(O, scenes, kernel_fns, launches, card) -> None:
+def window_phase(O, scenes, kernel_fns, launches, card,
+                 window_scenes=None) -> dict:
     """Frame windows (``SetFramePipelining``), W = 8, at the scenes' full
     sizes: BASELINE configs 1-5, ``alpha50k``, ``alpha_tex50k``, config 5
     with Antialias, ``config5_fx`` and ``config5_mat``. Each scene renders
@@ -1244,7 +1265,10 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     scene the frame ms (median, p75) at W = 1 (each tick synchronised) and
     W = 8 (host wall-clock of two fenced windows, over W), host launch calls
     and device launches and ms per frame with the idle share (profiler),
-    and each key's capture ms and graph pool bytes, beside the card."""
+    and each key's capture ms and graph pool bytes, beside the card.
+
+    ``window_scenes``: other entries in ``WINDOW_SCENES``' form (the
+    ``shader`` phase's). Returns {scene: its ``window`` line}."""
     import contextlib
 
     from torch.autograd import DeviceType
@@ -1279,8 +1303,10 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
     fw.Pending.read = spy_read
     fw.REPLAY_GUARD = no_sync
     reset_launches(kernel_fns.values())
+    window_scenes = window_scenes or WINDOW_SCENES
+    lines = {}
     try:
-        for name, build, kw, kernels, n_windows in WINDOW_SCENES:
+        for name, build, kw, kernels, n_windows in window_scenes:
             base = name.removesuffix("_aa")
             n_ticks = n_windows * WINDOW + 3
 
@@ -1370,7 +1396,8 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
             keys = [{"capture_ms": w.capture_ms, "pool_bytes": w.pool_bytes}
                     for w in captured]
             s = rc.stats
-            emit("window", config=name, card=card, size=[rc.width, rc.height],
+            lines[name] = dict(
+                config=name, card=card, size=[rc.width, rc.height],
                  window=WINDOW, frames=n_ticks, frames_bit_equal=frames_ok,
                  fences_bit_equal=fences_ok, flagged_per_window=flagged,
                  solve_caps=list(rc._solve_caps or ()),
@@ -1391,6 +1418,7 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
                  device_idle_share={"w1": 1.0 - dev_ms1 / med1,
                                     "w8": 1.0 - dev_ms8 / med8},
                  keys=keys)
+            emit("window", **lines[name])
             check(frames_ok, f"{name}: a windowed frame differs from W = 1")
             check(fences_ok, f"{name}: the fences differ from W = 1's "
                   "checksums")
@@ -1431,10 +1459,13 @@ def window_phase(O, scenes, kernel_fns, launches, card) -> None:
         fw.Pending.read = read
         fw.REPLAY_GUARD = None
     got = {k: fn.launches for k, fn in kernel_fns.items()}
-    for k in launches:
+    for k in got:
         launches[k] += got[k]
-    check(all(got[k] > 0 for k in kernel_fns),
+    used = (kernel_fns if window_scenes is WINDOW_SCENES
+            else {k for scene in window_scenes for k in scene[3]})
+    check(all(got[k] > 0 for k in used),
           f"window phase: wrapper launches {got}")
+    return lines
 
 
 # The effects level's eager ticks after its first frame, and the level cut
@@ -2027,7 +2058,8 @@ def one_triangle_group(O, n: int, size: int):
     return rm, rcs, obj
 
 
-def batch_phase(O, scenes, kernel_fns, launches, card) -> dict:
+def batch_phase(O, scenes, kernel_fns, launches, card, groups=BATCH_GROUPS,
+                stage=None) -> dict:
     """Context batching (``CKRenderManager.ProcessBatched``) on the card:
     the groups of ``BATCH_GROUPS``, each in a manager of its own. Each
     group runs two warm-up batches, a third and the checked one (a
@@ -2039,7 +2071,10 @@ def batch_phase(O, scenes, kernel_fns, launches, card) -> dict:
     ``Render()`` at the batch's caps. Then ``frame_bench.batched_pass``
     (the reference's protocol, runs of about 1 s) gives contexts/sec, and
     device ms, device launches and host launch calls per context, the idle
-    share and each key's capture ms and pool MiB, beside the card."""
+    share and each key's capture ms and pool MiB, beside the card.
+
+    ``groups``: other entries in ``BATCH_GROUPS``' form; ``stage``: a pixel
+    shader every member of a group shares (the ``shader`` phase)."""
     import contextlib
 
     from torch.profiler import ProfilerActivity
@@ -2061,12 +2096,14 @@ def batch_phase(O, scenes, kernel_fns, launches, card) -> dict:
     reset_launches(kernel_fns.values())
     fw.REPLAY_GUARD = no_sync
     try:
-        for name, n, size, aa, kernel in BATCH_GROUPS:
+        for name, n, size, aa, kernel in groups:
             if name == "one_triangle":
                 rm, rcs, root = one_triangle_group(O, n, size)
             else:
                 rm, rcs, root = scenes.build_batched(
                     O, n, size, antialias=aa, device="cuda")
+            for rc in rcs if stage is not None else ():
+                rc.SetPixelShader(stage)
             reads = []
 
             def batch():
@@ -2131,8 +2168,258 @@ def batch_phase(O, scenes, kernel_fns, launches, card) -> dict:
     got = {k: fn.launches for k, fn in kernel_fns.items()}
     for k in got:
         launches[k] += got[k]
-    check(got["B1"] > 0 and got["B2"] > 0, f"batch phase: wrapper "
+    check(all(got[g[4]] > 0 for g in groups), f"batch phase: wrapper "
           f"launches {got}")
+    return out
+
+
+# The shaded level: eager ticks after its first frame, its window entry
+# (two full windows of W and a partial one), the golden frame's cut, and
+# the batched group whose members share one pixel shader.
+SHADER_TICKS = 2
+SHADER_WINDOW = (("config5_shaded", "build_config5_shaded", {}, ("B1",), 2),)
+SHADER_GOLDEN = dict(width=320, height=240, terrain_n=70, n_balls=8,
+                     alpha_sheet=True)
+SHADER_BATCH = (("batched_8x256_shaded", 8, 256, False, "B1"),)
+
+
+def shaded_frame(rc, kernel_fns, launches, df, step=None) -> dict:
+    """One Render() of a shaded context (after ``step()``) with every
+    launch count at 0: its CUDA-event ms, launches, and how many times it
+    ran the per-pixel-gather shade and built the quantized rows."""
+    ps = count_calls(df, "_shade_deferred_ps")
+    quant = count_calls(df, "shade_row_table_quant")
+    reset_launches(kernel_fns.values())
+    if step is not None:
+        step()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    rc.Render()
+    e1.record()
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    return {"frame_ms": e0.elapsed_time(e1), "launches": got,
+            "pixel_stage_shades": ps(), "quantized_tables": quant()}
+
+
+def time_shaded(name, rc, card, fr, cuda_tiled, df) -> dict:
+    """B1 in its instantiation without e-planes on a shaded frame's own
+    inputs (the vertex shader's positions), bit-equal to its plain version
+    and timed beside its roofline bound; and the shade stage: the
+    per-pixel-gather shade with the user stage (``shade_deferred`` with
+    ``pixel_shader``) beside config 5's unshaded shade of the same winners
+    (the quantized rows: table, gather, expand, ``shade_rows`` from B1's
+    e-planes). Returns (kernel ms, plain ms, bound, CUDA-event ms)."""
+    static, dyn_f, dyn_i, params = packed_cuda(rc)
+    H, W = rc.height * params["ss"], rc.width * params["ss"]
+    sp = params["sampler_profile"]
+    scene, batch, setup, defer, _bits = fr.packed_setup(static, dyn_f, dyn_i,
+                                                        params)
+    caps = fr._solve_caps(batch.valid.shape[0], None)
+    a = cuda_tiled.phase_a(setup, defer, scene.viewport, batch.xyw, H, W,
+                           **caps)
+    init = cuda_tiled._init_plane(scene.clear_z, H, W, a["tiles_y"] * 32,
+                                  a["tiles_x"] * 32, "cuda")
+    args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
+            a["sbase"], scene.viewport, W, H, init, 32, a["tiles_x"],
+            a["tiles_y"], a["n_planes"])
+    out = cuda_tiled.solve_tiled_kernel(*args, False)
+    ref = cuda_tiled.solve_phase_b_plain(*args, False)
+    check(out[2] is None and all(
+        x is None and y is None or torch.equal(x, y)
+        for x, y in zip(out, ref)),
+          f"B1 without e-planes and its plain version disagree at {name}")
+    st = {"b1_ms": kernel_ms(lambda: cuda_tiled.solve_tiled_kernel(
+        *args, False), "solve_tiled_kernel"),
+        "b1_events_ms": cuda_ms(lambda: cuda_tiled.solve_tiled_kernel(
+            *args, False), 20),
+        "b1_plain_ms": cuda_ms(lambda: cuda_tiled.solve_phase_b_plain(
+            *args, False), 3)}
+    ids = out[1][:H, :W]
+    shade = (scene.tex_planes, scene.tex_hw, scene.fog_color,
+             scene.clear_color[:, None, None].expand(4, H, W), H, W)
+    st["shade_stage_ms"] = cuda_ms(lambda: df.shade_deferred(
+        ids, batch.xyw, batch.z, batch.color, batch.specular, batch.uv,
+        batch.fog, batch.state_idx, scene.state_i, scene.state_f, *shade,
+        batch_refl=batch.refl, pixel_shader=params["pixel_shader"]), 5)
+    # Config 5's shade of the same winners: the quantized rows.
+    want_ws = not sp[3]
+    epl = cuda_tiled.solve_tiled_kernel(*args, True)[2][:, :H, :W]
+
+    def unshaded():
+        tbl = df.shade_row_table_quant(
+            batch.xyw, batch.color, batch.specular, batch.uv, batch.fog,
+            batch.state_idx, batch_refl=batch.refl,
+            inv_det_s=setup["inv_det_s"], want_ws=want_ws)
+        rows = df.expand_rows_quant(
+            df.gather_winner_rows(tbl, ids), scene.state_i, scene.state_f,
+            scene.tex_hw, want_ws=want_ws,
+            has_refl=batch.refl.shape[-1] > 0)
+        return df.shade_rows(rows, ids >= 0, *shade, sampler_profile=sp,
+                             tex_quad=scene.tex_quad,
+                             eplanes=(epl[0], epl[1], epl[2]))
+
+    st["unshaded_config5_shade_ms"] = cuda_ms(unshaded, 5)
+    leftn = a["leftn"].tolist()
+    pairs = tiled_pairs(a["counts"], sum(leftn), 32)
+    past = tiled_pairs_past_edges(
+        a["stream"], a["starts"], a["counts"],
+        ((a["gbase"], leftn[0]), (a["sbase"], leftn[1])), 32, a["tiles_x"],
+        a["tiles_y"])
+    solve_in = ((int(a["counts"].sum()) + sum(leftn)) * a["stream"].shape[1]
+                * 4 + nbytes(a["starts"], a["counts"], a["leftn"], init))
+    bound = roofline(past, pairs, a["n_planes"],
+                     solve_in + nbytes(*(x for x in out if x is not None)))
+    emit("shader_timing", config=name, card=card, size=[W, H],
+         **{k: round(v, 4) for k, v in st.items()},
+         b1_bound_ms=bound["bound_ms"], b1_bound_by=bound["bound_by"],
+         pixel_row_pairs=pairs, pairs_past_edges=past,
+         note="b1_ms is B1's own time without e-planes (torch.profiler); "
+         "the other times are CUDA-event means of the stage alone")
+    return (st["b1_ms"], st["b1_plain_ms"], bound, st["b1_events_ms"])
+
+
+def shader_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """User vertex and pixel shaders through Render() on the card:
+    ``scenes.build_config5_shaded`` (config 5, 528,032 triangles, with a
+    travelling-wave vertex shader and a pixel shader reading all six of
+    its inputs) at 1024x768.
+
+    - Eager: the first frame and SHADER_TICKS ticks, each with every launch
+      count at 0 first: B1 once per frame (its instantiation without
+      e-planes), no B2-B5, the per-pixel-gather shade once and no
+      quantized rows; one more frame with ``CK_FUSED_FETCH``: still no B5.
+      The device ms, launches and idle share of one more tick.
+    - B1 on the frame's own inputs against its plain version, timed beside
+      its bound, and the shade stage beside config 5's unshaded shade
+      (:func:`time_shaded`).
+    - Windowed: W = 8 through ``window_phase`` (two fenced windows and a
+      partial one, every window's last frame and every fence entry
+      bit-equal to the eager frames').
+    - A stage that reads the host (``.item()``) in a window raises
+      ``StageCaptureError`` naming it.
+    - Golden: the level cut to 320x240 with its alpha sheet (the flat
+      ordered pass under the stage) against the CPU and against
+      ``tests/torch_golden/shader_320x240.npz``.
+    - Batched: ``scenes.build_batched`` at 8 x 256x256, every member
+      sharing one pixel shader: one batch, B1 once per member, each member
+      bit-equal to its own eager Render() (``batch_phase``).
+    - Antialias: one eager frame at 2048x1536, B1 once.
+
+    Returns {"B1": (ms, plain ms, bound, events ms)} of the no-e-plane
+    instantiation at the level's frame."""
+    from ckrenderengine_tpu_torch.raster import cuda_tiled
+    from ckrenderengine_tpu_torch.raster import deferred as df
+    from ckrenderengine_tpu_torch.raster import torch_backend as rb
+    from ckrenderengine_tpu_torch.raster.stage import StageCaptureError
+
+    t_phase = time.monotonic()
+    ctx, rc, spinner = scenes.build_config5_shaded(O, device="cuda")
+    step = ticker("config5_shaded", spinner)
+    frames = [shaded_frame(rc, kernel_fns, launches, df)]
+    for _ in range(SHADER_TICKS):
+        frames.append(shaded_frame(rc, kernel_fns, launches, df, step))
+    finite, covered = frame_checks("config5_shaded", rc)
+    os.environ["CK_FUSED_FETCH"] = "1"
+    try:
+        fused = shaded_frame(rc, kernel_fns, launches, df, step)
+    finally:
+        del os.environ["CK_FUSED_FETCH"]
+    dev = device_frame(rc, step)
+    frame_ms = float(np.median([f["frame_ms"] for f in frames[1:]]))
+    c = rc._compiled
+    emit("shader", config="config5_shaded", size=[rc.width, rc.height],
+         triangles=int(c.n_valid_tris), ordered_cap=int(c.ordered_cap),
+         frames=frames, fused_fetch_frame=fused, finite=finite,
+         covered=covered, card=card, frame_ms_median=frame_ms,
+         device_idle_share=1.0 - dev["device_ms"] / frame_ms, **dev)
+    want = {k: 0 for k in kernel_fns}
+    want["B1"] = 1
+    for f in frames + [fused]:
+        check(f["launches"] == want and f["pixel_stage_shades"] == 1
+              and f["quantized_tables"] == 0,
+              f"config5_shaded: frame {f}, expected launches {want}")
+    out = {"B1": time_shaded("config5_shaded", rc, card, fr, cuda_tiled,
+                             df)}
+    del ctx, rc
+
+    window = window_phase(O, scenes, kernel_fns, launches, card,
+                          window_scenes=SHADER_WINDOW)["config5_shaded"]
+    check(window["frames_bit_equal"] and window["fences_bit_equal"],
+          "config5_shaded: windowed frames differ from eager ones")
+
+    # A stage that synchronises with the host cannot be captured.
+    def host_reading_stage(inp):
+        return inp["color"] * float(inp["texel"].amax().item())
+
+    _c, rc_s, _m = scenes.build_config2(O, device="cuda", width=64,
+                                        height=48)
+    rc_s.SetPixelShader(host_reading_stage)
+    rc_s.Render()                                   # eager: allowed
+    rc_s.SetFramePipelining(2)
+    msg = ""
+    try:
+        for _ in range(2):
+            rc_s.Render()
+        rc_s.GetFrameFence().cpu()
+    except StageCaptureError as e:
+        msg = str(e)
+    emit("shader_capture_error", raised=bool(msg), message=msg[:200])
+    check("host_reading_stage" in msg,
+          f"a host-reading stage in a window did not raise: {msg!r}")
+    del _c, rc_s
+
+    # The golden frame's size: the card against the CPU and the golden.
+    reset_launches(kernel_fns.values())
+    flat_pass = count_calls(rb, "_one_triangle")
+    _c, rc_g, _m = render_config(scenes.build_config5_shaded, O, "cuda",
+                                 **SHADER_GOLDEN)
+    composites = flat_pass()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    _c2, rc_c, _m2 = render_config(scenes.build_config5_shaded, O, "cpu",
+                                   **SHADER_GOLDEN)
+    compare_with_cpu("config5_shaded_320x240", rc_g, rc_c)
+    g = np.load(os.path.join(GOLDEN_DIR, "shader_320x240.npz"))
+    ids = winners(rc_g)
+    rgba = rc_g.BackToFront()
+    match = ids == g["ids"]
+    diff = np.abs(rgba.astype(np.int32) - g["rgba"].astype(np.int32)).max(-1)
+    off = int((diff[match] > 1).sum())
+    emit("golden", frame="shader_320x240", ids_equal_frac=float(match.mean()),
+         rgba_pixels_over_1_matching=off,
+         rgba_max_diff_matching=int(diff[match].max()), launches=got,
+         ordered_composites=composites,
+         ordered_cap=int(rc_g._compiled.ordered_cap))
+    check(got == want, f"golden shader_320x240: launches {got}")
+    check(composites == rc_g._compiled.ordered_cap,
+          f"golden shader_320x240: {composites} flat ordered composites")
+    check(rgba.shape == g["rgba"].shape, "golden shader_320x240: shape")
+    check(match.mean() >= 0.999, "golden shader_320x240: winner ids differ")
+    check(off <= 1e-3 * match.sum(), f"golden shader_320x240: {off} pixels")
+    del _c, rc_g, _c2, rc_c
+
+    # Context batching: members that share one pixel shader.
+    stage = scenes.config5_shaders(torch, 0, 256, 256)[1]
+    batch_phase(O, scenes, kernel_fns, launches, card, groups=SHADER_BATCH,
+                stage=stage)
+
+    # Antialias: one frame at twice the size.
+    _c, rc_aa, _m = scenes.build_config5_shaded(O, device="cuda",
+                                                antialias=True)
+    f = shaded_frame(rc_aa, kernel_fns, launches, df)
+    frame_checks("config5_shaded_aa", rc_aa)
+    emit("shader_antialias", config="config5_shaded",
+         size=[rc_aa.width, rc_aa.height],
+         render_size=[2 * rc_aa.width, 2 * rc_aa.height], **f)
+    check(f["launches"] == want and f["pixel_stage_shades"] == 1,
+          f"config5_shaded AA: {f}")
+    del _c, rc_aa
+    emit("shader_phase", seconds=round(time.monotonic() - t_phase, 1))
     return out
 
 
@@ -2579,7 +2866,7 @@ def time_rows(name, rc, fps, card, fr, cuda_tiled, df, plain: bool):
 # moves its bulb, config 4 advances its clip by 0.5 frames).
 ANGLES = {"config1": 0.02, "config2": 0.03, "config5": 0.01,
           "alpha50k": 0.02, "alpha_tex50k": 0.02, "config5_fx": 0.01,
-          "config5_mat": 0.01}
+          "config5_mat": 0.01, "config5_shaded": 0.01}
 
 
 def ticker(name, mover):

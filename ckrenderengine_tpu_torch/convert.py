@@ -16,14 +16,18 @@ import torch
 
 # Params of the reference frame that name features this package does not
 # carry yet; it takes a frame only when they are empty.
-_EMPTY_PARAMS = ("anim", "texdev", "vertex_shader", "pixel_shader")
+_EMPTY_PARAMS = ("anim", "texdev")
+# User stages: a JAX function does not convert, so the caller passes the
+# port's counterpart of each one the reference frame sets.
+_STAGE_PARAMS = ("vertex_shader", "pixel_shader")
 
 
 def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def from_reference(static: dict, dyn_f, dyn_i, params: dict, device):
+def from_reference(static: dict, dyn_f, dyn_i, params: dict, device,
+                   vertex_shader=None, pixel_shader=None):
     """(static, dyn_f, dyn_i, params) of a reference frame -> the same for
     ``pipeline.frame.render_frame_packed`` of this package on ``device``.
 
@@ -31,15 +35,24 @@ def from_reference(static: dict, dyn_f, dyn_i, params: dict, device):
     hashable params (layout, levels, corner, caps, sampler profile,
     ``skin_ranges``) carry over unchanged; the skin bank and the bound
     clip's ``world_in`` matrices, the sprites' per-compile rows and the
-    line bank convert field by field. Raises when a param names a feature
-    this package does not carry."""
+    line bank convert field by field. ``vertex_shader`` / ``pixel_shader``:
+    the torch counterparts of the reference frame's user stages, required
+    exactly where the frame sets one. Raises when a param names a feature
+    this package does not carry, or when a stage and its counterpart do not
+    pair up."""
     for k in _EMPTY_PARAMS:
         v = params.get(k)
         if v is not None and not (isinstance(v, tuple) and not v):
             raise ValueError(f"reference param {k!r} is set; this package "
                              f"takes frames without it")
+    stages = dict(vertex_shader=vertex_shader, pixel_shader=pixel_shader)
+    for k, fn in stages.items():
+        if (params.get(k) is None) != (fn is None):
+            raise ValueError(f"reference param {k!r} is "
+                             f"{'un' if params.get(k) is None else ''}set: "
+                             f"pass {k}= exactly when it is set")
     static_t = {k: _tensor(v, device) for k, v in static.items()}
-    out = dict(params)
+    out = dict(params, **stages)
     for k in _EMPTY_PARAMS:
         out[k] = None
     out["texdev_rects"] = ()

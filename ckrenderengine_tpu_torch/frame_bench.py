@@ -1,9 +1,9 @@
 """Frame rates and per-frame device launches of the smoke scenes (the five
 BASELINE configs, config 4 without its patch sheet, the two stress scenes,
 each of the seven again with Antialias on, config 2 with a stencil-only
-mesh, config 5 with 3D sprites, curves and lines, ``config5_fx``, and with
-material effects, ``config5_mat``), for comparing two trees of this package
-on one card.
+mesh, config 5 with 3D sprites, curves and lines, ``config5_fx``, with
+material effects, ``config5_mat``, and with user vertex and pixel shaders,
+``config5_shaded``), for comparing two trees of this package on one card.
 
     python3 ckrenderengine_tpu_torch/frame_bench.py --root . --out a.json
     python3 ckrenderengine_tpu_torch/frame_bench.py --root _parent --out b.json
@@ -84,7 +84,8 @@ SCENES = tuple((name, build, angle, {}) for name, build, angle in _BASE) + \
           for name, build, angle in _BASE if name != "config4_skin") + \
     (("stencil", "build_stencil", 0.03, {}),
      ("config5_fx", "build_config5_fx", 0.01, {}),
-     ("config5_mat", "build_config5_mat", 0.01, {}))
+     ("config5_mat", "build_config5_mat", 0.01, {}),
+     ("config5_shaded", "build_config5_shaded", 0.01, {}))
 KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
            "ordered_peel_kernel", "lines_kernel")
 FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")

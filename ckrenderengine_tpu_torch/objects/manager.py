@@ -112,7 +112,10 @@ class CKRenderManager(CKObject):
     def ProcessBatched(self, mesh=None):
         """Render every context, same-shape contexts as context batches
         (reference manager.py:205-249). Contexts group by signature (size,
-        hierarchy levels, ordered cap, stream shapes). A group of one
+        hierarchy levels, ordered cap, stream shapes). A member with a
+        vertex shader renders through its own ``Render()``, with its shader
+        (the reference's batch refuses such a member and renders its group
+        with the vmapped fallback, which drops the shader). A group of one
         renders through its ``Render()``; a larger group through
         :meth:`_batch_packed`, or, where it cannot share one captured
         frame, through each member's ``Render()``, as the reference's
@@ -134,9 +137,13 @@ class CKRenderManager(CKObject):
                    c.src_idx.shape, c.tri_idx.shape)
             groups.setdefault(sig, []).append(rc)
         for rcs in groups.values():
-            if len(rcs) == 1 or not self._batch_packed(rcs):
-                for rc in rcs:
-                    rc.Render()
+            # A vertex-shader member renders alone, with its shader.
+            alone = [rc for rc in rcs if rc.vertex_shader is not None]
+            rcs = [rc for rc in rcs if rc.vertex_shader is None]
+            if len(rcs) == 1 or (rcs and not self._batch_packed(rcs)):
+                alone = rcs + alone
+            for rc in alone:
+                rc.Render()
 
     def _batch_packed(self, rcs, mesh=None) -> bool:
         """Render ``rcs`` as context batches: each member's frame is filled

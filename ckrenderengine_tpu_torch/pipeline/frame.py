@@ -48,6 +48,7 @@ from ..raster import torch_backend as rb
 from ..raster.cuda_reduce import depth_reduce_cuda
 from ..raster.cuda_tiled import depth_reduce_tiled_cuda
 from ..raster.deferred import take_small
+from ..raster.stage import call_stage
 from ..raster.types import (
     SF_BUMP_SCALE, SI_ALPHABLEND, SI_STENCIL, SI_TEX2, SI_TEXGEN,
     TEXGEN_CHROME, TEXGEN_CUBE, TEXGEN_PLANAR, TEXGEN_REFLECT,
@@ -161,10 +162,13 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
     every TEXGEN_CUBE row is exported (``refl_v``, zero elsewhere) for the
     shade's per-pixel cube UV. A scene without them runs none of it.
 
+    ``vertex_shader``: an optional user stage ``fn(posw, nrmw, scene) ->
+    (posw', nrmw')`` over every stream row's world-space position and
+    normal (``raster/stage.py``), called after the world transform and
+    before the normals are renormalised, lit, TexGen'd and projected.
+
     Returns (clip (IV,4), color (IV,4), spec (IV,3), fog (IV,), world
     (N,4,4), uv (IV,2), clipd_v (IV,P) | None, refl_v (IV,3) | None)."""
-    if vertex_shader is not None:
-        raise unported("vertex shaders", 10)
     if world is None:
         world = compose_world(scene.local, scene.parent, levels)
     # Row N = identity: world-space vertex sources bind here.
@@ -190,6 +194,9 @@ def transform_and_light(scene: SceneDevice, levels: tuple, world=None,
 
     posw = vx.transform_points(pos, wm)
     nrmw = vx.transform_vectors(nrm, wm)
+    if vertex_shader is not None:
+        posw, nrmw = call_stage(vertex_shader, posw, nrmw, scene,
+                                device=posw.device)
     nrmw = nrmw / torch.clamp(torch.linalg.vector_norm(nrmw, dim=-1,
                                                        keepdim=True),
                               min=1e-12)
@@ -1213,6 +1220,7 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
         sprites=sprite_bank(params.get("sprites_static"), d))
     batch, setup, defer_tri, tri_bits = opaque_setup(
         scene, params["levels"], world, corner=corner,
+        vertex_shader=params.get("vertex_shader"),
         want_bump=params.get("want_bump", False),
         want_cube=params.get("want_cube", False),
         want_texgen=params["want_texgen"],

@@ -32,6 +32,13 @@ one slot per member of a group of render contexts, the first member's
 frame captured, and after each replay the graph's fb / zb / sb copied into
 row i of (n, ...) outputs, whose slices become the members' buffers.
 
+A render context's vertex and pixel shaders (``raster/stage.py``) run
+once, at capture; the replays re-run the kernels they launched, so what a
+stage's Python closure holds is baked into the key's graph, and per-frame
+inputs reach it through the scene. A stage that synchronises with the host
+raises ``stage.StageCaptureError``: such a frame does not fall back to the
+eager path.
+
 On the CPU (the tests' device) :meth:`FrameWindow.run` runs the same
 device-decided frame function eagerly, slot by slot, with no capture; a
 CUDA window never takes that path, and a failed capture or replay raises.
@@ -45,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from ..raster.stage import capturing
 from . import frame as fr
 
 # A frame's row: the checksum's f32 bits, the main tiled solve's bin
@@ -290,7 +298,9 @@ class FrameWindow:
         t0 = time.monotonic()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        # A user stage that synchronises with the host raises in the
+        # warm-up, naming itself, before the capture begins.
+        with torch.cuda.stream(side), capturing():
             self.frame(*views)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
@@ -299,7 +309,7 @@ class FrameWindow:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph), capturing():
             self._out, self._row, self.tiled = self.frame(*views)
         torch.cuda.synchronize(dev)
         self.pool_bytes = (torch.cuda.memory_stats(dev)[

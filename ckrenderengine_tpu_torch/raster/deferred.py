@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..math.vxmath import oct_encode
-from ..roadmap import unported
+from .stage import call_stage
 from .types import (
     SF_BORDER_R, SF_CONST_R, SI_ALPHABLEND, SI_ALPHATEST, SI_COLORWRITE,
     SI_CULL, SI_FOG, SI_PERSPECTIVE, SI_TEX, SI_TEXADDR, SI_TEXBLEND,
@@ -470,15 +470,145 @@ def shade_deferred(best_id, batch_xyw, batch_z, batch_color, batch_spec,
                    pixel_shader=None, sampler_profile=None, tex_quad=None):
     """One shading evaluation per pixel on the winning triangle.
 
-    Fixed-function frames take :func:`_shade_deferred_fast`. Returns
-    (4,H,W) fb planes (background pixels keep clear_fb)."""
+    Fixed-function frames take :func:`_shade_deferred_fast`; a frame with
+    a ``pixel_shader`` (a user stage, ``raster/stage.py``) the per-pixel
+    gather :func:`_shade_deferred_ps`. Returns (4,H,W) fb planes
+    (background pixels keep clear_fb)."""
     if pixel_shader is not None:
-        raise unported("pixel shaders", 10)
+        return _shade_deferred_ps(
+            best_id, batch_xyw, batch_color, batch_spec, batch_uv,
+            batch_fog, batch_state, state_i, state_f, tex_planes, tex_hw,
+            fog_color, clear_fb, height, width, pixel_shader,
+            batch_refl=batch_refl)
     return _shade_deferred_fast(
         best_id, batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
         batch_state, state_i, state_f, tex_planes, tex_hw, fog_color,
         clear_fb, height, width, batch_refl=batch_refl,
         sampler_profile=sampler_profile, tex_quad=tex_quad)
+
+
+def _shade_deferred_ps(best_id, batch_xyw, batch_color, batch_spec,
+                       batch_uv, batch_fog, batch_state, state_i, state_f,
+                       tex_planes, tex_hw, fog_color, clear_fb, height: int,
+                       width: int, pixel_shader, batch_refl=None):
+    """The per-pixel-gather shade of a pixel-shader frame (the reference's
+    ``_shade_deferred_ps``): every winner attribute gathered per pixel, the
+    edge values from per-pixel adjoints, the full ``si`` / ``sf`` state
+    rows, the cube-env UV from the interpolated reflection vector, the
+    analytic mip LOD from the neighbours' edge values, and the texel (white
+    where the state binds no texture). The stage receives ``color``
+    (H,W,4), ``texel`` (H,W,4), ``uv`` (H,W,2), ``xy`` (H,W,2) pixel
+    centres, ``si`` (H,W,NUM_SI) int32 and ``sf`` (H,W,NUM_SF) and returns
+    (H,W,4); specular, fog, the clamp and the colour-write mask follow it."""
+    dev = best_id.device
+    py, px = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
+        torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
+        indexing="ij")
+    hit = best_id >= 0
+    tid = torch.clamp(best_id, 0, batch_xyw.shape[0] - 1)
+
+    def take(a):                                   # (T,...) -> (H,W,...)
+        return take_small(a, tid)
+
+    xyw = take(batch_xyw)                          # (H,W,3,3)
+    v0, v1, v2 = xyw[..., 0, :], xyw[..., 1, :], xyw[..., 2, :]
+    adj0 = torch.linalg.cross(v1, v2)
+    adj1 = torch.linalg.cross(v2, v0)
+    adj2 = torch.linalg.cross(v0, v1)
+    det = torch.sum(v0 * adj0, dim=-1)
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-30, 1e-30, det)
+    p1 = torch.stack([px, py, torch.ones_like(px)], dim=-1)   # (H,W,3)
+    e0 = torch.sum(adj0 * p1, -1)
+    e1 = torch.sum(adj1 * p1, -1)
+    e2 = torch.sum(adj2 * p1, -1)
+    esum = e0 + e1 + e2
+
+    sidx = take(batch_state)                       # (H,W) state row
+    si_all = take_small(state_i, sidx)             # (H,W,NUM_SI)
+    sf_all = take_small(state_f, sidx)             # (H,W,NUM_SF)
+
+    def si(c):
+        return si_all[..., c]
+
+    def sf(c):
+        return sf_all[..., c]
+
+    persp = si(SI_PERSPECTIVE) != 0
+    inv_esum = 1.0 / torch.where(torch.abs(esum) < 1e-30, 1e-30, esum)
+    ws = xyw[..., 2]                               # (H,W,3) vertex w
+    w0 = torch.where(persp, e0 * inv_esum, e0 * ws[..., 0] * inv_det)
+    w1 = torch.where(persp, e1 * inv_esum, e1 * ws[..., 1] * inv_det)
+    w2 = torch.where(persp, e2 * inv_esum, e2 * ws[..., 2] * inv_det)
+
+    def interp3(attr, a0=w0, a1=w1, a2=w2):        # attr (T,3,K)
+        a = take(attr)                             # (H,W,3,K)
+        return (a0[..., None] * a[..., 0, :] + a1[..., None] * a[..., 1, :]
+                + a2[..., None] * a[..., 2, :])
+
+    color = interp3(batch_color)                   # (H,W,4)
+    has_tex = si(SI_TEX) >= 0
+    uvi = interp3(batch_uv)                        # (H,W,2)
+    if _has_refl(batch_refl):
+        # Per-pixel cube-env UV: oct-encode AFTER interpolating the world
+        # reflection vector (seam-free).
+        r = interp3(batch_refl)
+        r = r / torch.clamp(torch.linalg.vector_norm(r, dim=-1, keepdim=True),
+                            min=1e-12)
+        is_cube = (si(SI_TEXGEN) == TEXGEN_CUBE)[..., None]
+        uvi = torch.where(is_cube, oct_encode(r), uvi)
+    border = [sf(SF_BORDER_R + c) for c in range(4)]
+
+    # Per-pixel mip LOD from screen-space UV gradients: the edge functions
+    # are affine (slope a per +x, b per +y), so re-weighting at the
+    # neighbouring pixels gives exact footprints.
+    lod = None
+    if tex_hw.shape[1] > 2:
+        def uv_at(de0, de1, de2):
+            e0n, e1n, e2n = e0 + de0, e1 + de1, e2 + de2
+            esum_n = e0n + e1n + e2n
+            inv_n = 1.0 / torch.where(torch.abs(esum_n) < 1e-30, 1e-30,
+                                      esum_n)
+            return interp3(
+                batch_uv,
+                torch.where(persp, e0n * inv_n, e0n * ws[..., 0] * inv_det),
+                torch.where(persp, e1n * inv_n, e1n * ws[..., 1] * inv_det),
+                torch.where(persp, e2n * inv_n, e2n * ws[..., 2] * inv_det))
+
+        uv_dx = uv_at(adj0[..., 0], adj1[..., 0], adj2[..., 0]) - uvi
+        uv_dy = uv_at(adj0[..., 1], adj1[..., 1], adj2[..., 1]) - uvi
+        tidc = torch.clamp(si(SI_TEX), 0, tex_hw.shape[0] - 1).long()
+        tsize = torch.stack([tex_hw[tidc, 1], tex_hw[tidc, 0]], -1).to(
+            torch.float32)                         # (H,W,2) (w,h)
+        rho = torch.maximum(
+            torch.linalg.vector_norm(uv_dx * tsize, dim=-1),
+            torch.linalg.vector_norm(uv_dy * tsize, dim=-1))
+        lod = torch.log2(torch.clamp(rho, min=1.0))
+
+    texel = sample_texture_pp(
+        tex_planes, tex_hw, si(SI_TEX), uvi[..., 0], uvi[..., 1],
+        si(SI_TEXADDR), si(SI_TEXFILTER), border, lod=lod)
+    texel4 = torch.stack([torch.where(has_tex, texel[c], 1.0)
+                          for c in range(4)], -1)
+    out = call_stage(pixel_shader, {
+        "color": color, "texel": texel4, "uv": uvi,
+        "xy": torch.stack([px, py], -1), "si": si_all, "sf": sf_all},
+        device=dev)
+    colorp = [out[..., c] for c in range(4)]
+
+    spec = interp3(batch_spec)                     # (H,W,3)
+    for c in range(3):
+        colorp[c] = colorp[c] + spec[..., c]
+    fog_on = si(SI_FOG) != 0
+    fogf = torch.clamp(interp3(batch_fog[..., None])[..., 0], 0.0, 1.0)
+    for c in range(3):
+        colorp[c] = torch.where(
+            fog_on, colorp[c] * fogf + fog_color[c] * (1.0 - fogf), colorp[c])
+    colorp = [torch.clamp(c, 0.0, 1.0) for c in colorp]
+    # Z-only draws occlude but leave the background color.
+    hit = hit & (si(SI_COLORWRITE) != 0)
+    return torch.stack([torch.where(hit, colorp[c], clear_fb[c])
+                        for c in range(4)])
 
 
 # Shade row-table column layout: everything one pixel needs to shade its

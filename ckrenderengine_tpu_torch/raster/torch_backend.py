@@ -24,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..math.vxmath import oct_encode
-from ..roadmap import unported
 from .deferred import _address_pp, tex_blend_pp
+from .stage import call_pixel_stage
 from .types import (
     SF_ALPHAREF, SF_BORDER_R, SF_CONST_R, SI_ALPHABLEND, SI_ALPHAFUNC,
     SI_ALPHATEST, SI_BLENDOP, SI_COLORWRITE, SI_CULL, SI_DSTBLEND, SI_FOG,
@@ -174,14 +174,18 @@ def sample_texture(tex_planes, tex_hw, tex_id, u, v, si, sf):
 
 
 def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
-                  fog_color, scissor, sampler_profile=None):
+                  fog_color, scissor, sampler_profile=None,
+                  pixel_shader=None):
     """Composite one triangle per leading-axis entry ("tile") onto its
     (N,4,h,w) fb and (N,h,w) zb planes; returns the updated pair.
 
     ``px``/``py``/``scissor`` broadcast against (N,h,w); ``tri`` holds the
     11 DeviceBatch fields with a leading N axis (N triangles, one per
     tile). ``sampler_profile[4]`` False proves no state binds a texture and
-    skips the texel fetch."""
+    skips the texel fetch. ``pixel_shader``: a user stage replacing the
+    texture blend (``raster/stage.py``), called per tile with the
+    reference's shapes: ``color`` / ``texel`` (h,w,4), ``uv`` / ``xy``
+    (h,w,2) and the triangle's ``si`` (NUM_SI,) / ``sf`` (NUM_SF,) rows."""
     (xyw, zv, col, spec, uv, fogv, sidx, valid, clip_rect, clipd,
      refl) = tri
     si = state_i[sidx.long()]
@@ -267,9 +271,13 @@ def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
              for c in range(4)]
     any_tex = (sampler_profile is None or len(sampler_profile) < 5
                or bool(sampler_profile[4]))
-    if tex_planes is not None and tex_planes.shape[0] > 0 and any_tex:
+    sampled = tex_planes is not None and tex_planes.shape[0] > 0 and any_tex
+    has_tex = sic(SI_TEX) >= 0
+    texel = None
+    if sampled or pixel_shader is not None:
         ui = interp(uv[:, 0, 0], uv[:, 1, 0], uv[:, 2, 0])
         vi = interp(uv[:, 0, 1], uv[:, 1, 1], uv[:, 2, 1])
+    if sampled:
         if refl.shape[-1] > 0:
             # Per-pixel cube-env UV: interpolate the world reflection
             # vector, oct-encode after interpolating (no atlas-fold seam).
@@ -283,11 +291,25 @@ def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
             vi = torch.where(is_cube, uvc[..., 1], vi)
         texel = sample_texture(tex_planes, tex_hw, si[:, SI_TEX], ui, vi,
                                si, sf)
-        const = [sfc(SF_CONST_R + c) for c in range(3)]
-        blended = tex_blend_pp(sic(SI_TEXBLEND), texel, color, const)
-        has_tex = sic(SI_TEX) >= 0
-        color = [torch.where(has_tex, blended[c], color[c])
-                 for c in range(4)]
+        if pixel_shader is None:
+            const = [sfc(SF_CONST_R + c) for c in range(3)]
+            blended = tex_blend_pp(sic(SI_TEXBLEND), texel, color, const)
+            color = [torch.where(has_tex, blended[c], color[c])
+                     for c in range(4)]
+    if pixel_shader is not None:
+        shape = color[0].shape
+        if texel is None:
+            texel4 = torch.ones(shape + (4,), dtype=torch.float32,
+                                device=fb.device)
+        else:
+            texel4 = torch.stack([torch.where(has_tex, texel[c], 1.0)
+                                  .expand(shape) for c in range(4)], -1)
+        out = call_pixel_stage(pixel_shader, {
+            "color": torch.stack(color, -1), "texel": texel4,
+            "uv": torch.stack([ui.expand(shape), vi.expand(shape)], -1),
+            "xy": torch.stack([px.expand(shape), py.expand(shape)], -1),
+            "si": si, "sf": sf}, device=fb.device)
+        color = [out[..., c] for c in range(4)]
 
     sp = [interp(spec[:, 0, c], spec[:, 1, c], spec[:, 2, c])
           for c in range(3)]
@@ -351,9 +373,8 @@ def render_pass(fb, zb, batch: DeviceBatch, state_i, state_f, tex_planes,
                 tex_hw, fog_color, viewport, pixel_shader=None,
                 sampler_profile=None):
     """Rasterize a batch in draw order onto (4,H,W) fb and (H,W) zb: one
-    full-frame composite per triangle."""
-    if pixel_shader is not None:
-        raise unported("pixel shaders", 10)
+    full-frame composite per triangle (``pixel_shader``: a user stage,
+    called once per triangle on the whole frame)."""
     h, w = fb.shape[1], fb.shape[2]
     px, py = _pixel_grid(h, w, fb.device)
     vp = viewport
@@ -365,7 +386,8 @@ def render_pass(fb, zb, batch: DeviceBatch, state_i, state_f, tex_planes,
         tri = tuple(a[i:i + 1] for a in batch)
         fbn, zbn = _one_triangle(px, py, fbn, zbn, tri, state_i, state_f,
                                  tex_planes, tex_hw, fog_color, scissor,
-                                 sampler_profile=sampler_profile)
+                                 sampler_profile=sampler_profile,
+                                 pixel_shader=pixel_shader)
     return fbn[0], zbn[0]
 
 
@@ -378,12 +400,11 @@ def render_pass_tiled(fb, zb, batch: DeviceBatch, state_i, state_f,
     overlaps it — a pixel sees exactly the triangle sequence of
     :func:`render_pass`. Slot k of every tile (its k-th overlapping
     triangle, found by a searchsorted over the overlap cumsum) composites
-    in one batched :func:`_one_triangle` call."""
+    in one batched :func:`_one_triangle` call (``pixel_shader``: a user
+    stage, mapped over the tiles of each slot)."""
     from .cuda_tiled import _tile_index, tile_grid, to_tiles, untile
     from .tiled import _screen_bbox
 
-    if pixel_shader is not None:
-        raise unported("pixel shaders", 10)
     dev = fb.device
     h, w = fb.shape[1], fb.shape[2]
     t = batch.xyw.shape[0]
@@ -437,7 +458,8 @@ def render_pass_tiled(fb, zb, batch: DeviceBatch, state_i, state_f,
             tri = tuple(a[ids[:, k]] for a in bpad)
             fbt, zbt = _one_triangle(px, py, fbt, zbt, tri, state_i, state_f,
                                      tex_planes, tex_hw, fog_color, scissor,
-                                     sampler_profile=sampler_profile)
+                                     sampler_profile=sampler_profile,
+                                     pixel_shader=pixel_shader)
     fbo = untile(fbt.reshape(n_tiles, 4, -1).transpose(0, 1), tile, tx, ty)
     zbo = untile(zbt.reshape(n_tiles, -1), tile, tx, ty)
     return fbo[:, :h, :w], zbo[:h, :w]

@@ -10,7 +10,6 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    10: "pixel and vertex shaders",
     12: "multi-card context sharding and framebuffer bands",
     13: "rasterizer HAL",
     14: "scene IO",

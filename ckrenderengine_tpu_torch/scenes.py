@@ -11,9 +11,10 @@ device-bound clip and Bezier patch sheet, and ``config4_skin``, config 4
 without the sheet), ``bench.build_scene`` (config 5) and
 ``benchmarks/stress.py`` (the two transparency stress cases), plus a small
 alpha-test cutout scene, config 2 with a stencil-only mesh and config 5
-with a level's effects (``build_config5_fx``: sprites, curves, lines) and
+with a level's effects (``build_config5_fx``: sprites, curves, lines),
 material effects (``build_config5_mat``: TexGen, cube env, EMBM, effect
-passes, channels), made from seeds; sizes are
+passes, channels) and user shaders (``build_config5_shaded``), made from
+seeds; sizes are
 parameters so the tests can cut the frame, the hierarchy, the terrain, the
 sheets and the skinned tube down. Every build function takes
 ``antialias=True`` to switch the render manager's Antialias option on (the
@@ -570,6 +571,104 @@ def build_config5(O, width: int = 1024, height: int = 768,
     door.SetCurrentMesh(dm)
     place_main.AddPortal(place_annex, door)
     rc.EnablePortalTraversal(True)
+    return ctx, rc, spinner
+
+
+# config5_shaded's stages. The wave's amplitude stays well inside the host
+# chunk cull's 0.5 world-unit slack, since both packages cull the
+# undisplaced bounds before the vertex stage.
+WAVE_AMP = 0.2
+WAVE_K = 0.5                 # rad per world unit along x (z at half rate)
+BAND_FREQ = 6.2831855        # one band per texture repeat in u
+TINT = (1.0, 0.94, 0.86)
+
+
+def config5_shaders(xp, spinner_row: int, width: int, height: int):
+    """(vertex_shader, pixel_shader) of :func:`build_config5_shaded`,
+    written once against the array namespace ``xp`` (``torch`` for this
+    package, ``jax.numpy`` for the reference), so both packages render the
+    same stages.
+
+    - The vertex shader lifts every row by a travelling wave in world y,
+      ``WAVE_AMP * sin(k (x + z/2) - a)``, and tilts its normal by the
+      wave's gradient. Its phase ``a`` is the spinner's rotation, read from
+      ``scene.local[spinner_row]`` (cos a, sin a): a per-frame input that
+      reaches a captured frame through the scene.
+    - The pixel shader reads all six inputs: ``texel`` x ``color`` (as
+      MODULATE), a DP3 gain where ``si[..., SI_TEXBLEND]`` is DOTPRODUCT3
+      (the checker terrain), a tint from ``sf[..., SF_CONST_R:+3]``, a
+      band in ``uv`` and a vignette in ``xy`` about the centre of the
+      ``width`` x ``height`` render target."""
+    from .raster.types import SF_CONST_R, SI_TEXBLEND, VXTEXTUREBLEND
+
+    dp3_mode = int(VXTEXTUREBLEND.DOTPRODUCT3)
+    cx, cy = 0.5 * width, 0.5 * height
+
+    def vertex_shader(posw, nrmw, scene):
+        rot = scene.local[spinner_row]
+        ca, sa = rot[0, 0], rot[0, 2]
+        th = WAVE_K * (posw[:, 0] + 0.5 * posw[:, 2])
+        st, ct = xp.sin(th), xp.cos(th)
+        wave = WAVE_AMP * (st * ca - ct * sa)             # sin(th - a)
+        slope = WAVE_AMP * WAVE_K * (ct * ca + st * sa)   # its d/dth
+        pos = xp.stack([posw[:, 0], posw[:, 1] + wave, posw[:, 2]], -1)
+        nrm = xp.stack([nrmw[:, 0] - slope * nrmw[:, 1], nrmw[:, 1],
+                        nrmw[:, 2] - 0.5 * slope * nrmw[:, 1]], -1)
+        return pos, nrm
+
+    def pixel_shader(inp):
+        color, texel, uv, xy = inp["color"], inp["texel"], inp["uv"], inp["xy"]
+        si, sf = inp["si"], inp["sf"]
+        dot = ((texel[..., 0] - 0.5) * (color[..., 0] - 0.5)
+               + (texel[..., 1] - 0.5) * (color[..., 1] - 0.5)
+               + (texel[..., 2] - 0.5) * (color[..., 2] - 0.5)) * 4.0
+        gain = xp.where(si[..., SI_TEXBLEND] == dp3_mode,
+                        0.75 + 0.5 * xp.clip(dot, 0.0, 1.0), 1.0)
+        band = 0.88 + 0.12 * xp.cos(uv[..., 0] * BAND_FREQ)
+        dx = (xy[..., 0] - cx) / cx
+        dy = (xy[..., 1] - cy) / cy
+        shade = gain * band * (1.0 - 0.3 * (dx * dx + dy * dy))
+        rgb = [texel[..., c] * color[..., c] * shade
+               * (sf[..., SF_CONST_R + c] * TINT[c]) for c in range(3)]
+        return xp.stack(rgb + [texel[..., 3] * color[..., 3]], -1)
+
+    return vertex_shader, pixel_shader
+
+
+def build_config5_shaded(O, width: int = 1024, height: int = 768,
+                         terrain_n: int = 500, n_balls: int = 64,
+                         alpha_sheet: bool = False, antialias: bool = False,
+                         xp=None, **ctx_kw):
+    """Config 5 (:func:`build_config5`: 528,032 triangles, fog, textures,
+    specular, portals, host chunk culling) with a vertex and a pixel shader
+    (:func:`config5_shaders`, built on ``xp``, default ``torch``; pass
+    ``jax.numpy`` with the reference's objects). The terrain material's
+    texture blend is DOTPRODUCT3, the state the pixel shader keys its DP3
+    gain on. ``alpha_sheet``: one alpha-blended textured 8-triangle sheet
+    in front of the camera, which the ordered pass composites under the
+    pixel shader (the flat ordered pass up to 1024x768). Returns (ctx, rc,
+    spinner); rotate ``spinner`` about y per tick (the wave's phase)."""
+    from .raster.types import VXTEXTUREBLEND
+
+    if xp is None:
+        import torch as xp
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, antialias=antialias,
+                                     **ctx_kw)
+    ctx.GetObjectByName("terrainmat").SetTextureBlendMode(
+        int(VXTEXTUREBLEND.DOTPRODUCT3))
+    if alpha_sheet:
+        rng = np.random.default_rng(15)
+        mat = _fx_material(O, ctx, "sheetmat", (1.0, 1.0, 1.0, 1.0),
+                           _seeded_texture(O, ctx, "sheettex", rng, 32,
+                                           alpha=0.55))
+        mat.SetTwoSided(True)
+        _grid_object(O, ctx, "sheet", 2, (-12.0, 2.0, 0.0), (24.0, 0.0, 0.0),
+                     (0.0, 10.0, 0.0), mat, ctx.GetObjectByName("place_main"))
+    ss = 2 if antialias else 1
+    vs, ps = config5_shaders(xp, spinner.row, width * ss, height * ss)
+    rc.SetVertexShader(vs)
+    rc.SetPixelShader(ps)
     return ctx, rc, spinner
 
 

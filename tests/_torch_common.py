@@ -197,6 +197,7 @@ def reference_stages(static, dyn_f, dyn_i, params):
             scene, d["chunk_idx"], d["chunk_n"], corner, params["cull"])
     clip, color, spec, fog, _w, uv, clipd_v, refl_v = jfr.transform_and_light(
         scene, params["levels"], world=world, corner=corner,
+        vertex_shader=params.get("vertex_shader"),
         want_bump=params.get("want_bump", False),
         want_cube=params.get("want_cube", False),
         want_texgen=params["want_texgen"])

@@ -13,7 +13,9 @@ same scenes (tests/test_context_batching.py, tests/test_antialias.py):
   fallback agrees with its own sequential frames there) and a member with
   no-clear flags (the reference's vmapped fallback clears anyway, so that
   case is held to the port's sequential frames only); a vertex-shader
-  member raises the error of its port-queue item;
+  member renders alone through its Render() while the others batch, and
+  members batch by their pixel-shader function, each held to the
+  reference's sequential Render() of the same stage;
 - the mesh functions of ``parallel.context_batch`` raise;
 - ``SetTileSharding`` refuses more bands than the context's devices.
 
@@ -22,6 +24,7 @@ batched level and the group's capacity governor in
 tests/test_torch_batch_level.py.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -231,12 +234,70 @@ def test_no_clear_member_renders_each_member():
     assert not torch.equal(seq[1][1], seq[1][0])
 
 
-def test_vertex_shader_member_raises_its_item():
-    _c, rm, rcs, _o = _tri_group(O, n=2, device="cpu")
-    rcs[1].SetVertexShader(lambda p, n, s: (p, n))
+def _shift(xp):
+    def shift_up(posw, nrmw, scene):
+        return posw + xp.asarray([0.0, 0.4, 0.0]), nrmw
+    return shift_up
+
+
+def _tint(xp, k):
+    def tint(inp):
+        c = inp["color"] * inp["texel"]
+        return xp.stack([c[..., 0], c[..., 1] * k, c[..., 2] * k,
+                         c[..., 3]], -1)
+    return tint
+
+
+def test_vertex_shader_member_renders_alone():
+    """A vertex-shader member is left out of the batch (the reference's
+    batch refuses it too) and renders through its own Render(), with its
+    shader; the other members still batch. Held to the reference's
+    sequential Render() of the same member (its ProcessBatched would drop
+    the shader in its vmapped fallback)."""
+    _c, rm_j, rjs, _o = _tri_group(J, n=3)
+    rjs[1].SetVertexShader(_shift(jnp))
+    for rc in rjs:
+        rc._gov_on = False
+        rc.Render()
+    _c, rm, rcs, _o = _tri_group(O, n=3, device="cpu")
+    rcs[1].SetVertexShader(_shift(torch))
     assert not rm._batch_packed(rcs)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        rm.ProcessBatched()
+    rm.ProcessBatched()
+    assert rcs[1]._batch_read is None
+    assert rcs[0]._batch_read is rcs[2]._batch_read is not None
+    frames = [(rc.fb.clone(), rc.zb.clone()) for rc in rcs]
+    _against_reference(rjs, rcs)
+    _own_render_equal(rcs, frames)
+    # The shader moved the member's triangle.
+    rcs[1].SetVertexShader(None)
+    rcs[1].Render()
+    assert not torch.equal(rcs[1].fb, frames[1][0])
+
+
+def test_pixel_shader_members_batch_by_stage():
+    """Members that share one pixel-shader function batch together (the
+    graph bakes the stage in, keyed by identity); a member with another
+    stage forms its own sub-group. Each member equals its own Render()
+    and the reference's sequential Render() of the same stage."""
+    stages = {P: (_tint(xp, 0.25), _tint(xp, 0.75))
+              for P, xp in ((J, jnp), (O, torch))}
+    _c, rm_j, rjs, _o = _tri_group(J, n=3)
+    _c, rm, rcs, _o = _tri_group(O, n=3, device="cpu")
+    for P, group in ((J, rjs), (O, rcs)):
+        a, b = stages[P]
+        for rc, fn in zip(group, (a, a, b)):
+            rc.SetPixelShader(fn)
+    for rc in rjs:
+        rc._gov_on = False
+        rc.Render()
+    subs = []
+    run = rm._run_batch
+    rm._run_batch = lambda sub: subs.append(len(sub)) or run(sub)
+    rm.ProcessBatched()
+    assert sorted(subs) == [1, 2]
+    frames = [(rc.fb.clone(), rc.zb.clone()) for rc in rcs]
+    _against_reference(rjs, rcs)
+    _own_render_equal(rcs, frames)
 
 
 def test_mesh_and_tile_sharding_are_item_12():

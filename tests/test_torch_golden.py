@@ -2,9 +2,10 @@
 tests/torch_golden/make_golden.py with the reference package on its
 accelerator branch, so they carry the quantized rows of a tiled frame):
 config 2, the untextured transparency scene whose ordered pass both
-packages run through kernel B3, and the effects level whose 3D sprites
+packages run through kernel B3, the effects level whose 3D sprites
 take the textured peel B4 and whose curves, wireframe grid and line list
-take the line pass. The reference still reproduces the first two, and the
+take the line pass, and the shaded level, whose user stages run in the
+per-pixel-gather shade and in the flat ordered pass. The reference still reproduces the first two, and the
 port on the CPU matches all three. The bounds are the slice's
 (tests/test_torch_slice.py): opaque winner ids equal on >= 99.9% of the
 pixels, and the 8-bit image within one step wherever the winners agree;
@@ -26,6 +27,7 @@ from tests.torch_golden import make_golden
 GOLDEN = np.load(make_golden.OUT)
 ALPHA = np.load(make_golden.ALPHA_OUT)
 FX = np.load(make_golden.FX_OUT)
+SHADER = np.load(make_golden.SHADER_OUT)
 
 
 def _check(rgba, ids, golden=GOLDEN, max_off=0.0):
@@ -105,3 +107,25 @@ def test_port_matches_fx_golden(device):
     _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
                                  torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids), FX, max_off=1e-3)
+
+
+def test_shader_golden_file_is_small():
+    assert os.path.getsize(make_golden.SHADER_OUT) <= 300_000
+
+
+@pytest.mark.parametrize("device", ["cpu"])
+def test_port_matches_shader_golden(device):
+    """The shaded level: the tiled solve without e-planes, the pixel shader
+    in the per-pixel-gather shade and in the flat ordered pass over the
+    alpha sheet (ordered_cap*H*W <= 2^26)."""
+    import ckrenderengine_tpu_torch.objects as O
+
+    build, kw = make_golden.frames()[make_golden.SHADER_OUT]
+    _ctx, rc, _m = build(O, device=device, **kw)
+    rc.Render()
+    st, tf, ti, tp = rc._fill_packed([], [])
+    assert tp["pixel_shader"] is not None and tp["vertex_shader"] is not None
+    assert 0 < tp["ordered_cap"] * rc.height * rc.width <= 1 << 26
+    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
+                                 torch.as_tensor(ti, device=device), tp)
+    _check(rc.BackToFront(), to_np(ids), SHADER)

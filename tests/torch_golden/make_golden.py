@@ -33,6 +33,13 @@ stages and exact flat solve:
   packages take the textured peel B4 with the quantized rows' reflection
   words).
 
+- ``shader_320x240.npz``: the shaded level
+  (``scenes.build_config5_shaded`` with ``alpha_sheet=True``, its stages
+  built on ``jax.numpy``) cut to a 70x70 terrain and 8 spheres, at
+  320x240: the vertex shader's wave, the pixel shader in the
+  per-pixel-gather shade of the tiled solve (no quantized rows) and in the
+  flat ordered pass that composites the alpha sheet.
+
 ``python tests/torch_golden/make_golden.py fx_320x240`` writes only the
 named frames.
 
@@ -52,6 +59,20 @@ OUT = os.path.join(DIR, "config2_320x240.npz")
 ALPHA_OUT = os.path.join(DIR, "alpha_320x240.npz")
 FX_OUT = os.path.join(DIR, "fx_320x240.npz")
 MAT_OUT = os.path.join(DIR, "mat_320x240.npz")
+SHADER_OUT = os.path.join(DIR, "shader_320x240.npz")
+
+
+def build_shaded(P, **kw):
+    """``scenes.build_config5_shaded`` with its stages on the namespace of
+    ``P``'s package: ``torch`` for the port's objects, ``jax.numpy`` for
+    the reference's."""
+    from ckrenderengine_tpu_torch import scenes
+
+    if P.__name__.startswith("ckrenderengine_tpu_torch"):
+        import torch as xp
+    else:
+        import jax.numpy as xp
+    return scenes.build_config5_shaded(P, xp=xp, **kw)
 
 
 def frames():
@@ -67,7 +88,10 @@ def frames():
                 width=320, height=240, terrain_n=70, n_balls=8,
                 n_sprites=1024, n_curves=4, curve_steps=24)),
             MAT_OUT: (scenes.build_config5_mat, dict(
-                width=320, height=240, terrain_n=70, n_balls=8))}
+                width=320, height=240, terrain_n=70, n_balls=8)),
+            SHADER_OUT: (build_shaded, dict(
+                width=320, height=240, terrain_n=70, n_balls=8,
+                alpha_sheet=True))}
 
 
 def render_reference(path: str = OUT):
