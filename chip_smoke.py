@@ -76,6 +76,13 @@ refused in a window with an error naming it, the level cut to 320x240
 with an alpha sheet in the flat ordered pass against the CPU and the
 golden frame ``shader_320x240``, a batch of 8 contexts sharing one pixel
 shader, a frame with Antialias),
+drives the rasterizer HAL (the ``hal`` phase: ``raster/hal_fixtures``'s
+call script of 1,026 immediate-mode triangles, a sprite, a framebuffer
+copy and a screen backup on a 1024x768 ``CKRasterizerContext`` through
+``render_pass`` and no hand-written kernel; a display-list replay, the
+copy and the restore bit-equal to what they copy; the counters; the
+driver table; the script at 256x192 on the card against the CPU; host ms
+per sphere ``DrawPrimitive``, device ms and launches per triangle),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -692,6 +699,7 @@ def main() -> int:
     from ckrenderengine_tpu_torch import cuda_build, scenes
     import ckrenderengine_tpu_torch.objects as O
     from ckrenderengine_tpu_torch.pipeline import frame as fr
+    from ckrenderengine_tpu_torch.pipeline import lines as ll
     from ckrenderengine_tpu_torch.raster import (
         cuda_ordered as co, cuda_reduce, cuda_tiled,
     )
@@ -874,6 +882,9 @@ def main() -> int:
 
     # --- 4g. user vertex and pixel shaders ---------------------------------
     shaded = shader_phase(O, scenes, fr, kernel_fns, launches, card)
+
+    # --- 4h. the rasterizer HAL: immediate-mode draws ----------------------
+    hal_phase(O, dict(kernel_fns, L1=ll.lines_kernel), card)
 
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
@@ -1127,6 +1138,212 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# The HAL's call script: on the card at config 5's display size, and at
+# 256x192 on the card and on the CPU.
+HAL_SIZE = (1024, 768)
+HAL_SMALL = (256, 192)
+HAL_CLEAR = np.array([0x20, 0x30, 0x40, 0xFF], np.float32) / 255.0
+# Triangles of the sphere drawn again under torch.profiler (its ~1,140
+# launches per triangle make the whole 768-triangle draw a long profile).
+HAL_PROFILED = 16
+
+
+def hal_lights(O, device):
+    """The script's two lights, object-API CKLights of a context on
+    ``device`` (pushed into the HAL context by ``CKLight.Setup``)."""
+    ctx = O.CKContext(device=device)
+    key = O.CKLight(ctx, "key")
+    key.SetColor((1.0, 0.9, 0.8, 1.0))
+    key.SetOrientation((0.3, -0.6, 1.0))
+    fill = O.CKLight(ctx, "fill")
+    fill.SetColor((0.2, 0.3, 0.9, 1.0))
+    fill.SetOrientation((-1.0, 0.2, 0.3))
+    return [key, fill]
+
+
+def hal_run(O, device, size, **kw):
+    """A fresh rasterizer on ``device``, a context of ``size`` on its
+    driver 0, the full call script through it. Returns (rasterizer,
+    context, the script's record)."""
+    from ckrenderengine_tpu_torch.raster import hal as H
+    from ckrenderengine_tpu_torch.raster import hal_fixtures as hf
+
+    rst = H.CKRasterizer(device=device)
+    rst.Start(None)
+    ctx = rst.GetDriver(0).CreateContext()
+    ctx.Create(None, *size)
+    out = hf.hal_script(rst, ctx, hal_lights(O, device), **hf.FULL, **kw)
+    return rst, ctx, out
+
+
+def hal_cpu_planes(threads: int) -> tuple:
+    """The call script at HAL_SMALL on the CPU, in a worker process of its
+    own (spawned: it never touches the card). Returns (fb HWC, zb,
+    seconds)."""
+    sys.path.insert(0, ROOT)
+    import ckrenderengine_tpu_torch.objects as O
+
+    torch.set_num_threads(threads)
+    t0 = time.monotonic()
+    _r, ctx, _o = hal_run(O, "cpu", HAL_SMALL)
+    return ctx.BackToFront(), ctx.zb.numpy(), time.monotonic() - t0
+
+
+def hal_phase(O, kernel_fns, card) -> dict:
+    """The rasterizer HAL on the card (``raster/hal.py``).
+
+    - The driver table: two drivers, the first the card and hardware, in
+      the object API (``CKRenderManager``) and in the HAL.
+    - The call script (``raster/hal_fixtures.FULL``: 1,026 triangles) at
+      1024x768, every launch count at 0 first and read after: the HAL
+      draws through ``render_pass``, so no hand-written kernel launches.
+      The fb is finite and more than 1% of it differs from the clear
+      colour, zb lies in [0, 1], the counters are the script's, the copied
+      texture equals its fb rect and the restored fb the backup, bit for
+      bit; a display-list replay equals the same draw issued directly on a
+      fresh context, bit for bit. The script's sphere ``DrawPrimitive``
+      (768 triangles): its host ms (no synchronise) and wall ms (with
+      one); HAL_PROFILED of its triangles drawn again under torch.profiler:
+      device launches and device ms per triangle.
+    - The script at 256x192 on the card and on the CPU, in a worker
+      process that starts after the timed sphere draw and runs while the
+      card works on: fb and zb within
+      ``render_pass``'s bound (1e-5 on all but 0.1% of the values, never
+      past 1e-4)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ckrenderengine_tpu_torch.frame_bench import device_us
+    from ckrenderengine_tpu_torch.raster import hal as H
+    from ckrenderengine_tpu_torch.raster import hal_fixtures as hf
+
+    t_phase = time.monotonic()
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.monotonic() - t0
+        emit("hal_step", step=name, s=steps[name])
+
+    rm = O.CKContext(device="cuda").GetRenderManager()
+    rst = H.CKRasterizer(device="cuda")
+    rst.Start(None)
+    check(rm.GetRenderDriverCount() == 2 and rst.GetDriverCount() == 2
+          and rm.GetRenderDriverDescription(0).is_hardware
+          and rst.GetDriver(0).IsHardware()
+          and not rm.GetRenderDriverDescription(1).is_hardware
+          and rm.GetPreferredSoftwareDriver() == 1,
+          "hal: the driver table is not (card, software)")
+    threads = max(1, (os.cpu_count() or 2) - 2)
+    with ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as ex:
+        sphere, cpu = {}, []
+
+        class timed:
+            def __init__(self, n):
+                sphere["triangles"] = n
+
+            def __enter__(self):
+                self.t = time.perf_counter()
+
+            def __exit__(self, *exc):
+                sphere["host_ms"] = (time.perf_counter() - self.t) * 1e3
+                torch.cuda.synchronize()
+                sphere["wall_ms"] = (time.perf_counter() - self.t) * 1e3
+                # The CPU worker starts once the timed draw is done, so
+                # the host ms are taken on an unloaded host.
+                cpu.append(ex.submit(hal_cpu_planes, threads))
+                steps["cpu_start_s"] = time.monotonic() - t_phase
+
+        t0 = time.monotonic()
+        reset_launches(kernel_fns.values())
+        _r, ctx, out = hal_run(O, "cuda", HAL_SIZE, probes=True,
+                               timer=timed)
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in kernel_fns.items()}
+        step("script_1024x768_s", t0)
+        check(all(v == 0 for v in got.values()),
+              f"hal: the HAL path launched hand-written kernels {got}")
+        fb = ctx.BackToFront()
+        zb = ctx.zb.cpu().numpy()
+        finite = bool(np.isfinite(fb).all() and np.isfinite(zb).all())
+        covered = float((np.abs(fb - HAL_CLEAR).max(-1) > 0).mean())
+        check(finite, "hal: non-finite fb or zb")
+        check(covered > 0.01, f"hal: only {covered} of the fb was drawn")
+        check(float(zb.min()) >= 0.0 and float(zb.max()) <= 1.0,
+              "hal: zb outside [0, 1]")
+        check(ctx.stats == {"NbTrianglesDrawn": out["triangles"],
+                            "NbVerticesProcessed": out["vertices"]}
+              and out["triangles"] == 1026,
+              f"hal: counters {ctx.stats} against the script's {out}")
+        check(np.array_equal(out["copy_tex"], out["copy_fb"]),
+              "hal: CopyToTexture's level 0 differs from its fb rect")
+        check(np.array_equal(out["restored_fb"], out["backup_fb"]),
+              "hal: RestoreScreenBackup differs from the backup")
+        t0 = time.monotonic()
+        a, b = hf.display_list_pair(rst, hf.FULL["fan"], *HAL_SIZE)
+        dl_equal = (np.array_equal(a.BackToFront(), b.BackToFront())
+                    and bool(torch.equal(a.zb, b.zb)))
+        step("display_list_s", t0)
+        check(dl_equal, "hal: a display-list replay differs from the "
+              "direct draw")
+
+        # HAL_PROFILED of the sphere's triangles (its equator band), drawn
+        # again on the script's state under torch.profiler: each triangle
+        # runs the same full-frame composite.
+        t0 = time.monotonic()
+        pos, nrm, idx = hf.sphere(hf.FULL["rings"], hf.FULL["segments"])
+        band = hf.FULL["rings"] // 2 * hf.FULL["segments"] * 6
+        part = idx[band:band + 3 * HAL_PROFILED]
+        ctx.DrawPrimitive(hf.TRI, part, {"positions": pos, "normals": nrm})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ctx.DrawPrimitive(hf.TRI, part, {"positions": pos,
+                                             "normals": nrm})
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(len(dev) > 0, "hal: the profiler recorded no device activity")
+        sphere["profiled_triangles"] = HAL_PROFILED
+        sphere["device_launches"] = len(dev)
+        sphere["device_ms"] = device_us(dev) / 1e3
+        step("profile_s", t0)
+
+        # The same script at 256x192, card against CPU.
+        t0 = time.monotonic()
+        _r, ctx_g, _o = hal_run(O, "cuda", HAL_SMALL)
+        fb_g, zb_g = ctx_g.BackToFront(), ctx_g.zb.cpu().numpy()
+        step("script_256x192_card_s", t0)
+        t0 = time.monotonic()
+        check(len(cpu) == 1, "hal: the sphere draw was not timed")
+        fb_c, zb_c, cpu_s = cpu[0].result()
+        step("cpu_wait_s", t0)
+    errs = {}
+    for name, g, c in (("fb", fb_g, fb_c), ("zb", zb_g, zb_c)):
+        diff = np.abs(g.astype(np.float64) - c)
+        errs[name] = {"max_abs_err": float(diff.max()),
+                      "share_past_1e-5": float((diff > 1e-5).mean())}
+        check(errs[name]["share_past_1e-5"] <= 1e-3
+              and errs[name]["max_abs_err"] <= 1e-4,
+              f"hal: {name} card against CPU {errs[name]}")
+    res = {"size": list(HAL_SIZE), "triangles": out["triangles"],
+           "vertices": out["vertices"], "covered": covered,
+           "finite": finite, "zb_range": [float(zb.min()), float(zb.max())],
+           "launches": got, "display_list_equal": dl_equal,
+           "sphere": sphere,
+           "device_launches_per_triangle": (sphere["device_launches"]
+                                            / HAL_PROFILED),
+           "device_ms_per_triangle": sphere["device_ms"] / HAL_PROFILED,
+           "host_ms_per_sphere_draw": sphere["host_ms"],
+           "card_vs_cpu": {"size": list(HAL_SMALL), **errs,
+                           "cpu_s": cpu_s, "cpu_threads": threads},
+           "steps": steps, "phase_s": time.monotonic() - t_phase,
+           "card": card}
+    emit("hal", **res)
+    return res
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

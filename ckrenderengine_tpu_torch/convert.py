@@ -121,3 +121,23 @@ def batch_from_reference(obatch_np, device=None):
 
     return DeviceBatch(*(_tensor(getattr(obatch_np, f), device)
                          for f in DeviceBatch._fields))
+
+
+def device_batch_from_host(tb, device=None):
+    """A host ``raster.types.TriangleBatch`` (numpy, already padded) -> this
+    package's ``raster.torch_backend.DeviceBatch`` on ``device``, as the
+    reference's ``DeviceBatch.from_host`` builds its own: the batch's
+    fields bit for bit, an unbounded per-triangle scissor, no clip planes
+    unless the batch has ``clipd``, no reflection vectors."""
+    from .raster.torch_backend import DeviceBatch
+
+    t = tb.xyw.shape[0]
+    big = 1.0e9
+    rect = np.tile(np.array([-big, -big, big, big], np.float32), (t, 1))
+    clipd = (np.zeros((t, 3, 0), np.float32) if tb.clipd is None
+             else np.asarray(tb.clipd, np.float32))
+    refl = np.zeros((t, 3, 0), np.float32)
+    host = dict(vars(tb), valid=tb.valid.astype(np.bool_), clip_rect=rect,
+                clipd=clipd, refl=refl)
+    return DeviceBatch(*(_tensor(host[f], device)
+                         for f in DeviceBatch._fields))

@@ -10,18 +10,24 @@ The 2D trees are flattened on the host into ordered quad lists, which the
 frame composites under (background) and over (foreground) the 3D pass
 (``pipeline/overlay.py``).
 
-Text is drawn from ``glyphs_default.npz``, the coverage bitmaps of
-Pillow's default font (made by ``make_glyph_table.py``): glyphs sit at
-integer advances, overlapping coverage combines as ``a + b - a*b/255``, and
-the fill colour blends over the background colour on 8-bit values, which
-is what ``ImageDraw.text`` does on an RGBA image. Only that font exists
-here: a named font (``SetFont(name=...)``) draws with it too.
+Text is drawn from baked glyph tables (made by ``make_glyph_table.py``):
+``glyphs_default.npz`` holds Pillow's default font, ``glyphs_dejavu.npz``
+DejaVu Sans and DejaVu Sans Mono at six sizes. Each glyph sits at its pen
+rounded to the pixel, the pen moving by the layout's advances and pair
+adjustments in 1/64 pixel; overlapping coverage combines as
+``a + b - a*b/255``, and the fill colour blends over the background colour
+on 8-bit values, which is what ``ImageDraw.text`` does on an RGBA image. A
+named font is looked up as ``ImageFont.truetype`` looks it up; one that is
+not found draws the default font, as the reference falls back to it. A
+font file, size or character that no table holds raises.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import os
+import sys
 
 import numpy as np
 
@@ -38,8 +44,9 @@ CK_2DENTITY_BACKGROUND = 0x100
 CK_2DENTITY_NOTPICKABLE = 0x200
 CK_2DENTITY_RATIOOFFSET = 0x400
 
-GLYPHS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                      "glyphs_default.npz")
+HERE = os.path.dirname(os.path.abspath(__file__))
+GLYPHS = os.path.join(HERE, "glyphs_default.npz")
+NAMED_GLYPHS = os.path.join(HERE, "glyphs_dejavu.npz")
 # Extra pixels between the lines of multi-line text (ImageDraw's default).
 LINE_SPACING = 4
 
@@ -382,21 +389,107 @@ class CKSprite(CK2dEntity):
             else super().texture()
 
 
-@functools.lru_cache(maxsize=1)
+@functools.lru_cache(maxsize=None)
+def _glyph_file(path: str) -> dict:
+    """{table name: table} of one baked file. A table: ``glyphs`` {code:
+    (left, top, advance in 1/64 px, coverage (h, w) int32)}, each box
+    relative to the rounded pen; ``boxes`` {code: ``getbbox``}; ``right``
+    {code: the control box's right edge}; ``kern`` {(a, b): pair
+    adjustment in 1/64 px}; ``refused`` (pairs the layout draws as a
+    ligature); ``pitch`` (the line pitch); ``meta`` {key: value}."""
+    f = np.load(path)
+    shapes, offs, pool = f["pool_shapes"], f["pool_offsets"], f["pool"]
+    out = {}
+    for i, name in enumerate(f["names"].tolist()):
+        col = {k[len(f"{i}_"):]: f[k] for k in f.files
+               if k.startswith(f"{i}_")}
+        glyphs, boxes, right = {}, {}, {}
+        for j, code in enumerate(col["codes"].tolist()):
+            g = int(col["glyph"][j])
+            h, w = shapes[g].tolist()
+            cov = pool[offs[g]:offs[g + 1]].reshape(h, w).astype(np.int32)
+            left, top = col["boxes"][j].tolist()
+            glyphs[code] = (left, top, int(col["advances"][j]), cov)
+            boxes[code] = tuple(col["bboxes"][j].tolist())
+            right[code] = int(col["cright"][j])
+        out[name] = {
+            "glyphs": glyphs, "boxes": boxes, "right": right,
+            "kern": {tuple(p): int(v) for p, v in zip(
+                col["kern_pairs"].tolist(), col["kern"].tolist())},
+            "refused": {tuple(p) for p in col["bad_pairs"].tolist()},
+            "pitch": int(col["line_bottom"]) + LINE_SPACING,
+            "meta": dict(m.split("=", 1) for m in col["meta"].tolist())}
+    return out
+
+
 def glyph_table() -> dict:
-    """The default font's glyphs: {code: (left, top, advance, coverage
-    (h, w) int32)}, each box relative to the pen at the line's origin, the
-    per-glyph text boxes (``getbbox``), and the line pitch."""
-    f = np.load(GLYPHS)
-    glyphs, boxes = {}, {}
-    offs = f["offsets"]
-    for i, code in enumerate(f["codes"].tolist()):
-        left, top, w, h = f["boxes"][i].tolist()
-        cov = f["bitmaps"][offs[i]:offs[i + 1]].reshape(h, w).astype(np.int32)
-        glyphs[code] = (left, top, int(f["advances"][i]), cov)
-        boxes[code] = tuple(f["bboxes"][i].tolist())
-    return {"glyphs": glyphs, "boxes": boxes,
-            "pitch": int(f["line_bottom"]) + LINE_SPACING}
+    """The default font's table (see :func:`_glyph_file`)."""
+    return _glyph_file(GLYPHS)["default"]
+
+
+def font_search_dirs() -> list[str]:
+    """The directories ``ImageFont.truetype`` searches for a font name that
+    is not a path, in its order."""
+    if sys.platform == "win32":
+        windir = os.environ.get("WINDIR")
+        return [os.path.join(windir, "fonts")] if windir else []
+    if sys.platform in ("linux", "linux2"):
+        data_home = (os.environ.get("XDG_DATA_HOME")
+                     or os.path.expanduser("~/.local/share"))
+        data_dirs = (os.environ.get("XDG_DATA_DIRS")
+                     or "/usr/local/share:/usr/share")
+        return [os.path.join(d, "fonts")
+                for d in [data_home] + data_dirs.split(":")]
+    if sys.platform == "darwin":
+        return ["/Library/Fonts", "/System/Library/Fonts",
+                os.path.expanduser("~/Library/Fonts")]
+    return []
+
+
+def find_font(name: str) -> str | None:
+    """The file ``ImageFont.truetype(name)`` opens: ``name`` itself, else
+    the first file of that name under :func:`font_search_dirs` (without an
+    extension: a ``.ttf`` first, else the first file of that stem); None
+    where it finds none."""
+    if os.path.isfile(name):
+        return name
+    base = os.path.basename(name)
+    ext = os.path.splitext(base)[1]
+    other = None
+    for directory in font_search_dirs():
+        for root, _dirs, files in os.walk(directory):
+            for fn in files:
+                if ext and fn == base:
+                    return os.path.join(root, fn)
+                if not ext and os.path.splitext(fn)[0] == base:
+                    path = os.path.join(root, fn)
+                    if fn.endswith(".ttf"):
+                        return path
+                    other = other or path
+    return other
+
+
+@functools.lru_cache(maxsize=None)
+def _file_sha256(path: str, mtime: float) -> str:
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def font_table(name: str | None, size: int) -> dict:
+    """The table that draws what the reference draws for ``SetFont(name,
+    size)``: the default font's where ``name`` is None or names no file the
+    reference would find; the baked table of that very file and size where
+    one exists. Raises where the file is found but no table holds it."""
+    path = None if name is None else find_font(name)
+    if path is None:
+        return glyph_table()
+    sha = _file_sha256(os.path.abspath(path), os.path.getmtime(path))
+    for table in _glyph_file(NAMED_GLYPHS).values():
+        if (table["meta"].get("sha256") == sha
+                and table["meta"]["size"] == str(int(size))):
+            return table
+    raise unported(f"CKSpriteText font {name!r} ({path}) at size "
+                   f"{int(size)}: no baked glyph table", 14)
 
 
 def _div255(v: np.ndarray) -> np.ndarray:
@@ -405,45 +498,73 @@ def _div255(v: np.ndarray) -> np.ndarray:
     return ((t >> 8) + t) >> 8
 
 
-def _glyph_code(ch: str, table: dict) -> int:
-    """The table's code for ``ch``; characters outside printable ASCII draw
-    as '?'."""
-    return ord(ch) if ord(ch) in table["glyphs"] else ord("?")
+def _pixel(v: int) -> int:
+    """1/64 pixel to the nearest pixel (FreeType's PIXEL)."""
+    return (v + 32) >> 6
 
 
-def text_bbox(text: str) -> tuple:
+def _pens(line: str, table: dict):
+    """(code, pen in pixels) of each character of ``line``, and the line's
+    advance in 1/64 pixel. Raises on a character the table does not hold
+    and on a pair the layout draws as a ligature."""
+    glyphs, kern = table["glyphs"], table["kern"]
+    out, pos = [], 0
+    for i, ch in enumerate(line):
+        code = ord(ch)
+        if code not in glyphs:
+            raise unported(f"CKSpriteText character {ch!r} (U+{code:04X}) "
+                           f"in font {table['meta']['font']!r} size "
+                           f"{table['meta']['size']}: no baked glyph", 14)
+        if i:
+            prev = ord(line[i - 1])
+            if (prev, code) in table["refused"]:
+                raise unported(f"CKSpriteText ligature {line[i - 1:i + 1]!r}"
+                               f" in font {table['meta']['font']!r}", 14)
+            pos += glyphs[prev][2] + kern.get((prev, code), 0)
+        out.append((code, _pixel(pos)))
+    end = pos + glyphs[ord(line[-1])][2] if line else 0
+    return out, end
+
+
+def text_bbox(text: str, table: dict | None = None) -> tuple:
     """(left, top, right, bottom) of ``text`` drawn at (0, 0) (what
-    ``ImageDraw.textbbox`` gives for the default font)."""
-    table = glyph_table()
-    left = top = right = bottom = None
+    ``ImageDraw.textbbox`` gives for the table's font; the default font's
+    where ``table`` is None)."""
+    table = glyph_table() if table is None else table
+    box = None
     for li, line in enumerate(text.split("\n")):
-        pen, y = 0, li * table["pitch"]
-        for ch in line:
-            code = _glyph_code(ch, table)
-            l, t, r, b = table["boxes"][code]
-            box = (pen + l, y + t, pen + r, y + b)
-            if left is None:
-                left, top, right, bottom = box
-            else:
-                left, top = min(left, box[0]), min(top, box[1])
-                right, bottom = max(right, box[2]), max(bottom, box[3])
-            pen += table["glyphs"][code][2]
-    if left is None:
-        return (0, 0, 0, 0)
-    return (left, top, right, bottom)
+        if not line:
+            continue
+        y = li * table["pitch"]
+        pens, end = _pens(line, table)
+        left, right = 0, _pixel(end)
+        top = bottom = None
+        for code, px in pens:
+            l, t, _r, b = table["boxes"][code]
+            left = min(left, px + l)
+            right = max(right, px + table["right"][code])
+            top = t if top is None else min(top, t)
+            bottom = b if bottom is None else max(bottom, b)
+        line_box = (left, y + top, right, y + bottom)
+        box = line_box if box is None else (
+            min(box[0], line_box[0]), min(box[1], line_box[1]),
+            max(box[2], line_box[2]), max(box[3], line_box[3]))
+    return (0, 0, 0, 0) if box is None else box
 
 
 def raster_text(text: str, width: int, height: int, fill, background,
-                x: int = 0) -> np.ndarray:
+                x: int = 0, table: dict | None = None) -> np.ndarray:
     """(height, width, 4) uint8 image: ``text`` in the RGBA bytes ``fill``
-    over ``background``, its first line's pen at (x, 0)."""
-    table = glyph_table()
+    over ``background``, its first line's pen at (x, 0), drawn from
+    ``table`` (the default font's where None)."""
+    table = glyph_table() if table is None else table
     cov = np.zeros((height, width), np.int32)
     for li, line in enumerate(text.split("\n")):
-        pen, y = x, li * table["pitch"]
-        for ch in line:
-            left, top, adv, g = table["glyphs"][_glyph_code(ch, table)]
-            gx, gy = pen + left, y + top
+        pens, _end = _pens(line, table)
+        y = li * table["pitch"]
+        for code, px in pens:
+            left, top, _adv, g = table["glyphs"][code]
+            gx, gy = x + px + left, y + top
             xa, ya = max(gx, 0), max(gy, 0)
             xb = min(gx + g.shape[1], width)
             yb = min(gy + g.shape[0], height)
@@ -451,7 +572,6 @@ def raster_text(text: str, width: int, height: int, fill, background,
                 a = cov[ya:yb, xa:xb]
                 b = g[ya - gy:yb - gy, xa - gx:xb - gx]
                 cov[ya:yb, xa:xb] = a + b - _div255(a * b)
-            pen += adv
     bg = np.asarray(background, np.int32)
     ink = np.asarray(fill, np.int32)
     m = cov[..., None]
@@ -465,8 +585,8 @@ def raster_text(text: str, width: int, height: int, fill, background,
 
 class CKSpriteText(CKSprite):
     """Sprite whose image is rendered text (reference RCKSpriteText — the
-    GDI font handle becomes the default font's glyph table; re-rastered
-    lazily on change)."""
+    GDI font handle becomes a baked glyph table, :func:`font_table`;
+    re-rastered lazily on change)."""
 
     CLASS_ID = CKCID_SPRITETEXT
 
@@ -504,8 +624,8 @@ class CKSpriteText(CKSprite):
 
     def SetFont(self, name: str | None = None, size: int = 14, weight: int = 400,
                 italic: bool = False, underline: bool = False):
-        """Font selection (reference SetFont). The name and size are kept;
-        text always draws with the default font (``glyphs_default.npz``)."""
+        """Font selection (reference SetFont): ``name`` and ``size`` pick
+        the glyph table at the next raster (:func:`font_table`)."""
         self.font_name = name
         self.font_size = int(size)
         self._raster_dirty = True
@@ -538,11 +658,12 @@ class CKSpriteText(CKSprite):
         h = max(int(self.size[1]), 1)
         bg = tuple(int(c * 255) for c in self.bg_color)
         fill = tuple(int(c * 255) for c in self.text_color)
-        bbox = text_bbox(self.text)
+        table = font_table(self.font_name, self.font_size)
+        bbox = text_bbox(self.text, table)
         tw = bbox[2] - bbox[0]
         x = {self.ALIGN_LEFT: 0, self.ALIGN_CENTER: (w - tw) // 2,
              self.ALIGN_RIGHT: w - tw}[self.align]
-        img = raster_text(self.text, w, h, fill, bg, x)
+        img = raster_text(self.text, w, h, fill, bg, x, table)
         self._store.SetImage(img.astype(np.float32) / 255.0)
         self._raster_dirty = False
 

@@ -1,9 +1,12 @@
-"""CKRenderManager (reference RCKRenderManager, src/CKRenderManager.cpp).
+"""CKRenderManager (reference RCKRenderManager, src/CKRenderManager.cpp)
+and CKRenderedScene.
 
 Shared render types live in .rendertypes and the context in .rendercontext;
 this module re-exports both, like the reference package's manager module.
 Context batching (``ProcessBatched``) runs on one card; its multi-card
-form (``mesh=``) is not carried yet and raises.
+form (``mesh=``) is not carried yet and raises. The driver table is
+``raster.caps.enumerate_drivers``. The reference's public methods that this
+package does not carry raise their port queue item.
 """
 
 from .rendertypes import *          # noqa: F401,F403
@@ -12,7 +15,7 @@ from .rendertypes import (          # noqa: F401
 )
 from .rendercontext import BatchRead, CKRenderContext    # noqa: F401
 from ..pipeline import window as fw
-from ..roadmap import unported
+from ..roadmap import unported, unported_methods
 
 # Members per run of a context batch: a larger group runs in chunks of
 # this many (each chunk one upload and one graph replay per member).
@@ -273,8 +276,64 @@ class CKRenderManager(CKObject):
             rc.post_render_callbacks = [
                 cb for cb in rc.post_render_callbacks if not cb[3]]
 
+    # -- driver enumeration (reference driver table, HW first then SW,
+    # src/CKRenderManager.cpp:190-226) -------------------------------------
+    def GetRenderDriverCount(self) -> int:
+        from ..raster.caps import enumerate_drivers
+        return len(enumerate_drivers())
+
+    def GetRenderDriverDescription(self, i: int):
+        from ..raster.caps import enumerate_drivers
+        return enumerate_drivers()[i]
+
+    def GetDriverCaps(self, i: int = 0):
+        return self.GetRenderDriverDescription(i).caps
+
+    def GetPreferredSoftwareDriver(self) -> int:
+        """Index of the software (numpy NULL) driver in the driver table.
+        (The reference reads a ``hardware`` field the table's entries do
+        not have, and so always answers 0.)"""
+        from ..raster.caps import enumerate_drivers
+
+        for d in enumerate_drivers():
+            if not d.is_hardware:
+                return d.index
+        return 0
+
+    def GetDriver(self, index: int):
+        return self.GetRenderDriverDescription(index)
+
     def SetRenderOptions(self, name: str, value):
         self.options[name] = value
 
     def GetRenderOptions(self, name: str):
         return self.options.get(name)
+
+
+class CKRenderedScene:
+    """Per-context scene-state facade (reference CKRenderedScene,
+    include/CKRenderedScene.h:13-49). Not carried yet: each of its methods
+    raises (port queue item 17)."""
+
+    def __init__(self, rc: CKRenderContext):
+        self.rc = rc
+
+
+unported_methods(CKRenderedScene, 17, (
+    "Draw", "Get3dEntities", "GetAmbientLight", "GetAttachedCamera",
+    "GetBackgroundColor", "GetFogMode", "GetLights", "SetAmbientLight",
+    "SetBackgroundColor"))
+unported_methods(CKRenderManager, 17, (
+    "AddTemporaryCallback", "AddTemporaryPostRenderCallback",
+    "AddTemporaryPreRenderCallback", "ClearTemporaryCallbacks", "CreateNode",
+    "CreateObjectIndex", "CreateVertexBuffer", "DeleteAllVertexBuffers",
+    "DeleteNode", "DestroyVertexBuffer", "DestroyingDevice",
+    "DetachAllObjects", "GetFullscreenContext", "GetMovedEntities",
+    "GetRenderContextFromPoint", "GetRootNode", "GetValidFunctionsMask",
+    "OnCKEnd", "OnCKPause", "PreClearAll", "RegisterDefaultEffects",
+    "RegisterLastFrameEntity", "ReleaseObjectIndex",
+    "ReleaseRenderContextMaskFree", "RemoveAllTemporaryCallbacks",
+    "RemoveRenderContext", "RemoveTemporaryCallback", "SaveLastFrameMatrix",
+    "SequenceAddedToScene", "SequenceDeleted", "SequenceRemovedFromScene",
+    "SequenceToBeDeleted", "StartDeviceTrace", "StopDeviceTrace",
+    "UnregisterLastFrameEntity"))

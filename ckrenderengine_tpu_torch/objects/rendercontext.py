@@ -25,7 +25,7 @@ from .rendertypes import (          # explicit: names the body references
     _pad_to, _mip_chain, CompiledScene, VxStats,
 )
 from ..pipeline import window as fw
-from ..roadmap import unported
+from ..roadmap import unported, unported_methods
 
 
 class CKRenderContext(CKObject):
@@ -2822,6 +2822,26 @@ class CKRenderContext(CKObject):
         src/CKRenderContext.cpp:898-908)."""
         return self.stats.SmoothedFps
 
+    # -- driver (reference rendercontext.py:3228-3240) ---------------------
+    def GetDriverIndex(self) -> int:
+        return getattr(self, "_driver_index", 0)
+
+    def ChangeDriver(self, index: int) -> bool:
+        """Select an entry of the driver table (``raster.caps
+        .enumerate_drivers``); False for an index outside it. The frame
+        program runs on the context's device whichever entry is chosen."""
+        from ..raster.caps import enumerate_drivers
+
+        if not (0 <= index < len(enumerate_drivers())):
+            return False
+        self._driver_index = int(index)
+        return True
+
+    def GetRasterizerContext(self):
+        """The device context IS this object (the HAL boundary is the
+        frame program)."""
+        return self
+
 
 class BatchRead:
     """The one host read of a context batch (``CKRenderManager
@@ -2889,3 +2909,42 @@ class BatchRead:
         for rc in members[1:]:
             rc._solve_caps = lead._solve_caps
             rc._peel_rounds = lead._peel_rounds
+
+
+# Public methods of the reference's CKRenderContext that this package does
+# not carry: each raises its port queue item.
+unported_methods(CKRenderContext, 14, ("DumpToFile",))
+unported_methods(CKRenderContext, 17, (
+    "AddDirtyRect", "AddPostSpriteRenderCallBack", "AddRemoveSequence",
+    "AddSprite3DBatch", "AllocateStructure", "AppendStateEnumLine",
+    "AppendStateOnOffLine", "AppendStateUIntLine", "BackupScreen",
+    "CallSprite3DBatches", "ChangeCurrentRenderOptions", "CheckObjectExtents",
+    "ClassifyTransparentOrder", "ClearCallbacks", "ClearStructure",
+    "ClientToScreen", "Compute2dRootObjects", "Compute3dRootObjects",
+    "CopyFromMemoryBuffer", "CopyToMemoryBuffer", "CopyToVideo", "DebugStep",
+    "DestroyDevice", "DetachAll", "DrawPVInformationWatermark",
+    "DrawPrimitive", "DrawScene", "DumpToMemory",
+    "ExecutePostRenderCallbacks", "ExecutePostSpriteCallbacks",
+    "ExecutePreRenderCallbacks", "FillStateString",
+    "FlushSprite3DBatchesIfNeeded", "ForceCameraSettingsUpdate",
+    "GetBackgroundMaterial", "GetBoundingBox", "GetDebugObjectCount",
+    "GetDirectXInfo", "GetDirtyRects", "GetDrawPrimitiveIndices",
+    "GetDrawPrimitiveStructure", "GetFirstFreeStencilBits",
+    "GetGlobalRenderMode", "GetMemoryOccupation", "GetObjectExtents",
+    "GetPixelFormat", "GetProjectionTransformationMatrix", "GetState",
+    "GetStencilFreeMask", "GetStructure", "GetTextureMatrix",
+    "GetTextureStageState", "GetTransparentMode",
+    "GetViewTransformationMatrix", "GetWindowHandle", "GetWindowRect",
+    "GetWorldTransformationMatrix", "GoFullScreen", "IsFullScreen",
+    "IsObjectAttached", "LoadPVInformationTexture", "LockCurrentVB",
+    "OnClearAll", "Pick", "Pick3D", "PickRect", "PrepareCameras", "RectPick",
+    "ReleaseCurrentVB", "RemovePostSpriteRenderCallBack", "RenderTransparents",
+    "ResetDirtyRects", "RestoreScreenBackup", "RestoreStereoRenderState",
+    "ScreenToClient", "SetCurrentMaterial", "SetDebugObjectCount",
+    "SetFullViewport", "SetGlobalRenderMode",
+    "SetProjectionTransformationMatrix", "SetRenderTarget", "SetState",
+    "SetTexture", "SetTextureMatrix", "SetTextureStageState",
+    "SetTransparentMode", "SetViewTransformationMatrix", "SetWindowRect",
+    "SetWorldTransformationMatrix", "StopFullScreen", "Transform",
+    "TransformVertices", "UpdateProjection", "UsedStencilBits",
+    "WarnEnterThread", "WarnExitThread"))

@@ -12,8 +12,9 @@
   quad lists, ``Pick`` and ``Pick2D``, extents: equal to the reference's.
 - ``CKSpriteText``'s raster, drawn from the committed glyph table, against
   the reference's Pillow raster bit for bit: config 3's label and other
-  strings, three alignments, several colours, multi-line text. A named
-  font that is not installed falls back to the default font in both.
+  strings, non-ASCII text, three alignments, several colours, multi-line
+  text. A named font that is not installed falls back to the default font
+  in both; DejaVu Sans draws from its own table, equal to the reference's.
 - Overlays through ``Render()``: a flat scene with a background sprite, a
   textured background material and foreground sprites, text and a clipped
   child, against the reference's frame; a text change re-rasters through
@@ -212,12 +213,9 @@ COLORS = [((1, 1, 1, 1), (0, 0, 0, 0)),
 @pytest.mark.parametrize("align", [0, 1, 2], ids=["left", "center", "right"])
 def test_sprite_text_raster_matches_pil(align):
     """Bit-equal images (0..255 / 255) on every string and colour pair,
-    ASCII or not (characters outside printable ASCII are left out here:
-    the reference draws them from the font, the port as '?')."""
+    ASCII or not."""
     cj, ct = J.CKContext(), O.CKContext(device="cpu")
     for text in TEXTS:
-        if any(not 32 <= ord(ch) < 127 for ch in text if ch != "\n"):
-            continue
         for fg, bg in COLORS:
             for size in ((128, 20), (40, 30)):
                 ij = _text_sprite(J, cj, text, align, fg, bg, size).Redraw()
@@ -228,8 +226,9 @@ def test_sprite_text_raster_matches_pil(align):
 
 def test_named_fonts_fall_back_to_the_default():
     """A font name Pillow cannot find: both draw the default font. A font
-    it can load (the reference then draws that font) still draws the
-    default font here, the README's port section records by how much."""
+    it finds and the port has baked (DejaVu Sans at 14): both draw that
+    font, bit for bit, non-ASCII text included. A size the port has not
+    baked raises, naming the font and its item."""
     cj, ct = J.CKContext(), O.CKContext(device="cpu")
     fg, bg = COLORS[0]
     ij = _text_sprite(J, cj, "entities: 1000", 0, fg, bg,
@@ -237,14 +236,35 @@ def test_named_fonts_fall_back_to_the_default():
     it = _text_sprite(O, ct, "entities: 1000", 0, fg, bg,
                       font="no-such-font.ttf").Redraw()
     np.testing.assert_array_equal(it.GetImage(), ij.GetImage())
-    it2 = _text_sprite(O, ct, "entities: 1000", 0, fg, bg,
-                       font="DejaVuSans.ttf").Redraw()
-    np.testing.assert_array_equal(it2.GetImage(), it.GetImage())
-    # Outside printable ASCII the port draws '?'.
-    iq = _text_sprite(O, ct, "caf?", 0, fg, bg).Redraw()
-    ie = _text_sprite(O, ct, "café", 0, fg, bg).Redraw()
-    np.testing.assert_array_equal(ie.GetImage(), iq.GetImage())
+    assert te2.find_font("DejaVuSans.ttf") is not None
+    for text in ("entities: 1000", "café → ok"):
+        for fg, bg in COLORS:
+            ij = _text_sprite(J, cj, text, 1, fg, bg,
+                              font="DejaVuSans.ttf").Redraw()
+            it = _text_sprite(O, ct, text, 1, fg, bg,
+                              font="DejaVuSans.ttf").Redraw()
+            np.testing.assert_array_equal(it.GetImage(), ij.GetImage(),
+                                          err_msg=repr(text))
+    odd = _text_sprite(O, ct, "entities: 1000", 0, fg, bg)
+    odd.SetFont("DejaVuSans.ttf", 13)
+    with pytest.raises(NotImplementedError, match="DejaVuSans.ttf.*item 14"):
+        odd.Redraw()
 
+
+
+def test_ligature_pairs_raise_and_the_default_font_refuses_none():
+    """A pair the font's layout draws as a ligature (DejaVu Sans "fi")
+    raises, naming item 14, where the reference draws the ligature. The
+    default font's table refuses no pair, so default-font text never
+    meets that error."""
+    assert te2.glyph_table()["refused"] == set()
+    assert (ord("f"), ord("i")) in te2.font_table("DejaVuSans.ttf",
+                                                  14)["refused"]
+    ct = O.CKContext(device="cpu")
+    fg, bg = COLORS[0]
+    s = _text_sprite(O, ct, "file", 0, fg, bg, font="DejaVuSans.ttf")
+    with pytest.raises(NotImplementedError, match="'fi'.*item 14"):
+        s.Redraw()
 
 def test_text_bbox_matches_pil():
     from PIL import Image, ImageDraw, ImageFont
