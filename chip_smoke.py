@@ -81,8 +81,18 @@ call script of 1,026 immediate-mode triangles, a sprite, a framebuffer
 copy and a screen backup on a 1024x768 ``CKRasterizerContext`` through
 ``render_pass`` and no hand-written kernel; a display-list replay, the
 copy and the restore bit-equal to what they copy; the counters; the
-driver table; the script at 256x192 on the card against the CPU; host ms
+driver table; the script at 128x96 on the card against the CPU; host ms
 per sphere ``DrawPrimitive``, device ms and launches per triangle),
+renders the monitor level in stereo (``scenes.build_config5_monitor``:
+config 5 at 1024x768 with both eyes side by side, and a 512x384 producer
+context rendering the level into the texture a screen in it samples; the
+``monitor`` phase: B1 once per producer frame and once per eye, the
+texture equal to the producer's frame, the feed and its mip levels in the
+main frame's stack equal to their plain versions, the packed stereo path
+equal to the eager fallback the live feed takes, B1 equal to its plain
+version at an eye's inputs, device ms and launches per stereo and per
+producer frame, and the level at 320x240 against the golden frame
+``monitor_320x240``),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -164,11 +174,12 @@ def kernel_ms(fn, name: str, reps: int = 20) -> float:
     def count(prof):
         return sum(e.count for e in hits(prof))
 
-    # Each call launches the same number of matching kernels, so a count
-    # that is not a multiple of ``reps`` lost records.
+    # Each call launches its kernel once (a wrapper counts one launch per
+    # call), so a window with any other count than ``reps`` lost records
+    # or holds foreign ones, and is profiled again.
     prof, _wall = profile_window(
         fn, reps, [ProfilerActivity.CUDA],
-        lambda p: count(p) > 0 and count(p) % reps == 0, label=name)
+        lambda p: count(p) == reps, label=name)
     n = count(prof)
     check(n > 0, f"the profiler recorded no launch of {name}")
     total_us = sum(e.device_time_total if hasattr(e, "device_time_total")
@@ -886,6 +897,9 @@ def main() -> int:
     # --- 4h. the rasterizer HAL: immediate-mode draws ----------------------
     hal_phase(O, dict(kernel_fns, L1=ll.lines_kernel), card)
 
+    # --- 4i. render-to-texture and stereo: the monitor level ---------------
+    monitor_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1141,9 +1155,9 @@ def main() -> int:
 
 
 # The HAL's call script: on the card at config 5's display size, and at
-# 256x192 on the card and on the CPU.
+# 128x96 on the card and on the CPU.
 HAL_SIZE = (1024, 768)
-HAL_SMALL = (256, 192)
+HAL_SMALL = (128, 96)
 HAL_CLEAR = np.array([0x20, 0x30, 0x40, 0xFF], np.float32) / 255.0
 # Triangles of the sphere drawn again under torch.profiler (its ~1,140
 # launches per triangle make the whole 768-triangle draw a long profile).
@@ -1207,7 +1221,7 @@ def hal_phase(O, kernel_fns, card) -> dict:
       (768 triangles): its host ms (no synchronise) and wall ms (with
       one); HAL_PROFILED of its triangles drawn again under torch.profiler:
       device launches and device ms per triangle.
-    - The script at 256x192 on the card and on the CPU, in a worker
+    - The script at 128x96 on the card and on the CPU, in a worker
       process that starts after the timed sphere draw and runs while the
       card works on: fb and zb within
       ``render_pass``'s bound (1e-5 on all but 0.1% of the values, never
@@ -1312,11 +1326,11 @@ def hal_phase(O, kernel_fns, card) -> dict:
         sphere["device_ms"] = device_us(dev) / 1e3
         step("profile_s", t0)
 
-        # The same script at 256x192, card against CPU.
+        # The same script at HAL_SMALL, card against CPU.
         t0 = time.monotonic()
         _r, ctx_g, _o = hal_run(O, "cuda", HAL_SMALL)
         fb_g, zb_g = ctx_g.BackToFront(), ctx_g.zb.cpu().numpy()
-        step("script_256x192_card_s", t0)
+        step("script_small_card_s", t0)
         t0 = time.monotonic()
         check(len(cpu) == 1, "hal: the sphere draw was not timed")
         fb_c, zb_c, cpu_s = cpu[0].result()
@@ -1344,6 +1358,197 @@ def hal_phase(O, kernel_fns, card) -> dict:
            "card": card}
     emit("hal", **res)
     return res
+
+
+MONITOR_TICKS = 3
+
+
+def render_counted(rc, kernel_fns, launches) -> dict:
+    """One Render() of ``rc`` with every launch count at 0 first: its
+    CUDA-event ms and its launches (added to ``launches``)."""
+    reset_launches(kernel_fns.values())
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    rc.Render()
+    e1.record()
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    return {"frame_ms": e0.elapsed_time(e1), "launches": got}
+
+
+def plain_mips(feed, levels: int) -> list:
+    """The feed (4, H, W) and its mip levels by the plain rule: each texel
+    of a level the mean of a 2x2 block of the level above, summed as
+    (t00 + t01) + (t10 + t11) over strided views, then divided by 4."""
+    out = [feed]
+    for _ in range(1, levels):
+        x = out[-1]
+        nh, nw = max(x.shape[1] // 2, 1), max(x.shape[2] // 2, 1)
+        x = x[:, :nh * 2, :nw * 2]
+        out.append(((x[:, 0::2, 0::2] + x[:, 0::2, 1::2])
+                    + (x[:, 1::2, 0::2] + x[:, 1::2, 1::2])) / 4.0)
+    return out
+
+
+def monitor_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """Render-to-texture and stereo through Render() on the card:
+    ``scenes.build_config5_monitor`` (config 5, 528,032 triangles, at
+    1024x768 in stereo, eye separation 1.2; a 512x384 producer context
+    renders the level from a security camera into the texture a screen in
+    the level samples with a trilinear filter).
+
+    - MONITOR_TICKS ticks (turn the spinner, Render() the producer, then
+      the main context), each frame with every launch count at 0 first:
+      B1 once per producer frame and twice per stereo frame (once per eye)
+      and nothing else; the first stereo frame takes the packed path, the
+      later ones the eager fallback (they sample the live feed). After
+      each producer frame the texture's device image equals its fb.
+    - The last tick's feed in the main frame's stack: its rect equals the
+      feed and each mip level the plain 2x2 means, bit for bit.
+    - The packed stereo path on the last tick's state equals the fallback's
+      frame bit for bit.
+    - B1 with e-planes at the left eye's inputs equals its plain version.
+    - Device ms and launches of one producer frame, one stereo frame and
+      one frame of the main context with stereo off (torch.profiler).
+    - Golden: the level at 320x240 with a 160x120 producer, second tick,
+      against ``tests/torch_golden/monitor_320x240.npz``."""
+    from ckrenderengine_tpu_torch.raster import cuda_tiled
+
+    sys.path.insert(0, os.path.join(ROOT, "tests", "torch_golden"))
+    import make_golden as mg
+
+    t_phase = time.monotonic()
+    ctx, rc, producer, spinner = scenes.build_config5_monitor(
+        O, device="cuda", stereo=(1.2, 60.0))
+    feed = ctx.GetObjectByName("monitor_feed")
+    ticks = []
+    for k in range(MONITOR_TICKS):
+        if k:
+            spinner.Rotate((0, 1, 0), mg.MONITOR_SPIN)
+        p = render_counted(producer, kernel_fns, launches)
+        check(torch.equal(feed.device_image(), producer.fb),
+              f"monitor tick {k}: the texture differs from the producer's "
+              "frame")
+        s = render_counted(rc, kernel_fns, launches)
+        # StereoEagerFallback stays set once a frame took the fallback.
+        ticks.append({"producer": p, "stereo": s,
+                      "fallback": rc.stats.StereoEagerFallback})
+    finite, covered = frame_checks("config5_monitor", rc)
+    want_p = {k: 0 for k in kernel_fns}
+    want_p["B1"] = 1
+    want_s = dict(want_p, B1=2)
+    for k, t in enumerate(ticks):
+        check(t["producer"]["launches"] == want_p
+              and t["stereo"]["launches"] == want_s,
+              f"monitor tick {k}: launches {t}")
+    check(not ticks[0]["fallback"] and ticks[1]["fallback"]
+          and rc._compiled.dev_ids,
+          "monitor: the stereo frames did not take packed, then fallback")
+
+    # The feed and its mips in the last frame's stack.
+    static, eyes, dyn_i, params = mg.stereo_inputs(rc)
+    (texdev,), (rect,) = params["texdev"], params["texdev_rects"]
+    pi, oy, ox, h, w, mip_col, levels, chw = rect
+    check(texdev is feed.device_image() and chw and levels > 1,
+          f"monitor: the frame's feed {rect}")
+    dyn_i = torch.as_tensor(dyn_i, device="cuda")
+    eyes = [torch.as_tensor(df, device="cuda") for df in eyes]
+    scene, _d = fr.unpack_scene(static, eyes[0], dyn_i, params["layout"],
+                                texdev=params["texdev"],
+                                texdev_rects=params["texdev_rects"])
+    planes = scene.tex_planes[pi]
+    mips_equal = []
+    for lv, want in enumerate(plain_mips(texdev, levels)):
+        y0 = oy + (0 if lv <= 1 else h - (h >> (lv - 1)))
+        x0 = ox + (0 if lv == 0 else mip_col)
+        mips_equal.append(bool(torch.equal(
+            planes[:, y0:y0 + want.shape[1], x0:x0 + want.shape[2]], want)))
+    check(all(mips_equal), f"monitor: feed levels equal {mips_equal}")
+
+    # The packed path on the same state: the fallback's frame.
+    fb0, zb0 = rc.fb.clone(), rc.zb.clone()
+    rc._render_stereo_packed([], [])
+    packed_equal = bool(torch.equal(rc.fb, fb0) and torch.equal(rc.zb, zb0))
+    check(packed_equal, "monitor: packed stereo differs from the fallback")
+
+    # B1 with e-planes at the left eye's inputs against its plain version.
+    H, W = rc.height, rc.width
+    _sc, batch, setup, defer, _bits = fr.packed_setup(static, eyes[0], dyn_i,
+                                                      params)
+    a = cuda_tiled.phase_a(setup, defer, scene.viewport, batch.xyw, H, W,
+                           **fr._solve_caps(batch.valid.shape[0], None))
+    init = cuda_tiled._init_plane(scene.clear_z, H, W, a["tiles_y"] * 32,
+                                  a["tiles_x"] * 32, "cuda")
+    args = (a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
+            a["sbase"], scene.viewport, W, H, init, 32, a["tiles_x"],
+            a["tiles_y"], a["n_planes"], True)
+    b1_equal = all(x is None and y is None or torch.equal(x, y) for x, y in
+                   zip(cuda_tiled.solve_tiled_kernel(*args),
+                       cuda_tiled.solve_phase_b_plain(*args)))
+    check(b1_equal, "monitor: B1 and its plain version disagree at the "
+          "eye's inputs")
+
+    # What one producer frame and one stereo frame put on the card, and
+    # one frame of the main context without stereo (which culls chunks).
+    dev = {}
+    for name, ctx_ in (("producer", producer), ("stereo", rc),
+                       ("mono", rc)):
+        if name == "mono":
+            rc.SetStereoParameters(0.0, 60.0)
+        n, ms, wall = device_window(ctx_.Render, 1)
+        dev[name] = {"device_launches": n, "device_ms": ms,
+                     "profiled_frame_ms": wall}
+    emit("monitor", config="config5_monitor", card=card,
+         size=[rc.width, rc.height],
+         producer_size=[producer.width, producer.height],
+         triangles=int(rc._compiled.n_valid_tris), ticks=ticks,
+         finite=finite, covered=covered, feed_levels=levels,
+         feed_levels_equal=mips_equal, packed_equals_fallback=packed_equal,
+         b1_equals_plain_at_eye=b1_equal,
+         stereo_frame_ms_median=float(np.median(
+             [t["stereo"]["frame_ms"] for t in ticks[1:]])),
+         producer_frame_ms_median=float(np.median(
+             [t["producer"]["frame_ms"] for t in ticks[1:]])),
+         per_frame=dev)
+
+    # The golden frame's size on the card.
+    reset_launches(kernel_fns.values())
+    rc_g, _p = mg.monitor_ticks(O, device="cuda")
+    rc_g.Render()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    static, eyes, dyn_i, params = mg.stereo_inputs(rc_g)
+    dyn_i = torch.as_tensor(dyn_i, device="cuda")
+    ids = mg.side_by_side(*(fr.render_frame_packed(
+        static, torch.as_tensor(df, device="cuda"), dyn_i, **params,
+        want_stats=True)[2]["WinnerIds"].cpu().numpy() for df in eyes),
+        rc_g.width)
+    g = np.load(mg.MONITOR_OUT)
+    rgba = rc_g.BackToFront()
+    c = rc_g._compiled
+    entity = c.vert_entity[c.tri_idx[:, 0]]
+    screen = rc_g.context.GetObjectByName("screen").row
+    match = ids == g["ids"]
+    diff = np.abs(rgba.astype(np.int32) - g["rgba"].astype(np.int32)).max(-1)
+    off = (diff > 1) & match
+    on_screen = (ids >= 0) & (entity[ids] == screen)
+    emit("golden", frame="monitor_320x240", ids_equal_frac=float(match.mean()),
+         rgba_pixels_over_1_matching=int(off.sum()),
+         rgba_max_diff_matching=int(diff[match].max()),
+         off_pixels_on_screen=bool(on_screen[off].all()), launches=got)
+    check(rgba.shape == g["rgba"].shape, "golden monitor_320x240: shape")
+    check(match.mean() >= 0.999, "golden monitor_320x240: winner ids differ")
+    check(off.sum() <= 1e-3 * match.sum() and on_screen[off].all(),
+          f"golden monitor_320x240: {int(off.sum())} pixels")
+    # Two ticks of the producer, one packed stereo frame and the fallback.
+    check(got == dict(want_p, B1=6),
+          f"golden monitor_320x240: launches {got}")
+    emit("monitor_phase", seconds=round(time.monotonic() - t_phase, 1))
+    return dev
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

@@ -16,7 +16,7 @@ import torch
 
 # Params of the reference frame that name features this package does not
 # carry yet; it takes a frame only when they are empty.
-_EMPTY_PARAMS = ("anim", "texdev")
+_EMPTY_PARAMS = ("anim",)
 # User stages: a JAX function does not convert, so the caller passes the
 # port's counterpart of each one the reference frame sets.
 _STAGE_PARAMS = ("vertex_shader", "pixel_shader")
@@ -33,9 +33,10 @@ def from_reference(static: dict, dyn_f, dyn_i, params: dict, device,
 
     Every array converts bit for bit (``np.asarray`` of each value first);
     hashable params (layout, levels, corner, caps, sampler profile,
-    ``skin_ranges``) carry over unchanged; the skin bank and the bound
-    clip's ``world_in`` matrices, the sprites' per-compile rows and the
-    line bank convert field by field. ``vertex_shader`` / ``pixel_shader``:
+    ``skin_ranges``, ``texdev_rects``) carry over unchanged; the skin bank
+    and the bound clip's ``world_in`` matrices, the sprites' per-compile
+    rows, the line bank and the render-to-texture feeds (``texdev``)
+    convert field by field. ``vertex_shader`` / ``pixel_shader``:
     the torch counterparts of the reference frame's user stages, required
     exactly where the frame sets one. Raises when a param names a feature
     this package does not carry, or when a stage and its counterpart do not
@@ -55,7 +56,10 @@ def from_reference(static: dict, dyn_f, dyn_i, params: dict, device,
     out = dict(params, **stages)
     for k in _EMPTY_PARAMS:
         out[k] = None
-    out["texdev_rects"] = ()
+    out["texdev"] = None
+    out["texdev_rects"] = tuple(params.get("texdev_rects") or ())
+    if params.get("texdev"):
+        out["texdev"] = tuple(_tensor(a, device) for a in params["texdev"])
     if params.get("skin") is not None:
         out["skin"] = skin_bank_from_reference(params["skin"], device)
     if params.get("world_in") is not None:

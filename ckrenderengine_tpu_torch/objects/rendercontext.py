@@ -10,8 +10,10 @@ replays (``pipeline.window``); ``CKRenderManager.ProcessBatched`` runs a
 group of contexts as one replay of a captured frame per member
 (:class:`BatchRead` resolves it). The capacity governor sets the tiled
 solve's caps from its bin statistics, read where the host already reads.
-Features outside the ported slices (stereo, render-to-texture, tile
-sharding, ...) raise ``NotImplementedError`` naming their ROADMAP item.
+Stereo renders both eyes side by side, and a target texture receives
+each frame on the device (render-to-texture). Features outside the ported
+slices (tile sharding, picking, ...) raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 import os
@@ -71,6 +73,8 @@ class CKRenderContext(CKObject):
         self.portal_traversal = False
         self._bound_clip = None
         self.stereo_enabled = False
+        self.eye_separation = 0.06         # world units between eyes
+        self.focal_length = 2.0
         self.target_texture = None
         # Capacity governor: (pair, slab, g) caps of the tiled solve, None
         # = the frame's t_count heuristic until the first plan.
@@ -860,6 +864,22 @@ class CKRenderContext(CKObject):
                         ok = False
                         break
                 if ok:
+                    # Device-resident feeds (render-to-texture) register
+                    # once; the frame writes their CURRENT image into its
+                    # copy of the stack (_fill_packed's texdev,
+                    # pipeline/frame._apply_tex_patch): no host transfer.
+                    dev_changed = [i for i in changed
+                                   if c.textures[i].device_image() is not None]
+                    if dev_changed:
+                        c.dev_ids = getattr(c, "dev_ids", set()) | set(
+                            dev_changed)
+                        for i in dev_changed:
+                            meta["versions"][i] = vers[i]
+                        changed = [i for i in changed
+                                   if i not in dev_changed]
+                        if not changed:
+                            c._tex_version = v
+                            return
                     # Register per-frame updaters as VIDEO textures: their
                     # texels ride the packed dyn buffer from now on (one
                     # transfer pair per frame, scattered on device) — the
@@ -1927,7 +1947,18 @@ class CKRenderContext(CKObject):
         rm = ctx.render_manager
         sort_t = bool(int(rm.options.get("SortTransparentObjects", 1))) \
             if rm is not None else True
-        texdev = None
+        # Render-to-texture feeds: each registered texture's current device
+        # image and its stack rect, written into the frame's copy of the
+        # stack (pipeline/frame._apply_tex_patch).
+        texdev, texdev_rects = [], []
+        meta_d = getattr(c, "_tex_meta", None)
+        for i in sorted(getattr(c, "dev_ids", set())):
+            dimg = c.textures[i].device_image()
+            if dimg is None or meta_d is None:
+                continue
+            texdev.append(dimg)
+            texdev_rects.append(tuple(meta_d["rects"][i])
+                                + (c.textures[i].device_image_chw(),))
         # Bound clip: the animate and compose stages run here, before the
         # frame (pipeline/frame.py eval_anim_world), and the frame takes
         # the (N,4,4) result as ``world_in``. The bank stays on the device
@@ -2022,7 +2053,8 @@ class CKRenderContext(CKObject):
         params = dict(
             ss=ss,
             sampler_profile=sampler_profile,
-            texdev=texdev, texdev_rects=(),
+            texdev=tuple(texdev) if texdev else None,
+            texdev_rects=tuple(texdev_rects),
             layout=self._layout, levels=self._compiled.levels,
             height=self.height, width=self.width, skin=c.skin_bank,
             skin_ranges=getattr(c, "skin_ranges", ()),
@@ -2578,10 +2610,6 @@ class CKRenderContext(CKObject):
         src/CKRenderContext.cpp:767-930)."""
         from ..profiler import PhaseTimer
 
-        if self.stereo_enabled:
-            raise unported("stereo rendering", 17)
-        if self.target_texture is not None:
-            raise unported("render-to-texture (SetTargetTexture)", 17)
         if self._batch_read is not None:
             self._batch_read.resolve()
         self._frame_flags = self.ResolveRenderFlags(int(flags))
@@ -2621,11 +2649,19 @@ class CKRenderContext(CKObject):
                 quads_fg_list = []
         self._refresh_textures()
         with PhaseTimer(ph, "DeviceTime"):
-            if self._win_size > 1:
+            if self.stereo_enabled:
+                self._render_stereo_frame(quads_bg_list, quads_fg_list)
+            elif self._win_size > 1:
                 self._render_windowed(quads_bg_list, quads_fg_list)
             else:
                 self.fb, self.zb = self._render_packed(quads_bg_list,
                                                        quads_fg_list)
+        # Render-to-texture (reference SetTargetTexture / CopyContext,
+        # src/CKRenderContext.cpp:606-638): the frame's (4, H, W) buffer
+        # goes to the texture on the device. A copy, so that no later write
+        # of this context's buffers reaches the texture.
+        if self.target_texture is not None:
+            self.target_texture.SetDeviceImage(self.fb.clone(), chw=True)
         with PhaseTimer(ph, "CallbacksTime"):
             for obj in list(self.context._prerender_objects.values()):
                 rcb = getattr(obj, "render_callback", None)
@@ -2670,13 +2706,98 @@ class CKRenderContext(CKObject):
         self.stats.NbObjectDrawn = c.n_entities
         self.stats.NbLinesDrawn = len(c.line_segments)
 
+    # -- stereo (reference rendercontext.py:2825-2861, :2952-3038) --------
+    def _render_stereo_frame(self, quads_bg_list, quads_fg_list):
+        """The stereo frame: both eyes side by side. Staged window frames
+        run first, so that no later read of fb / zb resolves an older
+        frame over this one. A frame that does not clear its buffers, or
+        that samples a render-to-texture feed, takes the eager fallback
+        (:meth:`_render_stereo`, ``StereoEagerFallback``); every other the
+        packed path (:meth:`_render_stereo_packed`)."""
+        self._sync_window()
+        accumulate = not (self._frame_flags & CK_RENDER_CLEARBACKBUFFER) \
+            or not (self._frame_flags & CK_RENDER_CLEARZBUFFER)
+        if accumulate or getattr(self._compiled, "dev_ids", None):
+            self.stats.StereoEagerFallback = True
+            self._render_stereo(quads_bg_list, quads_fg_list)
+        else:
+            self._render_stereo_packed(quads_bg_list, quads_fg_list)
+
+    def _stereo_eye_views(self, view: np.ndarray) -> list:
+        """Per-eye view matrices, left then right: the world translated
+        opposite each eye's shift of half the eye separation along the
+        camera's right axis (reference :2952-2966)."""
+        cam = self.attached_camera
+        right = (cam.GetWorldMatrix()[0, :3] if cam is not None
+                 else np.array([1, 0, 0], np.float32))
+        right = right / max(np.linalg.norm(right), 1e-12)
+        half = self.eye_separation * 0.5
+        out = []
+        for sign in (-1.0, 1.0):
+            v = view.copy()
+            v[3, :3] = view[3, :3] - (right * (half * sign)) @ view[:3, :3]
+            out.append(v)
+        return out
+
+    def _render_stereo_packed(self, quads_bg_list, quads_fg_list):
+        """Stereo on the packed path (reference :2968-2998): one
+        ``_fill_packed``, each eye's view patched into a copy of the f32
+        buffer, and each eye one eager frame with no stencil (the reference
+        runs the two as one 2-frame scan program)."""
+        static, dyn_f, dyn_i, params = self._fill_packed(quads_bg_list,
+                                                         quads_fg_list)
+        self._render_eyes(static, dyn_f, dyn_i, params)
+
+    def _render_stereo(self, quads_bg_list, quads_fg_list):
+        """The eager stereo fallback (reference :3000-3038, which renders
+        each eye through ``render_frame_full`` with no previous buffers and
+        no supersample): each eye starts from the clear colour and depth
+        whatever the frame's clear flags, and renders at 1x whatever the
+        Antialias option. Otherwise it renders the frame's own scene, as
+        the packed path does: the current render-to-texture feeds and
+        video texels, portal and clip scissors, the sampler profile (where
+        the reference's legacy scene samples the texture stack of its last
+        rebuild and drops the other three; README, port section)."""
+        from ..pipeline.overlay import quad_windows
+
+        static, dyn_f, dyn_i, params = self._fill_packed(quads_bg_list,
+                                                         quads_fg_list)
+        params = dict(params, ss=1, quad_windows=tuple(
+            quad_windows(quads, self.height, self.width, 1)
+            for quads in (quads_bg_list, quads_fg_list)))
+        self._render_eyes(static, dyn_f, dyn_i, params)
+
+    def _render_eyes(self, static, dyn_f, dyn_i, params):
+        """Render the left and the right eye of one filled frame, each one
+        eager frame of a copy of the f32 buffer with the eye's view patched
+        in, with no stencil; fb becomes their ``frame.side_by_side``
+        composite and zb the right eye's."""
+        entries_f, _ = self._layout
+        off = next(o for (n, o, _s, _sh) in entries_f if n == "view")
+        params = dict(params, want_stencil=False)
+        fbs = []
+        for v in self._stereo_eye_views(dyn_f[off:off + 16].reshape(4, 4)):
+            df = dyn_f.copy()
+            df[off:off + 16] = v.reshape(-1)
+            fb, zb, _sb, _host = self._render_eager(static, df, dyn_i,
+                                                    params, govern=False)
+            fbs.append(fb)
+        self.fb = fr.side_by_side(*fbs, self.width)
+        self.zb = zb
+
     def SetTargetTexture(self, texture):
-        if texture is not None:
-            raise unported("render-to-texture (SetTargetTexture)", 17)
-        self.target_texture = None
+        """Render into ``texture`` (reference SetTargetTexture): after each
+        frame the texture holds a copy of the framebuffer on the device
+        (``CKTexture.SetDeviceImage(..., chw=True)``); None stops."""
+        self.target_texture = texture
 
     def GetTargetTexture(self):
         return self.target_texture
+
+    def SetRenderTarget(self, texture) -> bool:
+        """Alias of :meth:`SetTargetTexture` (reference :3521)."""
+        self.SetTargetTexture(texture)
+        return True
 
     def GetFogStart(self) -> float:
         return float(self.fog_start)
@@ -2783,11 +2904,22 @@ class CKRenderContext(CKObject):
         return 0
 
     def SetStereoParameters(self, eye_separation: float, focal_length: float):
-        if eye_separation > 0:
-            raise unported("stereo rendering", 17)
+        """A positive eye separation (world units) turns stereo on: each
+        Render() draws the left and the right eye side by side (reference
+        :3946-3949). The focal length is kept and not used, as in the
+        reference."""
+        self.eye_separation = float(eye_separation)
+        self.focal_length = float(focal_length)
+        self.stereo_enabled = eye_separation > 0
 
     def GetStereoParameters(self):
-        return 0.0, 0.0
+        return self.eye_separation, self.focal_length
+
+    def RestoreStereoRenderState(self):
+        """Drop the per-eye overrides a stereo pass installed (reference
+        :3852-3856: the eye and the immediate-mode view and projection).
+        A stereo frame here patches each eye's view into a copy of its
+        packed buffer and installs nothing, so there is nothing to drop."""
 
     def GetPhaseTimes(self) -> dict:
         return self.phases.as_dict()
@@ -2939,10 +3071,10 @@ unported_methods(CKRenderContext, 17, (
     "IsObjectAttached", "LoadPVInformationTexture", "LockCurrentVB",
     "OnClearAll", "Pick", "Pick3D", "PickRect", "PrepareCameras", "RectPick",
     "ReleaseCurrentVB", "RemovePostSpriteRenderCallBack", "RenderTransparents",
-    "ResetDirtyRects", "RestoreScreenBackup", "RestoreStereoRenderState",
+    "ResetDirtyRects", "RestoreScreenBackup",
     "ScreenToClient", "SetCurrentMaterial", "SetDebugObjectCount",
     "SetFullViewport", "SetGlobalRenderMode",
-    "SetProjectionTransformationMatrix", "SetRenderTarget", "SetState",
+    "SetProjectionTransformationMatrix", "SetState",
     "SetTexture", "SetTextureMatrix", "SetTextureStageState",
     "SetTransparentMode", "SetViewTransformationMatrix", "SetWindowRect",
     "SetWorldTransformationMatrix", "StopFullScreen", "Transform",

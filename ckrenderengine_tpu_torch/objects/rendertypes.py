@@ -189,9 +189,9 @@ class VxStats:
         self.SolveFallbackRows = 0
         self.SolveCapBumps = 0
         self.SolveCapShrinks = 0
-        # Stereo rendered through the eager SceneDevice path this frame
-        # (accumulation / banded sharding / RTT feeds force it) — the packed
-        # 2-frame scan program is the fast path; this flags the cost cliff.
+        # Stereo took the eager fallback (a no-clear frame or a
+        # render-to-texture feed forces it; it stays set, as in the
+        # reference): each eye renders from the clear colour, at 1x.
         self.StereoEagerFallback = False
         self.RenderStateCacheHit = 0
         self.RenderStateCacheMiss = 0

@@ -9,8 +9,32 @@ pool slots.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .base import CKCID_TEXTURE, CKContext, CKObject
+
+
+class _LazyDeviceImage:
+    """Host-side stand-in for a device-resident texture image (reference
+    texture.py:16-36): the shape is known at once; the pixels are copied to
+    the host only if a host path reads them."""
+
+    def __init__(self, dev, chw: bool = False):
+        self._dev = dev
+        self._chw = chw
+        self.shape = ((dev.shape[1], dev.shape[2], dev.shape[0]) if chw
+                      else tuple(dev.shape))
+        self._host = None
+
+    def to_host(self) -> np.ndarray:
+        if self._host is None:
+            a = self._dev.detach().to("cpu", torch.float32, copy=True).numpy()
+            self._host = np.moveaxis(a, 0, -1) if self._chw else a
+        return self._host
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.to_host()
+        return a if dtype is None else a.astype(dtype)
 
 
 class CKTexture(CKObject):
@@ -56,7 +80,10 @@ class CKTexture(CKObject):
             self.context._bump_topology()
 
     def GetImage(self, slot: int = 0) -> np.ndarray | None:
-        return self.slots[slot]
+        img = self.slots[slot]
+        if isinstance(img, _LazyDeviceImage):
+            return img.to_host()
+        return img
 
     def LockSurfacePtr(self, slot: int = 0) -> np.ndarray | None:
         return self.slots[slot]
@@ -252,11 +279,47 @@ class CKTexture(CKObject):
         self.context._bump_topology()
 
     def SetDeviceImage(self, img, slot: int = 0, chw: bool = False):
-        from ..roadmap import unported
-        raise unported("SetDeviceImage (render-to-texture feeds)", 17)
+        """Device-resident image update (render-to-texture feeds, reference
+        texture.py:312-348): ``img`` is a float tensor already on the
+        context's device, (H, W, 4), or (4, H, W) planes with ``chw`` (a
+        framebuffer, which consumers read as it is). The first image, or
+        one of a new shape, is copied to the host so that the texture stack
+        rebuild sees its shape (a topology change); after that the slot
+        holds a lazy stand-in and only the dynamic version moves. A tensor
+        on another device raises: it is never moved."""
+        if not isinstance(img, torch.Tensor):
+            raise TypeError("SetDeviceImage takes a torch.Tensor, not "
+                            f"{type(img).__name__}")
+        dev = self.context.device
+        if img.device.type != dev.type or (
+                dev.index is not None and img.device.index != dev.index):
+            raise ValueError(f"SetDeviceImage: the image is on {img.device}, "
+                             f"the context renders on {dev}")
+        self._device_chw = bool(chw)
+        shape_hwc = ((img.shape[1], img.shape[2], img.shape[0]) if chw
+                     else tuple(img.shape))
+        same_shape = (len(self.slots) > slot
+                      and self.slots[slot] is not None
+                      and tuple(self.slots[slot].shape) == shape_hwc)
+        self._device_image = img
+        self._device_slot = slot
+        while len(self.slots) <= slot:
+            self.slots.append(None)
+        if same_shape:
+            self.slots[slot] = _LazyDeviceImage(img, chw)
+        else:
+            self.slots[slot] = _LazyDeviceImage(img, chw).to_host()
+        self.data_version += 1
+        if same_shape:
+            self.context._bump_dynamic()
+        else:
+            self.context._bump_topology()
 
     def current_image(self) -> np.ndarray | None:
-        return self.slots[self.current_slot] if self.slots else None
+        img = self.slots[self.current_slot] if self.slots else None
+        if isinstance(img, _LazyDeviceImage):
+            return img.to_host()
+        return img
 
     def max_alpha_pyramid(self):
         """Conservative per-region alpha bounds: a MAX-mip pyramid of the

@@ -54,7 +54,6 @@ from ..raster.types import (
     TEXGEN_CHROME, TEXGEN_CUBE, TEXGEN_PLANAR, TEXGEN_REFLECT,
     VXTEXTURE_ADDRESS, VXTEXTURE_FILTER,
 )
-from ..roadmap import unported
 from ..scene.entity_table import compose_world
 from .lighting import LightArray, MaterialLighting, compute_vertex_lighting, fog_factor
 from .overlay import QuadBank, Sprite3DBank, apply_billboards, composite_quads
@@ -1060,10 +1059,43 @@ def eval_anim_world(local, parent, anim, anim_t, levels):
     return compose_world(apply_bank(local, anim, anim_t), parent, levels)
 
 
-def _apply_tex_patch(static: dict, d: dict, layout: tuple) -> torch.Tensor:
-    """Per-frame video-texture texels (packed in the dyn f32 buffer) scatter
-    into the texture stack via precomputed channel-last indices."""
+def mip_box(cur: torch.Tensor) -> torch.Tensor:
+    """The next mip level of a (4, h, w) image: each texel the mean of a
+    2x2 block (odd trailing rows and columns dropped), summed as
+    (t00 + t01) + (t10 + t11), then divided by 4. That is how the
+    reference's XLA reduction (``mean(axis=(1, 3))``) associates the sum
+    on the CPU when the level above is a power of two wide, as every level
+    of a 512x384 feed is; at other widths it sums ((t00 + t01) + t10) +
+    t11, within two f32 ULPs of this (tests/test_torch_rtt.py). bf16
+    levels sum in f32, as ``jnp.mean`` does."""
+    nh, nw = max(cur.shape[1] // 2, 1), max(cur.shape[2] // 2, 1)
+    x = cur[:, :nh * 2, :nw * 2].to(torch.float32).reshape(4, nh, 2, nw, 2)
+    total = (x[:, :, 0, :, 0] + x[:, :, 0, :, 1]) \
+        + (x[:, :, 1, :, 0] + x[:, :, 1, :, 1])
+    return (total / 4.0).to(cur.dtype)
+
+
+def _apply_tex_patch(static: dict, d: dict, layout: tuple, texdev=None,
+                     texdev_rects: tuple = ()) -> torch.Tensor:
+    """Per-frame texture updates applied inside the frame (reference
+    frame.py:1201-1239): device-resident images (render-to-texture feeds,
+    ``texdev``, one rect ``(plane, oy, ox, h, w, mip_col, levels, chw)``
+    each) are written into a copy of the stack with their mip chain; then
+    video-texture texels (packed in the dyn f32 buffer) scatter via
+    precomputed channel-last indices."""
     planes = static["tex_planes"]
+    if texdev:
+        planes = planes.clone()
+        for img, rect in zip(texdev, texdev_rects):
+            pi, oy, ox, h, w, mip_col, levels, chw = rect
+            # A (4, H, W) feed (a framebuffer) is the stack's own layout.
+            cur = (img if chw else img.permute(2, 0, 1)).to(planes.dtype)
+            planes[pi, :, oy:oy + h, ox:ox + w] = cur
+            for lv in range(1, levels):
+                cur = mip_box(cur)
+                y_off = 0 if lv == 1 else h - (h >> (lv - 1))
+                planes[pi, :, oy + y_off:oy + y_off + cur.shape[1],
+                       ox + mip_col:ox + mip_col + cur.shape[2]] = cur
     if not has_field(layout, "tex_patch") or "texpatch_idx" not in static:
         return planes
     idx = static["texpatch_idx"].long()
@@ -1111,9 +1143,8 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     of the scaled quad rects at the render size. ``host_stats``, ``flags``
     and ``peel_rounds``: as in :func:`render_frame_impl` (a device-decided
     frame reads nothing back)."""
-    if texdev:
-        raise unported("render-to-texture feeds", 17)
-    scene, d = unpack_scene(static, dyn_f, dyn_i, layout, ss=ss)
+    scene, d = unpack_scene(static, dyn_f, dyn_i, layout, ss=ss,
+                            texdev=texdev, texdev_rects=texdev_rects)
     rh, rw = height * ss, width * ss
     if ss > 1:
         if prev_fb is not None:
@@ -1157,6 +1188,18 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     stats = out[-1:] if want_stats else ()
     planes = out[:-1] if want_stats else out
     return box_resolve(*planes, ss=ss) + stats
+
+
+def side_by_side(left: torch.Tensor, right: torch.Tensor,
+                 width: int) -> torch.Tensor:
+    """The stereo composite of two eyes' frames (or per-pixel maps) of
+    ``width`` columns (reference rendercontext.py:2993-2997): each half
+    holds every other column of its eye, so the result is 2 * (width // 2)
+    columns wide; an odd width loses its last column, as in the
+    reference."""
+    half = width // 2
+    return torch.cat([left[..., ::2][..., :half],
+                      right[..., ::2][..., :half]], dim=-1)
 
 
 def box_resolve(fb, zb, sb=None, ss: int = 2) -> tuple:
@@ -1228,9 +1271,12 @@ def packed_setup(static: dict, dyn_f, dyn_i, params: dict):
     return scene, batch, setup, defer_tri, tri_bits
 
 
-def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple, ss: int = 1):
+def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple, ss: int = 1,
+                 texdev=None, texdev_rects: tuple = ()):
     """Packed buffers -> (SceneDevice, raw field dict): the device-side
-    inverse of CKRenderContext._fill_packed.
+    inverse of CKRenderContext._fill_packed. ``texdev`` /
+    ``texdev_rects``: this frame's render-to-texture feeds
+    (:func:`_apply_tex_patch`).
 
     ``ss``: the Antialias supersample factor. Every pixel-space quantity —
     viewport, entity scissors, 2D quad rects — is multiplied by ss in f32
@@ -1268,7 +1314,8 @@ def unpack_scene(static: dict, dyn_f, dyn_i, layout: tuple, ss: int = 1):
         fog_mode=d["fog_mode"], fog_start=d["fog_start"],
         fog_end=d["fog_end"], fog_density=d["fog_density"],
         fog_color=d["fog_color"],
-        tex_planes=_apply_tex_patch(static, d, layout),
+        tex_planes=_apply_tex_patch(static, d, layout, texdev,
+                                    texdev_rects),
         tex_hw=static["tex_hw"], clear_color=d["clear_color"],
         clear_z=d["clear_z"],
         clip_planes=(d["clip_planes"]

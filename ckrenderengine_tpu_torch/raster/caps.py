@@ -8,9 +8,9 @@ the capability set is static per driver: driver 0 is the CUDA card, which
 draws through ``raster.torch_backend``; driver 1 the software entry (the
 numpy NULL oracle, ``raster.null_backend``), as in the reference's table.
 
-The caps describe this package as it is: a render target texture is
-refused by ``Render()`` (port queue item 17), so
-``supports_render_to_texture`` is False where the reference says True.
+The caps describe this package as it is: ``Render()`` hands each frame of a
+context with a target texture to that texture on the device, so
+``supports_render_to_texture`` is True, as in the reference.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ class Vx3DCapsDesc:
     supports_mipmaps: bool = True
     supports_cube_maps: bool = True   # octahedral env maps
     supports_stencil: bool = True
-    supports_render_to_texture: bool = False  # Render() raises item 17
+    supports_render_to_texture: bool = True   # SetTargetTexture
     supports_user_clip_planes: bool = True   # per-entity scissor rects
     vertex_shader_version: int = 0      # fixed-function model only
     pixel_shader_version: int = 0

@@ -14,9 +14,8 @@ PORT_QUEUE = {
     14: "scene IO, and fonts, sizes or characters without a baked glyph "
         "table",
     16: "progressive meshes",
-    17: "remaining host API (stereo, render-to-texture, picking, "
-        "immediate-mode draws, debug stepping, grids, the scene graph, "
-        "inverse kinematics)",
+    17: "remaining host API (picking, immediate-mode draws, debug "
+        "stepping, grids, the scene graph, inverse kinematics)",
 }
 
 

@@ -13,8 +13,9 @@ without the sheet), ``bench.build_scene`` (config 5) and
 alpha-test cutout scene, config 2 with a stencil-only mesh and config 5
 with a level's effects (``build_config5_fx``: sprites, curves, lines),
 material effects (``build_config5_mat``: TexGen, cube env, EMBM, effect
-passes, channels) and user shaders (``build_config5_shaded``), made from
-seeds; sizes are
+passes, channels), user shaders (``build_config5_shaded``) and a live
+monitor fed by render-to-texture, in stereo (``build_config5_monitor``),
+made from seeds; sizes are
 parameters so the tests can cut the frame, the hierarchy, the terrain, the
 sheets and the skinned tube down. Every build function takes
 ``antialias=True`` to switch the render manager's Antialias option on (the
@@ -670,6 +671,69 @@ def build_config5_shaded(O, width: int = 1024, height: int = 768,
     rc.SetVertexShader(vs)
     rc.SetPixelShader(ps)
     return ctx, rc, spinner
+
+
+def build_config5_monitor(O, width: int = 1024, height: int = 768,
+                          target=(512, 384), stereo=None,
+                          terrain_n: int = 500, n_balls: int = 64,
+                          antialias: bool = False, **ctx_kw):
+    """Config 5 (:func:`build_config5`) with a live monitor: a second
+    render context of size ``target`` (the producer) renders the level
+    from a security camera high over the field into a target texture
+    (``SetTargetTexture``), and a 9.6 x 7.2 screen in the level, 40 units in
+    front of the main camera, samples that texture with a trilinear
+    (``LINEARMIPLINEAR``) filter through an emissive white material. The
+    producer's camera does not see the screen. ``stereo``:
+    (eye_separation, focal_length) switches the main context to stereo —
+    (1.2, 60.0) at full size, the main camera standing 60 units from the
+    origin. Each tick: rotate ``spinner`` about y, Render() the producer,
+    then the main context. Returns (ctx, rc, producer, spinner)."""
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, antialias=antialias,
+                                     **ctx_kw)
+    place_main = ctx.GetObjectByName("place_main")
+    producer = ctx.GetRenderManager().CreateRenderContext(*target)
+    cam = O.CKCamera(ctx, "monitor_cam")
+    cam.SetPosition((0.0, 40.0, -30.0))
+    cam.SetOrientation((0.0, -0.5, 1.0))
+    cam.SetFov(0.9)
+    cam.SetFrontPlane(1.0)
+    cam.SetBackPlane(4000.0)
+    cam.SetParent(place_main)
+    producer.AttachViewpointToCamera(cam)
+    producer.SetFogMode(3)
+    producer.SetFogStart(60.0)
+    producer.SetFogEnd(400.0)
+    producer.SetFogColor((0.35, 0.4, 0.5))
+    producer.SetBackgroundColor((0.35, 0.4, 0.5, 1.0))
+    producer.EnablePortalTraversal(True)
+    feed = O.CKTexture(ctx, "monitor_feed")
+    producer.SetTargetTexture(feed)
+
+    quad = O.CKMesh(ctx, "screen_mesh")
+    quad.SetPositions(np.array(
+        [[-4.8, 6.5, -20.0], [4.8, 6.5, -20.0], [4.8, 13.7, -20.0],
+         [-4.8, 13.7, -20.0]], np.float32))
+    quad.SetFaces(np.array([[0, 2, 1], [0, 3, 2]], np.int32))
+    # Row 0 of the feed is the top of the producer's frame.
+    quad.SetUVs(np.array([[0, 1], [1, 1], [1, 0], [0, 0]], np.float32))
+    quad.BuildNormals()
+    mat = O.CKMaterial(ctx, "screenmat")
+    mat.SetDiffuse((0.0, 0.0, 0.0, 1.0))
+    mat.SetAmbient((0.0, 0.0, 0.0, 1.0))
+    mat.SetSpecular((0.0, 0.0, 0.0, 1.0))
+    mat.SetEmissive((1.0, 1.0, 1.0, 1.0))
+    mat.SetTwoSided(True)
+    mat.SetTexture(feed)
+    mat.SetTextureMinMode(int(VXTEXTURE_FILTER.LINEARMIPLINEAR))
+    mat.SetTextureMagMode(int(VXTEXTURE_FILTER.LINEARMIPLINEAR))
+    quad.ApplyGlobalMaterial(mat)
+    screen = O.CK3dObject(ctx, "screen")
+    screen.SetCurrentMesh(quad)
+    screen.SetParent(place_main)
+    if stereo is not None:
+        rc.SetStereoParameters(*stereo)
+    return ctx, rc, producer, spinner
 
 
 def _terrain_height(x, z, amp: float = 4.0):

@@ -826,3 +826,98 @@ def fx_explained(pair, eps=1e-3, eps_z=1e-5):
         out |= line_band(rows, h, w, lo, hi, np.maximum(delta, eps),
                          np.maximum(delta_z, eps_z))
     return out if ss == 1 else win_max(out, ss)
+
+
+# Small scenes of the reference's render-to-texture and stereo tests
+# (tests/test_aux.py, tests/test_texture_atlas.py), built through either
+# object model. Their 64x64 flat-route frames are held to the reference's
+# within ATOL, the f32 rounding of their lit and textured shades.
+ATOL = 2e-5
+
+
+def small_ctx(P):
+    """A ``CKContext`` of package ``P``: the port's on the CPU."""
+    if P.__name__.startswith("ckrenderengine_tpu_torch"):
+        return P.CKContext(device="cpu")
+    return P.CKContext()
+
+
+def tri_scene(P, ctx, emissive=(1, 0, 0, 1)):
+    """The reference's one-triangle scene (tests/test_aux.py:14-27)."""
+    mesh = P.CKMesh(ctx, "t")
+    mesh.SetPositions(np.array([[-1, -1, 0], [0, 1, 0], [1, -1, 0]],
+                               np.float32))
+    mesh.SetFaces(np.array([[0, 1, 2]], np.int32))
+    mesh.SetUVs(np.array([[0, 1], [0.5, 0], [1, 1]], np.float32))
+    mesh.BuildNormals()
+    mat = P.CKMaterial(ctx, "m")
+    mat.SetEmissive(emissive)
+    mat.SetTwoSided(True)
+    mesh.ApplyGlobalMaterial(mat)
+    obj = P.CK3dObject(ctx, "tri")
+    obj.SetCurrentMesh(mesh)
+    return obj, mesh, mat
+
+
+def small_rc(P, ctx, w=64, h=64, name="cam"):
+    """A ``w`` x ``h`` render context whose camera ``name`` stands at
+    z = -4 (tests/test_aux.py:30-36)."""
+    rc = ctx.GetRenderManager().CreateRenderContext(w, h)
+    cam = P.CKCamera(ctx, name)
+    cam.SetPosition((0, 0, -4))
+    rc.AttachViewpointToCamera(cam)
+    return rc
+
+
+def textured_quad(P, ctx, tex, name="screen", x0=-1.0, x1=1.0):
+    """A two-sided emissive quad textured by ``tex``."""
+    quad = P.CKMesh(ctx, name + "_m")
+    quad.SetPositions(np.array([[x0, -1, 0], [x1, -1, 0], [x1, 1, 0],
+                                [x0, 1, 0]], np.float32))
+    quad.SetFaces(np.array([[0, 2, 1], [0, 3, 2]], np.int32))
+    quad.SetUVs(np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32))
+    quad.BuildNormals()
+    qmat = P.CKMaterial(ctx, name + "_mat")
+    qmat.SetEmissive((1, 1, 1, 1))
+    qmat.SetTwoSided(True)
+    qmat.SetTexture(tex)
+    quad.ApplyGlobalMaterial(qmat)
+    screen = P.CK3dObject(ctx, name)
+    screen.SetCurrentMesh(quad)
+    return screen
+
+
+def rtt_chain(P):
+    """The reference's render-to-texture chain
+    (tests/test_texture_atlas.py:168-205): ``rc1`` renders a spinning lit
+    triangle into ``rtt``, ``rc2`` a quad textured by ``rtt``. Returns
+    (ctx, rc1, rc2, spin, rtt)."""
+    ctx = small_ctx(P)
+    rc1 = small_rc(P, ctx, name="c1")
+    mesh = P.CKMesh(ctx, "tri")
+    mesh.SetPositions(np.array([[-1, -1, 0], [0, 1.5, 0], [1, -1, 0]],
+                               np.float32))
+    mesh.SetFaces(np.array([[0, 1, 2]], np.int32))
+    mesh.BuildNormals()
+    mat = P.CKMaterial(ctx, "m")
+    mat.SetDiffuse((1, 0.1, 0.1, 1))
+    mesh.ApplyGlobalMaterial(mat)
+    spin = P.CK3dObject(ctx, "spin")
+    spin.SetCurrentMesh(mesh)
+    rc1.AddObject(spin)
+    rc1.AddObject(rc1.GetAttachedCamera())
+    rtt = P.CKTexture(ctx, "rtt")
+    rc1.SetTargetTexture(rtt)
+    rc2 = small_rc(P, ctx, name="c2")
+    screen = textured_quad(P, ctx, rtt)
+    rc2.AddObject(screen)
+    rc2.AddObject(rc2.GetAttachedCamera())
+    return ctx, rc1, rc2, spin, rtt
+
+
+def assert_frames_close(rc_t, rc_j):
+    """The port context's fb and zb within ATOL of the reference's."""
+    fb_t, fb_j = rc_t.framebuffer(), rc_j.framebuffer()
+    assert fb_t.shape == fb_j.shape
+    np.testing.assert_allclose(fb_t, fb_j, atol=ATOL)
+    np.testing.assert_allclose(rc_t.zbuffer(), rc_j.zbuffer(), atol=ATOL)

@@ -51,7 +51,7 @@ def _rc():
 
 def test_render_context_surface():
     rm, rc = _rc()
-    assert _check_surface(jm.CKRenderContext, rc) == 97
+    assert _check_surface(jm.CKRenderContext, rc) == 95
     assert rc.GetRasterizerContext() is rc and rc.ChangeDriver(1)
     with pytest.raises(NotImplementedError, match="item 14"):
         rc.DumpToFile("frame.png")

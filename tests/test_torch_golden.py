@@ -4,8 +4,9 @@ accelerator branch, so they carry the quantized rows of a tiled frame):
 config 2, the untextured transparency scene whose ordered pass both
 packages run through kernel B3, the effects level whose 3D sprites
 take the textured peel B4 and whose curves, wireframe grid and line list
-take the line pass, and the shaded level, whose user stages run in the
-per-pixel-gather shade and in the flat ordered pass. The reference still reproduces the first two, and the
+take the line pass, the shaded level, whose user stages run in the
+per-pixel-gather shade and in the flat ordered pass, and the monitor
+level in stereo, whose screen samples a live render-to-texture feed. The reference still reproduces the first two, and the
 port on the CPU matches all three. The bounds are the slice's
 (tests/test_torch_slice.py): opaque winner ids equal on >= 99.9% of the
 pixels, and the 8-bit image within one step wherever the winners agree;
@@ -28,6 +29,7 @@ GOLDEN = np.load(make_golden.OUT)
 ALPHA = np.load(make_golden.ALPHA_OUT)
 FX = np.load(make_golden.FX_OUT)
 SHADER = np.load(make_golden.SHADER_OUT)
+MONITOR = np.load(make_golden.MONITOR_OUT)
 
 
 def _check(rgba, ids, golden=GOLDEN, max_off=0.0):
@@ -129,3 +131,41 @@ def test_port_matches_shader_golden(device):
     _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
                                  torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids), SHADER)
+
+
+def test_monitor_golden_file_is_small():
+    assert os.path.getsize(make_golden.MONITOR_OUT) <= 300_000
+
+
+@pytest.mark.parametrize("device", ["cpu"])
+def test_port_matches_monitor_golden(device):
+    """The monitor level in stereo at its second tick: the main context
+    samples the producer's live feed, so Render() takes the stereo
+    fallback (each eye a tiled frame with the feed and its mips written
+    into the stack); the winner ids are the two eyes' side by side. The
+    screen shows the producer's frame, which the two packages render
+    within these same bounds: where the producers' winners differ (ties
+    on an edge), the texels differ, and trilinear filtering spreads each
+    over a few screen pixels. So 0.1% of the matching pixels may differ
+    by more than one 8-bit step, and only on the screen."""
+    import ckrenderengine_tpu_torch.objects as O
+
+    rc, _producer = make_golden.monitor_ticks(O, device=device)
+    rc.Render()
+    assert rc.GetStats().StereoEagerFallback and rc._compiled.dev_ids
+    static, eyes, dyn_i, params = make_golden.stereo_inputs(rc)
+    assert params["texdev"] and params["sampler_profile"][1]
+    ids = make_golden.side_by_side(*(
+        to_np(port_winners(static, torch.as_tensor(df, device=device),
+                           torch.as_tensor(dyn_i, device=device),
+                           params)[2]) for df in eyes), rc.width)
+    rgba = rc.BackToFront()
+    _check(rgba, ids, MONITOR, max_off=1e-3)
+    c = rc._compiled
+    entity = c.vert_entity[c.tri_idx[:, 0]]
+    screen = rc.context.GetObjectByName("screen").row
+    diff = np.abs(rgba.astype(np.int32)
+                  - MONITOR["rgba"].astype(np.int32)).max(-1)
+    off = (diff > 1) & (ids == MONITOR["ids"])
+    on_screen = (ids >= 0) & (entity[ids] == screen)
+    assert np.all(on_screen[off]) and on_screen.mean() > 0.05

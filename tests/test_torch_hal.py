@@ -9,9 +9,9 @@ Where both packages run a case, the port's states, object indices,
 counters, buffers, sprite blits and geometry services equal the
 reference's. Deliberate differences (README port section): driver 0 is the
 CUDA card (``cuda-torch``), each driver carries its own entry of
-``enumerate_drivers``, ``supports_render_to_texture`` is False, and
-``GetPreferredSoftwareDriver`` answers 1 (the reference's reads a field
-the table lacks and answers 0).
+``enumerate_drivers``, and ``GetPreferredSoftwareDriver`` answers 1 (the
+reference's reads a field the table lacks and answers 0).
+``supports_render_to_texture`` is True, as in the reference.
 """
 
 import numpy as np
@@ -370,7 +370,7 @@ class TestCapsAndDriverTable:
         assert hw.is_hardware and not sw.is_hardware
         caps = rm.GetDriverCaps(0)
         assert caps.max_texture_width >= 4096
-        assert not caps.supports_render_to_texture   # Render() raises it
+        assert caps.supports_render_to_texture       # SetTargetTexture
         assert rm.GetDriver(1) == sw
         assert rm.GetPreferredSoftwareDriver() == 1
         rc = rm.CreateRenderContext(16, 16)
@@ -384,7 +384,8 @@ class TestCapsAndDriverTable:
             a, b = rm.GetDriverCaps(i), jrm.GetDriverCaps(i)
             for f in ("max_texture_width", "max_texture_height",
                       "max_clip_planes", "supports_cube_maps",
-                      "supports_stencil", "supports_mipmaps"):
+                      "supports_stencil", "supports_mipmaps",
+                      "supports_render_to_texture"):
                 assert getattr(a, f) == getattr(b, f)
 
     def test_quirks_file_clamps_caps(self, tmp_path):
