@@ -900,6 +900,9 @@ def main() -> int:
     # --- 4i. render-to-texture and stereo: the monitor level ---------------
     monitor_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4j. the render context and manager API ----------------------------
+    api_phase(O, scenes, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1549,6 +1552,204 @@ def monitor_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
           f"golden monitor_320x240: launches {got}")
     emit("monitor_phase", seconds=round(time.monotonic() - t_phase, 1))
     return dev
+
+
+API_WINDOW = 8
+API_STEP = 5.0       # world units the camera moves before the DrawScene
+
+
+def plain_b1():
+    """Swap B1's wrapper for its plain version (no launch counted) while
+    the returned function has not been called; it restores the wrapper."""
+    from ckrenderengine_tpu_torch.raster import cuda_tiled
+
+    kernel = cuda_tiled.solve_tiled_kernel
+
+    def plain(*args, kchunk: int = 128):
+        return cuda_tiled.solve_phase_b_plain(*args)
+
+    cuda_tiled.solve_tiled_kernel = plain
+
+    def restore():
+        cuda_tiled.solve_tiled_kernel = kernel
+
+    return restore
+
+
+def api_phase(O, scenes, kernel_fns, launches, card) -> dict:
+    """The render context and manager API through Render() on the card:
+    ``scenes.build_config5`` (528,032 triangles) at 1024x768.
+
+    - Render(), then BackupScreen().
+    - SetGlobalRenderMode(texture=False), Render(): the winner ids and the
+      depth equal the textured frame's, the colours differ where it
+      sampled a texture; texturing back on.
+    - RestoreScreenBackup(): DumpToMemory() equals the first frame bit
+      for bit.
+    - Render(), CopyFromMemoryBuffer of a seeded 1024x768 image, the
+      camera API_STEP forward, DrawScene(): B1 once, with the kept depth,
+      and nothing else; pixels it does not draw keep the image. The same
+      sequence with B1's plain version on the card gives the same fb and
+      zb bit for bit.
+    - A post-sprite callback, a post-render callback and a temporary
+      pre-render callback fire once per Render() in the reference's order
+      (temporary, post-sprite, post), eagerly and in a window of
+      API_WINDOW; after PostProcess() the temporary one is gone.
+    - DestroyDevice() lowers torch.cuda.memory_allocated() by at least
+      the bytes of the compiled scene's uploads (GetMemoryOccupation()
+      less fb and zb) and drops the window's graphs; the next Render()
+      equals the first frame bit for bit.
+    - Process() renders the context and skips an inactive second one."""
+    t_phase = time.monotonic()
+    b1_start = launches["B1"]
+    ctx, rc, _spinner = scenes.build_config5(O, device="cuda")
+    rm = ctx.GetRenderManager()
+    cam = rc.GetAttachedCamera()
+    home = cam.GetLocalMatrix()
+    step = home.copy()
+    fwd = home[2, :3] / np.linalg.norm(home[2, :3])
+    step[3, :3] += API_STEP * fwd
+    frames = {"first": render_counted(rc, kernel_fns, launches)}
+    fb0, zb0 = rc.fb.clone(), rc.zb.clone()
+    ids0 = winners(rc)
+    rc.BackupScreen()
+
+    rc.SetGlobalRenderMode(texture=False)
+    frames["texture_off"] = render_counted(rc, kernel_fns, launches)
+    ids1 = winners(rc)
+    ids_equal = bool(np.array_equal(ids0, ids1))
+    zb_equal = bool(torch.equal(rc.zb, zb0))
+    untextured = int((rc.fb != fb0).any(0).sum())
+    check(ids_equal and zb_equal, "api: the untextured frame's winners or "
+          "depths differ from the textured frame's")
+    check(untextured > 0, "api: texturing off changed no pixel")
+    rc.SetGlobalRenderMode(texture=True)
+    check(rc.RestoreScreenBackup(), "api: no screen backup")
+    restored = bool(np.array_equal(
+        rc.DumpToMemory(), np.moveaxis(fb0.cpu().numpy(), 0, -1)))
+    check(restored, "api: the restored screen differs from the first frame")
+
+    image = np.random.default_rng(18).integers(
+        0, 256, (rc.height, rc.width, 3), dtype=np.uint8)
+
+    def draw_over(name):
+        cam.SetLocalMatrix(home)
+        frames[name + "_render"] = render_counted(rc, kernel_fns, launches)
+        check(rc.CopyFromMemoryBuffer(image), "api: CopyFromMemoryBuffer")
+        under = (rc.fb.clone(), rc.zb.clone())
+        cam.SetLocalMatrix(step)
+        reset_launches(kernel_fns.values())
+        rc.DrawScene()
+        torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in kernel_fns.items()}
+        for k in got:
+            launches[k] += got[k]
+        frames[name] = {"launches": got}
+        return under, (rc.fb.clone(), rc.zb.clone())
+
+    (fb_img, zb_kept), (fb_ds, zb_ds) = draw_over("draw_scene")
+    want = {k: 0 for k in kernel_fns}
+    want["B1"] = 1
+    check(frames["draw_scene"]["launches"] == want,
+          f"api: the DrawScene frame launched {frames['draw_scene']}")
+    img = torch.as_tensor(np.moveaxis(image, -1, 0).astype(np.float32)
+                          / 255.0, device="cuda")
+    check(torch.equal(fb_img[:3], img) and bool((fb_img[3] == 1).all())
+          and torch.equal(zb_kept, zb0),
+          "api: CopyFromMemoryBuffer did not write the image over the "
+          "kept depth")
+    drawn = zb_ds != zb_kept
+    drawn_frac = float(drawn.float().mean())
+    behind = int((zb_ds[drawn] > zb_kept[drawn]).sum())
+    recoloured = int((fb_ds != fb_img).any(0)[~drawn].sum())
+    check(0.05 < drawn_frac < 1.0, f"api: DrawScene drew {drawn_frac}")
+    check(behind == 0 and recoloured == 0,
+          f"api: DrawScene drew {behind} pixels behind the kept depth and "
+          f"changed {recoloured} it did not draw")
+    restore = plain_b1()
+    try:
+        _under, (fb_p, zb_p) = draw_over("draw_scene_plain")
+    finally:
+        restore()
+    plain_equal = bool(torch.equal(fb_p, fb_ds) and torch.equal(zb_p, zb_ds))
+    check(frames["draw_scene_plain"]["launches"]["B1"] == 0,
+          "api: the plain sequence launched B1")
+    check(plain_equal, "api: the DrawScene frame differs from the same "
+          "sequence with B1's plain version")
+
+    cam.SetLocalMatrix(home)
+    seen = []
+    rc.AddPostSpriteRenderCallBack(lambda dev, a: seen.append("sprite"))
+    rc.AddPostRenderCallBack(lambda dev, a: seen.append("post"))
+    order = ["temp", "sprite", "post"]
+    calls = {}
+    for window in (1, API_WINDOW):
+        rc.SetFramePipelining(window)
+        rm.AddTemporaryPreRenderCallback(lambda dev, a: seen.append("temp"),
+                                         rc=rc)
+        seen.clear()
+        reset_launches(kernel_fns.values())
+        for _ in range(window):
+            rc.Render()
+        rm.PostProcess()
+        rc.Render()
+        rc.SetFramePipelining(1)
+        torch.cuda.synchronize()
+        for k, fn in kernel_fns.items():
+            launches[k] += fn.launches
+        calls[window] = list(seen)
+        check(seen == order * window + order[1:],
+              f"api: callbacks at W = {window}: {seen}")
+    rc.ClearCallbacks()
+
+    torch.cuda.synchronize()
+    held = rc.GetMemoryOccupation() - sum(
+        b.numel() * b.element_size() for b in (rc.fb, rc.zb))
+    mem_before = torch.cuda.memory_allocated()
+    check(rc.DestroyDevice(), "api: DestroyDevice")
+    mem_after = torch.cuda.memory_allocated()
+    freed = mem_before - mem_after
+    check(held > 0 and freed >= held and rc._window is None
+          and rc._batch is None,
+          f"api: DestroyDevice freed {freed} bytes of the {held} the "
+          f"compiled scene's uploads held, window {rc._window}, batch "
+          f"{rc._batch}")
+    frames["rebuilt"] = render_counted(rc, kernel_fns, launches)
+    rebuilt_equal = bool(torch.equal(rc.fb, fb0) and torch.equal(rc.zb, zb0))
+    check(rebuilt_equal, "api: the frame after DestroyDevice differs from "
+          "the first")
+
+    rc2 = rm.CreateRenderContext(64, 48)
+    rc2.AttachViewpointToCamera(cam)
+    hits = []
+    rc.AddPreRenderCallBack(lambda dev, a: hits.append("rc"))
+    rc2.AddPreRenderCallBack(lambda dev, a: hits.append("rc2"))
+    rc2.Activate(False)
+    reset_launches(kernel_fns.values())
+    rm.Process()
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in kernel_fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    check(hits == ["rc"] and got == want,
+          f"api: Process() rendered {hits}, launches {got}")
+    seconds = time.monotonic() - t_phase
+    emit("api", config="config5", card=card, size=[rc.width, rc.height],
+         triangles=int(rc._compiled.n_valid_tris),
+         frame_ms={k: round(v["frame_ms"], 3) for k, v in frames.items()
+                   if "frame_ms" in v},
+         draw_scene_launches=frames["draw_scene"]["launches"],
+         draw_scene_drawn_frac=drawn_frac,
+         draw_scene_equals_plain_b1=plain_equal,
+         untextured_ids_equal=ids_equal, untextured_pixels=untextured,
+         restored_equals_first=restored, callbacks=calls,
+         memory_allocated_mib=[round(mem_before / 2**20, 1),
+                               round(mem_after / 2**20, 1)],
+         destroy_freed_bytes=freed, scene_upload_bytes=held,
+         rebuilt_equals_first=rebuilt_equal, process_rendered=hits,
+         b1_launches=launches["B1"] - b1_start)
+    emit("api_phase", seconds=round(seconds, 1))
+    return frames
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

@@ -97,10 +97,7 @@ class CKRenderContext(CKObject):
                               device=dev)
         # Compile cache
         self._compiled = CompiledScene()
-        self._tex_planes = torch.zeros((1, 4, 1, 1), dtype=torch.float32,
-                                       device=dev)
-        self._tex_quad = None
-        self._tex_hw = torch.ones((1, 2), dtype=torch.int32, device=dev)
+        self._empty_texture_stack()
         # Stats
         self.stats = VxStats()
         self._fps_window_start = time.monotonic()
@@ -109,6 +106,7 @@ class CKRenderContext(CKObject):
         self._objects: list | None = None
         self.pre_render_callbacks: list = []
         self.post_render_callbacks: list = []
+        self.post_sprite_callbacks: list = []
         # Packed-transfer frame state (pipeline/packing.py)
         self._layout_sig = None
         self._layout = None
@@ -122,6 +120,16 @@ class CKRenderContext(CKObject):
         # index -> (plane eq, enabled); kept side is dot((p,1),eq) >= 0.
         self.user_clip_planes: dict[int, tuple] = {}
         self._global_render_mode = (2, True, False)   # (shading, tex, wire)
+        self._transparent_mode = False
+        self._state = 0
+        self._stencil_used_mask = 0
+        # Host-side stores of the API (reference rendercontext.py:3422-3561):
+        # dirty rects, texture-stage states and matrices, and the screen
+        # backup, kept on the device (BackupScreen).
+        self._dirty_rects: list = []
+        self._texture_stage_states: dict = {}
+        self._texture_matrices: dict = {}
+        self._screen_backup = None
 
     # -- frame windows (SetFramePipelining) ------------------------------
     def _pending(self) -> bool:
@@ -2669,6 +2677,11 @@ class CKRenderContext(CKObject):
                     rcb[0](self, obj, rcb[1])
                 for cb in list(getattr(obj, "post_render_callbacks", ())):
                     cb(self, obj)
+            # Post-sprite callbacks fire after the foreground 2D pass, so
+            # before the context's post-render callbacks (reference
+            # :2897-2900, CKRenderedScene::Draw :331-344).
+            for kind, fct, arg, _t in self.post_sprite_callbacks:
+                fct(self, arg)
             for kind, fct, arg, _t in self.post_render_callbacks:
                 fct(self, arg)
             for obj in list(self.context._cb_objects.values()):
@@ -2974,6 +2987,452 @@ class CKRenderContext(CKObject):
         frame program)."""
         return self
 
+    # -- render states and options (reference rendercontext.py:3197-3249,
+    # :3456-3460, :3541-3561, :3813-3818) -----------------------------------
+    def GetState(self) -> int:
+        """Context state word (reference GetState/SetState)."""
+        return self._state
+
+    def SetState(self, state: int):
+        self._state = int(state)
+
+    def SetTextureStageState(self, stage: int, state: int, value) -> bool:
+        """Stored per (stage, state), for the immediate-mode draws (not
+        ported yet: ``DrawPrimitive`` raises its item)."""
+        self._texture_stage_states[(int(stage), int(state))] = value
+        return True
+
+    def GetTextureStageState(self, stage: int, state: int):
+        return self._texture_stage_states.get((int(stage), int(state)))
+
+    def SetTextureMatrix(self, m, stage: int = 0) -> bool:
+        """Stored per stage, for the immediate-mode draws' UVs (not
+        ported yet)."""
+        self._texture_matrices[int(stage)] = np.asarray(m, np.float32)
+        return True
+
+    def GetTextureMatrix(self, stage: int = 0):
+        return self._texture_matrices.get(int(stage))
+
+    def SetGlobalRenderMode(self, shading: int = 2, texture: bool = True,
+                            wireframe: bool = False):
+        """Force shading / texturing / wireframe across every material. A
+        change of topology: the next frame lowers the material banks again
+        (``_material_banks``, textures off where ``texture`` is False)."""
+        self._global_render_mode = (int(shading), bool(texture),
+                                    bool(wireframe))
+        self.context._bump_topology()
+
+    def GetGlobalRenderMode(self):
+        return self._global_render_mode
+
+    def SetTransparentMode(self, trans: bool):
+        self._transparent_mode = bool(trans)
+
+    def GetTransparentMode(self) -> bool:
+        return self._transparent_mode
+
+    def ChangeCurrentRenderOptions(self, add: int = 0, remove: int = 0):
+        """Add and remove render-flag bits in one call."""
+        self.render_flags = (self.render_flags | int(add)) & ~int(remove)
+        return self.render_flags
+
+    # -- callbacks (reference :3435-3455, :3834) ---------------------------
+    def AddPostSpriteRenderCallBack(self, fct, arg=None, temp: bool = False):
+        """Fires after the foreground 2D pass, before the post-render
+        callbacks."""
+        self.post_sprite_callbacks.append(("postsprite", fct, arg, temp))
+
+    def RemovePostSpriteRenderCallBack(self, fct):
+        self.post_sprite_callbacks = [
+            cb for cb in self.post_sprite_callbacks if cb[1] is not fct]
+
+    def ExecutePreRenderCallbacks(self):
+        for _kind, fct, arg, _t in list(self.pre_render_callbacks):
+            fct(self, arg)
+
+    def ExecutePostRenderCallbacks(self):
+        for _kind, fct, arg, _t in list(self.post_render_callbacks):
+            fct(self, arg)
+
+    def ExecutePostSpriteCallbacks(self):
+        for _kind, fct, arg, _t in list(self.post_sprite_callbacks):
+            fct(self, arg)
+
+    def ClearCallbacks(self):
+        self.pre_render_callbacks = []
+        self.post_render_callbacks = []
+        self.post_sprite_callbacks = []
+
+    # -- drawing over kept buffers (reference :3251-3257, :3711-3742) ------
+    def DrawScene(self, flags: int = 0):
+        """Draw the scene without clearing: ``Render()`` with both clear
+        bits removed, over the kept colour and depth. Such a frame renders
+        eagerly, after any staged window (``_eager_only``)."""
+        flags = self.ResolveRenderFlags(int(flags))
+        flags &= ~(CK_RENDER_CLEARBACKBUFFER | CK_RENDER_CLEARZBUFFER)
+        return self.Render(flags | CK_RENDER_PLAYERCONTEXT)
+
+    def ClassifyTransparentOrder(self, ent_a, ent_b) -> int:
+        """Plane-classification tie-breaker of two transparent objects whose
+        Z extents overlap (reference src/CKSceneGraph.cpp:49-80): when one
+        box lies wholly on one side of the other's face plane, the box on
+        the camera's side draws last. -1: a first, +1: b first, 0: no
+        decision."""
+        cam = self.GetAttachedCamera()
+        if cam is None:
+            return 0
+        cam_pos = cam.GetWorldMatrix()[3, :3]
+        amin, amax = ent_a.GetBoundingBox()
+        bmin, bmax = ent_b.GetBoundingBox()
+
+        def classify(outer_min, outer_max, inner_min, inner_max):
+            # +1: the inner box draws after the outer one, -1: before.
+            for axis in range(3):
+                if inner_min[axis] >= outer_max[axis]:
+                    return +1 if cam_pos[axis] >= outer_max[axis] else -1
+                if inner_max[axis] <= outer_min[axis]:
+                    return +1 if cam_pos[axis] <= outer_min[axis] else -1
+            return 0
+
+        r = classify(amin, amax, bmin, bmax)
+        if r:
+            return -1 if r > 0 else +1
+        r = classify(bmin, bmax, amin, amax)
+        if r:
+            return +1 if r > 0 else -1
+        return 0
+
+    # -- buffer access (reference :3262-3271, :3422-3433, :3526-3539,
+    # :3846, :4002-4029) ----------------------------------------------------
+    def DumpToMemory(self, what: str = "color") -> np.ndarray:
+        """The framebuffer ('color', (H, W, 4)), depth ('z') or stencil
+        ('stencil') on the host."""
+        if what == "z":
+            return self.zbuffer()
+        if what == "stencil":
+            return self.stencilbuffer()
+        return self.framebuffer()
+
+    def CopyToMemoryBuffer(self, rect=None) -> np.ndarray:
+        """(h, w, 4) f32 host copy of the framebuffer region (None: all of
+        it)."""
+        fb = self.framebuffer()
+        if rect is None:
+            return fb.copy()
+        x0, y0, x1, y1 = (int(v) for v in rect)
+        return fb[y0:y1, x0:x1].copy()
+
+    def CopyFromMemoryBuffer(self, image, rect=None) -> bool:
+        """Write a host image (uint8 or f32, RGB or RGBA) into the
+        framebuffer at ``rect``'s corner (None: the origin), clipped to the
+        frame: one host-to-device copy into a copy of the current fb. The
+        read of ``fb`` resolves a pending window or batch first, so a later
+        ``DrawScene`` blends over exactly this image."""
+        img = np.asarray(image)
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        if img.shape[-1] == 3:
+            img = np.concatenate(
+                [img, np.ones(img.shape[:-1] + (1,), np.float32)], -1)
+        fb = self.fb
+        x0, y0 = (0, 0) if rect is None else (int(rect[0]), int(rect[1]))
+        h = min(img.shape[0], fb.shape[1] - y0)
+        w = min(img.shape[1], fb.shape[2] - x0)
+        if h <= 0 or w <= 0:
+            return False
+        patch = torch.from_numpy(np.ascontiguousarray(
+            np.moveaxis(img[:h, :w], -1, 0), dtype=np.float32))
+        fb = fb.clone()
+        fb[:, y0:y0 + h, x0:x0 + w] = patch.to(fb.device)
+        self.fb = fb
+        return True
+
+    def BackupScreen(self):
+        """Keep a copy of the framebuffer, on its device."""
+        self._screen_backup = self.fb.clone()
+
+    def RestoreScreenBackup(self) -> bool:
+        """Put the :meth:`BackupScreen` copy back (False without one). A
+        pending window or batch resolves first, so a frame staged before
+        the restore cannot overwrite it."""
+        if self._screen_backup is None:
+            return False
+        if self._pending():
+            self._sync_window()
+        self.fb = self._screen_backup.clone()
+        return True
+
+    def CopyToVideo(self) -> np.ndarray:
+        """System-to-video copy: the framebuffer already lives on the
+        device, so this is the present view."""
+        return self.framebuffer()
+
+    def AddDirtyRect(self, rect=None):
+        """Partial-present hint; the present is always the whole frame, so
+        the list is bookkeeping."""
+        self._dirty_rects.append(
+            tuple(rect) if rect is not None
+            else (0, 0, self.width, self.height))
+
+    def ResetDirtyRects(self):
+        self._dirty_rects = []
+
+    def GetDirtyRects(self) -> list:
+        return list(self._dirty_rects)
+
+    # -- queries (reference :3097-3194, :3462, :4095-4125) -----------------
+    def GetBoundingBox(self):
+        """World box (min (3,), max (3,)) of every 3D entity with a mesh,
+        or None."""
+        lo, hi = None, None
+        for obj in self.context._objects.values():
+            if isinstance(obj, CK3dEntity) and \
+                    obj.GetCurrentMesh() is not None:
+                bb = obj.GetBoundingBox()
+                if bb is None:
+                    continue
+                bmin, bmax = np.asarray(bb[0]), np.asarray(bb[1])
+                lo = bmin if lo is None else np.minimum(lo, bmin)
+                hi = bmax if hi is None else np.maximum(hi, bmax)
+        return None if lo is None else (lo, hi)
+
+    def GetObjectExtents(self, ent) -> tuple | None:
+        """Screen (left, top, right, bottom) of ``ent``'s world box under
+        the camera of the last frame (``_camera_np``'s), clipped to the
+        viewport; None when wholly behind the camera or before a frame."""
+        cam = getattr(self, "_last_cam", None)
+        if cam is None or ent.GetCurrentMesh() is None:
+            return None
+        view, proj, (vxp, vyp, vw, vh) = cam
+        bmin, bmax = ent.GetBoundingBox()
+        corners = np.array([[x, y, z, 1.0] for x in (bmin[0], bmax[0])
+                            for y in (bmin[1], bmax[1])
+                            for z in (bmin[2], bmax[2])], np.float32)
+        clip = corners @ view @ proj
+        w = clip[:, 3]
+        front = w > 1e-6
+        if not front.any():
+            return None
+        ndc = clip[front, :2] / w[front, None]
+        sx = vxp + (ndc[:, 0] + 1.0) * 0.5 * vw
+        sy = vyp + (1.0 - ndc[:, 1]) * 0.5 * vh
+        # A box across the near plane reaches the viewport's edges.
+        if not front.all():
+            return (float(vxp), float(vyp), float(vxp + vw), float(vyp + vh))
+        left = max(float(sx.min()), float(vxp))
+        top = max(float(sy.min()), float(vyp))
+        right = min(float(sx.max()), float(vxp + vw))
+        bottom = min(float(sy.max()), float(vyp + vh))
+        if left >= right or top >= bottom:
+            return None
+        return (left, top, right, bottom)
+
+    def CheckObjectExtents(self, ent) -> bool:
+        """True when ``ent`` has extents at the last frame."""
+        return self.GetObjectExtents(ent) is not None
+
+    def TransformVertices(self, points, ref=None):
+        """Local (under ``ref``'s world matrix) or world points to the
+        screen: (screen (N, 2), clip flags (N,) uint32, all off screen)."""
+        from ..math import vxmath as vx
+
+        pts = np.asarray(points, np.float32).reshape(-1, 3)
+        world = (np.asarray(ref.GetWorldMatrix(), np.float32)
+                 if ref is not None else np.eye(4, dtype=np.float32))
+        view, proj, _ = self._camera_np()
+        clip = np.concatenate(
+            [pts, np.ones((pts.shape[0], 1), np.float32)], -1) \
+            @ (world @ view @ proj)
+        flags = vx.np_clip_flags(clip)
+        vx0, vy0, vw, vh = self._effective_viewport()
+        w = np.where(np.abs(clip[:, 3]) < 1e-12, 1e-12, clip[:, 3])
+        sx = vx0 + vw * 0.5 + clip[:, 0] / w * (vw * 0.5)
+        sy = vy0 + vh * 0.5 - clip[:, 1] / w * (vh * 0.5)
+        screen = np.stack([sx, sy], -1).astype(np.float32)
+        offscreen = (bool(np.bitwise_and.reduce(flags) != 0)
+                     if flags.size else False)
+        return screen, flags, offscreen
+
+    def Transform(self, point, ref=None):
+        """One point to the screen."""
+        return self.TransformVertices([point], ref)[0][0]
+
+    def GetStencilFreeMask(self) -> int:
+        """The stencil bits taken so far (reference
+        src/CKRenderContext.cpp:2331-2347)."""
+        return self._stencil_used_mask
+
+    def UsedStencilBits(self, stencil_bits: int):
+        self._stencil_used_mask |= int(stencil_bits)
+
+    def GetFirstFreeStencilBits(self) -> int:
+        for i in range(32):
+            if not (self._stencil_used_mask >> i) & 1:
+                return i
+        return -1
+
+    def GetMemoryOccupation(self) -> int:
+        """Bytes of this context's device tensors in the reference's roles:
+        the compiled scene's vertex pool (positions, normals, uv, prelit)
+        and index streams (src_idx, tri_idx) as uploaded, and fb and zb."""
+        c = self._compiled
+        dev = dict(c._dev_pool or {}, **(c._dev_static or {}))
+        total = sum(dev[k].numel() * dev[k].element_size() for k in (
+            "positions", "normals", "uv", "prelit", "src_idx", "tri_idx")
+            if k in dev)
+        for b in (self.fb, self.zb):
+            total += b.numel() * b.element_size()
+        return int(total)
+
+    def GetPixelFormat(self):
+        """(colour bits, depth bits, stencil bits): f32 RGBA planes, an f32
+        depth plane and an 8-bit stencil plane."""
+        return (32, 32, 8)
+
+    def GetDirectXInfo(self):
+        return None
+
+    def GetBackgroundMaterial(self):
+        return self.background_material
+
+    def Compute3dRootObjects(self) -> list:
+        """Parentless 3D entities of this context."""
+        return [o for o in self._scene_entities()
+                if isinstance(o, CK3dEntity) and o.GetParent() is None]
+
+    def Compute2dRootObjects(self) -> list:
+        """Parentless 2D entities, background roots first, then by z order
+        and creation."""
+        roots = self._2d_roots()
+        roots.sort(key=lambda e: (not e.IsBackground(), e.zorder, e.id))
+        return roots
+
+    def IsObjectAttached(self, obj) -> bool:
+        """Membership test: every render object belongs to a context that
+        was never given an explicit list."""
+        if self._objects is None:
+            from .entity import CKRenderObject
+            return isinstance(obj, CKRenderObject)
+        return obj in self._objects
+
+    def SetFullViewport(self):
+        """The viewport becomes the whole surface."""
+        self.SetViewRect(0, 0, self.width, self.height)
+
+    def WarnEnterThread(self):
+        return None
+
+    def WarnExitThread(self):
+        return None
+
+    # Windowing: the port draws into device buffers, with no window or
+    # full-screen device of an operating system.
+    def GoFullScreen(self, *a, **kw) -> bool:
+        return False
+
+    def StopFullScreen(self) -> bool:
+        return False
+
+    def IsFullScreen(self) -> bool:
+        return False
+
+    def GetWindowHandle(self):
+        return None
+
+    def GetWindowRect(self, screen_relative: bool = False):
+        return (0, 0, self.width, self.height)
+
+    def SetWindowRect(self, rect, flags: int = 0):
+        return None
+
+    def ScreenToClient(self, pt):
+        return tuple(pt)
+
+    def ClientToScreen(self, pt):
+        return tuple(pt)
+
+    # -- lifecycle (reference :3090, :3483-3518, :3820-3833) ----------------
+    def ForceCameraSettingsUpdate(self):
+        cam = self.attached_camera
+        if cam is not None and hasattr(cam, "prepare"):
+            cam.prepare()
+        self.context._bump_dynamic()
+
+    def DetachAll(self):
+        """Detach every object from this context: an explicit, empty
+        membership."""
+        from .entity import CKRenderObject
+
+        for obj in self.context._objects.values():
+            if isinstance(obj, CKRenderObject):
+                obj._in_render_context_mask &= ~self.mask
+        self._objects = []
+        self.context._bump_topology()
+
+    def AddRemoveSequence(self, begin: bool):
+        """Bracket a burst of AddObject / RemoveObject calls, so that the
+        scene compiles once."""
+        if begin:
+            self.context.BeginAddRemoveSequence()
+        else:
+            self.context.EndAddRemoveSequence()
+
+    def PrepareCameras(self, flags: int = 0):
+        """Aim the target cameras and lights now and refresh the
+        projection (reference src/CKRenderedScene.cpp:484-536)."""
+        from .camera import CKTargetCamera
+        from .light import CKTargetLight
+
+        for o in list(self.context._objects.values()):
+            if isinstance(o, (CKTargetCamera, CKTargetLight)):
+                o.prepare()
+        self.UpdateProjection(True)
+
+    def UpdateProjection(self, force: bool = False) -> bool:
+        """Recompute the camera matrices ``_camera_np`` caches
+        (reference src/CKRenderContext.cpp:2783-2808)."""
+        self._cam_np_cache = None
+        _, proj, _ = self._camera_np()
+        return proj is not None
+
+    def DestroyDevice(self) -> bool:
+        """Free this context's device state: a pending window or batch is
+        resolved first (fb, zb and sb keep its frame), then the compiled
+        scene, its uploaded tensors, the texture stack and the captured
+        CUDA graphs of its windows and batches are dropped. The next
+        ``Render()`` compiles, uploads and captures them again."""
+        self._sync_window()
+        for graph in (self._window, self._batch):
+            if graph is not None:
+                graph.release()
+        self._window = self._batch = None
+        self._compiled = CompiledScene()
+        self._packed_static = self._packed_static_vers = None
+        self._sprites_static = None
+        self._video_patch_cache = None
+        self._layout_sig = None
+        self._empty_texture_stack()
+        if self.context.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return True
+
+    def _empty_texture_stack(self):
+        """The one-texel stack of a context with no compiled scene."""
+        dev = self.context.device
+        self._tex_planes = torch.zeros((1, 4, 1, 1), dtype=torch.float32,
+                                       device=dev)
+        self._tex_quad = None
+        self._tex_hw = torch.ones((1, 2), dtype=torch.int32, device=dev)
+
+    def OnClearAll(self):
+        """The context's ClearAll notification: drop the callbacks and the
+        membership, and the device state (:meth:`DestroyDevice`)."""
+        self.ClearCallbacks()
+        self._objects = None
+        self.DestroyDevice()
+        self.context._bump_topology()
+
 
 class BatchRead:
     """The one host read of a context batch (``CKRenderManager
@@ -3047,36 +3506,19 @@ class BatchRead:
 # not carry: each raises its port queue item.
 unported_methods(CKRenderContext, 14, ("DumpToFile",))
 unported_methods(CKRenderContext, 17, (
-    "AddDirtyRect", "AddPostSpriteRenderCallBack", "AddRemoveSequence",
-    "AddSprite3DBatch", "AllocateStructure", "AppendStateEnumLine",
-    "AppendStateOnOffLine", "AppendStateUIntLine", "BackupScreen",
-    "CallSprite3DBatches", "ChangeCurrentRenderOptions", "CheckObjectExtents",
-    "ClassifyTransparentOrder", "ClearCallbacks", "ClearStructure",
-    "ClientToScreen", "Compute2dRootObjects", "Compute3dRootObjects",
-    "CopyFromMemoryBuffer", "CopyToMemoryBuffer", "CopyToVideo", "DebugStep",
-    "DestroyDevice", "DetachAll", "DrawPVInformationWatermark",
-    "DrawPrimitive", "DrawScene", "DumpToMemory",
-    "ExecutePostRenderCallbacks", "ExecutePostSpriteCallbacks",
-    "ExecutePreRenderCallbacks", "FillStateString",
-    "FlushSprite3DBatchesIfNeeded", "ForceCameraSettingsUpdate",
-    "GetBackgroundMaterial", "GetBoundingBox", "GetDebugObjectCount",
-    "GetDirectXInfo", "GetDirtyRects", "GetDrawPrimitiveIndices",
-    "GetDrawPrimitiveStructure", "GetFirstFreeStencilBits",
-    "GetGlobalRenderMode", "GetMemoryOccupation", "GetObjectExtents",
-    "GetPixelFormat", "GetProjectionTransformationMatrix", "GetState",
-    "GetStencilFreeMask", "GetStructure", "GetTextureMatrix",
-    "GetTextureStageState", "GetTransparentMode",
-    "GetViewTransformationMatrix", "GetWindowHandle", "GetWindowRect",
-    "GetWorldTransformationMatrix", "GoFullScreen", "IsFullScreen",
-    "IsObjectAttached", "LoadPVInformationTexture", "LockCurrentVB",
-    "OnClearAll", "Pick", "Pick3D", "PickRect", "PrepareCameras", "RectPick",
-    "ReleaseCurrentVB", "RemovePostSpriteRenderCallBack", "RenderTransparents",
-    "ResetDirtyRects", "RestoreScreenBackup",
-    "ScreenToClient", "SetCurrentMaterial", "SetDebugObjectCount",
-    "SetFullViewport", "SetGlobalRenderMode",
-    "SetProjectionTransformationMatrix", "SetState",
-    "SetTexture", "SetTextureMatrix", "SetTextureStageState",
-    "SetTransparentMode", "SetViewTransformationMatrix", "SetWindowRect",
-    "SetWorldTransformationMatrix", "StopFullScreen", "Transform",
-    "TransformVertices", "UpdateProjection", "UsedStencilBits",
-    "WarnEnterThread", "WarnExitThread"))
+    # Picking (port queue item 17.3).
+    "Pick", "Pick3D", "PickRect", "RectPick",
+    # Immediate-mode draws and what draws through them (17.4).
+    "AllocateStructure", "ClearStructure", "DrawPrimitive",
+    "GetDrawPrimitiveIndices", "GetDrawPrimitiveStructure", "GetStructure",
+    "LockCurrentVB", "ReleaseCurrentVB", "GetProjectionTransformationMatrix",
+    "GetViewTransformationMatrix", "GetWorldTransformationMatrix",
+    "SetProjectionTransformationMatrix", "SetViewTransformationMatrix",
+    "SetWorldTransformationMatrix", "SetCurrentMaterial", "SetTexture",
+    "RenderTransparents", "AddSprite3DBatch", "CallSprite3DBatches",
+    "FlushSprite3DBatchesIfNeeded",
+    # Debug stepping, the state strings and the PV watermark (17.5).
+    "DebugStep", "GetDebugObjectCount", "SetDebugObjectCount",
+    "AppendStateEnumLine", "AppendStateOnOffLine", "AppendStateUIntLine",
+    "FillStateString", "DrawPVInformationWatermark",
+    "LoadPVInformationTexture"))

@@ -18,9 +18,10 @@ The solve dispatch is the reference's, minus the TPU lane rule: the tiled
 solve (B1) when ``t > 4096`` or ``t*H*W > 2^26``, else the flat solve (B2)
 when there is no kept z-buffer and no user clip plane, else B1. The shade
 dispatch is the reference's accelerator branch, on the card and on the CPU
-alike: a tiled frame shades from per-pixel winner ROWS — quantized rows
-with B1's exported edge values, or compact rows when a mip frame has an odd
-size — and a flat frame through ``shade_deferred``. With the environment
+alike: a frame of the tiled size shades from per-pixel winner ROWS —
+quantized rows with B1's exported edge values, or compact rows when a mip
+frame has an odd size — and a smaller frame through ``shade_deferred``,
+whichever solve it took. With the environment
 variable ``CK_FUSED_FETCH`` set, kernel B5 fetches the quantized rows inside
 the solve (same frame, bit for bit). The ordered
 pass composites the non-deferred triangles in sorted draw order
@@ -696,9 +697,12 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
         return out
 
     tile_peak = None
-    if flat or pixel_shader is not None:
-        # The flat solve (B2), and every pixel-shader frame: one full-width
-        # row gather per pixel inside shade_deferred.
+    if not tiled or pixel_shader is not None:
+        # Every frame below the tiled size, as in the reference, and every
+        # pixel-shader frame: one full-width row gather per pixel inside
+        # shade_deferred, from f32 vertex colours. The flat solve (B2) has
+        # no initial depth plane and no clip planes, so a small frame that
+        # keeps its depth or clips solves with B1.
         if flat:
             best_id, best_depth = depth_reduce_cuda(
                 setup, defer_tri, scene.clear_z, scene.viewport, height,

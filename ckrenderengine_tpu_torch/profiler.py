@@ -5,6 +5,7 @@ frame (10 named profilers in RCKRenderContext,
 include/RCKRenderContext.h:269-280, accumulated into VxStats
 by CKRenderedScene::Draw :244-350). Here the phase set maps to: scene-state
 build (host), device frame dispatch, 2D bank build, callbacks.
+:class:`DeviceTraceSession` records frames with ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -73,3 +74,42 @@ class PhaseTimer:
         setattr(self.phases, self.field,
                 getattr(self.phases, self.field) + ms)
         return False
+
+
+class DeviceTraceSession:
+    """A ``torch.profiler`` trace of the frames between ``Start`` and
+    ``Stop`` (``CKRenderManager.StartDeviceTrace`` / ``StopDeviceTrace``),
+    the host's operations and, where CUDA is available, the card's kernels
+    and copies. ``Stop`` writes it as a Chrome trace into ``log_dir``
+    (``path``), which chrome://tracing and Perfetto open."""
+
+    def __init__(self, log_dir: str):
+        self.log_dir = str(log_dir)
+        self.path = None
+        self._prof = None
+
+    def Start(self) -> bool:
+        if self._prof is not None:
+            return False
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=acts)
+        self._prof.start()
+        return True
+
+    def Stop(self) -> bool:
+        if self._prof is None:
+            return False
+        import os
+
+        prof, self._prof = self._prof, None
+        prof.stop()
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(
+            self.log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(self.path)
+        return True

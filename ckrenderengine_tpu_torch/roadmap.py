@@ -15,7 +15,7 @@ PORT_QUEUE = {
         "table",
     16: "progressive meshes",
     17: "remaining host API (picking, immediate-mode draws, debug "
-        "stepping, grids, the scene graph, inverse kinematics)",
+        "stepping, grids, inverse kinematics)",
 }
 
 

@@ -4,7 +4,7 @@ Every public method of the reference's ``CKRenderContext``,
 ``CKRenderManager`` and ``CKRenderedScene`` (names taken from the classes
 with ``inspect``, inherited ones included) exists in the port. A method the
 port does not carry yet raises ``NotImplementedError`` naming its port
-queue item, whatever its arguments, never ``AttributeError``.
+queue item (14 or 17), whatever its arguments, never ``AttributeError``.
 """
 
 import inspect
@@ -33,7 +33,7 @@ def _check_surface(ref_cls, obj) -> int:
         item = getattr(getattr(type(obj), name, None), "unported_item", None)
         if item is None:
             continue
-        assert item in PORT_QUEUE, (name, item)
+        assert item in PORT_QUEUE and item in (14, 17), (name, item)
         with pytest.raises(NotImplementedError,
                            match=rf"{re.escape(name)}.*item {item}\b"):
             getattr(obj, name)()
@@ -51,7 +51,7 @@ def _rc():
 
 def test_render_context_surface():
     rm, rc = _rc()
-    assert _check_surface(jm.CKRenderContext, rc) == 95
+    assert _check_surface(jm.CKRenderContext, rc) == 34
     assert rc.GetRasterizerContext() is rc and rc.ChangeDriver(1)
     with pytest.raises(NotImplementedError, match="item 14"):
         rc.DumpToFile("frame.png")
@@ -59,7 +59,7 @@ def test_render_context_surface():
 
 def test_render_manager_surface():
     rm, _rc_ = _rc()
-    assert _check_surface(jm.CKRenderManager, rm) == 35
+    assert _check_surface(jm.CKRenderManager, rm) == 4
     assert rm.GetRenderDriverCount() == 2
     assert rm.GetPreferredSoftwareDriver() == 1
 
@@ -68,4 +68,4 @@ def test_rendered_scene_surface():
     _rm, rc = _rc()
     scene = tm.CKRenderedScene(rc)
     assert scene.rc is rc
-    assert _check_surface(jm.CKRenderedScene, scene) == 9
+    assert _check_surface(jm.CKRenderedScene, scene) == 0
