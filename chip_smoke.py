@@ -93,6 +93,17 @@ equal to the eager fallback the live feed takes, B1 equal to its plain
 version at an eye's inputs, device ms and launches per stereo and per
 producer frame, and the level at 320x240 against the golden frame
 ``monitor_320x240``),
+drives the render context and manager API over config 5 (the ``api``
+phase: the screen backup, ``DrawScene`` over the kept depth with B1 equal
+to its plain version, callbacks eagerly and in a window, ``DestroyDevice``,
+``Process``),
+draws over the level through the immediate path
+(``scenes.build_config5_immediate``; the ``immediate`` phase: B1 once per
+tick, then render-callback meshes, ``RenderTransparents``, Sprite3D
+batches and a staging-VB HUD through ``DrawPrimitive``'s ``render_pass``,
+pixels outside their boxes equal to the callback-free tick, ``Pick3D``
+against the frame's winners, ``PickRect``, a precise pick through a
+card's hole, and the draws at 128x96 equal on the card and the CPU),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -902,6 +913,9 @@ def main() -> int:
 
     # --- 4j. the render context and manager API ----------------------------
     api_phase(O, scenes, kernel_fns, launches, card)
+
+    # --- 4k. picking and immediate-mode draws over the level ---------------
+    immediate_phase(O, scenes, fr, kernel_fns, launches, card)
 
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
@@ -1750,6 +1764,431 @@ def api_phase(O, scenes, kernel_fns, launches, card) -> dict:
          b1_launches=launches["B1"] - b1_start)
     emit("api_phase", seconds=round(seconds, 1))
     return frames
+
+
+IMM_SIZE = (1024, 768)
+# The card-against-CPU tick: the level cut as the golden frames cut it.
+IMM_SMALL = dict(width=128, height=96, terrain_n=70, n_balls=8)
+IMM_PICKS = 16
+IMM_SEED = 19
+
+
+def imm_callbacks(rc):
+    """The draws of rc's callbacks in Render()'s order: each mesh's render
+    callback, then the context's post-render callbacks."""
+    for obj in list(rc.context._prerender_objects.values()):
+        rcb = getattr(obj, "render_callback", None)
+        if rcb is not None:
+            rcb[0](rc, obj, rcb[1])
+    for _kind, fct, arg, _t in rc.post_render_callbacks:
+        fct(rc, arg)
+
+
+# The CPU worker's context between its two jobs (one worker process).
+_IMM_CPU = {}
+
+
+def imm_cpu_level(threads: int) -> dict:
+    """``build_config5_immediate`` at IMM_SMALL on the CPU, in a worker
+    process of its own (spawned: it never touches the card): the level
+    frame with the callbacks off, its winners, fb, zb and 8-bit image.
+    The context stays in the worker for :func:`imm_cpu_draws`."""
+    sys.path.insert(0, ROOT)
+    import ckrenderengine_tpu_torch.objects as O
+    from ckrenderengine_tpu_torch import scenes
+
+    torch.set_num_threads(threads)
+    t0 = time.monotonic()
+    _c, rc, _s, imm = scenes.build_config5_immediate(O, device="cpu",
+                                                     **IMM_SMALL)
+    imm["on"] = False
+    rc.Render()
+    _IMM_CPU.update(rc=rc, imm=imm)
+    return {"ids": winners(rc), "rgba": rc.BackToFront(),
+            "fb": rc.fb.numpy().copy(), "zb": rc.zb.numpy().copy(),
+            "seconds": time.monotonic() - t0}
+
+
+def imm_cpu_draws() -> dict:
+    """The callbacks' draws over the worker's level frame (fb, zb)."""
+    t0 = time.monotonic()
+    rc, imm = _IMM_CPU["rc"], _IMM_CPU["imm"]
+    imm["on"] = True
+    imm_callbacks(rc)
+    return {"fb": rc.fb.numpy(), "zb": rc.zb.numpy(),
+            "seconds": time.monotonic() - t0}
+
+
+def imm_screen_box(rc, clip) -> tuple:
+    """Pixel box (x0, y0, x1, y1), end-exclusive, that holds every pixel
+    a draw of the clip-space vertices ``clip`` can touch; the whole frame
+    when a vertex lies on or behind the eye plane."""
+    x, y, w, h = rc.viewport
+    clip = np.asarray(clip, np.float64)
+    if clip.shape[0] == 0:
+        return (0, 0, 0, 0)
+    if not (clip[:, 3] > 1e-6).all():
+        return (0, 0, rc.width, rc.height)
+    sx = x + (clip[:, 0] / clip[:, 3] + 1.0) * 0.5 * w
+    sy = y + (1.0 - clip[:, 1] / clip[:, 3]) * 0.5 * h
+    # Points draw as right triangles 1.5 pixels wide around each vertex.
+    return (max(int(np.floor(sx.min())) - 3, 0),
+            max(int(np.floor(sy.min())) - 3, 0),
+            min(int(np.ceil(sx.max())) + 3, rc.width),
+            min(int(np.ceil(sy.max())) + 3, rc.height))
+
+
+def imm_spy():
+    """Wrap ``vertexbuffer.draw_clip`` (every immediate draw of the object
+    API): each call's screen box, triangles (padded as drawn) and host ms
+    (no synchronise). Returns (record, restore)."""
+    from ckrenderengine_tpu_torch.objects import vertexbuffer as vbm
+
+    draw = vbm.draw_clip
+    rec = {"boxes": [], "host_ms": [], "triangles": 0, "padded": 0}
+
+    def spy(rc, prim_type, pos, col, uv, state=None, texture=None):
+        n = len(pos)
+        t = (n if prim_type == 1 else
+             n - 2 if prim_type in (5, 6) else n // 3)
+        rec["boxes"].append(imm_screen_box(rc, pos))
+        rec["triangles"] += t
+        rec["padded"] += max(8, -(-t // 8) * 8)
+        t0 = time.perf_counter()
+        ok = draw(rc, prim_type, pos, col, uv, state, texture)
+        rec["host_ms"].append((time.perf_counter() - t0) * 1e3)
+        return ok
+
+    vbm.draw_clip = spy
+
+    def restore():
+        vbm.draw_clip = draw
+
+    return rec, restore
+
+
+def imm_entity_ids(rc, fr):
+    """The off tick's winner ids with chunk culling off (so each id is a
+    triangle of the compiled stream) and each triangle's entity."""
+    rc._chunk_select = lambda c, view, proj: None
+    try:
+        ids = frame_with(rc)[2]["WinnerIds"].cpu().numpy()
+    finally:
+        del rc._chunk_select
+    c = rc._compiled
+    rows = c.vert_entity[c.tri_idx[:, 0]]
+    by_row = {e.row: e for e in rc._scene_entities()}
+    return ids, rows, by_row
+
+
+def imm_pick_pixels(ids, rows, excluded, n: int) -> list:
+    """Up to ``n`` pixels whose 3x3 neighbourhood has one winner triangle,
+    outside ``excluded``: in a seeded order, taken in turn from each
+    winner entity (``rows`` of the winner triangles), so that the picks
+    reach the spheres as well as the terrain."""
+    h, w = ids.shape
+    same = np.zeros_like(ids, dtype=bool)
+    same[1:-1, 1:-1] = ids[1:-1, 1:-1] >= 0
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            same[1:-1, 1:-1] &= (ids[1 + dy:h - 1 + dy, 1 + dx:w - 1 + dx]
+                                 == ids[1:-1, 1:-1])
+    ys, xs = np.nonzero(same & ~excluded)
+    groups = {}
+    for i in np.random.default_rng(IMM_SEED).permutation(len(ys)):
+        groups.setdefault(int(rows[ids[ys[i], xs[i]]]), []).append(
+            (int(xs[i]), int(ys[i])))
+    out = []
+    while len(out) < n and any(groups.values()):
+        for g in groups.values():
+            if g and len(out) < n:
+                out.append(g.pop(0))
+    return out
+
+
+def imm_one_triangle(rc):
+    """A function that composites one triangle of the HUD quad onto rc's
+    fb / zb through ``render_pass``, as each triangle of an immediate
+    draw is composited (the draw pads its batch to a multiple of 8 with
+    invalid triangles, each composited the same way)."""
+    from ckrenderengine_tpu_torch.convert import device_batch_from_host
+    from ckrenderengine_tpu_torch.raster import batch as rbatch
+    from ckrenderengine_tpu_torch.raster.torch_backend import render_pass
+    from ckrenderengine_tpu_torch.raster.types import (
+        RasterState, VXCULL, pack_states,
+    )
+
+    clip = np.array([[[-0.95, 0.95, 0.0, 1.0], [-0.55, 0.95, 0.0, 1.0],
+                      [-0.55, 0.7, 0.0, 1.0]]], np.float32)
+    tb = rbatch.make_batch(clip, view=rc.viewport,
+                           color=np.full((1, 3, 4), 0.5, np.float32))
+    db = device_batch_from_host(tb, "cuda")
+    si, sf = (torch.as_tensor(a, device="cuda") for a in pack_states(
+        [RasterState(cull=int(VXCULL.NONE))]))
+    planes = torch.zeros((1, 4, 1, 1), device="cuda")
+    hw = torch.ones((1, 2), dtype=torch.int32, device="cuda")
+    fog = torch.zeros(3, device="cuda")
+    vp = torch.tensor(rc.viewport, dtype=torch.float32, device="cuda")
+
+    def one():
+        rc.fb, rc.zb = render_pass(rc.fb, rc.zb, db, si, sf, planes, hw,
+                                   fog, vp)
+
+    return one
+
+
+def imm_project(rc, ent, local) -> tuple:
+    """Screen point of ``ent``'s local point under rc's camera."""
+    view, proj, (vx, vy, vw, vh) = rc._last_cam
+    p = np.append(np.asarray(local, np.float32), 1.0) @ ent.GetWorldMatrix()
+    c = p @ view @ proj
+    return (float(vx + (c[0] / c[3] + 1.0) * 0.5 * vw),
+            float(vy + (1.0 - c[1] / c[3]) * 0.5 * vh))
+
+
+def immediate_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """Picking and immediate-mode draws over the Ballance level on the
+    card: ``scenes.build_config5_immediate`` at 1024x768 (528,032 level
+    triangles; 8 render-callback props, 2 of them alpha-tested cards with
+    holes, 4 blended props drawn by RenderTransparents, 64 Sprite3D halos
+    through CallSprite3DBatches and a HUD fan through LockCurrentVB: 274
+    immediate triangles in 14 draws, 328 as padded).
+
+    - The tick with its callbacks: B1 once and nothing else; each draw's
+      screen box, triangles and host ms (``imm_spy``). The same tick with
+      the callbacks off: B1 once; with B1's plain version: the same fb and
+      zb bit for bit. Pixels outside every draw's box equal the
+      callback-free tick's, bit for bit.
+    - One triangle's composite under torch.profiler (each padded
+      triangle of a draw runs one): device launches and ms per triangle.
+    - Pick3D at IMM_PICKS pixel centres whose 3x3 neighbourhood has one
+      winner triangle, outside the draws' boxes and the annex and hidden
+      rooms' boxes (portals cull or clip those in the frame, not in
+      picking): each returns the winner triangle's entity; host ms per
+      Pick3D. PickRect over the viewport lists every visible meshed
+      entity whose render extents are on screen. Through a hole of a
+      card, Pick(precise_texture=True) returns what Pick3D finds with the
+      card hidden; through a solid texel, the card.
+    - The tick at IMM_SMALL on the card and on the CPU (a worker process
+      started after the timed draws, beside the rest of the phase): the
+      level frame's winners on >= 99.9% of the pixels and its 8-bit image
+      within 1 where they agree (the golden frames' tolerance); the
+      callbacks' draws over the CPU's level frame on both, bit for bit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ckrenderengine_tpu_torch.frame_bench import device_us
+
+    t_phase = time.monotonic()
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = round(time.monotonic() - t0, 3)
+
+    t0 = time.monotonic()
+    ctx, rc, _spinner, imm = scenes.build_config5_immediate(
+        O, *IMM_SIZE, device="cuda")
+    step("build_s", t0)
+    rec, restore = imm_spy()
+    t0 = time.monotonic()
+    try:
+        on = render_counted(rc, kernel_fns, launches)
+    finally:
+        restore()
+    fb_on, zb_on = rc.fb.clone(), rc.zb.clone()
+    step("tick_s", t0)
+    # The CPU worker starts once the timed draws are done (clean host ms);
+    # it runs beside the rest of the phase on threads the picks leave free.
+    threads = max(1, (os.cpu_count() or 2) - 4)
+    ex = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    job_level = ex.submit(imm_cpu_level, threads)
+    job_draws = ex.submit(imm_cpu_draws)
+    try:
+        want = {k: 0 for k in kernel_fns}
+        want["B1"] = 1
+        check(on["launches"] == want, f"immediate: the tick launched {on}")
+        check(len(rec["boxes"]) == 14 and rec["triangles"] == 274
+              and rec["padded"] == 328,
+              f"immediate: {len(rec['boxes'])} draws of {rec['triangles']} "
+              f"triangles")
+        t0 = time.monotonic()
+        imm["on"] = False
+        off = render_counted(rc, kernel_fns, launches)
+        fb_off, zb_off = rc.fb.clone(), rc.zb.clone()
+        check(off["launches"] == want, f"immediate: the off tick {off}")
+        restore_b1 = plain_b1()
+        try:
+            reset_launches(kernel_fns.values())
+            rc.Render()
+            torch.cuda.synchronize()
+            plain_got = {k: fn.launches for k, fn in kernel_fns.items()}
+        finally:
+            restore_b1()
+        b1_plain_equal = bool(torch.equal(rc.fb, fb_off)
+                              and torch.equal(rc.zb, zb_off))
+        check(plain_got["B1"] == 0 and b1_plain_equal,
+              f"immediate: the level frame differs from B1's plain version's "
+              f"({plain_got})")
+        step("off_ticks_s", t0)
+        finite = bool(torch.isfinite(fb_on).all() and torch.isfinite(zb_on).all())
+        check(finite, "immediate: non-finite fb or zb")
+        boxed = torch.zeros((rc.height, rc.width), dtype=torch.bool,
+                            device="cuda")
+        for x0, y0, x1, y1 in rec["boxes"]:
+            boxed[y0:y1, x0:x1] = True
+        outside = ~boxed
+        untouched_equal = bool(
+            torch.equal(fb_on[:, outside], fb_off[:, outside])
+            and torch.equal(zb_on[outside], zb_off[outside]))
+        drawn = float((fb_on != fb_off).any(0).float().mean())
+        boxed_frac = float(boxed.float().mean())
+        check(untouched_equal, "immediate: pixels outside every draw's box "
+              "differ from the callback-free tick")
+        check(0.005 < drawn <= boxed_frac < 0.9,
+              f"immediate: the draws changed {drawn} of the frame, their boxes "
+              f"cover {boxed_frac}")
+
+        # One immediate triangle's composite (what each padded triangle of a
+        # draw runs), profiled: device launches and ms per triangle.
+        t0 = time.monotonic()
+        one = imm_one_triangle(rc)
+        one()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(len(dev) > 0, "immediate: the profiler saw no device work")
+        profiled = {"triangles": 1, "device_launches": len(dev),
+                    "device_ms": device_us(dev) / 1e3}
+        step("profile_s", t0)
+
+        # Picking against the off tick's winners.
+        t0 = time.monotonic()
+        imm["on"] = False
+        rc.Render()
+        ids, rows, by_row = imm_entity_ids(rc, fr)
+        excluded = boxed.cpu().numpy()
+        rooms = [e for e in rc._scene_entities()
+                 if e.GetParent() is not None
+                 and e.GetParent().GetName() in ("place_annex", "place_hidden")]
+        for e in rooms:
+            ext = rc.GetObjectExtents(e)
+            if ext is not None:
+                l, t, r, b = ext
+                excluded[int(t):int(np.ceil(b)) + 1, int(l):int(np.ceil(r)) + 1] \
+                    = True
+        pixels = imm_pick_pixels(ids, rows, excluded, IMM_PICKS)
+        check(len(pixels) >= 16, f"immediate: only {len(pixels)} pick pixels")
+        pick_ms, picked = [], []
+        for x, y in pixels:
+            want_ent = by_row.get(int(rows[ids[y, x]]))
+            t1 = time.perf_counter()
+            got, dist = rc.Pick3D(x + 0.5, y + 0.5)
+            pick_ms.append((time.perf_counter() - t1) * 1e3)
+            picked.append((x, y, want_ent.GetName() if want_ent else None,
+                           got.GetName() if got else None))
+        mismatched = [p for p in picked if p[2] != p[3]]
+        check(not mismatched, f"immediate: Pick3D against the winners "
+              f"{mismatched}")
+        listed = rc.PickRect((0, 0, rc.width, rc.height))
+        expect = [e for e in rc._scene_entities() if e.IsVisible()
+                  and e.GetCurrentMesh() is not None
+                  and rc.GetObjectExtents(e) is not None]
+        check([e.GetName() for e in listed] == [e.GetName() for e in expect],
+              "immediate: PickRect over the viewport lists "
+              f"{[e.GetName() for e in listed]} for "
+              f"{[e.GetName() for e in expect]}")
+        card_ent = imm["cards"][0]
+        # The card's UVs follow its local x and y; its -z face (towards the
+        # camera) shows the whole image: a hole at texels (2, 2), a solid
+        # texel at (2, 6).
+        hole = imm_project(rc, card_ent, (-1.125, 1.125, -1.5))
+        solid = imm_project(rc, card_ent, (-0.375, 1.125, -1.5))
+        through = rc.Pick(*hole, precise_texture=True)[0]
+        card_ent.Show(False)
+        behind = rc.Pick3D(*hole)[0]
+        card_ent.Show(True)
+        hole_ok = (rc.Pick(*hole)[0] is card_ent and through is not card_ent
+                   and through is behind
+                   and rc.Pick(*solid, precise_texture=True)[0] is card_ent)
+        check(hole_ok, f"immediate: the precise pick through the card's hole "
+              f"gave {through and through.GetName()}, behind it "
+              f"{behind and behind.GetName()}")
+        step("picks_s", t0)
+
+        # The small tick, card against CPU: the worker's level frame, then the
+        # draws over it on both.
+        t0 = time.monotonic()
+        _c, rc_g, _s, imm_g = scenes.build_config5_immediate(
+            O, device="cuda", **IMM_SMALL)
+        imm_g["on"] = False
+        rc_g.Render()
+        ids_g, rgba_g = winners(rc_g), rc_g.BackToFront()
+        step("small_card_s", t0)
+        t0 = time.monotonic()
+        cpu = job_level.result()
+        step("cpu_level_wait_s", t0)
+        match = ids_g == cpu["ids"]
+        diff = np.abs(rgba_g.astype(np.int32) - cpu["rgba"].astype(np.int32))
+        level = {"ids_equal_frac": float(match.mean()),
+                 "rgba_max_diff_matching": int(diff[match].max())}
+        check(level["ids_equal_frac"] >= 0.999
+              and level["rgba_max_diff_matching"] <= 1,
+              f"immediate: the small level frame, card against CPU {level}")
+        t0 = time.monotonic()
+        rc_g.fb = torch.as_tensor(cpu["fb"], device="cuda")
+        rc_g.zb = torch.as_tensor(cpu["zb"], device="cuda")
+        imm_g["on"] = True
+        imm_callbacks(rc_g)
+        fb_g, zb_g = rc_g.fb.cpu().numpy(), rc_g.zb.cpu().numpy()
+        step("small_draws_s", t0)
+        t0 = time.monotonic()
+        cpu_draws = job_draws.result()
+        step("cpu_draws_wait_s", t0)
+    finally:
+        ex.shutdown(cancel_futures=True)
+    draws_equal = bool(np.array_equal(fb_g, cpu_draws["fb"])
+                       and np.array_equal(zb_g, cpu_draws["zb"]))
+    check(draws_equal, "immediate: the draws over the CPU's level frame "
+          "differ between the card and the CPU")
+    seconds = time.monotonic() - t_phase
+    tri = rec["triangles"]
+    res = {"config": "config5_immediate", "card": card,
+           "size": list(IMM_SIZE),
+           "triangles": int(rc._compiled.n_valid_tris),
+           "draws": len(rec["boxes"]), "immediate_triangles": tri,
+           "padded_triangles": rec["padded"],
+           "tick_launches": on["launches"],
+           "tick_ms": round(on["frame_ms"], 3),
+           "off_tick_ms": round(off["frame_ms"], 3),
+           "host_ms_per_draw": [round(v, 3) for v in rec["host_ms"]],
+           "host_ms_per_draw_mean": float(np.mean(rec["host_ms"])),
+           "host_ms_per_padded_triangle": sum(rec["host_ms"])
+           / rec["padded"],
+           "device_launches_per_triangle": profiled["device_launches"],
+           "device_ms_per_triangle": profiled["device_ms"],
+           "drawn_frac": drawn, "boxed_frac": boxed_frac,
+           "untouched_equal": untouched_equal,
+           "b1_plain_equal": b1_plain_equal,
+           "picks": len(pixels), "pick_entities": sorted(
+               {p[2] for p in picked}),
+           "host_ms_per_pick3d": float(np.mean(pick_ms)),
+           "host_ms_per_pick3d_max": float(np.max(pick_ms)),
+           "pick_rect": len(listed), "precise_hole": hole_ok,
+           "small": {"size": [IMM_SMALL["width"], IMM_SMALL["height"]],
+                     **level, "draws_bit_equal": draws_equal,
+                     "cpu_level_s": round(cpu["seconds"], 3),
+                     "cpu_draws_s": round(cpu_draws["seconds"], 3),
+                     "cpu_threads": threads},
+           "steps": steps, "phase_s": round(seconds, 3)}
+    emit("immediate", **res)
+    emit("immediate_phase", seconds=round(seconds, 1), card=card)
+    return res
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

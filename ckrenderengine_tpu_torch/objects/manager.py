@@ -16,7 +16,7 @@ from .rendertypes import (          # noqa: F401
 )
 from .rendercontext import BatchRead, CKRenderContext    # noqa: F401
 from ..pipeline import window as fw
-from ..roadmap import unported, unported_methods
+from ..roadmap import unported
 
 # Members per run of a context batch: a larger group runs in chunks of
 # this many (each chunk one upload and one graph replay per member).
@@ -34,6 +34,7 @@ class CKRenderManager(CKObject):
         self._context_mask_free = 0xFFFFFFFF
         self._moved_entities: set[int] = set()
         self._last_frame_entities: set[int] = set()
+        self._vertex_buffers: list = []
         self._object_index_next = 1
         self._object_index_free: list[int] = []
         self._root_node = None
@@ -85,6 +86,25 @@ class CKRenderManager(CKObject):
 
     def GetDefaultMaterial(self):
         return self.default_material
+
+    def CreateVertexBuffer(self, name: str = "", max_vertices: int = 1024):
+        """User dynamic vertex buffer (reference
+        RCKRenderManager::CreateVertexBuffer)."""
+        from .vertexbuffer import CKVertexBuffer
+
+        vb = CKVertexBuffer(self.context, name, max_vertices)
+        self._vertex_buffers.append(vb)
+        return vb
+
+    def DestroyVertexBuffer(self, vb):
+        """(reference DestroyVertexBuffer)"""
+        if vb in self._vertex_buffers:
+            self._vertex_buffers.remove(vb)
+        self.context.DestroyObject(vb)
+
+    def DeleteAllVertexBuffers(self):
+        for vb in list(self._vertex_buffers):
+            self.DestroyVertexBuffer(vb)
 
     def GetRenderContextMaskFree(self) -> int:
         return self._context_mask_free
@@ -413,6 +433,9 @@ class CKRenderManager(CKObject):
         self.CleanTemporaryCallbacks()
         self._moved_entities.clear()
 
+    def OnCKEnd(self):
+        self.DeleteAllVertexBuffers()
+
     def OnCKPause(self):
         return None
 
@@ -533,9 +556,3 @@ class CKRenderedScene:
         """One frame of the context (``Render``)."""
         return self.rc.Render(flags)
 
-
-# The vertex buffers (and OnCKEnd, which deletes them) come with the
-# immediate-mode draws.
-unported_methods(CKRenderManager, 17, (
-    "CreateVertexBuffer", "DeleteAllVertexBuffers", "DestroyVertexBuffer",
-    "OnCKEnd"))

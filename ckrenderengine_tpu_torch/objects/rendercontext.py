@@ -11,9 +11,12 @@ group of contexts as one replay of a captured frame per member
 (:class:`BatchRead` resolves it). The capacity governor sets the tiled
 solve's caps from its bin statistics, read where the host already reads.
 Stereo renders both eyes side by side, and a target texture receives
-each frame on the device (render-to-texture). Features outside the ported
-slices (tile sharding, picking, ...) raise ``NotImplementedError`` naming
-their ROADMAP item.
+each frame on the device (render-to-texture). Immediate-mode draws
+(``DrawPrimitive``, the staging VB, Sprite3D batches,
+``RenderTransparents``) composite onto fb / zb on the device outside the
+frame; picking is host numpy over the meshes. Features outside the ported
+slices (tile sharding, debug stepping, ...) raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 import os
@@ -130,6 +133,21 @@ class CKRenderContext(CKObject):
         self._texture_stage_states: dict = {}
         self._texture_matrices: dict = {}
         self._screen_backup = None
+        # Immediate-mode DrawPrimitive state (reference :96-104): the DP
+        # transforms (view / projection None = the camera's), material,
+        # texture and render state, the staging structure, the shared index
+        # buffer, the pooled staging VB and the pending Sprite3D batches.
+        self._dp_world = np.eye(4, dtype=np.float32)
+        self._dp_view = None
+        self._dp_proj = None
+        self._dp_material = None
+        self._dp_texture = None
+        self._dp_state = None
+        self._dp_struct = None
+        self._dp_indices = None
+        self._current_vb = None
+        self._current_vb_count = 0
+        self._sprite3d_mats: list = []
 
     # -- frame windows (SetFramePipelining) ------------------------------
     def _pending(self) -> bool:
@@ -2932,7 +2950,10 @@ class CKRenderContext(CKObject):
         """Drop the per-eye overrides a stereo pass installed (reference
         :3852-3856: the eye and the immediate-mode view and projection).
         A stereo frame here patches each eye's view into a copy of its
-        packed buffer and installs nothing, so there is nothing to drop."""
+        packed buffer and installs no eye; the DrawPrimitive view and
+        projection go back to the camera's."""
+        self._dp_view = None
+        self._dp_proj = None
 
     def GetPhaseTimes(self) -> dict:
         return self.phases.as_dict()
@@ -2997,8 +3018,8 @@ class CKRenderContext(CKObject):
         self._state = int(state)
 
     def SetTextureStageState(self, stage: int, state: int, value) -> bool:
-        """Stored per (stage, state), for the immediate-mode draws (not
-        ported yet: ``DrawPrimitive`` raises its item)."""
+        """Stored per (stage, state), as the reference stores it; no draw
+        of either package reads it."""
         self._texture_stage_states[(int(stage), int(state))] = value
         return True
 
@@ -3006,8 +3027,8 @@ class CKRenderContext(CKObject):
         return self._texture_stage_states.get((int(stage), int(state)))
 
     def SetTextureMatrix(self, m, stage: int = 0) -> bool:
-        """Stored per stage, for the immediate-mode draws' UVs (not
-        ported yet)."""
+        """Stored per stage; stage 0's transforms the UVs of
+        :meth:`DrawPrimitive` ((u, v, 0, 1) @ m, keeping x and y)."""
         self._texture_matrices[int(stage)] = np.asarray(m, np.float32)
         return True
 
@@ -3396,6 +3417,374 @@ class CKRenderContext(CKObject):
         _, proj, _ = self._camera_np()
         return proj is not None
 
+    # -- immediate-mode DrawPrimitive (reference GetDrawPrimitiveStructure,
+    # src/CKRenderContext.cpp:967, and DrawPrimitive; reference
+    # rendercontext.py:3271-3372). A draw composites onto fb / zb NOW,
+    # outside the frame, through ``vertexbuffer.draw_clip``: the host
+    # batch uploaded once, ``render_pass`` on the context's device. ------
+    def SetWorldTransformationMatrix(self, m):
+        self._dp_world = np.asarray(m, np.float32).reshape(4, 4)
+
+    def GetWorldTransformationMatrix(self):
+        return self._dp_world.copy()
+
+    def SetViewTransformationMatrix(self, m):
+        self._dp_view = np.asarray(m, np.float32).reshape(4, 4)
+
+    def GetViewTransformationMatrix(self):
+        m = self._dp_view
+        if m is not None:
+            return m.copy()
+        view, _, _ = self._camera_np()
+        return np.asarray(view, np.float32)
+
+    def SetProjectionTransformationMatrix(self, m):
+        self._dp_proj = np.asarray(m, np.float32).reshape(4, 4)
+
+    def GetProjectionTransformationMatrix(self):
+        m = self._dp_proj
+        if m is not None:
+            return m.copy()
+        _, proj, _ = self._camera_np()
+        return np.asarray(proj, np.float32)
+
+    def SetCurrentMaterial(self, material):
+        self._dp_material = material
+
+    def SetTexture(self, texture, stage: int = 0):
+        self._dp_texture = texture
+
+    def GetDrawPrimitiveStructure(self, transformed: bool = True,
+                                  vertex_count: int = 0) -> dict:
+        """Staging structure for user DrawPrimitive: numpy views the caller
+        fills (positions are clip-space xyzw when ``transformed``, local
+        xyz otherwise)."""
+        n = max(int(vertex_count), 1)
+        self._dp_struct = {
+            "transformed": bool(transformed),
+            "positions": np.zeros((n, 4 if transformed else 3), np.float32),
+            "colors": np.ones((n, 4), np.float32),
+            "uvs": np.zeros((n, 2), np.float32),
+        }
+        return self._dp_struct
+
+    def DrawPrimitive(self, prim_type, indices=None, data: dict | None = None):
+        """Composite user geometry onto the framebuffer immediately
+        (reference RCKRenderContext::DrawPrimitive). ``data`` defaults to the
+        last GetDrawPrimitiveStructure; untransformed positions go through
+        the current DP world/view/projection matrices, UVs through stage
+        0's texture matrix. A bound material's state and texture win over
+        the DP state and ``SetTexture``'s texture."""
+        from .vertexbuffer import draw_clip
+
+        data = data if data is not None else self._dp_struct
+        if data is None:
+            return False
+        pos = np.asarray(data["positions"], np.float32)
+        colors = np.asarray(data["colors"], np.float32)
+        uvs = np.asarray(data["uvs"], np.float32)
+        if indices is not None:
+            idx = np.asarray(indices, np.int64).reshape(-1)
+            pos, colors, uvs = pos[idx], colors[idx], uvs[idx]
+        tm = self._texture_matrices.get(0)
+        if tm is not None:
+            # DX9 2D texture transform: (u,v,0,1) @ M, keep xy
+            uvh = np.concatenate(
+                [uvs, np.zeros((uvs.shape[0], 1), np.float32),
+                 np.ones((uvs.shape[0], 1), np.float32)], -1)
+            uvs = (uvh @ tm)[:, :2].astype(np.float32)
+        if not data.get("transformed", True):
+            h = np.concatenate(
+                [pos[:, :3], np.ones((pos.shape[0], 1), np.float32)], -1)
+            view, proj, _ = self._camera_np()
+            if self._dp_view is not None:
+                view = self._dp_view
+            if self._dp_proj is not None:
+                proj = self._dp_proj
+            pos = h @ (self._dp_world @ view @ proj)
+        state, tex = self._dp_draw_state()
+        return draw_clip(self, int(prim_type), pos, colors, uvs,
+                         state=state, texture=tex)
+
+    def _dp_draw_state(self) -> tuple:
+        """(raster state, texture) of an immediate draw: the bound
+        material's state and texture (its texture before ``SetTexture``'s),
+        else the DP state the material appliers write and ``SetTexture``'s
+        texture."""
+        mat = self._dp_material
+        if mat is None:
+            return self._dp_state, self._dp_texture
+        tex = mat.GetTexture()
+        return mat.raster_state(), (tex if tex is not None
+                                    else self._dp_texture)
+
+    # -- DrawPrimitive staging helpers (reference AllocateStructure /
+    # ClearStructure / GetStructure / GetDrawPrimitiveIndices /
+    # LockCurrentVB / ReleaseCurrentVB, include/RCKRenderContext.h;
+    # reference rendercontext.py:3594-3638) --------------------------------
+    def AllocateStructure(self, vertex_count: int = 0,
+                          transformed: bool = True) -> dict:
+        return self.GetDrawPrimitiveStructure(transformed, vertex_count)
+
+    def GetStructure(self) -> dict | None:
+        return self._dp_struct
+
+    def ClearStructure(self):
+        self._dp_struct = None
+
+    def GetDrawPrimitiveIndices(self, count: int) -> np.ndarray:
+        """Shared sequential index buffer (reference GetDrawPrimitiveIndices
+        — the dynamic 16-bit index buffer; 32-bit here, no 65k cap)."""
+        cached = self._dp_indices
+        if cached is None or cached.shape[0] < count:
+            self._dp_indices = np.arange(max(count, 128), dtype=np.int32)
+        return self._dp_indices[:count]
+
+    def LockCurrentVB(self, vertex_count: int):
+        """Lock a pooled staging VB (reference LockCurrentVB); returns
+        (positions, colors, uvs) views. Draw with ReleaseCurrentVB."""
+        from .vertexbuffer import CKVertexBuffer
+
+        vb = self._current_vb
+        if vb is None:
+            vb = CKVertexBuffer(self.context, "__rc_vb",
+                                max_vertices=max(vertex_count, 256))
+            self._current_vb = vb
+        views = vb.Lock(0, vertex_count)
+        self._current_vb_count = vertex_count
+        return views
+
+    def ReleaseCurrentVB(self, prim_type: int | None = None) -> bool:
+        """Unlock the staging VB; with ``prim_type``, draw it immediately."""
+        vb = self._current_vb
+        if vb is None:
+            return False
+        vb.Unlock()
+        if prim_type is not None:
+            state, tex = self._dp_draw_state()
+            return vb.Draw(self, int(prim_type), 0,
+                           self._current_vb_count, state=state, texture=tex)
+        return True
+
+    # -- Sprite3D immediate batches (reference AddSprite3DBatch /
+    # CallSprite3DBatches / FlushSprite3DBatchesIfNeeded,
+    # src/CKRenderContext.cpp:2821-2921; reference rendercontext.py:
+    # 3645-3710). The frame expands its sprites on the device; these drive
+    # the immediate path. -------------------------------------------------
+    def AddSprite3DBatch(self, sprite3d) -> bool:
+        mat = sprite3d.GetMaterial()
+        if mat is None:
+            return False
+        mat.AddSprite3DBatch(sprite3d)
+        if mat not in self._sprite3d_mats:
+            self._sprite3d_mats.append(mat)
+        return True
+
+    def CallSprite3DBatches(self) -> int:
+        """Draw every pending material batch NOW (camera-space billboard
+        fill + one DrawPrimitive per material, culling off, the material's
+        diffuse as the vertex colour). Returns sprites drawn."""
+        import dataclasses
+
+        from ..raster.types import VXCULL
+
+        total = 0
+        view, proj, _ = self._camera_np()
+        for mat in self._sprite3d_mats:
+            sprites = mat.GetSprite3DBatch()
+            if not sprites:
+                continue
+            pos_l, uv_l, idx_l = [], [], []
+            base = 0
+            cam_world = np.linalg.inv(np.asarray(view, np.float32))
+            for sp in sprites:
+                verts, uvs, indices = sp.FillBatch(cam_world)
+                pos_l.append(verts)
+                uv_l.append(uvs)
+                idx_l.append(indices + base)
+                base += 4
+            verts = np.concatenate(pos_l)
+            h = np.concatenate([verts, np.ones((verts.shape[0], 1),
+                                               np.float32)], -1)
+            clip = h @ (np.asarray(view, np.float32)
+                        @ np.asarray(proj, np.float32))
+            s = self.GetDrawPrimitiveStructure(transformed=True,
+                                               vertex_count=clip.shape[0])
+            s["positions"][:] = clip
+            s["uvs"][:] = np.concatenate(uv_l)
+            s["colors"][:] = np.asarray(mat.GetDiffuse(), np.float32)
+            # Sprites never cull (the reference's sprite batches draw with
+            # culling off — billboard winding depends on the view).
+            saved_state = self._dp_state
+            saved_tex = self._dp_texture
+            self._dp_state = dataclasses.replace(
+                mat.raster_state(), cull=int(VXCULL.NONE))
+            self._dp_texture = mat.GetTexture() or saved_tex
+            try:
+                self.DrawPrimitive(2, np.concatenate(idx_l), s)
+            finally:
+                self._dp_state = saved_state
+                self._dp_texture = saved_tex
+            total += len(sprites)
+            mat.FlushSprite3DBatch()
+        self._sprite3d_mats = []
+        return total
+
+    def FlushSprite3DBatchesIfNeeded(self, mat=None) -> int:
+        """Flush when a state change would interleave wrongly (reference
+        FlushSprite3DBatchesIfNeeded); flushes everything here."""
+        if self._sprite3d_mats:
+            return self.CallSprite3DBatches()
+        return 0
+
+    def RenderTransparents(self, flags: int = 0) -> int:
+        """Immediate back-to-front draw of all transparent entities
+        (reference RenderTransparents, rendercontext.py:3744-3766; the
+        frame performs this per triangle on the device — this is the host
+        path for callbacks): far first by the entity origin's view-space
+        z, each through ``CKMesh.Render``. Returns the entities drawn."""
+        cam = self.GetAttachedCamera()
+        view = (cam.view_matrix() if cam is not None
+                else np.eye(4, dtype=np.float32))
+        ents = [e for e in self._scene_entities()
+                if e.IsVisible() and e.GetCurrentMesh() is not None
+                and e.GetCurrentMesh().IsTransparent()]
+
+        def depth(e):
+            p = e.GetWorldMatrix()[3, :3]
+            return float((np.append(p, 1.0) @ view)[2])
+
+        ents.sort(key=depth, reverse=True)      # far first
+        n = 0
+        for e in ents:
+            if e.GetCurrentMesh().Render(self, e):
+                n += 1
+        return n
+
+    # -- picking (RCKRenderContext::Pick, src/CKRenderContext.cpp:1661-1900;
+    # reference rendercontext.py:4040-4201): host numpy over the meshes'
+    # host arrays, as in the reference. ------------------------------------
+    def _pick_ray(self, x: float, y: float):
+        """World-space eye ray through the point (x, y) of the frame, or
+        None without camera. (x, y) maps as given: the centre of pixel
+        (i, j) is (i + 0.5, j + 0.5), where the rasterizer samples it."""
+        cam = self.attached_camera
+        if cam is None:
+            return None
+        vxp, vyp, vw, vh = self._effective_viewport()
+        ndc_x = (x - vxp) / vw * 2.0 - 1.0
+        ndc_y = 1.0 - (y - vyp) / vh * 2.0
+        aspect = vw / max(vh, 1)
+        proj = cam.projection_matrix(aspect)
+        dir_cam = np.array([ndc_x / proj[0, 0], ndc_y / proj[1, 1], 1.0],
+                           np.float32)
+        w = cam.GetWorldMatrix()
+        return w[3, :3], dir_cam @ w[:3, :3]
+
+    def Pick3D(self, x: float, y: float, precise_texture: bool = False):
+        """Nearest 3D hit: (entity, distance) or (None, inf). With
+        ``precise_texture``, alpha-tested texels don't pick
+        (PreciseTexturePick, reference src/CKMeshUtils.cpp:35+)."""
+        ray = self._pick_ray(x, y)
+        if ray is None:
+            return None, float("inf")
+        origin, direction = ray
+        best = (None, float("inf"))
+        for ent in self._scene_entities():
+            if not ent.IsVisible() or ent.GetCurrentMesh() is None:
+                continue
+            hit = ent.RayIntersection(origin, direction)
+            if hit is None or hit[0] >= best[1]:
+                continue
+            if precise_texture and self._alpha_rejects(ent, hit, origin,
+                                                       direction):
+                continue
+            best = (ent, hit[0])
+        return best
+
+    def _alpha_rejects(self, ent, hit, origin, direction) -> bool:
+        """True when the hit texel's alpha fails the material alpha test
+        (the texture's current image, read back to the host if it is fed
+        on the device)."""
+        dist, face = hit
+        mesh = ent.GetCurrentMesh()
+        if mesh.uvs.shape[0] == 0:
+            return False
+        mat = mesh.GetFaceMaterial(face)
+        tex = mat.GetTexture(0) if mat is not None else None
+        if tex is None:
+            return False
+        img = tex.current_image()
+        if img is None:
+            return False
+        inv = ent.GetInverseWorldMatrix()
+        o = np.asarray(origin, np.float32) @ inv[:3, :3] + inv[3, :3]
+        d = np.asarray(direction, np.float32) @ inv[:3, :3]
+        p = o + d * dist
+        a, b, c = mesh.faces[face]
+        va, vb, vc = mesh.positions[[a, b, c]]
+        # barycentric coords of p
+        v0, v1, v2 = vb - va, vc - va, p - va
+        d00, d01 = v0 @ v0, v0 @ v1
+        d11 = v1 @ v1
+        d20, d21 = v2 @ v0, v2 @ v1
+        den = d00 * d11 - d01 * d01
+        if abs(den) < 1e-12:
+            return False
+        v = (d11 * d20 - d01 * d21) / den
+        w_ = (d00 * d21 - d01 * d20) / den
+        u = 1.0 - v - w_
+        uv = u * mesh.uvs[a] + v * mesh.uvs[b] + w_ * mesh.uvs[c]
+        h, w = img.shape[0], img.shape[1]
+        tx = int(np.clip(uv[0] % 1.0 * w, 0, w - 1))
+        ty = int(np.clip(uv[1] % 1.0 * h, 0, h - 1))
+        return img[ty, tx, 3] < 0.5
+
+    def Pick(self, x: int, y: int, precise_texture: bool = False):
+        """2D entities first (front-to-back), then nearest 3D hit. Returns
+        (object, distance) — distance 0 for 2D hits."""
+        hit2d = self.Pick2D(x, y)
+        if hit2d is not None:
+            return hit2d, 0.0
+        return self.Pick3D(x, y, precise_texture)
+
+    def PickRect(self, rect) -> list:
+        """Entities whose projected bbox intersects the pixel rect
+        (x0, y0, x1, y1) (RectPick, reference include/RCKRenderContext.h)."""
+        cam = self.attached_camera
+        if cam is None:
+            return []
+        x0, y0, x1, y1 = rect
+        vxp, vyp, vw, vh = self._effective_viewport()
+        aspect = vw / max(vh, 1)
+        view = cam.view_matrix()
+        proj = cam.projection_matrix(aspect)
+        vp = view @ proj
+        out = []
+        for ent in self._scene_entities():
+            if not ent.IsVisible() or ent.GetCurrentMesh() is None:
+                continue
+            bmin, bmax = ent.GetBoundingBox()
+            corners = np.array([[x, y, z, 1.0] for x in (bmin[0], bmax[0])
+                                for y in (bmin[1], bmax[1])
+                                for z in (bmin[2], bmax[2])], np.float32)
+            clip = corners @ vp
+            w = clip[:, 3]
+            front = w > 1e-6
+            if not front.any():
+                continue
+            sx = vxp + vw * 0.5 + clip[front, 0] / w[front] * vw * 0.5
+            sy = vyp + vh * 0.5 - clip[front, 1] / w[front] * vh * 0.5
+            if sx.max() < x0 or sx.min() > x1 or sy.max() < y0 or sy.min() > y1:
+                continue
+            out.append(ent)
+        return out
+
+    def RectPick(self, rect, intersect: bool = True) -> list:
+        """:meth:`PickRect`; ``intersect`` is ignored (the reference passes
+        it on to a PickRect that takes no such argument)."""
+        return self.PickRect(rect)
+
     def DestroyDevice(self) -> bool:
         """Free this context's device state: a pending window or batch is
         resolved first (fb, zb and sb keep its frame), then the compiled
@@ -3506,18 +3895,7 @@ class BatchRead:
 # not carry: each raises its port queue item.
 unported_methods(CKRenderContext, 14, ("DumpToFile",))
 unported_methods(CKRenderContext, 17, (
-    # Picking (port queue item 17.3).
-    "Pick", "Pick3D", "PickRect", "RectPick",
-    # Immediate-mode draws and what draws through them (17.4).
-    "AllocateStructure", "ClearStructure", "DrawPrimitive",
-    "GetDrawPrimitiveIndices", "GetDrawPrimitiveStructure", "GetStructure",
-    "LockCurrentVB", "ReleaseCurrentVB", "GetProjectionTransformationMatrix",
-    "GetViewTransformationMatrix", "GetWorldTransformationMatrix",
-    "SetProjectionTransformationMatrix", "SetViewTransformationMatrix",
-    "SetWorldTransformationMatrix", "SetCurrentMaterial", "SetTexture",
-    "RenderTransparents", "AddSprite3DBatch", "CallSprite3DBatches",
-    "FlushSprite3DBatchesIfNeeded",
-    # Debug stepping, the state strings and the PV watermark (17.5).
+    # Debug stepping, the state strings and the PV watermark (17.1).
     "DebugStep", "GetDebugObjectCount", "SetDebugObjectCount",
     "AppendStateEnumLine", "AppendStateOnOffLine", "AppendStateUIntLine",
     "FillStateString", "DrawPVInformationWatermark",

@@ -14,8 +14,8 @@ PORT_QUEUE = {
     14: "scene IO, and fonts, sizes or characters without a baked glyph "
         "table",
     16: "progressive meshes",
-    17: "remaining host API (picking, immediate-mode draws, debug "
-        "stepping, grids, inverse kinematics)",
+    17: "remaining host API (debug stepping, grids, inverse kinematics, "
+        "geometry utilities)",
 }
 
 

@@ -736,6 +736,168 @@ def build_config5_monitor(O, width: int = 1024, height: int = 768,
     return ctx, rc, producer, spinner
 
 
+def _deferred(rc, mesh, ent):
+    """A render callback that draws nothing: the mesh stays out of the
+    frame and draws later, from the context's post-render callback
+    (``RenderTransparents``)."""
+
+
+def _card_texture(O, ctx, name):
+    """A 16x16 card texture: a warm tint, alpha 0 on a checker of 4x4
+    texel holes and 1 elsewhere."""
+    i, j = np.indices((16, 16))
+    a = ((i // 4 + j // 4) % 2).astype(np.float32)
+    img = np.stack([np.full_like(a, 0.85), 0.55 + 0.02 * i, 0.3 + 0.02 * j,
+                    a], -1).astype(np.float32)
+    tex = O.CKTexture(ctx, name)
+    tex.SetImage(img)
+    return tex
+
+
+def _halo_texture(O, ctx, name):
+    """A 16x16 opaque radial glow: bright at the centre, dark at the
+    rim."""
+    i, j = np.indices((16, 16)).astype(np.float32)
+    r = np.hypot(i - 7.5, j - 7.5) / 7.5
+    g = np.clip(1.0 - r, 0.05, 1.0)
+    img = np.stack([g, g, 0.8 * g + 0.1, np.ones_like(g)],
+                   -1).astype(np.float32)
+    tex = O.CKTexture(ctx, name)
+    tex.SetImage(img)
+    return tex
+
+
+def build_config5_immediate(O, width: int = 1024, height: int = 768,
+                            terrain_n: int = 500, n_balls: int = 64,
+                            n_props: int = 8, n_cards: int = 2,
+                            n_blended: int = 4, n_halos: int = 64,
+                            antialias: bool = False, **ctx_kw):
+    """Config 5 (:func:`build_config5`) with immediate-mode draws, as a
+    level with custom-render objects and a HUD draws them:
+
+    - ``n_props`` 12-triangle cubes in front of the camera whose meshes
+      draw themselves through ``SetRenderCallBack`` -> ``DefaultRender``
+      -> ``RenderGroup`` -> ``DrawPrimitive`` (their triangles stay out of
+      the frame); the first ``n_cards`` carry an alpha-tested card texture
+      with holes (:func:`_card_texture`);
+    - ``n_blended`` alpha-blended cubes whose render callback draws
+      nothing: the context's post-render callback draws them far to near
+      through ``RenderTransparents``;
+    - ``n_halos`` ``CKSprite3D`` halos with an opaque glow texture,
+      hidden from the frame, which the post-render callback queues with
+      ``AddSprite3DBatch`` and draws with ``CallSprite3DBatches``;
+    - a 2-triangle HUD quad the post-render callback draws last through
+      ``LockCurrentVB`` / ``ReleaseCurrentVB``.
+
+    At the defaults a tick draws 274 immediate triangles in 14
+    ``DrawPrimitive`` calls (328 with each call's padding to a multiple of
+    8). Returns (ctx, rc, spinner, imm): ``imm`` holds the objects
+    ("props", "cards", "blended", "halos") and ``imm["on"]``, which the
+    callbacks read: False makes them draw nothing, with the frame's compile
+    unchanged."""
+    from .raster.types import VXBLEND, VXCMP, VXPRIMITIVE
+
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, antialias=antialias,
+                                     **ctx_kw)
+    place_main = ctx.GetObjectByName("place_main")
+    rng = np.random.default_rng(19)
+    imm = {"on": True, "props": [], "cards": [], "blended": [], "halos": []}
+    cverts, cfaces = _cube(1.5)
+    # The cube's UVs from its x and y: the faces facing -z and +z show the
+    # whole image.
+    cuv = np.stack([(cverts[:, 0] / 1.5 + 1.0) * 0.5,
+                    (1.0 - cverts[:, 1] / 1.5) * 0.5], -1).astype(np.float32)
+
+    def cube(name, mat, pos, callback):
+        mesh = O.CKMesh(ctx, name + "_mesh")
+        mesh.SetPositions(cverts)
+        mesh.SetFaces(cfaces)
+        mesh.SetUVs(cuv)
+        mesh.BuildNormals()
+        mesh.ApplyGlobalMaterial(mat)
+        ent = O.CK3dObject(ctx, name)
+        ent.SetCurrentMesh(mesh)
+        ent.SetParent(place_main)
+        ent.SetPosition(pos)
+        mesh.SetRenderCallBack(callback, ent)
+        return ent
+
+    def draw_mesh(rc, mesh, ent):
+        # The render callback, with the entity as its argument: the mesh
+        # draws itself (DefaultRender -> RenderGroup -> DrawPrimitive).
+        if imm["on"]:
+            mesh.DefaultRender(rc, ent)
+
+    card_tex = _card_texture(O, ctx, "card_tex") if n_cards else None
+    for i in range(n_props):
+        mat = O.CKMaterial(ctx, f"prop_mat{i}")
+        mat.SetDiffuse(tuple(rng.uniform(0.2, 0.9, 3)) + (1.0,))
+        if i < n_cards:
+            mat.SetTexture(card_tex)
+            mat.EnableAlphaTest(True)
+            mat.SetAlphaFunc(int(VXCMP.GREATER))
+            mat.SetAlphaRef(128)
+        x = -24.0 + 48.0 * i / max(n_props - 1, 1)
+        ent = cube(f"prop{i}", mat, (x, 7.0 + (i % 3), 10.0 + 3.0 * (i % 2)),
+                   draw_mesh)
+        imm["props"].append(ent)
+        if i < n_cards:
+            imm["cards"].append(ent)
+    for i in range(n_blended):
+        mat = O.CKMaterial(ctx, f"glass_mat{i}")
+        mat.SetDiffuse(tuple(rng.uniform(0.3, 1.0, 3)) + (0.45,))
+        mat.EnableAlphaBlend(True)
+        mat.SetSourceBlend(int(VXBLEND.SRCALPHA))
+        mat.SetDestBlend(int(VXBLEND.INVSRCALPHA))
+        mat.EnableZWrite(False)
+        mat.SetTwoSided(True)
+        x = -12.0 + 24.0 * i / max(n_blended - 1, 1)
+        imm["blended"].append(cube(f"glass{i}", mat,
+                                   (x, 10.0, 6.0 * i), _deferred))
+    # An opaque halo material: the hidden sprites' triangles stay in the
+    # frame's opaque stream (invalid), so the frame has no ordered pass.
+    halo_mat = O.CKMaterial(ctx, "halo_mat")
+    halo_mat.SetDiffuse((1.0, 0.85, 0.4, 1.0))
+    halo_mat.SetTexture(_halo_texture(O, ctx, "halo_tex"))
+    for i in range(n_halos):
+        sp = O.CKSprite3D(ctx, f"halo{i}")
+        sp.SetMaterial(halo_mat)
+        x, z = rng.uniform(-40.0, 40.0), rng.uniform(0.0, 60.0)
+        sp.SetPosition((x, 5.0 + rng.uniform(0.0, 4.0), z))
+        sp.SetSize((1.5, 1.5))
+        sp.Show(False)                  # drawn by the callback, not the frame
+        imm["halos"].append(sp)
+    hud_mat = O.CKMaterial(ctx, "hud_mat")
+    hud_mat.SetDiffuse((0.1, 0.25, 0.4, 0.6))
+    hud_mat.EnableAlphaBlend(True)
+    hud_mat.SetSourceBlend(int(VXBLEND.SRCALPHA))
+    hud_mat.SetDestBlend(int(VXBLEND.INVSRCALPHA))
+    hud_mat.SetTwoSided(True)
+    # The HUD quad in clip space, a fan over the top-left corner.
+    hud = np.array([[-0.95, 0.95, 0.0, 1.0], [-0.55, 0.95, 0.0, 1.0],
+                    [-0.55, 0.7, 0.0, 1.0], [-0.95, 0.7, 0.0, 1.0]],
+                   np.float32)
+
+    def post(rc, arg):
+        if not imm["on"]:
+            return
+        rc.RenderTransparents()
+        for sp in imm["halos"]:
+            rc.AddSprite3DBatch(sp)
+        rc.CallSprite3DBatches()
+        pos, col, uv = rc.LockCurrentVB(4)
+        pos[:] = hud
+        col[:] = hud_mat.GetDiffuse()
+        uv[:] = 0.0
+        rc.SetCurrentMaterial(hud_mat)
+        rc.ReleaseCurrentVB(int(VXPRIMITIVE.TRIANGLEFAN))
+        rc.SetCurrentMaterial(None)
+
+    rc.AddPostRenderCallBack(post)
+    return ctx, rc, spinner, imm
+
+
 def _terrain_height(x, z, amp: float = 4.0):
     """Height of :func:`make_terrain`'s surface at (x, z)."""
     return amp * (np.sin(x * 0.15) * np.cos(z * 0.2)
