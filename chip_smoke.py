@@ -81,7 +81,8 @@ call script of 1,026 immediate-mode triangles, a sprite, a framebuffer
 copy and a screen backup on a 1024x768 ``CKRasterizerContext`` through
 ``render_pass`` and no hand-written kernel; a display-list replay, the
 copy and the restore bit-equal to what they copy; the counters; the
-driver table; the script at 128x96 on the card against the CPU; host ms
+driver table; the script cut to 290 triangles at 128x96 on the card
+against the CPU; host ms
 per sphere ``DrawPrimitive``, device ms and launches per triangle),
 renders the monitor level in stereo (``scenes.build_config5_monitor``:
 config 5 at 1024x768 with both eyes side by side, and a 512x384 producer
@@ -104,6 +105,16 @@ batches and a staging-VB HUD through ``DrawPrimitive``'s ``render_pass``,
 pixels outside their boxes equal to the callback-free tick, ``Pick3D``
 against the frame's winners, ``PickRect``, a precise pick through a
 card's hole, and the draws at 128x96 equal on the card and the CPU),
+steps through the debugged level (``scenes.build_config5_debug``: config
+5 under ``EnableDebugMode`` with a shown 64x64 grid, a 16-bone skinned
+arm driven by a ``CKKinematicChain`` and the PV watermark; the ``debug``
+phase: B1 and L1 once on the stepped tick and each equal to its plain
+version there, pixels outside the label's and the watermark's boxes
+equal to the tick without the debug mode, a k = 0 frame of the clear
+colour only, ``DebugStep``'s walk, the IK targets reached, the grid's
+coordinate round trip, ``RadixSorter`` over the level's view depths,
+``NvStripifier`` and ``PlaceFitter`` on the terrain, and the tick at
+128x96 equal on the card and the CPU),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -917,6 +928,9 @@ def main() -> int:
     # --- 4k. picking and immediate-mode draws over the level ---------------
     immediate_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4l. debug stepping, the grid and the IK arm over the level --------
+    debug_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1172,9 +1186,12 @@ def main() -> int:
 
 
 # The HAL's call script: on the card at config 5's display size, and at
-# 128x96 on the card and on the CPU.
+# 128x96 on the card and on the CPU, there cut to HAL_SMALL_SCRIPT: 192 +
+# 32 + 2 * 16 + 32 + 2 = 290 triangles, every call of the full script's
+# 1,026 (each triangle costs the card ~18 host ms).
 HAL_SIZE = (1024, 768)
 HAL_SMALL = (128, 96)
+HAL_SMALL_SCRIPT = dict(rings=8, segments=12, grid=4, fan=16, quads=16)
 HAL_CLEAR = np.array([0x20, 0x30, 0x40, 0xFF], np.float32) / 255.0
 # Triangles of the sphere drawn again under torch.profiler (its ~1,140
 # launches per triangle make the whole 768-triangle draw a long profile).
@@ -1194,10 +1211,10 @@ def hal_lights(O, device):
     return [key, fill]
 
 
-def hal_run(O, device, size, **kw):
+def hal_run(O, device, size, script=None, **kw):
     """A fresh rasterizer on ``device``, a context of ``size`` on its
-    driver 0, the full call script through it. Returns (rasterizer,
-    context, the script's record)."""
+    driver 0, the call script through it (the full one, or ``script``'s
+    sizes). Returns (rasterizer, context, the script's record)."""
     from ckrenderengine_tpu_torch.raster import hal as H
     from ckrenderengine_tpu_torch.raster import hal_fixtures as hf
 
@@ -1205,20 +1222,21 @@ def hal_run(O, device, size, **kw):
     rst.Start(None)
     ctx = rst.GetDriver(0).CreateContext()
     ctx.Create(None, *size)
-    out = hf.hal_script(rst, ctx, hal_lights(O, device), **hf.FULL, **kw)
+    out = hf.hal_script(rst, ctx, hal_lights(O, device),
+                        **(script or hf.FULL), **kw)
     return rst, ctx, out
 
 
 def hal_cpu_planes(threads: int) -> tuple:
-    """The call script at HAL_SMALL on the CPU, in a worker process of its
-    own (spawned: it never touches the card). Returns (fb HWC, zb,
-    seconds)."""
+    """The call script cut to HAL_SMALL_SCRIPT at HAL_SMALL on the CPU, in
+    a worker process of its own (spawned: it never touches the card).
+    Returns (fb HWC, zb, seconds)."""
     sys.path.insert(0, ROOT)
     import ckrenderengine_tpu_torch.objects as O
 
     torch.set_num_threads(threads)
     t0 = time.monotonic()
-    _r, ctx, _o = hal_run(O, "cpu", HAL_SMALL)
+    _r, ctx, _o = hal_run(O, "cpu", HAL_SMALL, HAL_SMALL_SCRIPT)
     return ctx.BackToFront(), ctx.zb.numpy(), time.monotonic() - t0
 
 
@@ -1238,8 +1256,8 @@ def hal_phase(O, kernel_fns, card) -> dict:
       (768 triangles): its host ms (no synchronise) and wall ms (with
       one); HAL_PROFILED of its triangles drawn again under torch.profiler:
       device launches and device ms per triangle.
-    - The script at 128x96 on the card and on the CPU, in a worker
-      process that starts after the timed sphere draw and runs while the
+    - The script cut to HAL_SMALL_SCRIPT at 128x96 on the card and on the
+      CPU, in a worker process that starts after the timed sphere draw and runs while the
       card works on: fb and zb within
       ``render_pass``'s bound (1e-5 on all but 0.1% of the values, never
       past 1e-4)."""
@@ -1343,9 +1361,9 @@ def hal_phase(O, kernel_fns, card) -> dict:
         sphere["device_ms"] = device_us(dev) / 1e3
         step("profile_s", t0)
 
-        # The same script at HAL_SMALL, card against CPU.
+        # The cut script at HAL_SMALL, card against CPU.
         t0 = time.monotonic()
-        _r, ctx_g, _o = hal_run(O, "cuda", HAL_SMALL)
+        _r, ctx_g, _o = hal_run(O, "cuda", HAL_SMALL, HAL_SMALL_SCRIPT)
         fb_g, zb_g = ctx_g.BackToFront(), ctx_g.zb.cpu().numpy()
         step("script_small_card_s", t0)
         t0 = time.monotonic()
@@ -2188,6 +2206,336 @@ def immediate_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
            "steps": steps, "phase_s": round(seconds, 3)}
     emit("immediate", **res)
     emit("immediate_phase", seconds=round(seconds, 1), card=card)
+    return res
+
+
+DBG_SIZE = (1024, 768)
+# The card-against-CPU tick: the level cut as the golden frames cut it.
+DBG_SMALL = dict(width=128, height=96, terrain_n=70, n_balls=8)
+DBG_FRAME_MS = 16.5          # FrameTime set before each tick: one label text
+DBG_IK_ATOL = 1e-4           # bone matrices, card against CPU
+DBG_STRIP_FACES = 48_000     # the terrain's first 48 rows of quads
+DBG_PROFILED = 4             # label composites per profiler window
+
+
+def dbg_tick(rc, dbg, k: int, target: int) -> float:
+    """One debug tick before Render(): IKSetEffectorPos towards target
+    ``target`` of the path, then DebugStep from ``k`` - 1 to ``k``, and
+    FrameTime fixed so the label's text is known. Returns the host ms of
+    the IK call."""
+    t0 = time.perf_counter()
+    dbg["chain"].IKSetEffectorPos(dbg["targets"][target])
+    ms = (time.perf_counter() - t0) * 1e3
+    rc.SetDebugObjectCount(k - 1)
+    check(rc.DebugStep() == k, f"debug: DebugStep did not reach {k}")
+    rc.stats.FrameTime = DBG_FRAME_MS
+    return ms
+
+
+def dbg_boxes(rc) -> np.ndarray:
+    """(H, W) bool on the host: the stepping label's box at (4, 4) and the
+    PV watermark's (32x8, 2 pixels in from the bottom-left corner)."""
+    box = np.zeros((rc.height, rc.width), bool)
+    if rc._dbg_label[1] is not None and rc.GetDebugObjectCount() >= 0:
+        h, w = rc._dbg_label[1].shape[:2]
+        box[4:4 + h, 4:4 + w] = True
+    box[rc.height - 10:rc.height - 2, 2:34] = True
+    return box
+
+
+def dbg_cpu_tick(threads: int) -> dict:
+    """``build_config5_debug`` at DBG_SMALL on the CPU, in a worker process
+    of its own (spawned: it never touches the card): the stepped tick of
+    :func:`debug_phase`'s small run, its winners, 8-bit image, label text
+    and the arm's bone matrices."""
+    sys.path.insert(0, ROOT)
+    import ckrenderengine_tpu_torch.objects as O
+    from ckrenderengine_tpu_torch import scenes
+
+    torch.set_num_threads(threads)
+    t0 = time.monotonic()
+    _c, rc, _s, dbg = scenes.build_config5_debug(O, device="cpu",
+                                                 **DBG_SMALL)
+    n = rc.context.entity_table.count
+    dbg_tick(rc, dbg, n // 2, 1)
+    rc.Render()
+    return {"ids": winners(rc), "rgba": rc.BackToFront(),
+            "label": rc._dbg_label[0],
+            "bones": np.stack([b.GetWorldMatrix() for b in dbg["bones"]]),
+            "seconds": time.monotonic() - t0}
+
+
+def debug_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """Debug stepping, the grid, the IK arm and the geometry tools over the
+    Ballance level on the card: ``scenes.build_config5_debug`` at
+    1024x768 (config 5's 528,032 triangles, a shown 64x64 grid with two
+    layers, a 16-bone skinned arm driven by a CKKinematicChain,
+    EnableDebugMode, the PV watermark from a post-render callback).
+
+    - The stepped tick (IKSetEffectorPos, then DebugStep to half the
+      entity count; the grid and the arm come first in render order): B1
+      and L1 once each and nothing else. The same tick with B1's plain
+      version: fb and zb bit-equal. L1 at the tick's line-pass inputs
+      equal to its plain version. With EnableDebugMode off, the same
+      count: every pixel outside the label's and the watermark's boxes
+      bit-equal.
+    - k = 0: only the clear colour outside the two boxes. DebugStep walks
+      0, 1, ..., n and wraps to -1.
+    - The label's composite under torch.profiler: device launches and ms
+      per composite.
+    - IK: each target of the path reached within the chain's tolerance;
+      host ms per IKSetEffectorPos (each iteration reads its joint angles
+      back from the card).
+    - Grid: GetGridCoordinates(GetPositionFromCoordinates(x, y)) == (x, y)
+      on every square.
+    - Geometry (host): RadixSorter over the tick's view depths (the mean
+      corner w of every triangle of the stream, chunk culling off) equal to a
+      stable np.argsort; NvStripifier on DBG_STRIP_FACES terrain faces,
+      each face in one strip; PlaceFitter between two adjacent terrain
+      pieces; host ms of each, and which path (native or numpy) ran.
+    - The tick at DBG_SMALL on the card and on the CPU (a worker process
+      started after the timed IK): winners on >= 99.9% of the pixels, the
+      8-bit image within 1 where they agree (the golden frames'
+      tolerance), the same label text, the bones within DBG_IK_ATOL."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import device_us, profile_window
+    from ckrenderengine_tpu_torch.pipeline import lines as ll
+    from ckrenderengine_tpu_torch.pipeline.overlay import composite_label
+    from ckrenderengine_tpu_torch.utils import (
+        NvStripifier, PlaceFitter, RadixSorter, native, strip_to_triangles,
+    )
+
+    t_phase = time.monotonic()
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = round(time.monotonic() - t0, 3)
+
+    fns = dict(kernel_fns, L1=ll.lines_kernel)
+    launches.setdefault("L1", 0)
+    t0 = time.monotonic()
+    ctx, rc, _spinner, dbg = scenes.build_config5_debug(
+        O, *DBG_SIZE, device="cuda")
+    n = ctx.entity_table.count
+    mid = n // 2
+    step("build_s", t0)
+    t0 = time.monotonic()
+    ik_first_ms = dbg_tick(rc, dbg, mid, 0)
+    tick = render_counted(rc, fns, launches)
+    fb_on, zb_on = rc.fb.clone(), rc.zb.clone()
+    label = rc._dbg_label[0]
+    step("tick_s", t0)
+    want = {k: 0 for k in fns}
+    want.update(B1=1, L1=1)
+    check(tick["launches"] == want, f"debug: the stepped tick launched {tick}")
+    check(label.endswith(f"({mid}/{n}) {DBG_FRAME_MS:.1f} ms"),
+          f"debug: label {label!r}")
+    check(bool(torch.isfinite(fb_on).all()), "debug: non-finite fb")
+
+    # IK over the target path; then the tick's pose back, for the checks
+    # below that render the tick again.
+    t0 = time.monotonic()
+    chain = dbg["chain"]
+    pose = [b.GetLocalMatrix().copy() for b in dbg["bones"]]
+    ik_ms, ik_err, ik_ok = [], [], []
+    for t in dbg["targets"]:
+        t1 = time.perf_counter()
+        ik_ok.append(bool(chain.IKSetEffectorPos(t)))
+        ik_ms.append((time.perf_counter() - t1) * 1e3)
+        eff = dbg["bones"][-1].GetWorldMatrix()[3, :3]
+        ik_err.append(float(np.linalg.norm(eff - t)))
+    check(all(ik_ok) and max(ik_err) < 1e-3,
+          f"debug: IK targets missed {ik_ok} {ik_err}")
+    for b, m in zip(dbg["bones"], pose):
+        b.SetLocalMatrix(m)
+    step("ik_s", t0)
+
+    # The CPU worker starts once the timed IK is done (clean host ms); it
+    # runs beside the rest of the phase on threads the phase leaves free.
+    threads = max(1, (os.cpu_count() or 2) - 4)
+    ex = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    job = ex.submit(dbg_cpu_tick, threads)
+    try:
+        # The same tick with B1's plain version, then L1 against its plain
+        # version at the tick's line-pass inputs.
+        t0 = time.monotonic()
+        restore_b1 = plain_b1()
+        try:
+            reset_launches(fns.values())
+            rc.stats.FrameTime = DBG_FRAME_MS
+            rc.Render()
+            torch.cuda.synchronize()
+            plain_got = {k: fn.launches for k, fn in fns.items()}
+        finally:
+            restore_b1()
+        b1_plain_equal = bool(torch.equal(rc.fb, fb_on)
+                              and torch.equal(rc.zb, zb_on))
+        check(plain_got["B1"] == 0 and b1_plain_equal,
+              f"debug: the tick differs from B1's plain version's ({plain_got})")
+        rc.stats.FrameTime = DBG_FRAME_MS
+        s = line_inputs(rc, ll)
+        args = (s["fb"], s["zb"], s["rows"], s["h"], s["w"])
+        out_k, out_p = ll.lines_kernel(*args), ll.draw_lines_plain(*args)
+        l1_err = float((out_k - out_p).abs().max())
+        check(torch.equal(out_k, out_p),
+              f"debug: L1 and its plain version disagree ({l1_err})")
+        step("plain_s", t0)
+
+        # The debug mode off at the same count: only the label's box differs
+        # (the watermark is the scene's callback, drawn in both).
+        t0 = time.monotonic()
+        boxes = dbg_boxes(rc)
+        rm = ctx.GetRenderManager()
+        rm.SetRenderOptions("EnableDebugMode", 0)
+        rc.stats.FrameTime = DBG_FRAME_MS
+        rc.Render()
+        rm.SetRenderOptions("EnableDebugMode", 1)
+        outside = torch.as_tensor(~boxes, device=rc.fb.device)
+        untouched_equal = bool(torch.equal(rc.fb[:, outside], fb_on[:, outside])
+                               and torch.equal(rc.zb, zb_on))
+        label_changed = float((rc.fb != fb_on).any(0).float().mean())
+        check(untouched_equal, "debug: pixels outside the label's and the "
+              "watermark's boxes differ from the tick without the debug mode")
+        check(label_changed > 0, "debug: the label drew nothing")
+
+        # k = 0: only the clear colour outside the boxes; the step's wrap.
+        rc.SetDebugObjectCount(0)
+        rc.stats.FrameTime = DBG_FRAME_MS
+        rc.Render()
+        clear = torch.as_tensor(rc.background_color, device=rc.fb.device)
+        empty = bool((rc.fb[:, outside] == clear[:, None]).all())
+        check(empty, "debug: the k = 0 frame shows more than the clear colour")
+        rc.SetDebugObjectCount(-1)
+        walk = [rc.DebugStep() for _ in range(n + 2)]
+        check(walk == list(range(n + 1)) + [-1],
+              f"debug: DebugStep walked {walk[:4]} ... {walk[-3:]}")
+        step("checks_s", t0)
+
+        # The label's composite alone, DBG_PROFILED calls in a padded
+        # profiler window, taken again until its device records are a
+        # whole multiple of the calls (a window may lose records).
+        t0 = time.monotonic()
+        img = rc._dbg_label[1]
+
+        def device(prof):
+            return [e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA]
+
+        prof, _wall = profile_window(
+            lambda: composite_label(rc.fb, img, 4, 4), DBG_PROFILED,
+            [ProfilerActivity.CUDA],
+            lambda p: len(device(p)) > 0
+            and len(device(p)) % DBG_PROFILED == 0, label="label")
+        dev = device(prof)
+        check(len(dev) > 0 and len(dev) % DBG_PROFILED == 0,
+              f"debug: the profiler saw {len(dev)} device records")
+        label_launches = len(dev) // DBG_PROFILED
+        label_ms = device_us(dev) / 1e3 / DBG_PROFILED
+        step("profile_s", t0)
+        # Grid round trip on every square.
+        t0 = time.monotonic()
+        grid = dbg["grid"]
+        bad = [(x, y) for y in range(grid.GetLength())
+               for x in range(grid.GetWidth())
+               if grid.GetGridCoordinates(
+                   grid.GetPositionFromCoordinates(x, y)) != (x, y)]
+        check(not bad, f"debug: grid round trip fails at {bad[:8]}")
+        step("grid_s", t0)
+
+        # Geometry tools on the level's data.
+        t0 = time.monotonic()
+        rc.SetDebugObjectCount(-1)
+        rc._chunk_select = lambda c, view, proj: None
+        try:
+            _scene, batch, _su, _df, _bits = fr.packed_setup(
+                *packed_cuda(rc))
+        finally:
+            del rc._chunk_select
+        w = batch.xyw[..., 2].mean(-1).cpu().numpy()
+        t1 = time.perf_counter()
+        order = RadixSorter().Sort(w).GetIndices()
+        radix_ms = (time.perf_counter() - t1) * 1e3
+        neg_zero = int(np.signbit(w[w == 0]).sum())
+        radix_equal = bool(np.array_equal(order, np.argsort(w, kind="stable")))
+        check(radix_equal and neg_zero == 0,
+              f"debug: the radix order differs from np.argsort "
+              f"({neg_zero} negative zeros)")
+        terrain = next(o for o in ctx._objects.values()
+                       if isinstance(o, O.CKMesh) and o.GetName() == "terrain")
+        faces = terrain.faces[:DBG_STRIP_FACES]
+        t1 = time.perf_counter()
+        strips = NvStripifier().Stripify(faces)
+        strip_ms = (time.perf_counter() - t1) * 1e3
+        covered = sum(len(strip_to_triangles(st)) for st in strips)
+        check(covered == len(faces), f"debug: the strips cover {covered} "
+              f"of {len(faces)} faces")
+        v = terrain.positions
+        near = (np.abs(v[:, 0]) <= 30.0) & (np.abs(v[:, 2]) < 30.0)
+        t1 = time.perf_counter()
+        fit = PlaceFitter.ComputeBestFitBBox(v[near & (v[:, 0] <= 0.0)],
+                                             v[near & (v[:, 0] >= 0.0)])
+        fit_ms = (time.perf_counter() - t1) * 1e3
+        check(fit is not None and abs(float(fit[0][0])) < 1e-3,
+              f"debug: PlaceFitter between the terrain pieces gave {fit}")
+        step("geometry_s", t0)
+
+        # The small tick, card against CPU.
+        t0 = time.monotonic()
+        _c, rc_g, _s, dbg_g = scenes.build_config5_debug(
+            O, device="cuda", **DBG_SMALL)
+        dbg_tick(rc_g, dbg_g, rc_g.context.entity_table.count // 2, 1)
+        rc_g.Render()
+        ids_g, rgba_g = winners(rc_g), rc_g.BackToFront()
+        bones_g = np.stack([b.GetWorldMatrix() for b in dbg_g["bones"]])
+        step("small_card_s", t0)
+        t0 = time.monotonic()
+        cpu = job.result()
+        step("cpu_wait_s", t0)
+    finally:
+        ex.shutdown(cancel_futures=True)
+    match = ids_g == cpu["ids"]
+    diff = np.abs(rgba_g.astype(np.int32) - cpu["rgba"].astype(np.int32))
+    bone_err = float(np.abs(bones_g - cpu["bones"]).max())
+    small = {"size": [DBG_SMALL["width"], DBG_SMALL["height"]],
+             "ids_equal_frac": float(match.mean()),
+             "rgba_max_diff_matching": int(diff[match].max()),
+             "label_equal": rc_g._dbg_label[0] == cpu["label"],
+             "bone_max_abs_err": bone_err,
+             "cpu_s": round(cpu["seconds"], 3), "cpu_threads": threads}
+    check(small["ids_equal_frac"] >= 0.999
+          and small["rgba_max_diff_matching"] <= 1 and small["label_equal"]
+          and bone_err <= DBG_IK_ATOL,
+          f"debug: the small tick, card against CPU {small}")
+    seconds = time.monotonic() - t_phase
+    res = {"config": "config5_debug", "card": card, "size": list(DBG_SIZE),
+           "triangles": int(rc._compiled.n_valid_tris), "entities": n,
+           "step": mid, "label": label, "tick_launches": tick["launches"],
+           "tick_ms": round(tick["frame_ms"], 3),
+           "b1_plain_equal": b1_plain_equal, "l1_max_abs_err": l1_err,
+           "untouched_equal": untouched_equal,
+           "label_pixels_frac": label_changed, "k0_clear_only": empty,
+           "label_composite_device_launches": label_launches,
+           "label_composite_device_ms": label_ms,
+           "ik_targets": len(ik_ms), "ik_reached": all(ik_ok),
+           "ik_max_err": max(ik_err),
+           "host_ms_per_ik_set_effector_pos": float(np.mean(ik_ms)),
+           "host_ms_per_ik_set_effector_pos_max": float(np.max(ik_ms)),
+           "ik_first_ms": round(ik_first_ms, 3),
+           "grid_squares": grid.GetWidth() * grid.GetLength(),
+           "native_path": native.available(),
+           "radix_values": int(w.size), "radix_host_ms": radix_ms,
+           "radix_equal": radix_equal,
+           "stripify_faces": len(faces), "strips": len(strips),
+           "stripify_host_ms": strip_ms, "place_fit_host_ms": fit_ms,
+           "small": small, "steps": steps, "phase_s": round(seconds, 3)}
+    emit("debug", **res)
+    emit("debug_phase", seconds=round(seconds, 1), card=card)
     return res
 
 
@@ -3239,7 +3587,7 @@ def batch_phase(O, scenes, kernel_fns, launches, card, groups=BATCH_GROUPS,
 # (two full windows of W and a partial one), the golden frame's cut, and
 # the batched group whose members share one pixel shader.
 SHADER_TICKS = 2
-SHADER_WINDOW = (("config5_shaded", "build_config5_shaded", {}, ("B1",), 2),)
+SHADER_WINDOW = (("config5_shaded", "build_config5_shaded", {}, ("B1",), 1),)
 SHADER_GOLDEN = dict(width=320, height=240, terrain_n=70, n_balls=8,
                      alpha_sheet=True)
 SHADER_BATCH = (("batched_8x256_shaded", 8, 256, False, "B1"),)
@@ -3358,7 +3706,7 @@ def shader_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     - B1 on the frame's own inputs against its plain version, timed beside
       its bound, and the shade stage beside config 5's unshaded shade
       (:func:`time_shaded`).
-    - Windowed: W = 8 through ``window_phase`` (two fenced windows and a
+    - Windowed: W = 8 through ``window_phase`` (one fenced window and a
       partial one, every window's last frame and every fence entry
       bit-equal to the eager frames').
     - A stage that reads the host (``.item()``) in a window raises

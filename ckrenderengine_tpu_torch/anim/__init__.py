@@ -1,6 +1,6 @@
 """Animation: keyframe controllers, object and keyed animations, device
-animation banks, skins and characters (``ckrenderengine_tpu.anim`` without
-inverse kinematics, which is not carried yet)."""
+animation banks, skins, characters and inverse kinematics (the reference's
+``anim`` package)."""
 
 from .keyframe import (
     AnimController, BezierPositionController, BezierScaleController,
@@ -16,6 +16,7 @@ from .objectanim import (
     CKKeyedAnimation, CKObjectAnimation,
 )
 from .character import CKBodyPart, CKCharacter
+from .ik import CKKinematicChain, IKJointData
 from .skin import CKSkin, CKSkinBoneData
 from .bank import (
     AnimBank, apply_bank, apply_bank_blended, build_anim_bank,

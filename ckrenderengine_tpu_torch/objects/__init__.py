@@ -16,6 +16,7 @@ from .entity2d import CK2dEntity, CKSprite, CKSpriteText
 from .place import CKPlace, CKPortalEntry
 from .sprite3d import CKSprite3D
 from .curve import CKCurve, CKCurvePoint
+from .grid import CKGrid, CKLayer
 from .material import (
     CKMaterial, VXEFFECT_2TEXTURES, VXEFFECT_3TEXTURES, VXEFFECT_BUMPENV,
     VXEFFECT_DP3, VXEFFECT_NONE, VXEFFECT_TEXGEN, VXEFFECT_TEXGENREF,
@@ -38,7 +39,8 @@ from .classreg import (
 __all__ = [
     "CKContext", "CKObject", "CK3dEntity", "CK3dObject", "CKMesh",
     "CKPatch", "CKPatchMesh", "CKTVPatch", "CK2dEntity", "CKSprite",
-    "CKSpriteText", "CKSprite3D", "CKCurve", "CKCurvePoint",
+    "CKSpriteText", "CKSprite3D", "CKCurve", "CKCurvePoint", "CKGrid",
+    "CKLayer",
     "CKPlace", "CKPortalEntry", "CKMaterial", "CKTexture", "CKLight",
     "CKTargetLight", "CKCamera", "CKTargetCamera", "CKRenderManager",
     "CKRenderContext", "VxEffectDescription",

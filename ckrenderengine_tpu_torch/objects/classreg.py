@@ -87,6 +87,10 @@ def _deps_curve(o):
     return [(p, B.CKCID_CURVEPOINT) for p in o.points]
 
 
+def _deps_grid(o):
+    return [(l, B.CKCID_LAYER) for l in o.layers]
+
+
 def _deps_character(o):
     out = _deps_3dentity(o)                 # hierarchy children travel too
     out += [(p, B.CKCID_BODYPART) for p in o.body_parts]
@@ -103,26 +107,17 @@ def _deps_objectanim(o):
     return [(ent, B.CKCID_3DENTITY)] if ent is not None else []
 
 
-class CKKinematicChain(B.CKObject):
-    """Registered so the class tree is whole; inverse kinematics is not
-    carried yet, and creating a chain raises."""
-
-    CLASS_ID = B.CKCID_KINEMATICCHAIN
-
-    def __init__(self, context, name: str = ""):
-        raise unported("CKKinematicChain (inverse kinematics)", 17)
-
-
 def _build_table() -> dict:
-    """Rows for the classes this package carries (grids and layers are not
-    carried yet; their class ids stay reserved in objects/base.py)."""
+    """Rows for the classes this package carries: the reference's table,
+    whole."""
     from ..anim import (CKBodyPart, CKCharacter, CKKeyedAnimation,
-                        CKObjectAnimation)
+                        CKKinematicChain, CKObjectAnimation)
     from ..anim.objectanim import CKAnimation
     from .camera import CKCamera, CKTargetCamera
     from .curve import CKCurve, CKCurvePoint
     from .entity import CK3dEntity, CK3dObject, CKRenderObject
     from .entity2d import CK2dEntity, CKSprite, CKSpriteText
+    from .grid import CKGrid, CKLayer
     from .light import CKLight, CKTargetLight
     from .manager import CKRenderContext
     from .material import CKMaterial
@@ -160,6 +155,8 @@ def _build_table() -> dict:
         (B.CKCID_TARGETLIGHT, "Target Light", B.CKCID_LIGHT, CKTargetLight,
          _deps_3dentity),
         (B.CKCID_PLACE, "Place", B.CKCID_3DENTITY, CKPlace, _deps_3dentity),
+        (B.CKCID_GRID, "Grid", B.CKCID_3DENTITY, CKGrid, _deps_grid),
+        (B.CKCID_LAYER, "Layer", B.CKCID_OBJECT, CKLayer, None),
         (B.CKCID_CURVEPOINT, "Curve Point", B.CKCID_3DENTITY, CKCurvePoint,
          None),
         (B.CKCID_CURVE, "Curve", B.CKCID_3DENTITY, CKCurve, _deps_curve),

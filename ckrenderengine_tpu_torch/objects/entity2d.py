@@ -553,18 +553,19 @@ def text_bbox(text: str, table: dict | None = None) -> tuple:
 
 
 def raster_text(text: str, width: int, height: int, fill, background,
-                x: int = 0, table: dict | None = None) -> np.ndarray:
+                x: int = 0, table: dict | None = None,
+                y: int = 0) -> np.ndarray:
     """(height, width, 4) uint8 image: ``text`` in the RGBA bytes ``fill``
-    over ``background``, its first line's pen at (x, 0), drawn from
+    over ``background``, its first line's pen at (x, y), drawn from
     ``table`` (the default font's where None)."""
     table = glyph_table() if table is None else table
     cov = np.zeros((height, width), np.int32)
     for li, line in enumerate(text.split("\n")):
         pens, _end = _pens(line, table)
-        y = li * table["pitch"]
+        ly = y + li * table["pitch"]
         for code, px in pens:
             left, top, _adv, g = table["glyphs"][code]
-            gx, gy = x + px + left, y + top
+            gx, gy = x + px + left, ly + top
             xa, ya = max(gx, 0), max(gy, 0)
             xb = min(gx + g.shape[1], width)
             yb = min(gy + g.shape[0], height)

@@ -148,6 +148,12 @@ class CKRenderContext(CKObject):
         self._current_vb = None
         self._current_vb_count = 0
         self._sprite3d_mats: list = []
+        # Debug object stepping (SetDebugObjectCount; -1 renders every
+        # entity), the stepping label's (text, device image) and the PV
+        # watermark's texture.
+        self._debug_object_count = -1
+        self._dbg_label = (None, None)
+        self._pv_texture = None
 
     # -- frame windows (SetFramePipelining) ------------------------------
     def _pending(self) -> bool:
@@ -1893,7 +1899,7 @@ class CKRenderContext(CKObject):
         # SetDebugObjectCount(k) renders only the first k entities in
         # render order; DebugStep() advances. Programmatic here — the
         # interactive hotkey loop is the host app's job.
-        dbg = getattr(self, "_debug_object_count", -1)
+        dbg = self._debug_object_count
         if dbg >= 0:
             order = np.argsort(-self._entity_priority_np(n), kind="stable")
             cut = order[dbg:]
@@ -2688,6 +2694,14 @@ class CKRenderContext(CKObject):
         # of this context's buffers reaches the texture.
         if self.target_texture is not None:
             self.target_texture.SetDeviceImage(self.fb.clone(), chw=True)
+        # While stepping in debug mode, the stepped object's name and the
+        # last frame's time go into the output (reference :2880-2885), before
+        # the callbacks draw.
+        rm_opts = (self.context.render_manager.options
+                   if self.context.render_manager else {})
+        debug = bool(int(rm_opts.get("EnableDebugMode", 0)))
+        if debug and self._debug_object_count >= 0:
+            self._composite_debug_label()
         with PhaseTimer(ph, "CallbacksTime"):
             for obj in list(self.context._prerender_objects.values()):
                 rcb = getattr(obj, "render_callback", None)
@@ -2706,12 +2720,17 @@ class CKRenderContext(CKObject):
                 for kind, fct, arg, _t in obj.callbacks:
                     if kind == "post":
                         fct(self, obj, arg)
-        rm_opts = (self.context.render_manager.options
-                   if self.context.render_manager else {})
-        if int(rm_opts.get("EnableDebugMode", 0)):
+        if debug:
+            # The frame's output and the compiled streams' invariants
+            # (reference :2905-2918).
             if not bool(torch.isfinite(self.fb).all()):
                 raise FloatingPointError(
                     "render produced non-finite framebuffer values")
+            c = self._compiled
+            assert c.src_idx.max(initial=0) < c.positions.shape[0], \
+                "stream index out of pool"
+            assert c.tri_idx.max(initial=0) < c.src_idx.shape[0], \
+                "triangle index out of stream"
         self._count_frame()
         self.stats.FrameTime = (time.monotonic() - t0) * 1000.0
         ph.ObjectsRenderTime = self.stats.FrameTime - ph.CallbacksTime
@@ -3025,6 +3044,38 @@ class CKRenderContext(CKObject):
 
     def GetTextureStageState(self, stage: int, state: int):
         return self._texture_stage_states.get((int(stage), int(state)))
+
+    # The debug mode's render-state listing (reference FillStateString /
+    # AppendState*Line, rendercontext.py:3563-3590).
+    def FillStateString(self, material=None) -> str:
+        """The render state of ``material`` (else the DrawPrimitive state)
+        as one "<name>: <value>" line per state."""
+        from ..raster.types import RasterState
+        st = material.raster_state() if material is not None \
+            else self._dp_state or RasterState()
+        lines = []
+        self.AppendStateOnOffLine(lines, "AlphaBlend", st.alpha_blend)
+        self.AppendStateOnOffLine(lines, "AlphaTest", st.alpha_test)
+        self.AppendStateOnOffLine(lines, "ZWrite", st.z_write)
+        self.AppendStateOnOffLine(lines, "Fog", st.fog)
+        self.AppendStateEnumLine(lines, "SrcBlend", st.src_blend)
+        self.AppendStateEnumLine(lines, "DestBlend", st.dst_blend)
+        self.AppendStateEnumLine(lines, "ZFunc", st.z_func)
+        self.AppendStateEnumLine(lines, "Cull", st.cull)
+        self.AppendStateUIntLine(lines, "Texture", max(st.tex, 0))
+        return "\n".join(lines)
+
+    @staticmethod
+    def AppendStateOnOffLine(lines: list, name: str, value) -> None:
+        lines.append(f"{name}: {'On' if value else 'Off'}")
+
+    @staticmethod
+    def AppendStateEnumLine(lines: list, name: str, value) -> None:
+        lines.append(f"{name}: {int(value)}")
+
+    @staticmethod
+    def AppendStateUIntLine(lines: list, name: str, value) -> None:
+        lines.append(f"{name}: {int(value) & 0xFFFFFFFF}")
 
     def SetTextureMatrix(self, m, stage: int = 0) -> bool:
         """Stored per stage; stage 0's transforms the UVs of
@@ -3785,6 +3836,90 @@ class CKRenderContext(CKObject):
         it on to a PickRect that takes no such argument)."""
         return self.PickRect(rect)
 
+    # -- debug object stepping (reference :3768-3811) -----------------------
+    def SetDebugObjectCount(self, k: int = -1):
+        """Render only the first ``k`` entities in render order (-1: all),
+        the programmatic form of the reference's object-stepping debugger.
+        The fill masks the rest (``_fill_packed``): no recompile."""
+        self._debug_object_count = int(k)
+        self.context._bump_dynamic()
+
+    def GetDebugObjectCount(self) -> int:
+        return self._debug_object_count
+
+    def DebugStep(self, delta: int = 1) -> int:
+        """Advance the stepping cursor; past the entity count it wraps back
+        to -1 (every entity)."""
+        n = self.context.entity_table.count
+        cur = self._debug_object_count
+        cur = 0 if cur < 0 else cur + delta
+        if cur > n:
+            cur = -1
+        self.SetDebugObjectCount(cur)
+        return cur
+
+    def _debug_label_text(self) -> str:
+        """The label's text, ``<name> (<k>/<n>) <ms> ms``: the last stepped
+        entity in render order (stable by descending priority over the
+        entity rows, as the fill cuts them) and the previous frame's
+        time."""
+        k = self._debug_object_count
+        n = self.context.entity_table.count
+        name = "(none)"
+        if k >= 1:
+            order = np.argsort(-self._entity_priority_np(n), kind="stable")
+            row = int(order[min(k, n) - 1])
+            for obj in self.context._objects.values():
+                if getattr(obj, "row", None) == row:
+                    name = obj.GetName() or f"row {row}"
+                    break
+        return f"{name} ({k}/{n}) {self.stats.FrameTime:.1f} ms"
+
+    def _composite_debug_label(self):
+        """Draw the stepping label (:meth:`_debug_label_text`) into the
+        frame at (4, 4), where it fits. The label's image is rastered on
+        the host and uploaded once per text."""
+        from ..pipeline.overlay import composite_label, raster_label
+
+        text = self._debug_label_text()
+        if self._dbg_label[0] != text:
+            img = raster_label(text, max_w=max(self.width - 8, 1))
+            self._dbg_label = (text, torch.from_numpy(img).to(
+                self.context.device))
+        img = self._dbg_label[1]
+        if img.shape[0] + 4 <= self.height and img.shape[1] + 4 <= self.width:
+            self.fb = composite_label(self.fb, img, 4, 4)
+
+    # -- the PV watermark (reference :3860-3883) -----------------------------
+    def LoadPVInformationTexture(self) -> bool:
+        """The watermark's 32x8 texture: a translucent bar with a dark
+        stripe."""
+        from .texture import CKTexture
+        if self._pv_texture is None:
+            tex = CKTexture(self.context, "__pv_watermark")
+            img = np.zeros((8, 32, 4), np.float32)
+            img[1:7, 1:31] = (1.0, 1.0, 1.0, 0.35)
+            img[3:5, 2:30, :3] = 0.1
+            tex.SetImage(img)
+            self._pv_texture = tex
+        return True
+
+    def DrawPVInformationWatermark(self) -> bool:
+        """Blend the watermark over the frame's bottom-left corner (2 pixels
+        in), through a host copy of the frame and
+        :meth:`CopyFromMemoryBuffer`, as the reference does."""
+        if not self.LoadPVInformationTexture():
+            return False
+        img = self._pv_texture.GetImage()
+        fb = self.framebuffer().copy()
+        h, w = img.shape[0], img.shape[1]
+        y0 = self.height - h - 2
+        x0 = 2
+        a = img[..., 3:4]
+        fb[y0:y0 + h, x0:x0 + w, :3] = (
+            fb[y0:y0 + h, x0:x0 + w, :3] * (1 - a) + img[..., :3] * a)
+        return self.CopyFromMemoryBuffer(fb)
+
     def DestroyDevice(self) -> bool:
         """Free this context's device state: a pending window or batch is
         resolved first (fb, zb and sb keep its frame), then the compiled
@@ -3894,9 +4029,3 @@ class BatchRead:
 # Public methods of the reference's CKRenderContext that this package does
 # not carry: each raises its port queue item.
 unported_methods(CKRenderContext, 14, ("DumpToFile",))
-unported_methods(CKRenderContext, 17, (
-    # Debug stepping, the state strings and the PV watermark (17.1).
-    "DebugStep", "GetDebugObjectCount", "SetDebugObjectCount",
-    "AppendStateEnumLine", "AppendStateOnOffLine", "AppendStateUIntLine",
-    "FillStateString", "DrawPVInformationWatermark",
-    "LoadPVInformationTexture"))

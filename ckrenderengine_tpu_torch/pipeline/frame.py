@@ -1006,9 +1006,10 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
         corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
         host_stats=host_stats, flags=flags, peel_rounds=peel_rounds)
     if lines is not None:
-        from .lines import draw_lines
+        from .lines import draw_lines, visible_lines
 
-        out = (draw_lines(out[0], out[1], scene_lines, world, lines, height,
+        out = (draw_lines(out[0], out[1], scene_lines, world,
+                          visible_lines(lines, scene_lines), height,
                           width),) + tuple(out[1:])
     if quads_fg is None:
         return out

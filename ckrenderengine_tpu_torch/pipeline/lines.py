@@ -66,6 +66,18 @@ def build_line_bank(segments: list[dict], pad: int = 8,
                     valid=torch.as_tensor(valid, device=device))
 
 
+def visible_lines(bank: LineBank, scene) -> LineBank:
+    """``bank`` with the segments of entities hidden in this frame made
+    invalid (``scene.entity_visible``: Show(False) or debug stepping, which
+    change no compile). The reference draws every compiled segment."""
+    from .frame import _take
+
+    vis = torch.cat([scene.entity_visible, torch.ones(
+        1, dtype=torch.bool, device=scene.entity_visible.device)])
+    ent = _take(scene.vert_entity, bank.idx[:, 0])
+    return bank._replace(valid=bank.valid & _take(vis, ent))
+
+
 def line_rows(scene, world: torch.Tensor, bank: LineBank) -> torch.Tensor:
     """(L, ROW_FLOATS) f32 projected segments: the endpoints through the
     triangles' vertex path (pool row, entity world matrix, view and

@@ -160,6 +160,38 @@ def composite_quads(fb: torch.Tensor, bank: QuadBank,
     return fb
 
 
+def composite_label(fb: torch.Tensor, label: torch.Tensor, x: int,
+                    y: int) -> torch.Tensor:
+    """A copy of the (4, H, W) framebuffer with the RGBA label (h, w, 4),
+    on fb's device, alpha-composited at pixel (x, y): RGB over, alpha the
+    larger of the two (reference ``composite_label``, the debug mode's
+    stepping label)."""
+    h, w = label.shape[0], label.shape[1]
+    lab = label.permute(2, 0, 1)
+    out = fb.clone()
+    dst = fb[:, y:y + h, x:x + w]
+    a = lab[3:4]
+    out[:3, y:y + h, x:x + w] = lab[:3] * a + dst[:3] * (1.0 - a)
+    out[3:4, y:y + h, x:x + w] = torch.maximum(dst[3:4], a)
+    return out
+
+
+def raster_label(text: str, max_w: int, pad: int = 2) -> np.ndarray:
+    """Host: ``text`` in white over translucent black ((0, 0, 0, 160)),
+    ``pad`` pixels in from each side, the width clipped to ``max_w``:
+    (h, w, 4) f32 in [0, 1]. Drawn from the default glyph table, which
+    equals Pillow's default font (the reference rasters the label with
+    Pillow)."""
+    from ..objects.entity2d import raster_text, text_bbox
+
+    bb = text_bbox(text)
+    w = min(max(bb[2] + 2 * pad, 1), max_w)
+    h = bb[3] + 2 * pad
+    img = raster_text(text, w, h, (255, 255, 255, 255), (0, 0, 0, 160),
+                      x=pad, y=pad)
+    return img.astype(np.float32) / 255.0
+
+
 class Sprite3DBank(NamedTuple):
     """S billboard sprites expanded on the device (4 vertices, 2 triangles
     each). Sprite s owns pool rows pool_base[s] .. pool_base[s] + 3 in

@@ -10,12 +10,11 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    12: "multi-card context sharding and framebuffer bands",
+    12: "multi-card context sharding, framebuffer bands and the multi-card "
+        "dry run (dryrun_multichip)",
     14: "scene IO, and fonts, sizes or characters without a baked glyph "
         "table",
     16: "progressive meshes",
-    17: "remaining host API (debug stepping, grids, inverse kinematics, "
-        "geometry utilities)",
 }
 
 

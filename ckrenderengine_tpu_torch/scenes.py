@@ -15,6 +15,8 @@ with a level's effects (``build_config5_fx``: sprites, curves, lines),
 material effects (``build_config5_mat``: TexGen, cube env, EMBM, effect
 passes, channels), user shaders (``build_config5_shaded``) and a live
 monitor fed by render-to-texture, in stereo (``build_config5_monitor``),
+immediate-mode draws (``build_config5_immediate``) and a debugged level
+with a layered grid and an IK-driven arm (``build_config5_debug``),
 made from seeds; sizes are
 parameters so the tests can cut the frame, the hierarchy, the terrain, the
 sheets and the skinned tube down. Every build function takes
@@ -264,12 +266,12 @@ def build_config3(O, width: int = 1024, height: int = 768,
 
 
 def make_skinned_tube(O, ctx, n_bones: int = 128, rings_per_bone: int = 4,
-                      ring_verts: int = 120):
+                      ring_verts: int = 120, clip: bool = True):
     """A tube of n_bones*rings_per_bone rings of ring_verts vertices
     skinned to a chain of bones along +z, with a keyed clip that sways every
-    bone about y with a phase offset (``benchmarks/baseline.py:231-320``).
-    The anim classes come from the package ``O`` belongs to. Returns (obj,
-    mesh, skin, bones, clip)."""
+    bone about y with a phase offset (``benchmarks/baseline.py:231-320``;
+    None where ``clip`` is False). The anim classes come from the package
+    ``O`` belongs to. Returns (obj, mesh, skin, bones, clip)."""
     A = importlib.import_module(O.__name__.rpartition(".")[0] + ".anim")
     seg_len = 0.35
     length = n_bones * seg_len
@@ -331,6 +333,8 @@ def make_skinned_tube(O, ctx, n_bones: int = 128, rings_per_bone: int = 4,
         w1 = float(frac[v]) * 0.5
         skin.SetVertexWeights(v, [int(bone_of[v]), int(nxt[v])],
                               [1.0 - w1, w1])
+    if not clip:
+        return obj, mesh, skin, bones, None
 
     clip = A.CKKeyedAnimation(ctx, "wave")
     clip.SetLength(60.0)
@@ -896,6 +900,87 @@ def build_config5_immediate(O, width: int = 1024, height: int = 768,
 
     rc.AddPostRenderCallBack(post)
     return ctx, rc, spinner, imm
+
+
+def build_config5_debug(O, width: int = 1024, height: int = 768,
+                        terrain_n: int = 500, n_balls: int = 64,
+                        grid_n: int = 64, n_arm_bones: int = 16,
+                        arm_ring_verts: int = 24, n_targets: int = 8,
+                        seed: int = 20, antialias: bool = False, **ctx_kw):
+    """Config 5 (:func:`build_config5`) as a level is debugged, with
+    ``EnableDebugMode`` on:
+
+    - a shown ``CKGrid`` of ``grid_n`` x ``grid_n`` unit squares over the
+      terrain (its debug mesh: a half-transparent quad textured with the
+      layers' colours and an orange wireframe border) with two layers,
+      "floor" (red) and "zone" (blue), filled from ``seed``;
+    - an arm: :func:`make_skinned_tube` with ``n_arm_bones`` bones and no
+      clip, standing up from the ground in front of the camera, whose bone
+      chain a ``CKKinematicChain`` drives; the middle third of its bones
+      have joint limits of +-0.6 rad about each axis;
+    - a context post-render callback that draws the PV watermark (its
+      texture loaded at build, so the first frame's callback adds no
+      object).
+
+    The grid and the arm have render priorities 2 and 1, so debug
+    stepping reaches them first, then the level's entities in row order.
+
+    A tick calls ``chain.IKSetEffectorPos`` (one of ``n_targets`` targets
+    on a circle above the arm's base, within its reach) and
+    ``rc.DebugStep()`` before ``Render()``. Returns (ctx, rc, spinner,
+    dbg): ``dbg`` holds "grid", "layers", "chain", "bones", "arm" and
+    "targets" ((n_targets, 3) world points)."""
+    A = importlib.import_module(O.__name__.rpartition(".")[0] + ".anim")
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, antialias=antialias,
+                                     **ctx_kw)
+    ctx.GetRenderManager().SetRenderOptions("EnableDebugMode", 1)
+    place_main = ctx.GetObjectByName("place_main")
+    rng = np.random.default_rng(seed)
+
+    grid = O.CKGrid(ctx, "zones")
+    grid.SetParent(place_main)
+    grid.SetDimensions(grid_n, grid_n)
+    grid.SetPosition((-0.5 * grid_n, 5.0, 5.0))
+    layers = []
+    for name, color, density in (("floor", (1.0, 0.3, 0.2, 1.0), 0.5),
+                                 ("zone", (0.2, 0.6, 1.0, 1.0), 0.3)):
+        layer = grid.AddLayer(name)
+        vals = rng.integers(64, 256, (grid_n, grid_n))
+        layer.SetSquareArray(vals * (rng.random((grid_n, grid_n))
+                                     < density))
+        layer.SetColor(color)
+        layers.append(layer)
+    grid.Show(True)
+    grid.SetRenderPriority(2)
+
+    base = np.array([8.0, 4.0, -12.0], np.float32)
+    arm, _mesh, _skin, bones, _clip = make_skinned_tube(
+        O, ctx, n_arm_bones, 4, arm_ring_verts, clip=False)
+    arm.SetParent(place_main)
+    arm.SetPosition(base)
+    arm.SetRenderPriority(1)
+    bones[0].SetParent(place_main)
+    bones[0].SetPosition(base)
+    bones[0].SetOrientation((0.0, 1.0, 0.0), up=(0.0, 0.0, -1.0))
+    chain = A.CKKinematicChain(ctx, "arm_ik")
+    chain.SetStartEffector(bones[0])
+    chain.SetEndEffector(bones[-1])
+    third = n_arm_bones // 3
+    for b in bones[third:n_arm_bones - third]:
+        b.rotation_joint.SetLimits((-0.6,) * 3, (0.6,) * 3)
+    reach = chain.GetChainLength()
+    ang = np.linspace(0.0, 2.0 * np.pi, n_targets, endpoint=False)
+    targets = (base + np.stack([0.45 * reach * np.cos(ang),
+                                0.7 * reach + 0.1 * reach * np.sin(2 * ang),
+                                0.45 * reach * np.sin(ang)], -1)
+               ).astype(np.float32)
+
+    rc.LoadPVInformationTexture()
+    rc.AddPostRenderCallBack(lambda rc_, arg: rc_.DrawPVInformationWatermark())
+    dbg = {"grid": grid, "layers": layers, "chain": chain, "bones": bones,
+           "arm": arm, "targets": targets}
+    return ctx, rc, spinner, dbg
 
 
 def _terrain_height(x, z, amp: float = 4.0):

@@ -1,11 +1,16 @@
-"""Host mesh tooling the scene compile uses to order each material group's
-faces (objects/mesh.py ``_optimize_group_order``): the stripifier
-(reference src/MeshStriper.cpp) and the vertex-cache optimizer (reference
-src/VertexCacheOptimizer.cpp, re-designed as Forsyth linear-speed scoring),
-with the edge adjacency the stripifier's fallback needs.
+"""Host mesh tooling: the radix sorter (reference include/RadixSort.h),
+edge adjacency (src/MeshAdjacency.cpp), the greedy stripifier the scene
+compile uses to order each material group's faces (objects/mesh.py
+``_optimize_group_order``; reference src/MeshStriper.cpp), the
+multi-sample stripifier (src/NvStripifier.cpp), the vertex-cache simulator
+and optimizer (include/VertexCache.h, src/VertexCacheOptimizer.cpp,
+re-designed as Forsyth linear-speed scoring), the nearest-point hash grid
+(src/NearestPointGrid.cpp) and the best-fit box between two point sets
+(src/PlaceFitter.cpp).
 
 Hot paths dispatch to the native C++ library (native/ckcore.cpp via ctypes);
-every method has a numpy fallback.
+every method has a numpy fallback. These stay host tools: nothing here runs
+on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +26,39 @@ BOUNDARY = 0xFFFFFFFF
 
 def _u32p(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32))
+
+
+def _f32p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+class RadixSorter:
+    """4-pass byte-histogram radix sort returning sorted indices
+    (reference include/RadixSort.h)."""
+
+    def __init__(self):
+        self._indices = np.zeros(0, np.uint32)
+
+    def Sort(self, values) -> "RadixSorter":
+        v = np.ascontiguousarray(values)
+        n = v.shape[0]
+        out = np.zeros(n, np.uint32)
+        if n == 0:
+            self._indices = out
+            return self
+        lib = native.load()
+        if lib is not None and v.dtype in (np.uint32, np.float32):
+            if v.dtype == np.uint32:
+                lib.ck_radix_sort_u32(_u32p(v), n, _u32p(out))
+            else:
+                lib.ck_radix_sort_f32(_f32p(v), n, _u32p(out))
+        else:
+            out = np.argsort(v, kind="stable").astype(np.uint32)
+        self._indices = out
+        return self
+
+    def GetIndices(self) -> np.ndarray:
+        return self._indices
 
 
 class MeshAdjacency:
@@ -58,6 +96,15 @@ class MeshAdjacency:
                         edge_map[key] = (fi, k)
         self.adj = adj
         return adj
+
+    def GetAdjacency(self) -> np.ndarray:
+        return self.adj
+
+    def IsBoundary(self, face: int, edge: int) -> bool:
+        return self.adj[face, edge] == BOUNDARY
+
+    def BoundaryEdgeCount(self) -> int:
+        return int((self.adj == BOUNDARY).sum())
 
 
 def _stripify(faces: np.ndarray):
@@ -144,7 +191,7 @@ def strip_to_triangles(strip: np.ndarray) -> np.ndarray:
 
 
 class MeshStriper:
-    """Stripifier (reference include/MeshStriper.h: strip tracking from
+    """Strip builder (reference include/MeshStriper.h: strip tracking from
     seed edges, radix-sorted seeds by face degree)."""
 
     def __init__(self):
@@ -153,6 +200,157 @@ class MeshStriper:
     def Compute(self, faces) -> bool:
         self.strips = _stripify(faces)
         return True
+
+    def GetStripCount(self) -> int:
+        return len(self.strips)
+
+    def GetStrip(self, i: int) -> np.ndarray:
+        return self.strips[i]
+
+    def ConnectAll(self) -> np.ndarray:
+        """Single strip with degenerate bridges (reference connect-all)."""
+        if not self.strips:
+            return np.zeros(0, np.uint32)
+        out = list(self.strips[0])
+        for s in self.strips[1:]:
+            s = list(s)
+            if len(out) % 2 == 1:
+                out.append(out[-1])      # parity fix degenerate
+            out += [out[-1], s[0]] + s
+        return np.asarray(out, np.uint32)
+
+
+def _nvstripify(faces: np.ndarray, samples: int):
+    """Multi-sample bidirectional stripifier (native ck_nvstripify or the
+    byte-identical python fallback).
+
+    Per round: sample up to ``samples`` unused seed faces (boundary-first
+    order), grow a candidate strip in BOTH directions from each of the
+    seed's 3 edge orientations, and commit only the longest candidate.
+    Distinct from the greedy one-pass walker in _stripify, mirroring the
+    reference's two algorithms (src/MeshStriper.cpp vs src/NvStripifier.cpp
+    — structure studied, independently implemented)."""
+    f = np.ascontiguousarray(np.asarray(faces, np.uint32))
+    n = f.shape[0]
+    if n == 0:
+        return []
+    samples = max(1, int(samples))
+    lib = native.load()
+    if lib is not None and hasattr(lib, "ck_nvstripify"):
+        out = np.zeros(4 * n + 16, np.uint32)
+        lens = np.zeros(n, np.uint32)
+        nstrips = ctypes.c_uint32(0)
+        lib.ck_nvstripify(_u32p(f), n, samples, _u32p(out), _u32p(lens),
+                          ctypes.byref(nstrips))
+        strips, off = [], 0
+        for i in range(nstrips.value):
+            ln = int(lens[i])
+            strips.append(out[off:off + ln].copy())
+            off += ln
+        return strips
+
+    adj = MeshAdjacency(f).adj
+    degree = (adj != BOUNDARY).sum(axis=1)
+    seeds = np.argsort(degree, kind="stable")
+    used = np.zeros(n, bool)
+    mark = np.zeros(n, np.int64)
+    epoch = 0
+
+    def third(tri, a, b):
+        for v in tri:
+            if v != a and v != b:
+                return int(v)
+        return int(tri[0])
+
+    def grow(cur, ea, eb, ep):
+        verts = []
+        while True:
+            nxt = None
+            for k in range(3):
+                nb = int(adj[cur, k])
+                if nb != BOUNDARY and not used[nb] and mark[nb] != ep:
+                    tri2 = f[nb]
+                    if ea in tri2 and eb in tri2:
+                        nxt = nb
+                        break
+            if nxt is None:
+                return verts
+            nv = third(f[nxt], ea, eb)
+            verts.append(nv)
+            mark[nxt] = ep
+            cur, ea, eb = nxt, eb, nv
+
+    strips = []
+    scan = 0
+    remaining = n
+    while remaining > 0:
+        while scan < n and used[seeds[scan]]:
+            scan += 1
+        best = None          # (faces, seed, rot) — first best wins
+        found = 0
+        for s in range(scan, n):
+            fi = int(seeds[s])
+            if used[fi]:
+                continue
+            found += 1
+            for rot in range(3):
+                v0 = int(f[fi, rot])
+                v1 = int(f[fi, (rot + 1) % 3])
+                v2 = int(f[fi, (rot + 2) % 3])
+                epoch += 1
+                mark[fi] = epoch
+                fw = grow(fi, v1, v2, epoch)
+                bk = grow(fi, v1, v0, epoch)
+                total = 1 + len(fw) + len(bk)
+                if best is None or total > best[0]:
+                    best = (total, fi, rot)
+            if found >= samples:
+                break
+        fi, rot = best[1], best[2]
+        v0 = int(f[fi, rot])
+        v1 = int(f[fi, (rot + 1) % 3])
+        v2 = int(f[fi, (rot + 2) % 3])
+        epoch += 1
+        mark[fi] = epoch
+        fw = grow(fi, v1, v2, epoch)
+        bk = grow(fi, v1, v0, epoch)
+        used[mark == epoch] = True
+        remaining -= 1 + len(fw) + len(bk)
+        strip = ([bk[-1]] if len(bk) % 2 == 1 else []) \
+            + bk[::-1] + [v0, v1, v2] + fw
+        strips.append(np.asarray(strip, np.uint32))
+    return strips
+
+
+class NvStripifier:
+    """NVIDIA-style stripifier (reference src/NvStripifier.cpp): per round,
+    sample several seed faces, grow candidate strips bidirectionally from
+    every seed edge orientation, commit the longest — a genuinely different
+    algorithm from MeshStriper's greedy walker (typically fewer, longer
+    strips); cache-aware splitting via ``MaxStripLength``."""
+
+    def __init__(self, cache_size: int = 16, max_strip_length: int = 0,
+                 experiments: int = 10):
+        self.cache_size = cache_size
+        self.max_strip_length = max_strip_length
+        self.experiments = max(1, int(experiments))
+
+    def Stripify(self, faces) -> list[np.ndarray]:
+        strips = _nvstripify(faces, self.experiments)
+        if self.max_strip_length and self.max_strip_length >= 3:
+            split = []
+            for s in strips:
+                while len(s) > self.max_strip_length:
+                    split.append(s[: self.max_strip_length])
+                    s = s[self.max_strip_length - 2:]
+                split.append(s)
+            strips = split
+        return strips
+
+    def CreateStrips(self, faces) -> np.ndarray:
+        ms = MeshStriper()
+        ms.strips = self.Stripify(faces)
+        return ms.ConnectAll()
 
 
 class VertexCache:
@@ -173,6 +371,18 @@ class VertexCache:
         if len(self.entries) > self.size:
             self.entries.pop()
         return True
+
+    def Clear(self):
+        self.entries = []
+
+    @staticmethod
+    def MissCount(indices, size: int = 16) -> int:
+        idx = np.ascontiguousarray(np.asarray(indices, np.uint32)).reshape(-1)
+        lib = native.load()
+        if lib is not None:
+            return int(lib.ck_cache_misses(_u32p(idx), idx.shape[0], size))
+        c = VertexCache(size)
+        return sum(c.AddEntry(int(v)) for v in idx)
 
 
 class VertexCacheOptimizer:
@@ -217,3 +427,69 @@ class VertexCacheOptimizer:
             for v in f[best]:
                 cache.AddEntry(int(v))
         return np.asarray(out, np.uint32)
+
+    def OptimizeFaces(self, faces, n_vertices: int | None = None) -> np.ndarray:
+        """Returns the reordered faces themselves."""
+        f = np.asarray(faces, np.uint32)
+        return f[self.Optimize(f, n_vertices)]
+
+
+class NearestPointGrid:
+    """Uniform hash grid for nearest-point-within-threshold queries
+    (reference include/NearestPointGrid.h:12-53)."""
+
+    def __init__(self, points, cell_size: float = 1.0):
+        self.points = np.ascontiguousarray(np.asarray(points, np.float32))
+        self.cell = float(cell_size)
+        self._handle = None
+        lib = native.load()
+        if lib is not None and self.points.shape[0]:
+            self._handle = lib.ck_npgrid_build(
+                _f32p(self.points), self.points.shape[0], self.cell)
+
+    def GetNearestPoint(self, query, threshold: float) -> int | None:
+        q = np.asarray(query, np.float32)
+        if self.points.shape[0] == 0:
+            return None
+        lib = native.load()
+        if self._handle is not None and lib is not None:
+            r = lib.ck_npgrid_nearest(self._handle, float(q[0]), float(q[1]),
+                                      float(q[2]), float(threshold))
+            return None if r == BOUNDARY else int(r)
+        d = np.linalg.norm(self.points - q, axis=1)
+        i = int(np.argmin(d))
+        return i if d[i] <= threshold else None
+
+    def __del__(self):
+        lib = native.load()
+        if getattr(self, "_handle", None) is not None and lib is not None:
+            lib.ck_npgrid_free(self._handle)
+            self._handle = None
+
+
+class PlaceFitter:
+    """Best-fit oriented box between two point sets from their common
+    vertices (reference src/PlaceFitter.cpp ComputeBestFitBBox)."""
+
+    @staticmethod
+    def ComputeBestFitBBox(points_a, points_b, threshold: float = 1e-3):
+        """Common points (within threshold) -> (center, axes (3,3),
+        half_extents) of the PCA-fit box, or None when no overlap."""
+        a = np.asarray(points_a, np.float32)
+        b = np.asarray(points_b, np.float32)
+        if a.shape[0] == 0 or b.shape[0] == 0:
+            return None
+        grid = NearestPointGrid(b, cell_size=max(threshold * 4, 1e-3))
+        common = [p for p in a
+                  if grid.GetNearestPoint(p, threshold) is not None]
+        if len(common) < 3:
+            return None
+        pts = np.asarray(common, np.float32)
+        center = pts.mean(axis=0)
+        d = pts - center
+        cov = d.T @ d / len(pts)
+        _, vecs = np.linalg.eigh(cov)
+        axes = vecs.T[::-1]                  # principal first
+        proj = d @ axes.T
+        half = np.abs(proj).max(axis=0)
+        return center, axes.astype(np.float32), half.astype(np.float32)

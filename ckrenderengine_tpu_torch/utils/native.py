@@ -49,10 +49,32 @@ def load():
         except OSError:
             return None
         u32p = ctypes.POINTER(ctypes.c_uint32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.ck_radix_sort_u32.argtypes = [u32p, ctypes.c_uint32, u32p]
+        lib.ck_radix_sort_f32.argtypes = [f32p, ctypes.c_uint32, u32p]
         lib.ck_mesh_adjacency.argtypes = [u32p, ctypes.c_uint32, u32p]
         lib.ck_stripify.argtypes = [u32p, ctypes.c_uint32, u32p, u32p, u32p]
         lib.ck_stripify.restype = ctypes.c_uint32
+        try:   # absent from pre-rebuild .so files; consumers hasattr-check
+            lib.ck_nvstripify.argtypes = [u32p, ctypes.c_uint32,
+                                          ctypes.c_uint32, u32p, u32p, u32p]
+            lib.ck_nvstripify.restype = ctypes.c_uint32
+        except AttributeError:
+            pass
         lib.ck_vertex_cache_optimize.argtypes = [
             u32p, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, u32p]
+        lib.ck_cache_misses.argtypes = [u32p, ctypes.c_uint32, ctypes.c_uint32]
+        lib.ck_cache_misses.restype = ctypes.c_uint32
+        lib.ck_npgrid_build.argtypes = [f32p, ctypes.c_uint32, ctypes.c_float]
+        lib.ck_npgrid_build.restype = ctypes.c_void_p
+        lib.ck_npgrid_nearest.argtypes = [
+            ctypes.c_void_p, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+            ctypes.c_float]
+        lib.ck_npgrid_nearest.restype = ctypes.c_uint32
+        lib.ck_npgrid_free.argtypes = [ctypes.c_void_p]
         _lib = lib
         return _lib
+
+
+def available() -> bool:
+    return load() is not None

@@ -4,7 +4,8 @@ Every public method of the reference's ``CKRenderContext``,
 ``CKRenderManager`` and ``CKRenderedScene`` (names taken from the classes
 with ``inspect``, inherited ones included) exists in the port. A method the
 port does not carry yet raises ``NotImplementedError`` naming its port
-queue item (14 or 17), whatever its arguments, never ``AttributeError``.
+queue item (14, scene IO), whatever its arguments, never
+``AttributeError``.
 """
 
 import inspect
@@ -33,7 +34,7 @@ def _check_surface(ref_cls, obj) -> int:
         item = getattr(getattr(type(obj), name, None), "unported_item", None)
         if item is None:
             continue
-        assert item in PORT_QUEUE and item in (14, 17), (name, item)
+        assert item in PORT_QUEUE and item == 14, (name, item)
         with pytest.raises(NotImplementedError,
                            match=rf"{re.escape(name)}.*item {item}\b"):
             getattr(obj, name)()
@@ -51,7 +52,7 @@ def _rc():
 
 def test_render_context_surface():
     rm, rc = _rc()
-    assert _check_surface(jm.CKRenderContext, rc) == 10
+    assert _check_surface(jm.CKRenderContext, rc) == 1
     assert rc.GetRasterizerContext() is rc and rc.ChangeDriver(1)
     with pytest.raises(NotImplementedError, match="item 14"):
         rc.DumpToFile("frame.png")

@@ -369,7 +369,8 @@ def test_port_queue_has_no_line_or_sprite_item():
     from ckrenderengine_tpu_torch.roadmap import PORT_QUEUE
 
     assert 7 not in PORT_QUEUE and 8 not in PORT_QUEUE
-    assert "curve" not in PORT_QUEUE[17]
+    assert 17 not in PORT_QUEUE
+    assert not any("curve" in v for v in PORT_QUEUE.values())
     root = pathlib.Path(ckrenderengine_tpu_torch.__file__).parent
     cites = re.compile(r"unported\([^()]*(\([^()]*\)[^()]*)*,\s*[78]\s*\)")
     for path in root.rglob("*.py"):

@@ -235,8 +235,15 @@ def test_port_queue_and_unported_classes():
     desc = classreg.CKGetClassDesc(T.base.CKCID_KINEMATICCHAIN)
     assert desc is not None and desc.name == "Kinematic Chain"
     ctx = T.CKContext(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 17"):
-        ctx.CreateObjectByClassID(T.base.CKCID_KINEMATICCHAIN, "chain")
+    chain = ctx.CreateObjectByClassID(T.base.CKCID_KINEMATICCHAIN, "chain")
+    assert chain.GetClassID() == T.base.CKCID_KINEMATICCHAIN
+    parent = T.CK3dObject(ctx, "upper")
+    child = T.CK3dObject(ctx, "lower")
+    child.SetParent(parent)
+    child.SetPosition((0, 0, 1), ref=parent)
+    chain.SetStartEffector(parent)
+    chain.SetEndEffector(child)
+    assert chain.IKSetEffectorPos((0.0, 0.6, 0.8))
     for cid in (T.base.CKCID_KEYEDANIMATION, T.base.CKCID_OBJECTANIMATION,
                 T.base.CKCID_CHARACTER, T.base.CKCID_BODYPART):
         obj = ctx.CreateObjectByClassID(cid, f"o{cid}")

@@ -253,11 +253,13 @@ def test_stereo_parameters_and_restore():
 
 
 def test_port_queue_has_no_stereo_or_render_to_texture():
-    """No ``unported(..., 17)`` call names stereo or render-to-texture,
-    and item 17 of the port queue names neither."""
+    """No ``unported(...)`` call names stereo or render-to-texture, and
+    item 17 of the port queue (the remaining host API) is gone."""
     from ckrenderengine_tpu_torch import roadmap
 
-    assert not re.search(r"stereo|texture", roadmap.PORT_QUEUE[17], re.I)
+    assert 17 not in roadmap.PORT_QUEUE
+    assert not any(re.search(r"stereo|texture", v, re.I)
+                   for v in roadmap.PORT_QUEUE.values())
     for name in ("SetRenderTarget", "RestoreStereoRenderState",
                  "SetStereoParameters", "SetTargetTexture"):
         assert not hasattr(getattr(O.CKRenderContext, name),
