@@ -115,6 +115,18 @@ colour only, ``DebugStep``'s walk, the IK targets reached, the grid's
 coordinate round trip, ``RadixSorter`` over the level's view depths,
 ``NvStripifier`` and ``PlaceFitter`` on the terrain, and the tick at
 128x96 equal on the card and the CPU),
+saves and reloads a DXT-textured level (``scenes.build_config5_io``:
+config 5 with a DXT1 DDS checker carrying a mip chain, DXT3 sphere skins
+from ``SetCompressedImage``, 12 alpha-over signs from a DXT5 DDS file and
+the shared sphere a progressive mesh at half of its vertices; the ``io``
+phase: B1 once and B4 once per peel round on the saved level's frame and
+on the frame of the level ``ctx.Save`` wrote and ``scenes.load_level``
+read into a fresh context, which is bit-equal to it; B1, B5 and B4 equal to
+their plain versions at the loaded frame's inputs; the ``DumpToFile``
+PNGs decoded with zlib equal to ``BackToFront()`` and the buffers; a
+``CopyObject`` clone of a ball equal to one built by hand; save and load
+seconds, the file's size, DXT decode host ms per MiB, ``CreatePM`` and
+``SetPMVertexCount`` host ms),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -651,8 +663,35 @@ def frame_with(rc, profile_off=()):
 
 def render_config(build, O, device, **kw):
     ctx, rc, mover = build(O, device=device, **kw)
-    rc.Render()
+    if device == "cpu":
+        render_keeping_ids(rc)
+    else:
+        rc.Render()
     return ctx, rc, mover
+
+
+def render_keeping_ids(rc) -> None:
+    """``rc.Render()`` on the CPU, keeping its frame's winner ids beside a
+    copy of its fb and zb, so that :func:`winners` need not render a CPU
+    frame (seconds at 320x240) a second time: the frame's one
+    ``render_frame_packed`` call is asked for its stats too, which adds the
+    ids to what it returns and changes nothing else."""
+    from ckrenderengine_tpu_torch.pipeline import frame as fr
+
+    real, seen = fr.render_frame_packed, []
+
+    def spy(*a, want_stats=False, **k):
+        out = real(*a, want_stats=True, **k)
+        seen.append(out[-1]["WinnerIds"])
+        return out if want_stats else out[:-1]
+
+    fr.render_frame_packed = spy
+    try:
+        rc.Render()
+    finally:
+        fr.render_frame_packed = real
+    if len(seen) == 1:
+        rc.kept_ids = (rc.fb.clone(), rc.zb.clone(), seen[0])
 
 
 def frame_checks(name, rc):
@@ -668,6 +707,13 @@ def frame_checks(name, rc):
 
 
 def winners(rc):
+    """The winner ids of rc's current frame: those :func:`render_keeping_ids`
+    kept while fb and zb are still that frame's, else a frame through
+    :func:`frame_with`."""
+    kept = getattr(rc, "kept_ids", None)
+    if kept is not None and torch.equal(kept[0], rc.fb) \
+            and torch.equal(kept[1], rc.zb):
+        return kept[2].cpu().numpy()
     return frame_with(rc)[2]["WinnerIds"].cpu().numpy()
 
 
@@ -931,6 +977,9 @@ def main() -> int:
     # --- 4l. debug stepping, the grid and the IK arm over the level --------
     debug_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4m. scene IO: the DXT-textured, progressive-mesh level reloaded ---
+    io = io_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1142,6 +1191,11 @@ def main() -> int:
             k["config5_mat"] = {"ms": mat[key][0], "plain_ms": mat[key][1],
                                 "bound_ms": mat[key][2]["bound_ms"],
                                 "bound_by": mat[key][2]["bound_by"]}
+        if key in io:
+            # B1 and B5 at the reloaded level's frame, B4 at its signs.
+            k["config5_io"] = {"ms": io[key][0], "plain_ms": io[key][1],
+                               "bound_ms": io[key][2]["bound_ms"],
+                               "bound_by": io[key][2]["bound_by"]}
         if key in shaded:
             # B1 without e-planes, at the shaded level's frame.
             k["config5_shaded"] = {
@@ -1173,7 +1227,8 @@ def main() -> int:
         # A time under the bound means the bound counts work no kernel
         # needs, or the timing is wrong.
         for t in (k, k["antialias"], k.get("config5_fx", k),
-                  k.get("config5_mat", k), k.get("config5_shaded", k)):
+                  k.get("config5_mat", k), k.get("config5_shaded", k),
+                  k.get("config5_io", k)):
             check(t["ms"] >= t["bound_ms"],
                   f"{k['name']}: {t['ms']} ms is below its bound "
                   f"{t['bound_ms']} ms")
@@ -1820,7 +1875,7 @@ def imm_cpu_level(threads: int) -> dict:
     _c, rc, _s, imm = scenes.build_config5_immediate(O, device="cpu",
                                                      **IMM_SMALL)
     imm["on"] = False
-    rc.Render()
+    render_keeping_ids(rc)
     _IMM_CPU.update(rc=rc, imm=imm)
     return {"ids": winners(rc), "rgba": rc.BackToFront(),
             "fb": rc.fb.numpy().copy(), "zb": rc.zb.numpy().copy(),
@@ -2258,7 +2313,7 @@ def dbg_cpu_tick(threads: int) -> dict:
                                                  **DBG_SMALL)
     n = rc.context.entity_table.count
     dbg_tick(rc, dbg, n // 2, 1)
-    rc.Render()
+    render_keeping_ids(rc)
     return {"ids": winners(rc), "rgba": rc.BackToFront(),
             "label": rc._dbg_label[0],
             "bones": np.stack([b.GetWorldMatrix() for b in dbg["bones"]]),
@@ -2537,6 +2592,223 @@ def debug_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     emit("debug", **res)
     emit("debug_phase", seconds=round(seconds, 1), card=card)
     return res
+
+
+# Scene IO: the DXT-textured, progressive-mesh level saved, loaded into a
+# fresh context and rendered again.
+IO_SIZE = (1024, 768)
+IO_DECODE_SIZE = 1024          # texels per side of the timed DXT surfaces
+IO_PROFILED = 3                # frames per profiler window
+
+
+def png_pixels(path: str) -> np.ndarray:
+    """The pixels of an 8-bit grey or RGBA PNG without interlace whose
+    scanlines all take filter type 0 (as ``io/png.py`` writes them), read
+    with zlib: (H, W) or (H, W, 4) uint8."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        check(zlib.crc32(tag + body) & 0xFFFFFFFF == struct.unpack(
+            ">I", data[pos + 8 + n:pos + 12 + n])[0], f"{path}: bad CRC")
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype, _c, _f, interlace = head
+    chans = {0: 1, 6: 4}[ctype]
+    check(depth == 8 and interlace == 0, f"{path}: header {head}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + w * chans)
+    check(not rows[:, 0].any(), f"{path}: a scanline filter other than 0")
+    img = rows[:, 1:].reshape(h, w, chans)
+    return img[..., 0] if chans == 1 else img
+
+
+def dxt_decode_ms_per_mib(fmt: str, seed: int) -> float:
+    """Host ms per MiB of blocks of ``io.dds.decode_dxt`` on a seeded
+    IO_DECODE_SIZE-square surface (best of 3)."""
+    from ckrenderengine_tpu_torch.io.dds import decode_dxt
+
+    s = IO_DECODE_SIZE
+    blocks = np.random.default_rng(seed).bytes(
+        (s // 4) ** 2 * (8 if fmt == "DXT1" else 16))
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = decode_dxt(blocks, s, s, fmt)
+        best = min(best, time.perf_counter() - t0)
+    check(img.shape == (s, s, 4) and np.isfinite(img).all(),
+          f"decode_dxt {fmt}: {img.shape}")
+    return best * 1e3 / (len(blocks) / 2**20)
+
+
+def io_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """Scene IO and the progressive mesh through Render() on the card:
+    ``scenes.build_config5_io`` at 1024x768 (config 5's 528,032 terrain
+    triangles; its checker a DXT1 DDS file with a mip chain, the spheres'
+    skin DXT3 blocks through SetCompressedImage, 12 alpha-over signs
+    textured from a DXT5 DDS file, the shared sphere a progressive mesh at
+    half of its vertices, geomorphed halfway).
+
+    - The level's first frame: B1 once, B4 once per peel round, nothing
+      else.
+    - ``ctx.Save`` to a temporary directory (not the repository), the file
+      loaded into a fresh ``CKContext(device="cuda")`` by
+      ``scenes.load_level`` (a render context of the same settings), and
+      its first frame: B1 once, B4 as often, fb and zb bit-equal to the
+      saved level's frame.
+    - B1 and B5 (``time_rows``) and B4 (``time_ordered``) at the loaded
+      frame's inputs, each equal to its plain version there.
+    - ``DumpToFile(what="both")`` of the loaded frame: the colour PNG,
+      decoded with zlib, equal to ``BackToFront()``; the z and stencil
+      PNGs equal to the buffers they dump.
+    - A ``CopyObject`` clone of a ball in the loaded level, moved in front
+      of the camera, against a ball built by hand at the same place in the
+      saved level: fb and zb bit-equal.
+    - Save and load seconds, the file's size, DXT decode host ms per MiB,
+      CreatePM and SetPMVertexCount host ms, the LOD's triangles, device
+      ms and launches of the saved and the loaded frame (torch.profiler).
+    """
+    import tempfile
+
+    from ckrenderengine_tpu_torch.raster import (
+        cuda_ordered as co, cuda_tiled,
+    )
+    from ckrenderengine_tpu_torch.raster import deferred as df
+
+    t_phase = time.monotonic()
+    pm_ms = {}
+    originals = {}
+
+    def timed(name):
+        fn = originals[name] = getattr(O.CKMesh, name)
+
+        def run(self, *a, **k):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            pm_ms[name] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    for name in ("CreatePM", "SetPMVertexCount"):
+        setattr(O.CKMesh, name, timed(name))
+    try:
+        t0 = time.monotonic()
+        ctx, rc, _spinner = scenes.build_config5_io(O, *IO_SIZE,
+                                                    device="cuda")
+        build_s = time.monotonic() - t0
+    finally:
+        for name, fn in originals.items():
+            setattr(O.CKMesh, name, fn)
+    sphere = ctx.GetObjectByName("sphere")
+    pm = {"create_pm_host_ms": pm_ms["CreatePM"],
+          "set_pm_vertex_count_host_ms": pm_ms["SetPMVertexCount"],
+          "vertices": int(sphere.GetVertexCount()),
+          "lod_vertices": int(sphere.GetPMVertexCount()),
+          "lod_triangles": int(sphere.GetFaceCount()),
+          "full_triangles": int(sphere._pm_full_faces.shape[0])}
+    check(sphere.IsPM() and 0 < pm["lod_triangles"] < pm["full_triangles"],
+          f"config5_io: the sphere's LOD {pm}")
+    decode = {fmt: dxt_decode_ms_per_mib(fmt, 21 + i)
+              for i, fmt in enumerate(("DXT1", "DXT3", "DXT5"))}
+
+    want = lambda got: (got["B1"] == 1 and got["B4"] >= 1 and got["B2"] == 0
+                        and got["B3"] == 0 and got["B5"] == 0)
+    saved = render_counted(rc, kernel_fns, launches)
+    frame_checks("config5_io", rc)
+    s = rc.GetStats()
+    check(want(saved["launches"]) and saved["launches"]["B4"]
+          == s.OrderedPeelRounds and s.OrderedReplays == 0,
+          f"config5_io: launches {saved['launches']}")
+    fb0, zb0 = rc.fb.clone(), rc.zb.clone()
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "config5_io.ck")
+        t0 = time.monotonic()
+        n_objects = ctx.Save(path)
+        save_s = time.monotonic() - t0
+        size = os.path.getsize(path)
+        t0 = time.monotonic()
+        ctx2, rc2 = scenes.load_level(O, path, rc, device="cuda")
+        load_s = time.monotonic() - t0
+        loaded = render_counted(rc2, kernel_fns, launches)
+        frame_checks("config5_io_loaded", rc2)
+        differ = int(((rc2.fb != fb0).any(0) | (rc2.zb != zb0)).sum())
+        check(loaded["launches"] == saved["launches"],
+              f"config5_io loaded: launches {loaded['launches']}, saved "
+              f"{saved['launches']}")
+        check(differ == 0, f"config5_io: the loaded frame differs from the "
+              f"saved level's on {differ} pixels")
+
+        # The screen dump of the loaded frame.
+        dump = os.path.join(d, "frame.png")
+        check(rc2.DumpToFile(dump, "both"), "DumpToFile refused")
+        color = png_pixels(dump.replace(".png", "_color.png"))
+        z8 = png_pixels(dump.replace(".png", "_z.png"))
+        s8 = png_pixels(dump.replace(".png", "_stencil.png"))
+        dump_equal = {
+            "color": bool(np.array_equal(color, rc2.BackToFront())),
+            "z": bool(np.array_equal(z8, np.clip(
+                rc2.zbuffer() * 255.0, 0, 255).astype(np.uint8))),
+            "stencil": bool(np.array_equal(
+                s8, (rc2.stencilbuffer() * 255).astype(np.uint8)))}
+        check(all(dump_equal.values()), f"DumpToFile: {dump_equal}")
+
+    # The kernels at the loaded frame's inputs against their plain versions.
+    rows = time_rows("config5_io_loaded", rc2, None, card, fr, cuda_tiled,
+                     df, plain=False)
+    b4 = time_ordered("config5_io_loaded", "B4", rc2, None, card, fr, co)
+    prof = {name: profile_frames(r, lambda: None, IO_PROFILED)
+            for name, r in (("saved", rc), ("loaded", rc2))}
+
+    # A CopyObject clone of a ball against a ball built by hand.
+    where = (6.0, 14.0, -36.0)
+    ball = ctx2.GetObjectByName("ball0")
+    clone = ctx2.CopyObject(ball, suffix="_copy")
+    check(clone is not ball and clone.GetCurrentMesh() is
+          ball.GetCurrentMesh() and clone.GetParent() is ball.GetParent(),
+          "CopyObject: the clone does not share the ball's mesh and parent")
+    clone.SetPosition(where)
+    by_hand = O.CK3dObject(ctx, "ball0_copy")
+    by_hand.SetCurrentMesh(ctx.GetObjectByName("sphere"))
+    by_hand.SetParent(ctx.GetObjectByName("spinner"))
+    by_hand.SetPosition(where)
+    copy_frames = {}
+    for name, r in (("clone", rc2), ("by_hand", rc)):
+        copy_frames[name] = render_counted(r, kernel_fns, launches)
+        check(want(copy_frames[name]["launches"]),
+              f"copy {name}: launches {copy_frames[name]['launches']}")
+    copy_differ = int(((rc2.fb != rc.fb).any(0) | (rc2.zb != rc.zb)).sum())
+    moved = int((rc2.fb != fb0).any(0).sum())
+    check(copy_differ == 0, f"CopyObject: the clone's frame differs from the "
+          f"hand-built ball's on {copy_differ} pixels")
+    check(moved > 100, f"CopyObject: the clone changes {moved} pixels")
+
+    seconds = time.monotonic() - t_phase
+    res = {"card": card, "size": list(IO_SIZE),
+           "triangles": int(rc._compiled.n_valid_tris),
+           "ordered_triangles": int(rc._compiled.ordered_cap),
+           "build_s": round(build_s, 3), "objects_saved": n_objects,
+           "save_s": round(save_s, 4), "load_s": round(load_s, 4),
+           "file_bytes": size, "dxt_decode_host_ms_per_mib": decode,
+           "pm": pm, "saved_frame": {**saved, **prof["saved"]},
+           "loaded_frame": {**loaded, **prof["loaded"]},
+           "loaded_pixels_that_differ": differ, "dump_equal": dump_equal,
+           "copy_pixels_that_differ": copy_differ,
+           "copy_pixels_changed": moved,
+           "copy_launches": {k: v["launches"] for k, v in copy_frames.items()},
+           "phase_s": round(seconds, 3)}
+    emit("io", **res)
+    emit("io_phase", seconds=round(seconds, 1), card=card)
+    return {"B1": rows["B1"], "B5": rows["B5"], "B4": b4}
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

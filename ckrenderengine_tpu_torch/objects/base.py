@@ -13,7 +13,6 @@ from typing import Optional
 
 import torch
 
-from ..roadmap import unported
 from ..scene.entity_table import EntityTable
 
 # CK class ids (public Virtools values for the classes the plugin registers,
@@ -129,7 +128,30 @@ class CKObject:
         """Rewrite object references according to ``id_map`` {old_id:
         new_id} (reference RemapDependencies) — implemented by a statechunk
         round-trip with the partial remap the Copy path uses."""
-        raise unported("dependency remapping (statechunk IO)", 14)
+        from ..io.serialize import load_object, registry, save_object
+        if self.CLASS_ID not in registry():
+            return False
+        chunk = save_object(self)
+        if chunk is None:
+            return False
+        chunk.RemapObjectIDs({int(k): int(v) for k, v in id_map.items()},
+                             keep_unmapped=True)
+        # Loaders append to membership lists; clear them so the reload
+        # rebuilds rather than duplicates.
+        for attr in ("meshes", "points", "body_parts", "animations"):
+            val = getattr(self, attr, None)
+            if isinstance(val, list):
+                val.clear()
+        # Loaders assign scalar refs only when resolvable; clear them so a
+        # ref remapped to 0 actually drops.
+        for attr in ("current_mesh", "root_animation", "active_animation",
+                     "root_body_part"):
+            if hasattr(self, attr):
+                setattr(self, attr, None)
+        if hasattr(self, "textures") and isinstance(self.textures, list):
+            self.textures = [None] * len(self.textures)
+        load_object(self, chunk, self.context)
+        return True
 
     def IsObjectUsed(self, obj, cid: int = 0) -> bool:
         """Does this object reference ``obj`` (reference IsObjectUsed)?"""
@@ -352,11 +374,13 @@ class CKContext:
     # -- dirty tracking ---------------------------------------------------
     def Save(self, path: str, objects=None) -> int:
         """Persist the scene (reference CKStateChunk Save path)."""
-        raise unported("scene saving", 14)
+        from ..io.serialize import SaveScene
+        return SaveScene(self, path, objects)
 
     def Load(self, path: str) -> list:
         """Load a scene file into this context (two-phase id remap)."""
-        raise unported("scene loading", 14)
+        from ..io.serialize import LoadScene
+        return LoadScene(self, path)
 
     def _bump_topology(self):
         if getattr(self, "_suspend_bumps", 0) > 0:

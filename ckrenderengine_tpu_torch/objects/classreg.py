@@ -26,7 +26,6 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from . import base as B
-from ..roadmap import unported
 
 # -- CK_DEPENDENCIES modes (per class id) -----------------------------------
 CKDEP_USECURRENT = 0        # share: references point at the original object
@@ -312,6 +311,39 @@ def copy_closure(obj, modes: dict) -> list:
 
 def copy_object(ctx, obj, modes: Optional[dict] = None,
                 suffix: str = ""):
-    """Duplicate ``obj`` (reference RCK*::Copy): not carried yet (the copy
-    path runs through the statechunk serializer)."""
-    raise unported("object copy (statechunk IO)", 14)
+    """Duplicate ``obj`` (reference RCK*::Copy).
+
+    The closure of CKDEP_COPY dependencies is serialized per class and
+    reloaded with a partial id remap: closure ids map to the clones, all
+    other referenced ids stay put and resolve to the original shared
+    objects. Returns the clone of ``obj``.
+    """
+    from ..io.serialize import load_object, registry, save_object
+    from ..io.statechunk import CKStateChunk
+
+    if modes is None:
+        modes = DEFAULT_COPY_DEPENDENCIES
+    reg = registry()
+    closure = [o for o in copy_closure(obj, modes) if o.CLASS_ID in reg]
+    if obj.CLASS_ID not in reg:
+        raise ValueError(
+            f"class {CKGetClassName(obj.CLASS_ID)!r} is not copyable")
+
+    records = []
+    for o in closure:
+        chunk = save_object(o)
+        records.append((o, chunk))
+
+    id_map: dict[int, int] = {}
+    created = []
+    for o, chunk in records:
+        factory = reg[o.CLASS_ID][3]
+        clone = factory(ctx, (o.GetName() or "") + suffix)
+        id_map[o.id] = clone.id
+        created.append((o, clone, chunk))
+    for o, clone, chunk in created:
+        raw = CKStateChunk.from_bytes(chunk.to_bytes())
+        raw.RemapObjectIDs(id_map, keep_unmapped=True)  # shared ids stay
+        load_object(clone, raw, ctx)
+    clone_map = {o.id: c for o, c, _ in created}
+    return clone_map[obj.id]

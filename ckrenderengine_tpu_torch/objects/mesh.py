@@ -298,8 +298,7 @@ class CKMesh(CKObject):
 
     def CreatePM(self):
         """Compute the edge-collapse sequence (cost = distance x curvature)."""
-        from ..roadmap import unported
-        raise unported("progressive meshes", 16)
+        from ..utils.progressive import compute_collapse_order
 
         self._pm_full_positions = self.positions.copy()
         self._pm_full_faces = self.faces.copy()
@@ -324,8 +323,7 @@ class CKMesh(CKObject):
 
     def SetPMVertexCount(self, n: int):
         """Rebuild the render mesh at an n-vertex budget."""
-        from ..roadmap import unported
-        raise unported("progressive meshes", 16)
+        from ..utils.progressive import lod_remap
 
         if not self.IsPM():
             return
@@ -346,8 +344,7 @@ class CKMesh(CKObject):
     def SetPMGeoMorphStep(self, step: float):
         """Geomorph lerp toward the collapsed representatives (dynamic-only:
         no recompile)."""
-        from ..roadmap import unported
-        raise unported("progressive meshes", 16)
+        from ..utils.progressive import geomorph_positions
 
         if not self.IsPM():
             return
@@ -861,8 +858,7 @@ class CKMesh(CKObject):
     def LoadVertices(self, chunk) -> bool:
         """Read the vertex streams back from an ID_MESH statechunk
         (reference LoadVertices/ILoadVertices, include/RCKMesh.h:183-188)."""
-        from ..roadmap import unported
-        raise unported("mesh statechunk IO", 14)
+        from ..io.serialize import ID_MESH
         if not chunk.SeekIdentifier(ID_MESH):
             return False
         self.SetPositions(chunk.ReadArray())

@@ -27,7 +27,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..roadmap import unported
 from .base import CKCID_PATCHMESH, CKContext
 from .mesh import CKMesh
 
@@ -579,7 +578,14 @@ class CKPatchMesh(CKMesh):
     def LoadVertices(self, chunk) -> bool:
         """Restore control verts/vecs from a statechunk (reference
         RCKPatchMesh::LoadVertices)."""
-        raise unported("patch mesh statechunk IO", 14)
+        from ..io.serialize import ID_PATCHMESH
+        if not chunk.SeekIdentifier(ID_PATCHMESH):
+            return False
+        self.SetVerts(chunk.ReadArray())
+        self.SetVecs(chunk.ReadArray())
+        self.iteration_count = chunk.ReadInt()
+        self._tess_dirty = True
+        return True
 
     def FromMesh(self, mesh: CKMesh):
         """Approximate: adopt the mesh's triangles as flat tri patches

@@ -30,7 +30,7 @@ from .rendertypes import (          # explicit: names the body references
     _pad_to, _mip_chain, CompiledScene, VxStats,
 )
 from ..pipeline import window as fw
-from ..roadmap import unported, unported_methods
+from ..roadmap import unported
 
 
 class CKRenderContext(CKObject):
@@ -2974,6 +2974,29 @@ class CKRenderContext(CKObject):
         self._dp_view = None
         self._dp_proj = None
 
+    def DumpToFile(self, path: str, what: str = "color") -> bool:
+        """Write the framebuffer ('color', RGBA), the depth ('z', L8 of
+        z * 255), the stencil mask ('stencil', L8) or all three ('both',
+        to ``*_color.png``, ``*_z.png`` and ``*_stencil.png``) to PNG
+        (reference :3956-3974, the screen dump of src/CKRenderContext.cpp:
+        589-603). The reference writes with Pillow; ``io/png.py`` writes the
+        same pixels with zlib."""
+        from ..io.png import write_png
+
+        if what in ("color", "both"):
+            write_png(path if what == "color"
+                      else path.replace(".png", "_color.png"),
+                      self.BackToFront())
+        if what in ("z", "both"):
+            z8 = np.clip(self.zbuffer() * 255.0, 0, 255).astype(np.uint8)
+            write_png(path if what == "z" else path.replace(".png", "_z.png"),
+                      z8)
+        if what in ("stencil", "both") and getattr(self, "sb", None) is not None:
+            write_png(path if what == "stencil"
+                      else path.replace(".png", "_stencil.png"),
+                      (self.stencilbuffer() * 255).astype(np.uint8))
+        return True
+
     def GetPhaseTimes(self) -> dict:
         return self.phases.as_dict()
 
@@ -4025,7 +4048,3 @@ class BatchRead:
             rc._solve_caps = lead._solve_caps
             rc._peel_rounds = lead._peel_rounds
 
-
-# Public methods of the reference's CKRenderContext that this package does
-# not carry: each raises its port queue item.
-unported_methods(CKRenderContext, 14, ("DumpToFile",))

@@ -191,23 +191,49 @@ class CKTexture(CKObject):
         return self.desired_video_format
 
     def LoadImage(self, path: str, slot: int = 0) -> bool:
-        """Load an image file into a slot (reference LoadImage —
-        CKBitmapData file readers: DDS through its own decoder, everything
-        else through Pillow). Reading image files is scene IO, not carried
-        yet: an existing file raises; a missing one returns False, as in
-        the reference."""
+        """Load an image file into a slot (reference LoadImage:
+        CKBitmapData file readers). DDS containers (DXT1/3/5 or masked RGB)
+        decode through io/dds.py, matching the reference's compressed-
+        texture ingestion (CKDX9RasterizerContext::LoadTexture incl.
+        mipmaps); shipped mip chains become user mip levels. The reference
+        reads every other file through Pillow, which this package does not
+        use: such a file raises; a missing file returns False, as in the
+        reference."""
         try:
             with open(path, "rb") as f:
-                f.read(4)
+                head = f.read(4)
         except OSError:
             return False
-        from ..roadmap import unported
-        raise unported("image file loading (LoadImage)", 14)
+        if head != b"DDS ":
+            from ..roadmap import unported
+            raise unported("image file loading (LoadImage) of non-DDS "
+                           "files", 14)
+        import struct
+
+        from ..io.dds import load_dds
+        try:
+            levels = load_dds(path)
+        except (ValueError, struct.error):
+            return False
+        self.SetImage(levels[0], slot=slot)
+        if len(levels) > 1:
+            self.user_mip_levels = [
+                lv.astype(np.float32) for lv in levels[1:]]
+            self.SetUserMipMapMode(True)
+        return True
 
     def SetCompressedImage(self, data: bytes, width: int, height: int,
                            fmt: str = "DXT5", slot: int = 0) -> bool:
-        from ..roadmap import unported
-        raise unported("SetCompressedImage (DXT decode)", 14)
+        """Ingest one raw DXT1/3/5 surface (no container), decoded to RGBA
+        on the host at set time (reference LoadTexture hands the blocks to
+        D3D, CKDX9RasterizerContext.cpp:1836-2060)."""
+        from ..io.dds import decode_dxt
+        try:
+            img = decode_dxt(data, int(width), int(height), fmt)
+        except ValueError:
+            return False
+        self.SetImage(img, slot=slot)
+        return True
 
     def SetUserMipMapMode(self, on: bool = True):
         """User-provided mip levels instead of auto-generation (reference

@@ -15,8 +15,10 @@ with a level's effects (``build_config5_fx``: sprites, curves, lines),
 material effects (``build_config5_mat``: TexGen, cube env, EMBM, effect
 passes, channels), user shaders (``build_config5_shaded``) and a live
 monitor fed by render-to-texture, in stereo (``build_config5_monitor``),
-immediate-mode draws (``build_config5_immediate``) and a debugged level
-with a layered grid and an IK-driven arm (``build_config5_debug``),
+immediate-mode draws (``build_config5_immediate``), a debugged level
+with a layered grid and an IK-driven arm (``build_config5_debug``) and a
+level with DXT textures and a progressive-mesh LOD that goes through a
+scene file (``build_config5_io``, ``reload_level``, ``load_level``),
 made from seeds; sizes are
 parameters so the tests can cut the frame, the hierarchy, the terrain, the
 sheets and the skinned tube down. Every build function takes
@@ -27,6 +29,8 @@ frame then renders at twice its size and resolves to it).
 from __future__ import annotations
 
 import importlib
+import os
+import struct
 
 import numpy as np
 
@@ -1583,3 +1587,169 @@ def build_batched(O, n_ctx: int = 8, size=256, antialias: bool = False,
         rc.AttachViewpointToCamera(cam)
         rcs.append(rc)
     return rm, rcs, root
+
+
+# -- config5_io: DDS and DXT textures, a progressive mesh, scene files -----
+
+_DDSD_DXT = 0x1 | 0x2 | 0x4 | 0x1000           # caps, height, width, pixfmt
+_DDSD_MIPMAPCOUNT = 0x20000
+
+
+def dds_file(width: int, height: int, fourcc: str, surfaces) -> bytes:
+    """A DDS file of one DXT surface per mip level (level 0 first): the
+    ``DDS `` magic, the 124-byte header with its FOURCC pixel format, then
+    the surfaces."""
+    n = len(surfaces)
+    flags = _DDSD_DXT | (_DDSD_MIPMAPCOUNT if n > 1 else 0)
+    pf = struct.pack("<II4sIIIII", 32, 0x4, fourcc.encode("ascii"),
+                     0, 0, 0, 0, 0)
+    header = (b"DDS " + struct.pack("<7I", 124, flags, height, width, 0, 0, n)
+              + b"\0" * 44 + pf + struct.pack("<5I", 0x1000, 0, 0, 0, 0))
+    return header + b"".join(surfaces)
+
+
+def rgb565(rgb) -> int:
+    """A colour in [0, 1] as the nearest RGB565 word."""
+    r, g, b = (int(round(float(c) * m)) for c, m in zip(rgb, (31, 63, 31)))
+    return (r << 11) | (g << 5) | b
+
+
+def dxt1_checker(size: int, light, dark) -> bytes:
+    """A DDS file of a ``size`` x ``size`` one-texel checker in DXT1 with a
+    full mip chain. Level 0 holds two colours per block in four-colour
+    mode (c0 = ``light`` > c1 = ``dark``, indices 0 and 1), which the
+    decode gives back exactly; every smaller level is the blocks' midpoint,
+    index 2 of three-colour mode (c0 = ``dark`` <= c1 = ``light``)."""
+    c_light, c_dark = rgb565(light), rgb565(dark)
+    if c_light <= c_dark:
+        raise ValueError("the checker's light colour must encode above its "
+                         "dark one")
+    bits = 0
+    for k in range(16):                     # texel k = (k // 4, k % 4)
+        bits |= (0 if (k // 4 + k % 4) % 2 else 1) << (2 * k)
+    mid = struct.pack("<HHI", c_dark, c_light, 0xAAAAAAAA)
+    surfaces, s = [], size
+    while True:
+        nb = ((s + 3) // 4) ** 2
+        surfaces.append(struct.pack("<HHI", c_light, c_dark, bits) * nb
+                        if s == size else mid * nb)
+        if s == 1:
+            break
+        s //= 2
+    return dds_file(size, size, "DXT1", surfaces)
+
+
+def dxt_blocks(rng, size: int, fmt: str) -> bytes:
+    """``size`` x ``size`` texels of seeded DXT blocks: any bytes are a
+    valid block, so DXT5 alpha takes both of its modes."""
+    per = 8 if fmt == "DXT1" else 16
+    return rng.bytes(((size + 3) // 4) ** 2 * per)
+
+
+def build_config5_io(O, width: int = 1024, height: int = 768,
+                     terrain_n: int = 500, n_balls: int = 64,
+                     n_signs: int = 12, seed: int = 21,
+                     antialias: bool = False, **ctx_kw):
+    """Config 5 (:func:`build_config5`) with textures from DXT surfaces and
+    a progressive-mesh LOD, the level that the scene-IO path saves and
+    loads:
+
+    - the terrain's ``checker`` is a 32x32 DXT1 DDS file with a full mip
+      chain (:func:`dxt1_checker`, read by ``LoadImage``: user mip levels);
+    - the spheres' material samples ``ball_skin``, 32x32 seeded DXT3 blocks
+      given to ``SetCompressedImage``;
+    - ``n_signs`` signs of 2x2 quads stand on the terrain in front of the
+      camera, alpha-over (z-write off) with ``sign_tex``, a 32x32 DXT5 DDS
+      file of seeded blocks; with the TexturedPeel option on, their 8
+      ordered triangles each take the peel (B4) above the flat size;
+    - the shared 12x18 ``sphere`` mesh is a progressive mesh (``CreatePM``)
+      at half of its vertices (``SetPMVertexCount``), geomorphed halfway
+      (``SetPMGeoMorphStep(0.5)``).
+
+    The DDS files are written to a temporary directory and removed after
+    loading. Returns (ctx, rc, spinner)."""
+    import tempfile
+
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, antialias=antialias,
+                                     **ctx_kw)
+    ctx.GetRenderManager().SetRenderOptions("TexturedPeel", 1)
+    rng = np.random.default_rng(seed)
+    checker = ctx.GetObjectByName("checker")
+    sign_tex = O.CKTexture(ctx, "sign_tex")
+    with tempfile.TemporaryDirectory() as d:
+        files = {checker: dxt1_checker(32, (0.9, 0.85, 0.7),
+                                       (0.3, 0.35, 0.3)),
+                 sign_tex: dds_file(32, 32, "DXT5",
+                                    [dxt_blocks(rng, 32, "DXT5")])}
+        for tex, data in files.items():
+            path = os.path.join(d, f"{tex.GetName()}.dds")
+            with open(path, "wb") as f:
+                f.write(data)
+            if not tex.LoadImage(path):
+                raise RuntimeError(f"LoadImage refused {path}")
+
+    skin = O.CKTexture(ctx, "ball_skin")
+    if not skin.SetCompressedImage(dxt_blocks(rng, 32, "DXT3"), 32, 32,
+                                   "DXT3"):
+        raise RuntimeError("SetCompressedImage refused the DXT3 blocks")
+    ctx.GetObjectByName("spheremat").SetTexture(skin)
+
+    sign_mat = _fx_material(O, ctx, "signmat", (1.0, 1.0, 1.0, 1.0),
+                            texture=sign_tex)
+    sign_mat.SetTwoSided(True)
+    pts, uv, faces = make_grid(2, (-4.0, -2.5, 0.0), (8.0, 0.0, 0.0),
+                               (0.0, 5.0, 0.0))
+    sign_mesh = O.CKMesh(ctx, "sign")
+    sign_mesh.SetPositions(pts)
+    sign_mesh.SetUVs(uv)
+    sign_mesh.SetFaces(faces)
+    sign_mesh.BuildNormals()
+    sign_mesh.ApplyGlobalMaterial(sign_mat)
+    place_main = ctx.GetObjectByName("place_main")
+    for i in range(n_signs):
+        x = -30.0 + (i % 4) * 20.0 + rng.uniform(-3.0, 3.0)
+        z = -25.0 + (i // 4) * 18.0 + rng.uniform(-3.0, 3.0)
+        sign = O.CK3dObject(ctx, f"sign{i}")
+        sign.SetCurrentMesh(sign_mesh)
+        sign.SetParent(place_main)
+        sign.SetPosition((x, float(_terrain_height(x, z)) + 4.0, z))
+
+    sphere = ctx.GetObjectByName("sphere")
+    sphere.CreatePM()
+    sphere.SetPMVertexCount(sphere.GetVertexCount() // 2)
+    sphere.SetPMGeoMorphStep(0.5)
+    return ctx, rc, spinner
+
+
+def load_level(O, path: str, rc, **ctx_kw):
+    """Load the scene file ``path`` into a fresh ``O.CKContext(**ctx_kw)``
+    (``Load``). A scene file holds objects, not the render manager or its
+    contexts, so the fresh context gets ``rc``'s settings again: its
+    manager's options, a render context of ``rc``'s size, its background,
+    ambient light, fog and portal traversal, and the camera of the same
+    name. Returns (ctx, rc)."""
+    ctx = O.CKContext(**ctx_kw)
+    rm = ctx.GetRenderManager()
+    rm.options.update(rc.context.GetRenderManager().options)
+    ctx.Load(path)
+    rc2 = rm.CreateRenderContext(rc.width, rc.height)
+    rc2.SetBackgroundColor(rc.GetBackgroundColor())
+    rc2.SetAmbientLight(rc.GetAmbientLight())
+    rc2.SetFogMode(rc.GetFogMode())
+    rc2.SetFogStart(rc.GetFogStart())
+    rc2.SetFogEnd(rc.GetFogEnd())
+    rc2.SetFogDensity(rc.GetFogDensity())
+    rc2.SetFogColor(rc.GetFogColor())
+    rc2.EnablePortalTraversal(rc.portal_traversal)
+    rc2.AttachViewpointToCamera(
+        ctx.GetObjectByName(rc.GetAttachedCamera().GetName()))
+    return ctx, rc2
+
+
+def reload_level(O, ctx, rc, path: str, **ctx_kw):
+    """Save ``ctx``'s objects to ``path`` (``ctx.Save``) and load them with
+    :func:`load_level` into a fresh context with ``rc``'s settings.
+    Returns (ctx, rc)."""
+    ctx.Save(path)
+    return load_level(O, path, rc, **ctx_kw)

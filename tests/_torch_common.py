@@ -238,6 +238,49 @@ def port_winners(static, dyn_f, dyn_i, params):
     return fb, zb, stats["WinnerIds"]
 
 
+def render_ids(rc):
+    """``rc.Render()`` and the winner ids (a tensor) of that frame, without
+    rendering it twice: the frame's one ``render_frame_packed`` call is
+    asked for its stats too (``want_stats=True`` adds the ids to what it
+    returns and changes nothing else), and the ids are kept on ``rc``
+    beside a copy of its fb and zb, for :func:`check_render`. A Render()
+    that makes other than one such call (a window, stereo) gets its ids from
+    :func:`port_winners` of its packed inputs instead."""
+    from ckrenderengine_tpu_torch.pipeline import frame as tfr
+
+    real, seen = tfr.render_frame_packed, []
+
+    def spy(*a, want_stats=False, **k):
+        out = real(*a, want_stats=True, **k)
+        seen.append(out[-1]["WinnerIds"])
+        return out if want_stats else out[:-1]
+
+    tfr.render_frame_packed = spy
+    try:
+        rc.Render()
+    finally:
+        tfr.render_frame_packed = real
+    if len(seen) == 1:
+        ids = seen[0]
+    else:
+        st, tf, ti, tp = rc._fill_packed([], [])
+        ids = port_winners(st, torch.as_tensor(tf), torch.as_tensor(ti),
+                           tp)[2]
+    rc.test_frame = (rc.fb.clone(), rc.zb.clone(), ids)
+    return ids
+
+
+def port_frame_ids(rc, static, dyn_f, dyn_i, params):
+    """The winner ids of ``rc``'s current frame: those :func:`render_ids`
+    kept while fb and zb are still that frame's, else :func:`port_winners`
+    of the packed inputs given."""
+    kept = getattr(rc, "test_frame", None)
+    if kept is not None and torch.equal(kept[0], rc.fb) \
+            and torch.equal(kept[1], rc.zb):
+        return kept[2]
+    return port_winners(static, dyn_f, dyn_i, params)[2]
+
+
 _EPS32 = float(np.finfo(np.float32).eps)
 
 
@@ -448,7 +491,7 @@ def render_both(build, accelerator: bool = True, frame_ids=False,
 
     rj = render_reference(build, accelerator, frame_ids, tie_ulps, **kw)
     _ct, rt, _mt = build(O, device="cpu", **kw)
-    rt.Render()
+    render_ids(rt)
     packed = rj._fill_packed([], [])
     return rj, rt, packed, reference_winners(*packed)
 
@@ -594,7 +637,7 @@ def check_render(pair, own_setup: bool = False, explained=None,
     rj, rt, _packed, ref = pair
     st, tf, ti, tp = rt._fill_packed([], [])
     tf, ti = torch.as_tensor(tf), torch.as_tensor(ti)
-    _fb, _zb, ids = port_winners(st, tf, ti, tp)
+    ids = port_frame_ids(rt, st, tf, ti, tp)
     setup_port = None
     if own_setup:
         setup_port = {k: to_np(v) for k, v in tfr.packed_setup(

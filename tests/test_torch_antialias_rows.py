@@ -35,7 +35,7 @@ import ckrenderengine_tpu_torch.objects as O
 from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.raster import deferred as tdf
 from tests._torch_common import (
-    accelerator_branch, check_render, port_winners, render_both, to_np,
+    accelerator_branch, check_render, port_frame_ids, render_both, to_np,
     win_all,
 )
 
@@ -82,8 +82,8 @@ def test_config3_hud_matches_reference(config3):
     # at the render size, 256x194: (16, 16, 64, 64), and (80, 16, 336, 56)
     # cut at the frame's right edge.
     assert tp["quad_windows"][1] == ((15, 15, 50, 50), (15, 79, 42, 177))
-    ids = to_np(port_winners(st, torch.as_tensor(tf), torch.as_tensor(ti),
-                             tp)[2])
+    ids = to_np(port_frame_ids(rt, st, torch.as_tensor(tf),
+                               torch.as_tensor(ti), tp))
     empty = win_all((ids < 0) & (ref[0] < 0))
     fb, fb_ref = to_np(rt.fb), np.asarray(rj.fb)
     for x0, y0, x1, y1 in ((8, 8, 32, 32), (40, 8, 168, 28)):

@@ -47,7 +47,7 @@ from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.pipeline import frame as tfr
 from tests._torch_common import (
     _FRAME_SLACK, assert_frame_fb_close, assert_winners_own_setup,
-    check_render, depth_error_bound, fx_explained, port_winners,
+    check_render, depth_error_bound, fx_explained, port_frame_ids,
     render_both, to_np,
 )
 
@@ -335,7 +335,7 @@ def test_alpha_tested_cards_frame_matches_reference():
     assert tfr.ordered_route(tp["ordered_cap"], 768, 1024, sp,
                              tp["pixel_shader"]) == "tiled"
 
-    ids = to_np(port_winners(st, tf, ti, tp)[2])
+    ids = to_np(port_frame_ids(rt, st, tf, ti, tp))
     setup_port = {k: to_np(v) for k, v in tfr.packed_setup(
         st, tf, ti, tp)[2].items() if isinstance(v, torch.Tensor)}
     same = ids == ids_ref

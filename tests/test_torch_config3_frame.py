@@ -24,7 +24,9 @@ import torch
 
 import ckrenderengine_tpu_torch.objects as O
 from ckrenderengine_tpu_torch import scenes
-from tests._torch_common import check_render, port_winners, render_both, to_np
+from tests._torch_common import (
+    check_render, port_frame_ids, render_both, to_np,
+)
 
 C3 = dict(width=256, height=193)
 
@@ -53,8 +55,8 @@ def test_config3_matches_reference(config3):
 def test_config3_hud_matches_reference(config3):
     rj, rt, _packed, ref = config3
     st, tf, ti, tp = rt._fill_packed([], [])
-    ids = to_np(port_winners(st, torch.as_tensor(tf), torch.as_tensor(ti),
-                             tp)[2])
+    ids = to_np(port_frame_ids(rt, st, torch.as_tensor(tf),
+                               torch.as_tensor(ti), tp))
     fb, fb_ref = to_np(rt.fb), np.asarray(rj.fb)
     for x0, y0, x1, y1 in ((8, 8, 32, 32), (40, 8, 168, 28)):
         win = (slice(y0, y1), slice(x0, x1))

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from ckrenderengine_tpu_torch import scenes
-from tests._torch_common import port_winners, to_np
+from tests._torch_common import port_winners, render_ids, to_np
 from tests.torch_golden import make_golden
 
 GOLDEN = np.load(make_golden.OUT)
@@ -60,10 +60,7 @@ def test_port_matches_golden(device):
 
     _ctx, rc, _m = scenes.build_config2(O, device=device, width=320,
                                         height=240)
-    rc.Render()
-    st, tf, ti, tp = rc._fill_packed([], [])
-    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
-                                 torch.as_tensor(ti, device=device), tp)
+    ids = render_ids(rc)
     _check(rc.BackToFront(), to_np(ids))
 
 
@@ -82,12 +79,10 @@ def test_port_matches_alpha_golden(device):
 
     build, kw = make_golden.frames()[make_golden.ALPHA_OUT]
     _ctx, rc, _m = build(O, device=device, **kw)
-    rc.Render()
+    ids = render_ids(rc)
     st, tf, ti, tp = rc._fill_packed([], [])
     assert tp["ordered_cap"] * rc.height * rc.width > 1 << 26   # B3 branch
     assert tp["sampler_profile"][5]
-    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
-                                 torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids), ALPHA)
 
 
@@ -101,13 +96,11 @@ def test_port_matches_fx_golden(device):
 
     build, kw = make_golden.frames()[make_golden.FX_OUT]
     _ctx, rc, _m = build(O, device=device, **kw)
-    rc.Render()
+    ids = render_ids(rc)
     st, tf, ti, tp = rc._fill_packed([], [])
     assert tp["ordered_cap"] * rc.height * rc.width > 1 << 26   # B4 branch
     assert tp["sampler_profile"][6] and not tp["sampler_profile"][5]
     assert tp["lines"] is not None and rc.GetStats().NbLinesDrawn == 364
-    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
-                                 torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids), FX, max_off=1e-3)
 
 
@@ -124,12 +117,10 @@ def test_port_matches_shader_golden(device):
 
     build, kw = make_golden.frames()[make_golden.SHADER_OUT]
     _ctx, rc, _m = build(O, device=device, **kw)
-    rc.Render()
+    ids = render_ids(rc)
     st, tf, ti, tp = rc._fill_packed([], [])
     assert tp["pixel_shader"] is not None and tp["vertex_shader"] is not None
     assert 0 < tp["ordered_cap"] * rc.height * rc.width <= 1 << 26
-    _fb, _zb, ids = port_winners(st, torch.as_tensor(tf, device=device),
-                                 torch.as_tensor(ti, device=device), tp)
     _check(rc.BackToFront(), to_np(ids), SHADER)
 
 

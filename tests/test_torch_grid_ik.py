@@ -32,7 +32,7 @@ from ckrenderengine_tpu_torch.objects import base as OB
 from ckrenderengine_tpu_torch.objects import grid as tgrid
 
 from _torch_common import (
-    assert_frames_close, check_render, port_winners, render_both,
+    assert_frames_close, check_render, port_frame_ids, render_both,
     render_reference, small_ctx,
 )
 
@@ -349,8 +349,8 @@ def test_skinned_arm_frame():
     assert rt._dbg_label[0] == rj._dbg_label_cache[0]
     assert rt._dbg_label[0].endswith(f"(13/{n}) {FRAME_MS:.1f} ms")
     st, tf, ti, tp = rt._fill_packed([], [])
-    ids = port_winners(st, torch.as_tensor(tf), torch.as_tensor(ti),
-                       tp)[2].numpy()
+    ids = port_frame_ids(rt, st, torch.as_tensor(tf), torch.as_tensor(ti),
+                         tp).numpy()
     c = rt._compiled
     rows = c.vert_entity[c.tri_idx[ids[ids >= 0], 0]]
     arm = next(e for e in rt._scene_entities() if e.GetName() == "snake")

@@ -56,12 +56,13 @@ def test_import_with_jax_and_reference_blocked():
     assert proc.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", sorted(_modules()),
-                         ids=lambda p: os.path.relpath(p, ROOT))
+@pytest.mark.parametrize("path", sorted(_modules()) + [
+    os.path.join(ROOT, "chip_smoke.py")], ids=lambda p: os.path.relpath(
+        p, ROOT))
 def test_module_has_no_reference_import(path):
-    """No import statement (or __import__/import_module call) of the port
-    names jax, the reference package, PIL or cv2 (the hand-run scripts of
-    HAND_RUN only what they list)."""
+    """No import statement (or __import__/import_module call) of the port,
+    or of ``chip_smoke.py``, names jax, the reference package, PIL or cv2
+    (the hand-run scripts of HAND_RUN only what they list)."""
     allowed = HAND_RUN.get(os.path.relpath(path, PKG), ())
     with open(path) as f:
         tree = ast.parse(f.read(), path)

@@ -40,8 +40,8 @@ from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.pipeline import frame as tfr
 from ckrenderengine_tpu_torch.raster import cuda_ordered as co
 from tests._torch_common import (
-    check_frame_against_reference, port_winners, reference_winners,
-    render_reference, to_np,
+    check_frame_against_reference, port_frame_ids, reference_winners,
+    render_ids, render_reference, to_np,
 )
 
 SCENES = {
@@ -66,7 +66,7 @@ def frames():
     for name, (build, kw) in SCENES.items():
         rj = render_reference(build, **kw)
         _c, rt, _m = build(O, device="cpu", **kw)
-        rt.Render()
+        render_ids(rt)
         out[name] = (rj, rt)
     return out
 
@@ -75,7 +75,7 @@ def test_opaque_winners_and_frame_match_reference(frames):
     rj, rt = frames["alpha_b3"]
     ref = reference_winners(*rj._fill_packed([], []))
     st, tf, ti, tp = rt._fill_packed([], [])
-    _fb, _zb, ids = port_winners(st, _t(tf), _t(ti), tp)
+    ids = port_frame_ids(rt, st, _t(tf), _t(ti), tp)
     check_frame_against_reference(to_np(ids), to_np(rt.fb), to_np(rt.zb),
                                   ref, rj)
 

@@ -33,7 +33,7 @@ from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.objects import entity2d as te2
 from ckrenderengine_tpu_torch.pipeline import overlay as tov
 from tests._torch_common import (
-    check_render, port_winners, render_both, to_np,
+    check_render, port_frame_ids, render_both, to_np,
 )
 
 H, W = 97, 131
@@ -329,8 +329,8 @@ def test_overlay_frame_matches_reference():
     # Where no triangle covers the pixel in either frame, the frame is the
     # two overlay layers over the background material alone.
     st, tf, ti, tp = rt._fill_packed([], [])
-    ids = to_np(port_winners(st, torch.as_tensor(tf), torch.as_tensor(ti),
-                             tp)[2])
+    ids = to_np(port_frame_ids(rt, st, torch.as_tensor(tf),
+                               torch.as_tensor(ti), tp))
     empty = (ids < 0) & (pair[3][0] < 0)
     assert empty.mean() > 0.5
     diff = np.abs(to_np(rt.fb) - np.asarray(rj.fb)).max(0)
@@ -407,8 +407,8 @@ def test_tiled_frame_shades_over_the_background_plane():
     assert rt._compiled.tri_idx.shape[0] * rt.height * rt.width > (1 << 26)
     check_render(pair)
     st, tf, ti, tp = rt._fill_packed([], [])
-    ids = to_np(port_winners(st, torch.as_tensor(tf), torch.as_tensor(ti),
-                             tp)[2])
+    ids = to_np(port_frame_ids(rt, st, torch.as_tensor(tf),
+                               torch.as_tensor(ti), tp))
     empty = (ids < 0) & (ref[0] < 0)
     fb = to_np(rt.fb)
     assert empty.mean() > 0.05

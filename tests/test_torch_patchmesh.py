@@ -23,6 +23,7 @@ import ckrenderengine_tpu.objects as J
 from ckrenderengine_tpu.objects import patchmesh as jpm
 import ckrenderengine_tpu_torch.objects as O
 from ckrenderengine_tpu_torch import scenes
+from ckrenderengine_tpu_torch.io import CKStateChunk, save_object
 from ckrenderengine_tpu_torch.objects import classreg
 from ckrenderengine_tpu_torch.objects import patchmesh as tpm
 from ckrenderengine_tpu_torch.raster.types import VXLIGHT
@@ -196,8 +197,14 @@ def test_registration_and_unported_io():
     assert isinstance(pm, O.CKPatchMesh)
     assert classreg.CKGetClassName(O.base.CKCID_PATCHMESH) == "Patch Mesh"
     assert pm.IsChildClassOf(O.base.CKCID_MESH)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        pm.LoadVertices(None)
+    # LoadVertices reads the control net back from an ID_PATCHMESH chunk.
+    assert not pm.LoadVertices(CKStateChunk())
+    src = scenes.make_patch_sheet(O, ctx, n=1, iterations=2)
+    src.SetIterationCount(4)
+    assert pm.LoadVertices(save_object(src))
+    np.testing.assert_array_equal(pm.verts, src.verts)
+    np.testing.assert_array_equal(pm.vecs, src.vecs)
+    assert pm.iteration_count == 4
     # Lazy tessellation: render groups build the mesh.
     sheet = scenes.make_patch_sheet(O, ctx, n=1, iterations=2)
     sheet.SetIterationCount(3)
