@@ -127,6 +127,21 @@ PNGs decoded with zlib equal to ``BackToFront()`` and the buffers; a
 ``CopyObject`` clone of a ball equal to one built by hand; save and load
 seconds, the file's size, DXT decode host ms per MiB, ``CreatePM`` and
 ``SetPMVertexCount`` host ms),
+renders one frame in horizontal bands (the ``bands`` phase:
+``SetTileSharding`` over a mesh naming card 0 once per band, every banded
+frame bit-equal to the unbanded one: config 5 in 4 bands of 192 rows,
+config 5 with Antialias, config 1 (B2), ``alpha50k`` (B3),
+``alpha_tex50k`` (B4), ``config5_fx`` (L1) and config 2 with mips at
+1000x750 in 6 bands of 125 rows; each kernel once per band, B4 once per
+band and round, B5 per band under ``CK_FUSED_FETCH``, the profiler's
+count equal to the wrappers'; each kernel equal to its plain version and
+timed at one band's own inputs, and on the fixtures' band cases; device ms
+of a banded config 5 frame beside the unbanded one), runs the multi-card
+paths on a mesh naming card 0 four times (the ``multicard`` phase:
+``dryrun_multichip(4)``'s three paths, and ``ProcessBatched`` of 8
+contexts of 256x256 over a 4-entry context mesh bit-equal to
+``ProcessBatched()``, B1 once per member; again over the real cards where
+the machine has several, else a line says it did not run),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
 composite) and the kernels, at 1x and at their Antialias shapes, beside
@@ -303,15 +318,18 @@ def past_edges(ec, top_left, ok, rect, px, py):
 
 
 def tiled_pairs_past_edges(stream, starts, counts, segments, tile: int,
-                           tiles_x: int, tiles_y: int, step: int = 16) -> int:
+                           tiles_x: int, tiles_y: int, step: int = 16,
+                           row0: int = 0) -> int:
     """:func:`past_edges` over what a tiled kernel streams, from the edge,
     flag and rect columns the solve and the ordered streams share (0:9, 17,
     18:22): each tile's own range plus the ``segments`` [(base, rows)]
-    every tile streams, ``step`` rows of every tile at a time."""
+    every tile streams, ``step`` rows of every tile at a time; a band's
+    pixels at their global rows (``row0``)."""
     from ckrenderengine_tpu_torch.raster.cuda_tiled import tile_grid
 
     dev = stream.device
-    px, py = (p[:, None] for p in tile_grid(tile, tiles_x, tiles_y, dev))
+    px, py = tile_grid(tile, tiles_x, tiles_y, dev)
+    px, py = px[:, None], (py + float(row0))[:, None]
     kk = torch.arange(step, device=dev)
     total = torch.zeros((), dtype=torch.int64, device=dev)
 
@@ -407,17 +425,19 @@ def compare_case(case):
     return compare_solve(
         case["name"], case["xyw"], case["z"], case["clipd"],
         case["clip_rect"], case["h"], case["w"], case["viewport"], 1.0,
-        case["caps"], 4, without_e=True, case=case)
+        case["caps"], 4, without_e=True, case=case,
+        row0=case.get("row0", 0))
 
 
 def compare_solve(name, xyw, z, clipd, clip_rect, H, W, viewport, clear,
-                  caps, seed, without_e=False, case=None):
+                  caps, seed, without_e=False, case=None, row0: int = 0):
     """B1 and B5 through the whole tiled solve on the card (kernels) and on
     the CPU (plain phase B) from identical inputs: exact ids, depths,
     e-planes and bin statistics, and for B5 (a random int32 shade table
     with NaN and denormal float patterns, 16 or 20 words) exact rows, which
     must also be the table gathered by id. ``without_e`` runs both kernels
-    again without e-planes: the same ids, depths and rows. Returns the max
+    again without e-planes: the same ids, depths and rows. ``row0``: the
+    frame is a band whose first row is that global row. Returns the max
     abs depth difference of each kernel (0 when exact)."""
     from ckrenderengine_tpu_torch.raster.cuda_tiled import (
         depth_reduce_tiled_cuda, phase_a,
@@ -436,6 +456,7 @@ def compare_solve(name, xyw, z, clipd, clip_rect, H, W, viewport, clear,
         args = (setup, torch.ones(T, dtype=torch.bool, device=dev), cz, vp,
                 xyw_t, H, W)
         tbl = torch.as_tensor(words, device=dev)
+        caps = dict(caps, row0=row0)
         if case is not None and dev == "cuda":
             check_expect(case, phase_a(setup, args[1], vp, xyw_t, H, W,
                                        **caps))
@@ -469,7 +490,7 @@ def compare_solve(name, xyw, z, clipd, clip_rect, H, W, viewport, clear,
                          table_words=int(words.shape[1]),
                          rows_nonzero=float((got[4] != 0).any(0).mean()))
         emit("kernel_parity", kernel=kernel, case=name, shape=[H, W], tris=T,
-             ids_equal=bool(np.array_equal(bi_k, plain[0])),
+             row0=row0, ids_equal=bool(np.array_equal(bi_k, plain[0])),
              depth_max_abs_err=err,
              eplanes_max_abs_err=float(np.abs(ep_k - plain[3]).max()),
              binstats=st_k.tolist(), binstats_equal=bool(
@@ -518,8 +539,9 @@ def flat_args(case):
 
 def compare_flat(case, lib) -> float:
     """B2 against its plain version on one full-size case of
-    ``raster/flat_fixtures.py``: ids and depths exactly; the case must
-    still give what it was built for (``check_expect``)."""
+    ``raster/flat_fixtures.py`` (a band case at its ``row0``): ids and
+    depths exactly; the case must still give what it was built for
+    (``check_expect``)."""
     from ckrenderengine_tpu_torch.raster.cuda_reduce import (
         depth_reduce_plain, reduce_flat_kernel,
     )
@@ -529,14 +551,15 @@ def compare_flat(case, lib) -> float:
 
     args = flat_args(case)
     rows, _cz, _vp, h, w = args
-    bi_k, bd_k = reduce_flat_kernel(*args)
-    bi_p, bd_p = depth_reduce_plain(*args)
-    stats = flat_stats(rows, h, w, case["viewport"])
+    row0 = case.get("row0", 0)
+    bi_k, bd_k = reduce_flat_kernel(*args, row0)
+    bi_p, bd_p = depth_reduce_plain(*args, row0=row0)
+    stats = flat_stats(rows, h, w, case["viewport"], row0=row0)
     check_expect(case, stats, bi_k.cpu().numpy())
     err = float((bd_k - bd_p).abs().max())
     ok = bool(torch.equal(bi_k, bi_p) and torch.equal(bd_k, bd_p))
     emit("kernel_parity", kernel="B2", case=case["name"], shape=[h, w],
-         tris=int(rows.shape[0]),
+         tris=int(rows.shape[0]), row0=row0,
          ctas_per_subtile=lib.ck_reduce_flat_split(rows.shape[0], h, w),
          scan_drop=stats["scan_drop"], pairs_past_edges=stats["past_edges"],
          esum_rejects=stats["esum_rejects"],
@@ -563,23 +586,24 @@ def compare_ordered(case, tile: int):
     fx = {k: torch.as_tensor(case["fields"][k], device="cuda")
           for k in FIELDS}
     h, w = case["h"], case["w"]
+    row0 = case.get("row0", 0)
     kw = {} if case["windows"] is None else dict(windows=case["windows"])
     pa = co.phase_a(*(fx[k] for k in FIELDS),
                     torch.as_tensor(case["si"], device="cuda"),
                     torch.as_tensor(case["sf"], device="cuda"),
                     torch.as_tensor(case["zb"], device="cuda"), h, w, tile,
-                    **kw)
+                    row0=row0, **kw)
     check_expect(case, pa, co.row_pitch(pa["n_planes"]))
     name = f"{case['name']}_tile{tile}"
     tx, ty = pa["tiles_x"], pa["tiles_y"]
     ranges = (pa["stream"], pa["starts"], pa["counts"])
     b3 = ranges + (co._params(case["viewport"], h, w, case["fog_color"],
-                            "cuda"), pa["zplane"], tile, tx, ty,
+                            "cuda", row0), pa["zplane"], tile, tx, ty,
                  pa["n_planes"])
     k, p = co.blend_kernel(*b3), co.blend_phase_b_plain(*b3)
     err3 = float((k - p).abs().max())
     exact = bool(torch.equal(k, p))
-    emit("kernel_parity", kernel="B3", case=name, shape=[h, w],
+    emit("kernel_parity", kernel="B3", case=name, shape=[h, w], row0=row0,
          tris=int(case["fields"]["valid"].sum()),
          live_pairs=int(pa["n_live"]), max_tile_rows=int(pa["counts"].max()),
          planes=pa["n_planes"], bad=bool(pa["bad"]), max_abs_err=err3,
@@ -587,14 +611,15 @@ def compare_ordered(case, tile: int):
     check(exact, f"B3 {name}: kernel and plain version disagree")
     err4 = 0.0
     for skip in case["skips"]:
-        b4 = ranges + (co._params(case["viewport"], h, w, dev="cuda"), skip,
+        b4 = ranges + (co._params(case["viewport"], h, w, dev="cuda",
+                                  row0=row0), skip,
                      pa["zplane"], tile, tx, ty, pa["n_planes"])
         k, p = co.peel_kernel(*b4), co.peel_phase_b_plain(*b4)
         exact = all(torch.equal(a, b) for a, b in zip(k, p))
         e = float((k[1] - p[1]).abs().max())
         err4 = max(err4, e)
         emit("kernel_parity", kernel="B4", case=name, shape=[h, w],
-             skip=skip, layer0_covered=float((k[0][0] >= 0).float().mean()),
+             row0=row0, skip=skip, layer0_covered=float((k[0][0] >= 0).float().mean()),
              max_count=int(k[2].max()), overflow=bool(k[3].any()),
              max_abs_err=e, exact=bool(exact))
         check(exact, f"B4 {name} skip {skip}: kernel and plain disagree")
@@ -980,6 +1005,16 @@ def main() -> int:
     # --- 4m. scene IO: the DXT-textured, progressive-mesh level reloaded ---
     io = io_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4n. framebuffer bands: one frame over a mesh of card 0 ----------
+    bands = bands_phase(O, scenes, fr, kernel_fns, launches, card, configs,
+                        aa)
+    for k, v in bands["errs"].items():
+        if k in errs:
+            errs[k] += v
+
+    # --- 4o. the multi-card paths: the dry run and a context mesh --------
+    multicard_phase(O, scenes, kernel_fns, card)
+
     # --- 5. replay of an overflowing ordered frame on the card -------------
     _c, rc_p, _m = build_panes(O, device="cuda")
     rc_p.Render()
@@ -1196,6 +1231,13 @@ def main() -> int:
             k["config5_io"] = {"ms": io[key][0], "plain_ms": io[key][1],
                                "bound_ms": io[key][2]["bound_ms"],
                                "bound_by": io[key][2]["bound_by"]}
+        for suffix, label in (("", "bands"), ("_aa", "bands_aa")):
+            b = bands["ms"].get(key + suffix)
+            if b is not None:
+                # The kernel at one band's own inputs (its row offset).
+                k[label] = {"config": b[5], "row0": b[4], "ms": b[0],
+                            "plain_ms": b[1], "bound_ms": b[2]["bound_ms"],
+                            "bound_by": b[2]["bound_by"], "events_ms": b[3]}
         if key in shaded:
             # B1 without e-planes, at the shaded level's frame.
             k["config5_shaded"] = {
@@ -1210,7 +1252,8 @@ def main() -> int:
         "source": "ckrenderengine_tpu_torch/csrc/lines.cu",
         "replaces": "ckrenderengine_tpu/pipeline/lines.py:52",
         "replaces_note": "draw_lines, plain JAX (no pl.pallas_call)",
-        "launches": launches["L1"], "max_abs_err": max(fx["L1_errs"]),
+        "launches": launches["L1"],
+        "max_abs_err": max(fx["L1_errs"] + bands["errs"]["L1"]),
         "ms": l1[0], "plain_ms": l1[1], "bound_ms": l1[2]["bound_ms"],
         "bound_by": l1[2]["bound_by"], "library_ms": None,
         "events_ms": l1[3],
@@ -1220,6 +1263,10 @@ def main() -> int:
         "antialias": {"shape": "config5_fx_aa", "ms": l1_aa[0],
                       "bound_ms": l1_aa[2]["bound_ms"],
                       "bound_by": l1_aa[2]["bound_by"]}})
+    b = bands["ms"]["L1"]
+    kernels[-1]["bands"] = {"config": b[5], "row0": b[4], "ms": b[0],
+                            "plain_ms": b[1], "bound_ms": b[2]["bound_ms"],
+                            "bound_by": b[2]["bound_by"], "events_ms": b[3]}
     from ckrenderengine_tpu_torch import frame_bench
     emit("profiler_windows", **frame_bench.PROFILE_WINDOWS,
          pad_s=frame_bench.PROFILE_PAD_S, tries=frame_bench.PROFILE_TRIES)
@@ -1228,7 +1275,8 @@ def main() -> int:
         # needs, or the timing is wrong.
         for t in (k, k["antialias"], k.get("config5_fx", k),
                   k.get("config5_mat", k), k.get("config5_shaded", k),
-                  k.get("config5_io", k)):
+                  k.get("config5_io", k), k.get("bands", k),
+                  k.get("bands_aa", k)):
             check(t["ms"] >= t["bound_ms"],
                   f"{k['name']}: {t['ms']} ms is below its bound "
                   f"{t['bound_ms']} ms")
@@ -1652,8 +1700,8 @@ def plain_b1():
 
     kernel = cuda_tiled.solve_tiled_kernel
 
-    def plain(*args, kchunk: int = 128):
-        return cuda_tiled.solve_phase_b_plain(*args)
+    def plain(*args, kchunk: int = 128, row0: int = 0):
+        return cuda_tiled.solve_phase_b_plain(*args, row0=row0)
 
     cuda_tiled.solve_tiled_kernel = plain
 
@@ -3184,19 +3232,21 @@ def line_inputs(rc, ll) -> dict:
     return seen
 
 
-def lines_bound(rows, zb, h: int, w: int, ll) -> dict:
+def lines_bound(rows, zb, h: int, w: int, ll, row0: float = 0.0) -> dict:
     """L1's roofline from this frame's rows: the pairs whose pixel passes
     the distance test of a valid segment (what any exact line pass
     evaluates in full), at OPS_PER_LINE_PAIR each, against the bytes (fb
     read and written, zb and the rows read once). Also the pairs the
     kernel tests: each 16x16 tile's pixels times the segments its box
-    test keeps."""
+    test keeps. ``row0``: the global row of a band's first row."""
     covered = 0
     inf = torch.full_like(zb, float("inf"))
     for c0 in range(0, rows.shape[0], 32):
-        covered += int(ll.line_coverage(rows[c0:c0 + 32], inf, h, w).sum())
+        covered += int(ll.line_coverage(rows[c0:c0 + 32], inf, h, w,
+                                        row0=row0).sum())
     tx = torch.arange(0, w, 16, device=rows.device, dtype=torch.float32) + 0.5
-    ty = torch.arange(0, h, 16, device=rows.device, dtype=torch.float32) + 0.5
+    ty = (torch.arange(0, h, 16, device=rows.device, dtype=torch.float32)
+          + 0.5 + row0)
     r = rows[:, None]
     mag = torch.maximum(r[..., 0:4:2].abs().amax(-1),
                         r[..., 1:4:2].abs().amax(-1))
@@ -4335,14 +4385,15 @@ def ptxas_registers(ptxas, kernel: str) -> int:
     fail(f"ptxas reported no registers for {kernel}")
 
 
-def flat_bound(rows, outs, h: int, w: int, viewport) -> dict:
+def flat_bound(rows, outs, h: int, w: int, viewport, row0: int = 0) -> dict:
     """B2's roofline bound on these inputs: the pairs past valid, rect and
     edges (``flat_stats``, the kernel's arithmetic) at 15 operations, against
     the rows at the seven 16-byte words the kernel reads, the 5-float view
-    and the two planes it writes, each once."""
+    and the two planes it writes, each once; a band's pixels at their
+    global rows (``row0``)."""
     from ckrenderengine_tpu_torch.raster.flat_fixtures import flat_stats
 
-    past = flat_stats(rows, h, w, viewport)["past_edges"]
+    past = flat_stats(rows, h, w, viewport, row0=row0)["past_edges"]
     return roofline(past, rows.shape[0] * h * w, 0,
                     rows.shape[0] * 28 * 4 + 5 * 4 + nbytes(*outs))
 
@@ -4766,6 +4817,432 @@ def time_skin_stage(rc, fps, card, fr) -> None:
          note="device_ms is the stage's summed kernel time on the card per "
          "frame (torch.profiler); events_ms a CUDA-event mean of the stage "
          "alone, host launch gaps included")
+
+
+# ---------------------------------------------------------------------------
+# Framebuffer bands and the multi-card paths
+# ---------------------------------------------------------------------------
+
+# The banded frames: (name, where the context comes from, bands, kernels
+# each band launches). A mesh names card 0 once per band.
+BAND_FRAMES = (("config5", "configs", 4, ("B1",)),
+               ("config5_aa", "aa", 4, ("B1",)),
+               ("config1", "configs", 4, ("B2",)),
+               ("alpha50k", "configs", 4, ("B1", "B3")),
+               ("alpha_tex50k", "configs", 4, ("B1", "B4")),
+               ("config5_fx", "build", 4, ("B1", "B4", "L1")),
+               ("config2_mips_odd_bands", "build", 6, ("B1",)))
+# The band whose kernels are timed and held against their plain versions.
+BAND_TIMED = 1
+
+
+def band_spy(fr, ll, cuda_tiled, co):
+    """Catch, per band, the inputs each kernel's dispatch receives during
+    the next banded Render(): {kernel: [inputs, ...]} in band order. The
+    callers are wrapped, never the wrappers (which count their launches
+    through their module's global names). Returns (seen, restore)."""
+    seen = {}
+    saved = [(cuda_tiled, "solve_phase_b"), (fr, "depth_reduce_cuda"),
+             (co, "blend_phase_b"), (co, "peel_phase_b"), (ll, "draw_lines")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    real = {name: fn for _mod, name, fn in saved}
+
+    def solve(stream, *a, shade_tbl=None, kchunk=128, row0=0):
+        seen.setdefault("B5" if shade_tbl is not None else "B1", []).append(
+            ((stream,) + a, shade_tbl, row0))
+        return real["solve_phase_b"](stream, *a, shade_tbl=shade_tbl,
+                                     kchunk=kchunk, row0=row0)
+
+    def flat(setup, defer, clear_z, viewport, h, w, row0=0):
+        from ckrenderengine_tpu_torch.raster.cuda_reduce import pack_rows
+        seen.setdefault("B2", []).append(
+            (pack_rows(setup, defer), clear_z, viewport, h, w, row0))
+        return real["depth_reduce_cuda"](setup, defer, clear_z, viewport, h,
+                                         w, row0=row0)
+
+    def blend(stream, *a):
+        seen.setdefault("B3", []).append((stream,) + a)
+        return real["blend_phase_b"](stream, *a)
+
+    def peel(stream, *a):
+        seen.setdefault("B4", []).append((stream,) + a)
+        return real["peel_phase_b"](stream, *a)
+
+    def lines(fb, zb, scene, world, bank, h, w, *a, row0=0.0, **k):
+        seen.setdefault("L1", []).append(
+            (fb, zb, ll.line_rows(scene, world, bank), h, w, row0))
+        return real["draw_lines"](fb, zb, scene, world, bank, h, w, *a,
+                                  row0=row0, **k)
+
+    for mod, name, fn in saved:
+        setattr(mod, name, {"solve_phase_b": solve, "depth_reduce_cuda": flat,
+                            "blend_phase_b": blend, "peel_phase_b": peel,
+                            "draw_lines": lines}[name])
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return seen, restore
+
+
+def band_kernel(kernel, inputs, name, card, ll, cuda_tiled, cuda_reduce,
+                co) -> tuple:
+    """One kernel at one band's own inputs (caught by :func:`band_spy`):
+    equal to its plain version bit for bit, its own time on the card, its
+    CUDA-event time and the plain version's, beside its bound from these
+    inputs. Returns (kernel ms, plain ms, bound, events ms, row0)."""
+    if kernel in ("B1", "B5"):
+        args, tbl, row0 = inputs
+        kw = dict(row0=row0)
+        if kernel == "B1":
+            def kfn():
+                return cuda_tiled.solve_tiled_kernel(*args, **kw)
+            label = "solve_tiled_kernel"
+        else:
+            def kfn():
+                return cuda_tiled.solve_fetch_kernel(*args, tbl, **kw)
+            label = "solve_tiled_kernel"
+
+        def pfn():
+            return cuda_tiled.solve_phase_b_plain(*args, shade_tbl=tbl, **kw)
+
+        (stream, starts, counts, leftn, gbase, sbase, _vp, w, h, init, tile,
+         tx, ty, n_planes, _want_e) = args
+        left = leftn.tolist()
+        outs = kfn()
+        n_bytes = ((int(counts.sum()) + sum(left)) * stream.shape[1] * 4
+                   + nbytes(starts, counts, leftn, init, *outs))
+        if tbl is not None:
+            ids = outs[1]
+            n_bytes += int(torch.unique(ids[ids >= 0]).numel()) \
+                * tbl.shape[1] * 4
+        bound = roofline(
+            tiled_pairs_past_edges(stream, starts, counts,
+                                   ((gbase, left[0]), (sbase, left[1])),
+                                   tile, tx, ty, row0=row0),
+            tiled_pairs(counts, sum(left), tile), n_planes, n_bytes)
+    elif kernel == "B2":
+        rows, cz, vp, h, w, row0 = inputs
+
+        def kfn():
+            return cuda_reduce.reduce_flat_kernel(rows, cz, vp, h, w, row0)
+
+        def pfn():
+            return cuda_reduce.depth_reduce_plain(rows, cz, vp, h, w,
+                                                  row0=row0)
+        label = "reduce_flat_kernel"
+        outs = kfn()
+        bound = flat_bound(rows, outs, h, w, vp.tolist(), row0)
+    elif kernel in ("B3", "B4"):
+        args = inputs
+        stream, starts, counts, params = args[:4]
+        tile, tx, ty, n_planes = args[-4:]
+        row0 = int(params[6])
+        h, w = int(params[5]), int(params[4])
+        kfn_, pfn_ = ((co.blend_kernel, co.blend_phase_b_plain)
+                      if kernel == "B3"
+                      else (co.peel_kernel, co.peel_phase_b_plain))
+
+        def kfn():
+            return kfn_(*args)
+
+        def pfn():
+            return pfn_(*args)
+        label = ("ordered_blend_kernel" if kernel == "B3"
+                 else "ordered_peel_kernel")
+        outs = kfn()
+        outs = (outs,) if kernel == "B3" else outs
+        row_floats = (stream.shape[1] if kernel == "B3"
+                      else co.head_width(n_planes))
+        bound = roofline(
+            tiled_pairs_past_edges(stream, starts, counts, (), tile, tx, ty,
+                                   row0=row0),
+            tiled_pairs(counts, 0, tile), n_planes,
+            int(counts.sum()) * row_floats * 4
+            + nbytes(starts, counts, args[-5], *outs))
+    else:
+        fb, zb, rows, h, w, row0 = inputs
+
+        def kfn():
+            return ll.lines_kernel(fb, zb, rows, h, w, row0=row0)
+
+        def pfn():
+            return ll.draw_lines_plain(fb, zb, rows, h, w, row0=row0)
+        label = "lines_kernel"
+        bound = lines_bound(rows, zb, h, w, ll, row0)
+    out_k, out_p = kfn(), pfn()
+    if isinstance(out_k, torch.Tensor):
+        out_k, out_p = (out_k,), (out_p,)
+    same = all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(out_k, out_p))
+    check(same, f"{kernel} and its plain version disagree at {name}'s band "
+          f"at row {row0}")
+    st = {"ms": kernel_ms(kfn, label), "events_ms": cuda_ms(kfn, 20),
+          "plain_ms": cuda_ms(pfn, 2)}
+    emit("band_kernel", config=name, kernel=kernel, card=card, row0=row0,
+         size=[w, h], equal_to_plain=True,
+         **{k: round(v, 5) for k, v in st.items()},
+         bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+         note="ms is the kernel's own time on the card (torch.profiler) at "
+         "this band's inputs; events_ms and plain_ms CUDA-event means")
+    check(st["ms"] >= bound["bound_ms"],
+          f"{kernel} at {name}'s band: {st['ms']} ms is below its bound")
+    return st["ms"], st["plain_ms"], bound, st["events_ms"], row0
+
+
+def bands_phase(O, scenes, fr, kernel_fns, launches, card, configs,
+                aa) -> dict:
+    """One context's frame in horizontal bands (``SetTileSharding`` over a
+    mesh that names card 0 once per band) against the unbanded frame of
+    the same tick, fb and zb bit for bit: config 5 (B1 with e-planes at
+    rows 0, 192, 384, 576), config 5 with Antialias (bands of 384 render
+    rows), config 1 (B2), ``alpha50k`` (B3), ``alpha_tex50k`` (B4, each
+    band its own round count), ``config5_fx`` (L1, 3D sprites) and config
+    2 with mips at 1000x750 in 6 bands of 125 rows (odd: each band renders
+    a halo row so that its 2x2 quads are the frame's); config 5 again
+    under ``CK_FUSED_FETCH`` (B5). Each kernel is launched once per band
+    (B4 once per round) and nothing else; each is held against its plain
+    version at band ``BAND_TIMED``'s own inputs and timed there, and B1,
+    B5, B2, B3, B4 and L1 against their plain versions on the band cases
+    of the fixtures. Prints the device ms of a banded config 5 frame
+    beside the unbanded one. Returns {"errs": {kernel: [max abs error]},
+    "ms": {kernel: (ms, plain ms, bound, events ms, row0, config)}}."""
+    from ckrenderengine_tpu_torch import cuda_build
+    from ckrenderengine_tpu_torch.pipeline import lines as ll
+    from ckrenderengine_tpu_torch.raster import cuda_ordered as co
+    from ckrenderengine_tpu_torch.raster import cuda_reduce, cuda_tiled
+    from ckrenderengine_tpu_torch.raster import deferred as df
+    from ckrenderengine_tpu_torch.raster import (
+        flat_fixtures, ordered_fixtures, tiled_fixtures,
+    )
+
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import (
+        profile_window, profiled_kernels,
+    )
+
+    t_phase = time.monotonic()
+    fns = dict(kernel_fns, L1=ll.lines_kernel)
+    launches.setdefault("L1", 0)
+    errs = {k: [] for k in fns}
+    timed = {}
+    # The kernels at row0 != 0 on the fixtures' band cases.
+    for tile, kchunk in ((32, 128), (16, 32)):
+        for case in tiled_fixtures.band_cases(tile=tile, kchunk=kchunk):
+            e1, e5 = compare_case(dict(case, name=f"{case['name']}_t{tile}"))
+            errs["B1"].append(e1)
+            errs["B5"].append(e5)
+        for case in ordered_fixtures.band_cases(tile=tile):
+            e3, e4 = compare_ordered(case, tile)
+            errs["B3"].append(e3)
+            errs["B4"].append(e4)
+    errs["B2"] += [compare_flat(case, cuda_build.library().lib)
+                   for case in flat_fixtures.band_cases()]
+    fb, zb, rows, _r = line_fixture(192, 1024, 23)
+    for row0 in (192.0, 577.0):
+        k = ll.lines_kernel(fb, zb, rows, 192, 1024, row0=row0)
+        p = ll.draw_lines_plain(fb, zb, rows, 192, 1024, row0=row0)
+        errs["L1"].append(float((k - p).abs().max()))
+        check(torch.equal(k, p), f"L1 at row {row0}: kernel and plain differ")
+    emit("band_fixtures", card=card,
+         max_abs_err={k: max(v) for k, v in errs.items() if v})
+
+    built = {}
+    for name, source, n, kernels in BAND_FRAMES:
+        if source == "configs":
+            rc = configs[name][1]
+        elif source == "aa":
+            rc = aa[name.removesuffix("_aa")][1]
+        elif name == "config5_fx":
+            _c, rc, _m = render_config(scenes.build_config5_fx, O, "cuda")
+        else:
+            _c, rc, _m = render_config(scenes.build_config2, O, "cuda",
+                                       width=1000, height=750, mips=True)
+        built[name] = rc
+        rc.SetTileSharding(0)
+        rc.Render()
+        fb0, zb0 = rc.fb.clone(), rc.zb.clone()
+        check(rc.SetTileSharding(n, devices=["cuda:0"] * n),
+              f"{name}: {n} bands refused")
+        quant = count_calls(df, "shade_row_table_quant")
+        seen, restore = band_spy(fr, ll, cuda_tiled, co)
+        reset_launches(fns.values())
+        t0 = time.monotonic()
+        try:
+            rc.Render()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+            n_quant = quant()
+        band_s = time.monotonic() - t0
+        got = {k: fn.launches for k, fn in fns.items()}
+        for k in got:
+            launches[k] += got[k]
+        differ = int(((rc.fb != fb0).any(0) | (rc.zb != zb0)).sum())
+        row0s = {k: [v[-1] if k != "B3" and k != "B4" else int(v[3][6])
+                     for v in seen[k]] for k in seen}
+        # The same frame under the profiler: what the card ran.
+        prof, _wall = profile_window(
+            rc.Render, 1, [ProfilerActivity.CUDA],
+            lambda p: profiled_kernels(p)[kernels[0]] >= n, label=name)
+        on_card = profiled_kernels(prof)
+        emit("bands", config=name, card=card, size=[rc.width, rc.height],
+             bands=n, launches=got, profiled_kernels=on_card,
+             band_row0s=row0s, pixels_that_differ=differ,
+             banded_frame_s=round(band_s, 3), quantized_row_tables=n_quant)
+        check(all(on_card[k] == got[k] for k in got),
+              f"{name}: the profiler saw {on_card}, the wrappers {got}")
+        check(differ == 0, f"{name}: the banded frame differs from the "
+              f"unbanded one on {differ} pixels")
+        for k in fns:
+            if k in kernels:
+                check(got[k] >= n if k == "B4" else got[k] == n,
+                      f"{name}: {k} launched {got[k]} times in {n} bands")
+            else:
+                check(got[k] == 0, f"{name}: {k} launched {got[k]} times")
+        check(all(len(set(r)) == n and sorted(r) == r
+                  for r in row0s.values()), f"{name}: band rows {row0s}")
+        if name == "config2_mips_odd_bands":
+            check(n_quant == n and row0s["B1"][1] % 2 == 0,
+                  f"{name}: quantized rows {n_quant}, rows {row0s}")
+        for k in kernels:
+            if (k, name) in (("B1", "config5"), ("B2", "config1"),
+                             ("B3", "alpha50k"), ("B4", "alpha_tex50k"),
+                             ("L1", "config5_fx"), ("B1", "config5_aa")):
+                key = k if name != "config5_aa" else "B1_aa"
+                # The first call at band BAND_TIMED's row offset (B4 runs
+                # once per round).
+                at = sorted(set(row0s[k]))[BAND_TIMED]
+                first = seen[k][row0s[k].index(at)]
+                timed[key] = band_kernel(k, first, name, card, ll, cuda_tiled,
+                                         cuda_reduce, co) + (name,)
+                if k == "B1":
+                    # B5 at the same band: the frame's quantized table.
+                    args, _tbl, row0 = first
+                    tbl = _band_table(rc, fr, df)
+                    timed["B5" if name == "config5" else "B5_aa"] = (
+                        band_kernel("B5", (args, tbl, row0), name, card, ll,
+                                    cuda_tiled, cuda_reduce, co) + (name,))
+
+    # Config 5 again under CK_FUSED_FETCH: B5 once per band, no B1.
+    rc = built["config5"]
+    fb_b, zb_b = rc.fb.clone(), rc.zb.clone()
+    os.environ["CK_FUSED_FETCH"] = "1"
+    reset_launches(fns.values())
+    try:
+        rc.Render()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["CK_FUSED_FETCH"]
+    got = {k: fn.launches for k, fn in fns.items()}
+    for k in got:
+        launches[k] += got[k]
+    differ = int(((rc.fb != fb_b).any(0) | (rc.zb != zb_b)).sum())
+    emit("bands_fused_fetch", config="config5", bands=4, launches=got,
+         pixels_that_differ=differ)
+    check(got["B5"] == 4 and got["B1"] == 0 and differ == 0,
+          f"config5 banded fused fetch: {got}, {differ} pixels differ")
+
+    # Device ms per frame, banded beside unbanded (the vertex stage runs
+    # once per band: about four times its cost on one card).
+    per = {}
+    for bands in (4, 0):
+        rc.SetTileSharding(bands, devices=["cuda:0"] * bands)
+        per["banded" if bands else "unbanded"] = profile_frames(
+            rc, lambda: None, frames=1)
+    emit("bands_device_ms", config="config5", card=card, bands=4, **per,
+         note="device_ms_per_frame is the frame's summed kernel and copy "
+         "time on the card (torch.profiler)")
+    for r in built.values():
+        r.SetTileSharding(0)
+    emit("bands_phase", card=card, seconds=round(time.monotonic() - t_phase,
+                                                  1))
+    return {"errs": errs, "ms": timed}
+
+
+def _band_table(rc, fr, df):
+    """The quantized shade table of ``rc``'s frame (what B5 fetches from in
+    a band of it)."""
+    static, dyn_f, dyn_i, params = packed_cuda(rc)
+    scene, batch, setup, _d, _b = fr.packed_setup(static, dyn_f, dyn_i,
+                                                  params)
+    sp = params["sampler_profile"]
+    return df.shade_row_table_quant(
+        batch.xyw, batch.color, batch.specular, batch.uv, batch.fog,
+        batch.state_idx, batch_refl=batch.refl,
+        inv_det_s=setup["inv_det_s"], want_ws=not sp[3])
+
+
+def multicard_phase(O, scenes, kernel_fns, card) -> None:
+    """The multi-card paths on a mesh that names card 0 four times (the
+    driver's machine has one card): ``dryrun_multichip(4)`` (the full,
+    packed and band paths, each bit-equal to one device) and
+    ``ProcessBatched(mesh=)`` of 8 contexts of 256x256 over a 4-entry
+    context mesh, bit-equal to ``ProcessBatched()``, with B1 launched once
+    per member. On a machine with several cards the same runs again over
+    them (a 4-entry mesh, each card in turn); with one card a line says so
+    (no pass)."""
+    import contextlib
+    import io
+
+    from torch.profiler import ProfilerActivity
+
+    from ckrenderengine_tpu_torch.frame_bench import (
+        profile_window, profiled_kernels,
+    )
+    from ckrenderengine_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ckrenderengine_tpu_torch.parallel.mesh import (
+        DeviceMesh, check_device,
+    )
+
+    t_phase = time.monotonic()
+    n_cards = torch.cuda.device_count()
+    meshes = [("cuda:0 x4", ["cuda:0"] * 4)]
+    if n_cards > 1:
+        meshes.append((f"{n_cards} cards",
+                       [f"cuda:{i % n_cards}" for i in range(4)]))
+    for label, devices in meshes:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            dryrun_multichip(4, devices=devices)
+        lines = [ln for ln in buf.getvalue().splitlines() if "path ok" in ln]
+        emit("multicard_dryrun", mesh=label, card=card, lines=lines)
+        check(len(lines) == 3, f"dryrun_multichip on {label}: {lines}")
+
+        rm, rcs, root = scenes.build_batched(O, 8, 256, device="cuda")
+        rm.ProcessBatched()
+        whole = [(rc.fb.clone(), rc.zb.clone()) for rc in rcs]
+        mesh = DeviceMesh(devices, "ctx")
+        differ = []
+        for _ in range(2):
+            # The first captures each block's window, the second replays it
+            # under the profiler: B1 once per member, nothing else.
+            prof, _wall = profile_window(
+                lambda: rm.ProcessBatched(mesh=mesh) or float(
+                    rcs[-1].fb.sum()), 1, [ProfilerActivity.CUDA],
+                lambda p: profiled_kernels(p)["B1"] >= 8, label=label)
+            differ.append(sum(int(((rc.fb != a).any(0) | (rc.zb != b)).sum())
+                              for rc, (a, b) in zip(rcs, whole)))
+        seen = profiled_kernels(prof)
+        runs = [len(chunk) for _p, chunk, _i in rcs[0]._batch_read.runs] \
+            if rcs[0]._batch_read is not None else None
+        on_home = all(rc.fb.device == check_device(rc.context.device)
+                      for rc in rcs)
+        emit("multicard_batch", mesh=label, card=card, contexts=8,
+             size=[256, 256], profiled_kernels=seen,
+             pixels_that_differ=differ, block_runs=runs,
+             buffers_on_their_contexts_device=on_home)
+        check(differ == [0, 0] and on_home,
+              f"ProcessBatched(mesh) on {label}: {differ} pixels differ")
+        check(seen["B1"] == 8 and sum(seen.values()) == 8,
+              f"ProcessBatched(mesh) on {label}: {seen}")
+    if n_cards == 1:
+        emit("multicard_real_cards", run=False, cards=n_cards,
+             note="not run: this machine has 1 card; the multi-card paths "
+             "ran on a mesh naming card 0 four times")
+    emit("multicard_phase", card=card,
+         seconds=round(time.monotonic() - t_phase, 1))
 
 
 if __name__ == "__main__":

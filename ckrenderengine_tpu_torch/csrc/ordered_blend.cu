@@ -135,8 +135,8 @@ __global__ void __launch_bounds__(kThreads) ordered_blend_kernel(
   const Block<kBW> b = block_of<kBW>(params, zplane, tile, tiles_x, pitch);
   const int start = __ldg(starts + b.tile);
   const int count = __ldg(counts + b.tile);
-  const float fogc[3] = {__ldg(params + 6), __ldg(params + 7),
-                         __ldg(params + 8)};
+  const float fogc[3] = {__ldg(params + 7), __ldg(params + 8),
+                         __ldg(params + 9)};
   float ca[kBW];
   float cb[kBW][4];
 #pragma unroll

@@ -187,8 +187,12 @@ __device__ __forceinline__ Block<BW> block_of(const float* params,
   const float vx1 = __fadd_rn(vx0, __ldg(params + 2));
   const float vy1 = __fadd_rn(vy0, __ldg(params + 3));
   const float fw = __ldg(params + 4);
-  const float fh = __ldg(params + 5);
-  b.py = static_cast<float>(gy) + 0.5f;
+  // The row's global centre (a band of a frame starts at global row
+  // row0 = params[6]), and the framebuffer's end in global rows, row0 +
+  // height (integers: exact), so that py < fh is the local bound.
+  const float row0 = __ldg(params + 6);
+  const float fh = __fadd_rn(row0, __ldg(params + 5));
+  b.py = centre(gy, row0);
   bool any = false;
 #pragma unroll
   for (int k = 0; k < BW; ++k) {

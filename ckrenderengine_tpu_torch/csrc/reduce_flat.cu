@@ -133,7 +133,8 @@ constexpr unsigned kFullWarp = 0xffffffffu;
 __global__ void __launch_bounds__(kThreads, 8) reduce_flat_kernel(
     const float* __restrict__ rows, int t, int per, int split,
     const float* __restrict__ view5, float* __restrict__ best_d,
-    int* __restrict__ best_i, int height, int width, int subs_x) {
+    int* __restrict__ best_i, int height, int width, float row0,
+    int subs_x) {
   __shared__ __align__(16) float ring[kStages * kStageFloats];
   // A cluster's CTAs are consecutive blocks on one sub-tile; rank r walks
   // rows [r * per, (r + 1) * per).
@@ -147,9 +148,9 @@ __global__ void __launch_bounds__(kThreads, 8) reduce_flat_kernel(
   // empty one past the end), so the group count stays in step with j.
   auto request = [&](int j) {
     if (j < total) {
-      const int row0 = r0 + j * kChunk;
-      const int n = min(kChunk, r1 - row0);
-      const float* src = rows + static_cast<size_t>(row0) * kRow;
+      const int first = r0 + j * kChunk;
+      const int n = min(kChunk, r1 - first);
+      const float* src = rows + static_cast<size_t>(first) * kRow;
       float* dst = ring + (j % kStages) * kStageFloats;
       for (int i = threadIdx.x; i < n * kWords; i += kThreads) {
         const int r = i / kWords;
@@ -178,7 +179,9 @@ __global__ void __launch_bounds__(kThreads, 8) reduce_flat_kernel(
 #pragma unroll
   for (int k = 0; k < kBW; ++k)
     px[k] = static_cast<float>(x0 + bx + k) + 0.5f;
-  const float py = static_cast<float>(y0 + brow) + 0.5f;
+  // Rows at their global centres (a band of a frame starts at row0): the
+  // strip's bounds below too, or the scan would drop rows that cover it.
+  const float py = centre(y0 + brow, row0);
   const float pxmin = px[0], pxmax = px[kBW - 1];
   // The warp's 16x8 strip, clipped to the frame: rows that reach only
   // pixels nobody writes are dropped too.
@@ -186,14 +189,13 @@ __global__ void __launch_bounds__(kThreads, 8) reduce_flat_kernel(
   const bool strip_live = sy0 < height;
   const float sxmin = static_cast<float>(x0) + 0.5f;
   const float sxmax = static_cast<float>(min(x0 + kSub, width) - 1) + 0.5f;
-  const float symin = static_cast<float>(sy0) + 0.5f;
-  const float symax =
-      static_cast<float>(min(sy0 + kSub / 2, height) - 1) + 0.5f;
+  const float symin = centre(sy0, row0);
+  const float symax = centre(min(sy0 + kSub / 2, height) - 1, row0);
   // No pixel centre of the sub-tile passes the scissor: a sufficient test.
   const float tx1 = static_cast<float>(x0 + kSub - 1) + 0.5f;
-  const float ty1 = static_cast<float>(y0 + kSub - 1) + 0.5f;
+  const float ty1 = centre(y0 + kSub - 1, row0);
   const bool outside = tx1 < vx0 || sxmin >= vx1 || ty1 < vy0 ||
-                       static_cast<float>(y0) + 0.5f >= vy1;
+                       centre(y0, row0) >= vy1;
 
   float bd[kBW];
   int bi[kBW];
@@ -314,7 +316,7 @@ __global__ void __launch_bounds__(kThreads, 8) reduce_flat_kernel(
       }
     }
     const float fx = static_cast<float>(gx) + 0.5f;
-    const float fy = static_cast<float>(gy) + 0.5f;
+    const float fy = centre(gy, row0);
     const bool scissor = fx >= vx0 && fx < vx1 && fy >= vy0 && fy < vy1;
     if (gx < width && gy < height) {
       best_d[gy * width + gx] = scissor ? wd : clear;
@@ -346,10 +348,12 @@ int auto_split(int t, int subs) {
 
 }  // namespace
 
-// `rows` is (t, 32) f32, 16-byte aligned.
+// `rows` is (t, 32) f32, 16-byte aligned. `row0`: the global row of the
+// frame's first row (a band of a frame; 0 for a whole frame): pixel centres
+// are fl(fl(y + 0.5) + row0) and the viewport is in global rows.
 extern "C" int ck_reduce_flat(const float* rows, int t, const float* view5,
                               float* best_d, int* best_i, int height,
-                              int width, void* stream) {
+                              int width, float row0, void* stream) {
   if (t < 0 || height <= 0 || width <= 0 ||
       (reinterpret_cast<size_t>(rows) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -372,7 +376,7 @@ extern "C" int ck_reduce_flat(const float* rows, int t, const float* view5,
   cfg.numAttrs = split > 1 ? 1 : 0;
   cudaError_t err = cudaLaunchKernelEx(&cfg, reduce_flat_kernel, rows, t, per,
                                        split, view5, best_d, best_i, height,
-                                       width, subs_x);
+                                       width, row0, subs_x);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

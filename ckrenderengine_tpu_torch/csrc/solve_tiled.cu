@@ -150,7 +150,7 @@ struct TileStream {
   int kchunk;
 
   // First stream row and row count of chunk j of the sequence.
-  __device__ __forceinline__ void chunk(int j, int& row0, int& n) const {
+  __device__ __forceinline__ void chunk(int j, int& first, int& n) const {
     int base = start0, cnt = count0;
     if (j >= chunks0 + chunks1) {
       j -= chunks0 + chunks1;
@@ -162,7 +162,7 @@ struct TileStream {
       cnt = count1;
     }
     const int off = j * kchunk;
-    row0 = base + off;
+    first = base + off;
     n = min(kchunk, cnt - off);
   }
 };
@@ -173,7 +173,7 @@ __global__ void __launch_bounds__(kThreads, 4) solve_tiled_kernel(
     const int* __restrict__ starts, const int* __restrict__ counts,
     const int* __restrict__ leftn, int gbase, int sbase,
     const float* __restrict__ viewport, float fwidth, float fheight,
-    const float* __restrict__ init_d, float* __restrict__ out_d,
+    float row0, const float* __restrict__ init_d, float* __restrict__ out_d,
     int* __restrict__ out_i, float* __restrict__ out_e,
     const int* __restrict__ shade_tbl, int sh_w, int n_tris,
     int* __restrict__ out_rows, int tile, int tiles_x, int pitch,
@@ -211,9 +211,9 @@ __global__ void __launch_bounds__(kThreads, 4) solve_tiled_kernel(
   // empty one past the end), so the group count stays in step with j.
   auto request = [&](int j) {
     if (j < ts.total) {
-      int row0, n;
-      ts.chunk(j, row0, n);
-      const float* src = rows + static_cast<size_t>(row0) * rpitch;
+      int first, n;
+      ts.chunk(j, first, n);
+      const float* src = rows + static_cast<size_t>(first) * rpitch;
       float* dst = ring + (j % kStages) * stage_floats;
       const int nvec = n * (rpitch >> 2);
       for (int i = threadIdx.x; i < nvec; i += kThreads)
@@ -240,7 +240,8 @@ __global__ void __launch_bounds__(kThreads, 4) solve_tiled_kernel(
 #pragma unroll
   for (int k = 0; k < kBW; ++k)
     px[k] = static_cast<float>(x0 + bx + k) + 0.5f;
-  const float py = static_cast<float>(y0 + brow) + 0.5f;
+  // Rows at their global centres (a band of a frame starts at row0).
+  const float py = centre(y0 + brow, row0);
   const float pxmin = px[0], pxmax = px[kBW - 1];
 
   float bd[kBW], b0[kBW], b1[kBW], b2[kBW];
@@ -282,8 +283,8 @@ __global__ void __launch_bounds__(kThreads, 4) solve_tiled_kernel(
     cp_async_wait<kStages - 2>();   // this thread's copies of chunk c landed
     __syncthreads();                // everyone's did; chunk c-1 is consumed
     request(c + kStages - 1);       // into the stage chunk c-1 left
-    int row0, n;
-    ts.chunk(c, row0, n);
+    int first, n;
+    ts.chunk(c, first, n);
     const float4* stage =
         reinterpret_cast<const float4*>(ring + (c % kStages) * stage_floats);
     for (int base = 0; base < n; base += 32) {
@@ -433,9 +434,11 @@ __global__ void __launch_bounds__(kThreads, 4) solve_tiled_kernel(
       }
     }
     const float fx = static_cast<float>(gx) + 0.5f;
-    const float fy = static_cast<float>(gy) + 0.5f;
+    const float fy = centre(gy, row0);
+    // The viewport in global rows, the framebuffer bounds in local ones.
     const bool scissor = fx >= vx0 && fx < vx1 && fy >= vy0 && fy < vy1 &&
-                         fx < fwidth && fy < fheight;
+                         fx < fwidth &&
+                         static_cast<float>(gy) + 0.5f < fheight;
     out_d[pix] = scissor ? wd : init_p[i];
     const int id = scissor ? wi : -1;
     out_i[pix] = id;
@@ -496,7 +499,7 @@ template <bool WANT_E, bool FETCH>
 cudaError_t launch(const Geometry& g, cudaStream_t s, const float* rows,
                    int rpitch, int n_planes, const int* starts,
                    const int* counts, const int* leftn, int gbase, int sbase,
-                   const float* viewport, int width, int height,
+                   const float* viewport, int width, int height, float row0,
                    const float* init_d, float* out_d, int* out_i, float* out_e,
                    const int* shade_tbl, int sh_w, int n_tris, int* out_rows,
                    int tile, int tiles_x, int kchunk) {
@@ -506,9 +509,9 @@ cudaError_t launch(const Geometry& g, cudaStream_t s, const float* rows,
   if (err != cudaSuccess) return err;
   solve_tiled_kernel<WANT_E, FETCH><<<g.grid, g.block, g.smem, s>>>(
       rows, rpitch, n_planes, starts, counts, leftn, gbase, sbase, viewport,
-      static_cast<float>(width), static_cast<float>(height), init_d, out_d,
-      out_i, out_e, shade_tbl, sh_w, n_tris, out_rows, tile, tiles_x, g.pitch,
-      g.plane_size, kchunk);
+      static_cast<float>(width), static_cast<float>(height), row0, init_d,
+      out_d, out_i, out_e, shade_tbl, sh_w, n_tris, out_rows, tile, tiles_x,
+      g.pitch, g.plane_size, kchunk);
   return cudaGetLastError();
 }
 
@@ -529,17 +532,19 @@ int occupancy(const Geometry& g) {
 
 // `rows` is the (n, rpitch) stream, rpitch a multiple of 4 floats and `rows`
 // 16-byte aligned; `ncol` = 23 + 3 * n_planes of its columns are read.
-// `out_e` null: no e-planes. `shade_tbl` null: B1; else B5, which fetches
+// `row0`: the global row of the frame's first row (a band of a frame; 0 for
+// a whole frame): pixel centres are fl(fl(y + 0.5) + row0), the viewport is
+// in global rows, `height` bounds the local ones. `out_e` null: no e-planes. `shade_tbl` null: B1; else B5, which fetches
 // the (n_tris, sh_w) int32 table's winner rows into `out_rows`
 // (sh_w, H_pad, W_pad); sh_w must be a multiple of 4 and the table 16-byte
 // aligned.
 extern "C" int ck_solve_tiled(
     const float* rows, int ncol, int rpitch, int n_planes, const int* starts,
     const int* counts, const int* leftn, int gbase, int sbase,
-    const float* viewport, int width, int height, const float* init_d,
-    float* out_d, int* out_i, float* out_e, const int* shade_tbl, int sh_w,
-    int n_tris, int* out_rows, int tile, int tiles_x, int tiles_y,
-    int kchunk, void* stream) {
+    const float* viewport, int width, int height, float row0,
+    const float* init_d, float* out_d, int* out_i, float* out_e,
+    const int* shade_tbl, int sh_w, int n_tris, int* out_rows, int tile,
+    int tiles_x, int tiles_y, int kchunk, void* stream) {
   Geometry g;
   if (!geometry(ncol, rpitch, n_planes, tile, tiles_x, tiles_y, kchunk,
                 out_e != nullptr, &g) ||
@@ -553,8 +558,8 @@ extern "C" int ck_solve_tiled(
     return static_cast<int>(cudaErrorInvalidValue);
 #define CK_SOLVE_ARGS                                                       \
   g, s, rows, rpitch, n_planes, starts, counts, leftn, gbase, sbase,        \
-      viewport, width, height, init_d, out_d, out_i, out_e, shade_tbl,      \
-      sh_w, n_tris, out_rows, tile, tiles_x, kchunk
+      viewport, width, height, row0, init_d, out_d, out_i, out_e,           \
+      shade_tbl, sh_w, n_tris, out_rows, tile, tiles_x, kchunk
   cudaError_t err;
   if (fetch)
     err = want_e ? launch<true, true>(CK_SOLVE_ARGS)

@@ -48,6 +48,15 @@ __device__ __forceinline__ void plane_block(float a, float b, float c,
     out[k] = __fadd_rn(__fadd_rn(__fmul_rn(a, px[k]), by), c);
 }
 
+// The centre of pixel row (or column) `i` of a frame whose first row is
+// global row `row0`: fl(fl(i + 0.5) + row0), the plain versions' order. A
+// band of a frame (raster at a row offset) evaluates every plane at these
+// global centres, so its pixels equal the same rows of the whole frame; at
+// row0 = 0 it is i + 0.5.
+__device__ __forceinline__ float centre(int i, float row0) {
+  return __fadd_rn(__fadd_rn(static_cast<float>(i), 0.5f), row0);
+}
+
 // Whether fl(fl(a*px + b*py) + c) reaches the edge's threshold anywhere on
 // the pixel centres of [xmin, xmax] x [ymin, ymax]. Rounded products and
 // sums are monotone in px and in py, so the greatest value over the box is

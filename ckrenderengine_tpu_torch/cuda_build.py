@@ -32,11 +32,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of the entry points (pointers, the stream: c_void_p).
 _SIGNATURES = {
-    "ck_reduce_flat": (_P, _I, _P, _P, _P, _I, _I, _P),
+    "ck_reduce_flat": (_P, _I, _P, _P, _P, _I, _I, _F, _P),
     "ck_reduce_flat_split": (_I, _I, _I),
     "ck_reduce_flat_occupancy": (),
-    "ck_solve_tiled": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P,
-                       _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
+    "ck_solve_tiled": (_P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _F,
+                       _P, _P, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P),
     "ck_solve_tiled_occupancy": (_I, _I, _I, _I, _I, _I),
     "ck_ordered_blend": (_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ck_ordered_peel": (_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I,

@@ -16,7 +16,6 @@ from .rendertypes import (          # noqa: F401
 )
 from .rendercontext import BatchRead, CKRenderContext    # noqa: F401
 from ..pipeline import window as fw
-from ..roadmap import unported
 
 # Members per run of a context batch: a larger group runs in chunks of
 # this many (each chunk one upload and one graph replay per member).
@@ -149,11 +148,18 @@ class CKRenderManager(CKObject):
         frame, through each member's ``Render()``, as the reference's
         docstring says (its code renders such a group with the vmapped
         ``render_frames_batched``, which leaves out no-clear flags,
-        overlays and lines). ``mesh`` (a device mesh over several cards)
-        is not ported."""
-        if mesh is not None:
-            raise unported("multi-card context sharding "
-                           "(ProcessBatched(mesh=...))", 12)
+        overlays and lines). ``mesh``: a ``ctx``
+        :class:`~ckrenderengine_tpu_torch.parallel.mesh.DeviceMesh`
+        (``context_batch.make_context_mesh``) over which each batched group
+        splits into contiguous blocks, one per entry (reference :205-249);
+        anything else raises ``TypeError``."""
+        from ..parallel.mesh import DeviceMesh
+
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(
+                "ProcessBatched(mesh=...) expects a parallel.mesh.DeviceMesh; "
+                "it renders this manager's own contexts (like the "
+                "reference's Process): there is no context-list parameter")
         groups: dict[tuple, list] = {}
         for rc in self.render_contexts:
             if rc._compiled.topology_version != \
@@ -168,7 +174,8 @@ class CKRenderManager(CKObject):
             # A vertex-shader member renders alone, with its shader.
             alone = [rc for rc in rcs if rc.vertex_shader is not None]
             rcs = [rc for rc in rcs if rc.vertex_shader is None]
-            if len(rcs) == 1 or (rcs and not self._batch_packed(rcs)):
+            if len(rcs) == 1 or (rcs and not self._batch_packed(rcs,
+                                                                mesh)):
                 alone = rcs + alone
             for rc in alone:
                 rc.Render()
@@ -188,10 +195,8 @@ class CKRenderManager(CKObject):
         when a member cannot join (reference :251-299: stereo, a vertex
         shader, a target texture, another membership; and a frame that
         renders eagerly in a window: no-clear flags, a device texture,
-        debug mode, the exact tiled ordered pass)."""
-        if mesh is not None:
-            raise unported("multi-card context sharding "
-                           "(ProcessBatched(mesh=...))", 12)
+        debug mode, the exact tiled ordered pass, bands). ``mesh``: as in
+        :meth:`ProcessBatched` (reference :254-320)."""
 
         def membership(rc):
             return None if rc._objects is None else tuple(
@@ -240,34 +245,43 @@ class CKRenderManager(CKObject):
         for rc, shape, frame in staged:
             subgroups.setdefault(shape, []).append((rc, frame))
         for sub in subgroups.values():
-            self._run_batch(sub)
+            self._run_batch(sub, mesh)
         return True
 
-    def _run_batch(self, sub: list) -> None:
+    def _run_batch(self, sub: list, mesh=None) -> None:
         """One sub-group of :meth:`_batch_packed`: (member, staged frame)
         pairs. The caps and the peel's round count are the first member's
         (its eager frame fixes the count the first time), the graph is
-        kept on it per key."""
+        kept on it per key and device. With a ``mesh`` the sub-group splits
+        into contiguous blocks, one per entry, each replayed on its entry's
+        device (a CUDA graph belongs to one device) with one upload per
+        block; the members' buffers come back to their devices at the
+        batch's read (:class:`BatchRead`)."""
+        from ..parallel.context_batch import blocks
+        from ..parallel.mesh import on
+
         lead, (key, static, params, bank, route, slot0) = sub[0]
         caps = lead._solve_caps
         params = dict(params, solve_caps=caps)
         rounds = (lead._peel_rounds_for(static, params, slot0, bank)
                   if route == "peel" else 0)
-        size = min(len(sub), BATCH_SLOTS)
-        key = key + (fw.freeze(caps), rounds, size)
-        batch = lead._batch
-        if batch is None or batch.key != key:
-            if batch is not None:
-                batch.release()
-            batch = lead._batch = fw.FrameWindow(
-                key, static, params, bank, rounds, size,
-                lead.context.device, stacked=True)
-        members = [rc for rc, _frame in sub]
-        slots = [frame[-1] for _rc, frame in sub]
-        runs = [(batch.run(slots[i:i + size]), members[i:i + size])
-                for i in range(0, len(sub), size)]
-        read = BatchRead(members, runs)
-        for p, chunk in runs:
+        home = (static, {k: v for k, v in params.items() if k != "world_in"},
+                bank)
+        runs = []
+        for dev, a, b in ([(None, 0, len(sub))] if mesh is None
+                          else blocks(len(sub), mesh)):
+            block = sub[a:b]
+            size = min(len(block), BATCH_SLOTS)
+            batch = lead._batch_window(
+                dev, key + (fw.freeze(caps), rounds, size), static, params,
+                bank, rounds, size)
+            members = [rc for rc, _frame in block]
+            slots = [frame[-1] for _rc, frame in block]
+            with on(batch.device):
+                runs += [(batch.run(slots[i:i + size]), members[i:i + size],
+                          home) for i in range(0, len(block), size)]
+        read = BatchRead([rc for rc, _frame in sub], runs)
+        for p, chunk, _home in runs:
             for j, rc in enumerate(chunk):
                 rc._solve_caps = caps
                 rc._fb_val, rc._zb_val = p.fb[j], p.zb[j]

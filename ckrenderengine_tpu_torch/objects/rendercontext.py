@@ -30,7 +30,6 @@ from .rendertypes import (          # explicit: names the body references
     _pad_to, _mip_chain, CompiledScene, VxStats,
 )
 from ..pipeline import window as fw
-from ..roadmap import unported
 
 
 class CKRenderContext(CKObject):
@@ -52,6 +51,9 @@ class CKRenderContext(CKObject):
         # this context's buffers came from, while it is pending.
         self._batch = None
         self._batch_read = None
+        # The batch graphs of blocks on other devices (ProcessBatched over
+        # a context mesh), per device.
+        self._mesh_batches: dict = {}
         super().__init__(context, name)
         self.width = int(width)
         self.height = int(height)
@@ -91,6 +93,10 @@ class CKRenderContext(CKObject):
         self._peel_rounds = None
         # Host chunk-cull survivor cap (bumps pre-dispatch; never drops).
         self._chunk_cap = None
+        # Framebuffer bands (SetTileSharding): the band mesh, and per mesh
+        # device the compile's static tensors copied there.
+        self._tile_mesh = None
+        self._band_copies: dict = {}
         dev = context.device
         self.fb = torch.zeros((4, self.height, self.width), dtype=torch.float32,
                               device=dev)
@@ -2125,11 +2131,23 @@ class CKRenderContext(CKObject):
                                   static["parent"], bank, t,
                                   params["levels"])
 
+    def _accumulates(self) -> bool:
+        """The frame's clear flags leave a buffer uncleared: it renders
+        over the previous frame."""
+        return not (self._frame_flags & CK_RENDER_CLEARBACKBUFFER) \
+            or not (self._frame_flags & CK_RENDER_CLEARZBUFFER)
+
     def _render_packed(self, quads_bg_list, quads_fg_list):
         """One frame through the two-buffer packed path: fill the buffers on
-        the host, upload both, and run the frame on the context's device."""
+        the host, upload both, and run the frame on the context's device;
+        a banded context (:meth:`SetTileSharding`) renders its bands on its
+        mesh (reference :2155-2171), unless the frame has a stencil plane
+        or accumulates, which render unbanded, as in the reference."""
         static, dyn_f, dyn_i, params = self._fill_packed(quads_bg_list,
                                                          quads_fg_list)
+        if (self._tile_mesh is not None and not params["want_stencil"]
+                and not self._accumulates()):
+            return self._render_banded(static, dyn_f, dyn_i, params)
         # CLEARBACK/CLEARZ off -> accumulate over last frame's buffers
         # (reference Clear flag handling, src/CKRenderContext.cpp:438-544).
         prev_fb = (None if (self._frame_flags & CK_RENDER_CLEARBACKBUFFER)
@@ -2142,6 +2160,45 @@ class CKRenderContext(CKObject):
         if sb is not None:
             self.sb = sb
         return fb, zb
+
+    def _render_banded(self, static, dyn_f, dyn_i, params):
+        """One frame in horizontal bands over the band mesh
+        (``parallel.tile_shard``), assembled on the context's device. Like
+        the reference's banded frame it reports no solve statistics, so the
+        capacity governor takes no sample."""
+        from ..parallel.tile_shard import render_frame_packed_banded
+
+        p = {k: v for k, v in params.items() if k != "want_stencil"}
+        return render_frame_packed_banded(
+            static, dyn_f, dyn_i, mesh=self._tile_mesh,
+            out_device=self.context.device, copies=self._band_copies, **p)
+
+    def _batch_window(self, device, key, static, params, bank, rounds: int,
+                      size: int):
+        """The stacked window (``window.FrameWindow``) this context leads
+        for a batch block on ``device`` (None: its own device) under
+        ``key``: kept per device, made anew when the key changes; a window
+        on another device holds copies of the static tensors and banks
+        there."""
+        from ..parallel.mesh import to_device
+
+        home = self.context.device
+        dev = home if device is None else torch.device(device)
+        batch = self._batch if dev == home else self._mesh_batches.get(dev)
+        if batch is not None and batch.key == key:
+            return batch
+        if batch is not None:
+            batch.release()
+        if dev != home:
+            static, params, bank = (to_device(x, dev)
+                                    for x in (static, params, bank))
+        batch = fw.FrameWindow(key, static, params, bank, rounds, size, dev,
+                               stacked=True)
+        if dev == home:
+            self._batch = batch
+        else:
+            self._mesh_batches[dev] = batch
+        return batch
 
     def _render_eager(self, static, dyn_f, dyn_i, params, anim=None,
                       prev_fb=None, prev_zb=None, govern: bool = True,
@@ -2289,13 +2346,12 @@ class CKRenderContext(CKObject):
     # -- window staging (reference rendercontext.py:2618-2768) ------------
     def _eager_only(self) -> bool:
         """Whether this frame renders eagerly, outside any window or batch:
-        it accumulates, reads a device texture, renders to a texture or
-        runs in debug mode."""
-        accumulate = not (self._frame_flags & CK_RENDER_CLEARBACKBUFFER) \
-            or not (self._frame_flags & CK_RENDER_CLEARZBUFFER)
-        return bool(accumulate or getattr(self._compiled, "dev_ids", None)
+        it accumulates, reads a device texture, renders to a texture, runs
+        in debug mode or renders in bands (reference :2624)."""
+        return bool(self._accumulates()
+                    or getattr(self._compiled, "dev_ids", None)
                     or self.target_texture is not None
-                    or self._debug_mode())
+                    or self._debug_mode() or self._tile_mesh is not None)
 
     def _staged_frame(self, quads_bg_list, quads_fg_list):
         """This frame's packed buffers for a captured frame (a window or a
@@ -2763,11 +2819,11 @@ class CKRenderContext(CKObject):
         frame over this one. A frame that does not clear its buffers, or
         that samples a render-to-texture feed, takes the eager fallback
         (:meth:`_render_stereo`, ``StereoEagerFallback``); every other the
-        packed path (:meth:`_render_stereo_packed`)."""
+        packed path (:meth:`_render_stereo_packed`). A banded context takes
+        the fallback too, with unbanded eyes (reference :2837-2850)."""
         self._sync_window()
-        accumulate = not (self._frame_flags & CK_RENDER_CLEARBACKBUFFER) \
-            or not (self._frame_flags & CK_RENDER_CLEARZBUFFER)
-        if accumulate or getattr(self._compiled, "dev_ids", None):
+        if (self._accumulates() or getattr(self._compiled, "dev_ids", None)
+                or self._tile_mesh is not None):
             self.stats.StereoEagerFallback = True
             self._render_stereo(quads_bg_list, quads_fg_list)
         else:
@@ -2935,23 +2991,33 @@ class CKRenderContext(CKObject):
 
     def SetTileSharding(self, n_bands: int = 0, devices=None) -> bool:
         """Shard this context's framebuffer into ``n_bands`` horizontal
-        bands, one per device (reference rendercontext.py:3925-3940):
-        ``n_bands`` <= 1 renders on one device (True); fewer devices than
-        bands (``devices``, default the context's: the CUDA cards, or the
-        one CPU) or a height the bands do not divide is refused (False).
-        Band sharding over several cards is not ported yet."""
+        bands, band b on ``devices[b]`` (reference rendercontext.py:
+        3925-3940; ``parallel.tile_shard``): ``n_bands`` <= 1 renders on
+        the context's device again (True); fewer devices than bands
+        (``devices``, default the context's: every CUDA card, or the one
+        CPU) or a height the bands do not divide is refused (False). A list
+        may name one device several times (``parallel.mesh``), and a device
+        that does not exist raises ``ValueError``. A banded frame renders
+        eagerly; one with a stencil plane or that accumulates renders
+        unbanded, and a stereo frame takes the eager fallback with
+        unbanded eyes, as in the reference."""
+        from ..parallel.mesh import DeviceMesh, default_devices
+
         if n_bands <= 1:
+            self._tile_mesh = None
+            self._band_copies = {}
             return True
-        dev = self.context.device
-        n_dev = (len(list(devices)) if devices is not None
-                 else torch.cuda.device_count() if dev.type == "cuda"
-                 else 1)
-        if n_dev < n_bands or self.height % n_bands:
+        devs = list(devices) if devices is not None else \
+            default_devices(self.context.device)
+        if len(devs) < n_bands or self.height % n_bands:
             return False
-        raise unported("framebuffer tile sharding", 12)
+        self._sync_window()
+        self._tile_mesh = DeviceMesh(devs[:n_bands], "band")
+        self._band_copies = {}
+        return True
 
     def GetTileSharding(self) -> int:
-        return 0
+        return 0 if self._tile_mesh is None else self._tile_mesh.size
 
     def SetStereoParameters(self, eye_separation: float, focal_length: float):
         """A positive eye separation (world units) turns stereo on: each
@@ -3950,10 +4016,12 @@ class CKRenderContext(CKObject):
         CUDA graphs of its windows and batches are dropped. The next
         ``Render()`` compiles, uploads and captures them again."""
         self._sync_window()
-        for graph in (self._window, self._batch):
+        for graph in (self._window, self._batch,
+                      *self._mesh_batches.values()):
             if graph is not None:
                 graph.release()
         self._window = self._batch = None
+        self._mesh_batches = {}
         self._compiled = CompiledScene()
         self._packed_static = self._packed_static_vers = None
         self._sprites_static = None
@@ -3988,7 +4056,9 @@ class BatchRead:
     ``ProcessBatched``. ``members`` are the group's contexts in order
     (the first leads: it holds the group's capacity governor and peel
     round count); ``runs`` are (``window.Pending``, the members it
-    rendered) for each chunk of the group."""
+    rendered, the frame's inputs on the members' device: (static, params,
+    bank)) for each chunk of the group; a chunk of a mesh block may have
+    run on another device."""
 
     def __init__(self, members: list, runs: list):
         self.members = members
@@ -4000,7 +4070,8 @@ class BatchRead:
         exact remainder, replay and peel) into its slot of the stacked
         outputs; set each member's stats; give the group's worst bin
         statistics to the lead's governor and copy its caps and peel
-        round count to the others."""
+        round count to the others; bring each member's buffers to its own
+        device (a copy only for a block that ran on another device)."""
         if self.done:
             return
         self.done = True
@@ -4010,7 +4081,7 @@ class BatchRead:
                 rc._batch_read = None
         lead = members[0]
         bins = []
-        for p, chunk in self.runs:
+        for p, chunk, (static, params, bank) in self.runs:
             rows = p.read()
             win = p.window
             for j, rc in enumerate(chunk):
@@ -4025,9 +4096,8 @@ class BatchRead:
             for j in np.nonzero(fw.flagged(rows))[0]:
                 rc = chunk[j]
                 dyn_f, dyn_i, anim = p.slots[j]
-                out = rc._render_eager(win.static, dyn_f, dyn_i, win.params,
-                                       anim=anim, govern=False,
-                                       bank=win.bank)
+                out = rc._render_eager(static, dyn_f, dyn_i, params,
+                                       anim=anim, govern=False, bank=bank)
                 for stacked, plane in zip((p.fb, p.zb, p.sb), out[:3]):
                     if plane is not None:
                         stacked[j].copy_(plane)
@@ -4047,4 +4117,11 @@ class BatchRead:
         for rc in members[1:]:
             rc._solve_caps = lead._solve_caps
             rc._peel_rounds = lead._peel_rounds
+        for p, chunk, _inputs in self.runs:
+            for rc in chunk:
+                dev = rc.context.device
+                rc._fb_val = rc._fb_val.to(dev)
+                rc._zb_val = rc._zb_val.to(dev)
+                if p.sb is not None:
+                    rc._sb_val = rc._sb_val.to(dev)
 

@@ -550,14 +550,17 @@ def ordered_subset(batch: rb.DeviceBatch, defer_tri: torch.Tensor,
 
 
 def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
-                      sampler_profile, height: int, width: int):
+                      sampler_profile, height: int, width: int,
+                      row0: int = 0, quad: bool | None = None):
     """Shade and blend peeled ordered layers (draw order per pixel).
 
     ``lids``/``les``: one peel round's outputs — per layer the covering
     draw's index and raw edge values. Each layer shades ONCE per pixel
     through the quantized rows (texture sampling included), then composites
     with the draw's blend mode (alpha-over / replace) after its alpha test:
-    the semantics of the sequential pass, as K dense passes."""
+    the semantics of the sequential pass, as K dense passes. ``row0`` and
+    ``quad``: a band's first global row and the whole frame's LOD rule
+    (:func:`df.shade_rows`)."""
     from ..raster.types import (
         SF_ALPHAREF, SI_ALPHABLEND, SI_ALPHAFUNC, SI_ALPHATEST,
     )
@@ -591,7 +594,8 @@ def _composite_peeled(fb, obatch: rb.DeviceBatch, lids, les, scene,
                             scene.fog_color, zeros, height, width,
                             sampler_profile=sampler_profile,
                             tex_quad=scene.tex_quad,
-                            eplanes=(les[s, 0], les[s, 1], les[s, 2]))
+                            eplanes=(les[s, 0], les[s, 1], les[s, 2]),
+                            row0=row0, quad=quad)
         stidx = torch.clamp(rows_q[df.SH_Q_STIDX].reshape(-1).long(), 0,
                             st4.shape[0] - 1)
         stp = st4.index_select(0, stidx).T.reshape(4, height, width)
@@ -631,9 +635,21 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
                       want_texgen: bool = False,
                       solve_caps: tuple | None = None,
                       host_stats: dict | None = None,
-                      flags: dict | None = None, peel_rounds: int = 1):
+                      flags: dict | None = None, peel_rounds: int = 1,
+                      row0: int = 0, frame_h: int | None = None):
     """Full frame: clear -> vertex stage -> deferred opaque solve + shade
     -> the ordered rest (cutouts, z-overrides, sorted transparency).
+
+    ``row0`` / ``frame_h``: a band of a frame of ``frame_h`` rows (default
+    ``height``), its ``height`` rows starting at global row ``row0``
+    (reference frame.py:693-699, parallel/tile_shard.py). Vertices,
+    viewport and scissors stay in global screen coordinates and every
+    raster stage evaluates global pixel centres, so the band equals the
+    same rows of the whole frame bit for bit. Every route (tiled or flat
+    solve, quantized or compact rows, the quad LOD, the ordered pass and
+    its tile, the ordered kernels' capacities) is decided from the whole
+    frame, never from the band: a band then runs the whole frame's
+    arithmetic. A band of a quad-LOD frame starts and ends on even rows.
 
     ``prev_fb``/``prev_zb``: last frame's buffers when the clear flags are
     off (reference RCKRenderContext::Clear, src/CKRenderContext.cpp:438-544):
@@ -670,13 +686,17 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
         clear_fb = scene.clear_color[:, None, None].to(
             torch.float32).expand(4, height, width)
     z_init = scene.clear_z if prev_zb is None else prev_zb
+    fh = height if frame_h is None else frame_h
 
     batch, setup, defer_tri, tri_bits = opaque_setup(
         scene, levels, world, vertex_shader=vertex_shader,
         want_bump=want_bump, want_cube=want_cube, corner=corner,
         want_texgen=want_texgen, sampler_profile=sampler_profile)
     t_count = batch.valid.shape[0]
-    tiled = t_count > 4096 or t_count * height * width > (1 << 26)
+    # A mip frame of even size takes its LOD from 2x2 quads (the whole
+    # frame's size decides, so that a band shades as the frame does).
+    quad = fh % 2 == 0 and width % 2 == 0
+    tiled = t_count > 4096 or t_count * fh * width > (1 << 26)
     flat = not tiled and prev_zb is None and batch.clipd.shape[-1] == 0
     sp = sampler_profile
     batch_args = (batch.xyw, batch.color, batch.specular, batch.uv,
@@ -690,7 +710,7 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
         out = depth_reduce_tiled_cuda(
             setup, defer_tri, z_init, scene.viewport, batch.xyw, height,
             width, want_binstats=want_stats or decided,
-            host_stats=host_stats, remainder=not decided,
+            host_stats=host_stats, remainder=not decided, row0=row0,
             **_solve_caps(t_count, solve_caps), **kw)
         if decided:
             flags["SolveBinStats"] = out[2]
@@ -706,16 +726,15 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
         if flat:
             best_id, best_depth = depth_reduce_cuda(
                 setup, defer_tri, scene.clear_z, scene.viewport, height,
-                width)
+                width, row0=row0)
         else:
             best_id, best_depth, tile_peak = solve_tiled()
         fb = df.shade_deferred(
             best_id, batch.xyw, batch.z, *batch_args[1:], scene.state_i,
             scene.state_f, *shade_args, batch_refl=batch.refl,
             pixel_shader=pixel_shader, sampler_profile=sp,
-            tex_quad=scene.tex_quad)
-    elif sp is not None and (not sp[1]
-                             or (height % 2 == 0 and width % 2 == 0)):
+            tex_quad=scene.tex_quad, row0=row0)
+    elif sp is not None and (not sp[1] or quad):
         # Quantized rows: colours, speculars and fog as u8 words (the
         # reference's D3DCOLOR vertex precision) and no edge coefficients;
         # B1 exports the winner's (e0, e1, e2) per pixel instead. A mip
@@ -738,7 +757,8 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
                                     has_refl=batch.refl.shape[-1] > 0)
         fb = df.shade_rows(rows, best_id >= 0, *shade_args,
                            sampler_profile=sp, tex_quad=scene.tex_quad,
-                           eplanes=(epl[0], epl[1], epl[2]))
+                           eplanes=(epl[0], epl[1], epl[2]), row0=row0,
+                           quad=quad)
     else:
         # Compact rows (a mip frame of odd size, or no sampler profile):
         # the solve's signed edge coefficients ride the row, so the shade
@@ -751,7 +771,8 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
             df.gather_winner_rows(tbl, best_id), scene.state_i,
             scene.state_f, scene.tex_hw)
         fb = df.shade_rows(rows, best_id >= 0, *shade_args,
-                           sampler_profile=sp, tex_quad=scene.tex_quad)
+                           sampler_profile=sp, tex_quad=scene.tex_quad,
+                           row0=row0)
     zb = best_depth
     if ordered_cap is None:
         ordered_cap = t_count
@@ -761,14 +782,14 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
         fb, zb = _ordered_pass(
             scene, batch, defer_tri, tri_bits, fb, zb, ordered_cap, height,
             width, sort_transparent, pixel_shader, sampler_profile, ordered,
-            flags, peel_rounds)
+            flags, peel_rounds, row0, fh)
     if host_stats is not None:
         host_stats.update(ordered)
     out = (fb, zb)
     if want_stencil:
         out += (stencil_pass(setup, batch, tri_bits, zb, scene.viewport,
                              height, width, flat, t_count, solve_caps,
-                             flags=flags),)
+                             flags=flags, row0=row0),)
     if not want_stats:
         return out
     # Stats: the reference's counters, the ordered path's (which path the
@@ -787,7 +808,7 @@ def render_frame_impl(scene: SceneDevice, levels: tuple, height: int,
 
 def stencil_pass(setup, batch, tri_bits, zb, viewport, height: int,
                  width: int, flat: bool, t_count: int, solve_caps=None,
-                 flags: dict | None = None):
+                 flags: dict | None = None, row0: int = 0):
     """The stencil mask (reference frame.py:1051-1060): the z-tested
     coverage of the stencil-only draws (VX_MOVEABLE_STENCILONLY, reference
     src/CKMesh.cpp:3938-3974), solved at a clear depth of 1.0 against the
@@ -803,12 +824,12 @@ def stencil_pass(setup, batch, tri_bits, zb, viewport, height: int,
     stencil_tri = (tri_bits[:, 2] > 0.5) & batch.valid
     if flat:
         s_id, s_depth = depth_reduce_cuda(setup, stencil_tri, 1.0, viewport,
-                                          height, width)
+                                          height, width, row0=row0)
     else:
         s_id, s_depth, peak = depth_reduce_tiled_cuda(
             setup, stencil_tri, 1.0, viewport, batch.xyw, height, width,
             want_binstats=flags is not None, remainder=flags is None,
-            **_solve_caps(t_count, solve_caps))
+            row0=row0, **_solve_caps(t_count, solve_caps))
         if flags is not None:
             flags["StencilRemainder"] = peak[2:5].any()
     return ((s_id >= 0) & (s_depth <= zb + 1e-6)).to(torch.uint8)
@@ -858,7 +879,8 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
                   ordered_cap: int, height: int, width: int,
                   sort_transparent: bool, pixel_shader, sampler_profile,
                   stats: dict, flags: dict | None = None,
-                  peel_rounds: int = 1):
+                  peel_rounds: int = 1, row0: int = 0,
+                  frame_h: int | None = None):
     """The ordered remainder over the opaque frame (fb, zb), with the
     reference's dispatch (frame.py:924-1032), its "on TPU" read as "always":
     a CUDA tensor launches the kernel, a CPU tensor runs its plain version.
@@ -883,27 +905,33 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
     overflow goes into ``flags["OrderedReplay"]``; the peel runs
     ``peel_rounds`` rounds and flags ``PeelBad`` (phase A) and ``PeelMore``
     (fragments left after the last round). The exact tiled pass reads its
-    loop length back, so such a frame cannot be device-decided."""
+    loop length back, so such a frame cannot be device-decided.
+
+    ``row0`` / ``frame_h``: a band of a frame (:func:`render_frame_impl`):
+    the route, the tile of the exact pass and the kernels' capacities are
+    the whole frame's."""
     from ..raster import cuda_ordered as co
 
+    fh = height if frame_h is None else frame_h
     ob = ordered_batch(scene, batch, defer_tri, tri_bits, ordered_cap,
                        sort_transparent)
     passes = (scene.state_i, scene.state_f, scene.tex_planes, scene.tex_hw,
               scene.fog_color, scene.viewport)
-    route = ordered_route(ordered_cap, height, width, sampler_profile,
+    route = ordered_route(ordered_cap, fh, width, sampler_profile,
                           pixel_shader)
     if route == "flat":
         return rb.render_pass(fb, zb, ob, *passes,
                               pixel_shader=pixel_shader,
-                              sampler_profile=sampler_profile)
+                              sampler_profile=sampler_profile, row0=row0)
     if route == "tiled" and flags is not None:
         raise ValueError("the exact tiled ordered pass reads the host: this "
                          "frame cannot be device-decided")
     tile_o = 64
-    while (ordered_cap * (((height + tile_o - 1) // tile_o)
+    while (ordered_cap * (((fh + tile_o - 1) // tile_o)
                           * ((width + tile_o - 1) // tile_o)) > (1 << 26)
-           and tile_o < max(height, width)):
+           and tile_o < max(fh, width)):
         tile_o *= 2
+    caps = co.frame_caps(fh, width)
     fields = (ob.xyw, ob.z, ob.valid, ob.color, ob.specular, ob.uv, ob.fog,
               ob.state_idx, ob.clip_rect, ob.clipd, scene.state_i,
               scene.state_f)
@@ -912,12 +940,13 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
         stats["OrderedReplays"] = 1
         return rb.render_pass_tiled(fb, zb, ob, *passes, tile=tile_o,
                                     pixel_shader=pixel_shader,
-                                    sampler_profile=sampler_profile)
+                                    sampler_profile=sampler_profile,
+                                    row0=row0)
 
     if route == "blend":
         a_o, b_o, bad = co.ordered_blend_tiled_cuda(
             *fields, scene.fog_color, zb, scene.viewport, height, width,
-            **co.frame_caps(height, width))
+            row0=row0, **caps)
         if flags is not None:
             flags["OrderedReplay"] = bad
         # Host read, once per frame: the replay decision.
@@ -925,20 +954,23 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
             return replay()
         return a_o * fb + b_o, zb
     if route == "peel":
+        quad = fh % 2 == 0 and width % 2 == 0
+
         def comp(f, lids, les):
             return _composite_peeled(f, ob, lids, les, scene,
-                                     sampler_profile, height, width)
+                                     sampler_profile, height, width, row0,
+                                     quad)
 
         if flags is not None:
             fb_p, flags["PeelBad"], flags["PeelMore"] = \
                 co.ordered_peel_iterate(
                     comp, fb, *fields, zb, scene.viewport, height, width,
-                    rounds=peel_rounds, **co.frame_caps(height, width))
+                    rounds=peel_rounds, row0=row0, **caps)
             stats["OrderedPeelRounds"] = peel_rounds
             return fb_p, zb
         fb_p, bad, rounds = co.ordered_peel_iterate(
             comp, fb, *fields, zb, scene.viewport, height, width,
-            **co.frame_caps(height, width))
+            row0=row0, **caps)
         stats.update(OrderedPeelOverflow=bad, OrderedPeelRounds=rounds)
         if bad:
             stats["OrderedPeelCorrected"] = 1
@@ -946,7 +978,7 @@ def _ordered_pass(scene: SceneDevice, batch, defer_tri, tri_bits, fb, zb,
         return fb_p, zb
     return rb.render_pass_tiled(fb, zb, ob, *passes, tile=tile_o,
                                 pixel_shader=pixel_shader,
-                                sampler_profile=sampler_profile)
+                                sampler_profile=sampler_profile, row0=row0)
 
 
 def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
@@ -966,7 +998,8 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
                            cull: tuple | None = None, cull_sel=None,
                            host_stats: dict | None = None,
                            quad_windows: tuple | None = None,
-                           flags: dict | None = None, peel_rounds: int = 1):
+                           flags: dict | None = None, peel_rounds: int = 1,
+                           row0: int = 0, frame_h: int | None = None):
     """The per-frame device program: animate -> compose -> skin ->
     (culled-chunk compaction) -> the opaque frame.
 
@@ -983,8 +1016,9 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
     foreground quads, from the scene before chunk compaction, whose stream
     rows the bank indexes (reference frame.py:1142-1145, :1179-1183).
     ``want_stencil``: the stencil mask follows zb (:func:`stencil_pass`).
-    ``host_stats``, ``flags`` and ``peel_rounds``: as in
-    :func:`render_frame_impl`."""
+    ``host_stats``, ``flags``, ``peel_rounds``, ``row0`` and ``frame_h``
+    (a band of a frame): as in :func:`render_frame_impl`; the 2D quads and
+    the line pass evaluate the band's global pixel centres too."""
     scene, world, corner, scene_lines = scene_stages(
         scene, levels, skin, skin_ranges, anim, anim_t, world_in, corner,
         cull, cull_sel, sprites)
@@ -995,7 +1029,8 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
             scene.clear_color[:, None, None].to(torch.float32).expand(
                 4, height, width)
         background = composite_quads(background, quads_bg, scene.tex_planes,
-                                     scene.tex_hw, height, width, win_bg)
+                                     scene.tex_hw, height, width, win_bg,
+                                     row0)
     out = render_frame_impl(
         scene, levels, height, width, ordered_cap, world=world,
         background=background,
@@ -1004,17 +1039,18 @@ def render_frame_full_impl(scene: SceneDevice, levels: tuple, height: int,
         want_bump=want_bump, want_cube=want_cube, want_stats=want_stats,
         sampler_profile=sampler_profile, prev_fb=prev_fb, prev_zb=prev_zb,
         corner=corner, want_texgen=want_texgen, solve_caps=solve_caps,
-        host_stats=host_stats, flags=flags, peel_rounds=peel_rounds)
+        host_stats=host_stats, flags=flags, peel_rounds=peel_rounds,
+        row0=row0, frame_h=frame_h)
     if lines is not None:
         from .lines import draw_lines, visible_lines
 
         out = (draw_lines(out[0], out[1], scene_lines, world,
                           visible_lines(lines, scene_lines), height,
-                          width),) + tuple(out[1:])
+                          width, row0=float(row0)),) + tuple(out[1:])
     if quads_fg is None:
         return out
     fb = composite_quads(out[0], quads_fg, scene.tex_planes, scene.tex_hw,
-                         height, width, win_fg)
+                         height, width, win_fg, row0)
     return (fb,) + tuple(out[1:])
 
 
@@ -1133,7 +1169,9 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
                              host_stats: dict | None = None,
                              quad_windows: tuple | None = None,
                              flags: dict | None = None,
-                             peel_rounds: int = 1):
+                             peel_rounds: int = 1,
+                             y_shift: int | None = None,
+                             frame_h: int | None = None):
     """Packed-transfer frame entry: ``static`` is the per-compile dict of
     device tensors, ``dyn_f``/``dyn_i`` the two per-frame buffers (see
     pipeline/packing.py). Takes exactly what the render context's
@@ -1147,10 +1185,17 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
     resolves to its previous value. ``quad_windows`` are the host windows
     of the scaled quad rects at the render size. ``host_stats``, ``flags``
     and ``peel_rounds``: as in :func:`render_frame_impl` (a device-decided
-    frame reads nothing back)."""
+    frame reads nothing back).
+
+    ``y_shift`` / ``frame_h``: render rows [y_shift, y_shift + height) of a
+    frame of ``frame_h`` display rows (a band, reference frame.py:1258-1309,
+    ``parallel/tile_shard.py``), at ss times both; the band resolves its own
+    Antialias windows, which never cross it."""
     scene, d = unpack_scene(static, dyn_f, dyn_i, layout, ss=ss,
                             texdev=texdev, texdev_rects=texdev_rects)
     rh, rw = height * ss, width * ss
+    row0 = 0 if y_shift is None else int(y_shift) * ss
+    fh = None if frame_h is None else frame_h * ss
     if ss > 1:
         if prev_fb is not None:
             prev_fb = prev_fb.repeat_interleave(ss, dim=-2).repeat_interleave(
@@ -1187,7 +1232,8 @@ def render_frame_packed_impl(static: dict, dyn_f, dyn_i, layout: tuple,
         want_texgen=want_texgen, solve_caps=solve_caps, cull=cull,
         cull_sel=cull_sel, host_stats=host_stats,
         quads_bg=quad_bank("qbg"), quads_fg=quad_bank("qfg"),
-        quad_windows=quad_windows, flags=flags, peel_rounds=peel_rounds)
+        quad_windows=quad_windows, flags=flags, peel_rounds=peel_rounds,
+        row0=row0, frame_h=fh)
     if ss == 1:
         return out
     stats = out[-1:] if want_stats else ()

@@ -129,12 +129,16 @@ def _composite_one(sub, px, py, q, tex_planes, tex_hw):
 def composite_quads(fb: torch.Tensor, bank: QuadBank,
                     tex_planes: torch.Tensor, tex_hw: torch.Tensor,
                     height: int, width: int,
-                    windows: tuple | None = None) -> torch.Tensor:
+                    windows: tuple | None = None,
+                    row0: int = 0) -> torch.Tensor:
     """Composite quads onto fb (4,H,W) in bank order. Returns a new fb.
 
     ``windows``: :func:`quad_windows` of the bank's quads (its first
     ``len(windows)`` rows; the rest are padding and are skipped). Without
-    it every row of the bank works on the whole frame."""
+    it every row of the bank works on the whole frame. ``row0``: the global
+    row of fb's first row (a band of a frame, reference overlay.py:132-160):
+    windows and rects stay in global rows, each window is cut to the band's
+    rows, and pixel centres are global."""
     q = bank.rect.shape[0]
     if q == 0:
         return fb
@@ -144,18 +148,23 @@ def composite_quads(fb: torch.Tensor, bank: QuadBank,
     for j in rows:
         quad = tuple(a[j] for a in bank)
         if windows is None:
-            oy, ox, wh, ww = 0, 0, height, width
+            oy, ox, wh, ww = row0, 0, height, width
         elif windows[j] is None:
             continue
         else:
             oy, ox, wh, ww = windows[j]
+        # The window's global rows inside the band.
+        gy0, gy1 = max(oy, row0), min(oy + wh, row0 + height)
+        if gy1 <= gy0:
+            continue
         pxw = torch.arange(ox, ox + ww, dtype=torch.float32,
                            device=dev)[None, :] + 0.5
-        pyw = torch.arange(oy, oy + wh, dtype=torch.float32,
+        pyw = torch.arange(gy0, gy1, dtype=torch.float32,
                            device=dev)[:, None] + 0.5
         pxw, pyw = torch.broadcast_tensors(pxw, pyw)
-        sub = fb[:, oy:oy + wh, ox:ox + ww]
-        fb[:, oy:oy + wh, ox:ox + ww] = _composite_one(
+        ly0, ly1 = gy0 - row0, gy1 - row0
+        sub = fb[:, ly0:ly1, ox:ox + ww]
+        fb[:, ly0:ly1, ox:ox + ww] = _composite_one(
             sub, pxw, pyw, quad, tex_planes, tex_hw)
     return fb
 
@@ -165,7 +174,8 @@ def composite_label(fb: torch.Tensor, label: torch.Tensor, x: int,
     """A copy of the (4, H, W) framebuffer with the RGBA label (h, w, 4),
     on fb's device, alpha-composited at pixel (x, y): RGB over, alpha the
     larger of the two (reference ``composite_label``, the debug mode's
-    stepping label)."""
+    stepping label). It runs after the frame, on the whole (a banded
+    frame's assembled) framebuffer."""
     h, w = label.shape[0], label.shape[1]
     lab = label.permute(2, 0, 1)
     out = fb.clone()

@@ -309,7 +309,10 @@ class FrameWindow:
         torch.cuda.empty_cache()
         before = torch.cuda.memory_stats(dev)["reserved_bytes.all.current"]
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph), capturing():
+        # A capture stream of the window's own device (torch's shared
+        # default one belongs to the device that captured first).
+        with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)), \
+                capturing():
             self._out, self._row, self.tiled = self.frame(*views)
         torch.cuda.synchronize(dev)
         self.pool_bytes = (torch.cuda.memory_stats(dev)[

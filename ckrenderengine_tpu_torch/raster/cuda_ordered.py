@@ -111,10 +111,13 @@ def row_pitch(n_planes: int) -> int:
 
 def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
             state_i, state_f, zb, height: int, width: int, tile: int = 32,
-            windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP) -> dict:
+            windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP,
+            row0: int = 0) -> dict:
     """Shared ordered-stream build of B3 and B4 (the reference's
     ``_ordered_phase_a``). Inputs are the ``ordered_subset`` batch fields
     in draw order; ``uv`` is not read (the peel's composite samples it).
+    ``row0``: the global row of the frame's first row (a band of a frame):
+    tile rows count from it, bboxes stay in global rows.
 
     Returns a dict: ``stream`` (rows, :func:`row_pitch`) f32 (pad columns
     zero; the sentinel row t is all zeros), per-tile ``starts`` and
@@ -173,9 +176,10 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
     x0, y0, x1, y1, unbounded, empty = _screen_bbox(xyw, z)
     tx0 = _tile_index(x0, tile, tx_n)
     tx1 = _tile_index(x1, tile, tx_n)
-    ty0 = _tile_index(y0, tile, ty_n)
-    ty1 = _tile_index(y1, tile, ty_n)
-    offscreen = (x1 < 0) | (x0 >= width) | (y1 < 0) | (y0 >= height) | empty
+    ty0 = _tile_index(y0 - row0, tile, ty_n)
+    ty1 = _tile_index(y1 - row0, tile, ty_n)
+    offscreen = ((x1 < 0) | (x0 >= width) | (y1 < row0)
+                 | (y0 >= row0 + height) | empty)
     span_w = tx1 - tx0 + 1
     span = span_w * (ty1 - ty0 + 1)
     live = tvalid & ~offscreen
@@ -269,11 +273,12 @@ def phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect, clipd,
 # Plain phase B (torch): the kernels' arithmetic, vectorised across tiles
 # ---------------------------------------------------------------------------
 
-def _grid(tile: int, tiles_x: int, tiles_y: int, dev):
+def _grid(tile: int, tiles_x: int, tiles_y: int, params):
     """(px, py) pixel centres, (n_tiles, 1, npix): one row axis to
-    broadcast against."""
-    px, py = tile_grid(tile, tiles_x, tiles_y, dev)
-    return px[:, None], py[:, None]
+    broadcast against; rows at their global centres (y + 0.5) + row0,
+    row0 = ``params[6]`` (the kernels read it there too)."""
+    px, py = tile_grid(tile, tiles_x, tiles_y, params.device)
+    return px[:, None], (py + params[6])[:, None]
 
 
 def _fragments(rows, live, px, py, scissor, zb, zbits, n_planes: int):
@@ -330,25 +335,28 @@ def _stream_steps(stream, starts, counts):
 
 
 def _scissor(px, py, params):
+    """The viewport (global rows) and the framebuffer bounds: row0 + height
+    is an exact integer, so ``py < row0 + height`` is the local test."""
     vx0, vy0 = params[0], params[1]
     return ((px >= vx0) & (px < vx0 + params[2]) & (py >= vy0)
-            & (py < vy0 + params[3]) & (px < params[4]) & (py < params[5]))
+            & (py < vy0 + params[3]) & (px < params[4])
+            & (py < params[6] + params[5]))
 
 
 def blend_phase_b_plain(stream, starts, counts, params, zplane, tile: int,
                         tiles_x: int, tiles_y: int, n_planes: int):
     """Plain torch version of kernel B3. ``params`` = (vx, vy, vw, vh,
-    width, height, fog r, g, b) f32. Returns (5, H_pad, W_pad): A (one
-    number for all four channels) then B RGBA of each pixel's folded affine
-    blend map (identity where nothing covers)."""
+    width, height, row0, fog r, g, b) f32 (:func:`_params`). Returns (5,
+    H_pad, W_pad): A (one number for all four channels) then B RGBA of each
+    pixel's folded affine blend map (identity where nothing covers)."""
     dev = stream.device
     n_tiles = tiles_x * tiles_y
     npix = tile * tile
-    px, py = _grid(tile, tiles_x, tiles_y, dev)
+    px, py = _grid(tile, tiles_x, tiles_y, params)
     scissor = _scissor(px, py, params)
     zb = to_tiles(zplane, tile, tiles_x, tiles_y)[:, None]
     zbits = zb.contiguous().view(torch.int32)
-    fogc = params[6:9]
+    fogc = params[7:10]
     head = head_width(n_planes)
     ca = torch.ones((n_tiles, npix), dtype=torch.float32, device=dev)
     cb = [torch.zeros((n_tiles, npix), dtype=torch.float32, device=dev)
@@ -450,7 +458,7 @@ def blend_phase_b(stream, *args):
 def peel_phase_b_plain(stream, starts, counts, params, skip: int, zplane,
                        tile: int, tiles_x: int, tiles_y: int, n_planes: int):
     """Plain torch version of kernel B4. ``params`` = (vx, vy, vw, vh,
-    width, height) f32. Per pixel, in draw order, the covering fragments
+    width, height, row0) f32. Per pixel, in draw order, the covering fragments
     numbered ``skip`` .. ``skip + K_LAYERS - 1`` are recorded. Returns
     (lids (K,H_pad,W_pad) int32, -1 = none; les (K,3,H_pad,W_pad) raw edge
     values; cnt (H_pad,W_pad) int32 covering fragments; ovf (H_pad,W_pad)
@@ -458,7 +466,7 @@ def peel_phase_b_plain(stream, starts, counts, params, skip: int, zplane,
     dev = stream.device
     n_tiles = tiles_x * tiles_y
     npix = tile * tile
-    px, py = _grid(tile, tiles_x, tiles_y, dev)
+    px, py = _grid(tile, tiles_x, tiles_y, params)
     scissor = _scissor(px, py, params)
     zb = to_tiles(zplane, tile, tiles_x, tiles_y)[:, None]
     zbits = zb.contiguous().view(torch.int32)
@@ -530,11 +538,16 @@ def peel_phase_b(stream, *args):
 # Entries (the reference's ordered_blend_tiled_pallas / ordered_peel_*)
 # ---------------------------------------------------------------------------
 
-def _params(viewport, height: int, width: int, extra=None, dev=None):
+def _params(viewport, height: int, width: int, extra=None, dev=None,
+            row0: int = 0):
+    """The kernels' parameter vector: (vx, vy, vw, vh, width, height, row0)
+    then ``extra`` (B3: the fog colour). ``row0`` is the global row of the
+    frame's first row (a band of a frame)."""
     parts = [torch.as_tensor(viewport, dtype=torch.float32,
                              device=dev).reshape(4),
              df.f32_on(float(width), dev).reshape(1),
-             df.f32_on(float(height), dev).reshape(1)]
+             df.f32_on(float(height), dev).reshape(1),
+             df.f32_on(float(row0), dev).reshape(1)]
     if extra is not None:
         parts.append(torch.as_tensor(extra, dtype=torch.float32,
                                      device=dev).reshape(-1))
@@ -545,31 +558,33 @@ def ordered_blend_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
                              rect, clipd, state_i, state_f, fog_color, zb,
                              viewport, height: int, width: int,
                              tile: int = 32, windows: tuple = WINDOWS,
-                             pair_cap: int = PAIR_CAP):
+                             pair_cap: int = PAIR_CAP, row0: int = 0):
     """Ordered alpha blend over the opaque frame, as per-pixel affine maps.
 
-    Inputs are the ordered_subset batch fields in draw order. Returns
+    Inputs are the ordered_subset batch fields in draw order; ``row0`` is
+    the global row of the frame's first row (a band of a frame). Returns
     (A (4,H,W), B (4,H,W), bad ()): the caller composites ``A·fb + B``, or
     replays the exact pass when ``bad`` is set."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
                  clipd, state_i, state_f, zb, height, width, tile, windows,
-                 pair_cap)
+                 pair_cap, row0)
     ab = blend_phase_b(
         pa["stream"], pa["starts"], pa["counts"],
-        _params(viewport, height, width, fog_color, xyw.device),
+        _params(viewport, height, width, fog_color, xyw.device, row0),
         pa["zplane"], tile, pa["tiles_x"], pa["tiles_y"],
         pa["n_planes"])[:, :height, :width]
     return ab[0:1].expand(4, height, width), ab[1:5], pa["bad"]
 
 
 def _peel_phase_b(pa: dict, skip: int, viewport, height: int, width: int,
-                  tile: int):
+                  tile: int, row0: int = 0):
     """One peel round over a prepared phase-A stream with the layer window
     starting at ``skip``. Returns (lids (K,H,W) int32, les (K,3,H,W),
     ovf () device bool: fragments beyond skip+K exist)."""
     lids, les, _cnt, ovf = peel_phase_b(
         pa["stream"], pa["starts"], pa["counts"],
-        _params(viewport, height, width, dev=pa["stream"].device), skip,
+        _params(viewport, height, width, dev=pa["stream"].device,
+                row0=row0), skip,
         pa["zplane"], tile, pa["tiles_x"], pa["tiles_y"], pa["n_planes"])
     return (lids[:, :height, :width], les[:, :, :height, :width],
             ovf[:height, :width].any())
@@ -579,14 +594,15 @@ def ordered_peel_tiled_cuda(xyw, z, valid, color, spec, uv, fog, state_idx,
                             rect, clipd, state_i, state_f, zb, viewport,
                             height: int, width: int, tile: int = 32,
                             windows: tuple = WINDOWS,
-                            pair_cap: int = PAIR_CAP):
+                            pair_cap: int = PAIR_CAP, row0: int = 0):
     """ONE round of draw-order fragment peeling. Returns (lids (K,H,W)
     int32, -1 = none; les (K,3,H,W) raw winner edge values; bad ()), where
     ``bad`` joins the phase-A flag and the per-pixel layer overflow."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
                  clipd, state_i, state_f, zb, height, width, tile, windows,
-                 pair_cap)
-    lids, les, ovf = _peel_phase_b(pa, 0, viewport, height, width, tile)
+                 pair_cap, row0)
+    lids, les, ovf = _peel_phase_b(pa, 0, viewport, height, width, tile,
+                                   row0)
     return lids, les, pa["bad"] | ovf
 
 
@@ -594,7 +610,7 @@ def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
                          fog, state_idx, rect, clipd, state_i, state_f, zb,
                          viewport, height: int, width: int, tile: int = 32,
                          windows: tuple = WINDOWS, pair_cap: int = PAIR_CAP,
-                         rounds: int | None = None):
+                         rounds: int | None = None, row0: int = 0):
     """Iterated depth peeling: composite ordered layers K at a time with
     ``composite_fn(fb, lids, les)`` until every pixel's fragment list is
     drained — exact at any depth. Phase A runs once; each further round
@@ -608,15 +624,16 @@ def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
     run (a round over drained pixels composites empty layers, which leaves
     ``fb`` as it was), and the result is (fb, bad, more) with ``bad`` the
     phase-A flag and ``more`` the last round's overflow, both device bools:
-    ``fb`` is exact only where both are false."""
+    ``fb`` is exact only where both are false. ``row0``: the global row of
+    the frame's first row (a band of a frame)."""
     pa = phase_a(xyw, z, valid, color, spec, uv, fog, state_idx, rect,
                  clipd, state_i, state_f, zb, height, width, tile, windows,
-                 pair_cap)
+                 pair_cap, row0)
     if rounds is not None:
         ovf = torch.zeros((), dtype=torch.bool, device=fb.device)
         for r in range(rounds):
             lids, les, ovf = _peel_phase_b(pa, r * K_LAYERS, viewport, height,
-                                           width, tile)
+                                           width, tile, row0)
             fb = composite_fn(fb, lids, les)
         return fb, pa["bad"], ovf
     # Host read, once per frame: the replay decision.
@@ -626,7 +643,7 @@ def ordered_peel_iterate(composite_fn, fb, xyw, z, valid, color, spec, uv,
     more = True
     while more:
         lids, les, ovf = _peel_phase_b(pa, skip, viewport, height, width,
-                                       tile)
+                                       tile, row0)
         fb = composite_fn(fb, lids, les)
         skip += K_LAYERS
         # Host read, once per round: another round runs only while some

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
-from .deferred import f32_on
+from .deferred import f32_on, pixel_centres
 
 F32_FIELDS = 32          # padded row width
 _BIG = 3.0e38
@@ -56,15 +56,14 @@ def _view5(clear_z, viewport, dev) -> torch.Tensor:
 
 
 def depth_reduce_plain(rows: torch.Tensor, clear_z, viewport, height: int,
-                       width: int, chunk: int = 64):
+                       width: int, chunk: int = 64, row0: int = 0):
     """Plain torch version of the B2 kernel over ``pack_rows`` rows:
-    deferred.depth_reduce's arithmetic, chunked over rows. Returns
-    (best_id (H,W) int32, best_depth (H,W) f32)."""
+    deferred.depth_reduce's arithmetic, chunked over rows. ``row0``: the
+    global row of the frame's first row (a band of a frame): pixel centres
+    (y + 0.5) + row0, the viewport in global rows. Returns (best_id (H,W)
+    int32, best_depth (H,W) f32)."""
     dev = rows.device
-    py, px = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
-        torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
-        indexing="ij")
+    py, px = pixel_centres(height, width, dev, row0)
     view = _view5(clear_z, viewport, dev)
     scissor = ((px >= view[0]) & (px < view[0] + view[2])
                & (py >= view[1]) & (py < view[1] + view[3]))
@@ -104,9 +103,10 @@ def depth_reduce_plain(rows: torch.Tensor, clear_z, viewport, height: int,
 
 
 def reduce_flat_kernel(rows: torch.Tensor, clear_z, viewport, height: int,
-                       width: int):
-    """Launch kernel B2 on CUDA ``rows`` (T, 32). Returns
-    (best_id (H,W) int32, best_depth (H,W) f32)."""
+                       width: int, row0: int = 0):
+    """Launch kernel B2 on CUDA ``rows`` (T, 32), the frame's first row at
+    global row ``row0``. Returns (best_id (H,W) int32, best_depth (H,W)
+    f32)."""
     if not rows.is_cuda or rows.dtype != torch.float32 \
             or rows.dim() != 2 or rows.shape[1] != F32_FIELDS:
         raise ValueError("reduce_flat_kernel takes CUDA f32 rows (T, 32)")
@@ -119,7 +119,7 @@ def reduce_flat_kernel(rows: torch.Tensor, clear_z, viewport, height: int,
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.ck_reduce_flat(rows.data_ptr(), rows.shape[0], view.data_ptr(),
                               best_d.data_ptr(), best_i.data_ptr(), height,
-                              width, stream)
+                              width, float(row0), stream)
     cuda_build.check("ck_reduce_flat", code)
     reduce_flat_kernel.launches += 1
     return best_i, best_d
@@ -129,10 +129,13 @@ reduce_flat_kernel.launches = 0
 
 
 def depth_reduce_cuda(setup, defer_tri, clear_z, viewport, height: int,
-                      width: int):
-    """Flat depth reduce (the counterpart of pallas_reduce.depth_reduce_pallas).
+                      width: int, row0: int = 0):
+    """Flat depth reduce (the counterpart of pallas_reduce.depth_reduce_pallas)
+    of ``height`` rows from global row ``row0`` (a band of a frame).
     Returns (best_id (H,W) int32, best_depth (H,W) f32)."""
     rows = pack_rows(setup, defer_tri)
     if rows.is_cuda:
-        return reduce_flat_kernel(rows, clear_z, viewport, height, width)
-    return depth_reduce_plain(rows, clear_z, viewport, height, width)
+        return reduce_flat_kernel(rows, clear_z, viewport, height, width,
+                                  row0)
+    return depth_reduce_plain(rows, clear_z, viewport, height, width,
+                              row0=row0)

@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from .. import cuda_build
-from .deferred import f32_on, gather_winner_rows
+from .deferred import f32_on, gather_winner_rows, pixel_centres
 from .tiled import _C_EC, _C_FL, _NCOL, _pow2ceil, _reduce_rows, _screen_bbox
 
 _BIG = 3.0e38
@@ -74,7 +74,9 @@ def _init_plane(clear_z, height: int, width: int, full_h: int, full_w: int,
 
 def tile_grid(tile: int, tiles_x: int, tiles_y: int, dev):
     """(px, py) pixel centres of every tile, (n_tiles, tile*tile) f32, tiles
-    row-major and pixels row-major within a tile."""
+    row-major and pixels row-major within a tile. A band of a frame adds
+    its first global row to py: (y + 0.5) + row0, the kernels' order
+    (``csrc/tile_scan.cuh`` ``centre``)."""
     lp = torch.arange(tile * tile, device=dev)
     tl = torch.arange(tiles_x * tiles_y, device=dev)
     px = ((lp % tile)[None] + (tl % tiles_x)[:, None] * tile).to(
@@ -110,18 +112,22 @@ def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
                         sbase: int, viewport, width: int, height: int,
                         init_d, tile: int, tiles_x: int, tiles_y: int,
                         n_planes: int, want_e: bool, shade_tbl=None,
-                        rows_per_step: int = 16):
+                        rows_per_step: int = 16, row0: int = 0):
     """Plain torch version of kernels B1 and B5: per tile, reduce the
     tile's own stream range, then the two shared leftover segments, then
     mask by the viewport scissor and the framebuffer bounds. Chunked over
     rows so memory stays bounded. With ``shade_tbl`` (T, Wq) int32 (B5) the
     winner's table row is gathered per pixel, 0 where the id is -1.
+    ``row0``: the global row of the frame's first row (a band): pixels
+    evaluate at global centres, the viewport is in global rows and
+    ``height`` bounds the local ones.
     Returns (depth (Hp,Wp), id (Hp,Wp) int32, e-planes (3,Hp,Wp) or None,
     rows (Wq,Hp,Wp) int32 or None) in full-tile padded planes."""
     dev = stream.device
     n_tiles = tiles_x * tiles_y
     npix = tile * tile
-    px, py = tile_grid(tile, tiles_x, tiles_y, dev)             # (NT, npix)
+    px, py_l = tile_grid(tile, tiles_x, tiles_y, dev)           # (NT, npix)
+    py = py_l + float(row0) if row0 else py_l
     init = to_tiles(init_d, tile, tiles_x, tiles_y)
     bd = init.clone()
     bi = torch.full((n_tiles, npix), -1, dtype=torch.int32, device=dev)
@@ -186,7 +192,7 @@ def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
     vp = torch.as_tensor(viewport, dtype=torch.float32, device=dev)
     scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
                & (py >= vp[1]) & (py < vp[1] + vp[3])
-               & (px < width) & (py < height))
+               & (px < width) & (py_l < height))
     bd = torch.where(scissor, bd, init)
     bi = torch.where(scissor, bi, -1)
     ep = None
@@ -200,7 +206,7 @@ def solve_phase_b_plain(stream, starts, counts, leftn, gbase: int,
 def _launch_solve(name: str, stream, starts, counts, leftn, gbase: int,
                   sbase: int, viewport, width: int, height: int, init_d,
                   tile: int, tiles_x: int, tiles_y: int, n_planes: int,
-                  want_e: bool, shade_tbl, kchunk: int):
+                  want_e: bool, shade_tbl, kchunk: int, row0: int = 0):
     """Check the arguments, allocate the outputs and launch one
     instantiation of ``csrc/solve_tiled.cu``. The stream and the shade
     table must start on 16 bytes, as torch's allocations and their row
@@ -242,7 +248,8 @@ def _launch_solve(name: str, stream, starts, counts, leftn, gbase: int,
     code = lib.ck_solve_tiled(
         stream.data_ptr(), ncol, stream.shape[1], n_planes, starts.data_ptr(),
         counts.data_ptr(), leftn.data_ptr(), gbase, sbase, vp.data_ptr(),
-        width, height, init_d.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+        width, height, float(row0), init_d.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(),
         cuda_build.ptr(out_e), cuda_build.ptr(shade_tbl), sh_w, n_tris,
         cuda_build.ptr(out_r), tile, tiles_x, tiles_y, kchunk,
         torch.cuda.current_stream(dev).cuda_stream)
@@ -250,10 +257,10 @@ def _launch_solve(name: str, stream, starts, counts, leftn, gbase: int,
     return out_d, out_i, out_e, out_r
 
 
-def solve_tiled_kernel(*args, kchunk: int = 128):
+def solve_tiled_kernel(*args, kchunk: int = 128, row0: int = 0):
     """Launch kernel B1 on CUDA tensors: the arguments and the result of
     :func:`solve_phase_b_plain` without a shade table."""
-    out = _launch_solve("solve_tiled_kernel", *args, None, kchunk)
+    out = _launch_solve("solve_tiled_kernel", *args, None, kchunk, row0)
     solve_tiled_kernel.launches += 1
     return out
 
@@ -261,11 +268,11 @@ def solve_tiled_kernel(*args, kchunk: int = 128):
 solve_tiled_kernel.launches = 0
 
 
-def solve_fetch_kernel(*args, kchunk: int = 128):
+def solve_fetch_kernel(*args, kchunk: int = 128, row0: int = 0):
     """Launch kernel B5 on CUDA tensors: B1's solve plus, per pixel, the
     int32 words of its winner's ``shade_tbl`` row. The arguments and the
     result of :func:`solve_phase_b_plain`, ``shade_tbl`` last."""
-    out = _launch_solve("solve_fetch_kernel", *args, kchunk)
+    out = _launch_solve("solve_fetch_kernel", *args, kchunk, row0)
     solve_fetch_kernel.launches += 1
     return out
 
@@ -273,21 +280,30 @@ def solve_fetch_kernel(*args, kchunk: int = 128):
 solve_fetch_kernel.launches = 0
 
 
-def solve_phase_b(stream, *args, shade_tbl=None, kchunk: int = 128):
+def solve_phase_b(stream, *args, shade_tbl=None, kchunk: int = 128,
+                  row0: int = 0):
     """Phase B dispatch: for a CUDA stream kernel B5 when a shade table is
     given and kernel B1 otherwise; the plain torch version for a CPU one."""
     if not stream.is_cuda:
-        return solve_phase_b_plain(stream, *args, shade_tbl=shade_tbl)
+        return solve_phase_b_plain(stream, *args, shade_tbl=shade_tbl,
+                                   row0=row0)
     if shade_tbl is not None:
-        return solve_fetch_kernel(stream, *args, shade_tbl, kchunk=kchunk)
-    return solve_tiled_kernel(stream, *args, kchunk=kchunk)
+        return solve_fetch_kernel(stream, *args, shade_tbl, kchunk=kchunk,
+                                  row0=row0)
+    return solve_tiled_kernel(stream, *args, kchunk=kchunk, row0=row0)
 
 
 def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
             tile: int = 32, max_span: int = 2, span2: int = 16,
             g_cap: int = 8192, slab_cap: int = 131072,
-            pair_cap: int = 65536, kchunk: int = 128) -> dict:
+            pair_cap: int = 65536, kchunk: int = 128,
+            row0: int = 0) -> dict:
     """Classify, bin and stream-build (pallas_tiled.py phase A, same math).
+
+    ``row0``: the global row of the frame's first row (a band of a frame,
+    reference tiled.py:306-311). Bboxes stay in global screen rows; tile
+    rows are counted from row0, and a triangle whose bbox ends above row0
+    or starts at row0 + height is off screen.
 
     Returns a dict with the stream (rows, pitch), per-tile ``starts`` and
     ``counts``, the leftover row counts ``leftn``, the segment bases, the
@@ -307,9 +323,10 @@ def phase_a(setup, defer_tri, viewport, xyw, height: int, width: int,
     x0, y0, x1, y1, unbounded, empty = _screen_bbox(xyw, setup["z"])
     tx0 = _tile_index(x0, tile, tx_n)
     tx1 = _tile_index(x1, tile, tx_n)
-    ty0 = _tile_index(y0, tile, ty_n)
-    ty1 = _tile_index(y1, tile, ty_n)
-    offscreen = (x1 < 0) | (x0 >= width) | (y1 < 0) | (y0 >= height) | empty
+    ty0 = _tile_index(y0 - row0, tile, ty_n)
+    ty1 = _tile_index(y1 - row0, tile, ty_n)
+    offscreen = ((x1 < 0) | (x0 >= width) | (y1 < row0)
+                 | (y0 >= row0 + height) | empty)
     span_w = tx1 - tx0 + 1
     span_h = ty1 - ty0 + 1
     span = span_w * span_h
@@ -456,9 +473,12 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
                             kchunk: int = 128, want_eplanes: bool = False,
                             want_binstats: bool = False, shade_tbl=None,
                             host_stats: dict | None = None,
-                            remainder: bool = True):
+                            remainder: bool = True, row0: int = 0):
     """Tile-binned argmin depth reduce (exact); the counterpart of
-    ``pallas_tiled.depth_reduce_tiled_pallas``.
+    ``pallas_tiled.depth_reduce_tiled_pallas``. ``row0``: the global row of
+    the frame's first row (a band of a frame, the reference's XLA
+    ``tiled.depth_reduce_tiled``): pixels evaluate at their global centres,
+    so a band equals the same rows of the whole frame bit for bit.
 
     Returns (best_id (H,W) int32, best_depth (H,W) f32, peak); with
     ``want_eplanes`` the winner's raw edge values (3,H,W) follow; with
@@ -479,7 +499,8 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
     t = setup["e_coef"].shape[0]
     a = phase_a(setup, defer_tri, viewport, xyw, height, width, tile=tile,
                 max_span=max_span, span2=span2, g_cap=g_cap,
-                slab_cap=slab_cap, pair_cap=pair_cap, kchunk=kchunk)
+                slab_cap=slab_cap, pair_cap=pair_cap, kchunk=kchunk,
+                row0=row0)
     tx_n, ty_n = a["tiles_x"], a["tiles_y"]
     full_h, full_w = ty_n * tile, tx_n * tile
     init_d = _init_plane(clear_z, height, width, full_h, full_w, dev)
@@ -487,7 +508,8 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
     best_d, best_i, ep, rows = solve_phase_b(
         a["stream"], a["starts"], a["counts"], a["leftn"], a["gbase"],
         a["sbase"], vp, width, height, init_d, tile, tx_n, ty_n,
-        a["n_planes"], want_eplanes, shade_tbl=shade_tbl, kchunk=kchunk)
+        a["n_planes"], want_eplanes, shade_tbl=shade_tbl, kchunk=kchunk,
+        row0=row0)
 
     # --- beyond-cap remainders: exact all-tiles loops (zero iterations on
     # ordinary frames). One small readback decides whether any runs.
@@ -500,13 +522,11 @@ def depth_reduce_tiled_cuda(setup, defer_tri, clear_z, viewport, xyw,
         pair_cut, g_over, s_over2 = words[2:5]
     if pair_cut or g_over or s_over2:
         kernel_i = best_i
-        py, px = torch.meshgrid(
-            torch.arange(full_h, dtype=torch.float32, device=dev) + 0.5,
-            torch.arange(full_w, dtype=torch.float32, device=dev) + 0.5,
-            indexing="ij")
+        py_l, px = pixel_centres(full_h, full_w, dev)
+        py = py_l + float(row0)
         scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
                    & (py >= vp[1]) & (py < vp[1] + vp[3])
-                   & (px < width) & (py < height))
+                   & (px < width) & (py_l < height))
         ncol = a["ncol"]
         slot_c = torch.arange(chunk, device=dev)
         rows_for = a["rows_for"]

@@ -167,17 +167,26 @@ def triangle_setup(xyw, z, state_idx, valid, state_i, clip_rect=None,
                 clip_rect=clip_rect, dplane=dplane, dplane9=dplane9)
 
 
-def depth_reduce(setup, defer_tri, clear_z, viewport, height: int,
-                 width: int, chunk: int = 64):
-    """Argmin-reduce over deferred triangles (the flat reference solve).
-
-    Returns (best_id (H,W) int32 [-1 = background], best_depth (H,W) f32).
-    Exact-depth ties go to the later draw id (LESSEQUAL)."""
-    dev = setup["e_coef"].device
+def pixel_centres(height: int, width: int, dev, row0: int = 0):
+    """(py, px) (H,W) pixel centres of a frame whose first row is global row
+    ``row0`` (a band of a frame): py = (y + 0.5) + row0, the kernels'
+    order, so a band's planes equal the whole frame's bit for bit."""
     py, px = torch.meshgrid(
         torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
         torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
         indexing="ij")
+    return (py + float(row0) if row0 else py), px
+
+
+def depth_reduce(setup, defer_tri, clear_z, viewport, height: int,
+                 width: int, chunk: int = 64, row0: int = 0):
+    """Argmin-reduce over deferred triangles (the flat reference solve) of
+    ``height`` rows from global row ``row0`` (reference deferred.py:198).
+
+    Returns (best_id (H,W) int32 [-1 = background], best_depth (H,W) f32).
+    Exact-depth ties go to the later draw id (LESSEQUAL)."""
+    dev = setup["e_coef"].device
+    py, px = pixel_centres(height, width, dev, row0)
     vp = viewport
     scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
                & (py >= vp[1]) & (py < vp[1] + vp[3]))
@@ -467,30 +476,33 @@ def shade_deferred(best_id, batch_xyw, batch_z, batch_color, batch_spec,
                    batch_uv, batch_fog, batch_state, state_i, state_f,
                    tex_planes, tex_hw, fog_color, clear_fb,
                    height: int, width: int, batch_refl=None,
-                   pixel_shader=None, sampler_profile=None, tex_quad=None):
+                   pixel_shader=None, sampler_profile=None, tex_quad=None,
+                   row0: int = 0):
     """One shading evaluation per pixel on the winning triangle.
 
     Fixed-function frames take :func:`_shade_deferred_fast`; a frame with
     a ``pixel_shader`` (a user stage, ``raster/stage.py``) the per-pixel
-    gather :func:`_shade_deferred_ps`. Returns (4,H,W) fb planes
+    gather :func:`_shade_deferred_ps`. ``row0``: the global row of the
+    frame's first row (a band of a frame). Returns (4,H,W) fb planes
     (background pixels keep clear_fb)."""
     if pixel_shader is not None:
         return _shade_deferred_ps(
             best_id, batch_xyw, batch_color, batch_spec, batch_uv,
             batch_fog, batch_state, state_i, state_f, tex_planes, tex_hw,
             fog_color, clear_fb, height, width, pixel_shader,
-            batch_refl=batch_refl)
+            batch_refl=batch_refl, row0=row0)
     return _shade_deferred_fast(
         best_id, batch_xyw, batch_color, batch_spec, batch_uv, batch_fog,
         batch_state, state_i, state_f, tex_planes, tex_hw, fog_color,
         clear_fb, height, width, batch_refl=batch_refl,
-        sampler_profile=sampler_profile, tex_quad=tex_quad)
+        sampler_profile=sampler_profile, tex_quad=tex_quad, row0=row0)
 
 
 def _shade_deferred_ps(best_id, batch_xyw, batch_color, batch_spec,
                        batch_uv, batch_fog, batch_state, state_i, state_f,
                        tex_planes, tex_hw, fog_color, clear_fb, height: int,
-                       width: int, pixel_shader, batch_refl=None):
+                       width: int, pixel_shader, batch_refl=None,
+                       row0: int = 0):
     """The per-pixel-gather shade of a pixel-shader frame (the reference's
     ``_shade_deferred_ps``): every winner attribute gathered per pixel, the
     edge values from per-pixel adjoints, the full ``si`` / ``sf`` state
@@ -499,12 +511,10 @@ def _shade_deferred_ps(best_id, batch_xyw, batch_color, batch_spec,
     where the state binds no texture). The stage receives ``color``
     (H,W,4), ``texel`` (H,W,4), ``uv`` (H,W,2), ``xy`` (H,W,2) pixel
     centres, ``si`` (H,W,NUM_SI) int32 and ``sf`` (H,W,NUM_SF) and returns
-    (H,W,4); specular, fog, the clamp and the colour-write mask follow it."""
+    (H,W,4); specular, fog, the clamp and the colour-write mask follow it.
+    ``row0``: the global row of the frame's first row (a band)."""
     dev = best_id.device
-    py, px = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
-        torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
-        indexing="ij")
+    py, px = pixel_centres(height, width, dev, row0)
     hit = best_id >= 0
     tid = torch.clamp(best_id, 0, batch_xyw.shape[0] - 1)
 
@@ -827,7 +837,8 @@ def _shade_deferred_fast(best_id, batch_xyw, batch_color, batch_spec,
                          batch_uv, batch_fog, batch_state, state_i, state_f,
                          tex_planes, tex_hw, fog_color, clear_fb,
                          height: int, width: int, batch_refl=None,
-                         sampler_profile=None, tex_quad=None):
+                         sampler_profile=None, tex_quad=None,
+                         row0: int = 0):
     """Packed-row fixed-function deferred shade: ONE per-pixel row gather
     of the winner's shade row, then :func:`shade_rows`."""
     t = batch_xyw.shape[0]
@@ -839,12 +850,12 @@ def _shade_deferred_fast(best_id, batch_xyw, batch_color, batch_spec,
     row = tbl.index_select(0, tid).T.reshape(tbl.shape[1], height, width)
     return shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
                       height, width, sampler_profile=sampler_profile,
-                      tex_quad=tex_quad)
+                      tex_quad=tex_quad, row0=row0)
 
 
 def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
                height: int, width: int, sampler_profile=None, tex_quad=None,
-               eplanes=None):
+               eplanes=None, row0: int = 0, quad: bool | None = None):
     """Fixed-function shade over per-pixel winner ROWS (C,H,W) in the
     shade_row_table layout: perspective-correct interpolation, mip LOD,
     texture sampling + stage blend, specular add, fog, saturate.
@@ -853,13 +864,18 @@ def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
     row's edge-coefficient block is then never read (the quantized rows
     ship zeros there), and the mip LOD comes from 2x2-quad finite
     differences of the UVs (D3D9's hardware derivative model) on
-    even-sized frames, else level 0."""
+    even-sized frames, else level 0. ``quad``: whether the frame takes its
+    LOD from quads (default: the rows given are of even size); a band of a
+    frame (``row0``, its first global row) passes the whole frame's rule,
+    and then pairs its own rows, so it starts on an even global row."""
     dev = row.device
     has_mips = tex_hw.shape[1] in (3, 5)
-    py, px = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=dev) + 0.5,
-        torch.arange(width, dtype=torch.float32, device=dev) + 0.5,
-        indexing="ij")
+    if quad is None:
+        quad = height % 2 == 0 and width % 2 == 0
+    elif quad and (row0 % 2 or height % 2):
+        raise ValueError("a band of a quad-LOD frame must start and end on "
+                         "even rows")
+    py, px = pixel_centres(height, width, dev, row0)
     si_pos = {c: i for i, c in enumerate(_SH_SI_COLS)}
     sf_pos = {c: i for i, c in enumerate(_SH_SF_COLS)}
 
@@ -914,8 +930,7 @@ def shade_rows(row, hit, tex_planes, tex_hw, fog_color, clear_fb,
     # functions are affine: slope a per +x, b per +y).
     lod = None
     if (tex_hw.shape[1] > 2 and sampler_profile is not None
-            and sampler_profile[1] and eplanes is not None
-            and height % 2 == 0 and width % 2 == 0):
+            and sampler_profile[1] and eplanes is not None and quad):
         # Per-2x2-quad UV derivatives shared by the quad's four pixels;
         # quads straddling a triangle boundary read a neighbour's UV, like
         # real hardware.

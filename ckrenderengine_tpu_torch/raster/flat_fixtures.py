@@ -29,6 +29,8 @@ them to, in torch, from the kernel's own tests, and :func:`case_rows` a
 case's packed rows through the package's own setup. The package is
 imported only there, by its absolute name, so that ``frame_bench.py`` can
 load this module by path and build the rows with another tree's package.
+:func:`band_cases` are bands of a frame (B2 at a row offset): the same keys
+and ``row0`` / ``frame_h``.
 """
 
 from __future__ import annotations
@@ -278,6 +280,42 @@ def flat_cases(scale: float = 1.0, seed: int = 31) -> list[dict]:
     return out
 
 
+def band_cases(seed: int = 51) -> list[dict]:
+    """Bands of a flat frame (B2 at a row offset): the band of ``h`` rows
+    from global row ``row0`` (odd, and no multiple of a 16-row sub-tile)
+    of a ``frame_h``-row frame, triangles, rects and viewport in global
+    rows: small triangles over the whole frame, triangles that end exactly
+    on the band's edges and on the edges of its 16-row sub-tiles and 8-row
+    strips (``tiled_fixtures.edge_tris``), and rects on the band's edges.
+    ``band_view`` cuts the band with a viewport that starts inside it."""
+    from ckrenderengine_tpu_torch.raster.tiled_fixtures import edge_tris
+
+    out = []
+    w = 70
+    for k, (name, row0, h) in enumerate((("band_flat", 37, 45),
+                                         ("band_view", 64, 40))):
+        rng = np.random.default_rng(seed + k)
+        frame_h = row0 + h + 23
+        xyw, z = _pack(_small_tris(rng, 300, frame_h, w, (2.0, 9.0)), rng)
+        xe, ze = edge_tris(rng, (row0, row0 + 8, row0 + 16, row0 + h), w)
+        xyw, z = np.concatenate([xyw, xe]), np.concatenate([z, ze])
+        t = xyw.shape[0]
+        rect = np.tile(np.array([[-1e9, -1e9, 1e9, 1e9]], np.float32),
+                       (t, 1))
+        pick = rng.random(t) < 0.15
+        rect[pick] = [3.0, row0 - 0.5, w - 5.0, row0 + h + 0.5]
+        pick = rng.random(t) < 0.1
+        rect[pick] = [0.0, row0 + 8.0, float(w), row0 + 16.0]
+        viewport = (None if name == "band_flat"
+                    else [2.5, row0 + 11.0, w - 7.0, 200.0])
+        case = _case(name, 1.0, xyw, z, h, w, clip_rect=rect,
+                     viewport=viewport or [0.0, 0.0, float(w),
+                                           float(frame_h)])
+        case.update(row0=row0, frame_h=frame_h)
+        out.append(case)
+    return out
+
+
 def case_rows(case: dict, device="cuda"):
     """The packed rows (``cuda_reduce.pack_rows``) of a case on ``device``,
     from the package's ``triangle_setup`` with no culling (``valid``
@@ -306,9 +344,11 @@ def case_rows(case: dict, device="cuda"):
 _TL, _Z, _INV, _ES, _S, _VALID, _RECT, _ID = 9, 12, 15, 16, 19, 20, 21, 25
 
 
-def flat_stats(rows, h: int, w: int, viewport, step: int = 32) -> dict:
+def flat_stats(rows, h: int, w: int, viewport, step: int = 32,
+               row0: int = 0) -> dict:
     """What the kernel's tests make of ``rows`` (torch, (T, 32) packed rows,
-    on any device) on an ``h`` x ``w`` frame, in its own arithmetic:
+    on any device) on an ``h`` x ``w`` frame whose first row is global row
+    ``row0`` (a band of a frame), in its own arithmetic:
 
     - ``scan_kept`` of ``strip_pairs`` (row, 16x8 strip) pairs: the strip
       scan's test (valid, rect overlap, each edge at the corner its signs
@@ -327,7 +367,7 @@ def flat_stats(rows, h: int, w: int, viewport, step: int = 32) -> dict:
 
     dev = rows.device
     f32 = torch.float32
-    ys = torch.arange(h, dtype=f32, device=dev) + 0.5
+    ys = torch.arange(h, dtype=f32, device=dev) + 0.5 + float(row0)
     xs = torch.arange(w, dtype=f32, device=dev) + 0.5
     py, px = (a[None] for a in torch.meshgrid(ys, xs, indexing="ij"))
     vp = [torch.tensor(float(v), dtype=f32, device=dev) for v in viewport]
@@ -340,9 +380,9 @@ def flat_stats(rows, h: int, w: int, viewport, step: int = 32) -> dict:
     sxmin = (sx.to(f32) + 0.5)[None, None, :]
     sxmax = ((torch.clamp(sx + STRIP_W, max=w) - 1).to(f32) + 0.5)[None,
                                                                   None, :]
-    symin = (sy.to(f32) + 0.5)[None, :, None]
-    symax = ((torch.clamp(sy + STRIP_H, max=h) - 1).to(f32) + 0.5)[None, :,
-                                                                  None]
+    symin = (sy.to(f32) + 0.5 + float(row0))[None, :, None]
+    symax = ((torch.clamp(sy + STRIP_H, max=h) - 1).to(f32) + 0.5
+             + float(row0))[None, :, None]
     hp, wp = sy.numel() * STRIP_H, sx.numel() * STRIP_W
     out = dict(strip_pairs=0, scan_kept=0, dropped_but_reaching=0,
                past_edges=0, edge_zero=0, esum_rejects=0, depth_rejects=0)
@@ -394,7 +434,8 @@ def flat_stats(rows, h: int, w: int, viewport, step: int = 32) -> dict:
     out["max_cover"] = int(inside.max()) if inside.numel() else 0
     subs_x, subs_y = -(-w // SUB), -(-h // SUB)
     tx0 = torch.arange(subs_x, dtype=f32, device=dev) * SUB + 0.5
-    ty0 = torch.arange(subs_y, dtype=f32, device=dev) * SUB + 0.5
+    ty0 = torch.arange(subs_y, dtype=f32, device=dev) * SUB + 0.5 \
+        + float(row0)
     out_x = (tx0 + SUB - 1 < vp[0]) | (tx0 >= vx1)
     out_y = (ty0 + SUB - 1 < vp[1]) | (ty0 >= vy1)
     out["subtiles"] = subs_x * subs_y

@@ -22,6 +22,8 @@ states ``si``/``sf``, the frame ``h``/``w``, the opaque depth ``zb``, the
 classes), ``bad`` (the phase-A overflow the case expects), the peel
 ``skips`` and ``expect``, what :func:`check_expect` holds phase A's result
 to so that a case keeps exercising what it was built for.
+:func:`band_cases` are bands of a frame (B3 and B4 at a row offset): the
+same keys and ``row0`` / ``frame_h`` / ``zb_frame``.
 """
 
 from __future__ import annotations
@@ -262,6 +264,45 @@ def ordered_cases(tile: int = 16, kchunk: int = 32, deep: int = 420,
     out.append(_case("overflow", _fields(xyw, z, rng, h, w), h, w, rng,
                      zb=np.ones((h, w), np.float32), windows=((40, 1),),
                      bad=True))
+    return out
+
+
+def band_cases(tile: int = 16, seed: int = 61) -> list[dict]:
+    """Bands of a frame for the ordered kernels (B3 and B4 at a row
+    offset): each case is the band of ``h`` rows from global row ``row0``
+    of a ``frame_h``-row frame, with fields, rects and viewport in global
+    rows; ``zb_frame`` is the whole frame's opaque depth and ``zb`` its
+    band rows. Random triangles and peel stacks cover the whole frame and
+    ``tiled_fixtures.edge_tris`` end exactly on the band's and its tiles'
+    edges. ``band_stack`` puts a 9-deep stack across the band's top edge
+    (peeled at skips 0, 4 and 8)."""
+    from .tiled_fixtures import edge_tris
+
+    out = []
+    w = 5 * tile + 6
+    for k, (name, row0, h) in enumerate((("band_random", 2 * tile + 5,
+                                          2 * tile + 3),
+                                         ("band_stack", 3 * tile,
+                                          2 * tile))):
+        rng = np.random.default_rng(seed + k)
+        frame_h = row0 + h + tile + 7
+        xyw, z = random_tris(150, frame_h, w, seed + k)
+        xe, ze = edge_tris(rng, (row0, row0 + tile, row0 + h), w, n=4)
+        parts = [(xyw, z), (xe, ze)]
+        if name == "band_stack":
+            sx = _stack(9, 2 * tile, seed + 5)[0]
+            sx["xyw"][..., 1] += (row0 - tile) * sx["xyw"][..., 2]
+            parts.append((sx["xyw"], sx["z"]))
+        xyw = np.concatenate([p[0] for p in parts])
+        z = np.concatenate([p[1] for p in parts])
+        fx = _fields(xyw, z, rng, frame_h, w)
+        zb = rng.uniform(0.3, 1.0, (frame_h, w)).astype(np.float32)
+        case = _case(name, _padded(fx, 400), h, w, rng,
+                     viewport=[4.0, 3.0, w - 9.0, row0 + h - 5.0],
+                     zb=zb[row0:row0 + h],
+                     skips=(0, 4, 8) if name == "band_stack" else (0,))
+        case.update(row0=row0, frame_h=frame_h, zb_frame=zb)
+        out.append(case)
     return out
 
 

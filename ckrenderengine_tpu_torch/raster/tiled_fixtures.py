@@ -14,7 +14,8 @@ no multiple of the tile.
 (T,3,3) and ``z`` (T,3), optional ``clipd`` (T,3,P) and ``clip_rect`` (T,4),
 the frame ``h``/``w``, the ``viewport``, the solve's ``caps`` and ``expect``,
 what :func:`check_expect` holds phase A's result to so that a case keeps
-exercising what it was built for.
+exercising what it was built for. :func:`band_cases` are bands of a frame:
+the same keys and ``row0`` / ``frame_h``.
 """
 
 from __future__ import annotations
@@ -141,6 +142,63 @@ def tiled_cases(tile: int = 32, kchunk: int = 128, deep: int = 3000,
                          (tile / 16, 2.0 * tile))
     out.append(_case("cut_viewport", pts, rng, hc, wc, caps=caps,
                      viewport=[9.5, 7.0, wc - 48.0, hc - 29.0]))
+    return out
+
+
+def edge_tris(rng, edges, w, n=6):
+    """Triangles with integer vertices and w = 1 (so that their bboxes are
+    exact) whose bboxes end exactly on the rows ``edges``: per edge ``n``
+    above it (y1 == edge) and ``n`` below it (y0 == edge), at random
+    columns, each in both windings. Returns (xyw (T,3,3), z (T,3))."""
+    pts = []
+    for e in edges:
+        for sign in (-1, 1):
+            x = rng.integers(2, w - 14, n)[:, None] + np.array([0, 9, 4])
+            dy = rng.integers(1, 9, (n, 2))
+            y = np.stack([np.full(n, e), e + sign * dy[:, 0],
+                          e + sign * dy[:, 1]], 1)
+            tri = np.stack([x, y], -1).astype(np.float32)
+            pts += [tri, tri[:, ::-1]]
+    pts = np.concatenate(pts)
+    t = pts.shape[0]
+    xyw = np.concatenate([pts, np.ones((t, 3, 1), np.float32)], -1)
+    return xyw, rng.uniform(0.05, 0.95, (t, 3)).astype(np.float32)
+
+
+def band_cases(tile: int = 32, kchunk: int = 128,
+               seed: int = 41) -> list[dict]:
+    """Bands of a frame (a solve at a row offset): each case is the band of
+    ``h`` rows from global row ``row0`` of a ``frame_h``-row frame, with the
+    triangles, rects and viewport in global rows. Random triangles cover
+    the whole frame (most of them miss the band), and :func:`edge_tris`
+    end exactly on the band's edges and on its tile edges, so that phase
+    A's binning after the row0 subtraction is shown to stay conservative.
+    ``band_mid`` starts off the tile grid, is no multiple of the tile and
+    has a viewport that ends inside the band; ``band_plane`` is tile-aligned
+    with one clip plane (pitch 28)."""
+    out = []
+    caps = dict(tile=tile, kchunk=kchunk)
+    w = 4 * tile + tile // 4
+    for k, (name, row0, h, planes) in enumerate((
+            ("band_mid", 3 * tile + 8, 2 * tile + tile // 2, 0),
+            ("band_plane", 4 * tile, 3 * tile, 1))):
+        rng = np.random.default_rng(seed + k)
+        frame_h = row0 + h + 2 * tile
+        pts = _tris_anywhere(rng, 24 * (tile // 8) ** 2, frame_h, w,
+                             (tile / 16, 1.5 * tile))
+        xyw, z = _pack(pts, rng)
+        xe, ze = edge_tris(rng, (row0, row0 + tile, row0 + 2 * tile,
+                                 row0 + h), w)
+        xyw, z = np.concatenate([xyw, xe]), np.concatenate([z, ze])
+        t = xyw.shape[0]
+        viewport = ([3.5, 0.0, w - 9.0, row0 + h - 6.0] if planes == 0
+                    else [0.0, 0.0, float(w), float(frame_h)])
+        out.append(dict(
+            name=name, xyw=xyw, z=z, h=h, w=w, row0=row0, frame_h=frame_h,
+            viewport=viewport,
+            clipd=(rng.uniform(-1, 1, (t, 3, planes)).astype(np.float32)
+                   if planes else None),
+            clip_rect=None, caps=caps, expect={}))
     return out
 
 

@@ -361,22 +361,17 @@ def _one_triangle(px, py, fb, zb, tri, state_i, state_f, tex_planes, tex_hw,
     return new_fb, torch.where(zwrite, depth, zb)
 
 
-def _pixel_grid(h: int, w: int, dev):
-    py, px = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=dev) + 0.5,
-        torch.arange(w, dtype=torch.float32, device=dev) + 0.5,
-        indexing="ij")
-    return px, py
-
-
 def render_pass(fb, zb, batch: DeviceBatch, state_i, state_f, tex_planes,
                 tex_hw, fog_color, viewport, pixel_shader=None,
-                sampler_profile=None):
+                sampler_profile=None, row0: int = 0):
     """Rasterize a batch in draw order onto (4,H,W) fb and (H,W) zb: one
     full-frame composite per triangle (``pixel_shader``: a user stage,
-    called once per triangle on the whole frame)."""
+    called once per triangle on the whole frame). ``row0``: the global row
+    of fb's first row (a band of a frame)."""
+    from .deferred import pixel_centres
+
     h, w = fb.shape[1], fb.shape[2]
-    px, py = _pixel_grid(h, w, fb.device)
+    py, px = pixel_centres(h, w, fb.device, row0)
     vp = viewport
     scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
                & (py >= vp[1]) & (py < vp[1] + vp[3]))
@@ -394,14 +389,16 @@ def render_pass(fb, zb, batch: DeviceBatch, state_i, state_f, tex_planes,
 def render_pass_tiled(fb, zb, batch: DeviceBatch, state_i, state_f,
                       tex_planes, tex_hw, fog_color, viewport,
                       tile: int = 64, pixel_shader=None,
-                      sampler_profile=None):
+                      sampler_profile=None, row0: int = 0):
     """Tile-binned ordered pass: each screen tile composites, in the batch's
     (already sorted) stream order, only the triangles whose screen bbox
     overlaps it — a pixel sees exactly the triangle sequence of
     :func:`render_pass`. Slot k of every tile (its k-th overlapping
     triangle, found by a searchsorted over the overlap cumsum) composites
     in one batched :func:`_one_triangle` call (``pixel_shader``: a user
-    stage, mapped over the tiles of each slot)."""
+    stage, mapped over the tiles of each slot). ``row0``: the global row of
+    fb's first row (a band of a frame; reference jax_backend.py:545-608):
+    tile rows count from it, bboxes and pixel centres stay global."""
     from .cuda_tiled import _tile_index, tile_grid, to_tiles, untile
     from .tiled import _screen_bbox
 
@@ -415,9 +412,10 @@ def render_pass_tiled(fb, zb, batch: DeviceBatch, state_i, state_f,
     x0, y0, x1, y1, _unbounded, empty = _screen_bbox(batch.xyw, batch.z)
     tx0 = _tile_index(x0, tile, tx)
     tx1 = _tile_index(x1, tile, tx)
-    ty0 = _tile_index(y0, tile, ty)
-    ty1 = _tile_index(y1, tile, ty)
-    offscreen = (x1 < 0) | (x0 >= w) | (y1 < 0) | (y0 >= h) | empty
+    ty0 = _tile_index(y0 - row0, tile, ty)
+    ty1 = _tile_index(y1 - row0, tile, ty)
+    offscreen = ((x1 < 0) | (x0 >= w) | (y1 < row0) | (y0 >= row0 + h)
+                 | empty)
     live = batch.valid & ~offscreen
     cx = torch.arange(tx, device=dev)
     cy = torch.arange(ty, device=dev)
@@ -435,10 +433,12 @@ def render_pass_tiled(fb, zb, batch: DeviceBatch, state_i, state_f,
         0, 1).reshape(n_tiles, 4, tile, tile)
     zbt = to_tiles(F.pad(zb, (0, pw, 0, ph), value=1.0), tile, tx,
                    ty).reshape(sq)
-    px, py = (g.reshape(sq) for g in tile_grid(tile, tx, ty, dev))
+    px, py_l = (g.reshape(sq) for g in tile_grid(tile, tx, ty, dev))
+    py = py_l + float(row0) if row0 else py_l
     vp = viewport
     scissor = ((px >= vp[0]) & (px < vp[0] + vp[2])
-               & (py >= vp[1]) & (py < vp[1] + vp[3]) & (px < w) & (py < h))
+               & (py >= vp[1]) & (py < vp[1] + vp[3]) & (px < w)
+               & (py_l < h))
 
     def padrow(a, fill=0):
         return torch.cat([a, torch.full((1,) + tuple(a.shape[1:]), fill,

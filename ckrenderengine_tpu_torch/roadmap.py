@@ -10,8 +10,6 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    12: "multi-card context sharding, framebuffer bands and the multi-card "
-        "dry run (dryrun_multichip)",
     14: "image files other than DDS (LoadImage), movie sprites (LoadMovie), "
         "and fonts, sizes or characters without a baked glyph table",
 }

@@ -16,8 +16,10 @@ same scenes (tests/test_context_batching.py, tests/test_antialias.py):
   member renders alone through its Render() while the others batch, and
   members batch by their pixel-shader function, each held to the
   reference's sequential Render() of the same stage;
-- the mesh functions of ``parallel.context_batch`` raise;
-- ``SetTileSharding`` refuses more bands than the context's devices.
+- the mesh functions of ``parallel.context_batch`` exist and
+  ``ProcessBatched(mesh=)`` takes a context mesh (item 12, ported);
+- ``SetTileSharding`` refuses more bands than the context's devices and
+  bands over a list that names the CPU once per band.
 
 The stacked-scene functions are in tests/test_torch_batch_frames.py, the
 batched level and the group's capacity governor in
@@ -292,7 +294,7 @@ def test_pixel_shader_members_batch_by_stage():
         rc.Render()
     subs = []
     run = rm._run_batch
-    rm._run_batch = lambda sub: subs.append(len(sub)) or run(sub)
+    rm._run_batch = lambda sub, mesh: subs.append(len(sub)) or run(sub, mesh)
     rm.ProcessBatched()
     assert sorted(subs) == [1, 2]
     frames = [(rc.fb.clone(), rc.zb.clone()) for rc in rcs]
@@ -301,18 +303,30 @@ def test_pixel_shader_members_batch_by_stage():
 
 
 def test_mesh_and_tile_sharding_are_item_12():
+    """Item 12 of the port queue, ported: the context-mesh functions and
+    ``ProcessBatched(mesh=)`` take a ``parallel.mesh.DeviceMesh`` (a
+    non-mesh raises ``TypeError``), and ``SetTileSharding`` bands a
+    context over its devices (tests/test_torch_bands.py and
+    tests/test_torch_context_mesh.py hold the frames)."""
+    from ckrenderengine_tpu_torch import roadmap
+
     _c, rm, rcs, _o = _tri_group(O, n=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         rm.ProcessBatched(mesh=object())
+    mesh = tcb.make_context_mesh(2, platform="cpu")
+    rm.ProcessBatched(mesh=mesh)
+    assert all(rc.fb.shape == (4, 48, 48) for rc in rcs)
     for fn in (tcb.make_context_mesh, tcb.shard_scenes,
                tcb.render_frames_sharded, tcb.render_frames_full_sharded,
                tcb.render_frames_packed_sharded):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn()
+        assert callable(fn) and fn.__module__ == tcb.__name__
+    assert 12 not in roadmap.PORT_QUEUE
     rc = rcs[0]                                # 48 rows, the CPU: 1 device
     assert rc.SetTileSharding(0) and rc.SetTileSharding(1)
     assert rc.SetTileSharding(2) is False
-    assert rc.SetTileSharding(5, devices=range(5)) is False   # 48 % 5
-    with pytest.raises(NotImplementedError, match="item 12"):
+    assert rc.SetTileSharding(5, devices=["cpu"] * 5) is False   # 48 % 5
+    with pytest.raises(ValueError):
         rc.SetTileSharding(2, devices=["card0", "card1"])
     assert rc.GetTileSharding() == 0
+    assert rc.SetTileSharding(2, devices=["cpu", "cpu"])
+    assert rc.GetTileSharding() == 2

@@ -30,7 +30,15 @@ phase-A overflow):
   equal, layer ids equal on >= 99.9% of the pixels, and raw edge values
   where the ids agree within 1e-5 plus twice their f32 forward-error bound
   (tests/test_torch_peel.py: each package sets its triangles up itself);
-- the column constants of ``csrc/ordered_common.cuh`` equal to ``_OC_*``.
+- the column constants of ``csrc/ordered_common.cuh`` equal to ``_OC_*``;
+- bands of a frame (``ordered_fixtures.band_cases``: B3 and B4 at a row
+  offset, with triangles ending on the band's and its tiles' edges and a
+  9-deep stack across its top edge): the plain B3's maps and the plain
+  B4's layers, counts and overflow at each skip equal to the same rows of
+  the unbanded frame's bit for bit; the exact tiled pass at the offset
+  equal to the same rows of the unbanded pass bit for bit and to the
+  reference's XLA ``render_pass_tiled`` with ``row0`` within the bounds
+  above.
 
 Kernels B3 and B4 are held against these plain versions on the same cases
 on the card, at tiles 16 and 32, by chip_smoke.py.
@@ -53,7 +61,7 @@ from ckrenderengine_tpu.raster import pallas_ordered as jpo
 from ckrenderengine_tpu_torch.raster import cuda_ordered as co
 from ckrenderengine_tpu_torch.raster import deferred as df
 from ckrenderengine_tpu_torch.raster.ordered_fixtures import (
-    FIELDS, check_expect, ordered_cases,
+    FIELDS, band_cases, check_expect, ordered_cases,
 )
 from ckrenderengine_tpu_torch.raster.types import (
     SF_ALPHAREF, SI_ALPHABLEND, SI_ALPHAFUNC, SI_ALPHATEST, SI_COLORWRITE,
@@ -64,6 +72,9 @@ TILE = 16
 CASES = {c["name"]: c for c in ordered_cases(tile=TILE, kchunk=co.KCHUNK)}
 NAMES = list(CASES)
 WINDOWS = co.WINDOWS
+BANDS = {c["name"]: c for c in band_cases(tile=TILE)}
+BATCH = ("xyw", "z", "color", "specular", "uv", "fog", "state_idx", "valid",
+         "clip_rect", "clipd", "refl")
 
 
 def _assert_close(got, ref):
@@ -271,3 +282,77 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(wrapper):
         with pytest.raises(ValueError, match=match):
             fn(*args)
     assert fn.launches == before
+
+
+def _band_b(c, band: bool):
+    """Phase A + the plain B3 and B4 (at each skip) of a band case, on the
+    band (``band``) or on the whole frame, cut to the band's rows."""
+    row0, h, w = c["row0"], c["h"], c["w"]
+    rows = slice(0, h) if band else slice(row0, row0 + h)
+    fh, r0 = (h, row0) if band else (c["frame_h"], 0)
+    zb = c["zb"] if band else c["zb_frame"]
+    fx = c["fields"]
+    pa = co.phase_a(*(torch.as_tensor(fx[k].copy()) for k in FIELDS),
+                    torch.as_tensor(c["si"]), torch.as_tensor(c["sf"]),
+                    torch.as_tensor(zb), fh, w, TILE, WINDOWS, row0=r0)
+    assert not bool(pa["bad"])
+    geo = (TILE, pa["tiles_x"], pa["tiles_y"], pa["n_planes"])
+    ab = co.blend_phase_b(
+        pa["stream"], pa["starts"], pa["counts"],
+        co._params(c["viewport"], fh, w, c["fog_color"], row0=r0),
+        pa["zplane"], *geo)[:, rows, :w]
+    peel = [tuple(a[..., rows, :w] for a in co.peel_phase_b(
+        pa["stream"], pa["starts"], pa["counts"],
+        co._params(c["viewport"], fh, w, row0=r0), skip, pa["zplane"],
+        *geo)) for skip in c["skips"]]
+    return ab, peel
+
+
+@pytest.mark.parametrize("name", list(BANDS))
+def test_band_blend_and_peel_equal_the_whole_frame(name):
+    c = BANDS[name]
+    ab, peel = _band_b(c, True)
+    ab_w, peel_w = _band_b(c, False)
+    assert torch.equal(ab, ab_w)
+    assert (ab[0] != 1.0).mean(dtype=torch.float32) > 0.05
+    for got, want in zip(peel, peel_w):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    if name == "band_stack":
+        assert int(peel[0][2].max()) >= 9 and bool(peel[1][3].any())
+
+
+@pytest.mark.parametrize("name", list(BANDS))
+def test_band_tiled_pass(name):
+    """The exact tiled ordered pass at a row offset: the same rows as the
+    unbanded pass bit for bit, and the reference's with ``row0``."""
+    from ckrenderengine_tpu.raster import jax_backend as jrb
+    from ckrenderengine_tpu_torch import convert
+    from ckrenderengine_tpu_torch.raster import torch_backend as rb
+
+    c = BANDS[name]
+    row0, h, w = c["row0"], c["h"], c["w"]
+    fx = c["fields"]
+    rng = np.random.default_rng(3)
+    fb_frame = rng.uniform(0, 1, (4, c["frame_h"], w)).astype(np.float32)
+    fb = fb_frame[:, row0:row0 + h]
+    jbatch = jrb.DeviceBatch(*(jnp.asarray(fx[k]) for k in BATCH))
+    batch = convert.batch_from_reference(jbatch)
+    args = (c["si"], c["sf"], np.zeros((1, 4, 2, 2), np.float32),
+            np.asarray([[2, 2]], np.int32),
+            np.asarray(c["fog_color"], np.float32),
+            np.asarray(c["viewport"], np.float32))
+    targs = [torch.as_tensor(a) for a in args]
+    got = rb.render_pass_tiled(torch.as_tensor(fb), torch.as_tensor(c["zb"]),
+                               batch, *targs, tile=16, row0=row0)
+    whole = rb.render_pass_tiled(torch.as_tensor(fb_frame),
+                                 torch.as_tensor(c["zb_frame"]), batch,
+                                 *targs, tile=16)
+    assert torch.equal(got[0], whole[0][:, row0:row0 + h])
+    assert torch.equal(got[1], whole[1][row0:row0 + h])
+    ref = jrb.render_pass_tiled(jnp.asarray(fb), jnp.asarray(c["zb"]),
+                                jbatch, *(jnp.asarray(a) for a in args),
+                                tile=16, row0=float(row0))
+    for a, a_r in zip(got, ref):
+        _assert_close(to_np(a), np.asarray(a_r))
+    assert (to_np(got[0]) != fb).mean() > 0.05

@@ -169,7 +169,7 @@ def test_port_queue_has_no_progressive_mesh_item():
     """Item 16 (progressive meshes) is carried: no key in PORT_QUEUE and no
     ``unported(..., 16)`` in the port. Item 14 keeps only non-DDS image
     files, movie sprites and fonts without a baked glyph table."""
-    assert 16 not in PORT_QUEUE and set(PORT_QUEUE) == {1, 12, 14}
+    assert 16 not in PORT_QUEUE and set(PORT_QUEUE) == {1, 14}
     root = pathlib.Path(ckrenderengine_tpu_torch.__file__).parent
     call = re.compile(r"unported\(((?:[^()]|\([^()]*\))*?),\s*(\d+)\s*\)",
                       re.S)

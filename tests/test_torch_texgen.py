@@ -183,7 +183,7 @@ def test_port_queue_has_no_material_effects_item():
     from ckrenderengine_tpu_torch.roadmap import PORT_QUEUE
 
     assert 9 not in PORT_QUEUE
-    assert set(PORT_QUEUE) == {1, 12, 14}
+    assert set(PORT_QUEUE) == {1, 14}
     root = pathlib.Path(ckrenderengine_tpu_torch.__file__).parent
     cites = re.compile(r"unported\([^()]*(\([^()]*\)[^()]*)*,\s*9\s*\)")
     for path in root.rglob("*.py"):

@@ -16,7 +16,14 @@ kernel can stream them:
   solve in interpret mode: ids exactly, depths and e-planes within the
   bounds of tests/test_torch_tiled.py;
 - the beyond-cap remainder and the re-fetch with a padded row table (one
-  clip plane, pitch 28) against the reference's fused fetch.
+  clip plane, pitch 28) against the reference's fused fetch;
+- bands of a frame (``tiled_fixtures.band_cases``: a solve at a row
+  offset, with triangles ending exactly on the band's and its tiles'
+  edges): phase A's ranges equal to a brute-force binning from row0, the
+  solve's ids equal to the reference's XLA ``tiled.depth_reduce_tiled``
+  with ``row0`` (depths within the bounds above), and ids, depths and
+  e-planes bit-equal to the same rows of the port's unbanded solve, with
+  the default caps and with caps so small that the remainder runs.
 
 Kernels B1 and B5 are held against the plain version on these cases on the
 card by chip_smoke.py.
@@ -36,35 +43,45 @@ from tests._torch_common import (
 from ckrenderengine_tpu.raster import deferred as jdf
 from ckrenderengine_tpu.raster.pallas_tiled import depth_reduce_tiled_pallas
 from ckrenderengine_tpu.raster.tiled import _screen_bbox as ref_screen_bbox
+from ckrenderengine_tpu.raster.tiled import depth_reduce_tiled
 from ckrenderengine_tpu.raster.types import RasterState, pack_states
 from ckrenderengine_tpu_torch import convert
 from ckrenderengine_tpu_torch.raster import cuda_tiled
 from ckrenderengine_tpu_torch.raster.tiled_fixtures import (
-    check_expect, tiled_cases,
+    band_cases, check_expect, tiled_cases,
 )
 
 TILE, KCHUNK = 16, 32
 CASES = {c["name"]: c for c in tiled_cases(tile=TILE, kchunk=KCHUNK,
                                            deep=300)}
 NAMES = list(CASES)
+CASES.update((c["name"], c) for c in band_cases(tile=TILE, kchunk=KCHUNK))
+BANDS = [n for n in CASES if "row0" in CASES[n]]
 
 
 def _np(d):
     return {k: np.asarray(v) for k, v in d.items()}
 
 
-@functools.lru_cache(maxsize=None)
-def _reference(name):
-    """(reference setup, its solve's (ids, depth, binstats, e-planes))."""
-    c = CASES[name]
+def _reference_setup(c):
     t = c["xyw"].shape[0]
     si, _sf = pack_states([RasterState()])
-    setup = jdf.triangle_setup(
+    return jdf.triangle_setup(
         jnp.asarray(c["xyw"]), jnp.asarray(c["z"]), jnp.zeros(t, jnp.int32),
         jnp.ones(t, bool), jnp.asarray(si),
         clip_rect=None if c["clip_rect"] is None
         else jnp.asarray(c["clip_rect"]),
         clipd=None if c["clipd"] is None else jnp.asarray(c["clipd"]))
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(name):
+    """(reference setup, its solve's (ids, depth, binstats, e-planes))."""
+    c = CASES[name]
+    setup = _reference_setup(c)
+    if "row0" in c:
+        return _np(setup), None
+    t = c["xyw"].shape[0]
     out = depth_reduce_tiled_pallas(
         setup, jnp.ones(t, bool), 1.0, jnp.asarray(c["viewport"],
                                                    jnp.float32),
@@ -119,9 +136,11 @@ def _reference_rows(setup, t):
 def _reference_bins(c, setup, tile, max_span=2, span2=16, g_cap=8192,
                     slab_cap=131072, **_):
     """(counts (ty, tx), leftn) by brute force from the reference's bbox
-    and its classification (pallas_tiled.py:454-494, 644-664)."""
+    and its classification (pallas_tiled.py:454-494, 644-664; a band's
+    rows from its row0, reference tiled.py:306-311)."""
     t = c["xyw"].shape[0]
     h, w = c["h"], c["w"]
+    row0 = c.get("row0", 0)
     ty_n, tx_n = -(-h // tile), -(-w // tile)
     x0, y0, x1, y1, unb, empty = (np.asarray(a) for a in ref_screen_bbox(
         jnp.asarray(c["xyw"]), jnp.asarray(setup["z"])))
@@ -129,9 +148,10 @@ def _reference_bins(c, setup, tile, max_span=2, span2=16, g_cap=8192,
     def tidx(v, n):
         return np.clip(np.floor(v / tile), 0, n - 1).astype(np.int64)
 
-    tx0, tx1, ty0, ty1 = tidx(x0, tx_n), tidx(x1, tx_n), tidx(y0, ty_n), \
-        tidx(y1, ty_n)
-    off = (x1 < 0) | (x0 >= w) | (y1 < 0) | (y0 >= h) | empty
+    tx0, tx1 = tidx(x0, tx_n), tidx(x1, tx_n)
+    ty0, ty1 = tidx(y0 - np.float32(row0), ty_n), tidx(y1 - np.float32(row0),
+                                                        ty_n)
+    off = (x1 < 0) | (x0 >= w) | (y1 < row0) | (y0 >= row0 + h) | empty
     span = (tx1 - tx0 + 1) * (ty1 - ty0 + 1)
     live = setup["valid"] & ~off
     small = live & ~unb & (span <= max_span)
@@ -267,3 +287,50 @@ def test_remainder_and_refetch_read_the_padded_table(caps):
         a["sbase"], vp, c["w"], c["h"], init, TILE, a["tiles_x"],
         a["tiles_y"], a["n_planes"], False)[1][:c["h"], :c["w"]]
     assert (to_np(part) != bi_g).any()
+
+
+@pytest.mark.parametrize("caps", [{}, dict(max_span=2, span2=4, g_cap=16,
+                                          slab_cap=64, pair_cap=64)],
+                         ids=["caps", "remainder"])
+@pytest.mark.parametrize("name", BANDS)
+def test_band_solve(name, caps):
+    """A band of a frame: phase A's ranges from row0 equal to the brute
+    force binning (every triangle whose bbox ends on the band's top edge
+    or on a tile edge lands where it must); ids equal to the reference's
+    XLA solve with ``row0``, depths within the bounds of
+    ``assert_depth_close``; ids, depths and e-planes equal to the same rows
+    of the port's unbanded solve bit for bit."""
+    c = CASES[name]
+    row0, h, w = c["row0"], c["h"], c["w"]
+    setup, _ = _reference(name)
+    setup_t, defer, vp, xyw = _port_inputs(name)
+    kw = dict(c["caps"], **caps)
+    if not caps:                    # (pair_cap cuts are not brute-forced)
+        a = cuda_tiled.phase_a(setup_t, defer, vp, xyw, h, w, row0=row0,
+                               **kw)
+        counts_r, leftn_r = _reference_bins(c, setup, **kw)
+        np.testing.assert_array_equal(
+            to_np(a["counts"]).reshape(a["tiles_y"], a["tiles_x"]),
+            counts_r)
+        np.testing.assert_array_equal(to_np(a["leftn"]), leftn_r)
+    got = cuda_tiled.depth_reduce_tiled_cuda(
+        setup_t, defer, 1.0, vp, xyw, h, w, want_eplanes=True,
+        want_binstats=True, row0=row0, **kw)
+    whole = cuda_tiled.depth_reduce_tiled_cuda(
+        setup_t, defer, 1.0, vp, xyw, c["frame_h"], w, want_eplanes=True,
+        **kw)
+    rows = slice(row0, row0 + h)
+    assert torch.equal(got[0], whole[0][rows])
+    assert torch.equal(got[1], whole[1][rows])
+    assert torch.equal(got[3], whole[3][:, rows])
+    if caps:
+        assert to_np(got[2])[2:5].sum() > 0       # a remainder ran
+    bi_r, bd_r, _peak = depth_reduce_tiled(
+        {k: jnp.asarray(v) for k, v in setup.items()},
+        jnp.ones(xyw.shape[0], bool), 1.0,
+        jnp.asarray(c["viewport"], jnp.float32), jnp.asarray(c["xyw"]), h,
+        w, tile=TILE, row0=float(row0))
+    bi_g = to_np(got[0])
+    np.testing.assert_array_equal(bi_g, np.asarray(bi_r))
+    assert_depth_close(to_np(got[1]), np.asarray(bd_r), bi_g, setup)
+    assert (bi_g >= 0).mean() > 0.1
