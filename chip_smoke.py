@@ -127,6 +127,17 @@ PNGs decoded with zlib equal to ``BackToFront()`` and the buffers; a
 ``CopyObject`` clone of a ball equal to one built by hand; save and load
 seconds, the file's size, DXT decode host ms per MiB, ``CreatePM`` and
 ``SetPMVertexCount`` host ms),
+reads image files with the port's own readers and renders a level
+textured from them (``scenes.build_config5_images``: config 5 with a
+512x512 JPEG checker, 256x256 BMP sphere skins, a palette-PNG plaza, 12
+alpha-over signs from an RLE TGA and two HUD movie sprites, an animated
+GIF and an APNG; the ``images`` phase: every file of
+``tests/torch_images/`` decoded equal to Pillow's decode in
+``expected.npz``, host ms per decoded MiB of each reader, 3 ticks with
+``SetMovieTime`` with B1 once and B4 once per peel round, B1 and B4 equal
+to their plain versions at the first frame's inputs, and the same level
+built with ``SetImage`` of the expected arrays bit-equal over the 3
+ticks),
 renders one frame in horizontal bands (the ``bands`` phase:
 ``SetTileSharding`` over a mesh naming card 0 once per band, every banded
 frame bit-equal to the unbanded one: config 5 in 4 bands of 192 rows,
@@ -1005,6 +1016,10 @@ def main() -> int:
     # --- 4m. scene IO: the DXT-textured, progressive-mesh level reloaded ---
     io = io_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4m2. image files: the level textured from PNG, BMP, TGA, JPEG, --
+    # GIF and APNG files read by the port's own readers
+    images = images_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 4n. framebuffer bands: one frame over a mesh of card 0 ----------
     bands = bands_phase(O, scenes, fr, kernel_fns, launches, card, configs,
                         aa)
@@ -1231,6 +1246,12 @@ def main() -> int:
             k["config5_io"] = {"ms": io[key][0], "plain_ms": io[key][1],
                                "bound_ms": io[key][2]["bound_ms"],
                                "bound_by": io[key][2]["bound_by"]}
+        if key in images:
+            # B1 at the image level's first frame, B4 at its signs.
+            k["config5_images"] = {
+                "ms": images[key][0], "plain_ms": images[key][1],
+                "bound_ms": images[key][2]["bound_ms"],
+                "bound_by": images[key][2]["bound_by"]}
         for suffix, label in (("", "bands"), ("_aa", "bands_aa")):
             b = bands["ms"].get(key + suffix)
             if b is not None:
@@ -1275,7 +1296,8 @@ def main() -> int:
         # needs, or the timing is wrong.
         for t in (k, k["antialias"], k.get("config5_fx", k),
                   k.get("config5_mat", k), k.get("config5_shaded", k),
-                  k.get("config5_io", k), k.get("bands", k),
+                  k.get("config5_io", k), k.get("config5_images", k),
+                  k.get("bands", k),
                   k.get("bands_aa", k)):
             check(t["ms"] >= t["bound_ms"],
                   f"{k['name']}: {t['ms']} ms is below its bound "
@@ -2857,6 +2879,186 @@ def io_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     emit("io", **res)
     emit("io_phase", seconds=round(seconds, 1), card=card)
     return {"B1": rows["B1"], "B5": rows["B5"], "B4": b4}
+
+
+# Image files: config 5 textured from the files of tests/torch_images/.
+IMAGES_SIZE = (1024, 768)
+IMAGES_TICKS = 3
+
+
+def expected_images(scenes) -> dict:
+    """``tests/torch_images/expected.npz`` as {file name: (list of RGBA
+    uint8 frames, list of durations in ms)}: Pillow's decode of each file,
+    made by ``make_images.py`` where Pillow is installed."""
+    e = np.load(os.path.join(scenes.IMAGE_DIR, "expected.npz"))
+    out = {}
+    for name in sorted({k.rsplit(":", 1)[0] for k in e.files}):
+        n = sum(1 for k in e.files if k.startswith(name + ":")) - 1
+        out[name] = ([e[f"{name}:{k}"] for k in range(n)],
+                     e[f"{name}:durations"].tolist())
+    return out
+
+
+def movie_sprite_checks(tag, ctx, rc, scenes, expected) -> list:
+    """Each HUD movie sprite of ``scenes.build_config5_images`` (a 64x64
+    rect at 1:1, so each pixel centre samples one texel) must show the
+    frame of the slot SetMovieTime chose: at every pixel that frame holds
+    opaque, ``rc.fb`` equals the frame's RGB / 255 exactly (the composite
+    gives ``texel * 1 + dst * 0`` there). Those pixels must tell the frame
+    from each other frame of the movie, so that a stale frame fails.
+    Returns the slots."""
+    slots = []
+    for name, fname in scenes.MOVIE_FILES.items():
+        sp = ctx.GetObjectByName(name)
+        slot = sp.GetCurrentSlot()
+        x0, y0, x1, y1 = (int(v) for v in sp.GetRect())
+        frames = expected[fname][0]
+        want = torch.from_numpy(frames[slot]).to(rc.fb.device)
+        opaque = want[..., 3] == 255
+        # RGB / 255 on the host, as the sprite's slots were set.
+        rgb = torch.from_numpy(frames[slot][..., :3].astype(np.float32)
+                               / 255.0).to(rc.fb.device)
+        got = rc.fb[:3, y0:y1, x0:x1].permute(1, 2, 0)
+        err = (got[opaque] - rgb[opaque]).abs()
+        check(bool(opaque.any()) and not bool(err.any()),
+              f"{tag}: sprite {name} does not show frame {slot} of "
+              f"{fname} at its opaque pixels: {int((err > 0).sum())} "
+              f"values differ, by up to {float(err.max()):.3g}")
+        for k, other in enumerate(frames):
+            o = torch.from_numpy(other[..., :3]).to(rc.fb.device)
+            check(k == slot or bool((o[opaque] != want[..., :3][opaque])
+                                    .any()),
+                  f"{tag}: frames {slot} and {k} of {fname} agree at "
+                  f"frame {slot}'s opaque pixels")
+        slots.append(slot)
+    return slots
+
+
+def images_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """Image files through the port's readers and a level textured from
+    them, on the card: ``scenes.build_config5_images`` at 1024x768
+    (config 5's 528,032 terrain triangles; its checker a 512x512 4:2:0
+    JPEG, the spheres' skin a 256x256 24-bit BMP, a plaza from an 8-bit
+    palette PNG with tRNS, 12 alpha-over signs from a 256x256 32-bit RLE
+    TGA, and two HUD sprites playing an animated GIF and an APNG).
+
+    - Every file of ``tests/torch_images/`` decoded by the port's readers
+      (``io/imagefile.py``) equal to ``expected.npz``, every frame and
+      every duration; host ms per decoded MiB of each reader (best of 3,
+      on the card machine's host).
+    - 3 ticks of the level (each stepping both movies with
+      ``SetMovieTime``): B1 once per frame, B4 once per peel round,
+      nothing else; B1 and B4 equal to their plain versions at the first
+      frame's inputs (``time_rows``, ``time_ordered``); each HUD sprite
+      showing the frame of its slot (``movie_sprite_checks``), and each
+      sprite's slot moving over the ticks.
+    - The same level built with ``SetImage`` of the expected arrays in
+      place of ``LoadImage`` / ``LoadMovie``: its 3 frames bit-equal, fb
+      and zb, to the loaded level's, and its sprites showing the same
+      slots' frames.
+    - The phase's seconds, device ms and launches per frame
+      (torch.profiler).
+    """
+    from ckrenderengine_tpu_torch.io import imagefile
+    from ckrenderengine_tpu_torch.raster import (
+        cuda_ordered as co, cuda_tiled,
+    )
+    from ckrenderengine_tpu_torch.raster import deferred as df
+
+    t_phase = time.monotonic()
+    expected = expected_images(scenes)
+    check(set(expected) == set(os.listdir(scenes.IMAGE_DIR))
+          - {"expected.npz", "make_images.py"},
+          f"images: expected.npz holds {sorted(expected)}")
+    decode, totals = {}, {}
+    for name, (want, durations) in expected.items():
+        path = os.path.join(scenes.IMAGE_DIR, name)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            it = imagefile.frames(path)
+            got = [(imagefile.to_rgba(*f), float(f.info.get("duration",
+                                                           100.0)))
+                   for f in it]
+            best = min(best, time.perf_counter() - t0)
+        check(len(got) == len(want) and all(
+            np.array_equal(g, w) for (g, _d), w in zip(got, want)),
+            f"images: {name} differs from expected.npz")
+        check([d for _g, d in got] == durations,
+              f"images: {name} durations {[d for _g, d in got]}, "
+              f"expected {durations}")
+        mib = sum(g.nbytes for g, _d in got) / 2**20
+        # The reader imagefile picked by the file's content: each is a
+        # generator function named read_<format>.
+        reader = it.__name__.removeprefix("read_")
+        decode[name] = {"reader": reader, "frames": len(got),
+                        "decoded_mib": mib, "host_ms": best * 1e3}
+        ms, total = totals.get(reader, (0.0, 0.0))
+        totals[reader] = (ms + best * 1e3, total + mib)
+    per_mib = {r: ms / mib for r, (ms, mib) in totals.items()}
+    emit("images_decode", card=card, host_ms_per_decoded_mib=per_mib,
+         files=decode)
+
+    t0 = time.monotonic()
+    ctx, rc, _spinner, tick = scenes.build_config5_images(
+        O, *IMAGES_SIZE, device="cuda")
+    build_s = time.monotonic() - t0
+    want = lambda got: (got["B1"] == 1 and got["B4"] >= 1 and got["B2"] == 0
+                        and got["B3"] == 0 and got["B5"] == 0)
+    frames, ticks = [], []
+    for k in range(IMAGES_TICKS):
+        tick()
+        got = render_counted(rc, kernel_fns, launches)
+        s = rc.GetStats()
+        check(want(got["launches"]) and got["launches"]["B4"]
+              == s.OrderedPeelRounds and s.OrderedReplays == 0,
+              f"config5_images tick {k}: launches {got['launches']}")
+        frame_checks(f"config5_images_tick{k}", rc)
+        frames.append((rc.fb.clone(), rc.zb.clone()))
+        ticks.append({**got, "movie_slots": movie_sprite_checks(
+            f"config5_images tick {k}", ctx, rc, scenes, expected)})
+        if k == 0:
+            # The kernels at the first frame's inputs against their plain
+            # versions.
+            rows = time_rows("config5_images", rc, None, card, fr,
+                             cuda_tiled, df, plain=False)
+            b4 = time_ordered("config5_images", "B4", rc, None, card, fr,
+                              co)
+    for i, name in enumerate(scenes.MOVIE_FILES):
+        check(len({t["movie_slots"][i] for t in ticks}) > 1,
+              f"config5_images: sprite {name} showed one slot in "
+              f"{IMAGES_TICKS} ticks")
+    prof = profile_frames(rc, tick, IO_PROFILED)
+
+    t0 = time.monotonic()
+    c2, rc2, _s2, tick2 = scenes.build_config5_images(
+        O, *IMAGES_SIZE, decoded=expected, device="cuda")
+    twin_build_s = time.monotonic() - t0
+    differ = []
+    for k in range(IMAGES_TICKS):
+        tick2()
+        got = render_counted(rc2, kernel_fns, launches)
+        check(got["launches"] == ticks[k]["launches"],
+              f"config5_images SetImage twin tick {k}: launches "
+              f"{got['launches']}, loaded {ticks[k]['launches']}")
+        check(movie_sprite_checks(f"config5_images SetImage twin tick {k}",
+                                  c2, rc2, scenes, expected)
+              == ticks[k]["movie_slots"],
+              f"config5_images SetImage twin tick {k}: movie slots")
+        fb, zb = frames[k]
+        differ.append(int(((rc2.fb != fb).any(0) | (rc2.zb != zb)).sum()))
+    check(not any(differ), f"config5_images: the SetImage level's frames "
+          f"differ from the loaded level's on {differ} pixels")
+
+    seconds = time.monotonic() - t_phase
+    emit("images", card=card, size=list(IMAGES_SIZE),
+         triangles=int(rc._compiled.n_valid_tris),
+         ordered_triangles=int(rc._compiled.ordered_cap),
+         build_s=round(build_s, 3), twin_build_s=round(twin_build_s, 3),
+         ticks=ticks, **prof, pixels_that_differ=differ,
+         phase_s=round(seconds, 3))
+    emit("images_phase", seconds=round(seconds, 1), card=card)
+    return {"B1": rows["B1"], "B4": b4}
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

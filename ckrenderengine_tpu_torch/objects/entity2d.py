@@ -357,9 +357,35 @@ class CKSprite(CK2dEntity):
         return True
 
     def LoadMovie(self, path: str) -> bool:
-        """Movie sprites (reference RCKSprite movie load): decoding image
-        sequences and video containers is scene IO, not carried yet."""
-        raise unported("movie sprites (LoadMovie)", 14)
+        """Movie sprites (reference RCKSprite movie load): the frames of an
+        animated GIF, an APNG, a multi-page TIFF or a still image (one
+        frame of 100 ms) into image slots, each frame the RGBA of the
+        reference's ``ImageSequence.Iterator``, its duration (ms) kept for
+        SetMovieTime. False for a missing file, as in the reference. The
+        reference reads every other file with OpenCV (video containers):
+        such a file raises (item 14)."""
+        from ..io.imagefile import Refused, frames, to_rgba
+
+        def video():
+            return unported("movie sprites from video containers "
+                            "(LoadMovie)", 14)
+        try:
+            it = frames(path)
+        except NotImplementedError:         # no reader takes the file
+            raise video() from None
+        if it is None:
+            return False
+        try:
+            got = [(to_rgba(*fr), float(fr.info.get("duration", 100.0)))
+                   for fr in it]
+        except Refused:
+            raise video() from None
+        self._movie_durations = []
+        for n, (rgba, duration) in enumerate(got):
+            self.SetImage(rgba.astype(np.float32) / 255.0, slot=n)
+            self._movie_durations.append(duration)
+        self.SetCurrentSlot(0)
+        return True
 
     def GetMovieFrameCount(self) -> int:
         return len(getattr(self, "_movie_durations", ()))

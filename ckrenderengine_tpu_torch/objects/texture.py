@@ -195,19 +195,25 @@ class CKTexture(CKObject):
         CKBitmapData file readers). DDS containers (DXT1/3/5 or masked RGB)
         decode through io/dds.py, matching the reference's compressed-
         texture ingestion (CKDX9RasterizerContext::LoadTexture incl.
-        mipmaps); shipped mip chains become user mip levels. The reference
-        reads every other file through Pillow, which this package does not
-        use: such a file raises; a missing file returns False, as in the
-        reference."""
+        mipmaps); shipped mip chains become user mip levels. Every other
+        file goes through the readers of io/imagefile.py, which give the
+        RGBA bytes of the reference's ``Image.open(path).convert("RGBA")``.
+        Returns False where the reference does: a missing file, or a file
+        that Pillow refuses with ``OSError``; a file no reader takes raises
+        (item 14)."""
         try:
             with open(path, "rb") as f:
                 head = f.read(4)
         except OSError:
             return False
         if head != b"DDS ":
-            from ..roadmap import unported
-            raise unported("image file loading (LoadImage) of non-DDS "
-                           "files", 14)
+            from ..io.imagefile import open_image, to_rgba
+            frame = open_image(path)
+            if frame is False:
+                return False
+            rgba = to_rgba(*frame)
+            self.SetImage(rgba.astype(np.float32) / 255.0, slot=slot)
+            return True
         import struct
 
         from ..io.dds import load_dds

@@ -10,8 +10,12 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    14: "image files other than DDS (LoadImage), movie sprites (LoadMovie), "
-        "and fonts, sizes or characters without a baked glyph table",
+    14: "fonts, sizes or characters without a baked glyph table; movie "
+        "sprites from video containers (LoadMovie); and the image formats "
+        "and variants the readers of io/imagefile.py refuse (WebP, JPEG "
+        "2000, ICO, PCX, PPM, PSD and other formats; CMYK, arithmetic, "
+        "12-bit and lossless JPEG; TIFF other than 8-bit L, LA, P, RGB, "
+        "RGBA, or compressed other than PackBits, LZW and Deflate)",
 }
 
 

@@ -1722,6 +1722,129 @@ def build_config5_io(O, width: int = 1024, height: int = 768,
     return ctx, rc, spinner
 
 
+# The image files of build_config5_images, written by
+# tests/torch_images/make_images.py.
+IMAGE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "torch_images")
+IMAGE_FILES = {"checker": "terrain_checker.jpg",
+               "ball_skin": "sphere_skin.bmp",
+               "plaza_tex": "plaza_palette.png",
+               "sign_tex": "sign_alpha.tga"}
+MOVIE_FILES = {"hud_gif": "hud_movie.gif", "hud_apng": "hud_movie_apng.png"}
+MOVIE_STEP_MS = 55.0          # SetMovieTime advance per tick
+
+
+def build_config5_images(O, width: int = 1024, height: int = 768,
+                         image_dir: str = IMAGE_DIR, terrain_n: int = 500,
+                         n_balls: int = 64, n_signs: int = 12,
+                         seed: int = 23, decoded: dict | None = None,
+                         antialias: bool = False, **ctx_kw):
+    """Config 5 (:func:`build_config5`) with its textures loaded from image
+    files at Ballance's sizes (``IMAGE_FILES`` and ``MOVIE_FILES`` in
+    ``image_dir``):
+
+    - the terrain's ``checker``: a 512x512 4:2:0 JPEG of quality 85;
+    - the spheres' ``ball_skin``: a 256x256 24-bit BMP;
+    - ``plaza_tex``: an 8-bit palette PNG with tRNS, 128x128, on an opaque
+      4x4 quad plaza in front of the camera;
+    - ``n_signs`` alpha-over (z-write off) signs of 2x2 quads with
+      ``sign_tex``, a 256x256 32-bit RLE TGA whose alpha is a gradient;
+      with the TexturedPeel option on, their ordered triangles take the
+      peel (B4) above the flat size, as ``build_config5_io``'s signs do;
+    - two HUD ``CKSprite`` movies: ``hud_gif`` (a 64x64 animated GIF: 3
+      frames, local palettes, a transparent index, disposal 2, 40/60/100
+      ms) and ``hud_apng`` (a 64x64 APNG of 3 frames blended over).
+
+    Textures load through ``LoadImage`` and the sprites through
+    ``LoadMovie``; with ``decoded`` ({file name: (list of (H, W, 4) uint8
+    frames, list of durations in ms)}) the same level is built with
+    ``SetImage`` of those frames instead. Returns (ctx, rc, spinner,
+    tick); ``tick()`` turns the spinner and steps both movies by
+    ``MOVIE_STEP_MS`` through ``SetMovieTime``."""
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, antialias=antialias,
+                                     **ctx_kw)
+    ctx.GetRenderManager().SetRenderOptions("TexturedPeel", 1)
+    rng = np.random.default_rng(seed)
+
+    def image(tex, name):
+        if decoded is None:
+            path = os.path.join(image_dir, name)
+            if not tex.LoadImage(path):
+                raise RuntimeError(f"LoadImage refused {path}")
+        else:
+            tex.SetImage(decoded[name][0][0].astype(np.float32) / 255.0)
+
+    textures = {"checker": ctx.GetObjectByName("checker")}
+    for name in ("ball_skin", "plaza_tex", "sign_tex"):
+        textures[name] = O.CKTexture(ctx, name)
+    for key, tex in textures.items():
+        image(tex, IMAGE_FILES[key])
+    ctx.GetObjectByName("spheremat").SetTexture(textures["ball_skin"])
+
+    plaza_mat = O.CKMaterial(ctx, "plazamat")
+    plaza_mat.SetDiffuse((0.9, 0.9, 0.9, 1.0))
+    plaza_mat.SetTexture(textures["plaza_tex"])
+    pts, uv, faces = make_grid(4, (-20.0, 0.0, -30.0), (40.0, 0.0, 0.0),
+                               (0.0, 0.0, 24.0))
+    pts[:, 1] = _terrain_height(pts[:, 0], pts[:, 2]) + 0.6
+    plaza_mesh = O.CKMesh(ctx, "plaza")
+    plaza_mesh.SetPositions(pts.astype(np.float32))
+    plaza_mesh.SetUVs(uv)
+    plaza_mesh.SetFaces(faces)
+    plaza_mesh.BuildNormals()
+    plaza_mesh.ApplyGlobalMaterial(plaza_mat)
+    plaza = O.CK3dObject(ctx, "plaza")
+    plaza.SetCurrentMesh(plaza_mesh)
+    place_main = ctx.GetObjectByName("place_main")
+    plaza.SetParent(place_main)
+
+    sign_mat = _fx_material(O, ctx, "signmat", (1.0, 1.0, 1.0, 1.0),
+                            texture=textures["sign_tex"])
+    sign_mat.SetTwoSided(True)
+    pts, uv, faces = make_grid(2, (-4.0, -2.5, 0.0), (8.0, 0.0, 0.0),
+                               (0.0, 5.0, 0.0))
+    sign_mesh = O.CKMesh(ctx, "sign")
+    sign_mesh.SetPositions(pts)
+    sign_mesh.SetUVs(uv)
+    sign_mesh.SetFaces(faces)
+    sign_mesh.BuildNormals()
+    sign_mesh.ApplyGlobalMaterial(sign_mat)
+    for i in range(n_signs):
+        x = -30.0 + (i % 4) * 20.0 + rng.uniform(-3.0, 3.0)
+        z = -25.0 + (i // 4) * 18.0 + rng.uniform(-3.0, 3.0)
+        sign = O.CK3dObject(ctx, f"sign{i}")
+        sign.SetCurrentMesh(sign_mesh)
+        sign.SetParent(place_main)
+        sign.SetPosition((x, float(_terrain_height(x, z)) + 4.0, z))
+
+    movies = []
+    for i, (name, fname) in enumerate(MOVIE_FILES.items()):
+        sp = O.CKSprite(ctx, name)
+        if decoded is None:
+            path = os.path.join(image_dir, fname)
+            if not sp.LoadMovie(path):
+                raise RuntimeError(f"LoadMovie refused {path}")
+        else:
+            frames, durations = decoded[fname]
+            for k, f in enumerate(frames):
+                sp.SetImage(f.astype(np.float32) / 255.0, slot=k)
+            sp._movie_durations = [float(d) for d in durations]
+            sp.SetCurrentSlot(0)
+        x0 = 8 + 72 * i
+        sp.SetRect((x0, 8, x0 + 64, 72))
+        movies.append(sp)
+    state = {"t": 0.0}
+
+    def tick():
+        spinner.Rotate((0, 1, 0), 0.02)
+        state["t"] += MOVIE_STEP_MS
+        for sp in movies:
+            sp.SetMovieTime(state["t"])
+
+    return ctx, rc, spinner, tick
+
+
 def load_level(O, path: str, rc, **ctx_kw):
     """Load the scene file ``path`` into a fresh ``O.CKContext(**ctx_kw)``
     (``Load``). A scene file holds objects, not the render manager or its

@@ -10,8 +10,9 @@ the CPU.
 - ``load_dds`` array-equal to the reference's on DXT files with mip chains
   down to 1x1, and on masked uncompressed 16-, 24- and 32-bit files.
 - ``CKTexture.LoadImage`` (DDS: level 0 plus user mip levels) and
-  ``SetCompressedImage`` hold the same images as the reference's; a
-  non-DDS file raises item 14, a missing one returns False.
+  ``SetCompressedImage`` hold the same images as the reference's; a WebP
+  file (a format the port's readers refuse) raises item 14, a missing one
+  returns False.
 - A DDS-textured quad at 64x64 (the reference's
   tests/test_dds.py:146 scene, the flat route) within ``ATOL`` of the
   reference's frame.
@@ -128,8 +129,9 @@ def test_texture_image_api_equals_the_reference(tmp_path):
     path.write_bytes(scenes.dds_file(
         8, 8, "DXT5", [_blocks("DXT5", 8, 8, 1), _blocks("DXT5", 4, 4, 2),
                        _blocks("DXT5", 2, 2, 3), _blocks("DXT5", 1, 1, 4)]))
-    other = tmp_path / "image.png"
-    other.write_bytes(b"\x89PNG\r\n\x1a\n" + b"\0" * 32)
+    from PIL import Image
+    other = tmp_path / "image.webp"
+    Image.new("RGB", (8, 8), (40, 90, 160)).save(other, "WEBP")
     dxt3 = _blocks("DXT3", 12, 8, 6)
     out = []
     for P in (O, J):
@@ -144,7 +146,7 @@ def test_texture_image_api_equals_the_reference(tmp_path):
         out.append((tex.slots[0], tex.user_mip_levels, skin.slots[1]))
         if P is O:
             with pytest.raises(NotImplementedError,
-                               match="non-DDS.*item 14"):
+                               match="format.*not read.*item 14"):
                 tex.LoadImage(str(other))
     (t0, tm, ts), (j0, jm, js) = out
     np.testing.assert_array_equal(t0, j0)

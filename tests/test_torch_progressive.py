@@ -167,8 +167,9 @@ def test_low_lod_frame_matches_the_reference():
 
 def test_port_queue_has_no_progressive_mesh_item():
     """Item 16 (progressive meshes) is carried: no key in PORT_QUEUE and no
-    ``unported(..., 16)`` in the port. Item 14 keeps only non-DDS image
-    files, movie sprites and fonts without a baked glyph table."""
+    ``unported(..., 16)`` in the port. Item 14 keeps only movie sprites
+    from video containers, fonts without a baked glyph table and the image
+    variants the readers refuse (one call, ``imagefile.unsupported``)."""
     assert 16 not in PORT_QUEUE and set(PORT_QUEUE) == {1, 14}
     root = pathlib.Path(ckrenderengine_tpu_torch.__file__).parent
     call = re.compile(r"unported\(((?:[^()]|\([^()]*\))*?),\s*(\d+)\s*\)",
@@ -179,7 +180,8 @@ def test_port_queue_has_no_progressive_mesh_item():
             cites.setdefault(int(item), []).append((path.name, what))
     assert 16 not in cites
     kept = sorted(name for name, _ in cites[14])
-    assert kept == ["entity2d.py"] * 4 + ["texture.py"], cites[14]
+    assert kept == ["entity2d.py"] * 4 + ["imagefile.py"], cites[14]
     texts = " ".join(what for _, what in cites[14])
-    for word in ("non-DDS", "LoadMovie", "font", "character", "ligature"):
+    for word in ("image files", "video containers", "font", "character",
+                 "ligature"):
         assert word in texts, word
