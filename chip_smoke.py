@@ -138,6 +138,19 @@ GIF and an APNG; the ``images`` phase: every file of
 to their plain versions at the first frame's inputs, and the same level
 built with ``SetImage`` of the expected arrays bit-equal over the 3
 ticks),
+letters a HUD in TrueType faces with the port's own font stack
+(``text/``) and renders the level under it
+(``scenes.build_config5_text``: config 5 under eight ``CKSpriteText``
+labels in the DejaVu faces of ``tests/torch_fonts/`` at sizes 9 to 48,
+ligatures, kerning, Latin-1, Greek, Cyrillic and a score that changes
+every tick; the ``fonts`` phase: the faces' SHA-256 against the fixtures',
+the 126 rasters and text boxes of ``expected.npz`` drawn by
+``CKSpriteText`` bit-equal to Pillow's, every glyph of
+``glyphs_dejavu.npz`` redrawn equal, 3 ticks with B1 once per tick and
+every label's texture equal to Pillow's raster, B1 equal to its plain
+version at the first frame's inputs, and the same HUD set by ``SetImage``
+bit-equal over the 3 ticks; host ms per raster by size, µs per glyph of
+hinting and of rasterising, the glyph caches' bytes),
 renders one frame in horizontal bands (the ``bands`` phase:
 ``SetTileSharding`` over a mesh naming card 0 once per band, every banded
 frame bit-equal to the unbanded one: config 5 in 4 bands of 192 rows,
@@ -1020,6 +1033,10 @@ def main() -> int:
     # GIF and APNG files read by the port's own readers
     images = images_phase(O, scenes, fr, kernel_fns, launches, card)
 
+    # --- 4m3. TrueType text: the port's font stack against Pillow's ------
+    # bytes, and the level under a HUD lettered with it
+    fonts = fonts_phase(O, scenes, fr, kernel_fns, launches, card)
+
     # --- 4n. framebuffer bands: one frame over a mesh of card 0 ----------
     bands = bands_phase(O, scenes, fr, kernel_fns, launches, card, configs,
                         aa)
@@ -1252,6 +1269,12 @@ def main() -> int:
                 "ms": images[key][0], "plain_ms": images[key][1],
                 "bound_ms": images[key][2]["bound_ms"],
                 "bound_by": images[key][2]["bound_by"]}
+        if key in fonts:
+            # B1 at the lettered level's first frame.
+            k["config5_text"] = {
+                "ms": fonts[key][0], "plain_ms": fonts[key][1],
+                "bound_ms": fonts[key][2]["bound_ms"],
+                "bound_by": fonts[key][2]["bound_by"]}
         for suffix, label in (("", "bands"), ("_aa", "bands_aa")):
             b = bands["ms"].get(key + suffix)
             if b is not None:
@@ -3059,6 +3082,229 @@ def images_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
          phase_s=round(seconds, 3))
     emit("images_phase", seconds=round(seconds, 1), card=card)
     return {"B1": rows["B1"], "B4": b4}
+
+
+FONTS_SIZE = (1024, 768)
+FONTS_TICKS = 3
+GLYPH_PEN = 32                 # make_glyph_table.py's pen position
+
+
+def named_glyphs(te2) -> str:
+    """``glyphs_dejavu.npz``: DejaVu Sans and Sans Mono at six sizes,
+    baked from Pillow by ``make_glyph_table.py`` (a fixture, not read by
+    the package)."""
+    return os.path.join(os.path.dirname(te2.__file__), "glyphs_dejavu.npz")
+
+
+def expected_fonts(scenes):
+    """``tests/torch_fonts/expected.npz``: Pillow's rasters and text boxes
+    (made by ``make_fonts.py`` where Pillow is installed)."""
+    return np.load(os.path.join(scenes.FONT_DIR, "expected.npz"))
+
+
+def hud_rasters(e) -> dict:
+    """The HUD rasters of ``expected.npz`` as ``build_config5_text`` takes
+    them: {label name or "score:<k>": (H, W, 4) uint8}."""
+    return {k[len("hud:"):]: e[k] for k in e.files if k.startswith("hud:")}
+
+
+def font_sweep(O, scenes, e, card) -> dict:
+    """Every (face, size, string) of ``expected.npz`` through
+    ``CKSpriteText.Redraw()`` on a card context: the image equal to
+    Pillow's bytes, the text box to ``textbbox``. Returns host ms per
+    raster by size (the first raster of a face and size hints and
+    rasterises its glyphs)."""
+    from ckrenderengine_tpu_torch.objects import entity2d as te2
+
+    ctx = O.CKContext(device="cuda")
+    ms = {}
+    for i in range(len(e["sweep_face"])):
+        face = str(e["faces"][e["sweep_face"][i]])
+        path = os.path.join(scenes.FONT_DIR, face)
+        size, text = int(e["sweep_size"][i]), str(e["sweep_text"][i])
+        w, h = (int(v) for v in e["sweep_wh"][i])
+        sp = O.CKSpriteText(ctx, f"sweep{i}")
+        sp.Create(w, h)
+        sp.SetFont(path, size)
+        sp.SetAlign(int(e["sweep_align"][i]))
+        sp.SetTextColor(e["sweep_fg"][i])
+        sp.SetBackgroundTextColor(e["sweep_bg"][i])
+        sp.SetText(text)
+        t0 = time.perf_counter()
+        got = sp.Redraw().GetImage()
+        ms.setdefault(size, []).append((time.perf_counter() - t0) * 1e3)
+        want = e[f"sweep:{i}"].astype(np.float32) / 255.0
+        check(got.shape == want.shape and np.array_equal(got, want),
+              f"fonts: {face} at {size} draws {text!r} unlike Pillow")
+        box = te2.text_bbox(text, te2.font_table(path, size))
+        check(box == tuple(int(v) for v in e["sweep_bbox"][i]),
+              f"fonts: {face} at {size}: text box of {text!r} {box}, "
+              f"Pillow {tuple(e['sweep_bbox'][i])}")
+    return {size: sum(v) / len(v) for size, v in sorted(ms.items())}
+
+
+def glyph_table_redraw(scenes) -> dict:
+    """Every glyph of ``glyphs_dejavu.npz`` (DejaVu Sans and Sans Mono at
+    six sizes, baked from Pillow by ``make_glyph_table.py``) drawn again by
+    the TrueType path: its coverage, box and advance equal to the baked
+    ones. Returns the glyph count per table."""
+    from ckrenderengine_tpu_torch.objects import entity2d as te2
+
+    counts = {}
+    pen = GLYPH_PEN
+    for name, table in te2._glyph_file(named_glyphs(te2)).items():
+        face = os.path.join(scenes.FONT_DIR, table["meta"]["file"])
+        font = te2.font_table(face, int(table["meta"]["size"]))
+        for code, (left, top, adv, cov) in table["glyphs"].items():
+            ch = chr(code)
+            # The coverage white ink leaves in the alpha of a transparent
+            # canvas, as the table was baked.
+            a = np.zeros((4 * pen, 6 * pen), np.int32)
+            font.draw(a, ch, pen, pen)
+            ys, xs = np.nonzero(a)
+            if ys.size:
+                got = (int(xs.min()) - pen, int(ys.min()) - pen,
+                       a[ys.min():ys.max() + 1, xs.min():xs.max() + 1])
+            else:
+                got = (0, 0, np.zeros((0, 0), np.int32))
+            check(got[:2] == (left, top) and np.array_equal(got[2], cov),
+                  f"fonts: {name} U+{code:04X} differs from the baked "
+                  f"coverage")
+            check(round(font.getlength(ch) * 64) == adv,
+                  f"fonts: {name} U+{code:04X} advance "
+                  f"{font.getlength(ch) * 64}, baked {adv}")
+        counts[name] = len(table["glyphs"])
+    return counts
+
+
+def fonts_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
+    """TrueType text through the port's own font stack (``text/``: the
+    font file, FreeType's bytecode interpreter and smooth rasteriser,
+    HarfBuzz's layout as Raqm asks for it), on the host, and a HUD lettered
+    with it over the level on the card.
+
+    - The committed faces (``tests/torch_fonts/``) equal, by SHA-256, to
+      those ``expected.npz`` and ``glyphs_dejavu.npz`` were made from.
+    - Every (face, size, string) of ``expected.npz`` drawn by
+      ``CKSpriteText`` equal to Pillow's bytes and text box
+      (``font_sweep``); host ms per raster by size.
+    - Every glyph of ``glyphs_dejavu.npz`` drawn again equal to the baked
+      coverage and advance (``glyph_table_redraw``); µs per glyph of
+      hinting and of rasterising, and the glyph caches' bytes.
+    - ``scenes.build_config5_text`` at 1024x768 (config 5's 528,032
+      terrain triangles under eight ``CKSpriteText`` labels, one of them a
+      score whose text changes every tick) for 3 ticks: B1 once per frame
+      and no other kernel, every label's texture equal to its expected
+      raster, B1 equal to its plain version at the first frame's inputs.
+    - The same level with the labels' rasters set by ``SetImage``: its 3
+      frames bit-equal, fb and zb, to the lettered level's.
+    - Each tick's CUDA-event ms and launches, device ms and launches per
+      frame (torch.profiler) ticking, turning without a text change and
+      turning with every label hidden, and the phase's seconds.
+    """
+    import hashlib
+
+    from ckrenderengine_tpu_torch.objects import entity2d as te2
+    from ckrenderengine_tpu_torch.raster import cuda_tiled
+    from ckrenderengine_tpu_torch.raster import deferred as df
+    from ckrenderengine_tpu_torch.text import font as tfont
+
+    t_phase = time.monotonic()
+    e = expected_fonts(scenes)
+    shas = {}
+    for face in scenes.FONT_FILES:
+        with open(os.path.join(scenes.FONT_DIR, face), "rb") as f:
+            shas[face] = hashlib.sha256(f.read()).hexdigest()
+    check([shas[str(f)] for f in e["faces"]] == [str(v) for v in
+                                                  e["sha256"]],
+          "fonts: the committed faces differ from expected.npz's")
+    for name, table in te2._glyph_file(named_glyphs(te2)).items():
+        check(shas.get(table["meta"]["file"]) == table["meta"]["sha256"],
+              f"fonts: {table['meta']['file']} differs from the file "
+              f"glyphs_dejavu.npz table {name} was baked from")
+    tfont.FACES.clear()
+    t0 = time.monotonic()
+    raster_ms = font_sweep(O, scenes, e, card)
+    sweep_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    glyphs = glyph_table_redraw(scenes)
+    redraw_s = time.monotonic() - t0
+    faces = list(tfont.FACES.values())
+    n_glyphs = sum(len(f.glyphs) for f in faces)
+    emit("fonts_host", card=card, host_ms_per_raster_by_size=raster_ms,
+         sweep_rasters=int(len(e["sweep_face"])), sweep_s=round(sweep_s, 3),
+         baked_glyphs_redrawn=glyphs, redraw_s=round(redraw_s, 3),
+         glyphs_rasterised=n_glyphs,
+         hint_us_per_glyph=sum(f.hint_s for f in faces) / n_glyphs * 1e6,
+         raster_us_per_glyph=sum(f.raster_s for f in faces) / n_glyphs
+         * 1e6,
+         cache_bytes=sum(f.cache_bytes() for f in faces),
+         faces_sizes_cached=len(faces))
+
+    rasters = hud_rasters(e)
+    t0 = time.monotonic()
+    ctx, rc, spinner, tick = scenes.build_config5_text(
+        O, *FONTS_SIZE, device="cuda")
+    build_s = time.monotonic() - t0
+    labels = [row[0] for row in scenes.TEXT_HUD]
+    frames, ticks = [], []
+    for k in range(FONTS_TICKS):
+        tick()
+        got = render_counted(rc, kernel_fns, launches)
+        check(got["launches"]["B1"] == 1 and sum(
+            got["launches"].values()) == 1,
+            f"config5_text tick {k}: launches {got['launches']}")
+        frame_checks(f"config5_text_tick{k}", rc)
+        for name in labels:
+            key = f"score:{k + 1}" if name == "score" else name
+            want = rasters[key].astype(np.float32) / 255.0
+            img = ctx.GetObjectByName(name).GetImage()
+            check(img is not None and img.shape == want.shape
+                  and np.array_equal(img, want),
+                  f"config5_text tick {k}: label {name} differs from "
+                  f"Pillow's raster")
+        frames.append((rc.fb.clone(), rc.zb.clone()))
+        ticks.append(got)
+        if k == 0:
+            rows = time_rows("config5_text", rc, None, card, fr,
+                             cuda_tiled, df, plain=False)
+    prof = profile_frames(rc, tick, IO_PROFILED)
+    # Where a tick's work goes: the level turning without a text change
+    # (no texture patch), then turning with every label hidden.
+
+    def turn():
+        spinner.Rotate((0, 1, 0), 0.02)
+
+    turning = profile_frames(rc, turn, IO_PROFILED)
+    for name in labels:
+        ctx.GetObjectByName(name).Show(False)
+    hidden = profile_frames(rc, turn, IO_PROFILED)
+
+    t0 = time.monotonic()
+    _c2, rc2, _s2, tick2 = scenes.build_config5_text(
+        O, *FONTS_SIZE, rasters=rasters, device="cuda")
+    twin_build_s = time.monotonic() - t0
+    differ = []
+    for k in range(FONTS_TICKS):
+        tick2()
+        got = render_counted(rc2, kernel_fns, launches)
+        check(got["launches"] == ticks[k]["launches"],
+              f"config5_text SetImage twin tick {k}: launches "
+              f"{got['launches']}, lettered {ticks[k]['launches']}")
+        fb, zb = frames[k]
+        differ.append(int(((rc2.fb != fb).any(0) | (rc2.zb != zb)).sum()))
+    check(not any(differ), f"config5_text: the SetImage level's frames "
+          f"differ from the lettered level's on {differ} pixels")
+
+    seconds = time.monotonic() - t_phase
+    emit("fonts", card=card, size=list(FONTS_SIZE),
+         triangles=int(rc._compiled.n_valid_tris), labels=len(labels),
+         build_s=round(build_s, 3), twin_build_s=round(twin_build_s, 3),
+         ticks=ticks, **prof, turning_only=turning, labels_hidden=hidden,
+         pixels_that_differ=differ,
+         phase_s=round(seconds, 3))
+    emit("fonts_phase", seconds=round(seconds, 1), card=card)
+    return {"B1": rows["B1"]}
 
 
 AA_SCENES = (("config1", "build_config1", ("B2",)),

@@ -10,28 +10,30 @@ The 2D trees are flattened on the host into ordered quad lists, which the
 frame composites under (background) and over (foreground) the 3D pass
 (``pipeline/overlay.py``).
 
-Text is drawn from baked glyph tables (made by ``make_glyph_table.py``):
-``glyphs_default.npz`` holds Pillow's default font, ``glyphs_dejavu.npz``
-DejaVu Sans and DejaVu Sans Mono at six sizes. Each glyph sits at its pen
-rounded to the pixel, the pen moving by the layout's advances and pair
-adjustments in 1/64 pixel; overlapping coverage combines as
-``a + b - a*b/255``, and the fill colour blends over the background colour
-on 8-bit values, which is what ``ImageDraw.text`` does on an RGBA image. A
-named font is looked up as ``ImageFont.truetype`` looks it up; one that is
-not found draws the default font, as the reference falls back to it. A
-font file, size or character that no table holds raises.
+Text in a named font is laid out, hinted and rasterised by the port's own
+TrueType stack (``text/``: the font file, FreeType's bytecode interpreter
+and smooth rasteriser, HarfBuzz's shaping as Raqm asks for it), which is
+what ``ImageFont.truetype`` does in the reference; the default font draws
+from the baked table ``glyphs_default.npz`` (made by
+``make_glyph_table.py``). Each glyph sits at its pen rounded to the pixel,
+the pen moving by the layout's advances and pair adjustments in 1/64
+pixel; overlapping coverage combines as ``a + b - a*b/255``, and the fill
+colour blends over the background colour on 8-bit values, which is what
+``ImageDraw.text`` does on an RGBA image. A named font is looked up as
+``ImageFont.truetype`` looks it up; one that is not found draws the
+default font, as the reference falls back to it.
 """
 
 from __future__ import annotations
 
 import functools
-import hashlib
 import os
 import sys
 
 import numpy as np
 
 from ..roadmap import unported
+from ..text.font import TrueTypeFont, truetype
 from .base import CKCID_2DENTITY, CKCID_SPRITE, CKCID_SPRITETEXT, CKContext
 from .entity import CKRenderObject
 from .texture import CKTexture
@@ -46,7 +48,6 @@ CK_2DENTITY_RATIOOFFSET = 0x400
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GLYPHS = os.path.join(HERE, "glyphs_default.npz")
-NAMED_GLYPHS = os.path.join(HERE, "glyphs_dejavu.npz")
 # Extra pixels between the lines of multi-line text (ImageDraw's default).
 LINE_SPACING = 4
 
@@ -421,8 +422,8 @@ def _glyph_file(path: str) -> dict:
     (left, top, advance in 1/64 px, coverage (h, w) int32)}, each box
     relative to the rounded pen; ``boxes`` {code: ``getbbox``}; ``right``
     {code: the control box's right edge}; ``kern`` {(a, b): pair
-    adjustment in 1/64 px}; ``refused`` (pairs the layout draws as a
-    ligature); ``pitch`` (the line pitch); ``meta`` {key: value}."""
+    adjustment in 1/64 px}; ``pitch`` (the line pitch); ``meta`` {key:
+    value}."""
     f = np.load(path)
     shapes, offs, pool = f["pool_shapes"], f["pool_offsets"], f["pool"]
     out = {}
@@ -442,7 +443,6 @@ def _glyph_file(path: str) -> dict:
             "glyphs": glyphs, "boxes": boxes, "right": right,
             "kern": {tuple(p): int(v) for p, v in zip(
                 col["kern_pairs"].tolist(), col["kern"].tolist())},
-            "refused": {tuple(p) for p in col["bad_pairs"].tolist()},
             "pitch": int(col["line_bottom"]) + LINE_SPACING,
             "meta": dict(m.split("=", 1) for m in col["meta"].tolist())}
     return out
@@ -495,27 +495,15 @@ def find_font(name: str) -> str | None:
     return other
 
 
-@functools.lru_cache(maxsize=None)
-def _file_sha256(path: str, mtime: float) -> str:
-    with open(path, "rb") as f:
-        return hashlib.sha256(f.read()).hexdigest()
-
-
-def font_table(name: str | None, size: int) -> dict:
-    """The table that draws what the reference draws for ``SetFont(name,
-    size)``: the default font's where ``name`` is None or names no file the
-    reference would find; the baked table of that very file and size where
-    one exists. Raises where the file is found but no table holds it."""
+def font_table(name: str | None, size: int):
+    """What draws the reference's ``SetFont(name, size)``: the default
+    font's baked table where ``name`` is None or names no file the
+    reference would find, else the TrueType face of that file at that
+    size (:func:`text.font.truetype`)."""
     path = None if name is None else find_font(name)
     if path is None:
         return glyph_table()
-    sha = _file_sha256(os.path.abspath(path), os.path.getmtime(path))
-    for table in _glyph_file(NAMED_GLYPHS).values():
-        if (table["meta"].get("sha256") == sha
-                and table["meta"]["size"] == str(int(size))):
-            return table
-    raise unported(f"CKSpriteText font {name!r} ({path}) at size "
-                   f"{int(size)}: no baked glyph table", 14)
+    return truetype(os.path.abspath(path), int(size))
 
 
 def _div255(v: np.ndarray) -> np.ndarray:
@@ -530,22 +518,18 @@ def _pixel(v: int) -> int:
 
 
 def _pens(line: str, table: dict):
-    """(code, pen in pixels) of each character of ``line``, and the line's
-    advance in 1/64 pixel. Raises on a character the table does not hold
-    and on a pair the layout draws as a ligature."""
+    """(code, pen in pixels) of each character of ``line`` in the default
+    font's table, and the line's advance in 1/64 pixel (its basic layout
+    draws no ligatures). Raises on a character the table does not hold."""
     glyphs, kern = table["glyphs"], table["kern"]
     out, pos = [], 0
     for i, ch in enumerate(line):
         code = ord(ch)
         if code not in glyphs:
             raise unported(f"CKSpriteText character {ch!r} (U+{code:04X}) "
-                           f"in font {table['meta']['font']!r} size "
-                           f"{table['meta']['size']}: no baked glyph", 14)
+                           f"in the default font: no baked glyph", 14)
         if i:
             prev = ord(line[i - 1])
-            if (prev, code) in table["refused"]:
-                raise unported(f"CKSpriteText ligature {line[i - 1:i + 1]!r}"
-                               f" in font {table['meta']['font']!r}", 14)
             pos += glyphs[prev][2] + kern.get((prev, code), 0)
         out.append((code, _pixel(pos)))
     end = pos + glyphs[ord(line[-1])][2] if line else 0
@@ -557,6 +541,16 @@ def text_bbox(text: str, table: dict | None = None) -> tuple:
     ``ImageDraw.textbbox`` gives for the table's font; the default font's
     where ``table`` is None)."""
     table = glyph_table() if table is None else table
+    if isinstance(table, TrueTypeFont):
+        box = None
+        for li, line in enumerate(text.split("\n")):
+            y = li * table.pitch
+            l, t, r, b = table.bbox(line)
+            line_box = (l, y + t, r, y + b)
+            box = line_box if box is None else (
+                min(box[0], l), min(box[1], y + t),
+                max(box[2], r), max(box[3], y + b))
+        return box
     box = None
     for li, line in enumerate(text.split("\n")):
         if not line:
@@ -586,6 +580,10 @@ def raster_text(text: str, width: int, height: int, fill, background,
     ``table`` (the default font's where None)."""
     table = glyph_table() if table is None else table
     cov = np.zeros((height, width), np.int32)
+    if isinstance(table, TrueTypeFont):
+        for li, line in enumerate(text.split("\n")):
+            table.draw(cov, line, x, y + li * table.pitch)
+        return _blend(cov, fill, background)
     for li, line in enumerate(text.split("\n")):
         pens, _end = _pens(line, table)
         ly = y + li * table["pitch"]
@@ -599,6 +597,12 @@ def raster_text(text: str, width: int, height: int, fill, background,
                 a = cov[ya:yb, xa:xb]
                 b = g[ya - gy:yb - gy, xa - gx:xb - gx]
                 cov[ya:yb, xa:xb] = a + b - _div255(a * b)
+    return _blend(cov, fill, background)
+
+
+def _blend(cov: np.ndarray, fill, background) -> np.ndarray:
+    """The fill colour over the background colour by the 8-bit coverage,
+    as ``ImageDraw``'s ``draw_bitmap`` blends it on an RGBA image."""
     bg = np.asarray(background, np.int32)
     ink = np.asarray(fill, np.int32)
     m = cov[..., None]
@@ -612,8 +616,8 @@ def raster_text(text: str, width: int, height: int, fill, background,
 
 class CKSpriteText(CKSprite):
     """Sprite whose image is rendered text (reference RCKSpriteText — the
-    GDI font handle becomes a baked glyph table, :func:`font_table`;
-    re-rastered lazily on change)."""
+    GDI font handle becomes a TrueType face or the default font's table,
+    :func:`font_table`; re-rastered lazily on change)."""
 
     CLASS_ID = CKCID_SPRITETEXT
 
@@ -652,7 +656,7 @@ class CKSpriteText(CKSprite):
     def SetFont(self, name: str | None = None, size: int = 14, weight: int = 400,
                 italic: bool = False, underline: bool = False):
         """Font selection (reference SetFont): ``name`` and ``size`` pick
-        the glyph table at the next raster (:func:`font_table`)."""
+        the face at the next raster (:func:`font_table`)."""
         self.font_name = name
         self.font_size = int(size)
         self._raster_dirty = True

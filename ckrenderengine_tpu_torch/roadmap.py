@@ -10,7 +10,11 @@ from __future__ import annotations
 # ROADMAP.md "Port queue", in order.
 PORT_QUEUE = {
     1: "GPU benchmark",
-    14: "fonts, sizes or characters without a baked glyph table; movie "
+    14: "fonts other than TrueType outlines (CFF / OpenType .otf, "
+        "collections, variable and bitmap-only fonts, unhinted fonts for "
+        "the auto-hinter), text that needs bidi reordering or a script "
+        "shaper, characters without a glyph or decomposition, TrueType "
+        "opcodes outside the interpreter; movie "
         "sprites from video containers (LoadMovie); and the image formats "
         "and variants the readers of io/imagefile.py refuse (WebP, JPEG "
         "2000, ICO, PCX, PPM, PSD and other formats; CMYK, arithmetic, "

@@ -1845,6 +1845,90 @@ def build_config5_images(O, width: int = 1024, height: int = 768,
     return ctx, rc, spinner, tick
 
 
+FONT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tests", "torch_fonts")
+FONT_FILES = ("DejaVuSans.ttf", "DejaVuSansMono.ttf", "DejaVuSerif-Bold.ttf")
+# The HUD of build_config5_text: (name, font file, size in pixels, the
+# sprite's top left as fractions of the frame, its size in pixels, align
+# (0 left, 1 centre, 2 right), text colour, background colour, text; the
+# score's text is score_text(k)).
+TEXT_HUD = (
+    ("title", "DejaVuSerif-Bold.ttf", 48, (0.02, 0.02), (440, 64), 0,
+     (1.0, 0.85, 0.3, 1.0), (0.0, 0.0, 0.0, 0.0), "office flow"),
+    ("kerning", "DejaVuSans.ttf", 31, (0.5, 0.02), (480, 44), 1,
+     (1.0, 1.0, 1.0, 1.0), (0.1, 0.1, 0.25, 0.6), "AV To Ya WAVE Tyre"),
+    ("latin1", "DejaVuSans.ttf", 22, (0.55, 0.12), (440, 32), 2,
+     (0.95, 0.95, 0.8, 1.0), (0.0, 0.0, 0.0, 0.35),
+     "Café crème — Ærø, façade, naïve ½ °C"),
+    ("greek", "DejaVuSerif-Bold.ttf", 17, (0.02, 0.14), (360, 26), 0,
+     (0.6, 0.9, 1.0, 1.0), (0.0, 0.0, 0.0, 0.0), "Ελληνικά: Γειά σου κόσμε"),
+    ("cyrillic", "DejaVuSansMono.ttf", 13, (0.02, 0.2), (300, 20), 1,
+     (1.0, 0.7, 0.7, 1.0), (0.2, 0.0, 0.0, 0.5), "Привет, мир! Ёж и щётка"),
+    ("two_line", "DejaVuSans.ttf", 11, (0.02, 0.26), (220, 36), 0,
+     (1.0, 1.0, 1.0, 0.9), (0.0, 0.0, 0.0, 0.5),
+     "Level 3 — Ballance\nflow: office, AVA"),
+    ("status", "DejaVuSansMono.ttf", 9, (0.75, 0.94), (240, 14), 2,
+     (0.8, 1.0, 0.8, 1.0), (0.0, 0.0, 0.0, 0.0), "fps 60 | tris 528032 | ✓"),
+    ("score", "DejaVuSansMono.ttf", 22, (0.72, 0.86), (260, 30), 2,
+     (1.0, 1.0, 0.4, 1.0), (0.0, 0.0, 0.0, 0.5), None),
+)
+
+
+def score_text(k: int) -> str:
+    """The score label of ``build_config5_text`` after ``k`` ticks."""
+    return f"SCORE {980 + 1250 * k:07d} ×{k + 1}"
+
+
+def build_config5_text(O, width: int = 1024, height: int = 768,
+                       terrain_n: int = 500, n_balls: int = 64,
+                       rasters: dict | None = None, **ctx_kw):
+    """Config 5 (:func:`build_config5`) under a HUD of ``CKSpriteText``
+    labels (``TEXT_HUD``) in the TrueType faces of ``FONT_DIR``: sizes 9,
+    11, 13, 17, 22, 31 and 48, the three alignments, ligatures ("office",
+    "flow"), kerning pairs ("AV", "To", "Ya"), Latin-1, Greek and Cyrillic
+    text, a two-line label, and a score whose text changes every tick
+    (:func:`score_text`).
+
+    With ``rasters`` ({label name: (H, W, 4) uint8, and ``"score:<k>"``
+    for the score after k ticks}) the same HUD is built from plain
+    ``CKSprite`` objects with ``SetImage`` of those rasters. Returns (ctx,
+    rc, spinner, tick); ``tick()`` turns the spinner and moves the score
+    on."""
+    ctx, rc, spinner = build_config5(O, width, height, terrain_n=terrain_n,
+                                     n_balls=n_balls, **ctx_kw)
+    sprites = {}
+    for (name, face, size, (fx, fy), (w, h), align, fg, bg,
+         text) in TEXT_HUD:
+        x0, y0 = int(fx * width), int(fy * height)
+        if rasters is None:
+            sp = O.CKSpriteText(ctx, name)
+            sp.Create(w, h)
+            sp.SetFont(os.path.join(FONT_DIR, face), size)
+            sp.SetAlign(align)
+            sp.SetTextColor(fg)
+            sp.SetBackgroundTextColor(bg)
+            sp.SetText(score_text(0) if text is None else text)
+        else:
+            sp = O.CKSprite(ctx, name)
+            key = "score:0" if text is None else name
+            sp.SetImage(rasters[key].astype(np.float32) / 255.0)
+        sp.SetRect((x0, y0, x0 + w, y0 + h))
+        sprites[name] = sp
+    state = {"k": 0}
+
+    def tick():
+        spinner.Rotate((0, 1, 0), 0.02)
+        state["k"] += 1
+        k = state["k"]
+        if rasters is None:
+            sprites["score"].SetText(score_text(k))
+        else:
+            sprites["score"].SetImage(
+                rasters[f"score:{k}"].astype(np.float32) / 255.0)
+
+    return ctx, rc, spinner, tick
+
+
 def load_level(O, path: str, rc, **ctx_kw):
     """Load the scene file ``path`` into a fresh ``O.CKContext(**ctx_kw)``
     (``Load``). A scene file holds objects, not the render manager or its

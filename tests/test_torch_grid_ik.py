@@ -26,6 +26,7 @@ import torch
 import ckrenderengine_tpu.objects as J
 import ckrenderengine_tpu_torch.objects as O
 from ckrenderengine_tpu.anim import ik as jik
+from ckrenderengine_tpu.objects import grid as jgrid
 from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.anim import ik as tik
 from ckrenderengine_tpu_torch.objects import base as OB
@@ -38,6 +39,20 @@ from _torch_common import (
 
 PACKAGES = (J, O)
 IK_ATOL = 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _fresh_layer_types():
+    """Each package numbers layer types in a process-global registry, and
+    other test files on the same worker register types in one of them:
+    every case starts both from empty and puts back what was there."""
+    saved = [(m, dict(m._layer_type_registry)) for m in (jgrid, tgrid)]
+    for m, _ in saved:
+        m._layer_type_registry.clear()
+    yield
+    for m, reg in saved:
+        m._layer_type_registry.clear()
+        m._layer_type_registry.update(reg)
 
 
 def _anim(P):

@@ -1,8 +1,9 @@
 """The port package stands alone: it imports neither JAX nor the reference
-package (only the tests import both), nor Pillow or OpenCV, which the
-card's machine does not have. The one exception is the glyph-table
-generator, a script run by hand where Pillow is installed, which may
-import Pillow (and nothing else forbidden)."""
+package (only the tests import both), nor Pillow, OpenCV or fontTools,
+which the card's machine does not have. The exceptions are the scripts
+run by hand where Pillow is installed (the glyph-table generator and the
+font fixtures' maker), which may import Pillow (and nothing else
+forbidden)."""
 
 import ast
 import os
@@ -13,9 +14,15 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "ckrenderengine_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ckrenderengine_tpu", "PIL", "cv2")
-# Scripts run by hand, never imported by the package: what each may import.
-HAND_RUN = {os.path.join("objects", "make_glyph_table.py"): ("PIL",)}
+FORBIDDEN = ("jax", "jaxlib", "ckrenderengine_tpu", "PIL", "cv2",
+             "fontTools")
+# Scripts run by hand, never imported by the package (paths from the
+# repository's root): what each may import.
+HAND_RUN = {
+    os.path.join("ckrenderengine_tpu_torch", "objects",
+                 "make_glyph_table.py"): ("PIL",),
+    os.path.join("tests", "torch_fonts", "make_fonts.py"): ("PIL",),
+}
 
 
 def _modules():
@@ -32,7 +39,7 @@ def _forbidden(name: str, allowed=()) -> bool:
 
 def test_import_with_jax_and_reference_blocked():
     """Every module of the port imports in a process where importing jax,
-    ckrenderengine_tpu, PIL or cv2 fails."""
+    ckrenderengine_tpu, PIL, cv2 or fontTools fails."""
     mods = sorted(
         "ckrenderengine_tpu_torch." + os.path.relpath(p, PKG)[:-3].replace(
             os.sep, ".").replace(".__init__", "")
@@ -57,13 +64,15 @@ def test_import_with_jax_and_reference_blocked():
 
 
 @pytest.mark.parametrize("path", sorted(_modules()) + [
-    os.path.join(ROOT, "chip_smoke.py")], ids=lambda p: os.path.relpath(
-        p, ROOT))
+    os.path.join(ROOT, "chip_smoke.py"),
+    os.path.join(ROOT, "tests", "torch_fonts", "make_fonts.py")],
+    ids=lambda p: os.path.relpath(p, ROOT))
 def test_module_has_no_reference_import(path):
     """No import statement (or __import__/import_module call) of the port,
-    or of ``chip_smoke.py``, names jax, the reference package, PIL or cv2
-    (the hand-run scripts of HAND_RUN only what they list)."""
-    allowed = HAND_RUN.get(os.path.relpath(path, PKG), ())
+    of ``chip_smoke.py`` or of ``make_fonts.py`` names jax, the reference
+    package, PIL, cv2 or fontTools (the hand-run scripts of HAND_RUN only
+    what they list)."""
+    allowed = HAND_RUN.get(os.path.relpath(path, ROOT), ())
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     for node in ast.walk(tree):

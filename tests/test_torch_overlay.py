@@ -14,7 +14,8 @@
   the reference's Pillow raster bit for bit: config 3's label and other
   strings, non-ASCII text, three alignments, several colours, multi-line
   text. A named font that is not installed falls back to the default font
-  in both; DejaVu Sans draws from its own table, equal to the reference's.
+  in both; DejaVu Sans draws through the port's TrueType stack, equal to
+  the reference's at any size, ligatures included.
 - Overlays through ``Render()``: a flat scene with a background sprite, a
   textured background material and foreground sprites, text and a clipped
   child, against the reference's frame; a text change re-rasters through
@@ -226,9 +227,9 @@ def test_sprite_text_raster_matches_pil(align):
 
 def test_named_fonts_fall_back_to_the_default():
     """A font name Pillow cannot find: both draw the default font. A font
-    it finds and the port has baked (DejaVu Sans at 14): both draw that
-    font, bit for bit, non-ASCII text included. A size the port has not
-    baked raises, naming the font and its item."""
+    it finds (DejaVu Sans): both draw that font, bit for bit, non-ASCII
+    text included, at 14 and at 13 (a size no table was ever baked for:
+    the port hints and rasterises the face itself)."""
     cj, ct = J.CKContext(), O.CKContext(device="cpu")
     fg, bg = COLORS[0]
     ij = _text_sprite(J, cj, "entities: 1000", 0, fg, bg,
@@ -245,26 +246,33 @@ def test_named_fonts_fall_back_to_the_default():
                               font="DejaVuSans.ttf").Redraw()
             np.testing.assert_array_equal(it.GetImage(), ij.GetImage(),
                                           err_msg=repr(text))
-    odd = _text_sprite(O, ct, "entities: 1000", 0, fg, bg)
-    odd.SetFont("DejaVuSans.ttf", 13)
-    with pytest.raises(NotImplementedError, match="DejaVuSans.ttf.*item 14"):
-        odd.Redraw()
-
+    odd = {}
+    for M, c in ((J, cj), (O, ct)):
+        odd[M] = _text_sprite(M, c, "entities: 1000", 0, fg, bg)
+        odd[M].SetFont("DejaVuSans.ttf", 13)
+    np.testing.assert_array_equal(odd[O].Redraw().GetImage(),
+                                  odd[J].Redraw().GetImage())
 
 
 def test_ligature_pairs_raise_and_the_default_font_refuses_none():
-    """A pair the font's layout draws as a ligature (DejaVu Sans "fi")
-    raises, naming item 14, where the reference draws the ligature. The
-    default font's table refuses no pair, so default-font text never
-    meets that error."""
-    assert te2.glyph_table()["refused"] == set()
-    assert (ord("f"), ord("i")) in te2.font_table("DejaVuSans.ttf",
-                                                  14)["refused"]
-    ct = O.CKContext(device="cpu")
-    fg, bg = COLORS[0]
-    s = _text_sprite(O, ct, "file", 0, fg, bg, font="DejaVuSans.ttf")
-    with pytest.raises(NotImplementedError, match="'fi'.*item 14"):
-        s.Redraw()
+    """A pair the font's layout draws as a ligature (DejaVu Sans "fi" in
+    "file") draws the ligature glyph, as the reference does, bit for bit.
+    The default font's table refuses no pair (its basic layout makes no
+    ligatures)."""
+    baked = np.load(te2.GLYPHS)
+    i = baked["names"].tolist().index("default")
+    assert baked[f"{i}_bad_pairs"].size == 0
+    face = te2.font_table("DejaVuSans.ttf", 14)
+    fi = face.layout("fi")[0]
+    assert len(fi) == 1 and fi[0][0] != face.font.cmap[ord("f")]
+    cj, ct = J.CKContext(), O.CKContext(device="cpu")
+    for fg, bg in COLORS:
+        ij = _text_sprite(J, cj, "file", 0, fg, bg,
+                          font="DejaVuSans.ttf").Redraw()
+        it = _text_sprite(O, ct, "file", 0, fg, bg,
+                          font="DejaVuSans.ttf").Redraw()
+        np.testing.assert_array_equal(it.GetImage(), ij.GetImage())
+
 
 def test_text_bbox_matches_pil():
     from PIL import Image, ImageDraw, ImageFont
@@ -362,6 +370,12 @@ def test_registration_and_port_queue():
     from ckrenderengine_tpu_torch.roadmap import PORT_QUEUE
 
     assert 6 not in PORT_QUEUE and 15 not in PORT_QUEUE
+    # Item 14 keeps only what the TrueType stack refuses, movies and the
+    # image variants: no font, size or character waits for a baked table.
+    assert "baked" not in PORT_QUEUE[14]
+    for what in ("CFF", "collections", "variable", "bitmap-only", "bidi",
+                 "opcodes", "video containers", "WebP"):
+        assert what in PORT_QUEUE[14], what
     ctx = O.CKContext(device="cpu")
     for cid, cls, name in ((base.CKCID_2DENTITY, O.CK2dEntity, "2D Entity"),
                            (base.CKCID_SPRITE, O.CKSprite, "Sprite"),

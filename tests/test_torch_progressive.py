@@ -20,6 +20,7 @@ CPU.
   ``unported(..., 14)`` call is one of the refusals item 14 keeps.
 """
 
+import collections
 import pathlib
 import re
 
@@ -168,8 +169,11 @@ def test_low_lod_frame_matches_the_reference():
 def test_port_queue_has_no_progressive_mesh_item():
     """Item 16 (progressive meshes) is carried: no key in PORT_QUEUE and no
     ``unported(..., 16)`` in the port. Item 14 keeps only movie sprites
-    from video containers, fonts without a baked glyph table and the image
-    variants the readers refuse (one call, ``imagefile.unsupported``)."""
+    from video containers, the default font's characters outside its
+    baked table, the image variants the readers refuse (one call,
+    ``imagefile.unsupported``) and what the TrueType stack of ``text/``
+    refuses (font formats, opcodes, layouts): no named font, size or
+    ligature waits for a baked table."""
     assert 16 not in PORT_QUEUE and set(PORT_QUEUE) == {1, 14}
     root = pathlib.Path(ckrenderengine_tpu_torch.__file__).parent
     call = re.compile(r"unported\(((?:[^()]|\([^()]*\))*?),\s*(\d+)\s*\)",
@@ -179,9 +183,12 @@ def test_port_queue_has_no_progressive_mesh_item():
         for what, item in call.findall(path.read_text()):
             cites.setdefault(int(item), []).append((path.name, what))
     assert 16 not in cites
-    kept = sorted(name for name, _ in cites[14])
-    assert kept == ["entity2d.py"] * 4 + ["imagefile.py"], cites[14]
+    kept = collections.Counter(name for name, _ in cites[14])
+    assert kept == {"entity2d.py": 2, "imagefile.py": 1, "sfnt.py": 8,
+                    "shaping.py": 7, "hinting.py": 3}, cites[14]
     texts = " ".join(what for _, what in cites[14])
-    for word in ("image files", "video containers", "font", "character",
-                 "ligature"):
+    for word in ("image files", "video containers", "default font",
+                 "CFF outlines", "collection", "variable font",
+                 "TrueType opcode", "right-to-left", "script needs"):
         assert word in texts, word
+    assert "ligature" not in texts and "baked glyph table" not in texts
