@@ -5,7 +5,7 @@
 Builds the hand-written CUDA kernels of ``ckrenderengine_tpu_torch`` from
 ``ckrenderengine_tpu_torch/csrc`` (B1 tiled solve, B2 flat solve, B3 ordered
 blend, B4 textured peel, B5 tiled solve with the fused winner-row fetch, L1
-line pass),
+line pass: its bin step and its draw),
 prints their registers, spills and resident CTAs per SM, holds each kernel
 against its plain torch version on the card bit for bit (B1 and B5 also on
 the stream cases of ``raster/tiled_fixtures.py``, B3 and B4 on every case
@@ -45,7 +45,11 @@ renders the effects level (``scenes.build_config5_fx``: config 5 with
 2,048 3D sprites and 1,192 line segments of curves, a wireframe grid and a
 line list; the ``fx`` phase: B1, B4's rounds and L1 in every frame, B3 in
 its place with untextured halos, each kernel equal to its plain version on
-those frames' inputs, L1 also on seeded fixtures, a frame with Antialias,
+those frames' inputs (L1's bins equal to ``line_bins_plain``'s too), L1
+also on seeded fixtures (a NaN alpha, a diagonal across the frame, a
+segment through it from off screen, a fan of 2,100 segments through one
+tile), L1 timed as the sum of its two launches beside the copy floor (the
+draw with no row), a frame with Antialias,
 the level cut to 320x240 against the CPU and the golden frame
 ``fx_320x240``, and 8 frames as graph replays in the ``window`` phase),
 renders the material-effects level (``scenes.build_config5_mat``: config 5
@@ -108,8 +112,8 @@ card's hole, and the draws at 128x96 equal on the card and the CPU),
 steps through the debugged level (``scenes.build_config5_debug``: config
 5 under ``EnableDebugMode`` with a shown 64x64 grid, a 16-bone skinned
 arm driven by a ``CKKinematicChain`` and the PV watermark; the ``debug``
-phase: B1 and L1 once on the stepped tick and each equal to its plain
-version there, pixels outside the label's and the watermark's boxes
+phase: B1, L1 and its bin step once on the stepped tick and each equal
+to its plain version there, pixels outside the label's and the watermark's boxes
 equal to the tick without the debug mode, a k = 0 frame of the clear
 colour only, ``DebugStep``'s walk, the IK targets reached, the grid's
 coordinate round trip, ``RadixSorter`` over the level's view depths,
@@ -237,27 +241,38 @@ def kernel_ms(fn, name: str, reps: int = 20) -> float:
     (one warm-up call first). Unlike :func:`cuda_ms` it holds no host time:
     a wrapper's launch takes the host some 0.05 ms, which a CUDA-event mean
     counts whenever the kernel is shorter than that."""
+    return kernel_parts_ms(fn, (name,), reps)[name]
+
+
+def kernel_parts_ms(fn, names, reps: int = 20) -> dict:
+    """{name: mean ms per launch} of each kernel whose name contains one of
+    ``names``, every one launched once per call of ``fn()``, from one
+    profiler window of ``reps`` calls (as :func:`kernel_ms`)."""
     from torch.profiler import ProfilerActivity
 
     from ckrenderengine_tpu_torch.frame_bench import profile_window
 
-    def hits(prof):
+    def hits(prof, name):
         return [e for e in prof.key_averages() if name in e.key]
 
-    def count(prof):
-        return sum(e.count for e in hits(prof))
+    def count(prof, name):
+        return sum(e.count for e in hits(prof, name))
 
-    # Each call launches its kernel once (a wrapper counts one launch per
+    # Each call launches each kernel once (a wrapper counts one launch per
     # call), so a window with any other count than ``reps`` lost records
     # or holds foreign ones, and is profiled again.
     prof, _wall = profile_window(
         fn, reps, [ProfilerActivity.CUDA],
-        lambda p: count(p) == reps, label=name)
-    n = count(prof)
-    check(n > 0, f"the profiler recorded no launch of {name}")
-    total_us = sum(e.device_time_total if hasattr(e, "device_time_total")
-                   else e.cuda_time_total for e in hits(prof))
-    return total_us / 1e3 / n
+        lambda p: all(count(p, k) == reps for k in names),
+        label="+".join(names))
+    out = {}
+    for name in names:
+        n = count(prof, name)
+        check(n > 0, f"the profiler recorded no launch of {name}")
+        total_us = sum(e.device_time_total if hasattr(e, "device_time_total")
+                       else e.cuda_time_total for e in hits(prof, name))
+        out[name] = total_us / 1e3 / n
+    return out
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM
@@ -1012,7 +1027,7 @@ def main() -> int:
     shaded = shader_phase(O, scenes, fr, kernel_fns, launches, card)
 
     # --- 4h. the rasterizer HAL: immediate-mode draws ----------------------
-    hal_phase(O, dict(kernel_fns, L1=ll.lines_kernel), card)
+    hal_phase(O, dict(kernel_fns, **line_fns(ll)), card)
 
     # --- 4i. render-to-texture and stereo: the monitor level ---------------
     monitor_phase(O, scenes, fr, kernel_fns, launches, card)
@@ -1290,27 +1305,33 @@ def main() -> int:
                 "bound_by": shaded[key][2]["bound_by"],
                 "events_ms": shaded[key][3]}
     # L1 is not a TPU kernel: the reference's line pass is plain JAX.
+    # Its ms is the sum of its launches per call (the bin step and the
+    # draw); "parts_ms" gives each, "copy_floor_ms" the draw with no row.
+    check(launches["L1"] > 0 and launches["L1_bins"] > 0,
+          f"L1 never ran on the main path: {launches}")
     l1, l1_aa = fx["L1"], fx["L1_aa"]
+    b = bands["ms"]["L1"]
+
+    def l1_shape(t, **more):
+        return {**more, "ms": t[0], "plain_ms": t[1],
+                "bound_ms": t[2]["bound_ms"], "bound_by": t[2]["bound_by"],
+                "events_ms": t[3], "parts_ms": t[2]["parts_ms"],
+                "copy_floor_ms": t[2]["copy_floor_ms"],
+                "bin_entries": t[2]["bin_entries"]}
     kernels.append({
         "name": "L1 lines", "route": "cuda",
         "source": "ckrenderengine_tpu_torch/csrc/lines.cu",
         "replaces": "ckrenderengine_tpu/pipeline/lines.py:52",
         "replaces_note": "draw_lines, plain JAX (no pl.pallas_call)",
-        "launches": launches["L1"],
+        "launches": launches["L1"], "bin_launches": launches["L1_bins"],
         "max_abs_err": max(fx["L1_errs"] + bands["errs"]["L1"]),
-        "ms": l1[0], "plain_ms": l1[1], "bound_ms": l1[2]["bound_ms"],
-        "bound_by": l1[2]["bound_by"], "library_ms": None,
-        "events_ms": l1[3],
+        **l1_shape(l1), "library_ms": None,
         "bound_counts": {c: l1[2][c] for c in (
-            "pairs_within_half_width", "tested_pairs", "operations",
-            "bytes", "operations_ms", "bytes_ms")},
-        "antialias": {"shape": "config5_fx_aa", "ms": l1_aa[0],
-                      "bound_ms": l1_aa[2]["bound_ms"],
-                      "bound_by": l1_aa[2]["bound_by"]}})
-    b = bands["ms"]["L1"]
-    kernels[-1]["bands"] = {"config": b[5], "row0": b[4], "ms": b[0],
-                            "plain_ms": b[1], "bound_ms": b[2]["bound_ms"],
-                            "bound_by": b[2]["bound_by"], "events_ms": b[3]}
+            "pairs_within_half_width", "bin_entries", "largest_bin",
+            "tested_pairs", "operations", "bytes", "operations_ms",
+            "bytes_ms")},
+        "antialias": l1_shape(l1_aa, shape="config5_fx_aa"),
+        "bands": l1_shape(b, config=b[5], row0=b[4])})
     from ckrenderengine_tpu_torch import frame_bench
     emit("profiler_windows", **frame_bench.PROFILE_WINDOWS,
          pad_s=frame_bench.PROFILE_PAD_S, tries=frame_bench.PROFILE_TRIES)
@@ -2464,8 +2485,9 @@ def debug_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     def step(name, t0):
         steps[name] = round(time.monotonic() - t0, 3)
 
-    fns = dict(kernel_fns, L1=ll.lines_kernel)
-    launches.setdefault("L1", 0)
+    fns = dict(kernel_fns, **line_fns(ll))
+    for k in line_fns(ll):
+        launches.setdefault(k, 0)
     t0 = time.monotonic()
     ctx, rc, _spinner, dbg = scenes.build_config5_debug(
         O, *DBG_SIZE, device="cuda")
@@ -2479,7 +2501,7 @@ def debug_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     label = rc._dbg_label[0]
     step("tick_s", t0)
     want = {k: 0 for k in fns}
-    want.update(B1=1, L1=1)
+    want.update(B1=1, L1=1, L1_bins=1)
     check(tick["launches"] == want, f"debug: the stepped tick launched {tick}")
     check(label.endswith(f"({mid}/{n}) {DBG_FRAME_MS:.1f} ms"),
           f"debug: label {label!r}")
@@ -2528,11 +2550,8 @@ def debug_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
               f"debug: the tick differs from B1's plain version's ({plain_got})")
         rc.stats.FrameTime = DBG_FRAME_MS
         s = line_inputs(rc, ll)
-        args = (s["fb"], s["zb"], s["rows"], s["h"], s["w"])
-        out_k, out_p = ll.lines_kernel(*args), ll.draw_lines_plain(*args)
-        l1_err = float((out_k - out_p).abs().max())
-        check(torch.equal(out_k, out_p),
-              f"debug: L1 and its plain version disagree ({l1_err})")
+        l1_err = check_l1(ll, s["fb"], s["zb"], s["rows"], s["h"], s["w"],
+                          0.0, "debug")[0]
         step("plain_s", t0)
 
         # The debug mode off at the same count: only the label's box differs
@@ -3416,7 +3435,7 @@ WINDOW_SCENES = (("config1", "build_config1", {}, ("B2",), 1),
                  ("config5_aa", "build_config5", {"antialias": True},
                   ("B1",), 1),
                  ("config5_fx", "build_config5_fx", {},
-                  ("B1", "B4", "L1"), 1),
+                  ("B1", "B4", "L1", "L1_bins"), 1),
                  ("config5_mat", "build_config5_mat", {}, ("B1", "B4"), 1))
 
 
@@ -3659,6 +3678,42 @@ FX_GOLDEN = dict(width=320, height=240, terrain_n=70, n_balls=8,
 OPS_PER_LINE_PAIR = 17
 
 
+# L1's launches per call, by kernel name: the bin step, then the draw.
+L1_PARTS = ("line_bins_kernel", "lines_kernel")
+
+
+def line_fns(ll) -> dict:
+    """L1's wrappers by launch-count key: the draw and its bin step."""
+    return {"L1": ll.lines_kernel, "L1_bins": ll.line_bins_kernel}
+
+
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit, a NaN equal to any NaN (the plain version's NaN
+    payload is the framework's, the kernel's the segment's own)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(
+        a.view(torch.int32)[~na], b.view(torch.int32)[~nb]))
+
+
+def check_l1(ll, fb, zb, rows, h, w, row0, label) -> tuple:
+    """L1 against its plain version at these inputs: the bin kernel's
+    words equal to ``line_bins_plain``'s and the frame equal to
+    ``draw_lines_plain``'s bit for bit. Returns (max abs error, NaN where
+    both are NaN counted 0; the kernel's frame; the bins)."""
+    bins_k = ll.line_bins_kernel(rows, h, w, row0)
+    bins_p = ll.line_bins_plain(rows, h, w, row0)
+    check(torch.equal(bins_k, bins_p),
+          f"L1 at {label}: the bins differ from line_bins_plain's on "
+          f"{int((bins_k != bins_p).sum())} words")
+    out_k = ll.lines_kernel(fb, zb, rows, h, w, row0=row0)
+    out_p = ll.draw_lines_plain(fb, zb, rows, h, w, row0=row0)
+    both = torch.isnan(out_k) & torch.isnan(out_p)
+    err = float(torch.where(both, 0.0, out_k - out_p).abs().max())
+    check(bit_equal(out_k, out_p),
+          f"L1 and its plain version disagree at {label} ({err})")
+    return err, out_k, bins_p
+
+
 def line_inputs(rc, ll) -> dict:
     """The line pass's inputs at the render size (fb, zb, the projected
     rows, height, width), caught on the way into ``lines.draw_lines``
@@ -3680,33 +3735,26 @@ def line_inputs(rc, ll) -> dict:
     return seen
 
 
+def bin_counts(bins):
+    """Segments in each tile's bin: set bits per row of L1's (tiles,
+    words) int32 bins."""
+    return sum(((bins >> j) & 1).sum(1) for j in range(32))
+
+
 def lines_bound(rows, zb, h: int, w: int, ll, row0: float = 0.0) -> dict:
     """L1's roofline from this frame's rows: the pairs whose pixel passes
     the distance test of a valid segment (what any exact line pass
     evaluates in full), at OPS_PER_LINE_PAIR each, against the bytes (fb
     read and written, zb and the rows read once). Also the pairs the
-    kernel tests: each 16x16 tile's pixels times the segments its box
-    test keeps. ``row0``: the global row of a band's first row."""
+    kernel tests: each bin entry (``line_bins_plain``) times a tile's 256
+    pixels. ``row0``: the global row of a band's first row."""
     covered = 0
     inf = torch.full_like(zb, float("inf"))
     for c0 in range(0, rows.shape[0], 32):
         covered += int(ll.line_coverage(rows[c0:c0 + 32], inf, h, w,
                                         row0=row0).sum())
-    tx = torch.arange(0, w, 16, device=rows.device, dtype=torch.float32) + 0.5
-    ty = (torch.arange(0, h, 16, device=rows.device, dtype=torch.float32)
-          + 0.5 + row0)
-    r = rows[:, None]
-    mag = torch.maximum(r[..., 0:4:2].abs().amax(-1),
-                        r[..., 1:4:2].abs().amax(-1))
-    kept = torch.zeros((), dtype=torch.int64, device=rows.device)
-    for y0 in ty:
-        tmag = torch.maximum(tx + 15.0, (y0 + 15.0).expand_as(tx))
-        m = ll.HALF_WIDTH + 1.0 + (mag + tmag[None]) / 1048576.0
-        miss = ((torch.maximum(r[..., 0], r[..., 2]) + m < tx[None])
-                | (torch.minimum(r[..., 0], r[..., 2]) - m > tx[None] + 15.0)
-                | (torch.maximum(r[..., 1], r[..., 3]) + m < y0)
-                | (torch.minimum(r[..., 1], r[..., 3]) - m > y0 + 15.0))
-        kept += ((rows[:, None, 6] > 0.5) & ~miss).sum()
+    counts = bin_counts(ll.line_bins_plain(rows, h, w, row0))
+    entries = int(counts.sum())
     n_bytes = 2 * 4 * h * w * 4 + h * w * 4 + nbytes(rows)
     ops = covered * OPS_PER_LINE_PAIR
     ops_ms = ops / F32_OPS_PER_S * 1e3
@@ -3715,34 +3763,43 @@ def lines_bound(rows, zb, h: int, w: int, ll, row0: float = 0.0) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "operations_ms": ops_ms, "bytes_ms": bytes_ms,
             "pairs_within_half_width": covered,
-            "tested_pairs": int(kept) * 256, "operations": ops,
-            "bytes": n_bytes}
+            "bin_entries": entries, "largest_bin": int(counts.max()),
+            "tested_pairs": entries * ll.TILE_W * ll.TILE_H,
+            "operations": ops, "bytes": n_bytes}
 
 
 def time_lines(name, rc, card, ll) -> tuple:
-    """L1 at a frame's own line-pass inputs: checked equal to
-    ``draw_lines_plain`` bit for bit, then its own time on the card
-    (torch.profiler), its CUDA-event time and the plain version's, beside
-    its bound. Returns (kernel ms, plain ms, bound, events ms, max abs
-    error)."""
+    """L1 at a frame's own line-pass inputs: its bins checked equal to
+    ``line_bins_plain`` and its frame to ``draw_lines_plain`` bit for bit,
+    then its own time on the card (torch.profiler), the sum of its
+    launches (the bin step and the draw, each by its name), the copy floor
+    (the draw with no row at the same fb and zb), its CUDA-event time and
+    the plain version's, beside its bound. Returns (kernel ms, plain ms,
+    bound, events ms, max abs error); the bound holds the parts and the
+    floor."""
     s = line_inputs(rc, ll)
     args = (s["fb"], s["zb"], s["rows"], s["h"], s["w"])
-    out_k, out_p = ll.lines_kernel(*args), ll.draw_lines_plain(*args)
-    err = float((out_k - out_p).abs().max())
-    check(torch.equal(out_k, out_p),
-          f"L1 and its plain version disagree at {name} ({err})")
-    st = {"kernel_ms": kernel_ms(lambda: ll.lines_kernel(*args),
-                                 "lines_kernel"),
+    err, out_k, _bins = check_l1(ll, *args, 0.0, name)
+    parts = kernel_parts_ms(lambda: ll.lines_kernel(*args), L1_PARTS)
+    st = {"kernel_ms": sum(parts.values()),
+          **{f"{k}_ms": v for k, v in parts.items()},
+          "copy_floor_ms": kernel_ms(
+              lambda: ll.lines_kernel(s["fb"], s["zb"], s["rows"][:0],
+                                      s["h"], s["w"]), "lines_kernel"),
           "kernel_events_ms": cuda_ms(lambda: ll.lines_kernel(*args), 20),
           "plain_ms": cuda_ms(lambda: ll.draw_lines_plain(*args), 2)}
     bound = lines_bound(s["rows"], s["zb"], s["h"], s["w"], ll)
+    bound.update(parts_ms=parts, copy_floor_ms=st["copy_floor_ms"])
     emit("timing", config=name, card=card, kernel="L1",
          size=[s["w"], s["h"]], segments=int(s["rows"].shape[0]),
          valid_segments=int((s["rows"][:, 6] > 0.5).sum()),
          pixels_changed=int((out_k != s["fb"]).any(0).sum()),
-         **{k: round(v, 4) for k, v in st.items()}, **bound,
-         note="kernel_ms is L1's own time on the card (torch.profiler); "
-         "plain_ms a CUDA-event mean of draw_lines_plain")
+         **{k: round(v, 5) for k, v in st.items()},
+         **{k: v for k, v in bound.items()
+            if k not in ("parts_ms", "copy_floor_ms")},
+         note="kernel_ms is L1's own time on the card (torch.profiler), the "
+         "sum of line_bins_kernel_ms and lines_kernel_ms; copy_floor_ms the "
+         "draw with no row; plain_ms a CUDA-event mean of draw_lines_plain")
     return st["kernel_ms"], st["plain_ms"], bound, st["kernel_events_ms"], err
 
 
@@ -3751,7 +3808,11 @@ def line_fixture(h: int, w: int, seed: int, row0: float = 0.0):
     (both endpoints equal: the squared-length clamp), every 13th with an
     endpoint far off screen (an endpoint behind the camera projects past
     1e6 px: half of them still valid, the others invalid, as the frame
-    marks them), 8 invalid pad rows, depths in [-0.1, 1.1]."""
+    marks them), 8 invalid pad rows, depths in [-0.1, 1.1]. Then, placed in
+    the frame's rows [row0, row0 + h): a segment with a NaN alpha, the
+    diagonal across the whole frame, a segment whose endpoints both lie
+    off screen, and LINE_FAN segments through one tile (its bin holds more
+    than the draw's 2,048-segment chunk of words)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     n = 600
     rows = torch.zeros((n, 12))
@@ -3768,7 +3829,53 @@ def line_fixture(h: int, w: int, seed: int, row0: float = 0.0):
     rows[:, 8:12] = torch.rand((n, 4), generator=g)
     fb = torch.rand((4, h, w), generator=g)
     zb = torch.rand((h, w), generator=g) * 0.6 + 0.4
+    special = torch.tensor([
+        [0.2 * w, 0.3 * h, 0.8 * w, 0.35 * h, 0.1, 0.2, 1, 0, .9, .1, .1,
+         float("nan")],
+        [0.0, 0.0, w, h, 0.15, 0.25, 1, 0, .1, .9, .1, .7],
+        [-0.5 * w, 0.6 * h, 1.5 * w, 0.45 * h, 0.1, 0.1, 1, 0, .1, .1, .9,
+         .6]])
+    th = torch.arange(LINE_FAN) * (2 * np.pi / LINE_FAN) + 0.01
+    r = 8.0 + 24.0 * torch.rand(LINE_FAN, generator=g)
+    u = torch.stack([th.cos(), th.sin()], 1) * r[:, None]
+    c = torch.tensor([0.55 * w, 0.55 * h])
+    fan = torch.zeros((LINE_FAN, 12))
+    fan[:, 0:2], fan[:, 2:4] = c - u, c + u
+    fan[:, 4:6] = torch.rand((LINE_FAN, 2), generator=g) * 0.4
+    fan[:, 6] = 1.0
+    fan[:, 8:12] = torch.rand((LINE_FAN, 4), generator=g)
+    made = torch.cat([special, fan])
+    made[:, 1] += row0
+    made[:, 3] += row0
+    rows = torch.cat([rows[:-8], made, rows[-8:]])
     return fb.cuda(), zb.cuda(), rows.cuda(), row0
+
+
+def fixture_l1(ll, h: int, w: int, seed: int, row0: float) -> float:
+    """L1 on ``line_fixture(h, w, seed, row0)`` at row offset ``row0``:
+    bins and frame equal to the plain versions', the NaN alpha in the
+    frame, the fan's tile holding the whole fan. Returns the max abs
+    error."""
+    fb, zb, rows, r0 = line_fixture(h, w, seed, row0)
+    label = f"fixture {w}x{h} at row {r0}"
+    err, k, bins = check_l1(ll, fb, zb, rows, h, w, r0, label)
+    counts = bin_counts(bins)
+    largest = int(counts.max())
+    changed = int((k != fb).any(0).sum())
+    nan_alpha = int(torch.isnan(k[3]).sum())
+    emit("line_fixture", size=[w, h], row0=r0, seed=seed,
+         segments=int(rows.shape[0]), pixels_changed=changed,
+         nan_alpha_pixels=nan_alpha, bin_entries=int(counts.sum()),
+         largest_bin=largest, bit_equal=True, max_abs_err=err)
+    check(changed > 1000, f"L1 {label}: the lines change too few pixels")
+    check(nan_alpha > 0, f"L1 {label}: no NaN alpha in the frame")
+    check(largest >= LINE_FAN, f"L1 {label}: the fan's tile holds {largest}")
+    return err
+
+
+# Segments of line_fixture's fan through one tile: more than the 2,048
+# segments of the draw's first chunk of 64 words.
+LINE_FAN = 2100
 
 
 def billboard_stage(rc, fr, card) -> dict:
@@ -3841,8 +3948,9 @@ def fx_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     from ckrenderengine_tpu_torch.raster import deferred as df
 
     t_phase = time.monotonic()
-    fns = dict(kernel_fns, L1=ll.lines_kernel)
-    launches.setdefault("L1", 0)
+    fns = dict(kernel_fns, **line_fns(ll))
+    for k in line_fns(ll):
+        launches.setdefault(k, 0)
     out = {}
     rcs = {}
     for name, kw, route in (("config5_fx", {}, "B4"),
@@ -3866,7 +3974,7 @@ def fx_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
         frames = 1 + (FX_TICKS if name == "config5_fx" else 0)
         finite, covered = frame_checks(name, rc)
         stats = rc.GetStats()
-        want = {"B1": frames, "L1": frames,
+        want = {"B1": frames, "L1": frames, "L1_bins": frames,
                 "B4": sum(rounds) if route == "B4" else 0,
                 "B3": frames if route == "B3" else 0, "B2": 0, "B5": 0}
         emit("fx", config=name, size=[rc.width, rc.height],
@@ -3891,18 +3999,7 @@ def fx_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     errs = [l1[4]]
     for h, w in ((768, 1024), (1536, 2048)):
         for seed, row0 in ((h, 0.0), (h + 1, 8.0)):
-            fb, zb, rows, r0 = line_fixture(h, w, seed, row0)
-            k = ll.lines_kernel(fb, zb, rows, h, w, row0=r0)
-            p = ll.draw_lines_plain(fb, zb, rows, h, w, row0=r0)
-            err = float((k - p).abs().max())
-            emit("line_fixture", size=[w, h], row0=r0, seed=seed,
-                 segments=int(rows.shape[0]),
-                 pixels_changed=int((k != fb).any(0).sum()),
-                 bit_equal=bool(torch.equal(k, p)), max_abs_err=err)
-            check(torch.equal(k, p), f"L1 fixture {w}x{h}: {err}")
-            check(int((k != fb).any(0).sum()) > 1000,
-                  f"L1 fixture {w}x{h}: the lines change too few pixels")
-            errs.append(err)
+            errs.append(fixture_l1(ll, h, w, seed, row0))
     out["L1_errs"] = errs
     out["billboards"] = billboard_stage(rc, fr, card)
     del rcs
@@ -3921,7 +4018,8 @@ def fx_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
                                                     rc_aa.height],
          render_size=[2 * rc_aa.width, 2 * rc_aa.height], launches=got,
          peel_rounds=s.OrderedPeelRounds, replays=s.OrderedReplays)
-    check(got["B1"] == 1 and got["L1"] == 1 and got["B3"] == 0
+    check(got["B1"] == 1 and got["L1"] == 1 and got["L1_bins"] == 1
+          and got["B3"] == 0
           and got["B4"] == s.OrderedPeelRounds >= 1 and s.OrderedReplays == 0,
           f"config5_fx AA: launches {got}")
     out["L1_aa"] = time_lines("config5_fx_aa", rc_aa, card, ll)[:4]
@@ -5278,7 +5376,7 @@ BAND_FRAMES = (("config5", "configs", 4, ("B1",)),
                ("config1", "configs", 4, ("B2",)),
                ("alpha50k", "configs", 4, ("B1", "B3")),
                ("alpha_tex50k", "configs", 4, ("B1", "B4")),
-               ("config5_fx", "build", 4, ("B1", "B4", "L1")),
+               ("config5_fx", "build", 4, ("B1", "B4", "L1", "L1_bins")),
                ("config2_mips_odd_bands", "build", 6, ("B1",)))
 # The band whose kernels are timed and held against their plain versions.
 BAND_TIMED = 1
@@ -5416,17 +5514,27 @@ def band_kernel(kernel, inputs, name, card, ll, cuda_tiled, cuda_reduce,
 
         def pfn():
             return ll.draw_lines_plain(fb, zb, rows, h, w, row0=row0)
-        label = "lines_kernel"
         bound = lines_bound(rows, zb, h, w, ll, row0)
-    out_k, out_p = kfn(), pfn()
-    if isinstance(out_k, torch.Tensor):
-        out_k, out_p = (out_k,), (out_p,)
-    same = all(a is None and b is None or torch.equal(a, b)
-               for a, b in zip(out_k, out_p))
-    check(same, f"{kernel} and its plain version disagree at {name}'s band "
-          f"at row {row0}")
-    st = {"ms": kernel_ms(kfn, label), "events_ms": cuda_ms(kfn, 20),
-          "plain_ms": cuda_ms(pfn, 2)}
+        check_l1(ll, fb, zb, rows, h, w, row0, f"{name}'s band")
+    if kernel != "L1":
+        out_k, out_p = kfn(), pfn()
+        if isinstance(out_k, torch.Tensor):
+            out_k, out_p = (out_k,), (out_p,)
+        same = all(a is None and b is None or torch.equal(a, b)
+                   for a, b in zip(out_k, out_p))
+        check(same, f"{kernel} and its plain version disagree at {name}'s "
+              f"band at row {row0}")
+        st = {"ms": kernel_ms(kfn, label)}
+    else:
+        # L1's time is the sum of its launches: the bin step and the draw.
+        parts = kernel_parts_ms(kfn, L1_PARTS)
+        st = {"ms": sum(parts.values()),
+              **{f"{k}_ms": v for k, v in parts.items()},
+              "copy_floor_ms": kernel_ms(
+                  lambda: ll.lines_kernel(fb, zb, rows[:0], h, w,
+                                          row0=row0), "lines_kernel")}
+        bound.update(parts_ms=parts, copy_floor_ms=st["copy_floor_ms"])
+    st.update(events_ms=cuda_ms(kfn, 20), plain_ms=cuda_ms(pfn, 2))
     emit("band_kernel", config=name, kernel=kernel, card=card, row0=row0,
          size=[w, h], equal_to_plain=True,
          **{k: round(v, 5) for k, v in st.items()},
@@ -5471,8 +5579,9 @@ def bands_phase(O, scenes, fr, kernel_fns, launches, card, configs,
     )
 
     t_phase = time.monotonic()
-    fns = dict(kernel_fns, L1=ll.lines_kernel)
-    launches.setdefault("L1", 0)
+    fns = dict(kernel_fns, **line_fns(ll))
+    for k in line_fns(ll):
+        launches.setdefault(k, 0)
     errs = {k: [] for k in fns}
     timed = {}
     # The kernels at row0 != 0 on the fixtures' band cases.
@@ -5487,12 +5596,8 @@ def bands_phase(O, scenes, fr, kernel_fns, launches, card, configs,
             errs["B4"].append(e4)
     errs["B2"] += [compare_flat(case, cuda_build.library().lib)
                    for case in flat_fixtures.band_cases()]
-    fb, zb, rows, _r = line_fixture(192, 1024, 23)
     for row0 in (192.0, 577.0):
-        k = ll.lines_kernel(fb, zb, rows, 192, 1024, row0=row0)
-        p = ll.draw_lines_plain(fb, zb, rows, 192, 1024, row0=row0)
-        errs["L1"].append(float((k - p).abs().max()))
-        check(torch.equal(k, p), f"L1 at row {row0}: kernel and plain differ")
+        errs["L1"].append(fixture_l1(ll, 192, 1024, 23, row0))
     emit("band_fixtures", card=card,
          max_abs_err={k: max(v) for k, v in errs.items() if v})
 

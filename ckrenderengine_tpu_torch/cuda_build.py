@@ -43,7 +43,8 @@ _SIGNATURES = {
                         _I, _I, _I, _P),
     "ck_ordered_blend_occupancy": (_I, _I, _I),
     "ck_ordered_peel_occupancy": (_I, _I, _I),
-    "ck_draw_lines": (_P, _I, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P),
+    "ck_line_bins": (_P, _I, _P, _I, _I, _F, _F, _P),
+    "ck_draw_lines": (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
 }
 
 

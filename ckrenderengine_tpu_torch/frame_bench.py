@@ -87,7 +87,7 @@ SCENES = tuple((name, build, angle, {}) for name, build, angle in _BASE) + \
      ("config5_mat", "build_config5_mat", 0.01, {}),
      ("config5_shaded", "build_config5_shaded", 0.01, {}))
 KERNELS = ("solve_tiled_kernel", "reduce_flat_kernel", "ordered_blend_kernel",
-           "ordered_peel_kernel", "lines_kernel")
+           "ordered_peel_kernel", "lines_kernel", "line_bins_kernel")
 FLAT_CASES = ("config1_pad", "flat_limit_256", "flat_deep_640", "flat_cap_128")
 
 
@@ -141,10 +141,11 @@ def device_us(events):
 
 def profiled_kernels(prof) -> dict:
     """Device launches of each hand-written kernel in a profile: B5 is the
-    tiled solve's fetch instantiation (its second template argument)."""
+    tiled solve's fetch instantiation (its second template argument), L1
+    the line pass's draw and L1_bins its bin step."""
     from torch.autograd import DeviceType
 
-    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "L1"), 0)
+    out = dict.fromkeys(("B1", "B2", "B3", "B4", "B5", "L1", "L1_bins"), 0)
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -160,6 +161,8 @@ def profiled_kernels(prof) -> dict:
             out["B4"] += 1
         elif "lines_kernel" in e.name:
             out["L1"] += 1
+        elif "line_bins_kernel" in e.name:
+            out["L1_bins"] += 1
     return out
 
 

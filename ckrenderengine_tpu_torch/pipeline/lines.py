@@ -12,11 +12,14 @@ frame in bank order: the colour of the last covering segment, the alpha
 the largest of the pixel's and every covering segment's.
 
 On a CUDA tensor :func:`draw_lines` launches the hand-written kernel L1
-(``csrc/lines.cu``); on a CPU tensor it runs :func:`draw_lines_plain`, the
+(``csrc/lines.cu``): a bin step (:func:`line_bins_kernel`: per 32x8 tile a
+bitmask of the segments that can reach it) and the draw, which walks only
+its tile's bin. On a CPU tensor it runs :func:`draw_lines_plain`, the
 reference's arithmetic in its order. The reference's per-line loop within
 a chunk only selects, so the plain version takes each chunk's selection in
 one step (the highest covering index's colour, the maximum of the alphas);
-the result equals the sequential loop bit for bit.
+the result equals the sequential loop bit for bit. :func:`line_bins_plain`
+is the bin step's plain version.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ Z_BIAS = 1e-4
 CHUNK = 32
 # One projected segment per row: ax ay bx by z0 z1 valid (pad) r g b a.
 ROW_FLOATS = 12
+# L1's tiles: the bin step keeps one bitmask of the bank per tile.
+TILE_W, TILE_H = 32, 8
 
 
 class LineBank(NamedTuple):
@@ -171,11 +176,100 @@ def draw_lines_plain(fb: torch.Tensor, zb: torch.Tensor, rows: torch.Tensor,
     return torch.cat([rgb, alpha[None]])
 
 
+def bin_shape(n_rows: int, height: int, width: int) -> tuple:
+    """(tiles, words) of the bins: tiles in row-major order, ceil(L/32)
+    32-bit words each."""
+    return (-(-height // TILE_H) * -(-width // TILE_W), -(-n_rows // 32))
+
+
+def line_bins_plain(rows: torch.Tensor, height: int, width: int,
+                    row0: float = 0.0,
+                    half_width: float = HALF_WIDTH) -> torch.Tensor:
+    """Plain torch version of L1's bin step: (tiles, ceil(L/32)) int32
+    words (:func:`bin_shape`), bit j of word w set when segment 32 w + j
+    may cover a pixel centre of the tile. The test (``csrc/lines.cu``
+    ``reaches``) keeps a valid segment with finite endpoints unless its box
+    dilated by m = half_width + 1 + 2^-20 (mag + tmag) misses the tile's
+    pixel centres, or (where mag <= 2^40) the centres' rect dilated by m
+    lies on one side of its line; the kernel's f32 arithmetic in its
+    order."""
+    dev, f32, row0 = rows.device, torch.float32, _f32(row0)
+    n_tiles, n_words = bin_shape(rows.shape[0], height, width)
+    tiles_x = -(-width // TILE_W)
+    ax, ay, bx, by = (rows[:, k] for k in range(4))
+    ok = (rows[:, 6] > 0.5) & torch.isfinite(rows[:, :4]).all(1)
+    dx, dy = bx - ax, by - ay
+    mag = torch.maximum(torch.maximum(ax.abs(), bx.abs()),
+                        torch.maximum(ay.abs(), by.abs()))
+    x_hi, x_lo = torch.maximum(ax, bx), torch.minimum(ax, bx)
+    y_hi, y_lo = torch.maximum(ay, by), torch.minimum(ay, by)
+    capsule = mag <= 2.0 ** 40
+    hw1 = torch.tensor(half_width, dtype=f32, device=dev) + 1.0
+    tx0 = (torch.arange(tiles_x, dtype=f32, device=dev) * TILE_W
+           + 0.5)[:, None]
+    tx1 = tx0 + (TILE_W - 1)
+    hits = []
+    # A few tile rows at a time: (rows, tiles_x, L) temporaries.
+    step = max(1, (1 << 22) // max(1, tiles_x * rows.shape[0]))
+    for r0 in range(0, -(-height // TILE_H), step):
+        ty = torch.arange(r0, min(r0 + step, -(-height // TILE_H)),
+                          dtype=f32, device=dev)
+        ty0 = ((ty * TILE_H + 0.5) + row0)[:, None, None]
+        ty1 = ty0 + (TILE_H - 1)
+        tmag = torch.maximum(torch.maximum(tx1.abs(), ty0.abs()), ty1.abs())
+        m = hw1 + (mag + tmag) * 2.0 ** -20
+        miss = ((x_hi + m < tx0) | (x_lo - m > tx1) | (y_hi + m < ty0)
+                | (y_lo - m > ty1))
+        ex = (tx0 + 0.5 * (TILE_W - 1)) - ax
+        ey = (ty0 + 0.5 * (TILE_H - 1)) - ay
+        cr = dx * ey - dy * ex
+        rhs = dx.abs() * (m + 0.5 * (TILE_H - 1)) \
+            + dy.abs() * (m + 0.5 * (TILE_W - 1))
+        miss |= capsule & (cr.abs() > rhs)
+        hits.append((ok & ~miss).reshape(len(ty) * tiles_x, rows.shape[0]))
+    hit = torch.cat(hits) if hits else torch.zeros(
+        (0, rows.shape[0]), dtype=torch.bool, device=dev)
+    hit = torch.nn.functional.pad(hit, (0, n_words * 32 - rows.shape[0]))
+    bits = torch.arange(32, device=dev, dtype=torch.int64)
+    words = (hit.reshape(n_tiles, n_words, 32).to(torch.int64)
+             << bits).sum(-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def line_bins_kernel(rows: torch.Tensor, height: int, width: int,
+                     row0: float = 0.0,
+                     half_width: float = HALF_WIDTH) -> torch.Tensor:
+    """Launch L1's bin step on CUDA rows (L, ROW_FLOATS) f32: the
+    (tiles, words) int32 bins of :func:`line_bins_plain`. An empty bank
+    launches nothing."""
+    if not rows.is_cuda or rows.dtype != torch.float32 or rows.dim() != 2 \
+            or rows.shape[1] != ROW_FLOATS:
+        raise ValueError("line_bins_kernel takes CUDA f32 rows "
+                         f"(L, {ROW_FLOATS})")
+    bins = torch.empty(bin_shape(rows.shape[0], height, width),
+                       dtype=torch.int32, device=rows.device)
+    if bins.numel() == 0:
+        return bins
+    rows = rows.contiguous()    # 16-byte aligned rows: the kernel refuses others
+    code = cuda_build.library().lib.ck_line_bins(
+        rows.data_ptr(), rows.shape[0], bins.data_ptr(), height, width,
+        ctypes.c_float(row0), ctypes.c_float(half_width),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    cuda_build.check("ck_line_bins", code)
+    line_bins_kernel.launches += 1
+    return bins
+
+
+line_bins_kernel.launches = 0
+
+
 def lines_kernel(fb: torch.Tensor, zb: torch.Tensor, rows: torch.Tensor,
                  height: int, width: int, half_width: float = HALF_WIDTH,
                  z_bias: float = Z_BIAS, row0: float = 0.0) -> torch.Tensor:
     """Launch kernel L1 on CUDA tensors: fb (4,H,W) f32, zb (H,W) f32,
-    rows (L, ROW_FLOATS) f32. Returns a new fb."""
+    rows (L, ROW_FLOATS) f32. The bin step (:func:`line_bins_kernel`),
+    then the draw over each tile's bin. Returns a new fb."""
     if not (fb.is_cuda and zb.is_cuda and rows.is_cuda) \
             or rows.dtype != torch.float32 or rows.dim() != 2 \
             or rows.shape[1] != ROW_FLOATS \
@@ -186,14 +280,15 @@ def lines_kernel(fb: torch.Tensor, zb: torch.Tensor, rows: torch.Tensor,
     lib = cuda_build.library().lib
     fb_in = fb.to(torch.float32).contiguous()
     zb = zb.to(torch.float32).contiguous()
-    rows = rows.contiguous()    # 16-byte aligned rows: the kernel refuses others
+    rows = rows.contiguous()
+    bins = line_bins_kernel(rows, height, width, row0, half_width)
     out = torch.empty_like(fb_in)
     stream = torch.cuda.current_stream(fb.device).cuda_stream
     code = lib.ck_draw_lines(
-        rows.data_ptr(), rows.shape[0], fb_in.data_ptr(), zb.data_ptr(),
-        out.data_ptr(), height, width, ctypes.c_float(row0),
-        ctypes.c_float(half_width), ctypes.c_float(half_width * half_width),
-        ctypes.c_float(z_bias), stream)
+        rows.data_ptr(), rows.shape[0], bins.data_ptr(), fb_in.data_ptr(),
+        zb.data_ptr(), out.data_ptr(), height, width, ctypes.c_float(row0),
+        ctypes.c_float(half_width * half_width), ctypes.c_float(z_bias),
+        stream)
     cuda_build.check("ck_draw_lines", code)
     lines_kernel.launches += 1
     return out

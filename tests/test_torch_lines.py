@@ -213,3 +213,29 @@ def test_lines_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         tl.lines_kernel(torch.zeros(4, 8, 8), torch.ones(8, 8),
                         torch.zeros(8, tl.ROW_FLOATS), 8, 8)
+
+
+def test_nan_alpha_segment_matches_reference():
+    """A segment whose colour alpha is NaN: the port's plain version puts
+    NaN in the alpha of every pixel it covers, and only there, as the
+    reference's jnp.maximum does (jitted and op by op), outside the
+    rounding band."""
+    scene, world, bank, fb, zb = _inputs(2, 40)
+    tscene = _Scene(**{k: torch.as_tensor(v) for k, v in scene.items()})
+    tbank = tl.LineBank(**{k: torch.as_tensor(v) for k, v in bank.items()})
+    rows = tl.line_rows(tscene, torch.as_tensor(world), tbank)
+    cov = tl.line_coverage(rows, torch.as_tensor(zb), H, W)
+    seg = int(torch.argmax(cov.sum((1, 2))))
+    bank["color"][seg, 3] = np.nan
+    got = _port(scene, world, bank, fb, zb, H, W, 0.0)
+    nan_got = np.isnan(got[3])
+    assert nan_got.sum() >= 5
+    np.testing.assert_array_equal(nan_got, cov[seg].numpy())
+    rows64, delta, delta_z = exact_rows(scene, world, bank)
+    band = line_band(rows64, H, W, zb, zb, delta, delta_z)
+    for jit in (True, False):
+        want = _reference(scene, world, bank, fb, zb, H, W, 0.0, jit)
+        nan_want = np.isnan(want[3])
+        assert not np.any((nan_got != nan_want) & ~band), jit
+        differ = ((got != want) & ~(np.isnan(got) & np.isnan(want))).any(0)
+        assert not np.any(differ & ~band), jit
