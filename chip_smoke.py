@@ -134,10 +134,12 @@ seconds, the file's size, DXT decode host ms per MiB, ``CreatePM`` and
 reads image files with the port's own readers and renders a level
 textured from them (``scenes.build_config5_images``: config 5 with a
 512x512 JPEG checker, 256x256 BMP sphere skins, a palette-PNG plaza, 12
-alpha-over signs from an RLE TGA and two HUD movie sprites, an animated
-GIF and an APNG; the ``images`` phase: every file of
-``tests/torch_images/`` decoded equal to Pillow's decode in
-``expected.npz``, host ms per decoded MiB of each reader, 3 ticks with
+alpha-over signs from an RLE TGA and four HUD movie sprites, an animated
+GIF, an APNG, an MJPG AVI and an MS RLE AVI; the ``images`` phase: every
+file of ``tests/torch_images/`` decoded equal to the reference's decode
+(Pillow's, or OpenCV's for the AVIs of ``io/avi.py``) in
+``expected.npz``, host ms per decoded MiB of each reader and AVI codec,
+3 ticks with
 ``SetMovieTime`` with B1 once and B4 once per peel round, B1 and B4 equal
 to their plain versions at the first frame's inputs, and the same level
 built with ``SetImage`` of the expected arrays bit-equal over the 3
@@ -172,8 +174,9 @@ contexts of 256x256 over a 4-entry context mesh bit-equal to
 the machine has several, else a line says it did not run),
 and times the frames, the stages (the skinned
 frame's animate + compose + skin stage on its own, config 3's overlay
-composite) and the kernels, at 1x and at their Antialias shapes, beside
-each kernel's roofline bound, under which no kernel's time may fall (B2
+composite) and the kernels, at 1x and at their Antialias shapes, each
+launch after 128 MiB written to flush the L2, beside each kernel's
+roofline bound, under which no kernel's time may fall (B2
 also at its floor, every row invalid, and at the flat route's limits).
 Every phase prints a line; any failure raises, so the exit code is nonzero.
 The last line is the device record ``{"ok": true, "device": {"platform":
@@ -211,6 +214,24 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
+def host_cpu() -> str:
+    """The host's CPU (its model name, or on ARM its implementer and part
+    numbers), architecture and core count, beside a host-side time."""
+    import platform
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                key, _, value = ln.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+    except OSError:
+        pass
+    model = fields.get("model name") or " ".join(
+        f"{k} {fields[k]}" for k in ("CPU implementer", "CPU part")
+        if k in fields) or "model not reported"
+    return f"{model}, {platform.machine()}, {os.cpu_count()} cores"
+
+
 def fail(msg: str) -> None:
     raise AssertionError(msg)
 
@@ -235,19 +256,38 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+# Bytes written before each timed call: more than twice the H100's 50 MB
+# L2, so the call finds its inputs in HBM and the L2 full of other dirty
+# lines, as the bytes bound (each input read from HBM, each output written
+# there) assumes. Without it a call whose inputs and outputs fit in the L2
+# (L1 at 1024x768 moves 28 MB) can run in under the time HBM allows.
+L2_FLUSH_BYTES = 128 * 2**20
+_L2_FLUSH = []
+
+
+def flush_l2() -> None:
+    """Write L2_FLUSH_BYTES on the card (one fill launch, whose name holds
+    none of the hand-written kernels')."""
+    if not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(L2_FLUSH_BYTES // 4, device="cuda"))
+    _L2_FLUSH[0].zero_()
+
+
 def kernel_ms(fn, name: str, reps: int = 20) -> float:
     """Mean milliseconds the kernel whose name contains ``name`` runs on the
     card per launch, over ``reps`` calls of ``fn()`` under ``torch.profiler``
-    (one warm-up call first). Unlike :func:`cuda_ms` it holds no host time:
-    a wrapper's launch takes the host some 0.05 ms, which a CUDA-event mean
-    counts whenever the kernel is shorter than that."""
+    (one warm-up call first), each call after :func:`flush_l2`. Unlike
+    :func:`cuda_ms` it holds no host time: a wrapper's launch takes the
+    host some 0.05 ms, which a CUDA-event mean counts whenever the kernel
+    is shorter than that."""
     return kernel_parts_ms(fn, (name,), reps)[name]
 
 
 def kernel_parts_ms(fn, names, reps: int = 20) -> dict:
     """{name: mean ms per launch} of each kernel whose name contains one of
     ``names``, every one launched once per call of ``fn()``, from one
-    profiler window of ``reps`` calls (as :func:`kernel_ms`)."""
+    profiler window of ``reps`` calls, each after :func:`flush_l2` (as
+    :func:`kernel_ms`)."""
     from torch.profiler import ProfilerActivity
 
     from ckrenderengine_tpu_torch.frame_bench import profile_window
@@ -261,8 +301,12 @@ def kernel_parts_ms(fn, names, reps: int = 20) -> dict:
     # Each call launches each kernel once (a wrapper counts one launch per
     # call), so a window with any other count than ``reps`` lost records
     # or holds foreign ones, and is profiled again.
+    def cold():
+        flush_l2()
+        fn()
+
     prof, _wall = profile_window(
-        fn, reps, [ProfilerActivity.CUDA],
+        cold, reps, [ProfilerActivity.CUDA],
         lambda p: all(count(p, k) == reps for k in names),
         label="+".join(names))
     out = {}
@@ -2982,13 +3026,16 @@ def images_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     (config 5's 528,032 terrain triangles; its checker a 512x512 4:2:0
     JPEG, the spheres' skin a 256x256 24-bit BMP, a plaza from an 8-bit
     palette PNG with tRNS, 12 alpha-over signs from a 256x256 32-bit RLE
-    TGA, and two HUD sprites playing an animated GIF and an APNG).
+    TGA, and four HUD sprites playing an animated GIF, an APNG, an MJPG
+    AVI written by OpenCV and an MS RLE AVI).
 
     - Every file of ``tests/torch_images/`` decoded by the port's readers
-      (``io/imagefile.py``) equal to ``expected.npz``, every frame and
-      every duration; host ms per decoded MiB of each reader (best of 3,
-      on the card machine's host).
-    - 3 ticks of the level (each stepping both movies with
+      (``io/imagefile.py``; ``io/avi.py`` for the AVIs, one per codec it
+      reads) equal to ``expected.npz`` (the reference's decode: Pillow's,
+      or OpenCV's for an AVI), every frame and every duration; host ms
+      per decoded MiB of each reader and of each AVI codec (best of 3, on
+      the card machine's host).
+    - 3 ticks of the level (each stepping every movie with
       ``SetMovieTime``): B1 once per frame, B4 once per peel round,
       nothing else; B1 and B4 equal to their plain versions at the first
       frame's inputs (``time_rows``, ``time_ordered``); each HUD sprite
@@ -3001,7 +3048,7 @@ def images_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     - The phase's seconds, device ms and launches per frame
       (torch.profiler).
     """
-    from ckrenderengine_tpu_torch.io import imagefile
+    from ckrenderengine_tpu_torch.io import avi, imagefile
     from ckrenderengine_tpu_torch.raster import (
         cuda_ordered as co, cuda_tiled,
     )
@@ -3018,10 +3065,18 @@ def images_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
         best = float("inf")
         for _ in range(3):
             t0 = time.perf_counter()
-            it = imagefile.frames(path)
-            got = [(imagefile.to_rgba(*f), float(f.info.get("duration",
-                                                           100.0)))
-                   for f in it]
+            if name.endswith(".avi"):
+                with open(path, "rb") as f:
+                    rgb, fps = avi.read_avi(f.read())
+                got = []
+                for px in rgb:
+                    rgba = np.full(px.shape[:2] + (4,), 255, np.uint8)
+                    rgba[..., :3] = px
+                    got.append((rgba, 1000.0 / fps))
+            else:
+                it = imagefile.frames(path)
+                got = [(imagefile.to_rgba(*f),
+                        float(f.info.get("duration", 100.0))) for f in it]
             best = min(best, time.perf_counter() - t0)
         check(len(got) == len(want) and all(
             np.array_equal(g, w) for (g, _d), w in zip(got, want)),
@@ -3030,16 +3085,22 @@ def images_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
               f"images: {name} durations {[d for _g, d in got]}, "
               f"expected {durations}")
         mib = sum(g.nbytes for g, _d in got) / 2**20
-        # The reader imagefile picked by the file's content: each is a
-        # generator function named read_<format>.
-        reader = it.__name__.removeprefix("read_")
+        if name.endswith(".avi"):
+            # An AVI by its codec and the decoder's pixel format.
+            with open(path, "rb") as f:
+                kind, fmt = avi.codec(avi.demux(f.read()))
+            reader = "_".join(["avi", kind] + ([fmt] if fmt else []))
+        else:
+            # The reader imagefile picked by the file's content: each is
+            # a generator function named read_<format>.
+            reader = it.__name__.removeprefix("read_")
         decode[name] = {"reader": reader, "frames": len(got),
                         "decoded_mib": mib, "host_ms": best * 1e3}
         ms, total = totals.get(reader, (0.0, 0.0))
         totals[reader] = (ms + best * 1e3, total + mib)
     per_mib = {r: ms / mib for r, (ms, mib) in totals.items()}
-    emit("images_decode", card=card, host_ms_per_decoded_mib=per_mib,
-         files=decode)
+    emit("images_decode", card=card, host_cpu=host_cpu(),
+         host_ms_per_decoded_mib=per_mib, files=decode)
 
     t0 = time.monotonic()
     ctx, rc, _spinner, tick = scenes.build_config5_images(

@@ -13,6 +13,8 @@ extension):
 - ``bmp.read_bmp``: Windows bitmaps;
 - ``jpeg.read_jpeg``: baseline and progressive Huffman JPEG;
 - ``tiff.read_tiff``: TIFF, one page or several;
+- an AVI (:func:`is_avi`) is a movie, which ``avi.read_avi`` reads for
+  ``LoadMovie`` and Pillow refuses as an image;
 - ``tga.read_tga``: Truevision TGA, which has no signature and is tried
   last, as in Pillow.
 
@@ -59,6 +61,12 @@ def unsupported(what: str) -> NotImplementedError:
     return unported(f"image files: {what}", 14)
 
 
+def unsupported_movie(what: str) -> NotImplementedError:
+    """The error for an AVI variant (codec, pixel layout) that the movie
+    readers (``avi.py`` and its decoders) do not read."""
+    return unported(f"movie sprites from AVI files: {what} (LoadMovie)", 14)
+
+
 def _reader(head: bytes):
     """The reader for a file that starts with ``head``, or None."""
     if head.startswith(b"\x89PNG\r\n\x1a\n"):
@@ -76,7 +84,22 @@ def _reader(head: bytes):
     if head[:4] in (b"II*\0", b"MM\0*"):
         from .tiff import read_tiff
         return read_tiff
+    if is_avi(head):
+        return _avi
     return None
+
+
+def is_avi(head: bytes) -> bool:
+    """An AVI file (``RIFF....AVI ``): a movie, which ``avi.read_avi``
+    reads for ``LoadMovie``. Other RIFF forms (WebP, an OpenDML ``AVIX``
+    part on its own) are not read."""
+    return head[:4] == b"RIFF" and head[8:12] == b"AVI "
+
+
+def _avi(data: bytes) -> Iterator[Frame]:
+    """Pillow refuses an AVI as an image (``LoadImage`` returns False)."""
+    raise Refused("an AVI movie is not an image file")
+    yield
 
 
 def frames(path: str) -> Iterator[Frame] | None:

@@ -358,18 +358,50 @@ class CKSprite(CK2dEntity):
         return True
 
     def LoadMovie(self, path: str) -> bool:
-        """Movie sprites (reference RCKSprite movie load): the frames of an
-        animated GIF, an APNG, a multi-page TIFF or a still image (one
-        frame of 100 ms) into image slots, each frame the RGBA of the
-        reference's ``ImageSequence.Iterator``, its duration (ms) kept for
-        SetMovieTime. False for a missing file, as in the reference. The
-        reference reads every other file with OpenCV (video containers):
-        such a file raises (item 14)."""
-        from ..io.imagefile import Refused, frames, to_rgba
+        """Movie sprites (reference RCKSprite movie load): the frames of a
+        movie into image slots, each frame's duration (ms) kept for
+        SetMovieTime. False for a missing file, as in the reference.
+
+        - An animated GIF, an APNG, a multi-page TIFF or a still image:
+          each frame the RGBA of the reference's
+          ``ImageSequence.Iterator``, its duration the frame's own (100
+          ms where it has none).
+        - An AVI (the reference reads it with OpenCV's FFmpeg): each
+          frame as ``VideoCapture.read`` gives it, alpha 1, every frame
+          ``1000 / fps`` ms (100 ms where fps <= 1e-3); False where
+          OpenCV would not open the file or reads no frame
+          (``io/avi.py``).
+
+        Any other file (the reference's other video containers) and the
+        AVI codecs ``io/avi.py`` does not decode raise item 14."""
+        from ..io.avi import read_avi
+        from ..io.imagefile import Refused, frames, is_avi, to_rgba
+
+        try:
+            with open(path, "rb") as f:
+                head = f.read(189)
+        except OSError:
+            return False
 
         def video():
-            return unported("movie sprites from video containers "
-                            "(LoadMovie)", 14)
+            name = _container(head)
+            return unported(f"movie sprites from video containers other "
+                            f"than AVI ({name}) (LoadMovie)", 14)
+        if is_avi(head):
+            with open(path, "rb") as f:
+                got = read_avi(f.read())
+            if not got or not got[0]:
+                return False
+            rgb, fps = got
+            duration = 1000.0 / fps if fps > 1e-3 else 100.0
+            self._movie_durations = []
+            for n, px in enumerate(rgb):
+                rgba = np.ones(px.shape[:2] + (4,), np.float32)
+                rgba[..., :3] = px.astype(np.float32) / 255.0
+                self.SetImage(rgba, slot=n)
+                self._movie_durations.append(duration)
+            self.SetCurrentSlot(0)
+            return True
         try:
             it = frames(path)
         except NotImplementedError:         # no reader takes the file
@@ -414,6 +446,21 @@ class CKSprite(CK2dEntity):
     def texture(self):
         return self._store if self._store.current_image() is not None \
             else super().texture()
+
+
+def _container(head: bytes) -> str:
+    """The name of the container a file's first bytes show."""
+    if head[4:8] in (b"ftyp", b"moov", b"mdat", b"wide", b"free"):
+        return "MP4 / MOV"
+    if head[:4] == b"\x1aE\xdf\xa3":
+        return "Matroska / WebM"
+    if head[:4] == b"\0\0\x01\xba":
+        return "MPEG-PS"
+    if head[:1] == b"G" and head[188:189] == b"G":
+        return "MPEG-TS"
+    if head[:3] == b"FLV":
+        return "FLV"
+    return f"a file starting {head[:12]!r}"
 
 
 @functools.lru_cache(maxsize=None)

@@ -15,7 +15,12 @@ PORT_QUEUE = {
         "the auto-hinter), text that needs bidi reordering or a script "
         "shaper, characters without a glyph or decomposition, TrueType "
         "opcodes outside the interpreter; movie "
-        "sprites from video containers (LoadMovie); and the image formats "
+        "sprites from video containers other than AVI (MP4, MOV, MKV, "
+        "WebM, MPEG-PS/TS, FLV) and from AVI codecs the port does not "
+        "decode (Cinepak, Indeo, MPEG-4 ASP, H.264, FFV1, HuffYUV, DV; "
+        "RGB MJPEG and chroma samplings FFmpeg does not name; BI_RGB "
+        "below 8 bits; frames whose size changes within a movie); and the "
+        "image formats "
         "and variants the readers of io/imagefile.py refuse (WebP, JPEG "
         "2000, ICO, PCX, PPM, PSD and other formats; CMYK, arithmetic, "
         "12-bit and lossless JPEG; TIFF other than 8-bit L, LA, P, RGB, "

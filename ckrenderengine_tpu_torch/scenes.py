@@ -1730,7 +1730,8 @@ IMAGE_FILES = {"checker": "terrain_checker.jpg",
                "ball_skin": "sphere_skin.bmp",
                "plaza_tex": "plaza_palette.png",
                "sign_tex": "sign_alpha.tga"}
-MOVIE_FILES = {"hud_gif": "hud_movie.gif", "hud_apng": "hud_movie_apng.png"}
+MOVIE_FILES = {"hud_gif": "hud_movie.gif", "hud_apng": "hud_movie_apng.png",
+               "hud_mjpg": "hud_mjpg.avi", "hud_rle": "hud_rle.avi"}
 MOVIE_STEP_MS = 55.0          # SetMovieTime advance per tick
 
 
@@ -1751,9 +1752,12 @@ def build_config5_images(O, width: int = 1024, height: int = 768,
       ``sign_tex``, a 256x256 32-bit RLE TGA whose alpha is a gradient;
       with the TexturedPeel option on, their ordered triangles take the
       peel (B4) above the flat size, as ``build_config5_io``'s signs do;
-    - two HUD ``CKSprite`` movies: ``hud_gif`` (a 64x64 animated GIF: 3
+    - four HUD ``CKSprite`` movies: ``hud_gif`` (a 64x64 animated GIF: 3
       frames, local palettes, a transparent index, disposal 2, 40/60/100
-      ms) and ``hud_apng`` (a 64x64 APNG of 3 frames blended over).
+      ms), ``hud_apng`` (a 64x64 APNG of 3 frames blended over),
+      ``hud_mjpg`` (a 64x64 MJPG 4:2:0 AVI of 4 frames at 12.5 fps,
+      written by OpenCV) and ``hud_rle`` (a 64x64 8-bit MS RLE AVI of 4
+      frames at 30000/1001 fps).
 
     Textures load through ``LoadImage`` and the sprites through
     ``LoadMovie``; with ``decoded`` ({file name: (list of (H, W, 4) uint8

@@ -33,6 +33,7 @@ import ckrenderengine_tpu.objects as J
 import ckrenderengine_tpu_torch.objects as O
 from ckrenderengine_tpu_torch import scenes
 from ckrenderengine_tpu_torch.io import imagefile
+from ckrenderengine_tpu_torch.io.avi import read_avi
 from tests import _torch_image_writers as W
 from tests._torch_common import check_render, render_both, small_ctx
 
@@ -368,6 +369,17 @@ def test_expected_images_equal_pillow_and_the_port():
     assert set(expected) == files
     for name, (frames, durations) in expected.items():
         path = os.path.join(scenes.IMAGE_DIR, name)
+        if name.endswith(".avi"):
+            # Movies the reference reads with OpenCV: the port's frames
+            # (alpha 255) and durations against the expected ones;
+            # test_torch_avi.py holds them to OpenCV's.
+            rgb, fps = read_avi(open(path, "rb").read())
+            assert [1000.0 / fps] * len(rgb) == durations, name
+            assert len(rgb) == len(frames), name
+            for a, c in zip(frames, rgb):
+                np.testing.assert_array_equal(a[..., :3], c)
+                assert (a[..., 3] == 255).all()
+            continue
         pil_frames = [(np.asarray(f.convert("RGBA")),
                        float(f.info.get("duration", 100.0)))
                       for f in ImageSequence.Iterator(Image.open(path))]

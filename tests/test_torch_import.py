@@ -22,6 +22,7 @@ HAND_RUN = {
     os.path.join("ckrenderengine_tpu_torch", "objects",
                  "make_glyph_table.py"): ("PIL",),
     os.path.join("tests", "torch_fonts", "make_fonts.py"): ("PIL",),
+    os.path.join("tests", "torch_images", "make_images.py"): ("PIL", "cv2"),
 }
 
 
@@ -65,13 +66,14 @@ def test_import_with_jax_and_reference_blocked():
 
 @pytest.mark.parametrize("path", sorted(_modules()) + [
     os.path.join(ROOT, "chip_smoke.py"),
-    os.path.join(ROOT, "tests", "torch_fonts", "make_fonts.py")],
+    os.path.join(ROOT, "tests", "torch_fonts", "make_fonts.py"),
+    os.path.join(ROOT, "tests", "torch_images", "make_images.py")],
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_module_has_no_reference_import(path):
     """No import statement (or __import__/import_module call) of the port,
-    of ``chip_smoke.py`` or of ``make_fonts.py`` names jax, the reference
-    package, PIL, cv2 or fontTools (the hand-run scripts of HAND_RUN only
-    what they list)."""
+    of ``chip_smoke.py``, of ``make_fonts.py`` or of ``make_images.py``
+    names jax, the reference package, PIL, cv2 or fontTools (the hand-run
+    scripts of HAND_RUN only what they list)."""
     allowed = HAND_RUN.get(os.path.relpath(path, ROOT), ())
     with open(path) as f:
         tree = ast.parse(f.read(), path)

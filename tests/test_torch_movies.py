@@ -13,8 +13,9 @@ Pillow's ``ImageSequence.Iterator``, on the CPU.
   end and past the movie's length.
 - The reference's scenario of tests/test_2d_overlay.py:267-300 (a GIF
   movie rendered by time, wrapping) run through the port.
-- A missing file returns False in both packages; a file the readers do
-  not take raises item 14 naming video containers.
+- A missing file and an AVI that does not open return False in both
+  packages; a file the readers do not take (an MP4) raises item 14 naming
+  video containers.
 """
 
 import jax.numpy as jnp
@@ -176,11 +177,17 @@ def test_gif_movie_frames_render_by_time(tmp_path):
 def test_missing_file_and_video_containers(tmp_path):
     for P in (O, J):
         assert _movie(P, str(tmp_path / "missing.gif"))[1] is False
+    # An AVI is read by the port since item 14's AVI slice: a header with
+    # no movi list does not open, in both packages.
     clip = tmp_path / "clip.avi"
     clip.write_bytes(b"RIFF\x24\0\0\0AVI LIST" + bytes(64))
+    for P in (O, J):
+        assert _movie(P, str(clip))[1] is False
+    mp4 = tmp_path / "clip.mp4"
+    mp4.write_bytes(b"\0\0\0\x18ftypisom\0\0\x02\0isomiso2" + bytes(64))
     with pytest.raises(NotImplementedError,
                        match="video containers.*item 14"):
-        _movie(O, str(clip))
+        _movie(O, str(mp4))
 
 
 def _slot_quad(P, case):

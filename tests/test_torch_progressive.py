@@ -169,9 +169,10 @@ def test_low_lod_frame_matches_the_reference():
 def test_port_queue_has_no_progressive_mesh_item():
     """Item 16 (progressive meshes) is carried: no key in PORT_QUEUE and no
     ``unported(..., 16)`` in the port. Item 14 keeps only movie sprites
-    from video containers, the default font's characters outside its
-    baked table, the image variants the readers refuse (one call,
-    ``imagefile.unsupported``) and what the TrueType stack of ``text/``
+    from video containers other than AVI, the default font's characters
+    outside its baked table, the image and AVI variants the readers refuse
+    (one call each, ``imagefile.unsupported`` and
+    ``imagefile.unsupported_movie``) and what the TrueType stack of ``text/``
     refuses (font formats, opcodes, layouts): no named font, size or
     ligature waits for a baked table."""
     assert 16 not in PORT_QUEUE and set(PORT_QUEUE) == {1, 14}
@@ -184,10 +185,11 @@ def test_port_queue_has_no_progressive_mesh_item():
             cites.setdefault(int(item), []).append((path.name, what))
     assert 16 not in cites
     kept = collections.Counter(name for name, _ in cites[14])
-    assert kept == {"entity2d.py": 2, "imagefile.py": 1, "sfnt.py": 8,
+    assert kept == {"entity2d.py": 2, "imagefile.py": 2, "sfnt.py": 8,
                     "shaping.py": 7, "hinting.py": 3}, cites[14]
     texts = " ".join(what for _, what in cites[14])
-    for word in ("image files", "video containers", "default font",
+    for word in ("image files", "video containers", "AVI files",
+                 "default font",
                  "CFF outlines", "collection", "variable font",
                  "TrueType opcode", "right-to-left", "script needs"):
         assert word in texts, word

@@ -3,9 +3,9 @@
 
     python3 tests/torch_images/make_images.py
 
-Needs Pillow (the port's package does not use it). The content is smooth
-and made from seeded numpy, so that PNG and RLE compress and the folder
-stays small. Writes, beside this script:
+Needs Pillow and OpenCV (the port's package uses neither). The content is
+smooth and made from seeded numpy, so that PNG and RLE compress and the
+folder stays small. Writes, beside this script:
 
 - the level's files: ``terrain_checker.jpg`` (512x512, 4:2:0, quality 85),
   ``sphere_skin.bmp`` (256x256, 24-bit), ``plaza_palette.png`` (128x128,
@@ -18,10 +18,18 @@ stays small. Writes, beside this script:
   (``tests/_torch_image_writers.py``): ``adam7.png`` (Adam7, 8-bit RGBA),
   ``rle4.bmp``, ``rle8.bmp``, ``tga16.tga`` (16-bit truecolour) and
   ``tiled_planar.tif`` (planar RGB in 16x16 tiles, Deflate, predictor 2);
-- ``expected.npz``: for each file, ``<file>:<frame>`` Pillow's RGBA uint8
-  of every frame ``ImageSequence.Iterator`` gives and ``<file>:durations``
-  each frame's duration in ms as the reference's ``LoadMovie`` takes it
-  (100 where Pillow reports none).
+- the level's AVI sprites: ``hud_mjpg.avi`` (64x64 MJPG 4:2:0, 4 frames
+  at 12.5 fps, written by OpenCV's ``VideoWriter``) and ``hud_rle.avi``
+  (64x64 8-bit MS RLE, 4 frames at 30000/1001 fps, written by hand);
+- one small AVI per other codec the port reads (``AVI_CODECS``, 64x64, 4
+  frames, hand-written): raw I420, YUY2, RGB555 and 8-bit palettised
+  frames, MS RLE 4, MS Video 1 16 and PNG frames;
+- ``expected.npz``: for each file, ``<file>:<frame>`` the reference's
+  RGBA uint8 of every frame (Pillow's ``ImageSequence.Iterator`` and
+  ``convert("RGBA")``; for an AVI, OpenCV's ``VideoCapture.read`` with
+  alpha 255) and ``<file>:durations`` each frame's duration in ms as the
+  reference's ``LoadMovie`` takes it (100 where Pillow reports none;
+  ``1000 / CAP_PROP_FPS`` for an AVI).
 
 Nothing imports this script.
 """
@@ -31,6 +39,7 @@ from __future__ import annotations
 import os
 import sys
 
+import cv2
 import numpy as np
 from PIL import Image, ImageSequence
 
@@ -38,13 +47,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
 
 from tests._torch_image_writers import (  # noqa: E402
-    write_bmp_rle, write_png, write_tga16, write_tiff,
+    avi_bytes, avi_movie, movie_indices, msrle_frame, write_bmp_rle,
+    write_png, write_tga16, write_tiff,
 )
 
 LEVEL = ("terrain_checker.jpg", "sphere_skin.bmp", "plaza_palette.png",
          "sign_alpha.tga", "hud_movie.gif", "hud_movie_apng.png")
 VARIANTS = ("adam7.png", "rle4.bmp", "rle8.bmp", "tga16.tga",
             "tiled_planar.tif")
+HUD_AVI = ("hud_mjpg.avi", "hud_rle.avi")
+# The other codecs' AVIs: file name -> tests/_torch_image_writers.avi_movie
+# variant.
+AVI_CODECS = {"avi_i420.avi": "i420", "avi_yuy2.avi": "yuy2",
+              "avi_rgb555.avi": "rgb555", "avi_pal8.avi": "pal8",
+              "avi_msrle4.avi": "msrle4", "avi_cram16.avi": "cram16",
+              "avi_mpng.avi": "mpng"}
 
 
 def smooth(rng, h: int, w: int, bands: int, scale: float) -> np.ndarray:
@@ -105,7 +122,7 @@ def sign_alpha(rng) -> Image.Image:
 
 
 def movie_frames(rng, n: int = 3):
-    """Three 64x64 RGB frames: a disc moving over a smooth ground."""
+    """``n`` 64x64 RGB frames: a disc moving over a smooth ground."""
     frames = []
     y, x = np.mgrid[0:64, 0:64]
     for k in range(n):
@@ -140,6 +157,43 @@ def write_level(rng) -> None:
                  disposal=0, loop=0)
 
 
+def write_avis(rng) -> None:
+    out = cv2.VideoWriter(os.path.join(HERE, "hud_mjpg.avi"),
+                          cv2.CAP_FFMPEG, cv2.VideoWriter_fourcc(*"MJPG"),
+                          12.5, (64, 64))
+    for f in movie_frames(rng, 4):
+        out.write(np.ascontiguousarray(f[..., ::-1]))
+    out.release()
+    idx = movie_indices(rng, 4, 64, 64, 256)
+    pal = (smooth(rng, 16, 16, 3, 6.0).reshape(256, 3) * 255).astype(int)
+    rle = [msrle_frame(f, idx[k - 1] if k else None, 8)
+           for k, f in enumerate(idx)]
+    with open(os.path.join(HERE, "hud_rle.avi"), "wb") as f:
+        f.write(avi_bytes(rle, 64, 64, 1, 8, palette=pal, rate=30000,
+                          scale=1001))
+    for name, kind in AVI_CODECS.items():
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(avi_movie(kind, rng, n=4, h=64, w=64))
+
+
+def opencv_frames(path: str):
+    """OpenCV's frames of a movie as the reference's ``LoadMovie`` takes
+    them: RGBA uint8 (alpha 255) and ``1000 / fps`` ms each."""
+    cap = cv2.VideoCapture(path)
+    fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+    frames = []
+    while True:
+        ok, f = cap.read()
+        if not ok:
+            break
+        rgba = np.full(f.shape[:2] + (4,), 255, np.uint8)
+        rgba[..., :3] = f[..., 2::-1]
+        frames.append(rgba)
+    cap.release()
+    dur = 1000.0 / fps if fps > 1e-3 else 100.0
+    return frames, [dur] * len(frames)
+
+
 def write_variants(rng) -> None:
     rgba = (smooth(rng, 29, 37, 4, 9.0) * 255).astype(np.uint8)
     write_png(os.path.join(HERE, "adam7.png"), rgba, 8, 6, interlace=True)
@@ -168,8 +222,9 @@ def pillow_frames(path: str):
 
 def expected() -> dict:
     out = {}
-    for name in LEVEL + VARIANTS:
-        frames, durations = pillow_frames(os.path.join(HERE, name))
+    for name in LEVEL + VARIANTS + HUD_AVI + tuple(AVI_CODECS):
+        read = opencv_frames if name.endswith(".avi") else pillow_frames
+        frames, durations = read(os.path.join(HERE, name))
         for k, f in enumerate(frames):
             out[f"{name}:{k}"] = f
         out[f"{name}:durations"] = np.asarray(durations, np.float64)
@@ -180,6 +235,7 @@ def main() -> None:
     rng = np.random.default_rng(23)
     write_level(rng)
     write_variants(rng)
+    write_avis(np.random.default_rng(26))
     np.savez_compressed(os.path.join(HERE, "expected.npz"), **expected())
     total = sum(os.path.getsize(os.path.join(HERE, f))
                 for f in os.listdir(HERE))
