@@ -3188,8 +3188,9 @@ def hud_rasters(e) -> dict:
     return {k[len("hud:"):]: e[k] for k in e.files if k.startswith("hud:")}
 
 
-def font_sweep(O, scenes, e, card) -> dict:
-    """Every (face, size, string) of ``expected.npz`` through
+def font_sweep(O, scenes, e, card, prefix="sweep") -> dict:
+    """Every (face, size, string) of ``expected.npz``'s sweep ``prefix``
+    ("sweep", or "rtl" for the right-to-left one) through
     ``CKSpriteText.Redraw()`` on a card context: the image equal to
     Pillow's bytes, the text box to ``textbbox``. Returns host ms per
     raster by size (the first raster of a face and size hints and
@@ -3198,28 +3199,29 @@ def font_sweep(O, scenes, e, card) -> dict:
 
     ctx = O.CKContext(device="cuda")
     ms = {}
-    for i in range(len(e["sweep_face"])):
-        face = str(e["faces"][e["sweep_face"][i]])
+    for i in range(len(e[f"{prefix}_face"])):
+        face = str(e["faces"][e[f"{prefix}_face"][i]])
         path = os.path.join(scenes.FONT_DIR, face)
-        size, text = int(e["sweep_size"][i]), str(e["sweep_text"][i])
-        w, h = (int(v) for v in e["sweep_wh"][i])
-        sp = O.CKSpriteText(ctx, f"sweep{i}")
+        size = int(e[f"{prefix}_size"][i])
+        text = str(e[f"{prefix}_text"][i])
+        w, h = (int(v) for v in e[f"{prefix}_wh"][i])
+        sp = O.CKSpriteText(ctx, f"{prefix}{i}")
         sp.Create(w, h)
         sp.SetFont(path, size)
-        sp.SetAlign(int(e["sweep_align"][i]))
-        sp.SetTextColor(e["sweep_fg"][i])
-        sp.SetBackgroundTextColor(e["sweep_bg"][i])
+        sp.SetAlign(int(e[f"{prefix}_align"][i]))
+        sp.SetTextColor(e[f"{prefix}_fg"][i])
+        sp.SetBackgroundTextColor(e[f"{prefix}_bg"][i])
         sp.SetText(text)
         t0 = time.perf_counter()
         got = sp.Redraw().GetImage()
         ms.setdefault(size, []).append((time.perf_counter() - t0) * 1e3)
-        want = e[f"sweep:{i}"].astype(np.float32) / 255.0
+        want = e[f"{prefix}:{i}"].astype(np.float32) / 255.0
         check(got.shape == want.shape and np.array_equal(got, want),
               f"fonts: {face} at {size} draws {text!r} unlike Pillow")
         box = te2.text_bbox(text, te2.font_table(path, size))
-        check(box == tuple(int(v) for v in e["sweep_bbox"][i]),
+        check(box == tuple(int(v) for v in e[f"{prefix}_bbox"][i]),
               f"fonts: {face} at {size}: text box of {text!r} {box}, "
-              f"Pillow {tuple(e['sweep_bbox'][i])}")
+              f"Pillow {tuple(e[f'{prefix}_bbox'][i])}")
     return {size: sum(v) / len(v) for size, v in sorted(ms.items())}
 
 
@@ -3265,15 +3267,18 @@ def fonts_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
 
     - The committed faces (``tests/torch_fonts/``) equal, by SHA-256, to
       those ``expected.npz`` and ``glyphs_dejavu.npz`` were made from.
-    - Every (face, size, string) of ``expected.npz`` drawn by
+    - Every (face, size, string) of ``expected.npz``'s sweep and of its
+      right-to-left sweep (Arabic, Hebrew, bidi) drawn by
       ``CKSpriteText`` equal to Pillow's bytes and text box
-      (``font_sweep``); host ms per raster by size.
+      (``font_sweep``); host ms per raster by size, right-to-left beside
+      left-to-right.
     - Every glyph of ``glyphs_dejavu.npz`` drawn again equal to the baked
       coverage and advance (``glyph_table_redraw``); µs per glyph of
       hinting and of rasterising, and the glyph caches' bytes.
-    - ``scenes.build_config5_text`` at 1024x768 (config 5's 528,032
-      terrain triangles under eight ``CKSpriteText`` labels, one of them a
-      score whose text changes every tick) for 3 ticks: B1 once per frame
+    - ``scenes.build_config5_text(rtl=True)`` at 1024x768 (config 5's
+      528,032 terrain triangles under eleven ``CKSpriteText`` labels: an
+      Arabic, a Hebrew and a mixed-direction one among them, and a score
+      whose text changes every tick) for 3 ticks: B1 once per frame
       and no other kernel, every label's texture equal to its expected
       raster, B1 equal to its plain version at the first frame's inputs.
     - The same level with the labels' rasters set by ``SetImage``: its 3
@@ -3307,12 +3312,19 @@ def fonts_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     raster_ms = font_sweep(O, scenes, e, card)
     sweep_s = time.monotonic() - t0
     t0 = time.monotonic()
+    rtl_ms = font_sweep(O, scenes, e, card, prefix="rtl")
+    rtl_s = time.monotonic() - t0
+    t0 = time.monotonic()
     glyphs = glyph_table_redraw(scenes)
     redraw_s = time.monotonic() - t0
     faces = list(tfont.FACES.values())
     n_glyphs = sum(len(f.glyphs) for f in faces)
-    emit("fonts_host", card=card, host_ms_per_raster_by_size=raster_ms,
+    emit("fonts_host", card=card, host=host_cpu(),
+         host_ms_per_raster_by_size=raster_ms,
          sweep_rasters=int(len(e["sweep_face"])), sweep_s=round(sweep_s, 3),
+         rtl_host_ms_per_raster_by_size=rtl_ms,
+         rtl_sweep_rasters=int(len(e["rtl_face"])), rtl_sweep_s=round(rtl_s,
+                                                                   3),
          baked_glyphs_redrawn=glyphs, redraw_s=round(redraw_s, 3),
          glyphs_rasterised=n_glyphs,
          hint_us_per_glyph=sum(f.hint_s for f in faces) / n_glyphs * 1e6,
@@ -3324,9 +3336,9 @@ def fonts_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
     rasters = hud_rasters(e)
     t0 = time.monotonic()
     ctx, rc, spinner, tick = scenes.build_config5_text(
-        O, *FONTS_SIZE, device="cuda")
+        O, *FONTS_SIZE, rtl=True, device="cuda")
     build_s = time.monotonic() - t0
-    labels = [row[0] for row in scenes.TEXT_HUD]
+    labels = [row[0] for row in scenes.text_hud(rtl=True)]
     frames, ticks = [], []
     for k in range(FONTS_TICKS):
         tick()
@@ -3362,7 +3374,7 @@ def fonts_phase(O, scenes, fr, kernel_fns, launches, card) -> dict:
 
     t0 = time.monotonic()
     _c2, rc2, _s2, tick2 = scenes.build_config5_text(
-        O, *FONTS_SIZE, rasters=rasters, device="cuda")
+        O, *FONTS_SIZE, rasters=rasters, rtl=True, device="cuda")
     twin_build_s = time.monotonic() - t0
     differ = []
     for k in range(FONTS_TICKS):

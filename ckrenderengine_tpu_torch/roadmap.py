@@ -12,9 +12,14 @@ PORT_QUEUE = {
     1: "GPU benchmark",
     14: "fonts other than TrueType outlines (CFF / OpenType .otf, "
         "collections, variable and bitmap-only fonts, unhinted fonts for "
-        "the auto-hinter), text that needs bidi reordering or a script "
-        "shaper, characters without a glyph or decomposition, TrueType "
-        "opcodes outside the interpreter; movie "
+        "the auto-hinter), right-to-left scripts other than Arabic and "
+        "Hebrew (Syriac, Thaana, N'Ko) and their presentation forms, "
+        "script shapers (Indic, Thai and the like), HarfBuzz's Arabic "
+        "fallback shaping and Hebrew fallback mark positioning and "
+        "presentation-form composition, GSUB reverse chaining and GPOS "
+        "cursive lookups, more than one bidi "
+        "isolate in a line, characters without a glyph or decomposition, "
+        "TrueType opcodes outside the interpreter; movie "
         "sprites from video containers other than AVI (MP4, MOV, MKV, "
         "WebM, MPEG-PS/TS, FLV) and from AVI codecs the port does not "
         "decode (Cinepak, Indeo, MPEG-4 ASP, H.264, FFV1, HuffYUV, DV; "

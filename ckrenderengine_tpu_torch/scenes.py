@@ -1878,6 +1878,31 @@ TEXT_HUD = (
 )
 
 
+# The right-to-left labels build_config5_text adds with rtl=True, in the
+# free space of the 1024x768 HUD: Arabic with lam-alef under tanwin, a
+# shadda and an Arabic-Indic digit (right-aligned); Hebrew with niqqud, a
+# shin dot and qamats on one base (centred); a left-to-right paragraph
+# with an Arabic run in guillemets and brackets, European digits after
+# Arabic and a Persian word with ZWNJ (DejaVu Sans Mono has no ZWNJ glyph;
+# HarfBuzz hides it as a default ignorable).
+TEXT_HUD_RTL = (
+    ("arabic", "DejaVuSans.ttf", 22, (0.6, 0.19), (380, 34), 2,
+     (1.0, 0.9, 0.5, 1.0), (0.0, 0.0, 0.0, 0.4),
+     "أهلاً بكم! المستوى ٣ • حظّ سعيد"),
+    ("hebrew", "DejaVuSans.ttf", 17, (0.6, 0.25), (380, 26), 1,
+     (0.7, 0.85, 1.0, 1.0), (0.0, 0.0, 0.0, 0.0), "שָׁלוֹם, עוֹלָם! שלב 3"),
+    ("mixed", "DejaVuSansMono.ttf", 13, (0.02, 0.9), (420, 22), 0,
+     (0.9, 1.0, 0.9, 1.0), (0.1, 0.1, 0.1, 0.5),
+     "Level 3: «مرحبا» (12 نقطة) می\u200cخواهم ok"),
+)
+
+
+def text_hud(rtl: bool = False) -> tuple:
+    """The labels of build_config5_text: TEXT_HUD, and TEXT_HUD_RTL after
+    it where ``rtl``."""
+    return TEXT_HUD + TEXT_HUD_RTL if rtl else TEXT_HUD
+
+
 def score_text(k: int) -> str:
     """The score label of ``build_config5_text`` after ``k`` ticks."""
     return f"SCORE {980 + 1250 * k:07d} ×{k + 1}"
@@ -1885,13 +1910,15 @@ def score_text(k: int) -> str:
 
 def build_config5_text(O, width: int = 1024, height: int = 768,
                        terrain_n: int = 500, n_balls: int = 64,
-                       rasters: dict | None = None, **ctx_kw):
+                       rasters: dict | None = None, rtl: bool = False,
+                       **ctx_kw):
     """Config 5 (:func:`build_config5`) under a HUD of ``CKSpriteText``
     labels (``TEXT_HUD``) in the TrueType faces of ``FONT_DIR``: sizes 9,
     11, 13, 17, 22, 31 and 48, the three alignments, ligatures ("office",
     "flow"), kerning pairs ("AV", "To", "Ya"), Latin-1, Greek and Cyrillic
     text, a two-line label, and a score whose text changes every tick
-    (:func:`score_text`).
+    (:func:`score_text`). With ``rtl`` the HUD also holds the Arabic,
+    Hebrew and mixed-direction labels of ``TEXT_HUD_RTL``.
 
     With ``rasters`` ({label name: (H, W, 4) uint8, and ``"score:<k>"``
     for the score after k ticks}) the same HUD is built from plain
@@ -1902,7 +1929,7 @@ def build_config5_text(O, width: int = 1024, height: int = 768,
                                      n_balls=n_balls, **ctx_kw)
     sprites = {}
     for (name, face, size, (fx, fy), (w, h), align, fg, bg,
-         text) in TEXT_HUD:
+         text) in text_hud(rtl):
         x0, y0 = int(fx * width), int(fy * height)
         if rasters is None:
             sp = O.CKSpriteText(ctx, name)

@@ -323,7 +323,7 @@ class Interpreter:
         elif g.fvy == 0x4000:
             f = g.pvy
         else:
-            f = (g.pvx * g.fvx + g.pvy * g.fvy) >> 14
+            f = dot_fix14(g.pvx, g.pvy, g.fvx, g.fvy)
         if -0x400 < f < 0x400:
             f = 0x4000
         self.fdotp = f

@@ -195,6 +195,9 @@ class Font:
         for i in range(n):
             o = 4 + 8 * i
             subs.append((_u16(b, o), _u16(b, o + 2), _u32(b, o + 4)))
+        # A (0, 5) subtable (format 14) maps variation sequences.
+        self.variation_sequences = any((pid, eid) == (0, 5)
+                                       for pid, eid, _o in subs)
         pick = None
         for pid, eid, off in subs:
             if (pid, eid) in ((3, 10), (0, 4), (0, 6)):

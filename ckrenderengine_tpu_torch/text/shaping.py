@@ -1,22 +1,51 @@
-"""Text shaping: what Raqm asks HarfBuzz for when Pillow lays out a
-left-to-right line with the default features.
+"""Text shaping: what Raqm asks HarfBuzz for when Pillow lays out a line
+of text with the default features and direction.
 
-The line is split into script runs as Raqm splits it (Common and Inherited
-characters take the script around them); each run is mapped through the
-cmap with HarfBuzz's normaliser (a character without a glyph decomposes
-canonically, marks reorder by combining class and recompose where the font
-has the composed glyph), then through the GSUB lookups of the features the
-default shaper enables (``ccmp``, ``locl``, ``rlig``, ``calt``, ``clig``,
-``liga``, ``rclt`` and the script's required feature) and the GPOS lookups
-of ``kern``, ``mark``, ``mkmk``, ``curs``, ``dist``, ``abvm`` and ``blwm``,
-in lookup order. Advances are hb-ft's: the unhinted advance scaled to 26.6;
-GPOS values scale by HarfBuzz's ``em_scale`` at the font's 26.6 scale.
+The line's embedding levels come from fribidi's algorithm (:mod:`bidi`);
+the line is split into runs of one level, ordered visually as Raqm's
+``_raqm_reorder_runs`` orders them (L2 over runs, not characters), and
+each run into script runs as Raqm splits them (Common and Inherited
+characters take the script around them), the script runs of a
+right-to-left run in reverse. Each script run is shaped as HarfBuzz shapes
+a buffer of that script and direction, with the line around it as context:
+
+- a run whose direction is not its script's own has its graphemes
+  reversed and is shaped in the script's direction (digits alone in an
+  Arabic run stay left-to-right);
+- in a right-to-left run, a mirrored character takes its mirror's glyph
+  where the font has one, else the ``rtlm`` mask;
+- the normaliser maps the run through the cmap (a character without a
+  glyph decomposes canonically, marks reorder by HarfBuzz's modified
+  combining class, with the Arabic and Hebrew shapers' own reorderings,
+  and recompose where the font has the composed glyph);
+- the Arabic shaper gives each glyph the mask of its joining form
+  (:mod:`arabic`);
+- GSUB applies the lookups of the features HarfBuzz enables for the
+  script (the default plan: ``rvrn``, then ``ltra``/``ltrm`` or
+  ``rtla``/``rtlm``, ``ccmp``, ``locl``, ``rlig``, ``calt``, ``clig``,
+  ``liga``, ``rclt`` and the script's required feature; the Arabic plan:
+  ``ccmp`` and ``locl``, then ``isol``, ``fina``, ``fin2``, ``fin3``,
+  ``medi``, ``med2`` and ``init`` one stage each, then ``rclt`` and
+  ``rlig``, ``calt``, ``mset``, ``clig`` and ``liga``), each stage in
+  lookup order, each lookup on the glyphs its mask selects, with
+  HarfBuzz's rules for skipping marks, default ignorables, ZWJ and ZWNJ;
+- GPOS applies ``kern``, ``mark``, ``mkmk``, ``curs``, ``dist``, ``abvm``
+  and ``blwm`` in lookup order, in logical order; marks are zeroed by
+  GDEF, default ignorables hidden, attachments resolved for the run's
+  direction, and a right-to-left run comes out in visual order.
+
+Advances are hb-ft's: the unhinted advance scaled to 26.6; GPOS values
+scale by HarfBuzz's ``em_scale`` at the font's 26.6 scale.
 
 Text that needs what this module does not do raises
-:func:`roadmap.unported` naming the character: right-to-left text,
-scripts other than Latin, Greek and Cyrillic (and their Common and
-Inherited characters), format characters, and characters the font has
-neither a glyph nor a canonical decomposition for.
+:func:`roadmap.unported` naming the character or the feature: scripts
+other than Latin, Greek, Cyrillic, Arabic and Hebrew (and their Common and
+Inherited characters), format characters other than the bidi controls,
+ZWJ, ZWNJ and the default ignorables, a paragraph separator inside a line
+that needs bidi, more than one isolate in a line, Arabic in a face
+without Arabic forms in GSUB (HarfBuzz's fallback shaping), Hebrew in a
+face without Hebrew in GPOS (its fallback positioning), and the lookup
+types and features listed where they are refused.
 """
 
 from __future__ import annotations
@@ -27,87 +56,58 @@ import unicodedata
 import numpy as np
 
 from ..roadmap import unported
-from . import sfnt
+from . import arabic, bidi, sfnt
+from .ucd import (ARABIC, COMMON, CYRILLIC, GRAPHEME_EXTEND, GREEK, HEBREW,
+                  INHERITED, LATIN, MIRROR, ZWJ_PICTOGRAPHIC, bidi_class,
+                  modified_class)
+from .ucd import script_of as _script_of
 
-GSUB_FEATURES = ("rvrn", "ltra", "ltrm", "ccmp", "locl", "rlig", "calt",
-                 "clig", "liga", "rclt")
 GPOS_FEATURES = ("abvm", "blwm", "mark", "mkmk", "curs", "dist", "kern")
+# GPOS features HarfBuzz enables with manual joiners: their lookups do not
+# skip a ZWJ.
+MANUAL_JOINERS = ("mark", "mkmk")
 
 # GDEF glyph classes
 BASE, LIGATURE, MARK, COMPONENT = 1, 2, 3, 4
 
-LATIN, GREEK, CYRILLIC, COMMON, INHERITED, UNKNOWN = "Latn", "Grek", \
-    "Cyrl", "Zyyy", "Zinh", "Zzzz"
-OT_SCRIPT = {LATIN: "latn", GREEK: "grek", CYRILLIC: "cyrl"}
+OT_SCRIPT = {LATIN: "latn", GREEK: "grek", CYRILLIC: "cyrl",
+             ARABIC: "arab", HEBREW: "hebr"}
+RTL_SCRIPTS = (ARABIC, HEBREW)
 
-# Unicode Script property over the blocks this module lays out: ranges of
-# Latin, Greek, Cyrillic and Inherited; Common is what is left of them.
-_SCRIPT_RANGES = (
-    (0x0041, 0x005A, LATIN), (0x0061, 0x007A, LATIN), (0x00AA, 0x00AA, LATIN),
-    (0x00BA, 0x00BA, LATIN), (0x00C0, 0x00D6, LATIN), (0x00D8, 0x00F6, LATIN),
-    (0x00F8, 0x02B8, LATIN), (0x02E0, 0x02E4, LATIN), (0x0300, 0x036F,
-                                                       INHERITED),
-    (0x0370, 0x0373, GREEK), (0x0375, 0x0377, GREEK), (0x037A, 0x037D, GREEK),
-    (0x037F, 0x037F, GREEK), (0x0384, 0x0384, GREEK), (0x0386, 0x0386, GREEK),
-    (0x0388, 0x03E1, GREEK), (0x03F0, 0x03FF, GREEK), (0x0400, 0x0484,
-                                                       CYRILLIC),
-    (0x0485, 0x0486, INHERITED), (0x0487, 0x052F, CYRILLIC),
-    (0x1C80, 0x1C88, CYRILLIC), (0x1D00, 0x1D25, LATIN), (0x1D26, 0x1D2A,
-                                                          GREEK),
-    (0x1D2B, 0x1D2B, CYRILLIC), (0x1D2C, 0x1D5C, LATIN), (0x1D5D, 0x1D61,
-                                                          GREEK),
-    (0x1D62, 0x1D65, LATIN), (0x1D66, 0x1D6A, GREEK), (0x1D6B, 0x1D77, LATIN),
-    (0x1D78, 0x1D78, CYRILLIC), (0x1D79, 0x1DBE, LATIN), (0x1DBF, 0x1DBF,
-                                                          GREEK),
-    (0x1DC0, 0x1DFF, INHERITED), (0x1E00, 0x1EFF, LATIN), (0x1F00, 0x1FFE,
-                                                           GREEK),
-    (0x200C, 0x200D, INHERITED), (0x2071, 0x2071, LATIN), (0x207F, 0x207F,
-                                                           LATIN),
-    (0x2090, 0x209C, LATIN), (0x20D0, 0x20F0, INHERITED), (0x2126, 0x2126,
-                                                           GREEK),
-    (0x212A, 0x212B, LATIN), (0x2132, 0x2132, LATIN), (0x214E, 0x214E, LATIN),
-    (0x2160, 0x2188, LATIN), (0x2C60, 0x2C7F, LATIN), (0x2DE0, 0x2DFF,
-                                                       CYRILLIC),
-    (0xA640, 0xA69F, CYRILLIC), (0xA722, 0xA787, LATIN), (0xA78B, 0xA7FF,
-                                                          LATIN),
-    (0xAB30, 0xAB5A, LATIN), (0xAB5C, 0xAB64, LATIN), (0xAB65, 0xAB65, GREEK),
-    (0xFB00, 0xFB06, LATIN), (0xFE00, 0xFE0F, INHERITED), (0xFE20, 0xFE2D,
-                                                           INHERITED),
-    (0xFE2E, 0xFE2F, CYRILLIC), (0xFF21, 0xFF3A, LATIN), (0xFF41, 0xFF5A,
-                                                          LATIN))
-# Blocks whose characters are Common unless listed above.
-_COMMON_BLOCKS = ((0x0000, 0x036F), (0x0370, 0x03FF), (0x0400, 0x052F),
-                  (0x1C80, 0x1C8F), (0x1D00, 0x1DFF), (0x1E00, 0x2BFF),
-                  (0x2C60, 0x2C7F), (0x2DE0, 0x2DFF), (0x2E00, 0x2E7F),
-                  (0xA640, 0xA69F), (0xA700, 0xA7FF), (0xAB30, 0xAB6F),
-                  (0xFB00, 0xFB06), (0xFE00, 0xFE0F), (0xFE20, 0xFE2F),
-                  (0xFE30, 0xFE4F), (0xFEFF, 0xFEFF), (0xFF00, 0xFFEF))
 # Raqm's paired brackets (open, close).
 _PAIRS = "()<>[]{}«»‹›⁅⁆⁽⁾₍₎⌈⌉⌊⌋〈〉❨❩❪❫❬❭❮❯❰❱❲❳❴❵⟅⟆⟦⟧⟨⟩⟪⟫"
 
 
 def script_of(ch: str) -> str:
+    """The character's script, raising for one outside the scripts this
+    module lays out."""
+    s = _script_of(ch)
     c = ord(ch)
-    if unicodedata.category(ch) in ("Cn", "Co"):
-        return UNKNOWN
-    for lo, hi, s in _SCRIPT_RANGES:
-        if lo <= c <= hi:
-            return s
-    for lo, hi in _COMMON_BLOCKS:
-        if lo <= c <= hi:
-            # Greek and Coptic's Coptic letters, and the like.
-            if 0x03E2 <= c <= 0x03EF:
-                break
-            return COMMON
-    raise unported(f"text layout of {ch!r} (U+{c:04X}): its script needs "
-                   "a shaper or a script run this port does not lay out",
-                   14)
+    if s is None:
+        if unicodedata.bidirectional(ch) in ("R", "AL"):
+            raise unported(f"right-to-left text {ch!r} (U+{c:04X}) in a "
+                           "script other than Arabic and Hebrew or outside "
+                           "their blocks (U+0590-06FF)", 14)
+        raise unported(f"text layout of {ch!r} (U+{c:04X}): its "
+                       "script needs a shaper or a script run this port "
+                       "does not lay out", 14)
+    return s
 
 
 # Default-ignorable characters HarfBuzz lays out as an invisible glyph of
-# no advance (hb_ot_hide_default_ignorables), skipped in lookup matching.
-IGNORABLE = frozenset([0x00AD, 0x034F, 0x200B, 0x2060, 0x2061, 0x2062,
-                       0x2063, 0x2064, 0xFEFF])
+# no advance (hb_ot_hide_default_ignorables): the soft hyphen, CGJ, ALM,
+# ZWSP, ZWNJ, ZWJ, LRM, RLM, the embeddings and overrides, the invisible
+# operators, the isolates, the variation selectors and ZWNBSP.
+VARIATION_SELECTORS = frozenset(range(0xFE00, 0xFE10))
+IGNORABLE = frozenset([0x00AD, 0x034F, 0x061C, 0x200B, 0x200C, 0x200D,
+                       0x200E, 0x200F, 0x202A, 0x202B, 0x202C, 0x202D,
+                       0x202E, 0x2060, 0x2061, 0x2062, 0x2063, 0x2064,
+                       0x2066, 0x2067, 0x2068, 0x2069,
+                       0xFEFF]) | VARIATION_SELECTORS
+ZWNJ, ZWJ, CGJ = 0x200C, 0x200D, 0x034F
+# Bidi classes whose presence makes a line need the bidi algorithm.
+_BIDI = frozenset(("R", "AL", "AN", "LRE", "RLE", "LRO", "RLO", "PDF",
+                   "LRI", "RLI", "FSI", "PDI"))
 
 
 def check_char(ch: str):
@@ -115,19 +115,61 @@ def check_char(ch: str):
     c = ord(ch)
     if c in IGNORABLE:
         return
-    bidi = unicodedata.bidirectional(ch)
-    if bidi in ("R", "AL", "AN", "RLE", "RLO", "RLI", "LRE", "LRO", "LRI",
-                "FSI", "PDF", "PDI"):
-        raise unported(f"right-to-left or bidi text {ch!r} (U+{c:04X})", 14)
     if unicodedata.category(ch) in ("Cf", "Cs"):
         raise unported(f"text layout of the format character U+{c:04X}",
                        14)
     script_of(ch)
 
 
+def line_levels(text: str) -> list[int]:
+    """The embedding level of each character of one line, as Raqm gets
+    them from fribidi (all 0 for a line with nothing right-to-left or
+    explicit in it)."""
+    classes = [bidi_class(ch) for ch in text]
+    if not _BIDI.intersection(classes):
+        return [0] * len(text)
+    for ch, cls in zip(text, classes):
+        if cls == "B":
+            raise unported(f"a paragraph separator {ch!r} inside a line "
+                           "that needs bidi reordering", 14)
+    if sum(cls in ("LRI", "RLI", "FSI") for cls in classes) > 1:
+        raise unported("more than one bidi isolate (LRI, RLI, FSI) in a "
+                       "line: fribidi 1.0.8 carries state from one to the "
+                       "next", 14)
+    return bidi.line_levels(text)[0]
+
+
+def visual_runs(levels: list[int]) -> list[tuple[int, int, int]]:
+    """Raqm's ``_raqm_reorder_runs``: the runs of equal level as (start,
+    end, level), reordered by L2 over runs from the highest level down
+    to 1."""
+    runs = []
+    for i, lv in enumerate(levels):
+        if runs and runs[-1][2] == lv:
+            runs[-1][1] = i + 1
+        else:
+            runs.append([i, i + 1, lv])
+    top = max(levels, default=0)
+    for level in range(top, 0, -1):
+        i = len(runs) - 1
+        while i >= 0:
+            if runs[i][2] >= level:
+                end = i
+                while i >= 0 and runs[i][2] >= level:
+                    i -= 1
+                runs[i + 1:end + 1] = runs[i + 1:end + 1][::-1]
+            else:
+                i -= 1
+    return [tuple(r) for r in runs]
+
+
 def resolve_scripts(text: str) -> list[str]:
-    """Raqm's script of each character (``_raqm_resolve_scripts``)."""
-    scripts = [script_of(ch) for ch in text]
+    """Raqm's script of each character (``_raqm_resolve_scripts``): a
+    nonspacing mark counts as Inherited whatever its script (a Hebrew point
+    after an Arabic letter joins the Arabic run), then Common and Inherited
+    characters take the script around them."""
+    scripts = [INHERITED if unicodedata.category(ch) == "Mn" else s
+               for ch, s in zip(text, map(script_of, text))]
     last_value = None
     last_index = -1
     last_set = -1
@@ -278,29 +320,33 @@ class LayoutTable:
         return (None if req == 0xFFFF else req,
                 [_u16(b, o + 6 + 2 * k) for k in range(n)])
 
-    def select(self, script: str | None):
-        """The LangSys HarfBuzz picks for ``script`` (then DFLT, dflt,
-        latn) with the default language."""
+    def chosen(self, script: str | None) -> str | None:
+        """The script tag HarfBuzz picks for ``script``: its own, then
+        DFLT, dflt, latn."""
         tags = ([OT_SCRIPT[script]] if script in OT_SCRIPT else []) + [
             "DFLT", "dflt", "latn"]
-        for t in tags:
-            if t in self.scripts:
-                return self.scripts[t].get(None)
+        return next((t for t in tags if t in self.scripts), None)
+
+    def select(self, script: str | None):
+        """The LangSys HarfBuzz picks for ``script`` with the default
+        language: (required feature index or None, feature indices)."""
+        tag = self.chosen(script)
+        return None if tag is None else self.scripts[tag].get(None)
+
+    def feature(self, script, tag) -> list[int] | None:
+        """The lookups of the first feature ``tag`` of the LangSys, or None
+        where it has no such feature."""
+        ls = self.select(script)
+        for fi in (ls[1] if ls else ()):
+            if self.features[fi][0] == tag:
+                return self.features[fi][1]
         return None
 
-    def lookups_for(self, script, wanted) -> list[int]:
+    def required(self, script) -> list[int]:
         ls = self.select(script)
-        if ls is None:
+        if ls is None or ls[0] is None:
             return []
-        req, feats = ls
-        out = set()
-        if req is not None:
-            out.update(self.features[req][1])
-        for fi in feats:
-            tag, lks = self.features[fi]
-            if tag in wanted:
-                out.update(lks)
-        return sorted(out)
+        return self.features[ls[0]][1]
 
     def subtables(self, li: int) -> list:
         got = self._parsed.get(li)
@@ -629,20 +675,76 @@ class GDEF:
 
 # -- the buffer --------------------------------------------------------------
 
-class Glyph:
-    __slots__ = ("gid", "cluster", "cls", "lig_id", "lig_comp", "lig_comps",
-                 "multiplied", "xa", "ya", "xo", "yo", "chain", "char",
-                 "ignorable")
+GLOBAL = 1
+# Mask bits of the features that are not on every glyph.
+MASK = {tag: 1 << (k + 1) for k, tag in enumerate(arabic.FORMS + ("rtlm",))}
+# A glyph's answer to a lookup's skipping rules (HarfBuzz's may_skip).
+_SKIP_NO, _SKIP_MAYBE, _SKIP_YES = range(3)
 
-    def __init__(self, gid, cluster, char):
+
+class Glyph:
+    __slots__ = ("gid", "cluster", "char", "cls", "lig_id", "lig_comp",
+                 "lig_comps", "multiplied", "xa", "ya", "xo", "yo", "chain",
+                 "ignorable", "hidden", "substituted", "mask", "mcc")
+
+    def __init__(self, gid, cluster, char, mask=GLOBAL):
         self.gid, self.cluster, self.char = gid, cluster, char
         self.ignorable = ord(char) in IGNORABLE
+        self.hidden = ord(char) == CGJ
+        self.substituted = False
+        self.mask = mask
+        self.mcc = modified_class(char)
         self.cls = BASE
         self.lig_id = self.lig_comp = 0
         self.lig_comps = 1
         self.multiplied = False
         self.xa = self.ya = self.xo = self.yo = 0
         self.chain = 0
+
+    @property
+    def default_ignorable(self) -> bool:
+        return self.ignorable and not self.substituted
+
+
+class Plan:
+    """What HarfBuzz's shape plan holds for one script and direction: the
+    shaper, the GSUB stages (each [(lookup, mask, auto ZWJ)] in lookup
+    order) and the GPOS lookups [(lookup, auto ZWJ)] (all global)."""
+
+    __slots__ = ("shaper", "gsub", "gpos")
+
+    def __init__(self, shaper, gsub, gpos):
+        self.shaper, self.gsub, self.gpos = shaper, gsub, gpos
+
+
+def _reverse_graphemes(items: list) -> list:
+    """HarfBuzz's _hb_ot_layout_reverse_graphemes: the graphemes (a
+    character and the marks, ZWJs and continuations after it, as
+    hb_set_unicode_props marks them) in reverse order, each in its own
+    order."""
+    groups = []
+    after_zwj = False
+    for it in items:
+        c = ord(it[0])
+        cont = c >= 0x80 and (_is_mark(it[0]) or c == ZWJ
+                              or c in GRAPHEME_EXTEND
+                              or (after_zwj and c in ZWJ_PICTOGRAPHIC))
+        after_zwj = c == ZWJ
+        if groups and cont:
+            groups[-1].append(it)
+        else:
+            groups.append([it])
+    return [it for grp in reversed(groups) for it in grp]
+
+
+def _reorder_hebrew(buf, start, end):
+    """HarfBuzz's reorder_marks_hebrew: patah or qamats, then sheva or
+    hiriq, then meteg or a below mark: the last two swap."""
+    for i in range(start + 2, end):
+        c0, c1, c2 = buf[i - 2].mcc, buf[i - 1].mcc, buf[i].mcc
+        if c0 in (20, 21) and c1 in (22, 23) and c2 in (25, 220):
+            buf[i - 1], buf[i] = buf[i], buf[i - 1]
+            break
 
 
 class Shaper:
@@ -662,6 +764,11 @@ class Shaper:
         self.gdef = _tables(font, "GDEF")
         self._plans = {}
         self._unhinted = None
+        # The lookup being applied: its mask, auto-ZWJ and table.
+        self._mask = GLOBAL
+        self._auto_zwj = True
+        self._in_gpos = False
+        self._lig_id = 0
 
     def em(self, v: int) -> int:
         """HarfBuzz's em_scale_x: font units to 26.6."""
@@ -688,54 +795,175 @@ class Shaper:
         tags = {self.gsub.features[i][0] for i in (ls[1] if ls else [])}
         return "frac" in tags or {"numr", "dnom"} <= tags
 
-    def plan(self, script):
-        p = self._plans.get(script)
-        if p is None:
-            p = (self.gsub.lookups_for(script, GSUB_FEATURES),
-                 self.gpos.lookups_for(script, GPOS_FEATURES))
-            self._plans[script] = p
-        return p
+    def plan(self, script, rtl: bool) -> Plan:
+        """HarfBuzz's plan for ``script`` in the direction ``rtl``: its
+        features and pauses (hb_ot_shape_collect_features and the
+        shaper's collect_features), each feature's lookups in the stage
+        of its first appearance."""
+        key = (script, rtl)
+        got = self._plans.get(key)
+        if got is not None:
+            return got
+        if script == ARABIC:
+            shaper = "arabic"
+        elif script == HEBREW:
+            shaper = "hebrew"
+        else:
+            shaper = "default"
+        dirs = ((("rtla", GLOBAL), ("rtlm", MASK["rtlm"])) if rtl else
+                (("ltra", GLOBAL), ("ltrm", GLOBAL)))
+        # Stages of (tag, mask, auto ZWJ).
+        if shaper == "arabic":
+            if all(self.gsub.feature(script, t) is None and
+                   self.gpos.feature(script, t) is None
+                   for t in ("isol", "fina", "medi", "init")):
+                raise unported(f"Arabic text in {self.font.name!r}, which "
+                               "has no Arabic forms in GSUB (HarfBuzz's "
+                               "fallback shaping from presentation forms)",
+                               14)
+            if self.gsub.feature(script, "stch") is not None:
+                raise unported("the Arabic stch feature", 14)
+            stages = [[("rvrn", GLOBAL, True)],
+                      [(t, m, True) for t, m in dirs],
+                      [("ccmp", GLOBAL, False), ("locl", GLOBAL, False)]]
+            stages += [[(t, MASK[t], True)] for t in arabic.FORMS]
+            # The ligating features take ZWJ manually in the Arabic plan
+            # (a ZWJ keeps HarfBuzz 12.3.0 from ligating liga's pairs too).
+            stages += [[("rclt", GLOBAL, False), ("rlig", GLOBAL, False)],
+                       [("calt", GLOBAL, False)],
+                       [("mset", GLOBAL, False), ("clig", GLOBAL, False),
+                        ("liga", GLOBAL, False)]]
+        else:
+            if shaper == "hebrew" and self.gpos.chosen(script) != "hebr":
+                raise unported(f"Hebrew text in {self.font.name!r}, whose "
+                               "GPOS has no Hebrew script (HarfBuzz's "
+                               "fallback mark positioning)", 14)
+            if shaper == "hebrew" and self.gpos.feature(script,
+                                                        "mark") is None:
+                raise unported(f"Hebrew text in {self.font.name!r}, whose "
+                               "GPOS has no mark feature (HarfBuzz's "
+                               "presentation-form composition)", 14)
+            stages = [[("rvrn", GLOBAL, True)],
+                      [(t, m, True) for t, m in dirs] + [
+                          (t, GLOBAL, True) for t in (
+                              "ccmp", "locl", "rlig", "calt", "clig", "liga",
+                              "rclt")]]
+        gsub = []
+        req = self.gsub.select(script)
+        req_tag = self.gsub.features[req[0]][0] if req and req[0] is not None \
+            else None
+        req_stage = next((k for k, st in enumerate(stages)
+                          if any(f[0] == req_tag for f in st)), 0)
+        for k, st in enumerate(stages):
+            found = {}
+            if k == req_stage:
+                for li in self.gsub.required(script):
+                    found[li] = (GLOBAL, True)
+            for tag, mask, zwj in st:
+                for li in self.gsub.feature(script, tag) or ():
+                    m, z = found.get(li, (0, True))
+                    found[li] = (m | mask, z and zwj)
+            gsub.append([(li, m, z) for li, (m, z) in sorted(found.items())])
+        gpos = dict.fromkeys(self.gpos.required(script), True)
+        for tag in GPOS_FEATURES:
+            for li in self.gpos.feature(script, tag) or ():
+                gpos[li] = gpos.get(li, True) and tag not in MANUAL_JOINERS
+        got = self._plans[key] = Plan(shaper, gsub, sorted(gpos.items()))
+        return got
 
     # -- the whole line --------------------------------------------------
     def shape(self, text: str) -> list[Glyph]:
-        """Glyphs of ``text`` (one line) in visual (= logical) order, each
-        with its gid, cluster, advance and offsets in 26.6."""
+        """Glyphs of ``text`` (one line) in visual order, each with its
+        gid, cluster, advance and offsets in 26.6."""
         for ch in text:
             check_char(ch)
+        levels = line_levels(text)
         scripts = resolve_scripts(text)
         out = []
-        i = 0
-        while i < len(text):
-            j = i
-            while j < len(text) and scripts[j] == scripts[i]:
-                j += 1
-            out.extend(self.shape_run(text, i, j, scripts[i]))
-            i = j
+        for start, end, level in visual_runs(levels):
+            subs = []
+            i = start
+            while i < end:
+                j = i
+                while j < end and scripts[j] == scripts[i]:
+                    j += 1
+                subs.append((i, j))
+                i = j
+            rtl = bool(level & 1)
+            for a, b in (reversed(subs) if rtl else subs):
+                out.extend(self.shape_run(text, a, b, scripts[a], rtl))
         return out
 
-    def shape_run(self, text, start, end, script):
+    def shape_run(self, text, start, end, script, rtl=False):
+        """One HarfBuzz buffer: text[start:end] in ``script``, right to
+        left where ``rtl``, the rest of the line its context. Glyphs in
+        visual order."""
         if "\u2044" in text[start:end] and self._has_fractions(script):
             raise unported("automatic fractions (U+2044 with the font's "
                            "frac, numr and dnom features)", 14)
-        buf = self._normalize(text, start, end)
+        pl = self.plan(script, rtl)
+        cmap = self.font.cmap
+        items = [(text[k], k) for k in range(start, end)]
+        # A line that starts with a mark gets a dotted circle to carry it
+        # (hb_insert_dotted_circle at the beginning of text).
+        if start == 0 and items and _is_mark(items[0][0]) and \
+                0x25CC in cmap:
+            items.insert(0, ("\u25cc", 0))
+        # hb_ensure_native_direction: digits alone in a right-to-left
+        # script run are left-to-right.
+        native_rtl = script in RTL_SCRIPTS
+        if native_rtl and not rtl:
+            cats = [unicodedata.category(c) for c, _k in items]
+            if "Nd" in cats and not any(c[0] == "L" for c in cats):
+                native_rtl = False
+        backward = rtl
+        if native_rtl != rtl:
+            items = _reverse_graphemes(items)
+            backward = native_rtl
+        # hb_ot_mirror_chars.
+        chars = []
+        for ch, k in items:
+            mask = GLOBAL
+            if rtl:
+                m = MIRROR.get(ord(ch))
+                if m is not None and m in cmap:
+                    ch = chr(m)
+                else:
+                    mask |= MASK["rtlm"]
+            chars.append((ch, k, mask))
+        reorder = {"arabic": arabic.reorder_marks,
+                   "hebrew": _reorder_hebrew}.get(pl.shaper)
+        buf = self._normalize(chars, reorder)
+        if pl.shaper == "arabic":
+            before = text[max(start - 5, 0):start][::-1]
+            after = text[end:end + 5]
+            acts = arabic.joining([g.char for g in buf], before, after)
+            for g, a in zip(buf, acts):
+                if a != arabic.NONE:
+                    g.mask |= MASK[arabic.FORMS[a]]
         for g in buf:
             g.cls = self._class(g.gid, g.char)
-        gsub_lookups, gpos_lookups = self.plan(script)
         self._lig_id = 0
-        for li in gsub_lookups:
-            lk = self.gsub.lookups[li]
-            if lk.type == 8:
-                raise unported("GSUB reverse chaining lookups", 14)
-            i = 0
-            while i < len(buf):
-                if self._skip(buf[i], lk):
-                    i += 1
-                    continue
-                r = self._apply_gsub(buf, i, li)
-                i = r if r is not None else i + 1
+        self._in_gpos = False
+        for stage in pl.gsub:
+            for li, mask, zwj in stage:
+                lk = self.gsub.lookups[li]
+                if lk.type == 8:
+                    raise unported("GSUB reverse chaining lookups", 14)
+                self._mask, self._auto_zwj = mask, zwj
+                i = 0
+                while i < len(buf):
+                    if not buf[i].mask & mask or self._skip(buf[i], lk):
+                        i += 1
+                        continue
+                    r = self._apply_gsub(buf, i, li)
+                    i = r if r is not None else i + 1
         for g in buf:
             g.xa = self.advance(g.gid)
-        for li in gpos_lookups:
+        self._in_gpos = True
+        self._mask = GLOBAL
+        for li, zwj in pl.gpos:
+            self._auto_zwj = zwj
             lk = self.gpos.lookups[li]
             i = 0
             while i < len(buf):
@@ -744,20 +972,25 @@ class Shaper:
                     continue
                 r = self._apply_gpos(buf, i, li)
                 i = r if r is not None else i + 1
-        space = self.font.cmap.get(0x20, 0)
+        space = cmap.get(0x20, 0)
         for g in buf:
             if g.cls == MARK:
                 g.xa = g.ya = 0
-            if g.ignorable:
+            if g.default_ignorable:
                 g.xa = g.ya = g.xo = g.yo = 0
         for i in range(len(buf)):
-            self._propagate(buf, i)
+            self._propagate(buf, i, backward)
+        if backward:
+            buf.reverse()
         for g in buf:
-            if g.ignorable:
+            if g.default_ignorable:
                 g.gid = space
         return buf
 
-    def _propagate(self, buf, i):
+    def _propagate(self, buf, i, backward):
+        """HarfBuzz's propagate_attachment_offsets for a mark: the base's
+        offset, less the advances between them (forward) or plus the
+        advances after the base up to the mark (backward)."""
         g = buf[i]
         if not g.chain:
             return
@@ -765,27 +998,28 @@ class Shaper:
         g.chain = 0
         if not 0 <= j < len(buf):
             return
-        self._propagate(buf, j)
+        self._propagate(buf, j, backward)
         b = buf[j]
         g.xo += b.xo
         g.yo += b.yo
-        for k in range(j, i):
-            g.xo -= buf[k].xa
-            g.yo -= buf[k].ya
+        if backward:
+            for k in range(j + 1, i + 1):
+                g.xo += buf[k].xa
+                g.yo += buf[k].ya
+        else:
+            for k in range(j, i):
+                g.xo -= buf[k].xa
+                g.yo -= buf[k].ya
 
     # -- normalisation -------------------------------------------------------
-    def _normalize(self, text, start, end) -> list[Glyph]:
-        """HarfBuzz's normaliser in its composed-diacritics mode: a
-        character alone keeps its glyph or decomposes as little as it must;
-        the base of a cluster of marks decomposes as far as the font has
-        glyphs; marks reorder by combining class; then each mark composes
-        with its starter where the font has the composed glyph."""
-        chars = [(c, i) for i, c in zip(range(start, end), text[start:end])]
-        # A line that starts with a mark gets a dotted circle to carry it
-        # (hb_insert_dotted_circle at the beginning of text).
-        if start == 0 and chars and _is_mark(chars[0][0]) and \
-                0x25CC in self.font.cmap:
-            chars.insert(0, ("\u25cc", 0))
+    def _normalize(self, chars, reorder=None) -> list[Glyph]:
+        """HarfBuzz's normaliser in its composed-diacritics mode on
+        [(char, cluster, mask)]: a character alone keeps its glyph or
+        decomposes as little as it must; the base of a cluster of marks
+        decomposes as far as the font has glyphs; marks reorder by
+        modified combining class (then by the shaper's ``reorder``); then
+        each mark composes with its starter where the font has the
+        composed glyph."""
         out = []
         n = len(chars)
         i = 0
@@ -802,63 +1036,80 @@ class Shaper:
             e = j + 1
             while e < n and _is_mark(chars[e][0]):
                 e += 1
-            for k in range(j, e):
-                out.extend(self._decompose_char(*chars[k], False))
+            if any(ord(c) in VARIATION_SELECTORS for c, _k, _m in
+                   chars[j:e]):
+                # handle_variation_selector_cluster: nominal glyphs, no
+                # decomposition (a face without variation sequences).
+                if self.font.variation_sequences:
+                    raise unported("a variation sequence in a face with a "
+                                   "format 14 cmap", 14)
+                out.extend(Glyph(self.font.cmap.get(ord(c), 0), k, c, m)
+                           for c, k, m in chars[j:e])
+            else:
+                for k in range(j, e):
+                    out.extend(self._decompose_char(*chars[k], False))
             i = e
-        # Reorder runs of marks by canonical combining class.
+        # Reorder runs of marks by modified combining class.
         i = 0
         while i < len(out):
-            if unicodedata.combining(out[i].char) == 0:
+            if out[i].mcc == 0:
                 i += 1
                 continue
             j = i + 1
-            while j < len(out) and unicodedata.combining(out[j].char):
+            while j < len(out) and out[j].mcc:
                 j += 1
             if j - i <= 32:
-                out[i:j] = sorted(
-                    out[i:j], key=lambda g: unicodedata.combining(g.char))
+                out[i:j] = sorted(out[i:j], key=lambda g: g.mcc)
+                if reorder is not None:
+                    reorder(out, i, j)
             i = j
+        # A CGJ that kept no marks apart is skippable again.
+        for i in range(1, len(out) - 1):
+            if ord(out[i].char) == CGJ and (
+                    out[i + 1].mcc == 0 or out[i - 1].mcc <= out[i + 1].mcc):
+                out[i].hidden = False
         # Recompose marks onto their starter.
         cmap = self.font.cmap
         res = out[:1]
         starter = 0
         for g in out[1:]:
-            ccc = unicodedata.combining(g.char)
-            if _is_mark(g.char) and (
-                    starter == len(res) - 1
-                    or unicodedata.combining(res[-1].char) < ccc):
+            if _is_mark(g.char) and (starter == len(res) - 1
+                                     or res[-1].mcc < g.mcc):
                 s = res[starter]
+                # Primary composition: the character whose canonical
+                # decomposition is exactly this pair.
                 comp = unicodedata.normalize("NFC", s.char + g.char)
                 if len(comp) == 1 and ord(comp) in cmap and \
-                        unicodedata.normalize("NFD", comp) == \
-                        unicodedata.normalize("NFD", s.char + g.char):
+                        unicodedata.decomposition(comp) == \
+                        f"{ord(s.char):04X} {ord(g.char):04X}":
                     s.char = comp
                     s.gid = cmap[ord(comp)]
                     s.cluster = min(s.cluster, g.cluster)
+                    s.mcc = modified_class(comp)
                     continue
             res.append(g)
-            if ccc == 0:
+            if g.mcc == 0:
                 starter = len(res) - 1
         return res
 
-    def _decompose_char(self, ch, cluster, shortest):
+    def _decompose_char(self, ch, cluster, mask, shortest):
         """HarfBuzz's decompose_current_character: the character's glyph,
         or its decomposition's, or the hyphen for a non-breaking hyphen,
         else the font's .notdef glyph."""
         cmap = self.font.cmap
         if (shortest and ord(ch) in cmap) or ord(ch) in IGNORABLE:
-            return [Glyph(cmap.get(ord(ch), 0), cluster, ch)]
+            return [Glyph(cmap.get(ord(ch), 0), cluster, ch, mask)]
         seq = self._decompose(ch, shortest)
         if seq is None and ord(ch) in cmap:
             seq = [ch]
         if seq is not None:
-            return [Glyph(cmap[ord(c)], cluster, c) for c in seq]
+            return [Glyph(cmap[ord(c)], cluster, c, mask) for c in seq]
         if unicodedata.category(ch) == "Zs":
             raise unported(f"the space fallback for U+{ord(ch):04X}, which "
                            f"{self.font.name!r} has no glyph for", 14)
         if ord(ch) == 0x2011 and 0x2010 in cmap:
-            return [Glyph(cmap[0x2010], cluster, ch)]
-        return [Glyph(0, cluster, ch)]
+            return [Glyph(cmap[0x2010], cluster, ch, mask)]
+        return [Glyph(0, cluster, ch, mask)]
 
     def _decompose(self, ch, shortest):
         """HarfBuzz's decompose(): the canonical decomposition of ``ch``
@@ -884,6 +1135,8 @@ class Shaper:
 
     # -- skipping ------------------------------------------------------------
     def _skip(self, g, lk_or_flag, mark_set=None) -> bool:
+        """Whether the lookup flag (and mark filtering set) skips ``g``
+        by its GDEF class."""
         if isinstance(lk_or_flag, Lookup):
             flag, mark_set = lk_or_flag.flag, lk_or_flag.mark_set
         else:
@@ -904,20 +1157,58 @@ class Shaper:
                 return self.gdef.attach.get(g.gid, 0) != flag >> 8
         return False
 
-    def _next(self, buf, i, lk, end=None):
-        """The next glyph a lookup sees: past those its flags skip and
-        past default ignorables."""
-        end = len(buf) if end is None else end
-        i += 1
-        while i < end and (buf[i].ignorable or self._skip(buf[i], lk)):
-            i += 1
-        return i if i < end else None
+    def _may_skip(self, g, lk, context) -> int:
+        """HarfBuzz's matcher may_skip: by the lookup flag, then as a
+        default ignorable (:meth:`_ignored`)."""
+        if self._skip(g, lk):
+            return _SKIP_YES
+        return _SKIP_MAYBE if self._ignored(g, context) else _SKIP_NO
 
-    def _prev(self, buf, i, lk):
-        i -= 1
-        while i >= 0 and (buf[i].ignorable or self._skip(buf[i], lk)):
-            i -= 1
-        return i if i >= 0 else None
+    def _ignored(self, g, context=False) -> bool:
+        """Whether the lookup may skip ``g`` as a default ignorable: not a
+        ZWJ where the feature takes joiners manually (outside a context),
+        nor, in GSUB, a ZWNJ in an input sequence or a hidden CGJ."""
+        if not g.default_ignorable:
+            return False
+        c = ord(g.char)
+        if c == ZWJ and not (context or self._auto_zwj):
+            return False
+        return self._in_gpos or not ((c == ZWNJ and not context)
+                                     or g.hidden)
+
+    def _step(self, buf, k, lk, want, context):
+        """HarfBuzz's skipping iterator at ``buf[k]``: True (matched),
+        False (stop) or None (skip it)."""
+        g = buf[k]
+        skip = self._may_skip(g, lk, context)
+        if skip == _SKIP_YES:
+            return None
+        if not context and not g.mask & self._mask:
+            match = False
+        else:
+            match = None if want is None else want(g)
+        if match or (match is None and skip == _SKIP_NO):
+            return True
+        if skip == _SKIP_NO:
+            return False
+        return None
+
+    def _next(self, buf, i, lk, want=None, context=False, end=None):
+        """The next glyph after ``i`` that matches ``want`` (or any glyph
+        a lookup does not skip), or None."""
+        end = len(buf) if end is None else end
+        for k in range(i + 1, end):
+            r = self._step(buf, k, lk, want, context)
+            if r is not None:
+                return k if r else None
+        return None
+
+    def _prev(self, buf, i, lk, want=None, context=False):
+        for k in range(i - 1, -1, -1):
+            r = self._step(buf, k, lk, want, context)
+            if r is not None:
+                return k if r else None
+        return None
 
     # -- GSUB ----------------------------------------------------------------
     def _apply_gsub(self, buf, i, li, end=None):
@@ -930,16 +1221,20 @@ class Shaper:
                 if s is not None:
                     g.gid = s
                     g.cls = self._class(s, None, g.cls)
+                    g.substituted = True
                     return i + 1
             elif kind == "multiple":
                 seq = st[1].get(g.gid)
                 if seq is not None:
                     new = []
                     for k, s in enumerate(seq):
-                        n = Glyph(s, g.cluster, g.char)
+                        n = Glyph(s, g.cluster, g.char, g.mask)
                         n.cls = self._class(s, None, g.cls)
+                        n.mcc = g.mcc
+                        n.substituted = True
                         n.lig_id, n.lig_comp = g.lig_id, (
-                            k + 1 if len(seq) > 1 else g.lig_comp)
+                            k + 1 if len(seq) > 1 and not g.lig_id
+                            else g.lig_comp)
                         n.multiplied = len(seq) > 1
                         new.append(n)
                     buf[i:i + 1] = new
@@ -949,22 +1244,15 @@ class Shaper:
                 if alts:
                     g.gid = alts[0]
                     g.cls = self._class(alts[0], None, g.cls)
+                    g.substituted = True
                     return i + 1
             elif kind == "ligature":
                 ligs = st[1].get(g.gid)
                 if not ligs:
                     continue
                 for lig, comps in ligs:
-                    pos = [i]
-                    k = i
-                    ok = True
-                    for c in comps:
-                        k = self._next(buf, k, lk, end)
-                        if k is None or buf[k].gid != c:
-                            ok = False
-                            break
-                        pos.append(k)
-                    if ok:
+                    pos = self._match_ligature(buf, i, lk, comps, end)
+                    if pos is not None:
                         return self._ligate(buf, pos, lig)
             elif kind == "context":
                 r = self._apply_context(buf, i, lk, st, gsub=True)
@@ -972,29 +1260,67 @@ class Shaper:
                     return r
         return None
 
+    def _match_ligature(self, buf, i, lk, comps, end):
+        """HarfBuzz's match_input for a ligature: the positions of its
+        components, none attached to another ligature's component."""
+        pos = [i]
+        k = i
+        first = buf[i]
+        for c in comps:
+            k = self._next(buf, k, lk, lambda gl, c=c: gl.gid == c,
+                           end=end)
+            if k is None:
+                return None
+            h = buf[k]
+            if first.lig_id and first.lig_comp:
+                if (h.lig_id, h.lig_comp) != (first.lig_id,
+                                              first.lig_comp):
+                    return None
+            elif h.lig_id and h.lig_comp and h.lig_id != first.lig_id:
+                return None
+            pos.append(k)
+        return pos
+
     def _ligate(self, buf, pos, lig):
+        """HarfBuzz's ligate_input: the first component becomes the
+        ligature, the marks between the components (and those after the
+        last that belonged to it) are numbered onto its components."""
         first = buf[pos[0]]
-        is_mark = first.cls == MARK and all(buf[p].cls == MARK for p in pos)
-        is_base = first.cls == BASE and all(buf[p].cls == MARK
-                                            for p in pos[1:])
-        is_lig = not is_mark and not is_base
-        comps = sum(buf[p].lig_comps for p in pos)
+        rest = [buf[p] for p in pos[1:]]
+        is_base = first.cls == BASE and all(h.cls == MARK for h in rest)
+        is_mark = first.cls == MARK and all(h.cls == MARK for h in rest)
+        is_lig = not is_base and not is_mark
+        total = first.lig_comps + sum(h.lig_comps for h in rest)
         lig_id = 0
         if is_lig:
             self._lig_id = (self._lig_id % 7) + 1
             lig_id = self._lig_id
+        last_lig_id = first.lig_id
+        last_comps = first.lig_comps
+        so_far = last_comps
+        if is_lig:
+            first.lig_id, first.lig_comp, first.lig_comps = lig_id, 0, total
         first.gid = lig
         first.cls = self._class(lig, None, LIGATURE if is_lig else first.cls)
-        if is_lig:
-            first.lig_id, first.lig_comp, first.lig_comps = lig_id, 0, comps
-        # Marks between the components follow the ligature.
-        so_far = 1
+        first.substituted = True
         for a, b in zip(pos, pos[1:]):
             for k in range(a + 1, b):
                 if is_lig:
-                    buf[k].lig_id = lig_id
-                    buf[k].lig_comp = so_far
-            so_far += 1
+                    h = buf[k]
+                    this = h.lig_comp or last_comps
+                    h.lig_id = lig_id
+                    h.lig_comp = so_far - last_comps + min(this, last_comps)
+            last_lig_id = buf[b].lig_id
+            last_comps = buf[b].lig_comps
+            so_far += last_comps
+        if not is_mark and last_lig_id:
+            for k in range(pos[-1] + 1, len(buf)):
+                h = buf[k]
+                if h.lig_id != last_lig_id or not h.lig_comp:
+                    break
+                h.lig_comp = so_far - last_comps + min(h.lig_comp,
+                                                       last_comps)
+                h.lig_id = lig_id
         for p in reversed(pos[1:]):
             del buf[p]
         return pos[0] + 1 + (pos[-1] - pos[0] - (len(pos) - 1))
@@ -1028,8 +1354,8 @@ class Shaper:
             k = i
             ok = True
             for v in inp:
-                k = self._next(buf, k, lk)
-                if k is None or not match(buf[k], v, 1):
+                k = self._next(buf, k, lk, lambda gl, v=v: match(gl, v, 1))
+                if k is None:
                     ok = False
                     break
                 pos.append(k)
@@ -1037,16 +1363,18 @@ class Shaper:
                 continue
             k = i
             for v in back:
-                k = self._prev(buf, k, lk)
-                if k is None or not match(buf[k], v, 0):
+                k = self._prev(buf, k, lk, lambda gl, v=v: match(gl, v, 0),
+                               context=True)
+                if k is None:
                     ok = False
                     break
             if not ok:
                 continue
             k = pos[-1]
             for v in ahead:
-                k = self._next(buf, k, lk)
-                if k is None or not match(buf[k], v, 2):
+                k = self._next(buf, k, lk, lambda gl, v=v: match(gl, v, 2),
+                               context=True)
+                if k is None:
                     ok = False
                     break
             if not ok:
@@ -1179,8 +1507,8 @@ class Shaper:
             return None
         if kind == "mark_mark":
             j = i - 1
-            while j >= 0 and self._skip(buf[j], lk.flag & ~0x0E,
-                                        lk.mark_set):
+            while j >= 0 and (self._ignored(buf[j]) or self._skip(
+                    buf[j], lk.flag & ~0x0E, lk.mark_set)):
                 j -= 1
             if j < 0 or buf[j].cls != MARK:
                 return None
@@ -1196,8 +1524,14 @@ class Shaper:
                 return None
             row = bases[bi]
         else:
+            # The base: the nearest glyph before that is neither a mark nor
+            # a default ignorable (for mark-to-base, not a later glyph of a
+            # multiple substitution's sequence unless the subtable covers
+            # it).
             j = i - 1
-            while j >= 0 and buf[j].cls == MARK:
+            while j >= 0 and (buf[j].cls == MARK or self._ignored(buf[j])
+                              or (kind == "mark_base" and not _accept(buf, j)
+                                  and buf[j].gid not in bcov)):
                 j -= 1
             if j < 0:
                 return None
@@ -1225,6 +1559,17 @@ class Shaper:
         g.yo = _roundf(by - my)
         g.chain = j - i
         return i + 1
+
+
+def _accept(buf, j) -> bool:
+    """HarfBuzz's MarkBasePos accept(): marks attach to the first glyph of
+    a multiple substitution's sequence."""
+    g = buf[j]
+    if not g.multiplied or not g.lig_comp or j == 0:
+        return True
+    h = buf[j - 1]
+    return (h.cls == MARK or not h.multiplied or g.lig_id != h.lig_id
+            or g.lig_comp != h.lig_comp + 1)
 
 
 def _is_mark(ch: str) -> bool:

@@ -12,8 +12,9 @@
   advance, as ``chip_smoke.py``'s ``fonts`` phase checks on the card.
 - FreeType's fixed-point helpers against exact rational arithmetic; the
   rounding states, ``ISECT`` of parallel lines, ``DELTAP`` after ``IUP``
-  in backward-compatibility mode and the composite offsets' rounding, each
-  on a hand-built program or glyph.
+  in backward-compatibility mode, the rounded F_dot_P of a diagonal move
+  and the composite offsets' rounding, each on a hand-built program or
+  glyph.
 - Every opcode of the six faces' programs has a handler; any other opcode
   raises ``NotImplementedError`` naming item 14 and the opcode.
 - Every other opcode the interpreter takes, in synthetic faces built with
@@ -240,6 +241,25 @@ def test_deltap_after_iup_is_ignored_in_backward_compatibility():
     z.tags = [0] * 6
     it.run(bytes([0x01] + _push(1) + [0x2E] + delta), glyph=True)  # x
     assert z.cx[1] == 64
+
+
+def test_diagonal_move_divides_by_the_rounded_f_dot_p():
+    """A move along a freedom vector that is neither axis divides by
+    F_dot_P, the dot product of the projection and freedom vectors in
+    2.14, rounded as TT_DotFix14 rounds (not floored): DejaVu Sans's
+    alpha at 27 px moves two points one 1/64 pixel less otherwise."""
+    it = _interp()
+    g = it.gs
+    g.pvx, g.pvy, g.fvx, g.fvy = 16112, 2970, -5338, -15490
+    it._compute_funcs()
+    assert it.fdotp == -8057
+    path = os.path.join(scenes.FONT_DIR, "DejaVuSans.ttf")
+    pf, mf = ImageFont.truetype(path, 27), TrueTypeFont(path, 27)
+    for ch in "αᾶἃ⍺":
+        ref = _pillow_glyph(pf, ch, PEN + 108, PEN + 81)
+        got = np.zeros(ref.shape, np.int32)
+        mf.draw(got, ch, PEN, PEN)
+        np.testing.assert_array_equal(got, ref, err_msg=ch)
 
 
 def test_composite_offsets_round_y_only():

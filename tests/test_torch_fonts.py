@@ -16,7 +16,8 @@ package.
   Greek and Cyrillic strings, over sizes, alignments and colour pairs.
 - ``tests/torch_fonts/expected.npz`` against Pillow and the port.
 - The refusals of item 14: CFF outlines (``.otf``), collections, variable
-  fonts, right-to-left text and a script that needs a shaper.
+  fonts, right-to-left scripts other than Arabic and Hebrew and a script
+  that needs a shaper.
 - ``scenes.build_config5_text`` cut to 256x192 through both packages
   (``render_both`` / ``check_render``), each label's texture equal.
 """
@@ -254,7 +255,8 @@ def _fake_sfnt(tmp_path, name, tag, tables=()):
 def test_refusals_name_item_14(tmp_path):
     """What the TrueType stack does not take raises NotImplementedError
     naming item 14 and the feature: CFF outlines, a collection, a
-    variable font, right-to-left text and a script that needs a shaper."""
+    variable font, right-to-left text in a script other than Arabic and
+    Hebrew (N'Ko, Syriac) and a script that needs a shaper."""
     ct = O.CKContext(device="cpu")
     cases = ((_fake_sfnt(tmp_path, "cff.otf", b"OTTO"), "CFF"),
              (_fake_sfnt(tmp_path, "pair.ttc", b"ttcf"), "collection"),
@@ -266,7 +268,7 @@ def test_refusals_name_item_14(tmp_path):
         with pytest.raises(NotImplementedError, match=f"{what}.*item 14"):
             s.Redraw()
     face = os.path.join(scenes.FONT_DIR, "DejaVuSans.ttf")
-    for text, what in (("שלום", "right-to-left"), ("abc مرحبا", "right"),
+    for text, what in (("ߒߞߏ", "right-to-left"), ("abc ܫܠܡܐ", "right"),
                        ("ภาษาไทย", "shaper")):
         s = _sprite(O, ct, text, 0, *COLORS[0], (64, 20), "x", 12)
         s.SetFont(face, 12)

@@ -19,9 +19,15 @@ the alignment's x and y 0 (:func:`pillow_raster`). The file holds:
   ``sweep_fg`` and ``sweep_bg`` (RGBA floats), ``sweep_wh`` (the sprite's
   width and height), ``sweep_bbox`` (``textbbox``), and ``sweep:<i>``
   the raster (H, W, 4) uint8;
-- the HUD of ``scenes.build_config5_text``: ``hud:<name>`` for each fixed
-  label and ``hud:score:<k>`` for the score after k = 0..3 ticks;
-- ``meta``: the Pillow, FreeType, Raqm and HarfBuzz versions.
+- the right-to-left sweep: DejaVu Sans and Sans Mono at sizes 11, 17 and
+  31 on each of ``RTL_TEXTS`` (Arabic joining, lam-alef, tashkil,
+  digits, brackets and mirroring in both paragraph directions, bidi
+  controls, ZWNJ, ZWJ and tatweel, Hebrew with niqqud in DejaVu Sans
+  only, two lines), with the same keys under ``rtl_`` and ``rtl:<i>``;
+- the HUD of ``scenes.build_config5_text(rtl=True)``: ``hud:<name>`` for
+  each fixed label and ``hud:score:<k>`` for the score after k = 0..3
+  ticks;
+- ``meta``: the Pillow, FreeType, Raqm, HarfBuzz and fribidi versions.
 
 Nothing imports this script but the tests.
 """
@@ -43,6 +49,18 @@ from ckrenderengine_tpu_torch import scenes  # noqa: E402
 SWEEP_SIZES = (9, 11, 13, 17, 22, 31, 48)
 SWEEP_TEXTS = ("office flow", "AV To Ya WAVE", "Café crème Ærø ½ °C",
                "Ελληνικά: κόσμε", "Привет, мир! Ёж", "two lines\nof fi fl")
+RTL_SIZES = (11, 17, 31)
+# (text, whether DejaVu Sans Mono draws it too: it has no Hebrew).
+RTL_TEXTS = (("مرحبا بالعالم", True), ("لا لَا لّا ـلا لأ", True),
+             ("بِسْمِ اللَّهِ الرَّحْمَٰنِ", True),
+             ("العدد ١٢٣٤ والرقم 567", True),
+             ("abc (مرحبا) [x] ≤ y", True), ("مرحبا (abc) ‹ب› ≤ ٣", True),
+             ("\u200fa\u200eb\u202ac\u202c \u202bد\u202c \u2067e\u2069 f",
+              True),
+             ("می\u200cخواهم ب\u200d ـبـ", True),
+             ("Level 3: «مرحبا»\nالمستوى 12", True),
+             ("שָׁלוֹם עוֹלָם", False), ("בְּרֵאשִׁית (א) 12", False),
+             ("Level 3: «מרחב»\nשלום 12", False))
 COLORS = (((1.0, 1.0, 1.0, 1.0), (0.0, 0.0, 0.0, 0.0)),
           ((0.9, 0.2, 0.1, 0.85), (0.1, 0.3, 0.2, 0.5)),
           ((0.3, 0.6, 1.0, 0.5), (1.0, 1.0, 1.0, 1.0)))
@@ -80,6 +98,41 @@ def sweep():
     return out
 
 
+def rtl_sweep():
+    """The right-to-left sweep's records, as :func:`sweep`'s."""
+    out = []
+    probe = ImageDraw.Draw(Image.new("RGBA", (1, 1)))
+    i = 0
+    for fi, face in enumerate(scenes.FONT_FILES[:2]):
+        path = os.path.join(HERE, face)
+        for size in RTL_SIZES:
+            font = ImageFont.truetype(path, size)
+            for text, mono in RTL_TEXTS:
+                if fi == 1 and not mono:
+                    continue
+                bbox = tuple(probe.textbbox((0, 0), text, font=font))
+                wh = (bbox[2] - bbox[0] + 12, bbox[3] + 4)
+                fg, bg = COLORS[i % len(COLORS)]
+                out.append((fi, size, text, i % 3, fg, bg, wh, bbox))
+                i += 1
+    return out
+
+
+def _records(arrays, prefix, recs):
+    arrays[f"{prefix}_face"] = np.array([r[0] for r in recs], np.int32)
+    arrays[f"{prefix}_size"] = np.array([r[1] for r in recs], np.int32)
+    arrays[f"{prefix}_text"] = np.array([r[2] for r in recs])
+    arrays[f"{prefix}_align"] = np.array([r[3] for r in recs], np.int32)
+    arrays[f"{prefix}_fg"] = np.array([r[4] for r in recs], np.float32)
+    arrays[f"{prefix}_bg"] = np.array([r[5] for r in recs], np.float32)
+    arrays[f"{prefix}_wh"] = np.array([r[6] for r in recs], np.int32)
+    arrays[f"{prefix}_bbox"] = np.array([r[7] for r in recs], np.int32)
+    for i, (fi, size, text, align, fg, bg, (w, h), _b) in enumerate(recs):
+        arrays[f"{prefix}:{i}"] = pillow_raster(
+            os.path.join(HERE, scenes.FONT_FILES[fi]), size, text, w, h,
+            align, fg, bg)
+
+
 def main() -> None:
     import PIL
     from PIL import features
@@ -92,20 +145,11 @@ def main() -> None:
             shas.append(hashlib.sha256(f.read()).hexdigest())
     arrays["sha256"] = np.array(shas)
     recs = sweep()
-    arrays["sweep_face"] = np.array([r[0] for r in recs], np.int32)
-    arrays["sweep_size"] = np.array([r[1] for r in recs], np.int32)
-    arrays["sweep_text"] = np.array([r[2] for r in recs])
-    arrays["sweep_align"] = np.array([r[3] for r in recs], np.int32)
-    arrays["sweep_fg"] = np.array([r[4] for r in recs], np.float32)
-    arrays["sweep_bg"] = np.array([r[5] for r in recs], np.float32)
-    arrays["sweep_wh"] = np.array([r[6] for r in recs], np.int32)
-    arrays["sweep_bbox"] = np.array([r[7] for r in recs], np.int32)
-    for i, (fi, size, text, align, fg, bg, (w, h), _b) in enumerate(recs):
-        arrays[f"sweep:{i}"] = pillow_raster(
-            os.path.join(HERE, scenes.FONT_FILES[fi]), size, text, w, h,
-            align, fg, bg)
+    _records(arrays, "sweep", recs)
+    rtl = rtl_sweep()
+    _records(arrays, "rtl", rtl)
     for (name, face, size, _pos, (w, h), align, fg, bg,
-         text) in scenes.TEXT_HUD:
+         text) in scenes.text_hud(rtl=True):
         path = os.path.join(HERE, face)
         if text is None:
             for k in range(4):
@@ -118,10 +162,12 @@ def main() -> None:
         "Pillow=" + PIL.__version__,
         "FreeType=" + str(features.version("freetype2")),
         "Raqm=" + str(features.version("raqm")),
-        "HarfBuzz=" + str(features.version("harfbuzz"))])
+        "HarfBuzz=" + str(features.version("harfbuzz")),
+        "fribidi=" + str(features.version("fribidi"))])
     out = os.path.join(HERE, "expected.npz")
     np.savez_compressed(out, **arrays)
-    print(out, os.path.getsize(out), "bytes,", len(recs), "sweep rasters")
+    print(out, os.path.getsize(out), "bytes,", len(recs), "sweep rasters,",
+          len(rtl), "right-to-left rasters")
 
 
 if __name__ == "__main__":
